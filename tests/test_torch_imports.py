@@ -1,0 +1,48 @@
+"""The port stands alone: importing `mmlspark_tpu_torch` loads neither jax
+nor any module of the JAX package, and no source file of the port (or
+chip_smoke.py) imports them."""
+import ast
+import os
+import subprocess
+import sys
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_import_loads_no_jax():
+    code = ("import sys\n"
+            "import mmlspark_tpu_torch\n"
+            "import mmlspark_tpu_torch.models.gbdt\n"
+            "import mmlspark_tpu_torch.models.gbdt.convert\n"
+            "import mmlspark_tpu_torch.ops.histogram_cuda\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'mmlspark_tpu.')) "
+            "or m == 'mmlspark_tpu')\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-2000:]
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_sources_import_no_jax_or_reference():
+    files = [os.path.join(_REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(_REPO, "mmlspark_tpu_torch")):
+        files += [os.path.join(root, n) for n in sorted(names)
+                  if n.endswith(".py")]
+    assert len(files) > 10
+    for path in sorted(files):
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "mmlspark_tpu"), \
+                f"{os.path.relpath(path, _REPO)} imports {mod}"
