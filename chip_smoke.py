@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # the check: needs one CUDA card
     python3 chip_smoke.py --profile  # also prints a torch.profiler table
                                      # of one boosting iteration
+    python3 chip_smoke.py --sweep    # also times the shared-memory
+                                     # kernel's launch geometries
 
 Phases (any failure exits non-zero before the last line is printed):
   1. card: name and power limit (nvidia-smi), torch's device name;
@@ -11,18 +13,23 @@ Phases (any failure exits non-zero before the last line is printed):
      build seconds and the -Xptxas -v register/shared-memory report;
   3. kernels vs plain: each kernel entry point against its plain PyTorch
      version on the same CUDA tensors, at the main path's shapes
-     (8M rows x 32 features x 64 bins, m in {1, 2, 4, 8}, with count_w
-     and inactive rows) and, for the global-atomics kernel, at an m*B too
-     large for shared memory. Counts must be exactly equal; grad/hess
-     within the tolerance stated at `_HIST_RTOL_OF_ABS_SUM`. Times from
-     CUDA events after warm-up, beside the plain version, one
-     `index_add_` call (the library yardstick) and the byte bound;
-  4. main path: binning on the card, `fit_booster` (binary, depth 5,
-     31 leaves, 64 bins, 10 iterations) at 8M x 32 with exactly 50
-     histogram launches, bulk and serving-sized scoring through
-     `Booster`, train logloss/AUC against a second fit whose histograms
-     come from the plain version on the card; then a 1-iteration
-     max_depth=11 fit whose deepest level needs the global-atomics kernel.
+     (8M rows x 32 features x 64 bins, m in {1, 2, 4, 8}, with inactive
+     rows, both without count_w, as the trainer calls it, and with it)
+     and, for the global-atomics kernel, at an m*B too large for shared
+     memory. Counts must be exactly equal; grad/hess within the
+     tolerance stated at `_HIST_RTOL_OF_ABS_SUM`. Times of the call the
+     trainer makes (no count_w) from CUDA events after warm-up, beside
+     the plain version, one `index_add_` call (the library yardstick)
+     and the bound;
+  4. main path, two runs, each with the launch counts set to 0 just
+     before it and read just after: the headline fit (binning on the
+     card, `fit_booster` binary, depth 5, 31 leaves, 64 bins,
+     10 iterations at 8M x 32) with exactly 50 shared-memory launches,
+     then a 1-iteration max_depth=11 fit whose deepest level needs the
+     global-atomics kernel (10 + 1 launches). Between them: bulk and
+     serving-sized scoring through `Booster`, and train logloss/AUC
+     against a fit whose histograms come from the plain version on the
+     card.
 Then one JSON line of kernels, the nvidia-smi line, and, last:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -92,14 +99,15 @@ def card_phase():
 
 def build_phase():
     from mmlspark_tpu_torch.ops import _build
-    sources = sorted(f[:-3] for f in os.listdir(_build.CSRC)
-                     if f.endswith(".cu"))
-    t0 = time.perf_counter()
-    built = _build.compile_all(sources)
-    log(f"[build] {len(sources)} source(s) {sources} in "
-        f"{time.perf_counter() - t0:.2f} s (nvcc, parallel)")
-    for name, (secs, report) in built.items():
-        log(f"[build] {name}.cu: nvcc {secs:.2f} s; ptxas report:")
+    for name in sorted(f[:-3] for f in os.listdir(_build.CSRC)
+                       if f.endswith(".cu")):
+        t0 = time.perf_counter()
+        report = _build.build(name)
+        if report is None:
+            log(f"[build] {name}.cu: already built")
+            continue
+        log(f"[build] {name}.cu: nvcc {time.perf_counter() - t0:.2f} s; "
+            f"ptxas report:")
         for line in report.splitlines():
             if "ptxas" in line or "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
@@ -131,6 +139,18 @@ def _index_add_call(bins, grad, hess, node, active, cw, m, b):
         .reshape(-1, 3).contiguous()
     out = torch.zeros(seg + 1, 3, device=bins.device)
     return lambda: out.zero_().index_add_(0, keys, vals)
+
+
+def _bound(n, n_active, f, b, m, with_count):
+    """(ms, "bytes" or "operations"): the least time for one call. Bytes:
+    node for every row; bins, grad, hess (and count_w) for the active rows
+    only, which are all the function needs; the three outputs written once.
+    Operations: three f32 adds per active (row, feature)."""
+    nbytes = 4 * n + n_active * (f + 8 + 4 * with_count) + 3 * m * f * b * 4
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 3 * n_active * f / PEAK_F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def _check_hist(got, want, abs_grad_hist, label):
@@ -173,29 +193,31 @@ def kernel_phase(dev):
         if kname == "hist_global" and hc.smem_bytes_per_feature(m, b) <= \
                 hc.smem_limit(dev):
             raise AssertionError("the global-atomics case fits shared memory")
-        got = kern(*inputs[:5], m, b, count_w=cw)
-        want = _torch_hist(*inputs[:5], m, b, count_w=cw)
         abs_grad = _torch_hist(bins, grad.abs(), hess, node, active, m, b)[0]
-        torch.cuda.synchronize()
-        err = _check_hist(got, want, abs_grad, f"{kname} m={m} B={b}")
-        del got, want, abs_grad
-        ms = timed(lambda: kern(*inputs[:5], m, b, count_w=cw))
-        plain_ms = timed(lambda: _torch_hist(*inputs[:5], m, b, count_w=cw),
+        err = 0.0
+        # the trainer passes no count_w (every row counts 1); the
+        # reference's callers with weights pass one
+        for w in (None, cw):
+            got = kern(*inputs[:5], m, b, count_w=w)
+            want = _torch_hist(*inputs[:5], m, b, count_w=w)
+            torch.cuda.synchronize()
+            label = f"{kname} m={m} B={b} count_w " + \
+                ("set" if w is not None else "None")
+            err = max(err, _check_hist(got, want, abs_grad, label))
+            del got, want
+        del abs_grad
+        ms = timed(lambda: kern(*inputs[:5], m, b))
+        plain_ms = timed(lambda: _torch_hist(*inputs[:5], m, b),
                          warmup=1, reps=5)
-        lib = _index_add_call(*inputs, m, b)
+        lib = _index_add_call(*inputs[:5], torch.ones_like(cw), m, b)
         library_ms = timed(lib, warmup=1, reps=5)
         del lib
-        n_active = int(active.sum())
-        nbytes = N_ROWS * f + 16 * N_ROWS + 3 * m * f * b * 4
-        flops = 3 * n_active * f
-        bound_ms = max(nbytes / PEAK_BYTES_PER_S,
-                       flops / PEAK_F32_FLOP_PER_S) * 1e3
-        bound_by = ("bytes" if nbytes / PEAK_BYTES_PER_S
-                    >= flops / PEAK_F32_FLOP_PER_S else "operations")
-        log(f"[kernel] {kname} n={N_ROWS} F={f} B={b} m={m}: match "
-            f"(counts exact, max abs err {err:.3g}); kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, one index_add_ {library_ms:.3f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB)")
+        bound_ms, bound_by = _bound(N_ROWS, int(active.sum()), f, b, m,
+                                    with_count=False)
+        log(f"[kernel] {kname} n={N_ROWS} F={f} B={b} m={m}: match with and "
+            f"without count_w (counts exact, max abs err {err:.3g}); "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, one index_add_ "
+            f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         results.setdefault(kname, []).append(dict(
             m=m, n=N_ROWS, f=f, b=b, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
@@ -203,6 +225,48 @@ def kernel_phase(dev):
         del inputs, bins, grad, hess, node, active, cw
         torch.cuda.empty_cache()
     return results
+
+
+def sweep_phase(dev):
+    """Time `hist_smem_kernel` at the main path's shapes over launch
+    geometries: features per block (fg) and row blocks per SM in all.
+    Every geometry's output is checked against the plain version."""
+    import torch
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+    from mmlspark_tpu_torch.ops.histogram import _torch_hist
+    gen = torch.Generator(device=dev).manual_seed(1)
+    limit, sms = hc.smem_limit(dev), hc._card(dev.index or 0)[1]
+    b = MAX_BIN + 1
+    for m in (1, 2, 4, 8):
+        inputs = _hist_inputs(gen, dev, N_ROWS, N_FEAT, b, m)
+        want = _torch_hist(*inputs[:5], m, b)
+        abs_grad = _torch_hist(inputs[0], inputs[1].abs(),
+                               *inputs[2:5], m, b)[0]
+        ops, _ = hc._prepare(*inputs[:5], m, b, None)
+        chosen = hc.smem_geometry(N_ROWS, N_FEAT, m, b, dev)
+        row = []
+        for fg in (1, 2, 4, 8, 16, 32):
+            if fg * hc.smem_bytes_per_feature(m, b) > limit:
+                continue
+            groups = -(-N_FEAT // fg)
+            for per_sm in (1, 2, 4, 8, 16, 32):
+                rb = max(1, per_sm * sms // groups)
+                outs = [torch.zeros(m, N_FEAT, b, device=dev)
+                        for _ in range(3)]
+
+                def launch():
+                    for o in outs:
+                        o.zero_()
+                    hc._launch_smem(ops, outs, N_ROWS, N_FEAT, m, b, fg, rb)
+                launch()
+                torch.cuda.synchronize()
+                _check_hist(outs, want, abs_grad, f"sweep m={m} fg={fg}")
+                ms = timed(launch, warmup=2, reps=10)
+                mark = "*" if (fg, rb) == chosen else ""
+                row.append(f"fg{fg}/sm{per_sm}:{ms:.3f}{mark}")
+        log(f"[sweep] m={m} (ms; * = the rule's choice) " + " ".join(row))
+        del inputs, want, abs_grad, ops
+        torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -272,6 +336,7 @@ def main_path_phase(dev, profile: bool):
                 prebinned=staged, device=dev)
     torch.cuda.synchronize()
 
+    # headline path: counts set to 0 just before, read just after
     hc.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -281,10 +346,10 @@ def main_path_phase(dev, profile: bool):
     fit_s = time.perf_counter() - t0
     launches = dict(hc.launches)
     peak = torch.cuda.max_memory_allocated()
-    want = N_ITERS * DEPTH
-    if launches["hist_smem"] != want or launches["hist_global"] != 0:
+    want = dict(hist_smem=N_ITERS * DEPTH, hist_global=0)
+    if launches != want:
         raise AssertionError(f"histogram launches {launches}, expected "
-                             f"{want} shared-memory launches")
+                             f"{want}")
     log(f"[main] fit_booster binary depth {DEPTH} leaves 31 B={MAX_BIN + 1} "
         f"{N_ITERS} iters: {fit_s:.3f} s = "
         f"{N_ROWS * N_ITERS / fit_s:.4g} rows*iters/s; histogram launches "
@@ -320,14 +385,15 @@ def main_path_phase(dev, profile: bool):
         f"{score_s:.3f} s ({N_ROWS / score_s:.4g} rows/s); train logloss "
         f"{logloss:.6f}, AUC {auc:.6f}")
 
+    hc.reset_launches()
     with plain_histograms():
         t0 = time.perf_counter()
         ref, ref_base, _ = fit_booster(x, y, params, prebinned=staged,
                                          device=dev)
         torch.cuda.synchronize()
         ref_s = time.perf_counter() - t0
-    if hc.launches["hist_smem"] != want:
-        raise AssertionError("the plain-histogram fit launched the kernel")
+    if any(hc.launches.values()):
+        raise AssertionError("the plain-histogram fit launched a kernel")
     ref_margin = ref.raw_score_device(x, device=dev)[:, 0] + ref_base
     ref_logloss, ref_auc = _metrics(ref_margin, d_y)
     same_splits = float((ref.split_feature == booster.split_feature).mean())
@@ -342,17 +408,21 @@ def main_path_phase(dev, profile: bool):
     if not auc > 0.8:
         raise AssertionError(f"train AUC {auc} is not a trained model")
 
-    # deep trees: the deepest level's m*B outgrows shared memory
+    # deep path: the deepest level's m*B outgrows shared memory; counts
+    # set to 0 just before, read just after
     deep = dataclasses.replace(params, num_iterations=1, max_depth=11)
+    hc.reset_launches()
     t0 = time.perf_counter()
     fit_booster(x, y, deep, prebinned=staged, device=dev)
     torch.cuda.synchronize()
-    if hc.launches["hist_global"] != 1 or \
-            hc.launches["hist_smem"] != want + 10:
-        raise AssertionError(f"deep fit launches {hc.launches}")
-    log(f"[main] max_depth=11 fit, 1 iteration: {time.perf_counter() - t0:.3f}"
-        f" s; launches now {hc.launches} (levels 0-9 shared memory, "
-        f"level 10 global atomics)")
+    deep_s = time.perf_counter() - t0
+    deep_launches = dict(hc.launches)
+    if deep_launches != dict(hist_smem=10, hist_global=1):
+        raise AssertionError(f"deep fit launches {deep_launches}, expected "
+                             f"10 shared-memory and 1 global")
+    log(f"[main] max_depth=11 fit, 1 iteration: {deep_s:.3f} s; launches "
+        f"{deep_launches} (levels 0-9 shared memory, level 10 global "
+        f"atomics)")
 
     if profile:
         from torch.profiler import ProfilerActivity, profile as tprof
@@ -363,7 +433,7 @@ def main_path_phase(dev, profile: bool):
             torch.cuda.synchronize()
         log(prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=25))
-    return dict(launches=dict(hc.launches), fit_s=fit_s, peak=peak)
+    return dict(launches=launches, deep_launches=deep_launches)
 
 
 def main(argv) -> int:
@@ -388,7 +458,9 @@ def main(argv) -> int:
     build_phase()
     dev = torch.device("cuda")
     kres = kernel_phase(dev)
-    main_res = main_path_phase(dev, "--profile" in argv)
+    if "--sweep" in argv:
+        sweep_phase(dev)
+    paths = main_path_phase(dev, "--profile" in argv)
 
     smem8 = [r for r in kres["hist_smem"] if r["m"] == 8][0]
     glob = kres["hist_global"][0]
@@ -397,7 +469,8 @@ def main(argv) -> int:
         dict(name="hist_smem", route="cuda", source=src,
              replaces="mmlspark_tpu/ops/histogram_pallas.py:172 "
                       "(_hist_kernel) and :216 (_hist_kernel_joint)",
-             launches=main_res["launches"]["hist_smem"], passed=True,
+             path="headline fit", launches=paths["launches"]["hist_smem"],
+             passed=True,
              **{k: smem8[k] for k in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by",
                                       "library_ms")},
@@ -408,7 +481,9 @@ def main(argv) -> int:
         dict(name="hist_global", route="cuda", source=src,
              replaces="mmlspark_tpu/ops/histogram.py:32 (_xla_hist, the "
                       "route past M_MAX)",
-             launches=main_res["launches"]["hist_global"], passed=True,
+             path="max_depth=11 fit",
+             launches=paths["deep_launches"]["hist_global"],
+             passed=True,
              **{k: glob[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")},
              shape=dict(n=glob["n"], f=glob["f"], b=glob["b"], m=glob["m"])),

@@ -5,7 +5,10 @@ Port of `mmlspark_tpu/models/gbdt/estimators.py`:
 reference's, so a pipeline can switch packages. Params whose features
 this slice does not port raise NotImplementedError at fit when set to
 anything but their inert value, naming the ROADMAP item that will port
-them. One param is the port's own: `device` (None = the card).
+them. One param is the port's own: `device` (None = the card). One
+default differs: `quality_profile` is False here, because freezing a
+fit-time profile (the reference's default) is not ported yet; True
+raises.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ _UNPORTED = {
     "num_tasks": (lambda v: v > 1, 15),
     "num_ingest_workers": (lambda v: v != 1, 17),
     "out_of_core": (bool, 17),
+    "quality_profile": (bool, 23),
 }
 
 
@@ -138,7 +142,7 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
                              True)
     quality_profile = Param(
         "quality_profile", "freeze a fit-time reference profile (not "
-        "ported: setting it True raises)", True)
+        "ported: False by default, True raises)", False)
     device = Param("device", "torch device to train and score on "
                    "(None = the card)", None)
 
@@ -148,10 +152,6 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
                 raise NotImplementedError(
                     f"{name}={self.get_or_default(name)!r} is not ported "
                     f"yet (ROADMAP Queue 1 item {item})")
-        if self.is_set("quality_profile") and self.quality_profile:
-            raise NotImplementedError(
-                "quality_profile=True is not ported yet (ROADMAP Queue 1 "
-                "item 23)")
 
     def _boost_params(self, objective: str, num_class: int = 1) -> BoostParams:
         return BoostParams(

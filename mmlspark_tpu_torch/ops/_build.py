@@ -4,7 +4,7 @@ Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface under `build/torch_kernels/` of the
 checkout, and loaded with `ctypes`. The library's file name carries a hash
 of the source and the flags, so an edited source never loads a stale
-build. `compile_all` starts one `nvcc` per source, all together.
+build.
 
 Nothing here runs at import time: the CPU tests import every module, and
 `nvcc` is only called when a kernel is first asked for on a CUDA tensor
@@ -17,7 +17,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -25,17 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# name -> ctypes.CDLL, and name -> (seconds, ptxas report) of the build
-_loaded: dict = {}
-reports: dict = {}
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels are built from "
-                           "source on the machine with the card")
-    return path
+_loaded: dict = {}   # name -> ctypes.CDLL
 
 
 def _target(name: str) -> Path:
@@ -44,40 +33,36 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
 
 
-def compile_all(names) -> dict:
-    """Compile every named source that has no current build, one `nvcc`
-    process each, all started together. Returns name -> (seconds, report)
-    for the sources compiled here; raises on any failed build."""
+def build(name: str) -> str | None:
+    """Compile `csrc/<name>.cu` unless a current build exists. Returns
+    nvcc's output (the ptxas register/shared-memory report), or None when
+    there was nothing to build; raises if nvcc fails."""
+    out = _target(name)
+    if out.exists():
+        return None
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                           "source on the machine with the card")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = _target(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        secs = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-            continue
-        os.replace(tmp, out)
-        reports[name] = (secs, log)
-    if failed:
-        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
-    return {n: reports[n] for n in procs}
+    # written aside and renamed, so that a process loading the library
+    # while another builds it never sees a partial file
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu (exit "
+                           f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return proc.stdout + proc.stderr
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, building it if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        compile_all([name])
+        build(name)
         lib = ctypes.CDLL(str(_target(name)))
         _loaded[name] = lib
     return lib

@@ -10,6 +10,7 @@ launch was refused, and adds one to its count in `launches`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -19,9 +20,14 @@ from . import _build
 # else) so a run can show that its path went through the kernels
 launches = {"hist_smem": 0, "hist_global": 0}
 
-SMEM_TARGET_BYTES = 48 * 1024   # per-block budget that keeps ~4 blocks/SM
+# Launch geometry of hist_smem, from `chip_smoke.py --sweep` on the H100
+# at 8M x 32 x 64 bins (PERF.md): a block takes as many features as fit
+# 12 KB (fg = 16, 8, 4, 2 at m = 1, 2, 4, 8), the fastest feature group
+# at every m measured; the grid holds 8 blocks per SM in all, where the
+# time stops falling (16 and 32 are within 1%).
+SMEM_TARGET_BYTES = 12 * 1024
 THREADS = 256                   # kThreads in histogram.cu
-BLOCKS_PER_SM = 8               # row blocks in flight per SM to aim for
+BLOCKS_PER_SM = 8
 
 _P = ctypes.c_void_p
 _lib = None
@@ -54,8 +60,32 @@ def smem_bytes_per_feature(n_nodes: int, n_bins: int) -> int:
     return 3 * n_nodes * n_bins * 4
 
 
+@functools.lru_cache(maxsize=None)
+def _card(index: int) -> tuple[int, int]:
+    """(opt-in shared-memory bytes per block, SM count) of card `index`,
+    read once per process."""
+    limit = int(_library().hist_smem_limit(index))
+    if limit <= 0:
+        raise RuntimeError(f"cannot read the shared-memory limit of cuda:"
+                           f"{index}")
+    return limit, torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def smem_limit(device: torch.device) -> int:
-    return int(_library().hist_smem_limit(device.index or 0))
+    return _card(device.index or 0)[0]
+
+
+def smem_geometry(n: int, f: int, n_nodes: int, n_bins: int,
+                  device: torch.device) -> tuple[int, int]:
+    """(features per block, row blocks per feature group) of a
+    `hist_smem` launch."""
+    per_feat = smem_bytes_per_feature(n_nodes, n_bins)
+    sms = _card(device.index or 0)[1]
+    fg = max(1, min(SMEM_TARGET_BYTES // per_feat, f))
+    groups = -(-f // fg)
+    row_blocks = max(1, min(-(-n // THREADS), BLOCKS_PER_SM * sms // groups,
+                            65535))
+    return fg, row_blocks
 
 
 def _prepare(bins, grad, hess, node_local, active, n_nodes, n_bins,
@@ -103,9 +133,9 @@ def _check(err: int, name: str) -> None:
 
 def hist_smem(bins, grad, hess, node_local, active, n_nodes: int,
               n_bins: int, count_w=None):
-    """Shared-memory kernel. A block takes as many features as fit the
-    48 KB target (at least one, which may use the card's opt-in limit).
-    Raises when one feature's 3*m*B f32 does not fit."""
+    """Shared-memory kernel. A block takes as many features as fit
+    `SMEM_TARGET_BYTES` (at least one, which may use the card's opt-in
+    limit). Raises when one feature's 3*m*B f32 does not fit."""
     ops, outs = _prepare(bins, grad, hess, node_local, active, n_nodes,
                          n_bins, count_w)
     n, f = bins.shape
@@ -115,18 +145,19 @@ def hist_smem(bins, grad, hess, node_local, active, n_nodes: int,
         raise ValueError(f"m={n_nodes}, B={n_bins} needs {per_feat} B of "
                          f"shared memory per feature; the card allows "
                          f"{limit} (use hist_global)")
-    fg = max(1, min(SMEM_TARGET_BYTES // per_feat, f))
-    groups = -(-f // fg)
-    sms = torch.cuda.get_device_properties(bins.device).multi_processor_count
-    row_blocks = max(1, min(-(-n // THREADS), BLOCKS_PER_SM * sms // groups,
-                            65535))
-    with torch.cuda.device(bins.device):
+    _launch_smem(ops, outs, n, f, n_nodes, n_bins,
+                 *smem_geometry(n, f, n_nodes, n_bins, bins.device))
+    return tuple(outs)
+
+
+def _launch_smem(ops, outs, n, f, n_nodes, n_bins, fg, row_blocks):
+    """Launch `hist_smem_kernel` at a given geometry and count it."""
+    with torch.cuda.device(outs[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         _check(_library().hist_smem_launch(*_ptrs(ops, outs), n, f,
                                            n_nodes, n_bins, fg, row_blocks,
                                            stream), "hist_smem")
     launches["hist_smem"] += 1
-    return tuple(outs)
 
 
 def hist_global(bins, grad, hess, node_local, active, n_nodes: int,
@@ -135,7 +166,7 @@ def hist_global(bins, grad, hess, node_local, active, n_nodes: int,
     ops, outs = _prepare(bins, grad, hess, node_local, active, n_nodes,
                          n_bins, count_w)
     n, f = bins.shape
-    sms = torch.cuda.get_device_properties(bins.device).multi_processor_count
+    sms = _card(bins.device.index or 0)[1]
     blocks = max(1, min(-(-n // THREADS), BLOCKS_PER_SM * sms))
     with torch.cuda.device(bins.device):
         stream = torch.cuda.current_stream().cuda_stream

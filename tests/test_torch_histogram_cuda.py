@@ -31,19 +31,22 @@ def cuda_device():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("with_count_w", [True, False])
 @pytest.mark.parametrize("kernel,m,b", [("hist_smem", 1, 64),
                                         ("hist_smem", 8, 64),
                                         ("hist_smem", 64, 256),
                                         ("hist_global", 128, 256)])
-def test_cuda_kernel_matches_plain(cuda_device, kernel, m, b):
+def test_cuda_kernel_matches_plain(cuda_device, kernel, m, b, with_count_w):
     """Each CUDA entry point against `_torch_hist` on the same CUDA
-    tensors. Counts are exact (integer sums below 2^24); grad/hess sums
-    differ by f32 atomic order: rtol 1e-4, atol 1e-3 over 200k rows."""
+    tensors, with a count_w and without one (as the trainer calls it).
+    Counts are exact (integer sums below 2^24); grad/hess sums differ by
+    f32 atomic order: rtol 1e-4, atol 1e-3 over 200k rows."""
     from mmlspark_tpu_torch.ops import histogram_cuda as hc
     n, f = 200_000, 12
     t = [torch.as_tensor(a).to(cuda_device) for a in _data(n, f, m, b)]
-    want = port._torch_hist(*t[:5], m, b, count_w=t[5])
-    got = getattr(hc, kernel)(*t[:5], m, b, count_w=t[5])
+    cw = t[5] if with_count_w else None
+    want = port._torch_hist(*t[:5], m, b, count_w=cw)
+    got = getattr(hc, kernel)(*t[:5], m, b, count_w=cw)
     torch.cuda.synchronize()
     for w, g in zip(want[:2], got[:2]):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-3)
