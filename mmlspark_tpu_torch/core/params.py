@@ -1,7 +1,8 @@
 """Param system: typed hyperparameters shared by every pipeline stage.
 
 A trimmed copy of `mmlspark_tpu/core/params.py`: plain Python descriptors
-collected per class, plus the column-role mixins the GBDT estimators use.
+collected per class, plus the column-role mixins the GBDT estimators and
+the encoder use.
 """
 from __future__ import annotations
 
@@ -110,6 +111,14 @@ class Params:
 
 
 # shared column-role param mixins
+
+class HasInputCol(Params):
+    input_col = Param("input_col", "name of the input column", "input")
+
+
+class HasOutputCol(Params):
+    output_col = Param("output_col", "name of the output column", "output")
+
 
 class HasLabelCol(Params):
     label_col = Param("label_col", "name of the label column", "label")
