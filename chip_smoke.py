@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # the check: needs one CUDA card
     python3 chip_smoke.py --profile  # also prints torch.profiler tables
-                                     # of one boosting iteration and of
-                                     # one flash encode_long
+                                     # of one boosting iteration, of one
+                                     # flash encode_long and of one LM
+                                     # training step
     python3 chip_smoke.py --sweep    # also times the shared-memory
                                      # kernel's launch geometries
 
@@ -47,6 +48,21 @@ Phases (any failure exits non-zero before the last line is printed):
      `_ENCODE_TOL`; then the stage's batched dense `transform()` on 256
      seeded documents of up to 500 words, with a document's embedding
      checked against the same document encoded alone.
+  6. LM training path at the flagship width (bench.py:1965-2009, nothing
+     cut): `PipelinedLMTrainer(attention="flash", compute_dtype=
+     "bfloat16", remat="save_attn")`, Adam, 201.4M parameters, one
+     (1, 16384) sequence; one untimed step, one step with exactly 12
+     `flash_fwd`, 12 `flash_bwd_dq` and 12 `flash_bwd_dkv` launches, then
+     `run` of 3 timed steps (36 of each): s/step, tokens/s,
+     `lm_train_mfu` (bench.py's model FLOPs against 989 TFLOP/s), peak
+     memory, a falling loss; then one SGD step at S=2048 with flash and
+     with dense attention from the same weights, in bf16 and f32, whose
+     updated weights must agree within `_TRAIN_TOL`.
+The kernel phase (3) also holds the flash backward kernels, dq and dk/dv,
+against `_flash_backward_plain` at the flash forward's shapes, per
+element within `flash_attention._BWD_TOL`, shows that the bf16 limit
+rejects dO shifted by one query row, and times them beside the plain
+version, one SDPA backward and the bound.
 Then one JSON line of kernels, the nvidia-smi line, and, last:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -777,6 +793,289 @@ def encoder_phase(dev, profile: bool):
     return paths
 
 
+def _bwd_bound(sq, sk, h, d, dtype, causal, n_products):
+    """(ms, "bytes" or "operations") of a backward computing with
+    `n_products` products of 2 * (visible q/k pairs) * D per head (5 for
+    the whole backward: S, dP, dV, dK, dQ; 3 for dq alone: S, dP, dQ; 4
+    for dk and dv: S, dP, dV, dK), against q, k, v, dO and the f32 lse and
+    dsum read once and dq, dk, dv written once."""
+    import torch
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
+        else PEAK_F32_FLOP_PER_S
+    t_ops = n_products * 2 * pairs * d * h / peak
+    size = torch.tensor([], dtype=dtype).element_size()
+    t_bytes = ((4 * sq + 4 * sk) * h * d * size + 8 * h * sq) \
+        / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        ("bytes" if t_bytes > t_ops else "operations")
+
+
+def _sdpa_backward_call(q, k, v, do, causal, scale):
+    """The library yardstick: the backward of ONE
+    `scaled_dot_product_attention` call on (1, H, S, D) copies of the same
+    inputs, `out.backward(dO, retain_graph=True)` timed on its own (the
+    forward and the copies are outside the timing). The port never calls
+    it."""
+    import torch.nn.functional as F
+    qh, kh, vh = (t.permute(1, 0, 2).unsqueeze(0).contiguous()
+                  .requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal,
+                                         scale=scale)
+    g = do.permute(1, 0, 2).unsqueeze(0).contiguous()
+    return lambda: out.backward(g, retain_graph=True)
+
+
+def flash_bwd_kernel_phase(dev):
+    """`flash_bwd_dq` and `flash_bwd_dkv` against `_flash_backward_plain`
+    on the same CUDA tensors, dq, dk and dv per element within
+    `flash_attention._BWD_TOL`; lse and dsum from `flash_fwd` (the same
+    inputs to both sides). The main-path shapes timed."""
+    import torch
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(3)
+    results = []
+    for label, sq, sk, h, d, is_timed in _flash_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                q, k, v, do = (torch.randn(s, h, d, device=dev,
+                                           generator=gen).to(dtype)
+                               for s in (sq, sk, sk, sq))
+                scale = 1.0 / d ** 0.5
+                out, lse = fa.flash_fwd(q, k, v, causal, scale)
+                dsum = (do.float() * out.float()).sum(-1).T.contiguous()
+                del out
+                ops = (q, k, v, do, lse, dsum)
+                got = (fa.flash_bwd_dq(*ops, causal, scale),
+                       *fa.flash_bwd_dkv(*ops, causal, scale))
+                want = fa._flash_backward_plain(*ops, causal, scale)
+                torch.cuda.synchronize()
+                lims = fa._bwd_limits(*ops, causal, scale, want)
+                tag = (f"flash_bwd {label} Sq={sq} Sk={sk} H={h} D={d} "
+                       f"{str(dtype)[6:]} causal={causal}")
+                used, errs = [], []
+                for name, g, w, lim in zip(("dq", "dk", "dv"), got, want,
+                                           lims):
+                    if g.dtype != dtype or not bool(
+                            torch.isfinite(g.float()).all()):
+                        raise AssertionError(f"{tag}: {name} is not finite "
+                                             f"{dtype}")
+                    used.append(_limit_used(g, w, lim))
+                    errs.append(float((g.float() - w.float()).abs().max()))
+                if max(used) > 1:
+                    raise AssertionError(f"{tag}: off by {max(used):.3g} x "
+                                         f"the limit (dq, dk, dv: {used})")
+                row = dict(case=label, sq=sq, sk=sk, h=h, d=d,
+                           dtype=str(dtype)[6:], causal=causal,
+                           max_abs_err=max(errs), limit_used=max(used),
+                           err_dq_dk_dv=errs, used_dq_dk_dv=used)
+                msg = (f"[kernel] {tag}: match, max abs err dq/dk/dv "
+                       f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g}, "
+                       f"{used[0]:.3f}/{used[1]:.3f}/{used[2]:.3f} of the "
+                       f"limit")
+                if label == "main" and dtype == torch.bfloat16:
+                    _bwd_check_sees_faults(ops, causal, scale, want, lims,
+                                           tag)
+                del got, want, lims
+                if is_timed:
+                    row["dq_ms"] = timed(lambda: fa.flash_bwd_dq(
+                        *ops, causal, scale), warmup=1, reps=5)
+                    row["dkv_ms"] = timed(lambda: fa.flash_bwd_dkv(
+                        *ops, causal, scale), warmup=1, reps=5)
+                    row["plain_ms"] = timed(lambda: fa._flash_backward_plain(
+                        *ops, causal, scale), warmup=1, reps=2)
+                    lib = _sdpa_backward_call(q, k, v, do, causal, scale)
+                    row["library_ms"] = timed(lib, warmup=1, reps=5)
+                    del lib
+                    for key, n in (("bound", 5), ("dq_bound", 3),
+                                   ("dkv_bound", 4)):
+                        row[f"{key}_ms"], row[f"{key}_by"] = _bwd_bound(
+                            sq, sk, h, d, dtype, causal, n)
+                    msg += (f"; dq {row['dq_ms']:.3f} ms (bound "
+                            f"{row['dq_bound_ms']:.4f}), dk/dv "
+                            f"{row['dkv_ms']:.3f} ms (bound "
+                            f"{row['dkv_bound_ms']:.4f}), together bound "
+                            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
+                            f"plain {row['plain_ms']:.3f} ms, one SDPA "
+                            f"backward {row['library_ms']:.3f} ms")
+                log(msg)
+                results.append(row)
+                del q, k, v, do, lse, dsum, ops
+                torch.cuda.empty_cache()
+    return results
+
+
+def _bwd_check_sees_faults(ops, causal, scale, want, lims, tag):
+    """The bf16 limit must reject the kernels' gradients on dO shifted by
+    one query row (a load one row off) at most outputs of each; reported
+    beside it: lse taken from the neighbouring row."""
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    q, k, v, do, lse, dsum = ops
+    fracs = {}
+    for fault, args in (("dO one row off", (q, k, v, do.roll(1, 0), lse,
+                                            dsum)),
+                        ("lse of the neighbouring row",
+                         (q, k, v, do, lse.roll(1, 1), dsum))):
+        got = (fa.flash_bwd_dq(*args, causal, scale),
+               *fa.flash_bwd_dkv(*args, causal, scale))
+        fracs[fault] = [float(((g.float() - w.float()).abs() > lim).float()
+                              .mean()) for g, w, lim in zip(got, want, lims)]
+        del got
+    if min(fracs["dO one row off"]) < 0.5:
+        raise AssertionError(f"{tag}: the bf16 limit lets dO one row off "
+                             f"pass at most outputs: {fracs}")
+    log(f"[kernel] {tag}: share of dq/dk/dv outside the bf16 limit: "
+        + "; ".join(f"{f} {'/'.join(f'{x:.4f}' for x in v)}"
+                    for f, v in fracs.items()))
+
+
+# the flagship LM training step (bench.py:1965-2009, `BENCH_MODE=lm`),
+# nothing cut: one (1, 16384) sequence, bf16 compute with f32 master
+# weights and Adam, remat="save_attn", flash forward and backward
+LM = dict(vocab_size=32768, d_model=1024, n_heads=8, n_layers=12,
+          d_ff=4096, max_len=16384)
+LM_SEQ, LM_STEPS = 16384, 3
+# the S=2048 flash-vs-dense SGD check, per leaf: max |w_flash - w_dense|
+# <= this x max |w_dense - w_0|. f32: the two attentions sum the same
+# exact products in other orders. bf16: the flash backward rounds ds to
+# bf16 before its products, the dense one's autograd keeps ds in f32, and
+# the forwards round p against other maxima (a tile's running max, the
+# row's max); each term is off by up to 2^-9 relative, and the
+# differences pass through 12 layers. The same check at S=512 on the CPU
+# (full width, plain versions) read 3.3e-5 (f32) and 1.75e-2 (bf16).
+_TRAIN_TOL = {"float32": 3e-4, "bfloat16": 5e-2}
+_TRAIN_CHECK_SEQ = 2048
+
+
+def _lm_flops_per_step():
+    """bench.py's model FLOPs (:2025-2027): forward matmuls 2 * S * L *
+    (4 d^2 + 2 d d_ff) + the logits 2 * S * d * V + causal attention
+    L * 2 * S^2 * d; a training step is 3x the forward (remat's recompute
+    is not credited)."""
+    s, n, d = LM_SEQ, LM["n_layers"], LM["d_model"]
+    fwd = (2 * s * n * (4 * d * d + 2 * d * LM["d_ff"])
+           + 2 * s * d * LM["vocab_size"] + n * 2 * s * s * d)
+    return 3 * fwd
+
+
+def _train_update_check(dev, compute_dtype):
+    """One SGD step at S=2048 with attention="flash" and with "dense" from
+    the same weights; the largest per-leaf disagreement of the updated
+    weights over the larger update."""
+    import torch
+    from mmlspark_tpu_torch.models.dnn import PipelinedLMTrainer
+    from mmlspark_tpu_torch.models.dnn.pp_training import _leaves
+    toks = np.random.default_rng(1).integers(
+        0, LM["vocab_size"], size=(1, _TRAIN_CHECK_SEQ)).astype(np.int32)
+    updated, losses = {}, {}
+    for attention in ("flash", "dense"):
+        t = PipelinedLMTrainer(n_microbatches=1, attention=attention,
+                               optimizer="sgd", lr=1.0, seed=0,
+                               compute_dtype=compute_dtype,
+                               remat="save_attn", device=dev, **LM)
+        if attention == "flash":
+            start = [a.detach().clone() for a in _leaves(t.params)]
+        losses[attention] = t.step(toks)
+        updated[attention] = [a.detach() for a in _leaves(t.params)]
+        del t
+    worst = 0.0
+    for w0, wf, wd in zip(start, updated["flash"], updated["dense"]):
+        step = float((wd - w0).abs().max())
+        worst = max(worst, float((wf - wd).abs().max()) / max(step, 1e-30))
+    del start, updated
+    torch.cuda.empty_cache()
+    return worst, losses
+
+
+def lm_train_phase(dev, profile: bool):
+    """The LM training path at the flagship width through
+    `PipelinedLMTrainer`: one untimed step, one step with the launch
+    counts set to 0 just before and read just after, then `run` of
+    LM_STEPS timed steps (counts again set to 0 before and read after);
+    then the S=2048 flash-vs-dense update checks."""
+    import torch
+    from mmlspark_tpu_torch.models.dnn import PipelinedLMTrainer
+    from mmlspark_tpu_torch.models.dnn.pp_training import _leaves
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    trainer = PipelinedLMTrainer(
+        n_microbatches=1, attention="flash", optimizer="adam", seed=0,
+        compute_dtype="bfloat16", remat="save_attn", device=dev, **LM)
+    n_params = sum(a.numel() for a in _leaves(trainer.params))
+    log(f"[train] {LM}: {n_params / 1e6:.1f}M parameters from "
+        f"init_transformer(seed=0) in {time.perf_counter() - t0:.1f} s; "
+        f"bf16 compute, f32 master + Adam, remat=save_attn, flash")
+    toks = np.random.default_rng(0).integers(
+        0, LM["vocab_size"], size=(1, LM_SEQ)).astype(np.int32)
+    t0 = time.perf_counter()
+    loss1 = trainer.step(toks)                 # warm-up: cuBLAS, kernels
+    log(f"[train] step 1 (untimed): loss {loss1:.4f} in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    want_step = {k: LM["n_layers"] for k in fa.launches}
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    loss2 = trainer.step(toks)
+    step_s = time.perf_counter() - t0
+    per_step = dict(fa.launches)
+    if per_step != want_step:
+        raise AssertionError(f"one training step launched {per_step}, "
+                             f"expected {want_step}")
+    log(f"[train] step 2: loss {loss2:.4f} in {step_s:.3f} s; launches "
+        f"{per_step}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    loss_last = trainer.run(toks, LM_STEPS)    # one host sync, at the end
+    run_s = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {k: LM_STEPS * v for k, v in want_step.items()}:
+        raise AssertionError(f"run({LM_STEPS}) launched {launches}")
+    s_step = run_s / LM_STEPS
+    mfu = _lm_flops_per_step() / s_step / PEAK_BF16_FLOP_PER_S
+    log(f"[train] run({LM_STEPS}): {s_step:.4f} s/step = "
+        f"{LM_SEQ / s_step:.4g} tokens/s; lm_train_mfu {mfu:.4f} "
+        f"(model FLOPs {_lm_flops_per_step():.4g}/step against 989 TFLOP/s "
+        f"bf16); peak memory {peak / 2**30:.2f} GiB "
+        f"(max_memory_allocated); launches {launches}; last loss "
+        f"{loss_last:.4f}")
+    if not (np.isfinite([loss1, loss2, loss_last]).all()
+            and loss_last < loss1):
+        raise AssertionError(f"losses {loss1}, {loss2}, {loss_last}: not "
+                             f"finite and falling")
+
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprof
+        with tprof(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            trainer.step(toks)
+            torch.cuda.synchronize()
+        log(prof.key_averages().table(sort_by="cuda_time_total",
+                                      row_limit=25))
+    del trainer
+    torch.cuda.empty_cache()
+
+    checks = {}
+    for cdt in ("bfloat16", "float32"):
+        worst, losses = _train_update_check(dev, cdt)
+        log(f"[train] S={_TRAIN_CHECK_SEQ} SGD step {cdt}, flash vs dense "
+            f"from the same weights: losses {losses['flash']:.6f} / "
+            f"{losses['dense']:.6f}; updated weights differ by at most "
+            f"{worst:.3g} of the update per leaf (limit {_TRAIN_TOL[cdt]})")
+        if worst > _TRAIN_TOL[cdt]:
+            raise AssertionError(f"flash and dense training disagree ({cdt})")
+        checks[cdt] = worst
+    return dict(launches=launches, per_step=per_step, s_step=s_step,
+                tokens_per_s=LM_SEQ / s_step, mfu=mfu, peak=peak,
+                n_params=n_params, losses=[loss1, loss2, loss_last],
+                checks=checks)
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -795,15 +1094,17 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    smi, name = card_phase()
+    smi, card = card_phase()
     build_phase()
     dev = torch.device("cuda")
     kres = kernel_phase(dev)
     fres = flash_kernel_phase(dev)
+    bres = flash_bwd_kernel_phase(dev)
     if "--sweep" in argv:
         sweep_phase(dev)
     paths = main_path_phase(dev, "--profile" in argv)
     enc_paths = encoder_phase(dev, "--profile" in argv)
+    train = lm_train_phase(dev, "--profile" in argv)
 
     smem8 = [r for r in kres["hist_smem"] if r["m"] == 8][0]
     glob = kres["hist_global"][0]
@@ -843,22 +1144,55 @@ def main(argv) -> int:
                                            "library_ms")},
              shape=dict(s=SEQ, h=main_flash["h"], d=main_flash["d"],
                         dtype="float32", causal=False),
-             launches_per_path={k: v["launches"]
-                                for k, v in enc_paths.items()},
+             launches_per_path={**{k: v["launches"]
+                                   for k, v in enc_paths.items()},
+                                "lm_train_step": train["per_step"][
+                                    "flash_fwd"]},
              variants=[{k: r.get(k) for k in (
                  "d", "dtype", "causal", "ms", "plain_ms", "library_ms",
                  "bound_ms", "max_abs_err", "bf16_limit_used")}
                  for r in fres if "ms" in r]),
     ]
+    # the training path's shape: S=16384, H=8, D=128, bf16, causal
+    main_bwd = [r for r in bres if r["case"] == "main"
+                and r["dtype"] == "bfloat16" and r["causal"]][0]
+    bwd_src = "mmlspark_tpu_torch/ops/csrc/flash_attention_bwd.cu"
+    for kname, key, replaces in (
+            ("flash_bwd_dq", "dq", "mmlspark_tpu/ops/flash_attention.py:478 "
+             "(_flash_bwd_dq_kernel; pallas_call :621 in _flash_backward)"),
+            ("flash_bwd_dkv", "dkv", "mmlspark_tpu/ops/flash_attention.py:516"
+             " (_flash_bwd_dkv_kernel; pallas_call :642 in "
+             "_flash_backward)")):
+        kernels.append(dict(
+            name=kname, route="cuda", source=bwd_src, replaces=replaces,
+            path=f"PipelinedLMTrainer.run, {LM_STEPS} steps, flagship LM "
+                 f"bf16 at {LM_SEQ} tokens",
+            launches=train["launches"][kname],
+            launches_per_step=train["per_step"][kname], passed=True,
+            max_abs_err=main_bwd["max_abs_err"], ms=main_bwd[f"{key}_ms"],
+            plain_ms=main_bwd["plain_ms"],
+            bound_ms=main_bwd[f"{key}_bound_ms"],
+            bound_by=main_bwd[f"{key}_bound_by"],
+            library_ms=main_bwd["library_ms"],
+            library="one scaled_dot_product_attention backward (dq, dk, dv)",
+            shape=dict(s=LM_SEQ, h=main_bwd["h"], d=main_bwd["d"],
+                       dtype="bfloat16", causal=True),
+            variants=[{k: r.get(k) for k in (
+                "d", "dtype", "causal", "dq_ms", "dkv_ms", "plain_ms",
+                "library_ms", "bound_ms", "dq_bound_ms", "dkv_bound_ms",
+                "max_abs_err", "limit_used")} for r in bres if "dq_ms" in r]))
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the main "
                                  f"path")
+    log(f"[train] lm_train_mfu {train['mfu']:.4f}, "
+        f"{train['s_step']:.4f} s/step, {train['tokens_per_s']:.4g} "
+        f"tokens/s, peak {train['peak'] / 2**30:.2f} GiB")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -69,8 +69,12 @@ def init_transformer(vocab_size: int, d_model: int = 256, n_heads: int = 8,
 def params_from_numpy(tree: dict, device=None) -> dict:
     """The JAX package's parameter tree -> the port's: every leaf (a numpy
     array, or anything `np.asarray` takes, such as a JAX array) becomes an
-    f32 tensor on `device` (None = the card); `meta` stays Python ints.
-    Takes the dict `init_transformer` returns in either package."""
+    f32 tensor on `device` (None = the card); `meta`, where the tree has
+    one, stays Python ints. Takes the dict `init_transformer` returns in
+    either package, and the LM trainers' trees: `layers` a list of
+    per-layer dicts, or one dict of stacked (L, ...) leaves as
+    `PipelinedLMTrainer` keeps them (no `meta`: the trainers hold it
+    apart)."""
     dev = resolve_device(device)
 
     def conv(node):
@@ -81,9 +85,25 @@ def params_from_numpy(tree: dict, device=None) -> dict:
         return torch.as_tensor(np.asarray(node, np.float32)).to(dev)
 
     out = {k: conv(v) for k, v in tree.items() if k != "meta"}
-    out["meta"] = {"n_heads": int(tree["meta"]["n_heads"]),
-                   "d_model": int(tree["meta"]["d_model"])}
+    if "meta" in tree:
+        out["meta"] = {"n_heads": int(tree["meta"]["n_heads"]),
+                       "d_model": int(tree["meta"]["d_model"])}
     return out
+
+
+def params_to_numpy(tree: dict) -> dict:
+    """The inverse of `params_from_numpy`: every tensor leaf becomes a
+    numpy f32 array on the host, in the same dict/list layout; `meta`
+    stays as it is."""
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [conv(v) for v in node]
+        # a copy: on the CPU, .numpy() would share the tensor's memory
+        return node.detach().float().cpu().numpy().copy()
+
+    return {k: (dict(v) if k == "meta" else conv(v)) for k, v in tree.items()}
 
 
 def _layer_norm(x, p):

@@ -1,20 +1,29 @@
-"""Exact attention without the (S, S) score matrix: the flash forward.
+"""Exact attention without the (S, S) score matrix: the flash forward and
+its backward.
 
-Port of `mmlspark_tpu/ops/flash_attention.py` (forward only). The public
-layout is the reference's: q (Sq, H, D), k/v (Sk, H, D), out (Sq, H, D) in
-q's dtype; Sk may differ from Sq, and causal masking compares raw
-positions (`q_pos >= k_pos`, top-left aligned when Sq != Sk).
+Port of `mmlspark_tpu/ops/flash_attention.py`. The public layout is the
+reference's: q (Sq, H, D), k/v (Sk, H, D), out (Sq, H, D) in q's dtype;
+Sk may differ from Sq, and causal masking compares raw positions
+(`q_pos >= k_pos`, top-left aligned when Sq != Sk).
 
-The tensor's device chooses the path: a CPU tensor takes
-`_flash_forward_lse_plain` (dense f32 scores, the reference's semantics);
-a CUDA tensor launches the hand-written kernel in `csrc/flash_attention.cu`
-(f32 or bf16, D in {16, 32, 64, 128}) or raises. Nothing falls back.
+The tensor's device chooses the path: a CPU tensor takes the plain
+versions (`_flash_forward_lse_plain`, `_flash_backward_plain`: dense f32
+scores with the reference's semantics and rounding points); a CUDA tensor
+launches the hand-written kernels in `csrc/flash_attention.cu` (forward)
+and `csrc/flash_attention_bwd.cu` (the dq and dk/dv kernels), f32 or bf16
+with D in {16, 32, 64, 128}, or raises. Nothing falls back.
+
+`flash_attention` is differentiable: its forward saves q, k, v, out and
+lse (the reference's residuals), and its backward computes
+dsum = rowsum(dO * O) in f32 and runs the two backward kernels, which
+rebuild p = exp(s - lse) tile by tile, so training memory stays free of
+(S, S) buffers too. The backward takes lse and dsum, not O, so the ring
+slice's stats backward (lse := m, dsum := -dl) can reuse it.
 
 The reference's `block_q`/`block_k` (v5e VMEM tiling) and `interpret`
-(Pallas interpret mode) have no meaning here: the kernel uses its own
-64 x 64 tile, so `flash_attention` rejects them. The backward (the dq and
-dk/dv kernels) and the ring-attention stats forward are not ported yet;
-a gradient through `flash_attention` raises.
+(Pallas interpret mode) have no meaning here: the kernels use their own
+64 x 64 tiles, so `flash_attention` rejects them. The ring-attention stats
+forward is not ported yet (ROADMAP Queue 1 items 15, 16(c)).
 """
 from __future__ import annotations
 
@@ -27,18 +36,16 @@ from . import _build
 
 # launches of the kernel, counted where the wrapper launches it (and
 # nowhere else) so a run can show that its path went through the kernel
-launches = {"flash_fwd": 0}
+launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MASK = -1e30                     # the reference's mask value, not -inf
-_BACKWARD_TODO = ("the flash-attention backward (the dq and dk/dv kernels) "
-                  "is not ported yet: ROADMAP Queue 1 item 16(b), the "
-                  "training slice")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _lib = None
+_bwd_lib = None
 
 
 def reset_launches() -> None:
@@ -56,6 +63,20 @@ def _library():
         lib.flash_fwd_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _bwd_library():
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = _build.load("flash_attention_bwd")
+        common = [ctypes.c_int] * 5 + [ctypes.POINTER(_I64), ctypes.c_float,
+                                       ctypes.c_int, _P]
+        lib.flash_bwd_dq_launch.argtypes = [_P] * 7 + common
+        lib.flash_bwd_dkv_launch.argtypes = [_P] * 8 + common
+        lib.flash_bwd_dq_launch.restype = ctypes.c_int
+        lib.flash_bwd_dkv_launch.restype = ctypes.c_int
+        _bwd_lib = lib
+    return _bwd_lib
 
 
 def _scaled(q, scale: float):
@@ -103,6 +124,99 @@ def _bf16_rounding_scale(q, k, v, causal: bool, scale: float):
     return (out2 * (lse2 - 2 * lse).exp().T[:, :, None]).sqrt()
 
 
+def _bwd_tiles(q, k, v, do, lse, causal: bool, scale: float):
+    """Per head hh: (hh, p, dp) as (Sq, Sk) f32: p = exp(s - lse) with s
+    from q scaled in its own dtype and the -1e30 mask on raw positions,
+    dp = dO.v^T (the reference's `_bwd_common`, whose ds is
+    p * (dp - dsum)). One head at a time bounds the memory to a few
+    (Sq, Sk) buffers."""
+    qs, kf, vf, dof = (_scaled(q, scale).float(), k.float(), v.float(),
+                       do.float())
+    mask = None
+    if causal:
+        mask = (torch.arange(q.shape[0], device=q.device)[:, None]
+                < torch.arange(k.shape[0], device=q.device)[None, :])
+    for hh in range(q.shape[1]):
+        s = qs[:, hh] @ kf[:, hh].T
+        if mask is not None:
+            s.masked_fill_(mask, _MASK)
+        yield hh, s.sub_(lse[hh][:, None]).exp_(), dof[:, hh] @ vf[:, hh].T
+
+
+def _flash_backward_plain(q, k, v, do, lse, dsum, causal: bool,
+                          scale: float):
+    """Plain version of the backward kernels: dense f32 per head, the
+    reference's rounding points (`_flash_bwd_dq_kernel`,
+    `_flash_bwd_dkv_kernel`): ds is rounded to k's dtype before dq =
+    scale * ds.k and to q's before dk = scale * ds^T.q (q unscaled), p to
+    dO's dtype before dv = p^T.dO; all sums f32.
+
+    q, do (Sq, H, D), k/v (Sk, H, D), lse and dsum (H, Sq) f32 ->
+    dq, dk, dv in q's, k's and v's dtypes."""
+    qf, kf, dof = q.float(), k.float(), do.float()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    for hh, p, dp in _bwd_tiles(q, k, v, do, lse, causal, scale):
+        dv[:, hh] = p.to(do.dtype).float().T @ dof[:, hh]
+        dsr = dp.sub_(dsum[hh][:, None]).mul_(p).to(k.dtype).float()
+        dq[:, hh] = (dsr @ kf[:, hh]) * scale
+        dk[:, hh] = (dsr.T @ qf[:, hh]) * scale
+    return dq, dk, dv
+
+
+def _bwd_term_scales(q, k, v, do, lse, dsum, causal: bool, scale: float):
+    """(r_q, r_k, r_v) f32 in the shapes of dq, dk, dv: for each output
+    element, sqrt of the sum of its terms' squares, e.g. r_v[j, h, c] =
+    sqrt(sum_i p_ij^2 dO_ic^2) and r_q[i, h, c] = scale *
+    sqrt(sum_j m_ij^2 k_jc^2). Summing n terms of random signs in another
+    order moves the sum by ~eps * sqrt(n/2) * r, and rounding each term's p
+    or ds at a neighbouring bf16 value moves it by a small multiple of
+    2^-8 * r: what a check of the backward must allow for.
+
+    m = |ds| + 2^-6 p (|dO|.|v| + |dsum|), not |ds| alone: where dp and
+    dsum cancel (row 0 of a causal head sees one key, so its ds is 0 but
+    for rounding) ds is the difference of two f32 sums taken in other
+    orders on the two sides, off by a few eps times the sum of their terms'
+    magnitudes rather than by eps |ds|. Elsewhere the added term is a few
+    percent of |ds|."""
+    qf, kf, dof = q.float(), k.float(), do.float()
+    rq, rk, rv = (torch.empty(t.shape, dtype=torch.float32, device=t.device)
+                  for t in (q, k, v))
+    for hh, p, dp in _bwd_tiles(q, k, v, do, lse, causal, scale):
+        dsm = dsum[hh][:, None]
+        mag = (dof[:, hh].abs() @ v[:, hh].float().abs().T).add_(dsm.abs())
+        m = (dp.sub_(dsm).abs_().add_(mag, alpha=2.0 ** -6).mul_(p)
+             .square_())
+        del mag
+        rv[:, hh] = (p.square_().T @ dof[:, hh].square()).sqrt_()
+        rq[:, hh] = (m @ kf[:, hh].square()).sqrt_() * scale
+        rk[:, hh] = (m.T @ qf[:, hh].square()).sqrt_() * scale
+    return rq, rk, rv
+
+
+# |kernel - plain| per element of a backward output, against the output's
+# magnitude `want` and its term scale r (`_bwd_term_scales`):
+# - f32: 2^-21 |want| + 2^-14 r. A few ulps of the result, plus ~10
+#   standard deviations of summing n <= 16384 f32 terms in another order
+#   (eps sqrt(n/2) r <= 2^-17.5 r, eps = 2^-24); r's cancellation part
+#   covers each ds's own error. A tile of 64 terms missing moves an output
+#   by ~8 r / sqrt(n): 0.06 r at n = 16384, ~1000 times the limit.
+# - bf16: 2^-7 |want| + 2^-8 r. One output ulp (the two sides may round
+#   their f32 sums to neighbouring bf16 values), plus the terms whose p or
+#   ds rounds to the neighbouring bf16 value on one side only (each moves
+#   its term by at most 2^-8 relative; few do, since the two sides' f32
+#   values differ by ~1e-7 relative against a bf16 ulp of 2^-8).
+_BWD_TOL = {torch.float32: (2.0 ** -21, 2.0 ** -14),
+            torch.bfloat16: (2.0 ** -7, 2.0 ** -8)}
+
+
+def _bwd_limits(q, k, v, do, lse, dsum, causal: bool, scale: float, want):
+    """The per-element limits of (dq, dk, dv) against `want`, the plain
+    version's (dq, dk, dv), by `_BWD_TOL`."""
+    rel, noise = _BWD_TOL[q.dtype]
+    return tuple(rel * w.float().abs() + noise * r for w, r in zip(
+        want, _bwd_term_scales(q, k, v, do, lse, dsum, causal, scale)))
+
+
 def _check_shapes(q, k, v):
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(f"flash attention takes q (Sq, H, D) and k/v "
@@ -121,28 +235,38 @@ def _check_shapes(q, k, v):
                          f"{k.device}, {v.device}")
 
 
-def flash_fwd(q, k, v, causal: bool, scale: float):
-    """The CUDA kernel: out (Sq, H, D) in q's dtype and lse (H, Sq) f32.
-    q/k/v are read through their strides; each needs unit stride along D
-    and 16-byte aligned rows. Raises on what the kernel does not take."""
+def _check_kernel_operands(q, k, v, **more):
+    """What every flash kernel needs of its operands: one CUDA device, f32
+    or bf16, D in HEAD_DIMS, unit stride along D and 16-byte aligned rows
+    (`more`: further (S, H, D) operands, by name, checked alike)."""
     _check_shapes(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA flash kernel got a {q.device} tensor")
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"the flash kernel takes float32 or bfloat16, got "
                          f"{q.dtype}")
-    sq, h, d = q.shape
-    sk = k.shape[0]
-    if d not in HEAD_DIMS:
+    if q.shape[2] not in HEAD_DIMS:
         raise ValueError(f"the flash kernel takes head dims {HEAD_DIMS}, "
-                         f"got {d}")
+                         f"got {q.shape[2]}")
     vec = 16 // q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q's dtype and device; got "
+                             f"{t.dtype} on {t.device}")
         aligned = t.data_ptr() % 16 == 0 and all(
             t.stride(i) % vec == 0 for i in (0, 1) if t.shape[i] > 1)
         if t.stride(2) != 1 or not aligned:
             raise ValueError(f"{name} needs unit stride along D and 16-byte "
                              f"aligned rows; got strides {t.stride()}")
+
+
+def flash_fwd(q, k, v, causal: bool, scale: float):
+    """The CUDA kernel: out (Sq, H, D) in q's dtype and lse (H, Sq) f32.
+    q/k/v are read through their strides; each needs unit stride along D
+    and 16-byte aligned rows. Raises on what the kernel does not take."""
+    _check_kernel_operands(q, k, v)
+    sq, h, d = q.shape
+    sk = k.shape[0]
     out = torch.empty((sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((h, sq), dtype=torch.float32, device=q.device)
     if sq == 0:
@@ -163,7 +287,7 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
 
 def flash_forward_lse(q, k, v, causal: bool, scale: float):
     """(out, lse) by the tensor's device: the plain version on the CPU,
-    the kernel on CUDA. No autograd (see `flash_attention`)."""
+    the kernel on CUDA. No autograd (`flash_attention` has it)."""
     if q.device.type == "cuda":
         return flash_fwd(q, k, v, causal, scale)
     if q.device.type != "cpu":
@@ -172,17 +296,113 @@ def flash_forward_lse(q, k, v, causal: bool, scale: float):
     return _flash_forward_lse_plain(q, k, v, causal, scale)
 
 
+def _check_bwd_rows(q, lse, dsum):
+    for name, t in (("lse", lse), ("dsum", dsum)):
+        if t.shape != (q.shape[1], q.shape[0]) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be (H, Sq) float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+
+
+def _bwd_operands(q, k, v, do, lse, dsum):
+    _check_kernel_operands(q, k, v, do=do)
+    if do.shape != q.shape:
+        raise ValueError(f"dO must have q's shape {tuple(q.shape)}, got "
+                         f"{tuple(do.shape)}")
+    _check_bwd_rows(q, lse, dsum)
+    if not (lse.device == dsum.device == q.device) or not (
+            lse.is_contiguous() and dsum.is_contiguous()):
+        raise ValueError("lse and dsum must be contiguous on q's device")
+
+
+def _strides(*ts):
+    return (_I64 * 12)(*(st for t in ts for st in t.stride()[:2]))
+
+
+def flash_bwd_dq(q, k, v, do, lse, dsum, causal: bool, scale: float):
+    """The CUDA dq kernel: dq (Sq, H, D) in q's dtype from q, k, v, dO
+    (read through their strides: unit stride along D, 16-byte aligned
+    rows), lse and dsum (H, Sq) f32. Raises on what it does not take."""
+    _bwd_operands(q, k, v, do, lse, dsum)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.shape[0] == 0:
+        return dq
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_library().flash_bwd_dq_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), q.shape[0],
+            k.shape[0], q.shape[1], q.shape[2], _DTYPE_CODE[q.dtype],
+            _strides(q, k, v, do, dq, dq), scale, int(causal), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dq launch failed: cudaError_t {err}")
+    launches["flash_bwd_dq"] += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, dsum, causal: bool, scale: float):
+    """The CUDA dk/dv kernel: dk, dv (Sk, H, D) in k's and v's dtype, from
+    the operands of `flash_bwd_dq`."""
+    _bwd_operands(q, k, v, do, lse, dsum)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_library().flash_bwd_dkv_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            q.shape[0], k.shape[0], q.shape[1], q.shape[2],
+            _DTYPE_CODE[q.dtype], _strides(q, k, v, do, dk, dv), scale,
+            int(causal), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dkv launch failed: cudaError_t {err}")
+    launches["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_backward(q, k, v, do, lse, dsum, causal: bool, scale: float,
+                   need=(True, True, True)):
+    """(dq, dk, dv) by the tensor's device: the plain version on the CPU,
+    the two kernels on CUDA. `need` says which of the three are wanted
+    (None for the others); on CUDA the dq kernel runs only for dq, the
+    dk/dv kernel for either of the others."""
+    if q.device.type == "cuda":
+        dq = dk = dv = None
+        if need[0]:
+            dq = flash_bwd_dq(q, k, v, do, lse, dsum, causal, scale)
+        if need[1] or need[2]:
+            dk, dv = flash_bwd_dkv(q, k, v, do, lse, dsum, causal, scale)
+    elif q.device.type == "cpu":
+        _check_shapes(q, k, v)
+        _check_bwd_rows(q, lse, dsum)
+        dq, dk, dv = _flash_backward_plain(q, k, v, do, lse, dsum, causal,
+                                           scale)
+    else:
+        raise ValueError(f"no flash-attention path for device {q.device}")
+    return tuple(g if n else None for g, n in zip((dq, dk, dv), need))
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The forward as an autograd node, so that an input that requires grad
-    gets an error at backward time instead of silently no gradient."""
+    """The flash forward and backward as one autograd node. The forward
+    keeps q, k, v, out and lse (the reference's residuals, `:680`); the
+    backward computes dsum = rowsum(dO * O) in f32 outside the kernels, as
+    the reference does (`:604-609`), and returns the gradients in q's,
+    k's and v's dtypes."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        return flash_forward_lse(q, k, v, causal, scale)[0]
+        out, lse = flash_forward_lse(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(_BACKWARD_TODO)
+        q, k, v, out, lse = ctx.saved_tensors
+        do = grad_out.to(out.dtype).contiguous()
+        dsum = (do.float() * out.float()).sum(-1).T.contiguous()
+        return (*flash_backward(q, k, v, do, lse, dsum, ctx.causal,
+                                ctx.scale, need=ctx.needs_input_grad[:3]),
+                None, None)
 
 
 def flash_attention(q, k, v, causal: bool = False, scale=None,

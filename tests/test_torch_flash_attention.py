@@ -145,14 +145,19 @@ def test_reference_attention_batch_dim_is_a_loop():
 
 
 def test_gradient_raises_instead_of_vanishing():
-    """An input that requires grad keeps an autograd node; its backward
-    (the training slice's kernels) raises."""
+    """An input that requires grad keeps an autograd node, and its
+    backward gives a gradient (the plain backward on the CPU) instead of
+    silently none; the backward raises on operands it cannot take."""
     q, k, v = _t(*_qkv(32, 32, 2, 16))
     q.requires_grad_(True)
     out = fa.flash_attention(q, k, v, causal=True)
     assert out.requires_grad
-    with pytest.raises(NotImplementedError, match="16"):
-        out.sum().backward()
+    out.sum().backward()
+    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
+    assert float(q.grad.abs().max()) > 0
+    with pytest.raises(ValueError, match="lse must be"):
+        fa.flash_backward(q.detach(), k, v, q.detach(), torch.zeros(2, 31),
+                          torch.zeros(2, 32), True, 0.25)
 
 
 def test_tpu_knobs_and_unsupported_inputs_rejected():

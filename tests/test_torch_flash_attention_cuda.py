@@ -101,9 +101,11 @@ def test_dispatch_launches_kernel_and_counts(cuda_device):
     q, k, v = _qkv(128, 128, 2, 64, torch.float32, cuda_device)
     fa.reset_launches()
     fa.flash_attention(q, k, v, causal=True)
-    assert fa.launches == {"flash_fwd": 1}
+    assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 0,
+                           "flash_bwd_dkv": 0}
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention(q[..., :48], k[..., :48], v[..., :48])
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_attention(q.half(), k.half(), v.half())
-    assert fa.launches == {"flash_fwd": 1}
+    assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 0,
+                           "flash_bwd_dkv": 0}

@@ -17,6 +17,8 @@ def test_import_loads_no_jax():
             "import mmlspark_tpu_torch.ops.histogram_cuda\n"
             "import mmlspark_tpu_torch.models.dnn.transformer\n"
             "import mmlspark_tpu_torch.ops.flash_attention\n"
+            "import mmlspark_tpu_torch.models.dnn.pp_training\n"
+            "import mmlspark_tpu_torch.models.dnn.lm_training\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'mmlspark_tpu.')) "
             "or m == 'mmlspark_tpu')\n"

@@ -117,7 +117,7 @@ def test_encode_long_matches_jax(attention, attention_dtype):
     assert got.shape == (100, 32) and got.dtype == np.float32
     tol = 2e-4 if attention_dtype is None else 0.05
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
-    assert fa.launches == {"flash_fwd": 0}   # a CPU tensor takes the plain
+    assert not any(fa.launches.values())   # a CPU tensor takes the plain
 
 
 def test_set_params_tree_takes_a_jax_encoders_weights():
