@@ -58,6 +58,31 @@ Phases (any failure exits non-zero before the last line is printed):
      memory, a falling loss; then one SGD step at S=2048 with flash and
      with dense attention from the same weights, in bf16 and f32, whose
      updated weights must agree within `_TRAIN_TOL`.
+  7. GBDT planes path (slice 4): `hist_planes` against
+     `_torch_hist_planes` on the same CUDA tensors at 8M x 32 x 64 bins
+     (LO = 16), m in {1, 2, 4}, and B = 256 (LO = 64) at m = 4, with
+     inactive rows, without and with count_w (counts exact, grad/hess
+     within `_HIST_RTOL_OF_ABS_SUM`); the check shown to reject the
+     kernel run on a plan of the bins shifted by one row; its largest
+     difference from `hist_smem` on the same inputs as a share of sum |g|
+     per bin (at most bf16's 2^-8); times beside `hist_smem`, the plain
+     version, one `index_add_` of the bf16-rounded stats and the bound
+     with the plan's bytes. Then the headline fit with
+     MMLSPARK_TPU_HIST=planes set in the process, bagging 0.8/1 and
+     feature_fraction 0.8: exactly 40 `hist_planes` and 10 `hist_smem`
+     launches, the plan's bytes, peak memory, logloss/AUC against the
+     same fit on the plain histograms;
+  8. boosting modes at the headline width: goss (0.2/0.1), dart
+     (LightGBM's defaults) and rf (bagging 0.8/1), each a counted, timed
+     10-iteration fit and a 3-iteration fit held against its
+     plain-histogram twin within `_METRIC_TOL`;
+  9. ranker: `GBDTRanker` on seeded data shaped like LightGBM's MS LTR
+     experiment (2,270,296 x 137, queries of 100-140 documents, labels
+     0-4, 256 bins, depth 8), 5 counted iterations, NDCG@10 rising over
+     them, and NDCG@10 after 3 trees against a 3-iteration fit on the
+     plain histograms.
+The headline fit (4) is timed 3 times (min and median), and every
+phase's seconds are printed.
 The kernel phase (3) also holds the flash backward kernels, dq and dk/dv,
 against `_flash_backward_plain` at the flash forward's shapes, per
 element within `flash_attention._BWD_TOL`, shows that the bf16 limit
@@ -87,6 +112,7 @@ PEAK_F32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12      # tensor cores, dense
 
 N_ROWS, N_FEAT, MAX_BIN, N_ITERS, DEPTH = 8_000_000, 32, 63, 10, 5
+FIT_REPEATS = 3
 # grad/hess: |kernel - plain| <= this x (sum of |stat| in the bin). Both
 # sides add in an order that changes from run to run (atomics); a sum of
 # k f32 values in any order is off by at most ~k * 6e-8 of the sum of
@@ -351,17 +377,42 @@ def sweep_phase(dev):
 
 @contextlib.contextmanager
 def plain_histograms():
-    """Route the trainer's histograms through the plain version for one
-    reference fit (the port itself never does: a CUDA tensor always goes
-    to the kernel)."""
+    """Route the trainer's histograms through the plain versions for one
+    reference fit, with the port's routing (`_torch_hist_planes` where a
+    plan and the level allow, else `_torch_hist`); the port itself never
+    does: a CUDA tensor always goes to a kernel."""
     from mmlspark_tpu_torch.models.gbdt import trainer
-    from mmlspark_tpu_torch.ops.histogram import _torch_hist
+    from mmlspark_tpu_torch.ops import histogram as hist
+
+    def plain(bins, grad, hess, node_local, active, n_nodes, n_bins,
+              count_w=None, lo_planes=None, plane_lo=0):
+        if hist.planes_route(n_nodes, n_bins, lo_planes is not None):
+            return hist._torch_hist_planes(
+                bins, grad, hess, node_local, active, n_nodes, n_bins,
+                count_w=count_w, lo_planes=lo_planes, plane_lo=plane_lo)
+        return hist._torch_hist(bins, grad, hess, node_local, active,
+                                n_nodes, n_bins, count_w=count_w)
     saved = trainer.node_feature_histograms
-    trainer.node_feature_histograms = _torch_hist
+    trainer.node_feature_histograms = plain
     try:
         yield
     finally:
         trainer.node_feature_histograms = saved
+
+
+@contextlib.contextmanager
+def env(name, value):
+    """Set one environment variable for the block, as a user would set it
+    for the process."""
+    saved = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = saved
 
 
 def _metrics(margin, y):
@@ -379,13 +430,11 @@ def _metrics(margin, y):
     return logloss, auc
 
 
-def main_path_phase(dev, profile: bool):
-    import dataclasses
-
+def headline_data(dev):
+    """The headline's 8M x 32 rows from numpy seed 0, binned on the card
+    (bench.py::run_shape's `prebinned` staging)."""
     import torch
-    from mmlspark_tpu_torch.models.gbdt import BoostParams, fit_booster
     from mmlspark_tpu_torch.ops import binning
-    from mmlspark_tpu_torch.ops import histogram_cuda as hc
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
@@ -406,17 +455,24 @@ def main_path_phase(dev, profile: bool):
     host_check = binning.apply_bins(mapper, x[:100_000])
     if not np.array_equal(d_bins[:100_000].cpu().numpy(), host_check):
         raise AssertionError("device bins differ from host apply_bins")
+    return dict(x=x, y=y, staged=(mapper, d_bins, d_y), d_y=d_y)
 
-    params = BoostParams(objective="binary", num_iterations=N_ITERS,
-                         num_leaves=31, max_depth=DEPTH, max_bin=MAX_BIN,
-                         min_data_in_leaf=20)
-    staged = (mapper, d_bins, d_y)
-    # warm-up (CUDA context, kernel load, allocator) with 1 iteration
-    fit_booster(x, y, dataclasses.replace(params, num_iterations=1),
-                prebinned=staged, device=dev)
+
+def _headline_params(**kw):
+    from mmlspark_tpu_torch.models.gbdt import BoostParams
+    return BoostParams(objective="binary", num_iterations=N_ITERS,
+                       num_leaves=31, max_depth=DEPTH, max_bin=MAX_BIN,
+                       min_data_in_leaf=20, **kw)
+
+
+def _counted_fit(x, y, params, staged, dev, want):
+    """One fit with the launch counts set to 0 just before and read just
+    after; fails unless they equal `want`. Returns (booster, base, s,
+    peak bytes)."""
+    import torch
+    from mmlspark_tpu_torch.models.gbdt import fit_booster
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
     torch.cuda.synchronize()
-
-    # headline path: counts set to 0 just before, read just after
     hc.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -424,16 +480,42 @@ def main_path_phase(dev, profile: bool):
                                    device=dev)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = dict(hc.launches)
-    peak = torch.cuda.max_memory_allocated()
-    want = dict(hist_smem=N_ITERS * DEPTH, hist_global=0)
+    launches = {k: v for k, v in hc.launches.items() if v}
     if launches != want:
         raise AssertionError(f"histogram launches {launches}, expected "
                              f"{want}")
+    return booster, base, fit_s, torch.cuda.max_memory_allocated()
+
+
+def main_path_phase(dev, data, profile: bool):
+    import dataclasses
+
+    import torch
+    from mmlspark_tpu_torch.models.gbdt import fit_booster
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+
+    x, y, staged, d_y = data["x"], data["y"], data["staged"], data["d_y"]
+    params = _headline_params()
+    # warm-up (CUDA context, kernel load, allocator) with 1 iteration
+    fit_booster(x, y, dataclasses.replace(params, num_iterations=1),
+                prebinned=staged, device=dev)
+    torch.cuda.synchronize()
+
+    # headline path, timed FIT_REPEATS times: counts set to 0 just
+    # before each fit, read just after
+    launches = dict(hist_smem=N_ITERS * DEPTH)
+    fit_times = []
+    for _ in range(FIT_REPEATS):
+        booster, base, fit_s, peak = _counted_fit(x, y, params, staged, dev,
+                                                  launches)
+        fit_times.append(fit_s)
+    fit_s = float(np.median(fit_times))
     log(f"[main] fit_booster binary depth {DEPTH} leaves 31 B={MAX_BIN + 1} "
-        f"{N_ITERS} iters: {fit_s:.3f} s = "
+        f"{N_ITERS} iters, {FIT_REPEATS} fits: "
+        f"{', '.join(f'{t:.4f}' for t in fit_times)} s; min "
+        f"{min(fit_times):.4f} s, median {fit_s:.4f} s = "
         f"{N_ROWS * N_ITERS / fit_s:.4g} rows*iters/s; histogram launches "
-        f"{launches}; peak memory {peak / 2**30:.2f} GiB "
+        f"{launches} per fit; peak memory {peak / 2**30:.2f} GiB "
         f"(max_memory_allocated); {booster.n_trees} trees")
 
     # bulk scoring on the card, then serving-sized host batches
@@ -497,7 +579,7 @@ def main_path_phase(dev, profile: bool):
     torch.cuda.synchronize()
     deep_s = time.perf_counter() - t0
     deep_launches = dict(hc.launches)
-    if deep_launches != dict(hist_smem=10, hist_global=1):
+    if deep_launches != dict(hist_smem=10, hist_global=1, hist_planes=0):
         raise AssertionError(f"deep fit launches {deep_launches}, expected "
                              f"10 shared-memory and 1 global")
     log(f"[main] max_depth=11 fit, 1 iteration: {deep_s:.3f} s; launches "
@@ -513,7 +595,322 @@ def main_path_phase(dev, profile: bool):
             torch.cuda.synchronize()
         log(prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=25))
-    return dict(launches=launches, deep_launches=deep_launches)
+    return dict(launches=launches, deep_launches=deep_launches,
+                fit_times=fit_times)
+
+
+def _bf16(t):
+    import torch
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _planes_bound(n, n_active, f, b, m, lo, with_count):
+    """`_bound` with the plan's bytes added: LO bytes for each active
+    (row, feature)."""
+    nbytes = (4 * n + n_active * (f * (1 + lo) + 8 + 4 * with_count)
+              + 3 * m * f * b * 4)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 3 * n_active * f / PEAK_F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def planes_kernel_phase(dev):
+    """`hist_planes` against `_torch_hist_planes` on the same CUDA
+    tensors: 8M x 32 x 64 bins (LO = 16) at m in {1, 2, 4} and one
+    B = 256 (LO = 64) case, with inactive rows, without and with count_w.
+    A plan of the bins shifted by one row must fail the same check. Beside
+    the times: `hist_smem` on the same inputs and its largest difference
+    from the planes kernel as a share of sum |g| per bin."""
+    import torch
+    from mmlspark_tpu_torch.ops import histogram as hist
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+    gen = torch.Generator(device=dev).manual_seed(2)
+    results = []
+    cases = [(m, N_FEAT, MAX_BIN + 1) for m in (1, 2, 4)] + [(4, N_FEAT, 256)]
+    for m, f, b in cases:
+        inputs = _hist_inputs(gen, dev, N_ROWS, f, b, m)
+        bins, grad, hess, node, active, cw = inputs
+        lo = hist.plan_lo_bins(b)
+        t0 = time.perf_counter()
+        plan = hist.build_hist_plan(bins, b)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        kw = dict(lo_planes=plan, plane_lo=lo)
+        # the limit scale: sum of |g| per bin of the stats both sides add
+        abs_grad = hist._torch_hist(bins, _bf16(grad).abs(), hess, node,
+                                    active, m, b)[0]
+        err = 0.0
+        for w in (None, cw):
+            got = hc.hist_planes(*inputs[:5], m, b, count_w=w, **kw)
+            want = hist._torch_hist_planes(*inputs[:5], m, b, count_w=w,
+                                           **kw)
+            torch.cuda.synchronize()
+            label = f"hist_planes m={m} B={b} count_w " + \
+                ("set" if w is not None else "None")
+            err = max(err, _check_hist(got, want, abs_grad, label))
+        shifted = hist.build_hist_plan(torch.roll(bins, 1, 0), b)
+        bad = hc.hist_planes(*inputs[:5], m, b, lo_planes=shifted,
+                             plane_lo=lo)
+        torch.cuda.synchronize()
+        try:
+            _check_hist(bad, want, abs_grad, "shifted plan")
+        except AssertionError as e:
+            caught = str(e)
+        else:
+            raise AssertionError(f"m={m} B={b}: the check passed the kernel "
+                                 f"run on a plan of shifted bins")
+        del shifted, bad
+        # planes (bf16 stats) against hist_smem (f32 stats), same inputs
+        smem = hc.hist_smem(*inputs[:5], m, b, count_w=cw)
+        f32_abs = hist._torch_hist(bins, grad.abs(), hess, node, active, m,
+                                   b)[0]
+        nz = f32_abs > 0
+        vs_smem = float(((got[0] - smem[0]).abs()[nz] / f32_abs[nz]).max())
+        if not vs_smem <= 2.0 ** -8:
+            raise AssertionError(f"hist_planes vs hist_smem: {vs_smem} of "
+                                 f"sum |g| per bin, above bf16's 2^-8")
+        del got, want, smem, f32_abs, abs_grad
+        ms = timed(lambda: hc.hist_planes(*inputs[:5], m, b, **kw))
+        smem_ms = timed(lambda: hc.hist_smem(*inputs[:5], m, b))
+        plain_ms = timed(lambda: hist._torch_hist_planes(*inputs[:5], m, b,
+                                                         **kw),
+                         warmup=1, reps=3)
+        lib = _index_add_call(bins, _bf16(grad), _bf16(hess), node, active,
+                              torch.ones_like(cw), m, b)
+        library_ms = timed(lib, warmup=1, reps=5)
+        del lib
+        bound_ms, bound_by = _planes_bound(N_ROWS, int(active.sum()), f, b,
+                                           m, lo, with_count=False)
+        log(f"[planes] hist_planes n={N_ROWS} F={f} B={b} LO={lo} m={m}: "
+            f"plan {plan.numel() / 1e9:.3f} GB built in {plan_s:.3f} s; "
+            f"match with and without count_w (counts exact, max abs err "
+            f"{err:.3g}); shifted plan rejected ({caught[:60]}...); "
+            f"vs hist_smem {vs_smem:.3g} of sum |g| per bin; kernel "
+            f"{ms:.3f} ms, hist_smem {smem_ms:.3f} ms, plain {plain_ms:.3f} "
+            f"ms, one index_add_ {library_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+        results.append(dict(
+            m=m, n=N_ROWS, f=f, b=b, lo=lo, max_abs_err=err, ms=ms,
+            smem_ms=smem_ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bound_ms, bound_by=bound_by, vs_smem=vs_smem,
+            plan_bytes=plan.numel()))
+        del inputs, bins, grad, hess, node, active, cw, plan, kw
+        torch.cuda.empty_cache()
+    return results
+
+
+def _fit_metrics(booster, base, x, d_y, dev):
+    margin = booster.raw_score_device(x, device=dev)[:, 0] + base
+    if margin.shape != (N_ROWS,) or not bool(margin.isfinite().all()):
+        raise AssertionError("margins are not finite (n,) values")
+    return _metrics(margin, d_y)
+
+
+def planes_path_phase(dev, data):
+    """The headline fit with MMLSPARK_TPU_HIST=planes set in the process,
+    bagging 0.8 every iteration and feature_fraction 0.8: exactly 40
+    planes (m = 1, 1, 2, 4 per tree) and 10 shared-memory (m = 8)
+    launches; its train logloss/AUC against the same fit, from the same
+    seed, whose histograms come from the plain versions on the card."""
+    import dataclasses
+
+    import torch
+    from mmlspark_tpu_torch.models.gbdt import fit_booster
+    from mmlspark_tpu_torch.ops import histogram as hist
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+
+    x, y, staged, d_y = data["x"], data["y"], data["staged"], data["d_y"]
+    params = _headline_params(bagging_fraction=0.8, bagging_freq=1,
+                              feature_fraction=0.8)
+    want = dict(hist_smem=N_ITERS, hist_planes=N_ITERS * (DEPTH - 1))
+    plan_bytes = N_FEAT * N_ROWS * hist.plan_lo_bins(MAX_BIN + 1)
+    with env("MMLSPARK_TPU_HIST", "planes"):
+        fit_booster(x, y, dataclasses.replace(params, num_iterations=1),
+                    prebinned=staged, device=dev)
+        booster, base, fit_s, peak = _counted_fit(x, y, params, staged, dev,
+                                                  want)
+        logloss, auc = _fit_metrics(booster, base, x, d_y, dev)
+        hc.reset_launches()
+        with plain_histograms():
+            t0 = time.perf_counter()
+            ref, ref_base, _ = fit_booster(x, y, params, prebinned=staged,
+                                           device=dev)
+            torch.cuda.synchronize()
+            ref_s = time.perf_counter() - t0
+    if any(hc.launches.values()):
+        raise AssertionError("the plain-histogram fit launched a kernel")
+    ref_logloss, ref_auc = _fit_metrics(ref, ref_base, x, d_y, dev)
+    log(f"[planes] MMLSPARK_TPU_HIST=planes fit, bagging 0.8/1, "
+        f"feature_fraction 0.8, {N_ITERS} iters: {fit_s:.4f} s = "
+        f"{N_ROWS * N_ITERS / fit_s:.4g} rows*iters/s; launches {want}; plan "
+        f"{plan_bytes / 1e9:.3f} GB; peak memory {peak / 2**30:.2f} GiB; "
+        f"logloss {logloss:.6f}, AUC {auc:.6f}; plain-histogram twin "
+        f"{ref_s:.2f} s: logloss {ref_logloss:.6f}, AUC {ref_auc:.6f}; "
+        f"split features equal at "
+        f"{float((ref.split_feature == booster.split_feature).mean()):.3f}")
+    if abs(logloss - ref_logloss) > _METRIC_TOL or \
+            abs(auc - ref_auc) > _METRIC_TOL:
+        raise AssertionError("planes fit and plain-histogram fit disagree")
+    if not auc > 0.8:
+        raise AssertionError(f"train AUC {auc} is not a trained model")
+    return dict(launches=want, fit_s=fit_s, peak=peak, plan_bytes=plan_bytes,
+                logloss=logloss, auc=auc)
+
+
+# LightGBM's defaults for goss and dart; rf with bagging, as it needs
+BOOSTING_MODES = {
+    "goss": dict(boosting="goss", top_rate=0.2, other_rate=0.1),
+    "dart": dict(boosting="dart", drop_rate=0.1, skip_drop=0.5, max_drop=50),
+    "rf": dict(boosting="rf", bagging_fraction=0.8, bagging_freq=1),
+}
+TWIN_ITERS = 3
+
+
+def modes_phase(dev, data):
+    """goss, dart and rf at the headline width: a counted, timed fit of
+    N_ITERS iterations each, then a TWIN_ITERS-iteration fit held against
+    its twin whose histograms come from the plain version on the card."""
+    import dataclasses
+
+    import torch
+    from mmlspark_tpu_torch.models.gbdt import fit_booster
+
+    x, y, staged, d_y = data["x"], data["y"], data["staged"], data["d_y"]
+    out = {}
+    for name, kw in BOOSTING_MODES.items():
+        params = _headline_params(**kw)
+        booster, base, fit_s, peak = _counted_fit(
+            x, y, params, staged, dev, dict(hist_smem=N_ITERS * DEPTH))
+        logloss, auc = _fit_metrics(booster, base, x, d_y, dev)
+        short = dataclasses.replace(params, num_iterations=TWIN_ITERS)
+        twin, twin_base, _, _ = _counted_fit(
+            x, y, short, staged, dev, dict(hist_smem=TWIN_ITERS * DEPTH))
+        t_ll, t_auc = _fit_metrics(twin, twin_base, x, d_y, dev)
+        with plain_histograms():
+            ref, ref_base, _ = fit_booster(x, y, short, prebinned=staged,
+                                           device=dev)
+            torch.cuda.synchronize()
+        r_ll, r_auc = _fit_metrics(ref, ref_base, x, d_y, dev)
+        log(f"[modes] {name} {kw}: {N_ITERS} iters {fit_s:.4f} s = "
+            f"{N_ROWS * N_ITERS / fit_s:.4g} rows*iters/s, peak "
+            f"{peak / 2**30:.2f} GiB, logloss {logloss:.6f}, AUC {auc:.6f}; "
+            f"{TWIN_ITERS} iters: kernel logloss {t_ll:.6f} AUC {t_auc:.6f}, "
+            f"plain {r_ll:.6f} / {r_auc:.6f}")
+        if abs(t_ll - r_ll) > _METRIC_TOL or abs(t_auc - r_auc) > _METRIC_TOL:
+            raise AssertionError(f"{name}: kernel and plain-histogram fits "
+                                 f"disagree")
+        if not (np.isfinite([logloss, auc]).all() and auc > 0.7):
+            raise AssertionError(f"{name}: AUC {auc} is not a trained model")
+        out[name] = dict(fit_s=fit_s, peak=peak, logloss=logloss, auc=auc,
+                         twin=(t_ll, t_auc), plain=(r_ll, r_auc))
+    return out
+
+
+# LightGBM's "MS LTR" experiment (docs/Experiments.rst): 2,270,296 rows x
+# 137 features, max_bin 255, 255 leaves (max_depth 8 here); ~120
+# documents a query, relevance labels 0-4
+LTR_ROWS, LTR_FEAT, LTR_ITERS = 2_270_296, 137, 5
+LTR_PARAMS = dict(max_bin=255, max_depth=8, num_leaves=255,
+                  min_data_in_leaf=100, learning_rate=0.1)
+
+
+def _ltr_data():
+    rng = np.random.default_rng(0)
+    sizes = rng.integers(100, 141, LTR_ROWS // 100)
+    sizes = sizes[:np.searchsorted(np.cumsum(sizes), LTR_ROWS) + 1]
+    sizes[-1] -= sizes.sum() - LTR_ROWS
+    group = np.repeat(np.arange(len(sizes)), sizes)
+    x = rng.standard_normal((LTR_ROWS, LTR_FEAT), dtype=np.float32)
+    rel = x[:, :20] @ rng.normal(size=20) + rng.normal(scale=2.0,
+                                                       size=LTR_ROWS)
+    y = np.digitize(rel, np.quantile(rel, [0.5, 0.75, 0.9, 0.97]))
+    return x, y.astype(np.float32), group
+
+
+def _ndcg_at(scores, labels, g_idx, k=10):
+    """Mean NDCG@k over the queries with a relevant document; ties rank
+    in data order."""
+    import torch
+    valid = g_idx >= 0
+    idx = g_idx.clamp(min=0).to(torch.int64)
+    s = torch.where(valid, scores[idx], -torch.inf)
+    gains = torch.where(valid, 2.0 ** labels[idx] - 1, 0.0)
+    disc = 1.0 / torch.log2(torch.arange(k, device=scores.device) + 2.0)
+    top = torch.argsort(-s, dim=1, stable=True)[:, :k]
+    dcg = (gains.gather(1, top) * disc).sum(1)
+    ideal = (gains.sort(dim=1, descending=True).values[:, :k] * disc).sum(1)
+    ok = ideal > 0
+    return float((dcg[ok] / ideal[ok]).mean())
+
+
+def ranker_phase(dev):
+    """`GBDTRanker` on seeded data shaped like LightGBM's MS LTR
+    experiment: LTR_ITERS iterations with the launch counts set to 0 just
+    before and read just after; NDCG@10 after 1..LTR_ITERS trees must
+    rise, and after TWIN_ITERS trees agree with a plain-histogram fit of
+    TWIN_ITERS iterations."""
+    import torch
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.models.gbdt import GBDTRanker
+    from mmlspark_tpu_torch.models.gbdt.objectives import make_group_index
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+
+    t0 = time.perf_counter()
+    x, y, group = _ltr_data()
+    table = Table({"features": x, "label": y, "group": group})
+    g_idx = torch.as_tensor(make_group_index(group)).to(dev)
+    log(f"[ranker] data {LTR_ROWS} x {LTR_FEAT} f32, {g_idx.shape[0]} "
+        f"queries of {int((g_idx >= 0).sum(1).min())}-{g_idx.shape[1]} "
+        f"documents, labels 0-4 {np.bincount(y.astype(int)).tolist()}, from "
+        f"numpy seed 0 in {time.perf_counter() - t0:.1f} s")
+    d_x = torch.as_tensor(x).to(dev)
+    d_y = torch.as_tensor(y).to(dev)
+
+    def fit(iters):
+        return GBDTRanker(num_iterations=iters, device=dev,
+                          **LTR_PARAMS).fit(table)
+
+    fit(1)                                  # warm-up
+    torch.cuda.synchronize()
+    hc.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = fit(LTR_ITERS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {k: v for k, v in hc.launches.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    depth = LTR_PARAMS["max_depth"]
+    if launches != dict(hist_smem=LTR_ITERS * depth):
+        raise AssertionError(f"ranker fit launches {launches}")
+    booster = model.booster
+    ndcg = [_ndcg_at(torch.zeros(LTR_ROWS, device=dev), d_y, g_idx)]
+    for t in range(1, LTR_ITERS + 1):
+        raw = booster.raw_score_device(d_x, device=dev,
+                                       trees=slice(0, t))[:, 0]
+        ndcg.append(_ndcg_at(raw, d_y, g_idx))
+    with plain_histograms():
+        t0 = time.perf_counter()
+        ref = fit(TWIN_ITERS)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+    ref_ndcg = _ndcg_at(ref.booster.raw_score_device(d_x, device=dev)[:, 0],
+                        d_y, g_idx)
+    log(f"[ranker] GBDTRanker {LTR_PARAMS}, {LTR_ITERS} iters: "
+        f"{fit_s:.3f} s (binning included) = "
+        f"{LTR_ROWS * LTR_ITERS / fit_s:.4g} rows*iters/s; launches "
+        f"{launches} (the deepest level, m=64 x 256 bins, fits one block's "
+        f"shared memory); peak {peak / 2**30:.2f} GiB; NDCG@10 after 0.."
+        f"{LTR_ITERS} trees {[round(v, 6) for v in ndcg]}; plain-histogram "
+        f"fit of {TWIN_ITERS} iters {ref_s:.2f} s, NDCG@10 {ref_ndcg:.6f}")
+    if not ndcg[0] < ndcg[1] < ndcg[LTR_ITERS]:
+        raise AssertionError(f"NDCG@10 does not rise: {ndcg}")
+    if abs(ndcg[TWIN_ITERS] - ref_ndcg) > _METRIC_TOL:
+        raise AssertionError("ranker kernel fit and plain-histogram fit "
+                             "disagree")
+    return dict(launches=launches, fit_s=fit_s, peak=peak, ndcg=ndcg,
+                ref_ndcg=ref_ndcg)
 
 
 def _flash_cases():
@@ -1094,19 +1491,37 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    smi, card = card_phase()
-    build_phase()
+    phase_s = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"[time] {name}: {phase_s[name]:.1f} s")
+        return out
+    smi, card = phase("card", card_phase)
+    phase("build", build_phase)
     dev = torch.device("cuda")
-    kres = kernel_phase(dev)
-    fres = flash_kernel_phase(dev)
-    bres = flash_bwd_kernel_phase(dev)
+    profile = "--profile" in argv
+    kres = phase("kernel", kernel_phase, dev)
+    pres = phase("planes kernel", planes_kernel_phase, dev)
+    fres = phase("flash kernel", flash_kernel_phase, dev)
+    bres = phase("flash backward kernel", flash_bwd_kernel_phase, dev)
     if "--sweep" in argv:
-        sweep_phase(dev)
-    paths = main_path_phase(dev, "--profile" in argv)
-    enc_paths = encoder_phase(dev, "--profile" in argv)
-    train = lm_train_phase(dev, "--profile" in argv)
+        phase("sweep", sweep_phase, dev)
+    data = phase("headline data", headline_data, dev)
+    paths = phase("main", main_path_phase, dev, data, profile)
+    planes = phase("planes path", planes_path_phase, dev, data)
+    modes = phase("boosting modes", modes_phase, dev, data)
+    del data
+    torch.cuda.empty_cache()
+    ranker = phase("ranker", ranker_phase, dev)
+    torch.cuda.empty_cache()
+    enc_paths = phase("encoder", encoder_phase, dev, profile)
+    train = phase("lm training", lm_train_phase, dev, profile)
 
     smem8 = [r for r in kres["hist_smem"] if r["m"] == 8][0]
+    planes4 = [r for r in pres if r["m"] == 4 and r["b"] == MAX_BIN + 1][0]
     glob = kres["hist_global"][0]
     main_flash = [r for r in fres if r["case"] == "main"
                   and r["dtype"] == "float32" and not r["causal"]][0]
@@ -1152,6 +1567,22 @@ def main(argv) -> int:
                  "d", "dtype", "causal", "ms", "plain_ms", "library_ms",
                  "bound_ms", "max_abs_err", "bf16_limit_used")}
                  for r in fres if "ms" in r]),
+        dict(name="hist_planes", route="cuda", source=src,
+             replaces="mmlspark_tpu/ops/histogram_pallas.py:259 "
+                      "(_hist_kernel_planes; pallas_call :397)",
+             path="headline fit under MMLSPARK_TPU_HIST=planes, bagging "
+                  "0.8/1, feature_fraction 0.8",
+             launches=planes["launches"]["hist_planes"], passed=True,
+             **{k: planes4[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")},
+             library="one index_add_ of the bf16-rounded stats",
+             shape=dict(n=planes4["n"], f=planes4["f"], b=planes4["b"],
+                        lo=planes4["lo"], m=4),
+             per_m=[{k: r[k] for k in ("m", "b", "lo", "ms", "smem_ms",
+                                       "plain_ms", "library_ms", "bound_ms",
+                                       "max_abs_err", "vs_smem")}
+                    for r in pres]),
     ]
     # the training path's shape: S=16384, H=8, D=128, bf16, causal
     main_bwd = [r for r in bres if r["case"] == "main"
@@ -1188,7 +1619,14 @@ def main(argv) -> int:
     log(f"[train] lm_train_mfu {train['mfu']:.4f}, "
         f"{train['s_step']:.4f} s/step, {train['tokens_per_s']:.4g} "
         f"tokens/s, peak {train['peak'] / 2**30:.2f} GiB")
-    log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+    log(f"[gbdt] headline fit min {min(paths['fit_times']):.4f} s, median "
+        f"{float(np.median(paths['fit_times'])):.4f} s; planes fit "
+        f"{planes['fit_s']:.4f} s; " + ", ".join(
+            f"{k} {v['fit_s']:.4f} s" for k, v in modes.items())
+        + f"; ranker {ranker['fit_s']:.3f} s, NDCG@10 "
+        f"{ranker['ndcg'][-1]:.6f}")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all; phases "
+        + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

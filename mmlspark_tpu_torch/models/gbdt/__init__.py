@@ -3,7 +3,9 @@
 from .boosting import BoostParams, fit_booster
 from .booster import Booster
 from .estimators import (GBDTClassificationModel, GBDTClassifier,
-                         GBDTRegressionModel, GBDTRegressor)
+                         GBDTRanker, GBDTRankerModel, GBDTRegressionModel,
+                         GBDTRegressor)
 
 __all__ = ["BoostParams", "fit_booster", "Booster", "GBDTClassifier",
-           "GBDTClassificationModel", "GBDTRegressor", "GBDTRegressionModel"]
+           "GBDTClassificationModel", "GBDTRegressor", "GBDTRegressionModel",
+           "GBDTRanker", "GBDTRankerModel"]

@@ -1,23 +1,33 @@
-"""Boosting loop: gbdt over the level-wise tree grower.
+"""Boosting loop: gbdt / rf / dart / goss over the level-wise tree grower.
 
-Port of `mmlspark_tpu/models/gbdt/boosting.py` for `boosting="gbdt"`: the
-objectives of `objectives.py` (lambdarank and the L1-family leaf renewal
-excepted), sample weights, `init_scores`, `prebinned` staging, and a
-validation set with early stopping. The reference fuses a chunk of
-iterations into one `lax.scan`; here the iterations are a plain Python
-loop of device work, and the only host syncs are the per-iteration
-metric read when a validation set is tracked and the final tree fetch.
+Port of `mmlspark_tpu/models/gbdt/boosting.py`: every objective of
+`objectives.py` (lambdarank with its group index, the L1-family leaf
+renewal, a custom `fobj`), sample weights, `init_scores`, `prebinned`
+staging, a validation set with early stopping, bagging, feature_fraction,
+goss, rf and dart, and the planes histogram route
+(`MMLSPARK_TPU_HIST=planes`). The reference fuses a chunk of iterations
+into one `lax.scan` where it can and keeps a host loop for dart, renewal,
+lambdarank and `fobj`; here every mode runs the host loop's steps as a
+plain Python loop of device work. Its host syncs are the per-iteration
+metric read when a validation set is tracked, dart's drop set, and the
+final tree fetch.
+
+Random draws come from one `torch.Generator` on the fit's device, seeded
+anew each iteration from (`seed`, iteration): an iteration's bagging,
+GOSS, feature and drop draws depend on the seed and the iteration alone.
+They cannot match the reference's threefry streams (ROADMAP Queue 3 (b)).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ...device import resolve_device
-from ...ops import binning
+from ...ops import binning, histogram
 from . import objectives as obj_mod
 from . import trainer
 from .booster import Booster
@@ -74,30 +84,22 @@ class BoostParams:
     verbosity: int = -1
 
 
-# objectives whose leaf outputs the reference refits on the host
+# objectives whose leaf outputs are refit to a residual quantile
 RENEWAL_OBJECTIVES = ("regression_l1", "quantile", "huber")
+BOOSTING_MODES = ("gbdt", "rf", "dart", "goss")
 
 
 def check_ported(p: BoostParams) -> None:
     """Raise NotImplementedError, naming the ROADMAP item that will port
-    it, for every setting this slice does not run."""
-    todo = []
-    if p.boosting != "gbdt":
-        todo.append((f"boosting={p.boosting!r}", 8))
-    if p.bagging_fraction < 1.0 or p.feature_fraction < 1.0:
-        todo.append(("bagging_fraction/feature_fraction < 1", 8))
+    it, for a setting the port does not run yet; ValueError for an
+    unknown objective or boosting mode."""
     if p.categorical_features:
-        todo.append(("categorical features", 9))
-    if p.objective == "lambdarank" or p.objective in RENEWAL_OBJECTIVES:
-        todo.append((f"objective={p.objective!r}", 10))
-    elif p.objective not in obj_mod.OBJECTIVES:
+        raise NotImplementedError("categorical features are not ported "
+                                  "yet (ROADMAP Queue 1 item 9)")
+    if p.boosting not in BOOSTING_MODES:
+        raise ValueError(f"unknown boosting {p.boosting!r}")
+    if p.objective != "lambdarank" and p.objective not in obj_mod.OBJECTIVES:
         raise ValueError(f"unknown objective {p.objective!r}")
-    if p.fobj is not None:
-        todo.append(("custom objective fobj", 10))
-    if todo:
-        what, item = todo[0]
-        raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
 def _unported(name: str, item: int):
@@ -106,22 +108,130 @@ def _unported(name: str, item: int):
         f"(ROADMAP Queue 1 item {item})")
 
 
-def _grad_hess(p: BoostParams, margin, y_j, y_onehot):
+def _grad_hess(p: BoostParams, margin, y_j, y_onehot, g_idx):
+    if p.fobj is not None:
+        grad, hess = p.fobj(margin, y_j)
+        return (torch.as_tensor(grad, dtype=torch.float32,
+                                device=margin.device),
+                torch.as_tensor(hess, dtype=torch.float32,
+                                device=margin.device))
     if p.objective == "multiclass":
         return obj_mod.multiclass_grad_hess(margin, y_onehot)
     if p.objective == "binary":
         return obj_mod.binary_grad_hess(margin, y_j, p.sigmoid)
+    if p.objective == "lambdarank":
+        return obj_mod.lambdarank_grad_hess(margin, y_j, g_idx,
+                                            sigmoid=p.sigmoid,
+                                            max_position=p.max_position)
+    if p.objective in ("huber", "quantile"):
+        return obj_mod.OBJECTIVES[p.objective](margin, y_j, p.alpha)
     if p.objective == "tweedie":
         return obj_mod.tweedie_grad_hess(margin, y_j, p.tweedie_variance_power)
     return obj_mod.OBJECTIVES[p.objective](margin, y_j)
+
+
+def _iteration_seed(seed: int, it: int) -> int:
+    """The generator's seed for iteration `it` of a fit seeded `seed`."""
+    return int(np.random.SeedSequence((seed % 2 ** 64, it))
+               .generate_state(1, np.uint64)[0])
+
+
+def _presence(row_w):
+    """min_data_in_leaf count indicator (None when every row counts):
+    rows the bagging/GOSS weights drop are absent. User sample weights
+    deliberately do NOT change counts (LightGBM semantics)."""
+    return None if row_w is None else (row_w != 0).to(torch.float32)
+
+
+def _row_weights(p: BoostParams, grad, gen, it: int, multiclass: bool):
+    """Per-iteration GOSS / bagging row weights (None = keep all)."""
+    n = grad.shape[0]
+    if p.boosting == "goss":
+        g_abs = grad.abs().sum(-1) if multiclass else grad.abs()
+        n_top = max(int(p.top_rate * n), 1)
+        thresh = torch.sort(g_abs).values[n - n_top]
+        is_top = g_abs >= thresh
+        rnd = torch.rand(n, generator=gen, device=grad.device)
+        keep_other = (~is_top) & (rnd < p.other_rate
+                                  / max(1 - p.top_rate, 1e-9))
+        amp = (1.0 - p.top_rate) / max(p.other_rate, 1e-9)
+        return torch.where(is_top, 1.0, torch.where(keep_other, amp, 0.0))
+    rf = p.boosting == "rf"
+    if p.bagging_fraction < 1.0 and (rf or p.bagging_freq > 0):
+        if not rf and p.bagging_freq > 1 and it % p.bagging_freq != 0:
+            return None     # off-phase iterations keep every row
+        return (torch.rand(n, generator=gen, device=grad.device)
+                < p.bagging_fraction).to(torch.float32)
+    return None
+
+
+def _feature_mask(p: BoostParams, gen, n_features: int):
+    """Per-tree feature subsample: exactly max(1, round(ff * F)) features."""
+    dev = gen.device
+    if p.feature_fraction < 1.0:
+        kf = max(1, int(round(p.feature_fraction * n_features)))
+        perm = torch.randperm(n_features, generator=gen, device=dev)
+        mask = torch.zeros(n_features, dtype=torch.bool, device=dev)
+        mask[perm[:kf]] = True
+        return mask
+    return torch.ones(n_features, dtype=torch.bool, device=dev)
+
+
+def _dart_drops(p: BoostParams, gen, n_prev: int) -> list:
+    """Indices of earlier iterations dart drops this iteration: none with
+    probability skip_drop, else each with probability
+    min(drop_rate, max_drop / n_prev). One host sync."""
+    if n_prev == 0:
+        return []
+    u = torch.rand(n_prev + 1, generator=gen, device=gen.device).cpu()
+    if float(u[0]) < p.skip_drop:
+        return []
+    drop_p = min(p.drop_rate, p.max_drop / max(n_prev, 1))
+    return np.nonzero(u[1:].numpy() < drop_p)[0].tolist()
+
+
+def _leaf_quantiles(nodes, resid, keep, q: float, n_nodes: int):
+    """Per heap node: the q-quantile of `resid` over its rows where `keep`
+    (None = all), with numpy's default linear interpolation, and whether
+    the node has any such row. One sort of every row by (node, resid), so
+    a leaf may hold any number of rows (`torch.quantile` refuses more than
+    2^24)."""
+    n = resid.shape[0]
+    slot = nodes if keep is None else torch.where(keep, nodes, n_nodes)
+    order = torch.argsort(resid, stable=True)
+    order = order[torch.argsort(slot[order], stable=True)]
+    ranked = resid[order].to(torch.float64)
+    counts = torch.bincount(slot, minlength=n_nodes + 1)[:n_nodes]
+    starts = torch.cumsum(counts, 0) - counts
+    last = (counts - 1).clamp(min=0)
+    pos = q * last.to(torch.float64)
+    below = pos.floor().to(torch.int64)
+    t = pos - below
+    a = ranked[(starts + below).clamp(max=n - 1)]
+    b = ranked[(starts + torch.minimum(below + 1, last)).clamp(max=n - 1)]
+    val = torch.where(t >= 0.5, b - (b - a) * (1 - t), a + (b - a) * t)
+    return val, counts > 0
+
+
+def _renew_leaves(tree, d_bins, resid, keep, q: float, lr: float,
+                  max_depth: int):
+    """L1-family leaf renewal (LightGBM's RenewTreeOutput): each leaf's
+    output becomes lr x the q-quantile of the residuals resting there.
+    Returns the renewed tree and its per-row delta."""
+    nodes = trainer.leaf_of_binned(d_bins, tree.split_feature,
+                                   tree.split_bin, max_depth)
+    val, has = _leaf_quantiles(nodes, resid, keep, q,
+                               tree.leaf_value.shape[0])
+    lv = torch.where(has, (lr * val).to(torch.float32), tree.leaf_value)
+    return tree._replace(leaf_value=lv), lv[nodes]
 
 
 def _device_metric(name, objective, margin, y):
     """(metric value as a 0-d f32 tensor, larger_is_better), computed on
     the device as the reference's `_device_metric` computes it."""
     if name is None:
-        name = {"binary": "binary_logloss",
-                "multiclass": "multi_logloss"}.get(objective, "l2")
+        name = {"binary": "binary_logloss", "multiclass": "multi_logloss",
+                "lambdarank": "l2"}.get(objective, "l2")
     if name == "auc":
         order = torch.argsort(margin, stable=True)
         ranks = torch.empty_like(margin)
@@ -173,12 +283,15 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
     `prebinned=(mapper, bins[, y])`: data already binned (and optionally
     labels staged) on the device, so a timed fit measures the training
     loop alone; `y` stays a host array for the init-score statistics.
+    `group`: per-row query ids, for `objective="lambdarank"`.
     `device`: None = the card (raises without one); tests pass "cpu".
-    `group`, `init_booster`, `callbacks`, `checkpoint_fn`, `ingest` and
-    `oocore` belong to later slices and raise NotImplementedError.
+    With `MMLSPARK_TPU_HIST=planes` in the environment, the fit builds
+    the histogram plan once (`ops.histogram.build_hist_plan`) and every
+    tree's shallow levels take the planes histogram.
+    `init_booster`, `callbacks`, `checkpoint_fn`, `ingest` and `oocore`
+    belong to later slices and raise NotImplementedError.
     """
-    for name, val, item in (("group", group, 10),
-                            ("init_booster", init_booster, 11),
+    for name, val, item in (("init_booster", init_booster, 11),
                             ("callbacks", callbacks, 11),
                             ("checkpoint_fn", checkpoint_fn, 11),
                             ("ingest", ingest, 17), ("oocore", oocore, 17)):
@@ -186,8 +299,12 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
             _unported(name, item)
     p = params
     check_ported(p)
-    dev = resolve_device(device)
     n, n_features = x.shape
+    if p.objective == "lambdarank" and group is None:
+        raise ValueError("objective='lambdarank' needs per-row group ids")
+    if group is not None and len(group) != n:
+        raise ValueError(f"group has {len(group)} ids for {n} rows")
+    dev = resolve_device(device)
     multiclass = p.objective == "multiclass"
     k_out = p.num_class if multiclass else 1
 
@@ -201,6 +318,14 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
     else:
         mapper = binning.fit_bins(x, max_bin=p.max_bin, seed=p.seed)
         d_bins = binning.apply_bins_device(mapper, x, device=dev)
+    # the level-invariant histogram plan, once per fit, where the
+    # reference builds it (it also sets a plan-bytes gauge there; gauges
+    # are telemetry, ROADMAP Queue 1 item 23)
+    lo_planes, plane_lo = None, 0
+    if os.environ.get("MMLSPARK_TPU_HIST") == "planes":
+        plane_lo = histogram.plan_lo_bins(p.max_bin + 1)
+        if plane_lo:
+            lo_planes = histogram.build_hist_plan(d_bins, p.max_bin + 1)
 
     def put(a):
         return torch.as_tensor(np.asarray(a, np.float32)).to(dev)
@@ -210,6 +335,8 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
     w_j = None if weights is None else put(weights)
     y_onehot = (torch.nn.functional.one_hot(y_j.to(torch.int64), p.num_class)
                 .to(torch.float32) if multiclass else None)
+    g_idx = (torch.as_tensor(obj_mod.make_group_index(group)).to(dev)
+             if group is not None else None)
 
     base = 0.0
     if p.boost_from_average and init_scores is None and not multiclass:
@@ -227,8 +354,10 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
         margin = torch.full((n,), base, dtype=torch.float32, device=dev)
         if init_scores is not None:
             margin = margin + put(init_scores)
+    init_margin = margin        # rf: every tree's gradients start here
 
     has_valid = valid is not None
+    v_margin = v_it_delta = None
     if has_valid:
         vx, vy = valid
         v_bins = binning.apply_bins_device(mapper, vx, device=dev)
@@ -239,41 +368,100 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
                     torch.full((vx.shape[0],), base, dtype=torch.float32,
                                device=dev))
 
+    rf, dart = p.boosting == "rf", p.boosting == "dart"
+    lr = 1.0 / (p.rf_total or p.num_iterations) if rf else p.learning_rate
     cfg = trainer.TreeConfig(
         n_features=n_features, n_bins=p.max_bin + 1, max_depth=p.max_depth,
-        num_leaves=p.num_leaves, learning_rate=p.learning_rate,
+        num_leaves=p.num_leaves, learning_rate=lr,
         lambda_l1=p.lambda_l1, lambda_l2=p.lambda_l2,
         min_gain_to_split=p.min_gain_to_split,
         min_data_in_leaf=p.min_data_in_leaf,
         min_sum_hessian_in_leaf=p.min_sum_hessian_in_leaf)
-    fmask = torch.ones(n_features, dtype=torch.bool, device=dev)
+    renew_q = (None if p.objective not in RENEWAL_OBJECTIVES else
+               p.alpha if p.objective == "quantile" else 0.5)
+    gen = torch.Generator(device=dev)
     patience = p.early_stopping_round
     track = has_valid and (patience > 0 or p.metric is not None)
     trees, eval_history = [], []
+    train_deltas, val_deltas, dart_weights = [], [], []
     best_metric, best_iter, rounds_since = None, -1, 0
 
     for it in range(p.num_iterations):
-        grad, hess = _grad_hess(p, margin, y_j, y_onehot)
+        gen.manual_seed(_iteration_seed(p.seed, it))
+        # dart: drop a subset of earlier iterations from this one's margin
+        dropped = _dart_drops(p, gen, len(train_deltas)) if dart else []
+        if dropped:
+            margin_used = margin
+            for t_i in dropped:
+                margin_used = (margin_used
+                               - train_deltas[t_i] * dart_weights[t_i])
+        elif rf:
+            margin_used = init_margin
+        else:
+            margin_used = margin
+
+        grad, hess = _grad_hess(p, margin_used, y_j, y_onehot, g_idx)
         if w_j is not None:
             grad = grad * (w_j[:, None] if multiclass else w_j)
             hess = hess * (w_j[:, None] if multiclass else w_j)
+        row_w = _row_weights(p, grad, gen, it, multiclass)
+        if row_w is not None:
+            grad = grad * (row_w[:, None] if multiclass else row_w)
+            hess = hess * (row_w[:, None] if multiclass else row_w)
+        fmask = _feature_mask(p, gen, n_features)
+        count_w = _presence(row_w)
+
+        it_deltas = torch.zeros_like(margin) if multiclass else 0.0
+        if has_valid:
+            v_it_delta = torch.zeros_like(v_margin) if multiclass else 0.0
         for k in range(k_out):
             gk = grad[:, k] if multiclass else grad
             hk = hess[:, k] if multiclass else hess
-            tree, delta = trainer.train_one_tree(d_bins, gk, hk, fmask, cfg)
+            tree, delta = trainer.train_one_tree(
+                d_bins, gk, hk, fmask, cfg, count_w=count_w,
+                lo_planes=lo_planes, plane_lo=plane_lo)
+            if renew_q is not None:
+                tree, delta = _renew_leaves(
+                    tree, d_bins, y_j - margin_used,
+                    None if w_j is None else w_j > 0, renew_q, lr,
+                    cfg.max_depth)
             trees.append(tree)
             if multiclass:
-                margin[:, k] += delta
+                it_deltas[:, k] += delta
             else:
-                margin = margin + delta
+                it_deltas = delta
             if has_valid:
                 vd = trainer.predict_binned(v_bins, tree.split_feature,
                                             tree.split_bin, tree.leaf_value,
                                             cfg.max_depth)
                 if multiclass:
-                    v_margin[:, k] += vd
+                    v_it_delta[:, k] += vd
                 else:
-                    v_margin = v_margin + vd
+                    v_it_delta = vd
+
+        if dart:
+            # LightGBM's weight normalization; with nothing dropped the new
+            # iteration's weight is 1 (xgboost mode: the learning rate)
+            k_dropped = len(dropped)
+            new_w = lr if p.xgboost_dart_mode else 1.0 / (k_dropped + 1.0)
+            scale = k_dropped / (k_dropped + 1.0)
+            for t_i in dropped:
+                shrink = dart_weights[t_i] * (1 - scale)
+                margin = margin - train_deltas[t_i] * shrink
+                if has_valid:
+                    v_margin = v_margin - val_deltas[t_i] * shrink
+                dart_weights[t_i] *= scale
+            train_deltas.append(it_deltas)
+            dart_weights.append(new_w)
+            margin = margin + it_deltas * new_w
+            if has_valid:
+                val_deltas.append(v_it_delta)
+                v_margin = v_margin + v_it_delta * new_w
+        else:
+            margin = margin + it_deltas
+            if has_valid:
+                v_margin = v_margin + v_it_delta
+
         if track:
             mv, larger = _device_metric(p.metric, p.objective, v_margin, vy_j)
             mv = float(mv)      # the early-stopping decision needs the host
@@ -298,6 +486,9 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
     else:
         cols = [np.zeros((0, max_nodes), np.float32) for _ in range(5)]
     sf, sb, lv, gn, cv = cols
+    if dart and trees:      # each tree carries its iteration's dart weight
+        lv = lv * np.repeat(np.asarray(dart_weights, np.float32),
+                            k_out)[:, None]
     tree_classes = np.tile(np.arange(k_out, dtype=np.int32),
                            len(trees) // max(k_out, 1))
     booster = _build_booster(

@@ -1,11 +1,13 @@
-"""GBDT pipeline stages: the LightGBMClassifier/Regressor equivalents.
+"""GBDT pipeline stages: the LightGBMClassifier/Regressor/Ranker
+equivalents.
 
 Port of `mmlspark_tpu/models/gbdt/estimators.py`:
-`GBDTClassifier(...).fit(table).transform(table)`. Param names are the
-reference's, so a pipeline can switch packages. Params whose features
-this slice does not port raise NotImplementedError at fit when set to
-anything but their inert value, naming the ROADMAP item that will port
-them. One param is the port's own: `device` (None = the card). One
+`GBDTClassifier(...).fit(table).transform(table)`, likewise
+`GBDTRegressor` and `GBDTRanker` (lambdarank over a group column). Param
+names are the reference's, so a pipeline can switch packages. Params
+whose features the port does not run yet raise NotImplementedError at
+fit when set to anything but their inert value, naming the ROADMAP item
+that will port them. One param is the port's own: `device` (None = the card). One
 default differs: `quality_profile` is False here, because freezing a
 fit-time profile (the reference's default) is not ported yet; True
 raises.
@@ -34,7 +36,6 @@ def _host(col, dtype) -> np.ndarray:
 _UNPORTED = {
     "categorical_slot_indexes": (bool, 9),
     "categorical_slot_names": (bool, 9),
-    "fobj": (lambda v: v is not None, 10),
     "num_batches": (lambda v: v > 1, 11),
     "checkpoint_dir": (bool, 11),
     "leaf_prediction_col": (bool, 14),
@@ -159,6 +160,8 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
             tweedie_variance_power=getattr(
                 self, "tweedie_variance_power",
                 BoostParams.tweedie_variance_power),
+            max_position=getattr(self, "max_position",
+                                 BoostParams.max_position),
             fobj=self.fobj, objective=objective, boosting=self.boosting,
             num_iterations=self.num_iterations,
             learning_rate=self.learning_rate, num_leaves=self.num_leaves,
@@ -192,7 +195,8 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
             return table.filter(~mask), (vx, vy)
         return table, None
 
-    def _train(self, table: Table, objective: str, num_class: int = 1):
+    def _train(self, table: Table, objective: str, num_class: int = 1,
+               group: Optional[np.ndarray] = None):
         self._check_ported()
         train, valid = self._split_validation(table)
         x = _host(train[self.features_col], np.float32)
@@ -202,9 +206,13 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
         init = (_host(train[self.init_score_col], np.float32)
                 if self.init_score_col and self.init_score_col in train
                 else None)
+        if group is not None and self.validation_indicator_col:
+            # the training rows' ids (the reference passes the whole
+            # table's: ROADMAP Queue 3 (n))
+            group = group[~_host(table[self.validation_indicator_col], bool)]
         return fit_booster(x, y, self._boost_params(objective, num_class),
                            weights=w, init_scores=init, valid=valid,
-                           device=self.device)
+                           group=group, device=self.device)
 
 
 class _GBDTModelBase(Model, HasFeaturesCol, HasPredictionCol):
@@ -273,8 +281,8 @@ class GBDTClassificationModel(_GBDTModelBase, HasProbabilitiesCol):
 
 
 class GBDTRegressor(Estimator, _GBDTParams):
-    """GBDT regressor (regression_l1/huber/quantile wait for leaf renewal,
-    ROADMAP Queue 1 item 10)."""
+    """GBDT regressor; regression_l1/huber/quantile refit each leaf to a
+    residual quantile."""
     objective = Param("objective", "regression objective", "regression",
                       validator=one_of("regression", "regression_l2",
                                        "regression_l1", "huber", "quantile",
@@ -299,3 +307,24 @@ class GBDTRegressionModel(_GBDTModelBase):
     def _transform(self, t: Table) -> Table:
         return t.with_column(self.prediction_col,
                              self._link(self._raw(t)[:, 0]))
+
+
+class GBDTRanker(Estimator, _GBDTParams):
+    """LambdaRank ranker with a group column (reference: LightGBMRanker)."""
+    group_col = Param("group_col", "query/group id column", "group")
+    max_position = Param("max_position", "NDCG truncation", 30)
+
+    def _fit(self, table: Table) -> "GBDTRankerModel":
+        _, group_ids = np.unique(_host(table[self.group_col], None),
+                                 return_inverse=True)
+        booster, base, _ = self._train(table, "lambdarank",
+                                       group=group_ids.astype(np.int32))
+        return GBDTRankerModel(
+            booster=booster, init_score=base, features_col=self.features_col,
+            prediction_col=self.prediction_col, device=self.device)
+
+
+class GBDTRankerModel(_GBDTModelBase):
+    def _transform(self, t: Table) -> Table:
+        return t.with_column(self.prediction_col,
+                             self._raw(t)[:, 0].astype(np.float64))

@@ -103,11 +103,14 @@ def _best_splits_for_level(hg, hh, hc, feature_mask, cfg: TreeConfig,
 
 def train_one_tree(bins: torch.Tensor, grad: torch.Tensor,
                    hess: torch.Tensor, feature_mask: torch.Tensor,
-                   cfg: TreeConfig, count_w=None):
-    """Grow one tree. grad/hess already fold in sample weights. `count_w`
-    is the presence indicator for min_data_in_leaf counting (None = every
-    row counts). Returns (Tree, delta) with delta = leaf_value of each
-    row's resting node."""
+                   cfg: TreeConfig, count_w=None, lo_planes=None,
+                   plane_lo: int = 0):
+    """Grow one tree. grad/hess already fold in sample weights and
+    bagging/GOSS row weights. `count_w` is the presence indicator for
+    min_data_in_leaf counting (None = every row counts). `lo_planes`/
+    `plane_lo`: the fit's histogram plan (`ops.histogram.build_hist_plan`),
+    which every level of every tree reuses. Returns (Tree, delta) with
+    delta = leaf_value of each row's resting node."""
     n = bins.shape[0]
     dev = bins.device
     i32 = torch.int32
@@ -133,13 +136,14 @@ def train_one_tree(bins: torch.Tensor, grad: torch.Tensor,
         if depth == 0:
             hg, hh, hc = node_feature_histograms(
                 bins, grad, hess, node_local, active, m, cfg.n_bins,
-                count_w=count_w)
+                count_w=count_w, lo_planes=lo_planes, plane_lo=plane_lo)
             child_valid = torch.ones(m, dtype=torch.bool, device=dev)
         else:
             left_active = active & (node_local % 2 == 0)
             lg, lh, lc = node_feature_histograms(
                 bins, grad, hess, node_local // 2, left_active, m // 2,
-                cfg.n_bins, count_w=count_w)
+                cfg.n_bins, count_w=count_w, lo_planes=lo_planes,
+                plane_lo=plane_lo)
             hg = _interleave(lg, prev_hists[0] - lg)
             hh = _interleave(lh, prev_hists[1] - lh)
             hc = _interleave(lc, prev_hists[2] - lc)
@@ -218,12 +222,18 @@ def _descend(feature_rows, split_feature, threshold, max_depth: int):
     return node
 
 
+def leaf_of_binned(bins, split_feature, split_bin, max_depth: int):
+    """Resting heap node per binned row through one tree (leaf-output
+    renewal)."""
+    return _descend(bins.to(torch.int32), split_feature,
+                    split_bin.to(torch.int32), max_depth)
+
+
 def predict_binned(bins, split_feature, split_bin, leaf_value,
                    max_depth: int):
     """Score binned rows through one tree (train-time validation margins)."""
-    node = _descend(bins.to(torch.int32), split_feature,
-                    split_bin.to(torch.int32), max_depth)
-    return leaf_value[node]
+    return leaf_value[leaf_of_binned(bins, split_feature, split_bin,
+                                     max_depth)]
 
 
 def predict_raw(x, split_feature, threshold, leaf_value, tree_class,

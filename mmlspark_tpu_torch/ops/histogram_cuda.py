@@ -1,11 +1,13 @@
 """Wrappers of the CUDA histogram kernels (`csrc/histogram.cu`).
 
-Two entry points, one `.cu`: `hist_smem` (per-block shared-memory
-histograms, the main path) and `hist_global` (global atomics, for an
-m*B too large for one block's shared memory). `cuda_hist` picks between
-them by that size alone. Each wrapper checks its inputs, allocates the
-zeroed outputs, launches on PyTorch's current stream, raises if the
-launch was refused, and adds one to its count in `launches`.
+Three entry points, one `.cu`: `hist_smem` (per-block shared-memory
+histograms, the main path), `hist_global` (global atomics, for an m*B
+too large for one block's shared memory) and `hist_planes` (the planes
+histogram of a fit that built a plan, `histogram.build_hist_plan`).
+`cuda_hist` picks between the first two by that size alone. Each wrapper
+checks its inputs, allocates the zeroed outputs, launches on PyTorch's
+current stream, raises if the launch was refused, and adds one to its
+count in `launches`.
 """
 from __future__ import annotations
 
@@ -15,10 +17,11 @@ import functools
 import torch
 
 from . import _build
+from .histogram import check_plan
 
 # launches per kernel, counted where each wrapper launches (and nowhere
 # else) so a run can show that its path went through the kernels
-launches = {"hist_smem": 0, "hist_global": 0}
+launches = {"hist_smem": 0, "hist_global": 0, "hist_planes": 0}
 
 # Launch geometry of hist_smem, from `chip_smoke.py --sweep` on the H100
 # at 8M x 32 x 64 bins (PERF.md): a block takes as many features as fit
@@ -52,6 +55,10 @@ def _library():
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, _P]
         lib.hist_global_launch.restype = ctypes.c_int
+        lib.hist_planes_launch.argtypes = [_P] * 9 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
+        lib.hist_planes_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -78,8 +85,13 @@ def smem_limit(device: torch.device) -> int:
 def smem_geometry(n: int, f: int, n_nodes: int, n_bins: int,
                   device: torch.device) -> tuple[int, int]:
     """(features per block, row blocks per feature group) of a
-    `hist_smem` launch."""
+    `hist_smem` or `hist_planes` launch. Raises when one feature's
+    3*m*B f32 does not fit a block."""
     per_feat = smem_bytes_per_feature(n_nodes, n_bins)
+    if per_feat > smem_limit(device):
+        raise ValueError(f"m={n_nodes}, B={n_bins} needs {per_feat} B of "
+                         f"shared memory per feature; the card allows "
+                         f"{smem_limit(device)} (use hist_global)")
     sms = _card(device.index or 0)[1]
     fg = max(1, min(SMEM_TARGET_BYTES // per_feat, f))
     groups = -(-f // fg)
@@ -135,16 +147,10 @@ def hist_smem(bins, grad, hess, node_local, active, n_nodes: int,
               n_bins: int, count_w=None):
     """Shared-memory kernel. A block takes as many features as fit
     `SMEM_TARGET_BYTES` (at least one, which may use the card's opt-in
-    limit). Raises when one feature's 3*m*B f32 does not fit."""
+    limit; `smem_geometry` raises when one does not fit)."""
     ops, outs = _prepare(bins, grad, hess, node_local, active, n_nodes,
                          n_bins, count_w)
     n, f = bins.shape
-    per_feat = smem_bytes_per_feature(n_nodes, n_bins)
-    limit = smem_limit(bins.device)
-    if per_feat > limit:
-        raise ValueError(f"m={n_nodes}, B={n_bins} needs {per_feat} B of "
-                         f"shared memory per feature; the card allows "
-                         f"{limit} (use hist_global)")
     _launch_smem(ops, outs, n, f, n_nodes, n_bins,
                  *smem_geometry(n, f, n_nodes, n_bins, bins.device))
     return tuple(outs)
@@ -174,6 +180,33 @@ def hist_global(bins, grad, hess, node_local, active, n_nodes: int,
                                              n_nodes, n_bins, blocks,
                                              stream), "hist_global")
     launches["hist_global"] += 1
+    return tuple(outs)
+
+
+def hist_planes(bins, grad, hess, node_local, active, n_nodes: int,
+                n_bins: int, count_w=None, lo_planes=None, plane_lo: int = 0):
+    """Planes kernel: the histograms from the fit's (F, n, LO) int8 plan,
+    with grad/hess/count rounded to bf16 (`histogram._torch_hist_planes`
+    is its plain version). Launch geometry as `hist_smem`'s. Raises when
+    the plan does not fit these bins or one feature's 3*m*B f32 does not
+    fit a block."""
+    if lo_planes is None:
+        raise ValueError("hist_planes needs the fit's plan (lo_planes)")
+    ops, outs = _prepare(bins, grad, hess, node_local, active, n_nodes,
+                         n_bins, count_w)
+    check_plan(bins, lo_planes, plane_lo, n_bins)
+    plan = lo_planes.contiguous()
+    if plan.data_ptr() % 16:
+        raise ValueError("the plan must be 16-byte aligned (one vector "
+                         "load per 16 plan bytes)")
+    n, f = bins.shape
+    fg, row_blocks = smem_geometry(n, f, n_nodes, n_bins, bins.device)
+    with torch.cuda.device(bins.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _check(_library().hist_planes_launch(
+            plan.data_ptr(), *_ptrs(ops, outs), n, f, n_nodes, n_bins,
+            plane_lo, fg, row_blocks, stream), "hist_planes")
+    launches["hist_planes"] += 1
     return tuple(outs)
 
 

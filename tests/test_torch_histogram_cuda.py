@@ -61,9 +61,11 @@ def test_dispatch_launches_kernel_and_counts(cuda_device):
     t = [torch.as_tensor(a).to(cuda_device) for a in _data(5000, 4, 4, 64)]
     hc.reset_launches()
     port.node_feature_histograms(*t[:5], 4, 64, count_w=t[5])
-    assert hc.launches == {"hist_smem": 1, "hist_global": 0}
+    assert hc.launches == {"hist_smem": 1, "hist_global": 0,
+                           "hist_planes": 0}
     port.node_feature_histograms(*t[:5], 512, 64)
-    assert hc.launches == {"hist_smem": 1, "hist_global": 1}
+    assert hc.launches == {"hist_smem": 1, "hist_global": 1,
+                           "hist_planes": 0}
 
 
 @pytest.mark.gpu
