@@ -5,7 +5,8 @@
     python3 chip_smoke.py --profile  # also prints torch.profiler tables
                                      # of one boosting iteration, of one
                                      # flash encode_long and of one LM
-                                     # training step
+                                     # training step without and with
+                                     # the ring
     python3 chip_smoke.py --sweep    # also times the shared-memory
                                      # kernel's launch geometries
 
@@ -81,6 +82,29 @@ Phases (any failure exits non-zero before the last line is printed):
      0-4, 256 bins, depth 8), 5 counted iterations, NDCG@10 rising over
      them, and NDCG@10 after 3 trees against a 3-iteration fit on the
      plain histograms.
+  10. ring attention (slice 5): the flash kernel's stats form
+     (`flash_stats_fwd`) against `_flash_stats_plain` at the flagship
+     shard shape (S_loc = 4096, H = 8, D = 128, f32 and bf16) on every
+     pair of a four-shard ring step: diagonal, fully visible, fully masked
+     (every row flagged: acc = 0, l = 0, m = -1e30) and non-causal, held on
+     the rows with a visible key (`_stats_check`), shown to reject
+     k_offset one 64-key tile off, timed beside the plain version, one
+     SDPA on the same pair and the bound; four shards merged on the card
+     against the plain attention of all 16,384 tokens and `flash_fwd`.
+     The backward kernels at the same offsets (lse := m, dsum := -d_l,
+     dO := d_acc in f32) against `_flash_backward_plain` within
+     `_BWD_TOL`, timed. Then the flagship LM on the ring mesh
+     (data, pipe, model, seq) = (1, 1, 1, 4), four positions on one card:
+     one counted step with exactly 192 `flash_stats_fwd`, 192
+     `flash_bwd_dq`, 192 `flash_bwd_dkv` and 0 `flash_fwd` launches
+     (12 layers x 16 pairs) and its loss against the [train] trainer's
+     first loss within `_RING_LOSS_TOL`, `run` of 3 timed steps (s/step,
+     tokens/s, `lm_train_mfu`, peak memory, a falling loss), and one f32
+     SGD step at S=2048 on the ring mesh and on a (1, 1, 1, 1) mesh (the
+     degenerate route: 12 `flash_fwd`, no stats launch) whose updated
+     weights agree within `_TRAIN_TOL`. The encoder phase (5) also runs
+     `encode_long` with attention="ring" over 4 positions of the card,
+     held against its flash encode within `_ENCODE_TOL`.
 The headline fit (4) is timed 3 times (min and median), and every
 phase's seconds are printed.
 The kernel phase (3) also holds the flash backward kernels, dq and dk/dv,
@@ -1077,6 +1101,7 @@ def encoder_phase(dev, profile: bool):
                                                init_transformer,
                                                transformer_apply)
     from mmlspark_tpu_torch.ops import flash_attention as fa
+    from mmlspark_tpu_torch.parallel import data_mesh
 
     t0 = time.perf_counter()
     tree = init_transformer(1 << ENCODER["vocab_bits"], ENCODER["d_model"],
@@ -1142,7 +1167,24 @@ def encoder_phase(dev, profile: bool):
         paths[adt or "float32"] = dict(launches=n, s=wall, peak=peak,
                                        dense_s=dense_wall,
                                        dense_peak=dense_peak, diff=diff)
+        if adt is None:
+            flash32 = flash
         del flash, dense
+
+    # the sequence-parallel encode: attention="ring" (dense blocks, as the
+    # reference's encoder runs it) over 4 positions of this card
+    mesh = data_mesh(devices=[dev] * 4)
+    enc.set(attention="ring", attention_dtype=None)
+    ring, n, wall, peak = run("encode_long ring float32, 4 positions",
+                              lambda: enc.encode_long(tokens, mesh=mesh))
+    diff = float(np.abs(ring - flash32).max())
+    log(f"[encoder] ring vs flash float32: max |diff| {diff:.3g} (limit "
+        f"{_ENCODE_TOL[None]})")
+    if any(fa.launches.values()) or not np.isfinite(ring).all() or \
+            ring.shape != flash32.shape or diff > _ENCODE_TOL[None]:
+        raise AssertionError("ring and flash encodes disagree")
+    paths["ring"] = dict(launches=n, s=wall, peak=peak, diff=diff)
+    del ring, flash32
 
     params = enc._ensure_params()
     tok = torch.as_tensor(tokens, device=dev)
@@ -1326,6 +1368,317 @@ def _bwd_check_sees_faults(ops, causal, scale, want, lims, tag):
                     for f, v in fracs.items()))
 
 
+# one ring step's (q shard, kv shard) pairs at the flagship shard shape:
+# S_loc = 16384 / 4, global offsets (q_offset, k_offset, causal)
+STATS_SHARD, STATS_H, STATS_D = SEQ // 4, 8, 128
+STATS_PAIRS = {"diagonal": (STATS_SHARD, STATS_SHARD, True),
+               "full": (3 * STATS_SHARD, 0, True),
+               "masked": (0, 3 * STATS_SHARD, True),
+               "noncausal": (0, 3 * STATS_SHARD, False)}
+
+
+def _visible_pairs(sq, sk, q_off, k_off, causal):
+    """(query, key) pairs the mask keeps at global offsets."""
+    if not causal:
+        return sq * sk
+    return sum(min(max(q_off + i - k_off + 1, 0), sk) for i in range(sq))
+
+
+def _stats_bound(sq, sk, h, d, dtype, q_off, k_off, causal):
+    """(ms, "bytes" or "operations") of the stats form: 4 * (visible
+    pairs) * D * H FLOPs over the dtype's peak, against q, k, v read once
+    and the f32 acc, m and l written once."""
+    import torch
+    peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
+        else PEAK_F32_FLOP_PER_S
+    t_ops = 4 * _visible_pairs(sq, sk, q_off, k_off, causal) * d * h / peak
+    size = torch.tensor([], dtype=dtype).element_size()
+    t_bytes = ((sq + 2 * sk) * h * d * size + 4 * sq * h * d + 8 * h * sq) \
+        / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        ("bytes" if t_bytes > t_ops else "operations")
+
+
+def _stats_bwd_bound(sq, sk, h, d, dtype, q_off, k_off, causal,
+                     n_products):
+    """`_bwd_bound` of a stats pair: `n_products` products of 2 * (visible
+    pairs) * D per head, against q, k, v, dO (f32) and the f32 m and dsum
+    read once and dq, dk, dv written once (both kernels' operands and
+    outputs together)."""
+    import torch
+    peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
+        else PEAK_F32_FLOP_PER_S
+    t_ops = n_products * 2 * _visible_pairs(sq, sk, q_off, k_off, causal) \
+        * d * h / peak
+    size = torch.tensor([], dtype=dtype).element_size()
+    t_bytes = ((2 * sq + 4 * sk) * h * d * size + 4 * sq * h * d
+               + 8 * h * sq) / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        ("bytes" if t_bytes > t_ops else "operations")
+
+
+def _share_of_limit(got, want, lim):
+    """max |got - want| / limit over the elements, where an exact match
+    counts 0 even at a limit of 0 (the fully masked pair's) and any other
+    difference there counts inf."""
+    import torch
+    diff = (got.float() - want.float()).abs()
+    return float(torch.where(diff == 0, 0.0, diff / lim).max())
+
+
+def _stats_check(got, want, q, k, v, pair, scale):
+    """The stats form's check on the rows with a visible key: m and
+    lse = m + log l within `_LSE_TOL`, acc / l within `_FLASH_F32_TOL`
+    (f32) or the bf16 limit at the pair's offsets; rows without one must be
+    exactly acc = 0, l = 0, m = -1e30 and all of acc and l finite.
+    Returns (max |acc - plain| over live rows, share of the bf16 limit
+    used); raises on a miss."""
+    import torch
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    q_off, k_off, causal = STATS_PAIRS[pair]
+    acc, m, l = got
+    w_acc, w_m, w_l = want
+    if not bool(torch.isfinite(acc).all() and torch.isfinite(l).all()):
+        raise AssertionError(f"{pair}: acc or l not finite")
+    flagged = w_m <= -1e29
+    if not (torch.equal(m <= -1e29, flagged)
+            and bool((acc[flagged.T] == 0).all())
+            and bool((l[flagged] == 0).all())):
+        raise AssertionError(f"{pair}: rows without a visible key are not "
+                             f"acc = 0, l = 0, m = -1e30")
+    live = ~flagged
+    if not bool(live.any()):
+        return 0.0, 0.0
+    torch.testing.assert_close(m[live], w_m[live], rtol=_LSE_TOL[0],
+                               atol=_LSE_TOL[1])
+    torch.testing.assert_close((m + l.log())[live], (w_m + w_l.log())[live],
+                               rtol=_LSE_TOL[0], atol=_LSE_TOL[1])
+    rows = live.T
+    err = float((acc - w_acc)[rows].abs().max())
+    out = acc / l.clamp_min(1e-30).T[:, :, None]
+    w_out = w_acc / w_l.clamp_min(1e-30).T[:, :, None]
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(out[rows], w_out[rows],
+                                   rtol=_FLASH_F32_TOL[0],
+                                   atol=_FLASH_F32_TOL[1])
+        return err, 0.0
+    lim = (_BF16_OUT_ULP * w_out.abs() + _BF16_P_NOISE
+           * fa._bf16_rounding_scale(q, k, v, causal, scale, q_off, k_off))
+    used = _share_of_limit(out[rows], w_out[rows], lim[rows])
+    if used > 1:
+        raise AssertionError(f"{pair}: acc / l off by {used:.3g} x the bf16 "
+                             f"limit")
+    return err, used
+
+
+def _stats_sdpa(q, k, v, pair, scale):
+    """The library yardstick of a pair: one SDPA call on the same q, k, v,
+    causal where the pair is diagonal, full where every key is visible,
+    None for a fully masked pair (nothing to compute). SDPA returns the
+    normalized output, not (acc, m, l)."""
+    q_off, k_off, causal = STATS_PAIRS[pair]
+    if causal and q_off < k_off:
+        return None
+    return _sdpa_call(q, k, v, causal and q_off == k_off, scale)
+
+
+def stats_kernel_phase(dev):
+    """`flash_stats_fwd` against `_flash_stats_plain` on the same CUDA
+    tensors at the flagship shard shape, every pair of a ring step, f32 and
+    bf16, timed beside the plain version, SDPA and the bound; the check
+    shown to reject k_offset one 64-key tile off; then a ring of four
+    shards on the card against the plain attention of the whole 16,384
+    tokens and against `flash_fwd`."""
+    import torch
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    from mmlspark_tpu_torch.parallel import data_mesh
+    from mmlspark_tpu_torch.parallel.ring_attention import ring_attention
+    gen = torch.Generator(device=dev).manual_seed(4)
+    scale = 1.0 / STATS_D ** 0.5
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(STATS_SHARD, STATS_H, STATS_D, device=dev,
+                               generator=gen).to(dtype) for _ in range(3))
+        for pair, (q_off, k_off, causal) in STATS_PAIRS.items():
+            got = fa.flash_stats_fwd(q, k, v, q_off, k_off, causal, scale)
+            want = fa._flash_stats_plain(q, k, v, q_off, k_off, causal,
+                                         scale)
+            torch.cuda.synchronize()
+            tag = (f"flash_stats_fwd {pair} S_loc={STATS_SHARD} "
+                   f"offsets=({q_off}, {k_off}) causal={causal} "
+                   f"{str(dtype)[6:]}")
+            err, used = _stats_check(got, want, q, k, v, pair, scale)
+            n_flagged = int((got[1] <= -1e29).sum())
+            if pair == "diagonal":
+                bad = fa.flash_stats_fwd(q, k, v, q_off, k_off + 64, causal,
+                                         scale)
+                try:
+                    _stats_check(bad, want, q, k, v, pair, scale)
+                except AssertionError:
+                    pass
+                else:
+                    raise AssertionError(f"{tag}: k_offset one tile off "
+                                         f"passes the check")
+                del bad
+            del got, want
+            row = dict(pair=pair, q_off=q_off, k_off=k_off, causal=causal,
+                       dtype=str(dtype)[6:], max_abs_err=err,
+                       bf16_limit_used=used, flagged_rows=n_flagged)
+            row["ms"] = timed(lambda: fa.flash_stats_fwd(
+                q, k, v, q_off, k_off, causal, scale), warmup=2, reps=10)
+            row["plain_ms"] = timed(lambda: fa._flash_stats_plain(
+                q, k, v, q_off, k_off, causal, scale), warmup=1, reps=3)
+            lib = _stats_sdpa(q, k, v, pair, scale)
+            row["library_ms"] = (timed(lib, warmup=2, reps=10)
+                                 if lib is not None else None)
+            del lib
+            row["bound_ms"], row["bound_by"] = _stats_bound(
+                STATS_SHARD, STATS_SHARD, STATS_H, STATS_D, dtype, q_off,
+                k_off, causal)
+            lib_s = (f"{row['library_ms']:.3f} ms"
+                     if row["library_ms"] is not None else "none (no key "
+                     "visible)")
+            log(f"[stats kernel] {tag}: match (acc {err:.3g}"
+                + (f", {used:.3f} of the bf16 limit" if used else "")
+                + f"; {n_flagged} flagged rows"
+                + (", k_offset one tile off fails the check"
+                   if pair == "diagonal" else "")
+                + f"); kernel {row['ms']:.3f} ms, plain "
+                f"{row['plain_ms']:.3f} ms, one SDPA {lib_s}, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            results.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # four shards merged on the card, as the ring merges them
+    mesh = data_mesh(devices=[dev] * 4)
+    merged = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(SEQ, STATS_H, STATS_D, device=dev,
+                               generator=gen).to(dtype) for _ in range(3))
+        fa.reset_launches()
+        ring = ring_attention(q, k, v, mesh=mesh, causal=True,
+                              block_impl="flash")
+        n = fa.launches["flash_stats_fwd"]
+        single = fa.flash_fwd(q, k, v, True, scale)[0]
+        want = fa._flash_forward_lse_plain(q, k, v, True, scale)[0]
+        torch.cuda.synchronize()
+        tag = f"ring of 4 shards, S={SEQ}, causal, {str(dtype)[6:]}"
+        if dtype == torch.float32:
+            torch.testing.assert_close(ring, want, rtol=_FLASH_F32_TOL[0],
+                                       atol=_FLASH_F32_TOL[1], msg=tag)
+            used = 0.0
+        else:
+            used = _limit_used(ring, want, _bf16_limit(q, k, v, True, scale,
+                                                       want))
+            if used > 1:
+                raise AssertionError(f"{tag}: off by {used:.3g} x the bf16 "
+                                     f"limit")
+        vs_single = float((ring.float() - single.float()).abs().max())
+        if n != 16:
+            raise AssertionError(f"{tag}: {n} stats launches, expected 16")
+        log(f"[stats kernel] {tag}: {n} stats launches; matches the plain "
+            f"attention of all {SEQ} tokens"
+            + (f" ({used:.3f} of the bf16 limit)" if used else "")
+            + f"; max |ring - flash_fwd| {vs_single:.3g}")
+        merged[str(dtype)[6:]] = dict(vs_flash_fwd=vs_single,
+                                      bf16_limit_used=used)
+        del q, k, v, ring, single, want
+        torch.cuda.empty_cache()
+    return dict(pairs=results, merged=merged)
+
+
+def stats_bwd_kernel_phase(dev):
+    """`flash_bwd_dq` and `flash_bwd_dkv` at the stats pairs' offsets
+    (lse := m from the stats kernel, dsum := -d_l, dO := d_acc in f32, d_acc
+    and d_l seeded) against `_flash_backward_plain` at the same offsets,
+    per element within `flash_attention._BWD_TOL`; the bf16 check shown
+    to reject k_offset one tile off; timed beside the plain version, one
+    SDPA backward and the bound."""
+    import torch
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(5)
+    scale = 1.0 / STATS_D ** 0.5
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(STATS_SHARD, STATS_H, STATS_D, device=dev,
+                               generator=gen).to(dtype) for _ in range(3))
+        d_acc = torch.randn(STATS_SHARD, STATS_H, STATS_D, device=dev,
+                            generator=gen)
+        dsum = -torch.randn(STATS_H, STATS_SHARD, device=dev, generator=gen)
+        for pair, (q_off, k_off, causal) in STATS_PAIRS.items():
+            m = fa.flash_stats_fwd(q, k, v, q_off, k_off, causal, scale)[1]
+            ops = (q, k, v, d_acc, m, dsum)
+            off = (q_off, k_off)
+            got = (fa.flash_bwd_dq(*ops, causal, scale, *off),
+                   *fa.flash_bwd_dkv(*ops, causal, scale, *off))
+            want = fa._flash_backward_plain(*ops, causal, scale, *off)
+            torch.cuda.synchronize()
+            lims = fa._bwd_limits(*ops, causal, scale, want, *off)
+            tag = (f"flash_bwd stats {pair} S_loc={STATS_SHARD} offsets="
+                   f"({q_off}, {k_off}) causal={causal} {str(dtype)[6:]}")
+            used, errs = [], []
+            for name, g, w, lim in zip(("dq", "dk", "dv"), got, want, lims):
+                if g.dtype != dtype or not bool(
+                        torch.isfinite(g.float()).all()):
+                    raise AssertionError(f"{tag}: {name} is not finite "
+                                         f"{dtype}")
+                used.append(_share_of_limit(g, w, lim))
+                errs.append(float((g.float() - w.float()).abs().max()))
+            if max(used) > 1:
+                raise AssertionError(f"{tag}: off by {max(used):.3g} x the "
+                                     f"limit (dq, dk, dv: {used})")
+            msg = (f"[stats backward] {tag}: match, max abs err dq/dk/dv "
+                   f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g}, "
+                   f"{used[0]:.3f}/{used[1]:.3f}/{used[2]:.3f} of the limit")
+            if pair == "diagonal" and dtype == torch.bfloat16:
+                bad = (fa.flash_bwd_dq(*ops, causal, scale, q_off,
+                                       k_off + 64),
+                       *fa.flash_bwd_dkv(*ops, causal, scale, q_off,
+                                         k_off + 64))
+                over = [float(((g.float() - w.float()).abs() > lim).float()
+                              .mean()) for g, w, lim in zip(bad, want, lims)]
+                if min(over) == 0:
+                    raise AssertionError(f"{tag}: k_offset one tile off "
+                                         f"passes the check: {over}")
+                msg += ("; k_offset one tile off: share outside the limit "
+                        + "/".join(f"{x:.4f}" for x in over))
+                del bad
+            del got, want, lims
+            row = dict(pair=pair, q_off=q_off, k_off=k_off, causal=causal,
+                       dtype=str(dtype)[6:], max_abs_err=max(errs),
+                       limit_used=max(used))
+            row["dq_ms"] = timed(lambda: fa.flash_bwd_dq(
+                *ops, causal, scale, *off), warmup=1, reps=5)
+            row["dkv_ms"] = timed(lambda: fa.flash_bwd_dkv(
+                *ops, causal, scale, *off), warmup=1, reps=5)
+            row["plain_ms"] = timed(lambda: fa._flash_backward_plain(
+                *ops, causal, scale, *off), warmup=1, reps=2)
+            if causal and q_off < k_off:
+                row["library_ms"] = None
+            else:
+                lib = _sdpa_backward_call(q, k, v, d_acc.to(dtype),
+                                          causal and q_off == k_off, scale)
+                row["library_ms"] = timed(lib, warmup=1, reps=5)
+                del lib
+            for key, n in (("dq_bound", 3), ("dkv_bound", 4)):
+                row[f"{key}_ms"], row[f"{key}_by"] = _stats_bwd_bound(
+                    STATS_SHARD, STATS_SHARD, STATS_H, STATS_D, dtype, q_off,
+                    k_off, causal, n)
+            lib_s = (f"{row['library_ms']:.3f} ms"
+                     if row["library_ms"] is not None else "none")
+            log(msg + f"; dq {row['dq_ms']:.3f} ms (bound "
+                f"{row['dq_bound_ms']:.4f} {row['dq_bound_by']}), dk/dv "
+                f"{row['dkv_ms']:.3f} ms (bound {row['dkv_bound_ms']:.4f} "
+                f"{row['dkv_bound_by']}); plain {row['plain_ms']:.3f} ms, "
+                f"one SDPA backward {lib_s}")
+            results.append(row)
+            del ops, m
+        del q, k, v, d_acc, dsum
+        torch.cuda.empty_cache()
+    return results
+
+
 # the flagship LM training step (bench.py:1965-2009, `BENCH_MODE=lm`),
 # nothing cut: one (1, 16384) sequence, bf16 compute with f32 master
 # weights and Adam, remat="save_attn", flash forward and backward
@@ -1411,6 +1764,7 @@ def lm_train_phase(dev, profile: bool):
         f"{time.perf_counter() - t0:.2f} s")
 
     want_step = {k: LM["n_layers"] for k in fa.launches}
+    want_step["flash_stats_fwd"] = 0       # no seq axis: no ring
     torch.cuda.synchronize()
     fa.reset_launches()
     t0 = time.perf_counter()
@@ -1473,6 +1827,151 @@ def lm_train_phase(dev, profile: bool):
                 checks=checks)
 
 
+# the ring trainer: the flagship LM on the four-card context-parallel
+# layout run on one card, (data, pipe, model, seq) = (1, 1, 1, 4)
+RING_MESH = (1, 1, 1, 4)
+# its first-step loss against the trainer without a seq axis (the same
+# weights and tokens, bf16): both average 16,383 next-token losses of
+# ~10.4 (ln 32768); the two attentions round p to bf16 against other
+# maxima (a shard pair's tile against the whole row's tile) and the ring
+# merges f32 accumulators before rounding the output, so each layer's
+# output moves by bf16 ulps of random sign (~3e-3 of a logit), and the
+# mean over the tokens moves by ~1e-5; 1e-3 (1e-4 of the loss) leaves room
+# for a systematic part. At initialization the loss hardly depends on
+# attention, so the S=2048 update check below is what holds the ring's
+# gradients
+_RING_LOSS_TOL = 1e-3
+
+
+def _ring_update_check(dev):
+    """One SGD step at S=2048 in f32 with attention="flash" on the ring
+    mesh and on a (1, 1, 1, 1) mesh from the same weights (the latter is
+    the degenerate route: no stats kernel, 12 `flash_fwd`). Returns the
+    largest per-leaf disagreement of the updated weights over the larger
+    update, both steps' launches and losses."""
+    import torch
+    from mmlspark_tpu_torch.models.dnn import PipelinedLMTrainer
+    from mmlspark_tpu_torch.models.dnn.pp_training import _leaves
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    from mmlspark_tpu_torch.parallel import (DATA_AXIS, MODEL_AXIS,
+                                             PIPE_AXIS, SEQ_AXIS, grid_mesh)
+    axes = (DATA_AXIS, PIPE_AXIS, MODEL_AXIS, SEQ_AXIS)
+    toks = np.random.default_rng(1).integers(
+        0, LM["vocab_size"], size=(1, _TRAIN_CHECK_SEQ)).astype(np.int32)
+    updated, losses, launches = {}, {}, {}
+    for shape in (RING_MESH, (1, 1, 1, 1)):
+        mesh = grid_mesh(shape, axes, devices=[dev] * int(np.prod(shape)))
+        t = PipelinedLMTrainer(mesh=mesh, n_microbatches=1,
+                               attention="flash", optimizer="sgd", lr=1.0,
+                               seed=0, compute_dtype="float32",
+                               remat="save_attn", **LM)
+        if shape == RING_MESH:
+            start = [a.detach().clone() for a in _leaves(t.params)]
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        losses[shape] = t.step(toks)
+        launches[shape] = dict(fa.launches)
+        updated[shape] = [a.detach() for a in _leaves(t.params)]
+        del t
+    worst = 0.0
+    for w0, wr, w1 in zip(start, updated[RING_MESH], updated[(1, 1, 1, 1)]):
+        step = float((w1 - w0).abs().max())
+        worst = max(worst, float((wr - w1).abs().max()) / max(step, 1e-30))
+    del start, updated
+    torch.cuda.empty_cache()
+    return worst, losses, launches
+
+
+def ring_train_phase(dev, cp1_first_loss: float, profile: bool):
+    """The LM training path on the ring mesh at the flagship width: one
+    step with the launch counts set to 0 just before and read just after,
+    then `run` of LM_STEPS timed steps (counts again set to 0 before and
+    read after); then the S=2048 f32 ring-vs-degenerate update check."""
+    import torch
+    from mmlspark_tpu_torch.models.dnn import PipelinedLMTrainer
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    from mmlspark_tpu_torch.parallel import (DATA_AXIS, MODEL_AXIS,
+                                             PIPE_AXIS, SEQ_AXIS, grid_mesh)
+    mesh = grid_mesh(RING_MESH, (DATA_AXIS, PIPE_AXIS, MODEL_AXIS, SEQ_AXIS),
+                     devices=[dev] * int(np.prod(RING_MESH)))
+    cp = RING_MESH[-1]
+    trainer = PipelinedLMTrainer(
+        mesh=mesh, n_microbatches=1, attention="flash", optimizer="adam",
+        seed=0, compute_dtype="bfloat16", remat="save_attn", **LM)
+    log(f"[ring train] {LM} on {mesh}: bf16 compute, f32 master + Adam, "
+        f"remat=save_attn, flash stats blocks")
+    toks = np.random.default_rng(0).integers(
+        0, LM["vocab_size"], size=(1, LM_SEQ)).astype(np.int32)
+    want_step = {"flash_fwd": 0, "flash_stats_fwd": LM["n_layers"] * cp * cp,
+                 "flash_bwd_dq": LM["n_layers"] * cp * cp,
+                 "flash_bwd_dkv": LM["n_layers"] * cp * cp}
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    loss1 = trainer.step(toks)
+    step1_s = time.perf_counter() - t0
+    per_step = dict(fa.launches)
+    log(f"[ring train] step 1 (untimed): loss {loss1:.6f} in {step1_s:.2f} "
+        f"s; launches {per_step}; the trainer without a seq axis: "
+        f"{cp1_first_loss:.6f} (|diff| {abs(loss1 - cp1_first_loss):.3g}, "
+        f"limit {_RING_LOSS_TOL})")
+    if per_step != want_step:
+        raise AssertionError(f"one ring training step launched {per_step}, "
+                             f"expected {want_step}")
+    if not abs(loss1 - cp1_first_loss) <= _RING_LOSS_TOL:
+        raise AssertionError("the ring trainer's first loss differs from "
+                             "the trainer without a seq axis")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    loss_last = trainer.run(toks, LM_STEPS)    # one host sync, at the end
+    run_s = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {k: LM_STEPS * v for k, v in want_step.items()}:
+        raise AssertionError(f"run({LM_STEPS}) launched {launches}")
+    s_step = run_s / LM_STEPS
+    mfu = _lm_flops_per_step() / s_step / PEAK_BF16_FLOP_PER_S
+    log(f"[ring train] run({LM_STEPS}): {s_step:.4f} s/step = "
+        f"{LM_SEQ / s_step:.4g} tokens/s; lm_train_mfu {mfu:.4f}; peak "
+        f"memory {peak / 2**30:.2f} GiB; launches {launches}; last loss "
+        f"{loss_last:.4f}")
+    if not (np.isfinite([loss1, loss_last]).all() and loss_last < loss1):
+        raise AssertionError(f"losses {loss1}, {loss_last}: not finite and "
+                             f"falling")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprof
+        with tprof(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            trainer.step(toks)
+            torch.cuda.synchronize()
+        log(prof.key_averages().table(sort_by="cuda_time_total",
+                                      row_limit=25))
+    del trainer
+    torch.cuda.empty_cache()
+
+    worst, losses, check_launches = _ring_update_check(dev)
+    degenerate = check_launches[(1, 1, 1, 1)]
+    log(f"[ring train] S={_TRAIN_CHECK_SEQ} SGD step float32, mesh "
+        f"{RING_MESH} vs (1, 1, 1, 1) from the same weights: losses "
+        f"{losses[RING_MESH]:.6f} / {losses[(1, 1, 1, 1)]:.6f}; updated "
+        f"weights differ by at most {worst:.3g} of the update per leaf "
+        f"(limit {_TRAIN_TOL['float32']}); launches "
+        f"{check_launches[RING_MESH]} / {degenerate}")
+    if worst > _TRAIN_TOL["float32"]:
+        raise AssertionError("ring and single-shard training disagree")
+    if degenerate != {"flash_fwd": LM["n_layers"], "flash_stats_fwd": 0,
+                      "flash_bwd_dq": LM["n_layers"],
+                      "flash_bwd_dkv": LM["n_layers"]}:
+        raise AssertionError(f"the (1, 1, 1, 1) mesh launched {degenerate}")
+    return dict(launches=launches, per_step=per_step, s_step=s_step,
+                tokens_per_s=LM_SEQ / s_step, mfu=mfu, peak=peak,
+                losses=[loss1, loss_last], cp1_first_loss=cp1_first_loss,
+                check=worst)
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -1507,6 +2006,8 @@ def main(argv) -> int:
     pres = phase("planes kernel", planes_kernel_phase, dev)
     fres = phase("flash kernel", flash_kernel_phase, dev)
     bres = phase("flash backward kernel", flash_bwd_kernel_phase, dev)
+    sres = phase("stats kernel", stats_kernel_phase, dev)
+    sbres = phase("stats backward", stats_bwd_kernel_phase, dev)
     if "--sweep" in argv:
         phase("sweep", sweep_phase, dev)
     data = phase("headline data", headline_data, dev)
@@ -1519,6 +2020,8 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     enc_paths = phase("encoder", encoder_phase, dev, profile)
     train = phase("lm training", lm_train_phase, dev, profile)
+    ring = phase("ring training", ring_train_phase, dev, train["losses"][0],
+                 profile)
 
     smem8 = [r for r in kres["hist_smem"] if r["m"] == 8][0]
     planes4 = [r for r in pres if r["m"] == 4 and r["b"] == MAX_BIN + 1][0]
@@ -1584,6 +2087,30 @@ def main(argv) -> int:
                                        "max_abs_err", "vs_smem")}
                     for r in pres]),
     ]
+    # the ring training path's pair: the diagonal, bf16 (the full pairs'
+    # times are in `variants`)
+    diag = [r for r in sres["pairs"] if r["pair"] == "diagonal"
+            and r["dtype"] == "bfloat16"][0]
+    ring_path = (f"PipelinedLMTrainer.run, {LM_STEPS} steps, flagship LM "
+                 f"bf16 at {LM_SEQ} tokens on a {RING_MESH} mesh of one card")
+    kernels.append(dict(
+        name="flash_stats_fwd", route="cuda",
+        source="mmlspark_tpu_torch/ops/csrc/flash_attention.cu",
+        replaces="mmlspark_tpu/ops/flash_attention.py:87 (_flash_kernel, "
+                 "stats form; pallas_call :373 in _flash_stats_forward)",
+        path=ring_path, launches=ring["launches"]["flash_stats_fwd"],
+        launches_per_step=ring["per_step"]["flash_stats_fwd"], passed=True,
+        **{k: diag[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")},
+        library="one scaled_dot_product_attention (normalized output) on "
+                "the same pair",
+        shape=dict(s_loc=STATS_SHARD, h=STATS_H, d=STATS_D, dtype="bfloat16",
+                   q_off=diag["q_off"], k_off=diag["k_off"], causal=True),
+        merged=sres["merged"],
+        variants=[{k: r[k] for k in (
+            "pair", "dtype", "q_off", "k_off", "causal", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "max_abs_err",
+            "bf16_limit_used", "flagged_rows")} for r in sres["pairs"]]))
     # the training path's shape: S=16384, H=8, D=128, bf16, causal
     main_bwd = [r for r in bres if r["case"] == "main"
                 and r["dtype"] == "bfloat16" and r["causal"]][0]
@@ -1599,7 +2126,11 @@ def main(argv) -> int:
             path=f"PipelinedLMTrainer.run, {LM_STEPS} steps, flagship LM "
                  f"bf16 at {LM_SEQ} tokens",
             launches=train["launches"][kname],
-            launches_per_step=train["per_step"][kname], passed=True,
+            launches_per_step=train["per_step"][kname],
+            launches_per_path={"lm_train_step": train["per_step"][kname],
+                               "ring_train_step": ring["per_step"][kname],
+                               "ring_train_run": ring["launches"][kname]},
+            passed=True,
             max_abs_err=main_bwd["max_abs_err"], ms=main_bwd[f"{key}_ms"],
             plain_ms=main_bwd["plain_ms"],
             bound_ms=main_bwd[f"{key}_bound_ms"],
@@ -1611,7 +2142,12 @@ def main(argv) -> int:
             variants=[{k: r.get(k) for k in (
                 "d", "dtype", "causal", "dq_ms", "dkv_ms", "plain_ms",
                 "library_ms", "bound_ms", "dq_bound_ms", "dkv_bound_ms",
-                "max_abs_err", "limit_used")} for r in bres if "dq_ms" in r]))
+                "max_abs_err", "limit_used")} for r in bres if "dq_ms" in r],
+            ring_pairs=[{k: r[k] for k in (
+                "pair", "dtype", "q_off", "k_off", "causal", f"{key}_ms",
+                "plain_ms", "library_ms", f"{key}_bound_ms",
+                f"{key}_bound_by", "max_abs_err", "limit_used")}
+                for r in sbres]))
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the main "
@@ -1619,6 +2155,10 @@ def main(argv) -> int:
     log(f"[train] lm_train_mfu {train['mfu']:.4f}, "
         f"{train['s_step']:.4f} s/step, {train['tokens_per_s']:.4g} "
         f"tokens/s, peak {train['peak'] / 2**30:.2f} GiB")
+    log(f"[ring train] mesh {RING_MESH}: lm_train_mfu {ring['mfu']:.4f}, "
+        f"{ring['s_step']:.4f} s/step, {ring['tokens_per_s']:.4g} "
+        f"tokens/s, peak {ring['peak'] / 2**30:.2f} GiB; encoder ring "
+        f"encode {enc_paths['ring']['s']:.3f} s")
     log(f"[gbdt] headline fit min {min(paths['fit_times']):.4f} s, median "
         f"{float(np.median(paths['fit_times'])):.4f} s; planes fit "
         f"{planes['fit_s']:.4f} s; " + ", ".join(

@@ -1,5 +1,5 @@
 """Deep-net models of the port: the transformer encoder and causal LM
-training on one device."""
+training, on one device or over a mesh's data and seq axes."""
 from .lm_training import ShardedLMTrainer
 from .pp_training import PipelinedLMTrainer
 from .transformer import (TransformerSentenceEncoder, init_transformer,

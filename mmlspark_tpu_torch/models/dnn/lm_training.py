@@ -18,10 +18,14 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
-from .pp_training import CHECKPOINT_TODO, MESH_TODO, _leaves
+from .pp_training import CHECKPOINT_TODO, _leaves
 from .transformer import init_transformer, params_from_numpy, \
     transformer_apply
 
+MESH_TODO = ("ShardedLMTrainer on a mesh (the reference's GSPMD dp x tp "
+             "layout) is not ported yet: ROADMAP Queue 1 item 15; mesh=None "
+             "trains on one device, and PipelinedLMTrainer takes a mesh's "
+             "data and seq axes")
 RUN_STREAM_TODO = ("ShardedLMTrainer.run_stream (prefetching ingest and "
                    "supervised checkpoints) is not ported yet: ROADMAP "
                    "Queue 1 item 17")

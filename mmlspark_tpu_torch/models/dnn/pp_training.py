@@ -1,25 +1,36 @@
-"""Causal LM training on one device (port of
-`mmlspark_tpu/models/dnn/pp_training.py`, restricted to one device).
+"""Causal LM training, on one device or over a mesh's data and seq axes
+(port of `mmlspark_tpu/models/dnn/pp_training.py`).
 
-The reference's `PipelinedLMTrainer` runs a GPipe schedule over a mesh
-that may compose data, pipe, tensor and sequence parallelism. On one
-device its schedule is one stage taking the microbatches in order, and
-that is what this module ports: the same blocks (`_block_attn`,
-`_block_ff`, `_block`), the same loss (next-token targets, the last
-position masked, a masked sum over the microbatches divided by
-M * mb * (S - 1)), bf16 mixed precision with f32 master weights and
-optimizer state, `remat` through `torch.utils.checkpoint`, and
-attention="flash" through the flash kernels with their backward. The
-flash kernels take one (S, H, D) sequence, so the microbatch's sequences
+The reference's `PipelinedLMTrainer` runs a GPipe schedule in one
+`shard_map` over a mesh that may compose data, pipe, tensor and sequence
+parallelism. This module ports its one-stage schedule (the microbatches
+in order) and the data and seq axes: the same blocks (`_block_attn`,
+`_block_ff`, `_block`), the same loss (next-token targets across
+sequence shards, the globally last position masked, a masked sum over
+the microbatches divided by M * mb * (S_loc * cp - 1), the mean over
+data shards), bf16 mixed precision with f32 master weights and optimizer
+state, `remat` through `torch.utils.checkpoint`, and attention="flash"
+through the flash kernels with their backward.
+
+With a seq axis of cp > 1 positions the sequence is cut into cp shards
+and attention is ring attention over them (`parallel/ring_attention.
+_ring_attention_sharded`, the flash kernel's stats form for
+attention="flash"). One process drives every (data, seq) shard
+(`parallel/mesh.py`): the parameters live once, on the mesh's first
+device, and each shard computes with a differentiable `.to(its device)`
+copy, the identity where the device is the same, so autograd's sum over
+the shards is the reference's psum over seq and its mean over data. The
+flash kernels take one (S, H, D) sequence, so a microbatch's sequences
 are looped over inside the attention sublayer (ROADMAP Queue 1 item 25:
 a batched kernel).
 
-Not ported yet: a mesh and the collectives it needs (the Megatron f/g
-operators, the pipe schedule, ring attention: ROADMAP Queue 1 item 15)
-and checkpoints (items 11 and 22).
+Not ported yet: pipe and model axes of size > 1 (the GPipe schedule and
+the Megatron f/g operators, ROADMAP Queue 1 item 15) and checkpoints
+(items 11 and 22).
 """
 from __future__ import annotations
 
+import math
 import operator
 
 import numpy as np
@@ -29,12 +40,14 @@ from torch.utils.checkpoint import checkpoint
 
 from ...device import resolve_device
 from ...ops.flash_attention import flash_attention
-from ...parallel.ring_attention import reference_attention
+from ...parallel.mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS
+from ...parallel.ring_attention import (_ring_attention_sharded,
+                                        reference_attention)
 from .transformer import _layer_norm, init_transformer, params_from_numpy
 
-MESH_TODO = ("a mesh (data/pipe/model/seq parallel LM training) needs "
-             "torch.distributed and is not ported yet: ROADMAP Queue 1 "
-             "item 15; mesh=None trains on one device")
+PIPE_TP_TODO = ("pipe and model axes of size > 1 (the GPipe schedule and "
+                "the Megatron f/g operators) are not ported yet: ROADMAP "
+                "Queue 1 item 15; the data and seq axes are")
 CHECKPOINT_TODO = ("LM trainer checkpoints are not ported yet: ROADMAP "
                    "Queue 1 items 11 and 22")
 
@@ -47,33 +60,50 @@ def _stack_layers(layers: list) -> dict:
     return np.stack(layers)
 
 
-def _layer(tree, i: int):
-    """Layer i of a stacked tree (differentiable indexing)."""
+def _tree_map(fn, tree):
+    """fn applied to every tensor of a parameter tree of dicts."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
-def _attend(q, k, v, attention: str):
-    """Causal attention of (mb, S, H, D) q/k/v: the flash kernels take one
-    sequence at a time; dense attention takes the batch."""
-    if attention == "flash":
-        return torch.stack([flash_attention(q[b], k[b], v[b], causal=True)
-                            for b in range(q.shape[0])])
-    return reference_attention(q, k, v, causal=True)
+def _attend(qs, ks, vs, attention: str):
+    """Causal attention of the seq shards of (mb, S_loc, H, D) q/k/v, one
+    microbatch: with one shard, the flash kernels one sequence at a time
+    or dense attention over the batch; with cp > 1, ring attention over
+    the shards for each sequence (flash stats blocks for "flash"). Returns
+    the shards' outputs."""
+    if len(qs) == 1:
+        q, k, v = qs[0], ks[0], vs[0]
+        if attention == "flash":
+            return [torch.stack([flash_attention(q[b], k[b], v[b],
+                                                 causal=True)
+                                 for b in range(q.shape[0])])]
+        return [reference_attention(q, k, v, causal=True)]
+    scale = 1.0 / math.sqrt(qs[0].shape[-1])
+    per_seq = [_ring_attention_sharded(
+        [q[b] for q in qs], [k[b] for k in ks], [v[b] for v in vs],
+        causal=True, scale=scale,
+        block_impl="flash" if attention == "flash" else "dense")
+        for b in range(qs[0].shape[0])]
+    return [torch.stack([outs[c] for outs in per_seq])
+            for c in range(len(qs))]
 
 
-def _block_attn(x, lp, h: int, dh: int, attention: str = "dense"):
-    """Attention sublayer of one transformer block on (mb, S, d)
-    sequences: ln1 -> qkv -> (flash/dense) causal attention -> wo ->
-    residual add."""
-    mb, seq, _ = x.shape
-    y = _layer_norm(x, lp["ln1"])
-    q = (y @ lp["wq"]).reshape(mb, seq, h, dh)
-    k = (y @ lp["wk"]).reshape(mb, seq, h, dh)
-    v = (y @ lp["wv"]).reshape(mb, seq, h, dh)
-    a = _attend(q, k, v, attention)
-    return x + a.reshape(mb, seq, h * dh) @ lp["wo"]
+def _block_attn(xs, lps, h: int, dh: int, attention: str = "dense"):
+    """Attention sublayer of one transformer block on the seq shards
+    (mb, S_loc, d) of one microbatch, each with its device's copy of the
+    layer's parameters: ln1 -> qkv -> (ring/flash/dense) causal attention
+    -> wo -> residual add."""
+    qkv = []
+    for x, lp in zip(xs, lps):
+        mb, seq, _ = x.shape
+        y = _layer_norm(x, lp["ln1"])
+        qkv.append([(y @ lp[w]).reshape(mb, seq, h, dh)
+                    for w in ("wq", "wk", "wv")])
+    a = _attend(*(list(t) for t in zip(*qkv)), attention)
+    return [x + ai.reshape(x.shape[0], x.shape[1], h * dh) @ lp["wo"]
+            for x, ai, lp in zip(xs, a, lps)]
 
 
 def _block_ff(x, lp):
@@ -84,10 +114,12 @@ def _block_ff(x, lp):
     return x + ff + lp["b2"]
 
 
-def _block(x, lp, h: int, dh: int, attention: str = "dense"):
-    """One transformer block: the two sublayers, split so that remat can
-    trade them apart (remat="save_attn")."""
-    return _block_ff(_block_attn(x, lp, h, dh, attention=attention), lp)
+def _block(xs, lps, h: int, dh: int, attention: str = "dense"):
+    """One transformer block on the seq shards of one microbatch: the two
+    sublayers, split so that remat can trade them apart
+    (remat="save_attn")."""
+    return [_block_ff(x, lp) for x, lp in zip(
+        _block_attn(xs, lps, h, dh, attention=attention), lps)]
 
 
 def _leaves(tree):
@@ -100,12 +132,17 @@ def _leaves(tree):
 
 
 class PipelinedLMTrainer:
-    """Causal LM trainer on one device: loss = t.step(tokens), (B, S) int
-    tokens with B % n_microbatches == 0.
+    """Causal LM trainer: loss = t.step(tokens), (B, S) int tokens with
+    B % (dp * n_microbatches) == 0 and S % cp == 0.
 
-    The reference's parameters, plus `device` (None = the card). `mesh`
-    must be None (one device); a mesh raises NotImplementedError naming
-    ROADMAP item 15."""
+    The reference's parameters, plus `device` (None = the card). With
+    mesh=None it trains on `device`. A mesh (`parallel.grid_mesh`) must
+    have the "data" and "pipe" axes and may have "model" and "seq", as
+    the reference's 2D/3D/4D meshes do; data and seq may have any size
+    (batch rows shard over data, the sequence over seq with ring
+    attention), pipe and model only 1 (a larger one raises
+    NotImplementedError naming ROADMAP item 15). The parameters live on
+    the mesh's first device; `device`, if given, must be that device."""
 
     def __init__(self, vocab_size: int, mesh=None, n_microbatches: int = 4,
                  d_model: int = 128, n_heads: int = 8, n_layers: int = 4,
@@ -135,9 +172,19 @@ class PipelinedLMTrainer:
             raise ValueError("remat must be bool|'full'|'save_attn'")
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError("compute_dtype must be float32|bfloat16")
-        if mesh is not None:
-            raise NotImplementedError(MESH_TODO)
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.dp, self.cp = 1, 1
+            self._grid = [[self.device]]
+        else:
+            self._grid = self._mesh_grid(mesh)
+            self.dp, self.cp = len(self._grid), len(self._grid[0])
+            self.device = self._grid[0][0]
+            if device is not None and torch.device(device) != self.device:
+                raise ValueError(f"device={device!r} is not the mesh's first "
+                                 f"device {self.device}, where the "
+                                 f"parameters live")
+        self.mesh = mesh
         self.n_microbatches = n_microbatches
         self.attention = attention
         self.remat = remat
@@ -161,60 +208,104 @@ class PipelinedLMTrainer:
                      if optimizer == "adam" else torch.optim.SGD(leaves,
                                                                  lr=lr))
 
+    @staticmethod
+    def _mesh_grid(mesh) -> list:
+        """The (dp, cp) grid of devices that run the shards: the mesh's
+        pipe and model coordinates at 0 (both must be of size 1)."""
+        shape = mesh.shape
+        for axis in (DATA_AXIS, PIPE_AXIS):
+            if axis not in shape:
+                raise ValueError(f"PipelinedLMTrainer's mesh needs a "
+                                 f"{axis!r} axis; got axes {mesh.axis_names}")
+        if shape[PIPE_AXIS] > 1 or shape.get(MODEL_AXIS, 1) > 1:
+            raise NotImplementedError(PIPE_TP_TODO)
+        cp = shape.get(SEQ_AXIS, 1)
+
+        def at(d, c):
+            idx = {DATA_AXIS: d, SEQ_AXIS: c}
+            return mesh.devices[tuple(idx.get(a, 0)
+                                      for a in mesh.axis_names)]
+        return [[at(d, c) for c in range(cp)]
+                for d in range(shape[DATA_AXIS])]
+
     def _loss(self, tokens):
-        """The reference's `device_loss` on one stage: a masked sum of the
-        next-token NLL over the microbatches, taken in order, divided by
-        the count of positions with a target."""
+        """The reference's `device_loss` for every (data, seq) shard,
+        summed: per data shard, a masked sum of the next-token NLL over its
+        microbatches, taken in order, divided by the count of positions
+        with a target; then the mean over data shards."""
         p = self.params
         if self.compute_dtype != torch.float32:
             # one differentiable downcast per step
-            def cast(node):
-                if isinstance(node, dict):
-                    return {k: cast(v) for k, v in node.items()}
-                return node.to(self.compute_dtype)
-            p = cast(p)
+            p = _tree_map(lambda a: a.to(self.compute_dtype), p)
+        # each shard's device computes with its own differentiable copy,
+        # the tree itself where the device is the same (autograd sums the
+        # copies' gradients back into the masters)
+        on = {dev: _tree_map(lambda a, d=dev: a.to(d), p)
+              for row in self._grid for dev in row}
         n_heads, d = self.meta["n_heads"], self.meta["d_model"]
         dh = d // n_heads
         n_layers = p["layers"]["wq"].shape[0]
-        M = self.n_microbatches
+        M, dp, cp = self.n_microbatches, self.dp, self.cp
         b, seq = tokens.shape
-        mb = b // M
-        mbs = tokens.reshape(M, mb, seq)
-        # next-token targets; the last position has none and is masked
-        tgt_mbs = torch.cat([mbs[:, :, 1:], mbs[:, :, :1]], dim=2)
-        pos_mask = (torch.arange(seq, device=tokens.device) != seq - 1
-                    ).float()
+        b_loc, s_loc = b // dp, seq // cp
+        mb = b_loc // M
 
-        def block(x, lp):
+        def block(xs, lps):
             if self.remat == "save_attn":
-                x = _block_attn(x, lp, n_heads, dh, self.attention)
-                return checkpoint(_block_ff, x, lp, use_reentrant=False)
+                xs = _block_attn(xs, lps, n_heads, dh, self.attention)
+                return [checkpoint(_block_ff, x, lp, use_reentrant=False)
+                        for x, lp in zip(xs, lps)]
             if self.remat:
-                return checkpoint(_block, x, lp, n_heads, dh,
+                return checkpoint(_block, xs, lps, n_heads, dh,
                                   self.attention, use_reentrant=False)
-            return _block(x, lp, n_heads, dh, self.attention)
+            return _block(xs, lps, n_heads, dh, self.attention)
 
-        total = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        for m in range(M):
-            x = p["embed"][mbs[m]] + p["pos"][:seq]
-            for i in range(n_layers):
-                x = block(x, _layer(p["layers"], i))
-            z = _layer_norm(x, p["final_ln"])
-            # tied softmax head: bf16 operands, f32 accumulation. torch's
-            # bf16 matmul would round the logits to bf16; the f32 upcast
-            # of both operands keeps every product exact and sums in f32
-            logits = z.float() @ p["embed"].float().T
-            logp = torch.log_softmax(logits, dim=-1)
-            nll = -logp.gather(-1, tgt_mbs[m][..., None])[..., 0]
-            total = total + (nll * pos_mask).sum()
-        return total / (M * mb * (seq - 1))
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for di, devs in enumerate(self._grid):
+            ps = [on[dev] for dev in devs]
+            rows = tokens[di * b_loc:(di + 1) * b_loc]
+            # (M, mb, S_loc) token shards, shard c on its device
+            mbs = [rows[:, c * s_loc:(c + 1) * s_loc].reshape(M, mb, s_loc)
+                   .to(dev) for c, dev in enumerate(devs)]
+            # next-token targets by one GLOBAL position: the last local
+            # position's target is the next seq shard's first token; the
+            # globally last position has none and is masked
+            tgts = [torch.cat([mbs[c][:, :, 1:],
+                               mbs[(c + 1) % cp][:, :, :1].to(dev)], dim=2)
+                    for c, dev in enumerate(devs)]
+            masks = [(torch.arange(s_loc, device=dev) != s_loc - 1).float()
+                     if c == cp - 1 else None for c, dev in enumerate(devs)]
+            for m in range(M):
+                xs = [pc["embed"][mbs[c][m]]
+                      + pc["pos"][c * s_loc:(c + 1) * s_loc]
+                      for c, pc in enumerate(ps)]
+                for i in range(n_layers):
+                    xs = block(xs, [_tree_map(lambda a: a[i], pc["layers"])
+                                    for pc in ps])
+                for c, (x, pc) in enumerate(zip(xs, ps)):
+                    z = _layer_norm(x, pc["final_ln"])
+                    # tied softmax head: bf16 operands, f32 accumulation.
+                    # torch's bf16 matmul would round the logits to bf16;
+                    # the f32 upcast of both operands keeps every product
+                    # exact and sums in f32
+                    logits = z.float() @ pc["embed"].float().T
+                    logp = torch.log_softmax(logits, dim=-1)
+                    nll = -logp.gather(-1, tgts[c][m][..., None])[..., 0]
+                    if masks[c] is not None:
+                        nll = nll * masks[c]
+                    total = total + nll.sum().to(self.device)
+        return total / (M * mb * (s_loc * cp - 1)) / dp
 
     def _check_batch(self, tokens) -> None:
         B = tokens.shape[0]
-        if B % self.n_microbatches:
+        if B % (self.dp * self.n_microbatches):
             raise ValueError(
                 f"batch {B} must divide by dp*microbatches = "
-                f"{self.n_microbatches}")
+                f"{self.dp * self.n_microbatches}")
+        if tokens.shape[1] % self.cp:
+            raise ValueError(
+                f"sequence length {tokens.shape[1]} must divide by the "
+                f"seq axis ({self.cp})")
 
     def _update(self, tokens):
         """One optimizer update; returns the loss as a device scalar."""

@@ -1,16 +1,16 @@
 """Transformer encoder (port of `mmlspark_tpu/models/dnn/transformer.py`).
 
 A pre-norm encoder over hashed tokens whose attention runs dense
-(`parallel/ring_attention.reference_attention`) or through the flash
-kernel (`ops/flash_attention.py`, the long-document path). Parameters are
-a plain dict of tensors with the reference's tree layout, so the JAX
-package's weights convert leaf by leaf (`params_from_numpy`).
-`TransformerSentenceEncoder` wraps it as a pipeline stage: hash-tokenize
--> embed -> encode -> mean-pool.
+(`parallel/ring_attention.reference_attention`), through the flash
+kernel (`ops/flash_attention.py`, the long-document path) or
+sequence-parallel over a mesh (`ring_attention` with dense blocks,
+`ulysses_attention`). Parameters are a plain dict of tensors with the
+reference's tree layout, so the JAX package's weights convert leaf by
+leaf (`params_from_numpy`). `TransformerSentenceEncoder` wraps it as a
+pipeline stage: hash-tokenize -> embed -> encode -> mean-pool.
 
-Not ported yet: the sequence-parallel strategies (`attention="ring"` /
-`"ulysses"`, ROADMAP Queue 1 item 15) and the stage's persistence
-(`_get_state`/`_set_state`, with `models/dnn/model.py`, item 22).
+Not ported yet: the stage's persistence (`_get_state`/`_set_state`, with
+`models/dnn/model.py`, ROADMAP Queue 1 item 22).
 """
 from __future__ import annotations
 
@@ -23,8 +23,9 @@ from ...core.params import HasInputCol, HasOutputCol, in_range, one_of
 from ...device import resolve_device
 from ...ops.flash_attention import flash_attention
 from ...ops.hashing import hash_token
-from ...parallel.ring_attention import (_SEQ_PARALLEL_TODO,
-                                        reference_attention)
+from ...parallel.mesh import DATA_AXIS, data_mesh
+from ...parallel.ring_attention import (reference_attention, ring_attention,
+                                        ulysses_attention)
 
 _ATTENTION = ("dense", "flash", "ring", "ulysses")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -117,13 +118,15 @@ def _layer_norm(x, p):
 
 
 def transformer_apply(params: dict, tokens, causal: bool = False,
-                      attention: str = "dense", key_mask=None,
+                      attention: str = "dense", mesh=None, key_mask=None,
                       attention_dtype=None):
     """Encode (seq,) int tokens -> (seq, d_model) embeddings, or, with
     dense attention, a batch (B, seq) -> (B, seq, d_model).
 
-    attention: 'dense' or 'flash' (the flash kernel, no (S, S) score
-    matrix); 'ring'/'ulysses' are not ported yet and raise.
+    attention: 'dense', 'flash' (the flash kernel, no (S, S) score
+    matrix), or 'ring' / 'ulysses' (sequence-parallel over `mesh`'s data
+    axis, default `data_mesh()`; seq must divide by its size; the ring
+    runs dense blocks, as the reference's does).
     key_mask: (seq,) or (B, seq) bool excluding padding keys (dense only).
     attention_dtype: cast q/k/v to this dtype (e.g. torch.bfloat16) after
     the f32 projections; scores and softmax stay f32 and the attention
@@ -132,8 +135,6 @@ def transformer_apply(params: dict, tokens, causal: bool = False,
     if attention not in _ATTENTION:
         raise ValueError(f"attention must be one of {_ATTENTION}, got "
                          f"{attention!r}")
-    if attention in ("ring", "ulysses"):
-        raise NotImplementedError(_SEQ_PARALLEL_TODO)
     if key_mask is not None and attention != "dense":
         raise ValueError(
             f"key_mask is only supported with attention='dense'; "
@@ -162,7 +163,11 @@ def transformer_apply(params: dict, tokens, causal: bool = False,
             q = q.to(attention_dtype)
             k = k.to(attention_dtype)
             v = v.to(attention_dtype)
-        if attention == "flash":
+        if attention == "ring":
+            a = ring_attention(q, k, v, mesh=mesh, causal=causal)
+        elif attention == "ulysses":
+            a = ulysses_attention(q, k, v, mesh=mesh, causal=causal)
+        elif attention == "flash":
             a = flash_attention(q, k, v, causal=causal)
         else:
             a = reference_attention(q, k, v, causal=causal,
@@ -189,7 +194,7 @@ class TransformerSentenceEncoder(Model, HasInputCol, HasOutputCol):
     attention = Param("attention",
                       "strategy for encode_long (single long documents): "
                       "dense | flash (the flash kernel, no (S,S) matrix) | "
-                      "ring | ulysses (sequence-parallel, not ported yet). "
+                      "ring | ulysses (sequence-parallel over a mesh). "
                       "Batch transform() always runs dense.", "dense",
                       validator=one_of(*_ATTENTION))
     attention_dtype = Param(
@@ -254,15 +259,24 @@ class TransformerSentenceEncoder(Model, HasInputCol, HasOutputCol):
         return t.with_column(self.output_col,
                              pooled.float().cpu().numpy())
 
-    def encode_long(self, tokens) -> np.ndarray:
+    def encode_long(self, tokens, mesh=None) -> np.ndarray:
         """Encode ONE long document, (seq,) token ids -> (seq, d_model),
-        with the configured attention ('dense' or 'flash')."""
+        with the configured attention; 'ring'/'ulysses' run
+        sequence-parallel over `mesh` (default `data_mesh()`)."""
         if self.attention in ("ring", "ulysses"):
-            raise NotImplementedError(_SEQ_PARALLEL_TODO)
+            mesh = mesh or data_mesh()
+            n_dev = mesh.shape[DATA_AXIS]
+            if len(tokens) % n_dev:
+                raise ValueError(
+                    f"attention={self.attention!r} shards the sequence over "
+                    f"{n_dev} devices; length {len(tokens)} is not "
+                    f"divisible — pad/truncate the document or use "
+                    f"attention='dense'")
         params = self._ensure_params()
         tok = torch.as_tensor(np.asarray(tokens, np.int64),
                               device=params["embed"].device)
         with torch.inference_mode():
             out = transformer_apply(params, tok, attention=self.attention,
+                                    mesh=mesh,
                                     attention_dtype=self.attention_dtype)
         return out.cpu().numpy()

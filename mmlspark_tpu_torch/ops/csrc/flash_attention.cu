@@ -2,18 +2,28 @@
 //
 // WHAT IT COMPUTES
 //   For each head h and query row i (q, k, v in the public (S, H, D) layout,
-//   read through their strides; Sk may differ from Sq):
+//   read through their strides; Sk may differ from Sq), with the blocks'
+//   global positions q_off + i and k_off + j:
 //     s[i, j] = (q[i] * scale) . k[j]           scores, f32
-//     s[i, j] = -1e30 where j >= Sk, or causal and i < j (raw positions,
-//               top-left aligned when Sq != Sk)
+//     s[i, j] = -1e30 where j >= Sk, or causal and q_off + i < k_off + j
+//               (top-left aligned when Sq != Sk and the offsets are 0)
+//   and, with m_i the row max and l_i = sum_j exp(s[i, j] - m_i), one of two
+//   forms (a template flag, as the reference's `normalize`):
+//   normalized (flash_fwd_kernel<T, D, true>; offsets 0):
 //     o[i]    = sum_j exp(s[i, j] - m_i) v[j] / max(l_i, 1e-30)   in q's type
 //     lse[i]  = m_i + log(max(l_i, 1e-30))                         f32
-//   with m_i the row max and l_i = sum_j exp(s[i, j] - m_i): the contract of
-//   mmlspark_tpu_torch/ops/flash_attention.py::_flash_forward_lse_plain.
+//     the contract of flash_attention.py::_flash_forward_lse_plain;
+//   stats (flash_fwd_kernel<T, D, false>), one (q shard, kv shard) pair of
+//   ring attention:
+//     acc[i]  = sum_j exp(s[i, j] - m_i) v[j]   unnormalized, f32
+//     m[i], l[i]                                 f32
+//     the contract of flash_attention.py::_flash_stats_plain.
 //
 // WHICH TPU KERNEL IT REPLACES
-//   mmlspark_tpu/ops/flash_attention.py::_flash_kernel (:87) in its
-//   normalized form, as _flash_forward_lse launches it (pallas_call :417).
+//   mmlspark_tpu/ops/flash_attention.py::_flash_kernel (:87) in both forms:
+//   normalized, as _flash_forward_lse launches it (pallas_call :417), and
+//   stats (normalize=False, q_offset/k_offset from SMEM), as
+//   _flash_stats_forward launches it (pallas_call :373).
 //   The TPU walks a sequential k grid axis carrying (m, l, acc) in VMEM
 //   scratch; here one block owns a (64 query rows, head) tile and loops over
 //   the k tiles itself, so nothing carries between blocks. The reference's
@@ -27,14 +37,20 @@
 //   roundings are the identity.
 //
 // MASKING (kept from the reference, :103-152)
-//   Masked scores are -1e30, not -inf. A k tile wholly above the diagonal is
-//   skipped; a tile needing no mask (every key < Sk and, causal, every key
-//   at or below every row of the block) takes the maskless branch. p is
-//   deliberately left unmasked: a masked entry contributes exp(-1e30 - m) =
-//   0 as soon as its row has seen one valid key, and on this path every row
-//   sees key 0 in the first tile (causal row i always sees key 0; padding
-//   only trims the tail). Rows past Sq are computed on zeros and never
-//   written.
+//   Masked scores are -1e30, not -inf. A k tile wholly above the global
+//   diagonal (k_off + k0 > q_off + q0 + 63) is skipped; a tile needing no
+//   mask (every key < Sk and, causal, every key at or below every row of the
+//   block) takes the maskless branch. p is deliberately left unmasked: a
+//   masked entry contributes exp(-1e30 - m) = 0 as soon as its row has seen
+//   one valid key. On the normalized path every row does (causal row i sees
+//   key 0). In the stats form a row may see none: when every tile of its
+//   block is skipped (a kv shard wholly after the q shard) it keeps its
+//   initial acc = 0, l = 0, m = -1e30; when a computed tile masks all of its
+//   keys (offsets off the 64-key grid) it carries finite garbage (p = 1 on
+//   masked keys) until a visible key resets it through alpha = 0, and a row
+//   that never sees one ends flagged by m == -1e30, which the ring merge
+//   weighs with exp(-1e30 - m_new) = 0. Every output stays finite. Rows past
+//   Sq are computed on zeros and never written.
 //
 // WHAT BOUNDS IT
 //   Operations: 4 * Sq * Sk * D * H FLOPs (half of that causal) against
@@ -59,6 +75,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -102,14 +120,18 @@ __device__ __forceinline__ int key_of(int c, int j) {
   return (j < 4 ? 4 * c : 32 + 4 * c) + (j & 3);
 }
 
-template <typename T, int D>
+// kNorm: o is the normalized output in T and r0 the lse; otherwise o is the
+// f32 accumulator, r0 the row max m and r1 the row sum l
+template <typename T, int D, bool kNorm>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int Sq, int Sk, long long q_ss,
-                 long long q_hs, long long k_ss, long long k_hs,
-                 long long v_ss, long long v_hs, long long o_ss,
-                 long long o_hs, float scale, int causal) {
+                 const T* __restrict__ v,
+                 std::conditional_t<kNorm, T, float>* __restrict__ o,
+                 float* __restrict__ r0, float* __restrict__ r1, int Sq,
+                 int Sk, long long q_ss, long long q_hs, long long k_ss,
+                 long long k_hs, long long v_ss, long long v_hs,
+                 long long o_ss, long long o_hs, float scale, int causal,
+                 int q_off, int k_off) {
   constexpr int kVec = 16 / sizeof(T);     // elements per 16-byte load
   constexpr int kChunks = D / kVec;        // 16-byte loads per row
   constexpr int kCols = D / 4;             // float4 columns of a row
@@ -154,8 +176,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const int n_k = (Sk + kBK - 1) / kBK;
-  // causal: tiles wholly above the diagonal of this block are skipped
-  const int kb_end = causal ? min(n_k, (q0 + kBQ - 1) / kBK + 1) : n_k;
+  // global q position minus global k position at local (0, 0): causal
+  // keeps local (i, j) with i + delta >= j
+  const int delta = q_off - k_off;
+  // causal: tiles wholly above the global diagonal of this block are
+  // skipped; none is left when the kv shard lies wholly after the block
+  int kb_end = n_k;
+  if (causal) {
+    const int last = q0 + kBQ - 1 + delta;  // the block's last visible key
+    kb_end = last < 0 ? 0 : min(n_k, last / kBK + 1);
+  }
   for (int kb = 0; kb < kb_end; ++kb) {
     const int k0 = kb * kBK;
     __syncthreads();  // the previous tile's k^T, v and p are consumed
@@ -205,7 +235,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     const bool full =
-        (k0 + kBK <= Sk) && (!causal || k0 + kBK - 1 <= q0);
+        (k0 + kBK <= Sk) && (!causal || k0 + kBK - 1 <= q0 + delta);
     if (!full) {
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
@@ -213,7 +243,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < kKeys; ++j) {
           const int kpos = k0 + key_of(c, j);
           const int qpos = q0 + 4 * rg + i;
-          const bool valid = kpos < Sk && (!causal || qpos >= kpos);
+          const bool valid = kpos < Sk && (!causal || qpos + delta >= kpos);
           if (!valid) s[i][j] = kMask;
         }
     }
@@ -292,17 +322,34 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l += __shfl_xor_sync(0xffffffffu, l, 4);
     const int row = q0 + 4 * rg + i;
     if (row >= Sq) continue;
-    const float den = fmaxf(l, 1e-30f);
-    if (c == 0) lse[h * (long long)Sq + row] = m_i[i] + logf(den);
-    T* orow = o + row * o_ss + h * o_hs;
+    const long long r = h * (long long)Sq + row;
+    auto* orow = o + row * o_ss + h * o_hs;
+    if constexpr (kNorm) {
+      const float den = fmaxf(l, 1e-30f);
+      if (c == 0) r0[r] = m_i[i] + logf(den);
 #pragma unroll
-    for (int jj = 0; jj < kJJ; ++jj) {
-      const int col = c + 8 * jj;
-      if (kCols % 8 != 0 && col >= kCols) continue;
-      store(orow + 4 * col, acc[i][jj].x / den);
-      store(orow + 4 * col + 1, acc[i][jj].y / den);
-      store(orow + 4 * col + 2, acc[i][jj].z / den);
-      store(orow + 4 * col + 3, acc[i][jj].w / den);
+      for (int jj = 0; jj < kJJ; ++jj) {
+        const int col = c + 8 * jj;
+        if (kCols % 8 != 0 && col >= kCols) continue;
+        store(orow + 4 * col, acc[i][jj].x / den);
+        store(orow + 4 * col + 1, acc[i][jj].y / den);
+        store(orow + 4 * col + 2, acc[i][jj].z / den);
+        store(orow + 4 * col + 3, acc[i][jj].w / den);
+      }
+    } else {
+      if (c == 0) {
+        r0[r] = m_i[i];
+        r1[r] = l;
+      }
+#pragma unroll
+      for (int jj = 0; jj < kJJ; ++jj) {
+        const int col = c + 8 * jj;
+        if (kCols % 8 != 0 && col >= kCols) continue;
+        orow[4 * col] = acc[i][jj].x;
+        orow[4 * col + 1] = acc[i][jj].y;
+        orow[4 * col + 2] = acc[i][jj].z;
+        orow[4 * col + 3] = acc[i][jj].w;
+      }
     }
   }
 }
@@ -312,41 +359,42 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t)(D * kBQ + D * kBK + kBK * D + kBQ * kBK);
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int Sq, int Sk, int H, const long long* st, float scale,
-           int causal, cudaStream_t stream) {
+template <typename T, int D, bool kNorm>
+int launch(const void* q, const void* k, const void* v, void* o, void* r0,
+           void* r1, int Sq, int Sk, int H, const long long* st, float scale,
+           int causal, int q_off, int k_off, cudaStream_t stream) {
+  using OutT = std::conditional_t<kNorm, T, float>;
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<T, D, kNorm>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + kBQ - 1) / kBQ, H);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, Sq, Sk,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], scale, causal);
+  flash_fwd_kernel<T, D, kNorm><<<grid, kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (OutT*)o, (float*)r0,
+      (float*)r1, Sq, Sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], scale, causal, q_off, k_off);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, void* o,
-             void* lse, int Sq, int Sk, int H, const long long* st,
-             float scale, int causal, cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, lse, Sq, Sk, H, st, scale, causal,
-                           stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, Sq, Sk, H, st, scale, causal,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, Sq, Sk, H, st, scale, causal,
-                           stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, Sq, Sk, H, st, scale, causal,
-                            stream);
-    default: return (int)cudaErrorInvalidValue;
+template <bool kNorm>
+int launch_dt(int dtype, int D, const void* q, const void* k, const void* v,
+              void* o, void* r0, void* r1, int Sq, int Sk, int H,
+              const long long* st, float scale, int causal, int q_off,
+              int k_off, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+#define CASE(TT, DD)                                                      \
+  if (D == DD)                                                            \
+    return launch<TT, DD, kNorm>(q, k, v, o, r0, r1, Sq, Sk, H, st, scale, \
+                                 causal, q_off, k_off, s);
+  if (dtype == 0) {
+    CASE(float, 16) CASE(float, 32) CASE(float, 64) CASE(float, 128)
+  } else if (dtype == 1) {
+    CASE(__nv_bfloat16, 16) CASE(__nv_bfloat16, 32)
+    CASE(__nv_bfloat16, 64) CASE(__nv_bfloat16, 128)
   }
+#undef CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -365,14 +413,24 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
                      long long o_ss, long long o_hs, float scale, int causal,
                      void* stream) {
   const long long st[8] = {q_ss, q_hs, k_ss, k_hs, v_ss, v_hs, o_ss, o_hs};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_d<float>(D, q, k, v, o, lse, Sq, Sk, H, st, scale, causal,
-                           s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, lse, Sq, Sk, H, st, scale,
-                                   causal, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_dt<true>(dtype, D, q, k, v, o, lse, nullptr, Sq, Sk, H, st,
+                         scale, causal, 0, 0, stream);
+}
+
+// The stats form: q, k, v as above; acc (Sq, H, D) f32 with unit stride
+// along D and 16-byte aligned rows (strides {acc_seq, acc_head} in place of
+// o's); m and l (H, Sq) f32, contiguous; q_off and k_off the blocks' global
+// positions. Returns a cudaError_t (0 = launched).
+int flash_stats_fwd_launch(const void* q, const void* k, const void* v,
+                           void* acc, void* m, void* l, int Sq, int Sk,
+                           int H, int D, int dtype, long long q_ss,
+                           long long q_hs, long long k_ss, long long k_hs,
+                           long long v_ss, long long v_hs, long long a_ss,
+                           long long a_hs, float scale, int causal,
+                           int q_off, int k_off, void* stream) {
+  const long long st[8] = {q_ss, q_hs, k_ss, k_hs, v_ss, v_hs, a_ss, a_hs};
+  return launch_dt<false>(dtype, D, q, k, v, acc, m, l, Sq, Sk, H, st, scale,
+                          causal, q_off, k_off, stream);
 }
 
 }  // extern "C"

@@ -4,26 +4,30 @@
 // WHAT THEY COMPUTE
 //   For each head h, query row i and key j (q, k, v, dO in the public
 //   (S, H, D) layout, read through their strides; Sk may differ from Sq),
-//   given the forward's lse (H, Sq) f32 and dsum (H, Sq) f32:
+//   given lse (H, Sq) f32 and dsum (H, Sq) f32, and the blocks' global
+//   positions q_off + i and k_off + j:
 //     s[i, j]  = (q[i] * scale) . k[j]            q scaled in its own type
-//     s[i, j]  = -1e30 where j >= Sk, or causal and i < j (raw positions)
+//     s[i, j]  = -1e30 where j >= Sk, or causal and q_off + i < k_off + j
 //     p[i, j]  = exp(s[i, j] - lse[i])
 //     dp[i, j] = dO[i] . v[j]
 //     ds[i, j] = p[i, j] (dp[i, j] - dsum[i])
 //     dq[i]    = scale * sum_j T(ds[i, j]) k[j]         flash_bwd_dq_kernel
-//     dv[j]    = sum_i T(p[i, j]) dO[i]                 flash_bwd_dkv_kernel
+//     dv[j]    = sum_i TO(p[i, j]) dO[i]                flash_bwd_dkv_kernel
 //     dk[j]    = scale * sum_i T(ds[i, j]) q[i]         (q unscaled)
-//   with T(x) = x rounded to the inputs' type (identity for f32) and every
-//   sum in f32: the contract of
+//   with T(x) = x rounded to the inputs' type, TO(x) to dO's (identity for
+//   f32) and every sum in f32: the contract of
 //   mmlspark_tpu_torch/ops/flash_attention.py::_flash_backward_plain.
-//   lse and dsum are inputs, not O, so the ring slice's stats backward
-//   (lse := m, dsum := -dl) can call the same kernels.
+//   Two VJPs share them. The normalized forward's passes lse, dsum =
+//   rowsum(dO * O), dO in the inputs' type and offsets 0. The ring stats
+//   forward's passes lse := m, dsum := -dl, dO := d_acc, which is f32 for
+//   bf16 inputs too (dtype code 2: as in the reference, whose dv product
+//   rounds p to dO's type), and the pair's offsets.
 //
 // WHICH TPU KERNELS THEY REPLACE
 //   mmlspark_tpu/ops/flash_attention.py::_flash_bwd_dq_kernel (:478,
 //   pallas_call :621) and ::_flash_bwd_dkv_kernel (:516, pallas_call :642),
 //   with _bwd_common (:445) and the visibility tests _bwd_visible_t /
-//   _bwd_full_t (:559-579). The TPU walks a sequential grid axis carrying
+//   _bwd_full_t (:559-579), offsets included. The TPU walks a sequential grid axis carrying
 //   the dq (or dk, dv) sums in VMEM scratch; here one block owns a tile of
 //   64 query rows (dq) or 64 keys (dk/dv) of one head and loops over the
 //   other side's tiles itself, so nothing carries between blocks and no
@@ -58,10 +62,14 @@
 //   Shared memory at D=128: dq 157,184 B (q*scale, dO, k, v, ds^T), dk/dv
 //   209,408 B (k, v, q*scale, q, dO, p, ds): one block per SM, 8 warps.
 //   Above 48 KB it is dynamic, opted into with cudaFuncSetAttribute.
-//   Causal: the dq kernel stops at the diagonal tile and its blocks run
-//   the longest rows first; the dk/dv kernel starts at the diagonal tile.
-//   Tiles that need no mask (every key < Sk and, causal, below every row)
-//   skip the mask pass.
+//   Causal: the dq kernel stops at the global diagonal's tile and its
+//   blocks run the longest rows first; the dk/dv kernel starts at it.
+//   Every tile with no visible (row, key) is skipped, and that matters
+//   beyond speed: with lse := m = -1e30 (a stats row with no visible key)
+//   a masked score gives p = exp(0) = 1, so such a tile, computed, would
+//   add garbage. A pair whose kv shard lies wholly after its q shard
+//   computes no tile and writes zeros. Tiles that need no mask (every key
+//   < Sk and, causal, below every row) skip the mask pass.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -152,11 +160,12 @@ __device__ __forceinline__ void load_rows(float* Lse, float* Dsum,
 
 // p and ds of query rows 4r..4r+3 x keys 4c..4c+3 of the tile at (q0, k0),
 // the reference's _bwd_common
+// delta = q_off - k_off: causal keeps local (i, j) with i + delta >= j
 template <int D>
 __device__ __forceinline__ void tile_p_ds(
     const float* Qt, const float* dOt, const float* Kt, const float* Vt,
     const float* Lse, const float* Dsum, int q0, int k0, int Sk, int causal,
-    bool full, int r, int c, float p[4][4], float ds[4][4]) {
+    int delta, bool full, int r, int c, float p[4][4], float ds[4][4]) {
   float dp[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -188,7 +197,7 @@ __device__ __forceinline__ void tile_p_ds(
       float s = p[i][j];
       if (!full) {
         const int qpos = q0 + 4 * r + i, kpos = k0 + 4 * c + j;
-        if (kpos >= Sk || (causal && qpos < kpos)) s = kMask;
+        if (kpos >= Sk || (causal && qpos + delta < kpos)) s = kMask;
       }
       p[i][j] = expf(s - l);
       ds[i][j] = p[i][j] * (dp[i][j] - dsm);
@@ -205,13 +214,15 @@ constexpr size_t dkv_smem() {
   return sizeof(float) * (size_t)(5 * D * kLD + 2 * kB * kLD + 2 * kB);
 }
 
-template <typename T, int D>
+// T: the type of q, k, v and the outputs; TO: dO's (T, or f32 with bf16 T)
+template <typename T, typename TO, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const T* __restrict__ v, const TO* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ dsum, T* __restrict__ dq,
-                    int Sq, int Sk, Strides st, float scale, int causal) {
+                    int Sq, int Sk, Strides st, float scale, int causal,
+                    int delta) {
   constexpr int kC = D / 16;  // accumulator columns per thread
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // [D][kLD] T(q * scale)
@@ -230,7 +241,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float scale_t = round_to(scale, tag);
 
   load_t<T, D>(Qt, nullptr, q, q0, Sq, h, st.q[0], st.q[1], scale_t);
-  load_t<T, D>(nullptr, dOt, dout, q0, Sq, h, st.o[0], st.o[1], 1.f);
+  load_t<TO, D>(nullptr, dOt, dout, q0, Sq, h, st.o[0], st.o[1], 1.f);
   load_rows(Lse, Dsum, lse, dsum, q0, Sq, h);
 
   float acc[4][kC];
@@ -240,18 +251,24 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int jj = 0; jj < kC; ++jj) acc[i][jj] = 0.f;
 
   const int n_k = (Sk + kB - 1) / kB;
-  // causal: key tiles wholly above the diagonal of this block are skipped
-  const int kb_end = causal ? min(n_k, (q0 + kB - 1) / kB + 1) : n_k;
+  // causal: key tiles wholly above the global diagonal of this block are
+  // skipped; none is left when the kv shard lies wholly after the block
+  int kb_end = n_k;
+  if (causal) {
+    const int last = q0 + kB - 1 + delta;  // the block's last visible key
+    kb_end = last < 0 ? 0 : min(n_k, last / kB + 1);
+  }
   for (int kb = 0; kb < kb_end; ++kb) {
     const int k0 = kb * kB;
     __syncthreads();  // the previous tile's k, v and ds are consumed
     load_t<T, D>(nullptr, Kt, k, k0, Sk, h, st.k[0], st.k[1], 1.f);
     load_t<T, D>(nullptr, Vt, v, k0, Sk, h, st.v[0], st.v[1], 1.f);
     __syncthreads();
-    const bool full = (k0 + kB <= Sk) && (!causal || k0 + kB - 1 <= q0);
+    const bool full =
+        (k0 + kB <= Sk) && (!causal || k0 + kB - 1 <= q0 + delta);
     float p[4][4], ds[4][4];
-    tile_p_ds<D>(Qt, dOt, Kt, Vt, Lse, Dsum, q0, k0, Sk, causal, full, r, c,
-                 p, ds);
+    tile_p_ds<D>(Qt, dOt, Kt, Vt, Lse, Dsum, q0, k0, Sk, causal, delta, full,
+                 r, c, p, ds);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       *reinterpret_cast<float4*>(DSt + (4 * c + j) * kLD + 4 * r) =
@@ -285,14 +302,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, typename TO, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const T* __restrict__ v, const TO* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ dsum, T* __restrict__ dk,
                      T* __restrict__ dv, int Sq, int Sk, Strides st,
-                     float scale, int causal) {
+                     float scale, int causal, int delta) {
   constexpr int kC = D / 16;
   extern __shared__ float4 smem4[];
   float* Kt = reinterpret_cast<float*>(smem4);  // [D][kLD], this block's
@@ -300,7 +317,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Qt = Vt + D * kLD;                     // [D][kLD] T(q * scale)
   float* Qr = Qt + D * kLD;                     // [D][kLD] q
   float* dOt = Qr + D * kLD;                    // [D][kLD]
-  float* Ps = dOt + D * kLD;                    // [kB rows][kLD] T(p)
+  float* Ps = dOt + D * kLD;                    // [kB rows][kLD] TO(p)
   float* DSs = Ps + kB * kLD;                   // [kB rows][kLD] T(ds)
   float* Lse = DSs + kB * kLD;
   float* Dsum = Lse + kB;
@@ -309,6 +326,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.x * kB;
   const int t = threadIdx.x, r = t >> 4, c = t & 15;
   const T tag{};
+  const TO tag_o{};
   const float scale_t = round_to(scale, tag);
 
   load_t<T, D>(nullptr, Kt, k, k0, Sk, h, st.k[0], st.k[1], 1.f);
@@ -321,30 +339,37 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int jj = 0; jj < kC; ++jj) dka[i][jj] = dva[i][jj] = 0.f;
 
   const int n_q = (Sq + kB - 1) / kB;
-  // causal: query tiles wholly above the diagonal see none of these keys
-  const int qb_begin = causal ? k0 / kB : 0;
+  // causal: query tiles wholly above the global diagonal see none of these
+  // keys; the first tile that does has q0 + kB - 1 + delta >= k0 (none,
+  // and zeros written, when the q shard lies wholly before the keys)
+  int qb_begin = 0;
+  if (causal) {
+    const int first = k0 - delta - kB + 1;
+    qb_begin = first <= 0 ? 0 : (first + kB - 1) / kB;
+  }
   for (int qb = qb_begin; qb < n_q; ++qb) {
     const int q0 = qb * kB;
     __syncthreads();  // the previous tile's q, dO, p and ds are consumed
     load_t<T, D>(Qt, Qr, q, q0, Sq, h, st.q[0], st.q[1], scale_t);
-    load_t<T, D>(nullptr, dOt, dout, q0, Sq, h, st.o[0], st.o[1], 1.f);
+    load_t<TO, D>(nullptr, dOt, dout, q0, Sq, h, st.o[0], st.o[1], 1.f);
     load_rows(Lse, Dsum, lse, dsum, q0, Sq, h);
     __syncthreads();
-    const bool full = (k0 + kB <= Sk) && (!causal || k0 + kB - 1 <= q0);
+    const bool full =
+        (k0 + kB <= Sk) && (!causal || k0 + kB - 1 <= q0 + delta);
     float p[4][4], ds[4][4];
-    tile_p_ds<D>(Qt, dOt, Kt, Vt, Lse, Dsum, q0, k0, Sk, causal, full, r, c,
-                 p, ds);
+    tile_p_ds<D>(Qt, dOt, Kt, Vt, Lse, Dsum, q0, k0, Sk, causal, delta, full,
+                 r, c, p, ds);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       *reinterpret_cast<float4*>(Ps + (4 * r + i) * kLD + 4 * c) =
-          make_float4(round_to(p[i][0], tag), round_to(p[i][1], tag),
-                      round_to(p[i][2], tag), round_to(p[i][3], tag));
+          make_float4(round_to(p[i][0], tag_o), round_to(p[i][1], tag_o),
+                      round_to(p[i][2], tag_o), round_to(p[i][3], tag_o));
       *reinterpret_cast<float4*>(DSs + (4 * r + i) * kLD + 4 * c) =
           make_float4(round_to(ds[i][0], tag), round_to(ds[i][1], tag),
                       round_to(ds[i][2], tag), round_to(ds[i][3], tag));
     }
     __syncthreads();
-    // keys 4r..4r+3: dv += T(p)^T . dO, dk += T(ds)^T . q
+    // keys 4r..4r+3: dv += TO(p)^T . dO, dk += T(ds)^T . q
 #pragma unroll 2
     for (int qq = 0; qq < kB; ++qq) {
       const float4 p4 = *reinterpret_cast<const float4*>(Ps + qq * kLD +
@@ -381,51 +406,51 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, typename TO, int D>
 int launch_dq(const void* const* ptr, int Sq, int Sk, int H,
-              const Strides& st, float scale, int causal,
+              const Strides& st, float scale, int causal, int delta,
               cudaStream_t stream) {
   constexpr size_t smem = dq_smem<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_bwd_dq_kernel<T, TO, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + kB - 1) / kB, H);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      (const T*)ptr[0], (const T*)ptr[1], (const T*)ptr[2], (const T*)ptr[3],
+  flash_bwd_dq_kernel<T, TO, D><<<grid, kThreads, smem, stream>>>(
+      (const T*)ptr[0], (const T*)ptr[1], (const T*)ptr[2], (const TO*)ptr[3],
       (const float*)ptr[4], (const float*)ptr[5], (T*)ptr[6], Sq, Sk, st,
-      scale, causal);
+      scale, causal, delta);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, typename TO, int D>
 int launch_dkv(const void* const* ptr, int Sq, int Sk, int H,
-               const Strides& st, float scale, int causal,
+               const Strides& st, float scale, int causal, int delta,
                cudaStream_t stream) {
   constexpr size_t smem = dkv_smem<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_bwd_dkv_kernel<T, TO, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sk + kB - 1) / kB, H);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      (const T*)ptr[0], (const T*)ptr[1], (const T*)ptr[2], (const T*)ptr[3],
+  flash_bwd_dkv_kernel<T, TO, D><<<grid, kThreads, smem, stream>>>(
+      (const T*)ptr[0], (const T*)ptr[1], (const T*)ptr[2], (const TO*)ptr[3],
       (const float*)ptr[4], (const float*)ptr[5], (T*)ptr[6], (T*)ptr[7], Sq,
-      Sk, st, scale, causal);
+      Sk, st, scale, causal, delta);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool DQ>
+template <typename T, typename TO, bool DQ>
 int launch_d(int D, const void* const* ptr, int Sq, int Sk, int H,
-             const Strides& st, float scale, int causal,
+             const Strides& st, float scale, int causal, int delta,
              cudaStream_t stream) {
   switch (D) {
-#define CASE(DD)                                                      \
-  case DD:                                                            \
-    return DQ ? launch_dq<T, DD>(ptr, Sq, Sk, H, st, scale, causal,   \
-                                 stream)                              \
-              : launch_dkv<T, DD>(ptr, Sq, Sk, H, st, scale, causal,  \
-                                  stream);
+#define CASE(DD)                                                          \
+  case DD:                                                                \
+    return DQ ? launch_dq<T, TO, DD>(ptr, Sq, Sk, H, st, scale, causal,   \
+                                     delta, stream)                       \
+              : launch_dkv<T, TO, DD>(ptr, Sq, Sk, H, st, scale, causal,  \
+                                      delta, stream);
     CASE(16)
     CASE(32)
     CASE(64)
@@ -435,17 +460,25 @@ int launch_d(int D, const void* const* ptr, int Sq, int Sk, int H,
   }
 }
 
+// dtype 0: f32 throughout; 1: bf16 throughout; 2: bf16 q, k, v and
+// outputs with an f32 dO (the ring stats VJP's d_acc)
 template <bool DQ>
 int launch(const void* const* ptr, int Sq, int Sk, int H, int D, int dtype,
-           const long long* s, float scale, int causal, void* stream) {
+           const long long* s, float scale, int causal, int q_off,
+           int k_off, void* stream) {
   const Strides st = {{s[0], s[1]}, {s[2], s[3]},   {s[4], s[5]},
                       {s[6], s[7]}, {s[8], s[9]}, {s[10], s[11]}};
   cudaStream_t cs = (cudaStream_t)stream;
+  const int delta = q_off - k_off;
   if (dtype == 0)
-    return launch_d<float, DQ>(D, ptr, Sq, Sk, H, st, scale, causal, cs);
+    return launch_d<float, float, DQ>(D, ptr, Sq, Sk, H, st, scale, causal,
+                                      delta, cs);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16, DQ>(D, ptr, Sq, Sk, H, st, scale, causal,
-                                       cs);
+    return launch_d<__nv_bfloat16, __nv_bfloat16, DQ>(
+        D, ptr, Sq, Sk, H, st, scale, causal, delta, cs);
+  if (dtype == 2)
+    return launch_d<__nv_bfloat16, float, DQ>(D, ptr, Sq, Sk, H, st, scale,
+                                              causal, delta, cs);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -453,29 +486,30 @@ int launch(const void* const* ptr, int Sq, int Sk, int H, int D, int dtype,
 
 extern "C" {
 
-// q (Sq, H, D), k/v (Sk, H, D), dout (Sq, H, D) of one type (dtype 0 =
-// f32, 1 = bf16), each with unit stride along D and 16-byte aligned rows;
-// lse and dsum (H, Sq) f32, contiguous. D in {16, 32, 64, 128}.
+// q (Sq, H, D), k/v (Sk, H, D), dout (Sq, H, D), each with unit stride along
+// D and 16-byte aligned rows; dtype 0 = all f32, 1 = all bf16, 2 = bf16 with
+// an f32 dout; lse and dsum (H, Sq) f32, contiguous. D in {16, 32, 64, 128}.
 // strides: 12 element strides {seq, head} of q, k, v, dout, then of the
-// outputs (dq; or dk, dv). Each returns a cudaError_t (0 = launched).
+// outputs (dq; or dk, dv). q_off, k_off: the blocks' global positions (0, 0
+// for the normalized VJP). Each returns a cudaError_t (0 = launched).
 int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* dsum,
                         void* dq, int Sq, int Sk, int H, int D, int dtype,
                         const long long* strides, float scale, int causal,
-                        void* stream) {
+                        int q_off, int k_off, void* stream) {
   const void* ptr[8] = {q, k, v, dout, lse, dsum, dq, nullptr};
   return launch<true>(ptr, Sq, Sk, H, D, dtype, strides, scale, causal,
-                      stream);
+                      q_off, k_off, stream);
 }
 
 int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* dsum,
                          void* dk, void* dv, int Sq, int Sk, int H, int D,
                          int dtype, const long long* strides, float scale,
-                         int causal, void* stream) {
+                         int causal, int q_off, int k_off, void* stream) {
   const void* ptr[8] = {q, k, v, dout, lse, dsum, dk, dv};
   return launch<false>(ptr, Sq, Sk, H, D, dtype, strides, scale, causal,
-                       stream);
+                       q_off, k_off, stream);
 }
 
 }  // extern "C"

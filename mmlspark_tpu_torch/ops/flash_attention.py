@@ -17,13 +17,19 @@ with D in {16, 32, 64, 128}, or raises. Nothing falls back.
 lse (the reference's residuals), and its backward computes
 dsum = rowsum(dO * O) in f32 and runs the two backward kernels, which
 rebuild p = exp(s - lse) tile by tile, so training memory stays free of
-(S, S) buffers too. The backward takes lse and dsum, not O, so the ring
-slice's stats backward (lse := m, dsum := -dl) can reuse it.
+(S, S) buffers too.
+
+`flash_attention_stats` is ring attention's partial attention for one
+(q shard, kv shard) pair at global offsets: the unnormalized f32
+accumulator and the (m, l) carry, from the forward kernel's stats form
+(plain version `_flash_stats_plain`). Its backward is the same two
+backward kernels with lse := m, dsum := -dl and dO := d_acc at the pair's
+offsets (`_FlashStats`), exact for shift-invariant consumers such as the
+ring merge.
 
 The reference's `block_q`/`block_k` (v5e VMEM tiling) and `interpret`
 (Pallas interpret mode) have no meaning here: the kernels use their own
-64 x 64 tiles, so `flash_attention` rejects them. The ring-attention stats
-forward is not ported yet (ROADMAP Queue 1 items 15, 16(c)).
+64 x 64 tiles, so both entry points reject them.
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ from . import _build
 
 # launches of the kernel, counted where the wrapper launches it (and
 # nowhere else) so a run can show that its path went through the kernel
-launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+launches = {"flash_fwd": 0, "flash_stats_fwd": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's instantiations
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -61,6 +68,10 @@ def _library():
             [_P] * 5 + [ctypes.c_int] * 5 + [_I64] * 8
             + [ctypes.c_float, ctypes.c_int, _P])
         lib.flash_fwd_launch.restype = ctypes.c_int
+        lib.flash_stats_fwd_launch.argtypes = (
+            [_P] * 6 + [ctypes.c_int] * 5 + [_I64] * 8
+            + [ctypes.c_float] + [ctypes.c_int] * 3 + [_P])
+        lib.flash_stats_fwd_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -70,6 +81,7 @@ def _bwd_library():
     if _bwd_lib is None:
         lib = _build.load("flash_attention_bwd")
         common = [ctypes.c_int] * 5 + [ctypes.POINTER(_I64), ctypes.c_float,
+                                       ctypes.c_int, ctypes.c_int,
                                        ctypes.c_int, _P]
         lib.flash_bwd_dq_launch.argtypes = [_P] * 7 + common
         lib.flash_bwd_dkv_launch.argtypes = [_P] * 8 + common
@@ -108,54 +120,104 @@ def _flash_forward_lse_plain(q, k, v, causal: bool, scale: float):
     return out, (m + den.log())[..., 0]
 
 
-def _bf16_rounding_scale(q, k, v, causal: bool, scale: float):
+def _causal_mask(sq, sk, q_offset, k_offset, device):
+    """(Sq, Sk) bool, True where the key is after the query in global
+    positions (q_offset + i < k_offset + j): the entries causal masks."""
+    return (torch.arange(sq, device=device)[:, None] + (q_offset - k_offset)
+            < torch.arange(sk, device=device)[None, :])
+
+
+def _flash_stats_plain(q, k, v, q_offset: int, k_offset: int, causal: bool,
+                       scale: float):
+    """Plain version of the stats form: dense f32 scores at global
+    positions, the reference's -1e30 mask and rounding points (q scaled in
+    its own dtype, p rounded to v's dtype before the PV product, l summing
+    the unrounded p).
+
+    q (Sq, H, D), k/v (Sk, H, D) -> acc (Sq, H, D) f32 unnormalized, m and
+    l (H, Sq) f32. p is zeroed where masked, which is what the kernel
+    computes wherever it computes a tile (there a masked entry of a row
+    with a visible key is exp(-1e30 - m) = 0) and where it skips one: a row
+    with no visible key comes out acc = 0, l = 0, m = -1e30 (Queue 3 (c):
+    the reference leaves such rows garbage, flagged by that m)."""
+    s = torch.einsum("qhd,khd->hqk", _scaled(q, scale).float(), k.float())
+    mask = None
+    if causal:
+        mask = _causal_mask(q.shape[0], k.shape[0], q_offset, k_offset,
+                            q.device)
+        s.masked_fill_(mask, _MASK)
+    m = s.amax(-1)
+    p = s.sub_(m[..., None]).exp_()  # in place: one (H, Sq, Sk) buffer
+    if mask is not None:
+        p.masked_fill_(mask, 0.0)
+    l = p.sum(-1)
+    acc = torch.einsum("hqk,khd->qhd", p.to(v.dtype).float(), v.float())
+    return acc, m, l
+
+
+def _bf16_rounding_scale(q, k, v, causal: bool, scale: float,
+                         q_offset: int = 0, k_offset: int = 0):
     """sqrt(sum_j p_j^2 v_j^2) / sum_j p_j for each output element (Sq, H, D)
-    f32, with p_j the row's softmax weights.
+    f32, with p_j the row's softmax weights (causal at the given global
+    offsets; 0 on a row with no visible key).
 
     Rounding each p_j with a relative error e_j moves that output by
     sum_j p_j e_j v_j / sum_j p_j, whose standard deviation is this scale
     times the std of e: what a bf16 check must allow for where two
-    versions round p at different points. Computed with the plain version
-    on f32 copies: sum_j p_j^2 v_j^2 / (sum_j p_j)^2 is the attention of
-    v^2 under doubled scores times exp(lse(2 s) - 2 lse(s))."""
+    versions round p at different points. Computed with the plain stats
+    version on f32 copies: doubling the scale doubles every f32 score
+    exactly, so the stats of v^2 under doubled scores give
+    sum_j p_j^2 v_j^2 directly as their accumulator, over l^2."""
     q, k, v = (t.float() for t in (q, k, v))
-    _, lse = _flash_forward_lse_plain(q, k, v, causal, scale)
-    out2, lse2 = _flash_forward_lse_plain(q, k, v * v, causal, 2 * scale)
-    return (out2 * (lse2 - 2 * lse).exp().T[:, :, None]).sqrt()
+    l = _flash_stats_plain(q, k, v, q_offset, k_offset, causal, scale)[2]
+    acc2 = _flash_stats_plain(q, k, v * v, q_offset, k_offset, causal,
+                              2 * scale)[0]
+    return acc2.sqrt_() / l.clamp_min(1e-30).T[:, :, None]
 
 
-def _bwd_tiles(q, k, v, do, lse, causal: bool, scale: float):
+def _bwd_tiles(q, k, v, do, lse, causal: bool, scale: float,
+               q_offset: int = 0, k_offset: int = 0):
     """Per head hh: (hh, p, dp) as (Sq, Sk) f32: p = exp(s - lse) with s
-    from q scaled in its own dtype and the -1e30 mask on raw positions,
+    from q scaled in its own dtype and the -1e30 mask at global positions,
     dp = dO.v^T (the reference's `_bwd_common`, whose ds is
-    p * (dp - dsum)). One head at a time bounds the memory to a few
-    (Sq, Sk) buffers."""
+    p * (dp - dsum)). p is zeroed where masked: with a real lse that is
+    exp(-1e30 - lse) = 0 anyway, and with the stats VJP's lse := m = -1e30
+    (a row with no visible key) it is what the kernels give by skipping
+    every tile with no visible key. One head at a time bounds the memory
+    to a few (Sq, Sk) buffers."""
     qs, kf, vf, dof = (_scaled(q, scale).float(), k.float(), v.float(),
                        do.float())
     mask = None
     if causal:
-        mask = (torch.arange(q.shape[0], device=q.device)[:, None]
-                < torch.arange(k.shape[0], device=q.device)[None, :])
+        mask = _causal_mask(q.shape[0], k.shape[0], q_offset, k_offset,
+                            q.device)
     for hh in range(q.shape[1]):
         s = qs[:, hh] @ kf[:, hh].T
         if mask is not None:
             s.masked_fill_(mask, _MASK)
-        yield hh, s.sub_(lse[hh][:, None]).exp_(), dof[:, hh] @ vf[:, hh].T
+        p = s.sub_(lse[hh][:, None]).exp_()
+        if mask is not None:
+            p.masked_fill_(mask, 0.0)
+        yield hh, p, dof[:, hh] @ vf[:, hh].T
 
 
 def _flash_backward_plain(q, k, v, do, lse, dsum, causal: bool,
-                          scale: float):
+                          scale: float, q_offset: int = 0,
+                          k_offset: int = 0):
     """Plain version of the backward kernels: dense f32 per head, the
     reference's rounding points (`_flash_bwd_dq_kernel`,
     `_flash_bwd_dkv_kernel`): ds is rounded to k's dtype before dq =
     scale * ds.k and to q's before dk = scale * ds^T.q (q unscaled), p to
-    dO's dtype before dv = p^T.dO; all sums f32.
+    dO's dtype before dv = p^T.dO; all sums f32. Causal masking compares
+    global positions q_offset + i >= k_offset + j.
 
     q, do (Sq, H, D), k/v (Sk, H, D), lse and dsum (H, Sq) f32 ->
-    dq, dk, dv in q's, k's and v's dtypes."""
+    dq, dk, dv in q's, k's and v's dtypes. dO may be f32 with bf16 q, k, v
+    (the stats VJP's d_acc)."""
     qf, kf, dof = q.float(), k.float(), do.float()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    for hh, p, dp in _bwd_tiles(q, k, v, do, lse, causal, scale):
+    for hh, p, dp in _bwd_tiles(q, k, v, do, lse, causal, scale, q_offset,
+                                k_offset):
         dv[:, hh] = p.to(do.dtype).float().T @ dof[:, hh]
         dsr = dp.sub_(dsum[hh][:, None]).mul_(p).to(k.dtype).float()
         dq[:, hh] = (dsr @ kf[:, hh]) * scale
@@ -163,7 +225,8 @@ def _flash_backward_plain(q, k, v, do, lse, dsum, causal: bool,
     return dq, dk, dv
 
 
-def _bwd_term_scales(q, k, v, do, lse, dsum, causal: bool, scale: float):
+def _bwd_term_scales(q, k, v, do, lse, dsum, causal: bool, scale: float,
+                     q_offset: int = 0, k_offset: int = 0):
     """(r_q, r_k, r_v) f32 in the shapes of dq, dk, dv: for each output
     element, sqrt of the sum of its terms' squares, e.g. r_v[j, h, c] =
     sqrt(sum_i p_ij^2 dO_ic^2) and r_q[i, h, c] = scale *
@@ -181,7 +244,8 @@ def _bwd_term_scales(q, k, v, do, lse, dsum, causal: bool, scale: float):
     qf, kf, dof = q.float(), k.float(), do.float()
     rq, rk, rv = (torch.empty(t.shape, dtype=torch.float32, device=t.device)
                   for t in (q, k, v))
-    for hh, p, dp in _bwd_tiles(q, k, v, do, lse, causal, scale):
+    for hh, p, dp in _bwd_tiles(q, k, v, do, lse, causal, scale, q_offset,
+                                k_offset):
         dsm = dsum[hh][:, None]
         mag = (dof[:, hh].abs() @ v[:, hh].float().abs().T).add_(dsm.abs())
         m = (dp.sub_(dsm).abs_().add_(mag, alpha=2.0 ** -6).mul_(p)
@@ -209,12 +273,14 @@ _BWD_TOL = {torch.float32: (2.0 ** -21, 2.0 ** -14),
             torch.bfloat16: (2.0 ** -7, 2.0 ** -8)}
 
 
-def _bwd_limits(q, k, v, do, lse, dsum, causal: bool, scale: float, want):
+def _bwd_limits(q, k, v, do, lse, dsum, causal: bool, scale: float, want,
+                q_offset: int = 0, k_offset: int = 0):
     """The per-element limits of (dq, dk, dv) against `want`, the plain
     version's (dq, dk, dv), by `_BWD_TOL`."""
     rel, noise = _BWD_TOL[q.dtype]
     return tuple(rel * w.float().abs() + noise * r for w, r in zip(
-        want, _bwd_term_scales(q, k, v, do, lse, dsum, causal, scale)))
+        want, _bwd_term_scales(q, k, v, do, lse, dsum, causal, scale,
+                               q_offset, k_offset)))
 
 
 def _check_shapes(q, k, v):
@@ -248,16 +314,22 @@ def _check_kernel_operands(q, k, v, **more):
     if q.shape[2] not in HEAD_DIMS:
         raise ValueError(f"the flash kernel takes head dims {HEAD_DIMS}, "
                          f"got {q.shape[2]}")
-    vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} must match q's dtype and device; got "
                              f"{t.dtype} on {t.device}")
-        aligned = t.data_ptr() % 16 == 0 and all(
-            t.stride(i) % vec == 0 for i in (0, 1) if t.shape[i] > 1)
-        if t.stride(2) != 1 or not aligned:
-            raise ValueError(f"{name} needs unit stride along D and 16-byte "
-                             f"aligned rows; got strides {t.stride()}")
+        _check_row_layout(name, t)
+
+
+def _check_row_layout(name, t):
+    """Unit stride along D and 16-byte aligned rows, as the kernels'
+    16-byte loads and stores need."""
+    vec = 16 // t.element_size()
+    aligned = t.data_ptr() % 16 == 0 and all(
+        t.stride(i) % vec == 0 for i in (0, 1) if t.shape[i] > 1)
+    if t.stride(2) != 1 or not aligned:
+        raise ValueError(f"{name} needs unit stride along D and 16-byte "
+                         f"aligned rows; got strides {t.stride()}")
 
 
 def flash_fwd(q, k, v, causal: bool, scale: float):
@@ -296,6 +368,47 @@ def flash_forward_lse(q, k, v, causal: bool, scale: float):
     return _flash_forward_lse_plain(q, k, v, causal, scale)
 
 
+def flash_stats_fwd(q, k, v, q_offset: int, k_offset: int, causal: bool,
+                    scale: float):
+    """The CUDA kernel's stats form: acc (Sq, H, D) f32, m and l (H, Sq)
+    f32 for one (q shard, kv shard) pair at global offsets. Operands as
+    `flash_fwd` takes them. Raises on what the kernel does not take."""
+    _check_kernel_operands(q, k, v)
+    sq, h, d = q.shape
+    acc = torch.empty((sq, h, d), dtype=torch.float32, device=q.device)
+    m, l = (torch.empty((h, sq), dtype=torch.float32, device=q.device)
+            for _ in range(2))
+    if sq == 0:
+        return acc, m, l
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library().flash_stats_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+            m.data_ptr(), l.data_ptr(), sq, k.shape[0], h, d,
+            _DTYPE_CODE[q.dtype], q.stride(0), q.stride(1), k.stride(0),
+            k.stride(1), v.stride(0), v.stride(1), acc.stride(0),
+            acc.stride(1), scale, int(causal), int(q_offset), int(k_offset),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"flash_stats_fwd launch failed: cudaError_t "
+                           f"{err}")
+    launches["flash_stats_fwd"] += 1
+    return acc, m, l
+
+
+def flash_stats_forward(q, k, v, q_offset: int, k_offset: int,
+                        causal: bool, scale: float):
+    """(acc, m, l) by the tensor's device: the plain version on the CPU,
+    the kernel's stats form on CUDA. No autograd
+    (`flash_attention_stats` has it)."""
+    if q.device.type == "cuda":
+        return flash_stats_fwd(q, k, v, q_offset, k_offset, causal, scale)
+    if q.device.type != "cpu":
+        raise ValueError(f"no flash-attention path for device {q.device}")
+    _check_shapes(q, k, v)
+    return _flash_stats_plain(q, k, v, q_offset, k_offset, causal, scale)
+
+
 def _check_bwd_rows(q, lse, dsum):
     for name, t in (("lse", lse), ("dsum", dsum)):
         if t.shape != (q.shape[1], q.shape[0]) or t.dtype != torch.float32:
@@ -304,25 +417,39 @@ def _check_bwd_rows(q, lse, dsum):
 
 
 def _bwd_operands(q, k, v, do, lse, dsum):
-    _check_kernel_operands(q, k, v, do=do)
+    """Checks the backward kernels' operands; returns their dtype code:
+    q's, or 2 for bf16 q, k, v with an f32 dO (the stats VJP's d_acc)."""
+    _check_kernel_operands(q, k, v)
     if do.shape != q.shape:
         raise ValueError(f"dO must have q's shape {tuple(q.shape)}, got "
                          f"{tuple(do.shape)}")
+    code = _DTYPE_CODE[q.dtype]
+    if do.dtype != q.dtype:
+        if (q.dtype, do.dtype) != (torch.bfloat16, torch.float32):
+            raise ValueError(f"dO must be q's dtype, or float32 with "
+                             f"bfloat16 q; got {do.dtype} with {q.dtype}")
+        code = 2
+    if do.device != q.device:
+        raise ValueError(f"dO must be on q's device; got {do.device}")
+    _check_row_layout("dO", do)
     _check_bwd_rows(q, lse, dsum)
     if not (lse.device == dsum.device == q.device) or not (
             lse.is_contiguous() and dsum.is_contiguous()):
         raise ValueError("lse and dsum must be contiguous on q's device")
+    return code
 
 
 def _strides(*ts):
     return (_I64 * 12)(*(st for t in ts for st in t.stride()[:2]))
 
 
-def flash_bwd_dq(q, k, v, do, lse, dsum, causal: bool, scale: float):
+def flash_bwd_dq(q, k, v, do, lse, dsum, causal: bool, scale: float,
+                 q_offset: int = 0, k_offset: int = 0):
     """The CUDA dq kernel: dq (Sq, H, D) in q's dtype from q, k, v, dO
     (read through their strides: unit stride along D, 16-byte aligned
-    rows), lse and dsum (H, Sq) f32. Raises on what it does not take."""
-    _bwd_operands(q, k, v, do, lse, dsum)
+    rows; dO in q's dtype, or f32 with bf16 q), lse and dsum (H, Sq) f32,
+    at the blocks' global offsets. Raises on what it does not take."""
+    code = _bwd_operands(q, k, v, do, lse, dsum)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.shape[0] == 0:
         return dq
@@ -331,18 +458,20 @@ def flash_bwd_dq(q, k, v, do, lse, dsum, causal: bool, scale: float):
         err = _bwd_library().flash_bwd_dq_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), q.shape[0],
-            k.shape[0], q.shape[1], q.shape[2], _DTYPE_CODE[q.dtype],
-            _strides(q, k, v, do, dq, dq), scale, int(causal), stream)
+            k.shape[0], q.shape[1], q.shape[2], code,
+            _strides(q, k, v, do, dq, dq), scale, int(causal), int(q_offset),
+            int(k_offset), stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq launch failed: cudaError_t {err}")
     launches["flash_bwd_dq"] += 1
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, dsum, causal: bool, scale: float):
+def flash_bwd_dkv(q, k, v, do, lse, dsum, causal: bool, scale: float,
+                  q_offset: int = 0, k_offset: int = 0):
     """The CUDA dk/dv kernel: dk, dv (Sk, H, D) in k's and v's dtype, from
     the operands of `flash_bwd_dq`."""
-    _bwd_operands(q, k, v, do, lse, dsum)
+    code = _bwd_operands(q, k, v, do, lse, dsum)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     with torch.cuda.device(q.device):
@@ -350,9 +479,9 @@ def flash_bwd_dkv(q, k, v, do, lse, dsum, causal: bool, scale: float):
         err = _bwd_library().flash_bwd_dkv_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            q.shape[0], k.shape[0], q.shape[1], q.shape[2],
-            _DTYPE_CODE[q.dtype], _strides(q, k, v, do, dk, dv), scale,
-            int(causal), stream)
+            q.shape[0], k.shape[0], q.shape[1], q.shape[2], code,
+            _strides(q, k, v, do, dk, dv), scale, int(causal), int(q_offset),
+            int(k_offset), stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv launch failed: cudaError_t {err}")
     launches["flash_bwd_dkv"] += 1
@@ -360,22 +489,26 @@ def flash_bwd_dkv(q, k, v, do, lse, dsum, causal: bool, scale: float):
 
 
 def flash_backward(q, k, v, do, lse, dsum, causal: bool, scale: float,
-                   need=(True, True, True)):
+                   need=(True, True, True), q_offset: int = 0,
+                   k_offset: int = 0):
     """(dq, dk, dv) by the tensor's device: the plain version on the CPU,
     the two kernels on CUDA. `need` says which of the three are wanted
     (None for the others); on CUDA the dq kernel runs only for dq, the
     dk/dv kernel for either of the others."""
+    offsets = (q_offset, k_offset)
     if q.device.type == "cuda":
         dq = dk = dv = None
         if need[0]:
-            dq = flash_bwd_dq(q, k, v, do, lse, dsum, causal, scale)
+            dq = flash_bwd_dq(q, k, v, do, lse, dsum, causal, scale,
+                              *offsets)
         if need[1] or need[2]:
-            dk, dv = flash_bwd_dkv(q, k, v, do, lse, dsum, causal, scale)
+            dk, dv = flash_bwd_dkv(q, k, v, do, lse, dsum, causal, scale,
+                                   *offsets)
     elif q.device.type == "cpu":
         _check_shapes(q, k, v)
         _check_bwd_rows(q, lse, dsum)
         dq, dk, dv = _flash_backward_plain(q, k, v, do, lse, dsum, causal,
-                                           scale)
+                                           scale, *offsets)
     else:
         raise ValueError(f"no flash-attention path for device {q.device}")
     return tuple(g if n else None for g, n in zip((dq, dk, dv), need))
@@ -405,6 +538,69 @@ class _FlashAttention(torch.autograd.Function):
                 None, None)
 
 
+def _reject_tpu_knobs(**knobs):
+    for name, val in knobs.items():
+        if val is not None:
+            raise ValueError(
+                f"{name} is a TPU tiling/interpret knob of the JAX package; "
+                f"the port's kernel uses its own 64 x 64 tile and has no "
+                f"interpret mode")
+
+
+class _FlashStats(torch.autograd.Function):
+    """The stats forward and its flash backward as one autograd node (the
+    reference's `_flash_stats_vjp`, `:255-350`). The forward keeps q, k, v
+    and m; the backward runs the backward kernels (the plain version on
+    the CPU) with lse := m, dsum := -d_l and dO := d_acc (f32) at the
+    pair's offsets, and drops d_m: for a shift-invariant consumer, one
+    with G(acc e^-c, m + c, l e^-c) = G(acc, m, l) such as the ring merge,
+    the m cotangent cancels the argmax terms exactly (the derivation at
+    `:304-315`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, k_offset, causal, scale):
+        acc, m, l = flash_stats_forward(q, k, v, q_offset, k_offset, causal,
+                                        scale)
+        ctx.save_for_backward(q, k, v, m)
+        ctx.offsets = (q_offset, k_offset)
+        ctx.causal, ctx.scale = causal, scale
+        return acc, m, l
+
+    @staticmethod
+    def backward(ctx, d_acc, d_m, d_l):
+        q, k, v, m = ctx.saved_tensors
+        # f32 whatever q's dtype, as the reference's da_h (:336): for bf16
+        # inputs the dv product then rounds p to f32, i.e. not at all
+        do = d_acc.float().contiguous()
+        dsum = (-d_l.float()).contiguous()
+        return (*flash_backward(q, k, v, do, m, dsum, ctx.causal, ctx.scale,
+                                need=ctx.needs_input_grad[:3],
+                                q_offset=ctx.offsets[0],
+                                k_offset=ctx.offsets[1]),
+                None, None, None, None)
+
+
+def flash_attention_stats(q, k, v, q_offset, k_offset, causal: bool,
+                          scale: float, block_q=None, block_k=None,
+                          interpret=None):
+    """Streaming-softmax partial attention for one K/V block: returns the
+    unnormalized accumulator acc (Sq, H, D) f32 and the (m, l) carry
+    (H, Sq) f32, in the shapes ring attention merges. q_offset/k_offset
+    are the blocks' global positions (causal masking across shards).
+    Differentiable with the flash backward, exact for shift-invariant
+    consumers such as the ring merge (`_FlashStats`).
+
+    A q row with no visible key in this block comes out flagged by
+    m == -1e30 (with acc = 0 and l = 0 where the kernel skips its tiles,
+    finite garbage where a computed tile masks all its keys): consumers
+    weigh such rows with exp(m - m_new) = 0, as the ring merge does,
+    instead of normalizing acc/l directly. `block_q`, `block_k` and
+    `interpret` are rejected, as in `flash_attention`."""
+    _reject_tpu_knobs(block_q=block_q, block_k=block_k, interpret=interpret)
+    return _FlashStats.apply(q, k, v, int(q_offset), int(k_offset),
+                             bool(causal), float(scale))
+
+
 def flash_attention(q, k, v, causal: bool = False, scale=None,
                     block_q=None, block_k=None, interpret=None):
     """Exact attention without the (S, S) HBM score matrix.
@@ -412,13 +608,7 @@ def flash_attention(q, k, v, causal: bool = False, scale=None,
     q: (Sq, H, D); k/v: (Sk, H, D). Returns (Sq, H, D) in q's dtype.
     `scale` defaults to 1/sqrt(D). `block_q`, `block_k` and `interpret`
     are the reference's TPU tiling and interpret knobs and are rejected."""
-    for name, val in (("block_q", block_q), ("block_k", block_k),
-                      ("interpret", interpret)):
-        if val is not None:
-            raise ValueError(
-                f"{name} is a TPU tiling/interpret knob of the JAX package; "
-                f"the port's kernel uses its own 64 x 64 tile and has no "
-                f"interpret mode")
+    _reject_tpu_knobs(block_q=block_q, block_k=block_k, interpret=interpret)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _FlashAttention.apply(q, k, v, bool(causal), float(scale))

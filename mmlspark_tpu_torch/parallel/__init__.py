@@ -1,2 +1,7 @@
-"""Attention across sequence positions (port of `mmlspark_tpu/parallel`,
-so far only the single-device dense path of `ring_attention.py`)."""
+"""Meshes and sequence-parallel attention (port of `mmlspark_tpu/parallel`:
+`mesh.py`'s axes and constructors, `ring_attention.py`)."""
+from .mesh import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS, Mesh,
+                   data_mesh, grid_mesh)
+
+__all__ = ["DATA_AXIS", "MODEL_AXIS", "PIPE_AXIS", "SEQ_AXIS", "Mesh",
+           "data_mesh", "grid_mesh"]

@@ -26,6 +26,7 @@ from mmlspark_tpu.ops.flash_attention import flash_attention as jax_flash
 from mmlspark_tpu.parallel.ring_attention import \
     reference_attention as jax_reference
 from mmlspark_tpu_torch.ops import flash_attention as fa
+from mmlspark_tpu_torch.parallel import data_mesh
 from mmlspark_tpu_torch.parallel import ring_attention as ra
 
 
@@ -173,7 +174,12 @@ def test_tpu_knobs_and_unsupported_inputs_rejected():
         fa.flash_forward_lse(*(t.to("meta") for t in (q, k, v)), False, 0.25)
     with pytest.raises(ValueError, match="CUDA flash kernel"):
         fa.flash_fwd(q, k, v, False, 0.25)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ra.ring_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ra.ulysses_attention(q, k, v)
+    # what the sequence-parallel paths still refuse: Ulysses over more
+    # positions than heads, a sequence the axis does not divide
+    with pytest.raises(ValueError, match="divisible"):
+        ra.ulysses_attention(q, k, v, mesh=data_mesh(devices=["cpu"] * 4))
+    with pytest.raises(ValueError, match="not divisible"):
+        ra.ring_attention(q, k, v, mesh=data_mesh(devices=["cpu"] * 3))
+    with pytest.raises(ValueError, match="block_impl"):
+        ra.ring_attention(q, k, v, mesh=data_mesh(devices=["cpu"] * 2),
+                          block_impl="sparse")

@@ -121,13 +121,15 @@ def test_autograd_launches_kernels_and_counts(cuda_device):
         for _ in range(3))
     fa.reset_launches()
     fa.flash_attention(q, k, v, causal=True).float().sum().backward()
-    assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
+    assert fa.launches == {"flash_fwd": 1, "flash_stats_fwd": 0,
+                           "flash_bwd_dq": 1,
                            "flash_bwd_dkv": 1}
     assert q.grad.dtype == k.grad.dtype == v.grad.dtype == torch.bfloat16
     q2, k2 = q.detach(), k.detach()
     fa.reset_launches()
     fa.flash_attention(q2, k2, v, causal=True).float().sum().backward()
-    assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 0,
+    assert fa.launches == {"flash_fwd": 1, "flash_stats_fwd": 0,
+                           "flash_bwd_dq": 0,
                            "flash_bwd_dkv": 1}
     with pytest.raises(ValueError, match="dO must have"):
         fa.flash_bwd_dq(q2, k2, v.detach(), q2[:64], *(

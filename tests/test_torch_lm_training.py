@@ -33,6 +33,8 @@ from mmlspark_tpu_torch.models.dnn import (PipelinedLMTrainer,
                                            params_to_numpy,
                                            transformer_apply)
 from mmlspark_tpu_torch.ops import flash_attention as fa
+from mmlspark_tpu_torch.parallel import MODEL_AXIS
+from mmlspark_tpu_torch.parallel import grid_mesh as port_grid_mesh
 
 _KW = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64,
            max_len=32, seed=0)
@@ -192,11 +194,17 @@ def test_validation_and_unported_paths():
                        (dict(compute_dtype="float16"), "compute_dtype")):
         with pytest.raises(ValueError, match=match):
             _port_pp(**bad)
+    # what a mesh still cannot do: a pipe or model axis > 1, and the
+    # ShardedLMTrainer's GSPMD layout (the data and seq axes are ported)
+    for shape in ((1, 2), (1, 1, 2)):
+        axes = (DATA_AXIS, PIPE_AXIS, MODEL_AXIS)[:len(shape)]
+        with pytest.raises(NotImplementedError, match="item 15"):
+            PipelinedLMTrainer(mesh=port_grid_mesh(shape, axes,
+                                                   devices=["cpu"] * 2),
+                               **_KW)
     with pytest.raises(NotImplementedError, match="item 15"):
-        PipelinedLMTrainer(mesh=grid_mesh((1, 1), (DATA_AXIS, PIPE_AXIS)),
-                           device="cpu", **_KW)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ShardedLMTrainer(mesh=grid_mesh((1, 1)), device="cpu", **_KW)
+        ShardedLMTrainer(mesh=port_grid_mesh((1, 1), devices=["cpu"]),
+                         device="cpu", **_KW)
     with pytest.raises(ValueError, match="must divide by n_heads"):
         ShardedLMTrainer(device="cpu", **{**_KW, "n_heads": 3})
     t = _port_pp()

@@ -22,6 +22,7 @@ from mmlspark_tpu_torch.core import Table
 from mmlspark_tpu_torch.models.dnn import transformer as port
 from mmlspark_tpu_torch.ops import flash_attention as fa
 from mmlspark_tpu_torch.ops.hashing import hash_token
+from mmlspark_tpu_torch.parallel import data_mesh
 
 _SMALL = dict(vocab_size=50, d_model=64, n_heads=4, n_layers=2, d_ff=128,
               max_len=96, seed=0)
@@ -149,12 +150,21 @@ def test_reference_errors_are_kept():
         port.transformer_apply(params, torch.zeros(17, dtype=torch.long))
     with pytest.raises(ValueError, match="attention must be one of"):
         port.transformer_apply(params, toks, attention="sparse")
+    # the sequence-parallel strategies keep the reference's refusals: an
+    # indivisible length, heads the axis does not divide, a key mask
+    mesh = data_mesh(devices=["cpu"] * 3)
     for strategy in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            port.transformer_apply(params, toks, attention=strategy)
-        with pytest.raises(NotImplementedError, match="item 15"):
+        with pytest.raises(ValueError, match="not divisible"):
             port.TransformerSentenceEncoder(
-                attention=strategy, device="cpu").encode_long(toks.numpy())
+                attention=strategy, device="cpu").encode_long(toks.numpy(),
+                                                              mesh=mesh)
+        with pytest.raises(ValueError, match="key_mask"):
+            port.transformer_apply(params, toks, attention=strategy,
+                                   mesh=mesh,
+                                   key_mask=torch.ones(16, dtype=torch.bool))
+    with pytest.raises(ValueError, match="heads \\(2\\) divisible"):
+        port.transformer_apply(params, toks, attention="ulysses",
+                               mesh=data_mesh(devices=["cpu"] * 4))
     with pytest.raises(ValueError, match="failed validation"):
         port.TransformerSentenceEncoder(attention_dtype="float16")
 
