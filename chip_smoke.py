@@ -88,7 +88,8 @@ Phases (any failure exits non-zero before the last line is printed):
      pair of a four-shard ring step: diagonal, fully visible, fully masked
      (every row flagged: acc = 0, l = 0, m = -1e30) and non-causal, held on
      the rows with a visible key (`_stats_check`), shown to reject
-     k_offset one 64-key tile off, timed beside the plain version, one
+     k_offset one 64-key tile late (by the flagged rows) and one tile
+     early (by the value limits), timed beside the plain version, one
      SDPA on the same pair and the bound; four shards merged on the card
      against the plain attention of all 16,384 tokens and `flash_fwd`.
      The backward kernels at the same offsets (lse := m, dsum := -d_l,
@@ -99,12 +100,12 @@ Phases (any failure exits non-zero before the last line is printed):
      `flash_bwd_dq`, 192 `flash_bwd_dkv` and 0 `flash_fwd` launches
      (12 layers x 16 pairs) and its loss against the [train] trainer's
      first loss within `_RING_LOSS_TOL`, `run` of 3 timed steps (s/step,
-     tokens/s, `lm_train_mfu`, peak memory, a falling loss), and one f32
-     SGD step at S=2048 on the ring mesh and on a (1, 1, 1, 1) mesh (the
-     degenerate route: 12 `flash_fwd`, no stats launch) whose updated
-     weights agree within `_TRAIN_TOL`. The encoder phase (5) also runs
-     `encode_long` with attention="ring" over 4 positions of the card,
-     held against its flash encode within `_ENCODE_TOL`.
+     tokens/s, `lm_train_mfu`, peak memory, a falling loss), and one SGD
+     step at S=2048, f32 and bf16, on the ring mesh and on a (1, 1, 1, 1)
+     mesh (the degenerate route: 12 `flash_fwd`, no stats launch) whose
+     updated weights agree within `_TRAIN_TOL`. The encoder phase (5)
+     also runs `encode_long` with attention="ring" over 4 positions of
+     the card, held against its flash encode within `_ENCODE_TOL`.
 The headline fit (4) is timed 3 times (min and median), and every
 phase's seconds are printed.
 The kernel phase (3) also holds the flash backward kernels, dq and dk/dv,
@@ -947,12 +948,19 @@ def _flash_cases():
             ("d16", SEQ // 4, SEQ // 4, 8, 16, False)]
 
 
+def _visible_pairs(sq, sk, q_off, k_off, causal):
+    """(query, key) pairs the mask keeps at global offsets."""
+    if not causal:
+        return sq * sk
+    return sum(min(max(q_off + i - k_off + 1, 0), sk) for i in range(sq))
+
+
 def _flash_bound(sq, sk, h, d, dtype, causal):
     """(ms, "bytes" or "operations"): 4 * (visible q/k pairs) * D * H
     FLOPs over the dtype's peak (f32 FMAs; bf16 tensor cores), against
     q, k, v read once and out, lse written once."""
     import torch
-    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    pairs = _visible_pairs(sq, sk, 0, 0, causal)
     peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
         else PEAK_F32_FLOP_PER_S
     t_ops = 4 * pairs * d * h / peak
@@ -976,16 +984,21 @@ def _sdpa_call(q, k, v, causal, scale):
                                                   scale=scale)
 
 
-def _bf16_limit(q, k, v, causal, scale, want):
-    """The per-element limit on |kernel - plain| of a bf16 output."""
+def _bf16_limit(q, k, v, causal, scale, want, q_off=0, k_off=0):
+    """The per-element limit on |kernel - plain| of a bf16 output, causal
+    at the given global offsets."""
     from mmlspark_tpu_torch.ops import flash_attention as fa
-    r = fa._bf16_rounding_scale(q, k, v, causal, scale)
+    r = fa._bf16_rounding_scale(q, k, v, causal, scale, q_off, k_off)
     return _BF16_OUT_ULP * want.float().abs() + _BF16_P_NOISE * r
 
 
 def _limit_used(got, want, lim):
-    """max |got - want| / limit over the elements."""
-    return float(((got.float() - want.float()).abs() / lim).max())
+    """max |got - want| / limit over the elements, where an exact match
+    counts 0 even at a limit of 0 (a fully masked pair's) and any other
+    difference there counts inf."""
+    import torch
+    diff = (got.float() - want.float()).abs()
+    return float(torch.where(diff == 0, 0.0, diff / lim).max())
 
 
 def _bf16_check_sees_faults(q, k, v, causal, scale, want, lim, tag):
@@ -1232,20 +1245,27 @@ def encoder_phase(dev, profile: bool):
     return paths
 
 
-def _bwd_bound(sq, sk, h, d, dtype, causal, n_products):
-    """(ms, "bytes" or "operations") of a backward computing with
-    `n_products` products of 2 * (visible q/k pairs) * D per head (5 for
-    the whole backward: S, dP, dV, dK, dQ; 3 for dq alone: S, dP, dQ; 4
-    for dk and dv: S, dP, dV, dK), against q, k, v, dO and the f32 lse and
-    dsum read once and dq, dk, dv written once."""
+def _bwd_bound(sq, sk, h, d, dtype, causal, kernel, q_off=0, k_off=0,
+               do_dtype=None):
+    """(ms, "bytes" or "operations") of the flash backward's `kernel`, causal
+    at the global offsets: "dq" computes 3 products of 2 * (visible q/k
+    pairs) * D per head (S, dP, dQ) and writes dq; "dkv" 4 (S, dP, dV, dK)
+    and writes dk, dv; "all", the whole backward, 5 and writes all three.
+    Where any pair is visible it reads q, k, v, dO (in `do_dtype`, else the
+    inputs' dtype) and the f32 lse and dsum once; where none is, its
+    outputs are zeros whatever the inputs, so it need only write them."""
     import torch
-    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    n_products, n_out = {"dq": (3, sq), "dkv": (4, 2 * sk),
+                         "all": (5, sq + 2 * sk)}[kernel]
+    pairs = _visible_pairs(sq, sk, q_off, k_off, causal)
     peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
         else PEAK_F32_FLOP_PER_S
     t_ops = n_products * 2 * pairs * d * h / peak
     size = torch.tensor([], dtype=dtype).element_size()
-    t_bytes = ((4 * sq + 4 * sk) * h * d * size + 8 * h * sq) \
-        / PEAK_BYTES_PER_S
+    do_size = torch.tensor([], dtype=do_dtype or dtype).element_size()
+    reads = ((sq + 2 * sk) * h * d * size + sq * h * d * do_size
+             + 8 * h * sq) if pairs else 0
+    t_bytes = (reads + n_out * h * d * size) / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, \
         ("bytes" if t_bytes > t_ops else "operations")
 
@@ -1326,10 +1346,11 @@ def flash_bwd_kernel_phase(dev):
                     lib = _sdpa_backward_call(q, k, v, do, causal, scale)
                     row["library_ms"] = timed(lib, warmup=1, reps=5)
                     del lib
-                    for key, n in (("bound", 5), ("dq_bound", 3),
-                                   ("dkv_bound", 4)):
+                    for key, kernel in (("bound", "all"),
+                                        ("dq_bound", "dq"),
+                                        ("dkv_bound", "dkv")):
                         row[f"{key}_ms"], row[f"{key}_by"] = _bwd_bound(
-                            sq, sk, h, d, dtype, causal, n)
+                            sq, sk, h, d, dtype, causal, kernel)
                     msg += (f"; dq {row['dq_ms']:.3f} ms (bound "
                             f"{row['dq_bound_ms']:.4f}), dk/dv "
                             f"{row['dkv_ms']:.3f} ms (bound "
@@ -1377,98 +1398,63 @@ STATS_PAIRS = {"diagonal": (STATS_SHARD, STATS_SHARD, True),
                "noncausal": (0, 3 * STATS_SHARD, False)}
 
 
-def _visible_pairs(sq, sk, q_off, k_off, causal):
-    """(query, key) pairs the mask keeps at global offsets."""
-    if not causal:
-        return sq * sk
-    return sum(min(max(q_off + i - k_off + 1, 0), sk) for i in range(sq))
-
-
 def _stats_bound(sq, sk, h, d, dtype, q_off, k_off, causal):
     """(ms, "bytes" or "operations") of the stats form: 4 * (visible
-    pairs) * D * H FLOPs over the dtype's peak, against q, k, v read once
-    and the f32 acc, m and l written once."""
+    pairs) * D * H FLOPs over the dtype's peak, against the f32 acc, m and
+    l written once and, where any pair is visible, q, k, v read once (a
+    pair with no visible key has acc = 0, l = 0, m = -1e30 whatever the
+    inputs)."""
     import torch
+    pairs = _visible_pairs(sq, sk, q_off, k_off, causal)
     peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
         else PEAK_F32_FLOP_PER_S
-    t_ops = 4 * _visible_pairs(sq, sk, q_off, k_off, causal) * d * h / peak
+    t_ops = 4 * pairs * d * h / peak
     size = torch.tensor([], dtype=dtype).element_size()
-    t_bytes = ((sq + 2 * sk) * h * d * size + 4 * sq * h * d + 8 * h * sq) \
-        / PEAK_BYTES_PER_S
+    reads = (sq + 2 * sk) * h * d * size if pairs else 0
+    t_bytes = (reads + 4 * sq * h * d + 8 * h * sq) / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, \
         ("bytes" if t_bytes > t_ops else "operations")
 
 
-def _stats_bwd_bound(sq, sk, h, d, dtype, q_off, k_off, causal,
-                     n_products):
-    """`_bwd_bound` of a stats pair: `n_products` products of 2 * (visible
-    pairs) * D per head, against q, k, v, dO (f32) and the f32 m and dsum
-    read once and dq, dk, dv written once (both kernels' operands and
-    outputs together)."""
+def _stats_check(got, want, q, k, v, q_off, k_off, causal, scale):
+    """The stats form's check. Raises unless acc and l are finite and the
+    rows without a visible key (flagged by the plain version's m) are
+    exactly those of the kernel's, with acc = 0, l = 0, m = -1e30. Returns,
+    over the other rows, the share of the limit used (max |got - plain| /
+    limit; above 1 is a miss) by m and lse = m + log l (`_LSE_TOL`) and by
+    acc / l (`_FLASH_F32_TOL` in f32, the bf16 limit at the pair's
+    offsets), the share of acc / l's elements outside that limit, and
+    max |acc - plain|."""
     import torch
-    peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
-        else PEAK_F32_FLOP_PER_S
-    t_ops = n_products * 2 * _visible_pairs(sq, sk, q_off, k_off, causal) \
-        * d * h / peak
-    size = torch.tensor([], dtype=dtype).element_size()
-    t_bytes = ((2 * sq + 4 * sk) * h * d * size + 4 * sq * h * d
-               + 8 * h * sq) / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, \
-        ("bytes" if t_bytes > t_ops else "operations")
-
-
-def _share_of_limit(got, want, lim):
-    """max |got - want| / limit over the elements, where an exact match
-    counts 0 even at a limit of 0 (the fully masked pair's) and any other
-    difference there counts inf."""
-    import torch
-    diff = (got.float() - want.float()).abs()
-    return float(torch.where(diff == 0, 0.0, diff / lim).max())
-
-
-def _stats_check(got, want, q, k, v, pair, scale):
-    """The stats form's check on the rows with a visible key: m and
-    lse = m + log l within `_LSE_TOL`, acc / l within `_FLASH_F32_TOL`
-    (f32) or the bf16 limit at the pair's offsets; rows without one must be
-    exactly acc = 0, l = 0, m = -1e30 and all of acc and l finite.
-    Returns (max |acc - plain| over live rows, share of the bf16 limit
-    used); raises on a miss."""
-    import torch
-    from mmlspark_tpu_torch.ops import flash_attention as fa
-    q_off, k_off, causal = STATS_PAIRS[pair]
     acc, m, l = got
     w_acc, w_m, w_l = want
     if not bool(torch.isfinite(acc).all() and torch.isfinite(l).all()):
-        raise AssertionError(f"{pair}: acc or l not finite")
+        raise AssertionError("acc or l not finite")
     flagged = w_m <= -1e29
     if not (torch.equal(m <= -1e29, flagged)
             and bool((acc[flagged.T] == 0).all())
             and bool((l[flagged] == 0).all())):
-        raise AssertionError(f"{pair}: rows without a visible key are not "
-                             f"acc = 0, l = 0, m = -1e30")
+        raise AssertionError("rows without a visible key are not acc = 0, "
+                             "l = 0, m = -1e30")
     live = ~flagged
     if not bool(live.any()):
-        return 0.0, 0.0
-    torch.testing.assert_close(m[live], w_m[live], rtol=_LSE_TOL[0],
-                               atol=_LSE_TOL[1])
-    torch.testing.assert_close((m + l.log())[live], (w_m + w_l.log())[live],
-                               rtol=_LSE_TOL[0], atol=_LSE_TOL[1])
+        return dict(m=0.0, lse=0.0, out=0.0, out_outside=0.0, err=0.0)
     rows = live.T
-    err = float((acc - w_acc)[rows].abs().max())
     out = acc / l.clamp_min(1e-30).T[:, :, None]
     w_out = w_acc / w_l.clamp_min(1e-30).T[:, :, None]
     if q.dtype == torch.float32:
-        torch.testing.assert_close(out[rows], w_out[rows],
-                                   rtol=_FLASH_F32_TOL[0],
-                                   atol=_FLASH_F32_TOL[1])
-        return err, 0.0
-    lim = (_BF16_OUT_ULP * w_out.abs() + _BF16_P_NOISE
-           * fa._bf16_rounding_scale(q, k, v, causal, scale, q_off, k_off))
-    used = _share_of_limit(out[rows], w_out[rows], lim[rows])
-    if used > 1:
-        raise AssertionError(f"{pair}: acc / l off by {used:.3g} x the bf16 "
-                             f"limit")
-    return err, used
+        lim = _FLASH_F32_TOL[1] + _FLASH_F32_TOL[0] * w_out.abs()
+    else:
+        lim = _bf16_limit(q, k, v, causal, scale, w_out, q_off, k_off)
+    lse, w_lse = m + l.log(), w_m + w_l.log()
+    return dict(
+        m=_limit_used(m[live], w_m[live],
+                      _LSE_TOL[1] + _LSE_TOL[0] * w_m[live].abs()),
+        lse=_limit_used(lse[live], w_lse[live],
+                        _LSE_TOL[1] + _LSE_TOL[0] * w_lse[live].abs()),
+        out=_limit_used(out[rows], w_out[rows], lim[rows]),
+        out_outside=float(((out - w_out).abs() > lim)[rows].float().mean()),
+        err=float((acc - w_acc)[rows].abs().max()))
 
 
 def _stats_sdpa(q, k, v, pair, scale):
@@ -1482,13 +1468,43 @@ def _stats_sdpa(q, k, v, pair, scale):
     return _sdpa_call(q, k, v, causal and q_off == k_off, scale)
 
 
+def _stats_check_sees_faults(q, k, v, want, q_off, k_off, scale, tag):
+    """The check must reject the kernel run with k_offset one 64-key tile
+    off, both ways, on a causal pair. One tile late, the first 64 rows lose
+    every key, so the flagged rows differ. One tile early, every row keeps
+    a visible key and sees 64 more, so the flags agree and the value limits
+    must do the work: acc / l outside its limit at most live outputs.
+    Returns the report for the log line."""
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    late = fa.flash_stats_fwd(q, k, v, q_off, k_off + 64, True, scale)
+    try:
+        _stats_check(late, want, q, k, v, q_off, k_off, True, scale)
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError(f"{tag}: k_offset one tile late passes the "
+                             f"check")
+    del late
+    early = fa.flash_stats_fwd(q, k, v, q_off, k_off - 64, True, scale)
+    res = _stats_check(early, want, q, k, v, q_off, k_off, True, scale)
+    if res["out_outside"] < 0.5:
+        raise AssertionError(f"{tag}: the acc / l limit lets k_offset one "
+                             f"tile early pass at {1 - res['out_outside']:.3f}"
+                             f" of the live outputs")
+    return (f"; k_offset one tile late fails on the flagged rows; one tile "
+            f"early puts {res['out_outside']:.4f} of acc / l outside its "
+            f"limit (m / lse use {res['m']:.3g} / {res['lse']:.3g} of "
+            f"theirs)")
+
+
 def stats_kernel_phase(dev):
     """`flash_stats_fwd` against `_flash_stats_plain` on the same CUDA
     tensors at the flagship shard shape, every pair of a ring step, f32 and
     bf16, timed beside the plain version, SDPA and the bound; the check
-    shown to reject k_offset one 64-key tile off; then a ring of four
-    shards on the card against the plain attention of the whole 16,384
-    tokens and against `flash_fwd`."""
+    shown to reject k_offset one 64-key tile off
+    (`_stats_check_sees_faults`); then a ring of four shards on the card
+    against the plain attention of the whole 16,384 tokens and against
+    `flash_fwd`."""
     import torch
     from mmlspark_tpu_torch.ops import flash_attention as fa
     from mmlspark_tpu_torch.parallel import data_mesh
@@ -1507,23 +1523,22 @@ def stats_kernel_phase(dev):
             tag = (f"flash_stats_fwd {pair} S_loc={STATS_SHARD} "
                    f"offsets=({q_off}, {k_off}) causal={causal} "
                    f"{str(dtype)[6:]}")
-            err, used = _stats_check(got, want, q, k, v, pair, scale)
+            res = _stats_check(got, want, q, k, v, q_off, k_off, causal,
+                               scale)
+            used = {x: res[x] for x in ("m", "lse", "out")}
+            if max(used.values()) > 1:
+                raise AssertionError(f"{tag}: off by {max(used.values()):.3g}"
+                                     f" x the limit (m, lse, acc / l: "
+                                     f"{used})")
             n_flagged = int((got[1] <= -1e29).sum())
+            fault = ""
             if pair == "diagonal":
-                bad = fa.flash_stats_fwd(q, k, v, q_off, k_off + 64, causal,
-                                         scale)
-                try:
-                    _stats_check(bad, want, q, k, v, pair, scale)
-                except AssertionError:
-                    pass
-                else:
-                    raise AssertionError(f"{tag}: k_offset one tile off "
-                                         f"passes the check")
-                del bad
+                fault = _stats_check_sees_faults(q, k, v, want, q_off, k_off,
+                                                 scale, tag)
             del got, want
             row = dict(pair=pair, q_off=q_off, k_off=k_off, causal=causal,
-                       dtype=str(dtype)[6:], max_abs_err=err,
-                       bf16_limit_used=used, flagged_rows=n_flagged)
+                       dtype=str(dtype)[6:], max_abs_err=res["err"],
+                       limit_used=used, flagged_rows=n_flagged)
             row["ms"] = timed(lambda: fa.flash_stats_fwd(
                 q, k, v, q_off, k_off, causal, scale), warmup=2, reps=10)
             row["plain_ms"] = timed(lambda: fa._flash_stats_plain(
@@ -1538,12 +1553,10 @@ def stats_kernel_phase(dev):
             lib_s = (f"{row['library_ms']:.3f} ms"
                      if row["library_ms"] is not None else "none (no key "
                      "visible)")
-            log(f"[stats kernel] {tag}: match (acc {err:.3g}"
-                + (f", {used:.3f} of the bf16 limit" if used else "")
-                + f"; {n_flagged} flagged rows"
-                + (", k_offset one tile off fails the check"
-                   if pair == "diagonal" else "")
-                + f"); kernel {row['ms']:.3f} ms, plain "
+            log(f"[stats kernel] {tag}: match (acc {res['err']:.3g}; m / "
+                f"lse / acc / l use {used['m']:.3f} / {used['lse']:.3f} / "
+                f"{used['out']:.3f} of their limits; {n_flagged} flagged "
+                f"rows{fault}); kernel {row['ms']:.3f} ms, plain "
                 f"{row['plain_ms']:.3f} ms, one SDPA {lib_s}, bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
             results.append(row)
@@ -1623,7 +1636,7 @@ def stats_bwd_kernel_phase(dev):
                         torch.isfinite(g.float()).all()):
                     raise AssertionError(f"{tag}: {name} is not finite "
                                          f"{dtype}")
-                used.append(_share_of_limit(g, w, lim))
+                used.append(_limit_used(g, w, lim))
                 errs.append(float((g.float() - w.float()).abs().max()))
             if max(used) > 1:
                 raise AssertionError(f"{tag}: off by {max(used):.3g} x the "
@@ -1661,10 +1674,11 @@ def stats_bwd_kernel_phase(dev):
                                           causal and q_off == k_off, scale)
                 row["library_ms"] = timed(lib, warmup=1, reps=5)
                 del lib
-            for key, n in (("dq_bound", 3), ("dkv_bound", 4)):
-                row[f"{key}_ms"], row[f"{key}_by"] = _stats_bwd_bound(
-                    STATS_SHARD, STATS_SHARD, STATS_H, STATS_D, dtype, q_off,
-                    k_off, causal, n)
+            for kernel in ("dq", "dkv"):
+                row[f"{kernel}_bound_ms"], row[f"{kernel}_bound_by"] = \
+                    _bwd_bound(STATS_SHARD, STATS_SHARD, STATS_H, STATS_D,
+                               dtype, causal, kernel, q_off, k_off,
+                               torch.float32)
             lib_s = (f"{row['library_ms']:.3f} ms"
                      if row["library_ms"] is not None else "none")
             log(msg + f"; dq {row['dq_ms']:.3f} ms (bound "
@@ -1838,14 +1852,14 @@ RING_MESH = (1, 1, 1, 4)
 # output moves by bf16 ulps of random sign (~3e-3 of a logit), and the
 # mean over the tokens moves by ~1e-5; 1e-3 (1e-4 of the loss) leaves room
 # for a systematic part. At initialization the loss hardly depends on
-# attention, so the S=2048 update check below is what holds the ring's
-# gradients
+# attention, so the S=2048 update checks below (f32 and bf16, the dtype
+# of this run) are what hold the ring's gradients
 _RING_LOSS_TOL = 1e-3
 
 
-def _ring_update_check(dev):
-    """One SGD step at S=2048 in f32 with attention="flash" on the ring
-    mesh and on a (1, 1, 1, 1) mesh from the same weights (the latter is
+def _ring_update_check(dev, compute_dtype):
+    """One SGD step at S=2048 with attention="flash" on the ring mesh and
+    on a (1, 1, 1, 1) mesh from the same weights (the latter is
     the degenerate route: no stats kernel, 12 `flash_fwd`). Returns the
     largest per-leaf disagreement of the updated weights over the larger
     update, both steps' launches and losses."""
@@ -1863,7 +1877,7 @@ def _ring_update_check(dev):
         mesh = grid_mesh(shape, axes, devices=[dev] * int(np.prod(shape)))
         t = PipelinedLMTrainer(mesh=mesh, n_microbatches=1,
                                attention="flash", optimizer="sgd", lr=1.0,
-                               seed=0, compute_dtype="float32",
+                               seed=0, compute_dtype=compute_dtype,
                                remat="save_attn", **LM)
         if shape == RING_MESH:
             start = [a.detach().clone() for a in _leaves(t.params)]
@@ -1886,7 +1900,8 @@ def ring_train_phase(dev, cp1_first_loss: float, profile: bool):
     """The LM training path on the ring mesh at the flagship width: one
     step with the launch counts set to 0 just before and read just after,
     then `run` of LM_STEPS timed steps (counts again set to 0 before and
-    read after); then the S=2048 f32 ring-vs-degenerate update check."""
+    read after); then the S=2048 ring-vs-degenerate update checks, f32
+    and bf16."""
     import torch
     from mmlspark_tpu_torch.models.dnn import PipelinedLMTrainer
     from mmlspark_tpu_torch.ops import flash_attention as fa
@@ -1952,24 +1967,29 @@ def ring_train_phase(dev, cp1_first_loss: float, profile: bool):
     del trainer
     torch.cuda.empty_cache()
 
-    worst, losses, check_launches = _ring_update_check(dev)
-    degenerate = check_launches[(1, 1, 1, 1)]
-    log(f"[ring train] S={_TRAIN_CHECK_SEQ} SGD step float32, mesh "
-        f"{RING_MESH} vs (1, 1, 1, 1) from the same weights: losses "
-        f"{losses[RING_MESH]:.6f} / {losses[(1, 1, 1, 1)]:.6f}; updated "
-        f"weights differ by at most {worst:.3g} of the update per leaf "
-        f"(limit {_TRAIN_TOL['float32']}); launches "
-        f"{check_launches[RING_MESH]} / {degenerate}")
-    if worst > _TRAIN_TOL["float32"]:
-        raise AssertionError("ring and single-shard training disagree")
-    if degenerate != {"flash_fwd": LM["n_layers"], "flash_stats_fwd": 0,
-                      "flash_bwd_dq": LM["n_layers"],
-                      "flash_bwd_dkv": LM["n_layers"]}:
-        raise AssertionError(f"the (1, 1, 1, 1) mesh launched {degenerate}")
+    checks = {}
+    for cdt in ("float32", "bfloat16"):
+        worst, losses, check_launches = _ring_update_check(dev, cdt)
+        degenerate = check_launches[(1, 1, 1, 1)]
+        log(f"[ring train] S={_TRAIN_CHECK_SEQ} SGD step {cdt}, mesh "
+            f"{RING_MESH} vs (1, 1, 1, 1) from the same weights: losses "
+            f"{losses[RING_MESH]:.6f} / {losses[(1, 1, 1, 1)]:.6f}; updated "
+            f"weights differ by at most {worst:.3g} of the update per leaf "
+            f"(limit {_TRAIN_TOL[cdt]}); launches "
+            f"{check_launches[RING_MESH]} / {degenerate}")
+        if worst > _TRAIN_TOL[cdt]:
+            raise AssertionError(f"ring and single-shard training disagree "
+                                 f"({cdt})")
+        if degenerate != {"flash_fwd": LM["n_layers"], "flash_stats_fwd": 0,
+                          "flash_bwd_dq": LM["n_layers"],
+                          "flash_bwd_dkv": LM["n_layers"]}:
+            raise AssertionError(f"the (1, 1, 1, 1) mesh launched "
+                                 f"{degenerate}")
+        checks[cdt] = worst
     return dict(launches=launches, per_step=per_step, s_step=s_step,
                 tokens_per_s=LM_SEQ / s_step, mfu=mfu, peak=peak,
                 losses=[loss1, loss_last], cp1_first_loss=cp1_first_loss,
-                check=worst)
+                checks=checks)
 
 
 def main(argv) -> int:
@@ -2110,7 +2130,7 @@ def main(argv) -> int:
         variants=[{k: r[k] for k in (
             "pair", "dtype", "q_off", "k_off", "causal", "ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by", "max_abs_err",
-            "bf16_limit_used", "flagged_rows")} for r in sres["pairs"]]))
+            "limit_used", "flagged_rows")} for r in sres["pairs"]]))
     # the training path's shape: S=16384, H=8, D=128, bf16, causal
     main_bwd = [r for r in bres if r["case"] == "main"
                 and r["dtype"] == "bfloat16" and r["causal"]][0]

@@ -9,21 +9,23 @@ the port is installed:
 
 Pairs of one ring step, 256-row shards at global offsets on the 64-key
 grid: diagonal, fully visible, fully masked (every row flagged) and
-non-causal. On live rows the stats are held as the forward's outputs
-are: lse = m + log l within (1e-5, 1e-4), m within 1e-5, and acc / l
-within 2e-5 (f32) or, per element, 2^-7 |plain| + 2^-6 r with
+non-causal. The forward is held by `chip_smoke._stats_check`, the card
+check's own: on live rows m and lse = m + log l within (1e-5, 1e-4), and
+acc / l within 2e-5 (f32) or, per element, 2^-7 |plain| + 2^-6 r with
 r = `_bf16_rounding_scale` at the pair's offsets (bf16: the kernel
 rounds p against each tile's running max, the plain version against the
-row's final max). Flagged rows must be exactly acc = 0, l = 0,
+row's final max); flagged rows must be exactly acc = 0, l = 0,
 m = -1e30. The backward kernels at the same offsets (lse := m,
 dsum := -d_l, dO := d_acc in f32) are held per element within
 `flash_attention._BWD_TOL`. A kernel run with k_offset one 64-key tile
-off fails the forward check.
+off fails the forward check both ways: one tile late by the flagged
+rows, one tile early by the acc / l limit.
 """
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import _stats_check
 from mmlspark_tpu_torch.ops import flash_attention as fa
 from mmlspark_tpu_torch.parallel import data_mesh
 from mmlspark_tpu_torch.parallel.ring_attention import ring_attention
@@ -31,7 +33,6 @@ from mmlspark_tpu_torch.parallel.ring_attention import ring_attention
 _S = 256
 _PAIRS = {"diagonal": (256, 256, True), "full": (768, 0, True),
           "masked": (0, 768, True), "noncausal": (0, 768, False)}
-_LSE_TOL = dict(rtol=1e-5, atol=1e-4)
 
 
 @pytest.fixture
@@ -48,37 +49,6 @@ def _qkv(h, d, dtype, device, seed=0, s=_S):
         np.float32)).to(device=device, dtype=dtype) for _ in range(3))
 
 
-def _stats_check(got, want, q, k, v, qo, ko, causal, scale):
-    """Raises unless the kernel's (acc, m, l) pass against the plain
-    version's; returns the share of the bf16 limit used (0 for f32)."""
-    acc, m, l = got
-    w_acc, w_m, w_l = want
-    assert acc.dtype == m.dtype == l.dtype == torch.float32
-    assert bool(torch.isfinite(acc).all() and torch.isfinite(l).all())
-    flagged = w_m <= -1e29
-    assert torch.equal(m <= -1e29, flagged)
-    assert bool((acc[flagged.T] == 0).all() and (l[flagged] == 0).all())
-    live = ~flagged
-    if not bool(live.any()):
-        return 0.0
-    torch.testing.assert_close(m[live], w_m[live], **_LSE_TOL)
-    torch.testing.assert_close((m + l.log())[live], (w_m + w_l.log())[live],
-                               **_LSE_TOL)
-    out = acc / l.clamp_min(1e-30).T[:, :, None]
-    w_out = w_acc / w_l.clamp_min(1e-30).T[:, :, None]
-    rows = live.T
-    if q.dtype == torch.float32:
-        torch.testing.assert_close(out[rows], w_out[rows], rtol=2e-5,
-                                   atol=2e-5)
-        return 0.0
-    lim = (2.0 ** -7 * w_out.abs()
-           + 2.0 ** -6 * fa._bf16_rounding_scale(q, k, v, causal, scale,
-                                                 qo, ko))
-    used = float(((out - w_out).abs() / lim)[rows].max())
-    assert used <= 1.0, used
-    return used
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pair", list(_PAIRS))
@@ -90,20 +60,26 @@ def test_stats_kernel_matches_plain(cuda_device, pair, h, d, dtype):
     got = fa.flash_stats_fwd(q, k, v, qo, ko, causal, scale)
     want = fa._flash_stats_plain(q, k, v, qo, ko, causal, scale)
     torch.cuda.synchronize()
-    _stats_check(got, want, q, k, v, qo, ko, causal, scale)
+    res = _stats_check(got, want, q, k, v, qo, ko, causal, scale)
+    assert max(res["m"], res["lse"], res["out"]) <= 1.0, res
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_shifted_tile_fails_the_check(cuda_device, dtype):
     """The check sees a fault of one tile: the diagonal pair run with
-    k_offset one 64-key tile off fails it."""
+    k_offset one 64-key tile late fails it on the flagged rows (the first
+    64 rows lose every key); one tile early keeps the flags, and acc / l
+    falls outside its limit at most live outputs."""
     q, k, v = _qkv(2, 64, dtype, cuda_device)
     qo, ko, _ = _PAIRS["diagonal"]
     want = fa._flash_stats_plain(q, k, v, qo, ko, True, 0.125)
-    bad = fa.flash_stats_fwd(q, k, v, qo, ko + 64, True, 0.125)
+    late = fa.flash_stats_fwd(q, k, v, qo, ko + 64, True, 0.125)
     with pytest.raises(AssertionError):
-        _stats_check(bad, want, q, k, v, qo, ko, True, 0.125)
+        _stats_check(late, want, q, k, v, qo, ko, True, 0.125)
+    early = fa.flash_stats_fwd(q, k, v, qo, ko - 64, True, 0.125)
+    res = _stats_check(early, want, q, k, v, qo, ko, True, 0.125)
+    assert res["out"] > 1.0 and res["out_outside"] >= 0.5, res
 
 
 @pytest.mark.gpu
