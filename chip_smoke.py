@@ -123,6 +123,8 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -242,6 +244,81 @@ def build_phase():
                 log(f"  {line.split(chr(39))[1]}")     # the mangled name
             elif "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
+    return _bwd_build_checks(reports["flash_attention_bwd"][0])
+
+
+# the tensor-core backward kernels by mangled name: (kernel, dO's type, D);
+# bf16 dO is dtype code 1, f32 dO code 2
+_BWD_MMA = re.compile(r"flash_bwd_(dq|dkv)_mmaI(13__nv_bfloat16|f)Li(\d+)E")
+
+
+def _bwd_mma_key(line):
+    """(kernel, dtype code, D) of a tensor-core backward kernel named in a
+    line of ptxas or cuobjdump output, else None."""
+    m = _BWD_MMA.search(line)
+    return (m.group(1), 1 if m.group(2) != "f" else 2,
+            int(m.group(3))) if m else None
+
+
+def _bwd_build_checks(report):
+    """The redesigned backward kernels, from the built library: every
+    bf16 instantiation (codes 1 and 2, both kernels, each D) must hold
+    tensor-core instructions (HMMA or HGMMA in `cuobjdump -sass`) and
+    ptxas must report no spills for them (when this run built the
+    library); shared memory per block and blocks per SM at D=128 for codes
+    0-2. Raises on a kernel without tensor-core instructions or with
+    spills."""
+    from mmlspark_tpu_torch.ops import _build
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [tool, "-sass", str(_build._target("flash_attention_bwd"))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = _bwd_mma_key(line)
+            if name is not None:
+                counts[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name is not None:
+            for op in ("HGMMA", "HMMA"):
+                if op + "." in line:
+                    counts[name][op] += 1
+                    break
+    want = {(k, c, d) for k in ("dq", "dkv") for c in (1, 2)
+            for d in (16, 32, 64, 128)}
+    missing = sorted(w for w in want
+                     if sum(counts.get(w, {}).values()) == 0)
+    if missing:
+        raise AssertionError(f"no tensor-core instructions in the bf16 "
+                             f"backward kernels {missing}")
+    spills = {}
+    if report is not None:
+        fn = None
+        for line in report.splitlines():
+            if "entry function" in line:
+                fn = _bwd_mma_key(line)
+            elif fn is not None and "spill" in line:
+                n = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+                if any(n):
+                    spills[fn] = n
+        if spills:
+            raise AssertionError(f"ptxas spills in the tensor-core backward "
+                                 f"kernels: {spills}")
+    for (k, c, d), ops in sorted(counts.items()):
+        if d == 128:
+            log(f"[build] flash_bwd_{k}_mma code {c} D=128: SASS "
+                f"{ops['HMMA']} HMMA, {ops['HGMMA']} HGMMA")
+    occupancy = {}
+    for k in ("dq", "dkv"):
+        for c in (0, 1, 2):
+            smem, blocks = fa.flash_bwd_occupancy(k, c, 128)
+            occupancy[f"{k} code {c}"] = dict(smem=smem, blocks_per_sm=blocks)
+            log(f"[build] flash_bwd {k} code {c} D=128: {smem} B shared "
+                f"memory per block, {blocks} block(s) per SM")
+    return dict(sass={f"{k} code {c} D={d}": ops
+                      for (k, c, d), ops in sorted(counts.items())},
+                spills_checked=report is not None, occupancy=occupancy)
 
 
 def _hist_inputs(gen, dev, n, f, b, m):
@@ -1722,13 +1799,39 @@ def _lm_flops_per_step():
     return 3 * fwd
 
 
+# the attention weights of a layer: their gradients come through the flash
+# backward's dq, dk, dv (wq, wk, wv) or its output (wo)
+_ATTN_LEAVES = ("layers/wq", "layers/wk", "layers/wv", "layers/wo")
+
+
+def _named_leaves(tree, path=""):
+    """(name, tensor) of a parameter tree (dicts and lists), in order."""
+    if isinstance(tree, (dict, list)):
+        items = (tree.items() if isinstance(tree, dict)
+                 else enumerate(tree))
+        for k, v in items:
+            yield from _named_leaves(v, f"{path}/{k}" if path else str(k))
+    else:
+        yield path, tree
+
+
+def _update_disagreement(names, start, got, ref):
+    """Per leaf, max |got - ref| over max |ref - start|: (the largest, its
+    leaf's name, the largest over the attention weights alone)."""
+    ratios = {}
+    for name, w0, wg, wr in zip(names, start, got, ref):
+        step = float((wr - w0).abs().max())
+        ratios[name] = float((wg - wr).abs().max()) / max(step, 1e-30)
+    leaf = max(ratios, key=ratios.get)
+    return ratios[leaf], leaf, max(ratios[n] for n in _ATTN_LEAVES)
+
+
 def _train_update_check(dev, compute_dtype):
     """One SGD step at S=2048 with attention="flash" and with "dense" from
-    the same weights; the largest per-leaf disagreement of the updated
-    weights over the larger update."""
+    the same weights: the per-leaf disagreement of the updated weights
+    over the larger update (`_update_disagreement`) and both losses."""
     import torch
     from mmlspark_tpu_torch.models.dnn import PipelinedLMTrainer
-    from mmlspark_tpu_torch.models.dnn.pp_training import _leaves
     toks = np.random.default_rng(1).integers(
         0, LM["vocab_size"], size=(1, _TRAIN_CHECK_SEQ)).astype(np.int32)
     updated, losses = {}, {}
@@ -1738,17 +1841,17 @@ def _train_update_check(dev, compute_dtype):
                                compute_dtype=compute_dtype,
                                remat="save_attn", device=dev, **LM)
         if attention == "flash":
-            start = [a.detach().clone() for a in _leaves(t.params)]
+            names, start = zip(*((n, a.detach().clone())
+                                 for n, a in _named_leaves(t.params)))
         losses[attention] = t.step(toks)
-        updated[attention] = [a.detach() for a in _leaves(t.params)]
+        updated[attention] = [a.detach()
+                              for _, a in _named_leaves(t.params)]
         del t
-    worst = 0.0
-    for w0, wf, wd in zip(start, updated["flash"], updated["dense"]):
-        step = float((wd - w0).abs().max())
-        worst = max(worst, float((wf - wd).abs().max()) / max(step, 1e-30))
+    disagreement = _update_disagreement(names, start, updated["flash"],
+                                        updated["dense"])
     del start, updated
     torch.cuda.empty_cache()
-    return worst, losses
+    return disagreement, losses
 
 
 def lm_train_phase(dev, profile: bool):
@@ -1827,14 +1930,15 @@ def lm_train_phase(dev, profile: bool):
 
     checks = {}
     for cdt in ("bfloat16", "float32"):
-        worst, losses = _train_update_check(dev, cdt)
+        (worst, leaf, attn), losses = _train_update_check(dev, cdt)
         log(f"[train] S={_TRAIN_CHECK_SEQ} SGD step {cdt}, flash vs dense "
             f"from the same weights: losses {losses['flash']:.6f} / "
             f"{losses['dense']:.6f}; updated weights differ by at most "
-            f"{worst:.3g} of the update per leaf (limit {_TRAIN_TOL[cdt]})")
+            f"{worst:.3g} of the update per leaf ({leaf}; the attention "
+            f"weights alone {attn:.3g}; limit {_TRAIN_TOL[cdt]})")
         if worst > _TRAIN_TOL[cdt]:
             raise AssertionError(f"flash and dense training disagree ({cdt})")
-        checks[cdt] = worst
+        checks[cdt] = dict(worst=worst, leaf=leaf, attention=attn)
     return dict(launches=launches, per_step=per_step, s_step=s_step,
                 tokens_per_s=LM_SEQ / s_step, mfu=mfu, peak=peak,
                 n_params=n_params, losses=[loss1, loss2, loss_last],
@@ -1861,11 +1965,10 @@ def _ring_update_check(dev, compute_dtype):
     """One SGD step at S=2048 with attention="flash" on the ring mesh and
     on a (1, 1, 1, 1) mesh from the same weights (the latter is
     the degenerate route: no stats kernel, 12 `flash_fwd`). Returns the
-    largest per-leaf disagreement of the updated weights over the larger
-    update, both steps' launches and losses."""
+    per-leaf disagreement of the updated weights over the larger update
+    (`_update_disagreement`), both steps' launches and losses."""
     import torch
     from mmlspark_tpu_torch.models.dnn import PipelinedLMTrainer
-    from mmlspark_tpu_torch.models.dnn.pp_training import _leaves
     from mmlspark_tpu_torch.ops import flash_attention as fa
     from mmlspark_tpu_torch.parallel import (DATA_AXIS, MODEL_AXIS,
                                              PIPE_AXIS, SEQ_AXIS, grid_mesh)
@@ -1880,20 +1983,19 @@ def _ring_update_check(dev, compute_dtype):
                                seed=0, compute_dtype=compute_dtype,
                                remat="save_attn", **LM)
         if shape == RING_MESH:
-            start = [a.detach().clone() for a in _leaves(t.params)]
+            names, start = zip(*((n, a.detach().clone())
+                                 for n, a in _named_leaves(t.params)))
         torch.cuda.synchronize()
         fa.reset_launches()
         losses[shape] = t.step(toks)
         launches[shape] = dict(fa.launches)
-        updated[shape] = [a.detach() for a in _leaves(t.params)]
+        updated[shape] = [a.detach() for _, a in _named_leaves(t.params)]
         del t
-    worst = 0.0
-    for w0, wr, w1 in zip(start, updated[RING_MESH], updated[(1, 1, 1, 1)]):
-        step = float((w1 - w0).abs().max())
-        worst = max(worst, float((wr - w1).abs().max()) / max(step, 1e-30))
+    disagreement = _update_disagreement(names, start, updated[RING_MESH],
+                                        updated[(1, 1, 1, 1)])
     del start, updated
     torch.cuda.empty_cache()
-    return worst, losses, launches
+    return disagreement, losses, launches
 
 
 def ring_train_phase(dev, cp1_first_loss: float, profile: bool):
@@ -1969,14 +2071,16 @@ def ring_train_phase(dev, cp1_first_loss: float, profile: bool):
 
     checks = {}
     for cdt in ("float32", "bfloat16"):
-        worst, losses, check_launches = _ring_update_check(dev, cdt)
+        (worst, leaf, attn), losses, check_launches = _ring_update_check(
+            dev, cdt)
         degenerate = check_launches[(1, 1, 1, 1)]
         log(f"[ring train] S={_TRAIN_CHECK_SEQ} SGD step {cdt}, mesh "
             f"{RING_MESH} vs (1, 1, 1, 1) from the same weights: losses "
             f"{losses[RING_MESH]:.6f} / {losses[(1, 1, 1, 1)]:.6f}; updated "
             f"weights differ by at most {worst:.3g} of the update per leaf "
-            f"(limit {_TRAIN_TOL[cdt]}); launches "
-            f"{check_launches[RING_MESH]} / {degenerate}")
+            f"({leaf}; the attention weights alone {attn:.3g}; limit "
+            f"{_TRAIN_TOL[cdt]}); launches {check_launches[RING_MESH]} / "
+            f"{degenerate}")
         if worst > _TRAIN_TOL[cdt]:
             raise AssertionError(f"ring and single-shard training disagree "
                                  f"({cdt})")
@@ -1985,7 +2089,7 @@ def ring_train_phase(dev, cp1_first_loss: float, profile: bool):
                           "flash_bwd_dkv": LM["n_layers"]}:
             raise AssertionError(f"the (1, 1, 1, 1) mesh launched "
                                  f"{degenerate}")
-        checks[cdt] = worst
+        checks[cdt] = dict(worst=worst, leaf=leaf, attention=attn)
     return dict(launches=launches, per_step=per_step, s_step=s_step,
                 tokens_per_s=LM_SEQ / s_step, mfu=mfu, peak=peak,
                 losses=[loss1, loss_last], cp1_first_loss=cp1_first_loss,
@@ -2019,7 +2123,7 @@ def main(argv) -> int:
         log(f"[time] {name}: {phase_s[name]:.1f} s")
         return out
     smi, card = phase("card", card_phase)
-    phase("build", build_phase)
+    bwd_build = phase("build", build_phase)
     dev = torch.device("cuda")
     profile = "--profile" in argv
     kres = phase("kernel", kernel_phase, dev)
@@ -2157,6 +2261,10 @@ def main(argv) -> int:
             bound_by=main_bwd[f"{key}_bound_by"],
             library_ms=main_bwd["library_ms"],
             library="one scaled_dot_product_attention backward (dq, dk, dv)",
+            build={k: v for k, v in bwd_build["sass"].items()
+                   if k.startswith(key + " ")},
+            occupancy={k: v for k, v in bwd_build["occupancy"].items()
+                       if k.startswith(key + " ")},
             shape=dict(s=LM_SEQ, h=main_bwd["h"], d=main_bwd["d"],
                        dtype="bfloat16", causal=True),
             variants=[{k: r.get(k) for k in (

@@ -22,6 +22,7 @@ import torch
 from ...core import (Estimator, HasFeaturesCol, HasLabelCol,
                      HasPredictionCol, HasProbabilitiesCol, HasWeightCol,
                      Model, Param, Table, in_range, one_of)
+from ...device import resolve_device
 from .boosting import BoostParams, fit_booster
 from .booster import Booster
 
@@ -32,6 +33,13 @@ def _host(col, dtype) -> np.ndarray:
     return np.asarray(col, dtype=dtype)
 
 
+def _device_count(device) -> int:
+    """Devices a fit with num_tasks=0 would shard over: one for the CPU,
+    every visible card for CUDA."""
+    return (torch.cuda.device_count()
+            if resolve_device(device).type == "cuda" else 1)
+
+
 # param -> (is its value one this slice cannot run?, ROADMAP Queue 1 item)
 _UNPORTED = {
     "categorical_slot_indexes": (bool, 9),
@@ -40,7 +48,6 @@ _UNPORTED = {
     "checkpoint_dir": (bool, 11),
     "leaf_prediction_col": (bool, 14),
     "features_shap_col": (bool, 14),
-    "parallelism": (lambda v: v != "data_parallel", 15),
     "num_tasks": (lambda v: v > 1, 15),
     "num_ingest_workers": (lambda v: v != 1, 17),
     "out_of_core": (bool, 17),
@@ -153,6 +160,17 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
                 raise NotImplementedError(
                     f"{name}={self.get_or_default(name)!r} is not ported "
                     f"yet (ROADMAP Queue 1 item {item})")
+        if self.parallelism == "voting_parallel" and self.num_tasks == 0:
+            # the reference shards over every device here (its _use_mesh),
+            # and voting picks features per shard, so one device's fit is
+            # not that model; with one device it runs the plain fit, and a
+            # data_parallel fit is the plain fit's model on any count
+            n = _device_count(self.device)
+            if n > 1:
+                raise NotImplementedError(
+                    f"parallelism='voting_parallel' over {n} devices is "
+                    f"not ported yet (ROADMAP Queue 1 item 15); pass "
+                    f"num_tasks=1")
 
     def _boost_params(self, objective: str, num_class: int = 1) -> BoostParams:
         return BoostParams(

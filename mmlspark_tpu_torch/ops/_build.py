@@ -1,10 +1,10 @@
 """Build-at-first-use for the port's CUDA sources.
 
-Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into a shared
-library with a plain C interface under `build/torch_kernels/` of the
-checkout, and loaded with `ctypes`. The library's file name carries a hash
-of the source and the flags, so an edited source never loads a stale
-build.
+Each `csrc/<name>.cu` (with the `csrc/*.cuh` headers it includes) is
+compiled by `nvcc` for `sm_90a` into a shared library with a plain C
+interface under `build/torch_kernels/` of the checkout, and loaded with
+`ctypes`. The library's file name carries a hash of the sources and the
+flags, so an edited source or header never loads a stale build.
 
 Nothing here runs at import time: the CPU tests import every module, and
 `nvcc` is only called when a kernel is first asked for on a CUDA tensor
@@ -28,7 +28,9 @@ _loaded: dict = {}   # name -> ctypes.CDLL
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source and every header beside it
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
 

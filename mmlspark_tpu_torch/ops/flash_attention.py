@@ -87,8 +87,24 @@ def _bwd_library():
         lib.flash_bwd_dkv_launch.argtypes = [_P] * 8 + common
         lib.flash_bwd_dq_launch.restype = ctypes.c_int
         lib.flash_bwd_dkv_launch.restype = ctypes.c_int
+        lib.flash_bwd_occupancy.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)] * 2
+        lib.flash_bwd_occupancy.restype = ctypes.c_int
         _bwd_lib = lib
     return _bwd_lib
+
+
+def flash_bwd_occupancy(kernel: str, dtype_code: int, d: int):
+    """(dynamic shared memory per block in bytes, blocks per SM) of the
+    backward kernel "dq" or "dkv" for a dtype code (0 f32, 1 bf16, 2 bf16
+    with an f32 dO) and head dim, on the current card."""
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    err = _bwd_library().flash_bwd_occupancy(
+        int(kernel == "dq"), dtype_code, d, ctypes.byref(smem),
+        ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_occupancy failed: cudaError_t {err}")
+    return smem.value, blocks.value
 
 
 def _scaled(q, scale: float):

@@ -227,13 +227,42 @@ def test_unported_params_raise(params):
 
 @pytest.mark.parametrize("param", [
     dict(checkpoint_dir="ck"), dict(out_of_core=True),
-    dict(num_ingest_workers=2), dict(parallelism="voting_parallel"),
+    dict(num_ingest_workers=2),
+    dict(parallelism="voting_parallel", num_tasks=2),
     dict(categorical_slot_indexes=(0,)), dict(features_shap_col="shap"),
     dict(quality_profile=True)])
 def test_unported_estimator_params_raise(param):
     x, y = _data("binary", n=200)
     est = GBDTClassifier(num_iterations=1, device="cpu", **param)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        est.fit(Table({"features": x, "label": y}))
+
+
+def test_voting_parallel_on_one_device_matches_reference():
+    """voting_parallel on one device is the plain fit in both packages
+    (num_tasks=1: the test session's 8 virtual CPU devices would
+    otherwise shard the reference)."""
+    x, y = _data("binary", seed=3)
+    params = dict(num_iterations=5, max_depth=4, num_leaves=15, max_bin=63,
+                  parallelism="voting_parallel", top_k=4, num_tasks=1)
+    ref_m = RefClassifier(quality_profile=False, **params).fit(
+        RefTable({"features": x, "label": y}))
+    for tasks in (1, 0):  # num_tasks=0 on the CPU is one device
+        got_m = GBDTClassifier(device="cpu", **dict(
+            params, num_tasks=tasks)).fit(Table({"features": x, "label": y}))
+        _assert_same_model(got_m.booster, ref_m.booster,
+                           apply_bins(fit_bins(x, max_bin=63, seed=0), x))
+
+
+def test_voting_parallel_over_many_cards_raises(monkeypatch):
+    """Where the reference would shard (num_tasks=0 and more than one
+    card), the port raises naming item 15."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    x, y = _data("binary", n=200)
+    est = GBDTClassifier(num_iterations=1, device="cuda",
+                         parallelism="voting_parallel")
+    with pytest.raises(NotImplementedError, match="item 15"):
         est.fit(Table({"features": x, "label": y}))
 
 
