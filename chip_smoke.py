@@ -14,7 +14,11 @@ Phases (any failure exits non-zero before the last line is printed):
   1. card: name and power limit (nvidia-smi), torch's device name;
   2. build: every CUDA source of the port with nvcc for sm_90a, one nvcc
      per source, all started together, with the build seconds and the
-     -Xptxas -v register/shared-memory report;
+     -Xptxas -v register/shared-memory report; every bf16 instantiation of
+     the flash forward (both forms) and backward must hold tensor-core
+     instructions (HMMA or HGMMA in `cuobjdump -sass`) and have no ptxas
+     spills; registers, shared memory per block and blocks per SM at
+     D=128;
   3. kernels vs plain: each kernel entry point against its plain PyTorch
      version on the same CUDA tensors, at the main path's shapes.
      Histograms: 8M rows x 32 features x 64 bins, m in {1, 2, 4, 8}, with
@@ -168,10 +172,11 @@ _FLASH_F32_TOL = (2e-5, 2e-5)
 # against each tile's running max, the plain version against the row's
 # final max; each p is off by at most 2^-9 relative, so the difference
 # has a std of ~1.6e-3 r). At S=16384, H=8, D=128 a typical output is
-# ~0.013 and the limit ~3e-4. On an H100 (80GB HBM3, 700 W) the kernel
-# used 0.620-0.756 of this limit over the phase's bf16 shapes (0.657 and
-# 0.664 at S=16384, H=8, D=128, non-causal and causal); its output on V
-# shifted by one key failed it at 98.5% of the outputs.
+# ~0.013 and the limit ~3e-4. On an H100 (80GB HBM3, 700 W) the CUDA-core
+# kernel and then the tensor-core kernel each used 0.620-0.756 of this
+# limit over the phase's bf16 shapes (0.657 and 0.664 at S=16384, H=8,
+# D=128, non-causal and causal); their output on V shifted by one key
+# failed it at 98.5% of the outputs.
 _BF16_OUT_ULP, _BF16_P_NOISE = 2.0 ** -7, 2.0 ** -6
 _LSE_TOL = (1e-5, 1e-4)
 # flash encode vs dense encode on the card, max |diff| of the (16384,
@@ -244,12 +249,14 @@ def build_phase():
                 log(f"  {line.split(chr(39))[1]}")     # the mangled name
             elif "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
-    return _bwd_build_checks(reports["flash_attention_bwd"][0])
+    return dict(fwd=_fwd_build_checks(reports["flash_attention"][0]),
+                bwd=_bwd_build_checks(reports["flash_attention_bwd"][0]))
 
 
-# the tensor-core backward kernels by mangled name: (kernel, dO's type, D);
-# bf16 dO is dtype code 1, f32 dO code 2
+# the tensor-core kernels by mangled name. Backward: (kernel, dO's type, D),
+# bf16 dO is dtype code 1, f32 dO code 2; forward: (form, D)
 _BWD_MMA = re.compile(r"flash_bwd_(dq|dkv)_mmaI(13__nv_bfloat16|f)Li(\d+)E")
+_FWD_MMA = re.compile(r"flash_fwd_mmaILi(\d+)ELb([01])E")
 
 
 def _bwd_mma_key(line):
@@ -260,24 +267,30 @@ def _bwd_mma_key(line):
             int(m.group(3))) if m else None
 
 
-def _bwd_build_checks(report):
-    """The redesigned backward kernels, from the built library: every
-    bf16 instantiation (codes 1 and 2, both kernels, each D) must hold
-    tensor-core instructions (HMMA or HGMMA in `cuobjdump -sass`) and
-    ptxas must report no spills for them (when this run built the
-    library); shared memory per block and blocks per SM at D=128 for codes
-    0-2. Raises on a kernel without tensor-core instructions or with
-    spills."""
+def _fwd_mma_key(line):
+    """("normalized" or "stats", D) of a tensor-core forward kernel named in
+    a line of ptxas or cuobjdump output, else None."""
+    m = _FWD_MMA.search(line)
+    return ("normalized" if m.group(2) == "1" else "stats",
+            int(m.group(1))) if m else None
+
+
+def _mma_build_checks(source, report, key, want):
+    """The tensor-core kernels of one built source, each named by `key`
+    (a line of ptxas or cuobjdump output -> its key, else None): every key
+    in `want` must hold tensor-core instructions (HMMA or HGMMA in
+    `cuobjdump -sass`), and ptxas must report no spills for them (when this
+    run built the library). Returns {key: {"HMMA": n, "HGMMA": n}}; raises
+    on a kernel without tensor-core instructions or with spills."""
     from mmlspark_tpu_torch.ops import _build
-    from mmlspark_tpu_torch.ops import flash_attention as fa
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run(
-        [tool, "-sass", str(_build._target("flash_attention_bwd"))],
+        [tool, "-sass", str(_build._target(source))],
         capture_output=True, text=True, timeout=300, check=True).stdout
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            name = _bwd_mma_key(line)
+            name = key(line)
             if name is not None:
                 counts[name] = {"HMMA": 0, "HGMMA": 0}
         elif name is not None:
@@ -285,26 +298,65 @@ def _bwd_build_checks(report):
                 if op + "." in line:
                     counts[name][op] += 1
                     break
-    want = {(k, c, d) for k in ("dq", "dkv") for c in (1, 2)
-            for d in (16, 32, 64, 128)}
     missing = sorted(w for w in want
                      if sum(counts.get(w, {}).values()) == 0)
     if missing:
         raise AssertionError(f"no tensor-core instructions in the bf16 "
-                             f"backward kernels {missing}")
+                             f"kernels {missing} of {source}.cu")
     spills = {}
     if report is not None:
         fn = None
         for line in report.splitlines():
             if "entry function" in line:
-                fn = _bwd_mma_key(line)
+                fn = key(line)
             elif fn is not None and "spill" in line:
                 n = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
                 if any(n):
                     spills[fn] = n
         if spills:
-            raise AssertionError(f"ptxas spills in the tensor-core backward "
-                                 f"kernels: {spills}")
+            raise AssertionError(f"ptxas spills in the tensor-core kernels "
+                                 f"of {source}.cu: {spills}")
+    return counts
+
+
+def _fwd_build_checks(report):
+    """The redesigned forward kernel, from the built library: every bf16
+    instantiation (both forms, each D) holds tensor-core instructions and
+    has no ptxas spills (`_mma_build_checks`); registers, shared memory
+    per block and blocks per SM at D=128 for both forms, f32 and bf16."""
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    counts = _mma_build_checks(
+        "flash_attention", report, _fwd_mma_key,
+        {(f, d) for f in ("normalized", "stats") for d in (16, 32, 64, 128)})
+    for (f, d), ops in sorted(counts.items()):
+        if d == 128:
+            log(f"[build] flash_fwd_mma {f} D=128: SASS {ops['HMMA']} HMMA, "
+                f"{ops['HGMMA']} HGMMA")
+    occupancy = {}
+    for f in ("normalized", "stats"):
+        for c in (0, 1):
+            regs, smem, blocks = fa.flash_fwd_occupancy(f == "normalized", c,
+                                                        128)
+            occupancy[f"{f} code {c}"] = dict(registers=regs, smem=smem,
+                                              blocks_per_sm=blocks)
+            log(f"[build] flash_fwd {f} code {c} D=128: {regs} registers, "
+                f"{smem} B shared memory per block, {blocks} block(s) per SM")
+    return dict(sass={f"{f} D={d}": ops
+                      for (f, d), ops in sorted(counts.items())},
+                spills_checked=report is not None, occupancy=occupancy)
+
+
+def _bwd_build_checks(report):
+    """The redesigned backward kernels, from the built library: every
+    bf16 instantiation (codes 1 and 2, both kernels, each D) holds
+    tensor-core instructions and has no ptxas spills
+    (`_mma_build_checks`); shared memory per block and blocks per SM at
+    D=128 for codes 0-2."""
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    counts = _mma_build_checks(
+        "flash_attention_bwd", report, _bwd_mma_key,
+        {(k, c, d) for k in ("dq", "dkv") for c in (1, 2)
+         for d in (16, 32, 64, 128)})
     for (k, c, d), ops in sorted(counts.items()):
         if d == 128:
             log(f"[build] flash_bwd_{k}_mma code {c} D=128: SASS "
@@ -2123,7 +2175,7 @@ def main(argv) -> int:
         log(f"[time] {name}: {phase_s[name]:.1f} s")
         return out
     smi, card = phase("card", card_phase)
-    bwd_build = phase("build", build_phase)
+    build = phase("build", build_phase)
     dev = torch.device("cuda")
     profile = "--profile" in argv
     kres = phase("kernel", kernel_phase, dev)
@@ -2152,6 +2204,16 @@ def main(argv) -> int:
     glob = kres["hist_global"][0]
     main_flash = [r for r in fres if r["case"] == "main"
                   and r["dtype"] == "float32" and not r["causal"]][0]
+    # the training path's shape: bf16, causal
+    main_flash_bf16 = [r for r in fres if r["case"] == "main"
+                       and r["dtype"] == "bfloat16" and r["causal"]][0]
+
+    def fwd_build(form):
+        return dict(
+            build={k: v for k, v in build["fwd"]["sass"].items()
+                   if k.startswith(form + " ")},
+            occupancy={k: v for k, v in build["fwd"]["occupancy"].items()
+                       if k.startswith(form + " ")})
     src = "mmlspark_tpu_torch/ops/csrc/histogram.cu"
     kernels = [
         dict(name="hist_smem", route="cuda", source=src,
@@ -2186,6 +2248,10 @@ def main(argv) -> int:
                                            "library_ms")},
              shape=dict(s=SEQ, h=main_flash["h"], d=main_flash["d"],
                         dtype="float32", causal=False),
+             bf16_causal={k: main_flash_bf16[k] for k in (
+                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                 "max_abs_err", "bf16_limit_used")},
+             **fwd_build("normalized"),
              launches_per_path={**{k: v["launches"]
                                    for k, v in enc_paths.items()},
                                 "lm_train_step": train["per_step"][
@@ -2231,6 +2297,7 @@ def main(argv) -> int:
         shape=dict(s_loc=STATS_SHARD, h=STATS_H, d=STATS_D, dtype="bfloat16",
                    q_off=diag["q_off"], k_off=diag["k_off"], causal=True),
         merged=sres["merged"],
+        **fwd_build("stats"),
         variants=[{k: r[k] for k in (
             "pair", "dtype", "q_off", "k_off", "causal", "ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by", "max_abs_err",
@@ -2261,9 +2328,9 @@ def main(argv) -> int:
             bound_by=main_bwd[f"{key}_bound_by"],
             library_ms=main_bwd["library_ms"],
             library="one scaled_dot_product_attention backward (dq, dk, dv)",
-            build={k: v for k, v in bwd_build["sass"].items()
+            build={k: v for k, v in build["bwd"]["sass"].items()
                    if k.startswith(key + " ")},
-            occupancy={k: v for k, v in bwd_build["occupancy"].items()
+            occupancy={k: v for k, v in build["bwd"]["occupancy"].items()
                        if k.startswith(key + " ")},
             shape=dict(s=LM_SEQ, h=main_bwd["h"], d=main_bwd["d"],
                        dtype="bfloat16", causal=True),

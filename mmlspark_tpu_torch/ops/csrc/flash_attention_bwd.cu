@@ -118,11 +118,10 @@
 
 #include <type_traits>
 
-#include "mma_sync.cuh"
+#include "mma_frag.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
 using namespace mma_sync;
 
 constexpr int kB = 64;          // query rows and keys per tile
@@ -431,20 +430,6 @@ __host__ __device__ constexpr int ld_o() {
   return sizeof(TO) == 2 ? ld_h<D>() : ld_f<D>();
 }
 
-__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// T(x * s) for both halves of a bf16x2 register (x * s is exact in f32)
-__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float s) {
-  const float lo = __uint_as_float(x << 16) * s;
-  const float hi = __uint_as_float(x & 0xffff0000u) * s;
-  return pack_bf16(lo, hi);
-}
-
 // x and y each split into three bf16 terms (hi, mid, lo; see the header),
 // packed pairwise: out[i] = (x_i, y_i)
 __device__ __forceinline__ void split3(float x, float y, uint32_t out[3]) {
@@ -457,51 +442,6 @@ __device__ __forceinline__ void split3(float x, float y, uint32_t out[3]) {
   }
 }
 
-// Fragments (mma_sync.cuh gives the layouts). `t` points at a tile in
-// shared memory with row stride ld.
-// A (16 x 16) at rows m0, cols k0 of a row-major bf16 tile
-__device__ __forceinline__ void lda(uint32_t a[4], const bf16* t, int ld,
-                                    int m0, int k0) {
-  const int l = lane_id();
-  ldsm_x4(a, t + (m0 + (l & 15)) * ld + k0 + (l >> 4) * 8);
-}
-// A at (m0, k0) of the transpose of a row-major bf16 tile: A(m, k) = t[k][m]
-__device__ __forceinline__ void lda_t(uint32_t a[4], const bf16* t, int ld,
-                                      int m0, int k0) {
-  const int l = lane_id();
-  ldsm_x4_t(a, t + (k0 + (l & 7) + (l >> 4) * 8) * ld + m0 +
-                   ((l >> 3) & 1) * 8);
-}
-// B (16 x 8) of n-tiles n0 and n0 + 8 at depth k0, where B(k, n) = t[n][k]
-__device__ __forceinline__ void ldb_nk(uint32_t b[2][2], const bf16* t,
-                                       int ld, int n0, int k0) {
-  const int l = lane_id();
-  uint32_t r[4];
-  ldsm_x4(r, t + (n0 + (l & 7) + (l >> 4) * 8) * ld + k0 +
-                 ((l >> 3) & 1) * 8);
-  b[0][0] = r[0];
-  b[0][1] = r[1];
-  b[1][0] = r[2];
-  b[1][1] = r[3];
-}
-// B of n-tiles n0 and n0 + 8 at depth k0, where B(k, n) = t[k][n]
-__device__ __forceinline__ void ldb_kn(uint32_t b[2][2], const bf16* t,
-                                       int ld, int n0, int k0) {
-  const int l = lane_id();
-  uint32_t r[4];
-  ldsm_x4_t(r, t + (k0 + (l & 7) + ((l >> 3) & 1) * 8) * ld + n0 +
-                   (l >> 4) * 8);
-  b[0][0] = r[0];
-  b[0][1] = r[1];
-  b[1][0] = r[2];
-  b[1][1] = r[3];
-}
-// B of the one n-tile n0, where B(k, n) = t[k][n]
-__device__ __forceinline__ void ldb_kn1(uint32_t b[2], const bf16* t, int ld,
-                                        int n0, int k0) {
-  const int l = lane_id();
-  ldsm_x2_t(b, t + (k0 + (l & 7) + ((l >> 3) & 1) * 8) * ld + n0);
-}
 // f32 tiles (code 2's dO and p), split into three bf16 terms per element
 // A at (m0, k0) of a row-major f32 tile
 __device__ __forceinline__ void lda_f32(uint32_t a[3][4], const float* t,

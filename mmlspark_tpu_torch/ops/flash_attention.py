@@ -10,8 +10,9 @@ The tensor's device chooses the path: a CPU tensor takes the plain
 versions (`_flash_forward_lse_plain`, `_flash_backward_plain`: dense f32
 scores with the reference's semantics and rounding points); a CUDA tensor
 launches the hand-written kernels in `csrc/flash_attention.cu` (forward)
-and `csrc/flash_attention_bwd.cu` (the dq and dk/dv kernels), f32 or bf16
-with D in {16, 32, 64, 128}, or raises. Nothing falls back.
+and `csrc/flash_attention_bwd.cu` (the dq and dk/dv kernels), f32 on the
+CUDA cores or bf16 on the tensor cores, with D in {16, 32, 64, 128}, or
+raises. Nothing falls back.
 
 `flash_attention` is differentiable: its forward saves q, k, v, out and
 lse (the reference's residuals), and its backward computes
@@ -72,6 +73,9 @@ def _library():
             [_P] * 6 + [ctypes.c_int] * 5 + [_I64] * 8
             + [ctypes.c_float] + [ctypes.c_int] * 3 + [_P])
         lib.flash_stats_fwd_launch.restype = ctypes.c_int
+        lib.flash_fwd_occupancy.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)] * 3
+        lib.flash_fwd_occupancy.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -92,6 +96,19 @@ def _bwd_library():
         lib.flash_bwd_occupancy.restype = ctypes.c_int
         _bwd_lib = lib
     return _bwd_lib
+
+
+def flash_fwd_occupancy(normalized: bool, dtype_code: int, d: int):
+    """(registers per thread, dynamic shared memory per block in bytes,
+    blocks per SM) of the forward kernel, normalized or stats form, for a
+    dtype code (0 f32, 1 bf16) and head dim, on the current card."""
+    regs, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _library().flash_fwd_occupancy(
+        int(normalized), dtype_code, d, ctypes.byref(regs),
+        ctypes.byref(smem), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"flash_fwd_occupancy failed: cudaError_t {err}")
+    return regs.value, smem.value, blocks.value
 
 
 def flash_bwd_occupancy(kernel: str, dtype_code: int, d: int):

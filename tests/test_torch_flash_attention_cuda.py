@@ -14,6 +14,10 @@ the output plus ~10 standard deviations of what rounding p at another
 point does (the kernel rounds p to bf16 against each tile's running max,
 the plain version against the row's final max). A kernel that reads V
 one key off fails that limit (`test_bf16_limit_rejects_v_one_key_off`).
+bf16 runs on the tensor cores (`flash_fwd_mma`), f32 on the CUDA cores
+(`test_bf16_kernels_run_on_the_tensor_cores`); the cases where an
+`mma.sync` design breaks are here: Sq not a multiple of 16, Sk of 8 and 72,
+near-uniform attention, large scores, strided bf16 inputs.
 """
 import numpy as np
 import pytest
@@ -51,7 +55,10 @@ def _qkv(sq, sk, h, d, dtype, device, seed=0):
                                        (300, 300, 2, 128),  # ragged edge
                                        (96, 40, 2, 32),     # cross, Sk < tile
                                        (96, 320, 2, 16),    # cross, Sk > Sq
-                                       (257, 257, 8, 16)])  # the stage's D
+                                       (257, 257, 8, 16),   # the stage's D
+                                       (200, 200, 2, 64),   # Sq % 16 != 0
+                                       (96, 8, 2, 64),      # Sk = 8
+                                       (100, 72, 2, 128)])  # Sk = 72
 def test_kernel_matches_plain(cuda_device, sq, sk, h, d, dtype, causal):
     q, k, v = _qkv(sq, sk, h, d, dtype, cuda_device)
     scale = 1.0 / d ** 0.5
@@ -81,9 +88,65 @@ def test_bf16_limit_rejects_v_one_key_off(cuda_device, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_near_uniform_attention(cuda_device, causal):
+    """q = 0: every score is 0 and every p exactly 1, so lse is the log
+    of the visible keys' count and out their mean (p = 1 rounds exactly
+    against any running max)."""
+    _, k, v = _qkv(200, 200, 2, 64, torch.bfloat16, cuda_device)
+    q = torch.zeros_like(k)
+    got, lse = fa.flash_fwd(q, k, v, causal, 0.125)
+    want, want_lse = fa._flash_forward_lse_plain(q, k, v, causal, 0.125)
+    lim = _bf16_limit(q, k, v, causal, 0.125, want)
+    assert bool(((got.float() - want.float()).abs() <= lim).all())
+    n = torch.arange(1, 201, device=cuda_device) if causal else 200
+    torch.testing.assert_close(lse, torch.log(n * torch.ones(
+        2, 200, device=cuda_device)), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_large_scores(cuda_device, causal):
+    """Scores 10x the usual scale: the running max moves by tens, alpha
+    underflows to 0 and most p are 0; out and lse still match."""
+    q, k, v = _qkv(300, 300, 2, 64, torch.bfloat16, cuda_device, seed=3)
+    scale = 10 / 8
+    got, lse = fa.flash_fwd(q, k, v, causal, scale)
+    want, want_lse = fa._flash_forward_lse_plain(q, k, v, causal, scale)
+    lim = _bf16_limit(q, k, v, causal, scale, want)
+    assert bool(((got.float() - want.float()).abs() <= lim).all())
+    torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_bf16_kernels_run_on_the_tensor_cores(cuda_device):
+    """Every bf16 instantiation (both forms, each D) holds tensor-core
+    instructions in its SASS; every f32 one holds none (the CUDA-core
+    body)."""
+    import re
+
+    import chip_smoke
+    from mmlspark_tpu_torch.ops import _build
+    _build.load("flash_attention")
+    want = {(f, d) for f in ("normalized", "stats")
+            for d in fa.HEAD_DIMS}
+    counts = chip_smoke._mma_build_checks(
+        "flash_attention", None, chip_smoke._fwd_mma_key, want)
+    assert set(counts) == want
+
+    def f32_key(line):
+        m = re.search(r"flash_fwd_f32ILi(\d+)ELb([01])E", line)
+        return (m.group(1), m.group(2)) if m else None
+    f32 = chip_smoke._mma_build_checks("flash_attention", None, f32_key,
+                                       set())
+    assert len(f32) == 8
+    assert all(sum(ops.values()) == 0 for ops in f32.values())
+
+
+@pytest.mark.gpu
 def test_strided_inputs(cuda_device):
     """q/k/v read through their strides: slices of one (S, 3, H, D)
-    projection, as a fused qkv matmul would give them."""
+    projection, as a fused qkv matmul would give them, f32 and bf16."""
     rng = np.random.default_rng(1)
     qkv = torch.as_tensor(rng.normal(size=(200, 3, 4, 64)).astype(
         np.float32)).to(cuda_device)
@@ -92,6 +155,13 @@ def test_strided_inputs(cuda_device):
     want, want_lse = fa._flash_forward_lse_plain(q, k, v, True, 0.125)
     torch.testing.assert_close(got, want, **_F32_TOL)
     torch.testing.assert_close(lse, want_lse, **_F32_TOL)
+    qkv = qkv.bfloat16()
+    q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    got, lse = fa.flash_fwd(q, k, v, True, 0.125)
+    want, want_lse = fa._flash_forward_lse_plain(q, k, v, True, 0.125)
+    lim = _bf16_limit(q, k, v, True, 0.125, want)
+    assert bool(((got.float() - want.float()).abs() <= lim).all())
+    torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.gpu

@@ -19,7 +19,10 @@ m = -1e30. The backward kernels at the same offsets (lse := m,
 dsum := -d_l, dO := d_acc in f32) are held per element within
 `flash_attention._BWD_TOL`. A kernel run with k_offset one 64-key tile
 off fails the forward check both ways: one tile late by the flagged
-rows, one tile early by the acc / l limit.
+rows, one tile early by the acc / l limit. bf16 runs on the tensor cores
+and is also held at offsets off the 64-key grid (rows with no visible key
+in a computed tile: acc = 0, l = 0 exactly), with q = 0 (l the count of
+visible keys) and at 10x the usual scale.
 """
 import numpy as np
 import pytest
@@ -85,11 +88,45 @@ def test_shifted_tile_fails_the_check(cuda_device, dtype):
 @pytest.mark.gpu
 def test_rows_without_a_visible_key_stay_finite(cuda_device):
     """Offsets off the 64-key grid: rows whose keys all lie after them in
-    a computed tile carry finite garbage and end flagged by m = -1e30."""
+    a computed tile carry finite garbage (f32; bf16 zeroes them) and end
+    flagged by m = -1e30."""
     q, k, v = _qkv(2, 32, torch.float32, cuda_device, s=96)
     acc, m, l = fa.flash_stats_fwd(q, k, v, 0, 40, True, 0.25)
     assert bool(torch.isfinite(acc).all() and torch.isfinite(l).all())
     assert bool((m[:, :40] == -1e30).all() and (m[:, 40:] > -1e29).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_off,k_off", [(256, 257), (256, 255), (63, 0),
+                                         (0, 1)])
+def test_bf16_offsets_off_the_tile_grid(cuda_device, q_off, k_off):
+    """Offsets one key off the 64-key grid: the bf16 kernel's rows with no
+    visible key in a computed tile come out exactly acc = 0, l = 0,
+    m = -1e30, as the plain version's (`_stats_check` demands it), and
+    the other rows meet the limits."""
+    q, k, v = _qkv(2, 64, torch.bfloat16, cuda_device)
+    got = fa.flash_stats_fwd(q, k, v, q_off, k_off, True, 0.125)
+    want = fa._flash_stats_plain(q, k, v, q_off, k_off, True, 0.125)
+    res = _stats_check(got, want, q, k, v, q_off, k_off, True, 0.125)
+    assert max(res["m"], res["lse"], res["out"]) <= 1.0, res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", ["diagonal", "full", "noncausal"])
+def test_bf16_near_uniform_and_large_scores(cuda_device, pair):
+    """q = 0 (every p = 1: l is the count of visible keys, exactly) and
+    scores at 10x the usual scale (alpha underflows to 0)."""
+    _, k, v = _qkv(2, 64, torch.bfloat16, cuda_device)
+    qo, ko, causal = _PAIRS[pair]
+    q = torch.zeros_like(k)
+    acc, m, l = fa.flash_stats_fwd(q, k, v, qo, ko, causal, 0.125)
+    want = fa._flash_stats_plain(q, k, v, qo, ko, causal, 0.125)
+    assert torch.equal(l, want[2]) and bool((m == 0).all())
+    q = _qkv(2, 64, torch.bfloat16, cuda_device, seed=5)[0]
+    got = fa.flash_stats_fwd(q, k, v, qo, ko, causal, 1.25)
+    want = fa._flash_stats_plain(q, k, v, qo, ko, causal, 1.25)
+    res = _stats_check(got, want, q, k, v, qo, ko, causal, 1.25)
+    assert max(res["m"], res["lse"], res["out"]) <= 1.0, res
 
 
 def _bwd_operands(h, d, dtype, device, pair):
