@@ -5,8 +5,8 @@
     python3 chip_smoke.py --profile  # also prints torch.profiler tables
                                      # of one boosting iteration, of one
                                      # flash encode_long and of one LM
-                                     # training step without and with
-                                     # the ring
+                                     # training step (bf16 and f32)
+                                     # without and with the ring
     python3 chip_smoke.py --sweep    # also times the shared-memory
                                      # kernel's launch geometries
 
@@ -15,10 +15,10 @@ Phases (any failure exits non-zero before the last line is printed):
   2. build: every CUDA source of the port with nvcc for sm_90a, one nvcc
      per source, all started together, with the build seconds and the
      -Xptxas -v register/shared-memory report; every bf16 instantiation of
-     the flash forward (both forms) and backward must hold tensor-core
-     instructions (HMMA or HGMMA in `cuobjdump -sass`) and have no ptxas
-     spills; registers, shared memory per block and blocks per SM at
-     D=128;
+     the flash forward (both forms) and every instantiation of the
+     backward (f32 too) must hold tensor-core instructions (HMMA or HGMMA
+     in `cuobjdump -sass`) and have no ptxas spills; registers, shared
+     memory per block and blocks per SM at D=128;
   3. kernels vs plain: each kernel entry point against its plain PyTorch
      version on the same CUDA tensors, at the main path's shapes.
      Histograms: 8M rows x 32 features x 64 bins, m in {1, 2, 4, 8}, with
@@ -60,9 +60,11 @@ Phases (any failure exits non-zero before the last line is printed):
      `flash_fwd`, 12 `flash_bwd_dq` and 12 `flash_bwd_dkv` launches, then
      `run` of 3 timed steps (36 of each): s/step, tokens/s,
      `lm_train_mfu` (bench.py's model FLOPs against 989 TFLOP/s), peak
-     memory, a falling loss; then one SGD step at S=2048 with flash and
-     with dense attention from the same weights, in bf16 and f32, whose
-     updated weights must agree within `_TRAIN_TOL`.
+     memory, a falling loss; the same steps at the trainer's default
+     compute_dtype="float32" (s/step, tokens/s, peak memory, 12 / 12 / 12
+     launches a step, a falling loss); then one SGD step at S=2048 with
+     flash and with dense attention from the same weights, in bf16 and
+     f32, whose updated weights must agree within `_TRAIN_TOL`.
   7. GBDT planes path (slice 4): `hist_planes` against
      `_torch_hist_planes` on the same CUDA tensors at 8M x 32 x 64 bins
      (LO = 16), m in {1, 2, 4}, and B = 256 (LO = 64) at m = 4, with
@@ -114,9 +116,10 @@ The headline fit (4) is timed 3 times (min and median), and every
 phase's seconds are printed.
 The kernel phase (3) also holds the flash backward kernels, dq and dk/dv,
 against `_flash_backward_plain` at the flash forward's shapes, per
-element within `flash_attention._BWD_TOL`, shows that the bf16 limit
-rejects dO shifted by one query row, and times them beside the plain
-version, one SDPA backward and the bound.
+element within `flash_attention._BWD_TOL`, shows that the bf16 and the
+f32 limits reject dO shifted by one query row, and times them beside the
+plain version, one SDPA backward and the bound (f32 rows: also the bound
+at the f32 kernels' own rate, 6 bf16 tensor-core products per product).
 Then one JSON line of kernels, the nvidia-smi line, and, last:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -256,15 +259,19 @@ def build_phase():
 # the tensor-core kernels by mangled name. Backward: (kernel, dO's type, D),
 # bf16 dO is dtype code 1, f32 dO code 2; forward: (form, D)
 _BWD_MMA = re.compile(r"flash_bwd_(dq|dkv)_mmaI(13__nv_bfloat16|f)Li(\d+)E")
+_BWD_SPLIT3 = re.compile(r"flash_bwd_(dq|dkv)_split3ILi(\d+)E")
 _FWD_MMA = re.compile(r"flash_fwd_mmaILi(\d+)ELb([01])E")
 
 
 def _bwd_mma_key(line):
     """(kernel, dtype code, D) of a tensor-core backward kernel named in a
-    line of ptxas or cuobjdump output, else None."""
+    line of ptxas or cuobjdump output, else None: `*_mma` for codes 1 and
+    2, `*_split3` (f32 as three bf16 terms) for code 0."""
     m = _BWD_MMA.search(line)
-    return (m.group(1), 1 if m.group(2) != "f" else 2,
-            int(m.group(3))) if m else None
+    if m:
+        return (m.group(1), 1 if m.group(2) != "f" else 2, int(m.group(3)))
+    m = _BWD_SPLIT3.search(line)
+    return (m.group(1), 0, int(m.group(2))) if m else None
 
 
 def _fwd_mma_key(line):
@@ -301,8 +308,9 @@ def _mma_build_checks(source, report, key, want):
     missing = sorted(w for w in want
                      if sum(counts.get(w, {}).values()) == 0)
     if missing:
-        raise AssertionError(f"no tensor-core instructions in the bf16 "
-                             f"kernels {missing} of {source}.cu")
+        raise AssertionError(f"no tensor-core instructions in the "
+                             f"tensor-core kernels {missing} of "
+                             f"{source}.cu")
     spills = {}
     if report is not None:
         fn = None
@@ -346,28 +354,44 @@ def _fwd_build_checks(report):
                 spills_checked=report is not None, occupancy=occupancy)
 
 
+def _ptxas_registers(report, key):
+    """{key: registers per thread} of the kernels `key` names in a ptxas
+    report ({} when this run did not build the library)."""
+    regs, fn = {}, None
+    for line in (report or "").splitlines():
+        if "entry function" in line:
+            fn = key(line)
+        elif fn is not None and "registers" in line:
+            regs[fn] = int(re.search(r"Used (\d+) registers", line)
+                           .group(1))
+    return regs
+
+
 def _bwd_build_checks(report):
-    """The redesigned backward kernels, from the built library: every
-    bf16 instantiation (codes 1 and 2, both kernels, each D) holds
-    tensor-core instructions and has no ptxas spills
-    (`_mma_build_checks`); shared memory per block and blocks per SM at
-    D=128 for codes 0-2."""
+    """The backward kernels, from the built library: every instantiation
+    (codes 0-2, both kernels, each D) holds tensor-core instructions and
+    has no ptxas spills (`_mma_build_checks`); registers (from ptxas),
+    shared memory per block and blocks per SM at D=128 for codes 0-2."""
     from mmlspark_tpu_torch.ops import flash_attention as fa
     counts = _mma_build_checks(
         "flash_attention_bwd", report, _bwd_mma_key,
-        {(k, c, d) for k in ("dq", "dkv") for c in (1, 2)
+        {(k, c, d) for k in ("dq", "dkv") for c in (0, 1, 2)
          for d in (16, 32, 64, 128)})
     for (k, c, d), ops in sorted(counts.items()):
         if d == 128:
-            log(f"[build] flash_bwd_{k}_mma code {c} D=128: SASS "
+            log(f"[build] flash_bwd_{k} code {c} D=128: SASS "
                 f"{ops['HMMA']} HMMA, {ops['HGMMA']} HGMMA")
+    regs = _ptxas_registers(report, _bwd_mma_key)
     occupancy = {}
     for k in ("dq", "dkv"):
         for c in (0, 1, 2):
             smem, blocks = fa.flash_bwd_occupancy(k, c, 128)
-            occupancy[f"{k} code {c}"] = dict(smem=smem, blocks_per_sm=blocks)
-            log(f"[build] flash_bwd {k} code {c} D=128: {smem} B shared "
-                f"memory per block, {blocks} block(s) per SM")
+            r = regs.get((k, c, 128))
+            occupancy[f"{k} code {c}"] = dict(registers=r, smem=smem,
+                                              blocks_per_sm=blocks)
+            log(f"[build] flash_bwd {k} code {c} D=128: "
+                f"{r if r is not None else 'unreported'} registers, {smem} "
+                f"B shared memory per block, {blocks} block(s) per SM")
     return dict(sass={f"{k} code {c} D={d}": ops
                       for (k, c, d), ops in sorted(counts.items())},
                 spills_checked=report is not None, occupancy=occupancy)
@@ -1375,20 +1399,23 @@ def encoder_phase(dev, profile: bool):
 
 
 def _bwd_bound(sq, sk, h, d, dtype, causal, kernel, q_off=0, k_off=0,
-               do_dtype=None):
+               do_dtype=None, split3=False):
     """(ms, "bytes" or "operations") of the flash backward's `kernel`, causal
     at the global offsets: "dq" computes 3 products of 2 * (visible q/k
     pairs) * D per head (S, dP, dQ) and writes dq; "dkv" 4 (S, dP, dV, dK)
     and writes dk, dv; "all", the whole backward, 5 and writes all three.
     Where any pair is visible it reads q, k, v, dO (in `do_dtype`, else the
     inputs' dtype) and the f32 lse and dsum once; where none is, its
-    outputs are zeros whatever the inputs, so it need only write them."""
+    outputs are zeros whatever the inputs, so it need only write them.
+    f32 products count at the 67 TFLOP/s of f32 FMAs, or, with `split3`,
+    as 6 bf16 tensor-core products each (the f32 kernels' three-term
+    split) at 989 TFLOP/s."""
     import torch
     n_products, n_out = {"dq": (3, sq), "dkv": (4, 2 * sk),
                          "all": (5, sq + 2 * sk)}[kernel]
     pairs = _visible_pairs(sq, sk, q_off, k_off, causal)
     peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
-        else PEAK_F32_FLOP_PER_S
+        else PEAK_BF16_FLOP_PER_S / 6 if split3 else PEAK_F32_FLOP_PER_S
     t_ops = n_products * 2 * pairs * d * h / peak
     size = torch.tensor([], dtype=dtype).element_size()
     do_size = torch.tensor([], dtype=do_dtype or dtype).element_size()
@@ -1461,7 +1488,7 @@ def flash_bwd_kernel_phase(dev):
                        f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g}, "
                        f"{used[0]:.3f}/{used[1]:.3f}/{used[2]:.3f} of the "
                        f"limit")
-                if label == "main" and dtype == torch.bfloat16:
+                if label == "main":
                     _bwd_check_sees_faults(ops, causal, scale, want, lims,
                                            tag)
                 del got, want, lims
@@ -1487,6 +1514,10 @@ def flash_bwd_kernel_phase(dev):
                             f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
                             f"plain {row['plain_ms']:.3f} ms, one SDPA "
                             f"backward {row['library_ms']:.3f} ms")
+                    if dtype == torch.float32:
+                        msg += _split3_bounds(
+                            row, (sq, sk, h, d, dtype, causal),
+                            ("all", "dq", "dkv"))
                 log(msg)
                 results.append(row)
                 del q, k, v, do, lse, dsum, ops
@@ -1494,12 +1525,31 @@ def flash_bwd_kernel_phase(dev):
     return results
 
 
+def _split3_bounds(row, shape, kernels, offsets=(0, 0)):
+    """Adds to an f32 row the bounds of `kernels` ("all", "dq", "dkv") at
+    the f32 kernels' own rate, 6 bf16 tensor-core products per product
+    (`_bwd_bound(split3=True)`): `split3_bound_ms` for the whole backward,
+    `dq_split3_bound_ms`, `dkv_split3_bound_ms`. Returns the text that
+    reports them."""
+    import torch
+    parts = []
+    for kernel in kernels:
+        key = "split3_bound_ms" if kernel == "all" \
+            else f"{kernel}_split3_bound_ms"
+        row[key] = _bwd_bound(*shape, kernel, *offsets, torch.float32,
+                              split3=True)[0]
+        parts.append(f"{kernel} {row[key]:.4f} ms")
+    return ("; bounds at the split's tensor-core rate (6 bf16 products "
+            "each): " + ", ".join(parts))
+
+
 def _bwd_check_sees_faults(ops, causal, scale, want, lims, tag):
-    """The bf16 limit must reject the kernels' gradients on dO shifted by
-    one query row (a load one row off) at most outputs of each; reported
-    beside it: lse taken from the neighbouring row."""
+    """The limit of the inputs' dtype must reject the kernels' gradients on
+    dO shifted by one query row (a load one row off) at most outputs of
+    each; reported beside it: lse taken from the neighbouring row."""
     from mmlspark_tpu_torch.ops import flash_attention as fa
     q, k, v, do, lse, dsum = ops
+    limit = f"{str(q.dtype)[6:]} limit"
     fracs = {}
     for fault, args in (("dO one row off", (q, k, v, do.roll(1, 0), lse,
                                             dsum)),
@@ -1511,9 +1561,9 @@ def _bwd_check_sees_faults(ops, causal, scale, want, lims, tag):
                               .mean()) for g, w, lim in zip(got, want, lims)]
         del got
     if min(fracs["dO one row off"]) < 0.5:
-        raise AssertionError(f"{tag}: the bf16 limit lets dO one row off "
+        raise AssertionError(f"{tag}: the {limit} lets dO one row off "
                              f"pass at most outputs: {fracs}")
-    log(f"[kernel] {tag}: share of dq/dk/dv outside the bf16 limit: "
+    log(f"[kernel] {tag}: share of dq/dk/dv outside the {limit}: "
         + "; ".join(f"{f} {'/'.join(f'{x:.4f}' for x in v)}"
                     for f, v in fracs.items()))
 
@@ -1810,11 +1860,17 @@ def stats_bwd_kernel_phase(dev):
                                torch.float32)
             lib_s = (f"{row['library_ms']:.3f} ms"
                      if row["library_ms"] is not None else "none")
-            log(msg + f"; dq {row['dq_ms']:.3f} ms (bound "
-                f"{row['dq_bound_ms']:.4f} {row['dq_bound_by']}), dk/dv "
-                f"{row['dkv_ms']:.3f} ms (bound {row['dkv_bound_ms']:.4f} "
-                f"{row['dkv_bound_by']}); plain {row['plain_ms']:.3f} ms, "
-                f"one SDPA backward {lib_s}")
+            msg += (f"; dq {row['dq_ms']:.3f} ms (bound "
+                    f"{row['dq_bound_ms']:.4f} {row['dq_bound_by']}), dk/dv "
+                    f"{row['dkv_ms']:.3f} ms (bound "
+                    f"{row['dkv_bound_ms']:.4f} {row['dkv_bound_by']}); "
+                    f"plain {row['plain_ms']:.3f} ms, one SDPA backward "
+                    f"{lib_s}")
+            if dtype == torch.float32:
+                msg += _split3_bounds(
+                    row, (STATS_SHARD, STATS_SHARD, STATS_H, STATS_D, dtype,
+                          causal), ("dq", "dkv"), off)
+            log(msg)
             results.append(row)
             del ops, m
         del q, k, v, d_acc, dsum
@@ -1906,30 +1962,34 @@ def _train_update_check(dev, compute_dtype):
     return disagreement, losses
 
 
-def lm_train_phase(dev, profile: bool):
-    """The LM training path at the flagship width through
-    `PipelinedLMTrainer`: one untimed step, one step with the launch
-    counts set to 0 just before and read just after, then `run` of
-    LM_STEPS timed steps (counts again set to 0 before and read after);
-    then the S=2048 flash-vs-dense update checks."""
+def _flagship_steps(dev, compute_dtype, profile: bool):
+    """The flagship LM's training steps through `PipelinedLMTrainer` at
+    `compute_dtype` (flash, remat="save_attn", Adam, one LM_SEQ-token
+    sequence): one untimed step, one step with the launch counts set to 0
+    just before and read just after (12 of each kernel but the stats
+    form), then `run` of LM_STEPS timed steps (counts again set to 0 before
+    and read after): s/step, tokens/s, peak memory, a finite falling
+    loss."""
     import torch
     from mmlspark_tpu_torch.models.dnn import PipelinedLMTrainer
     from mmlspark_tpu_torch.models.dnn.pp_training import _leaves
     from mmlspark_tpu_torch.ops import flash_attention as fa
 
+    tag = "[train]" if compute_dtype == "bfloat16" else "[train f32]"
     t0 = time.perf_counter()
     trainer = PipelinedLMTrainer(
         n_microbatches=1, attention="flash", optimizer="adam", seed=0,
-        compute_dtype="bfloat16", remat="save_attn", device=dev, **LM)
+        compute_dtype=compute_dtype, remat="save_attn", device=dev, **LM)
     n_params = sum(a.numel() for a in _leaves(trainer.params))
-    log(f"[train] {LM}: {n_params / 1e6:.1f}M parameters from "
+    log(f"{tag} {LM}: {n_params / 1e6:.1f}M parameters from "
         f"init_transformer(seed=0) in {time.perf_counter() - t0:.1f} s; "
-        f"bf16 compute, f32 master + Adam, remat=save_attn, flash")
+        f"{compute_dtype} compute, f32 master + Adam, remat=save_attn, "
+        f"flash")
     toks = np.random.default_rng(0).integers(
         0, LM["vocab_size"], size=(1, LM_SEQ)).astype(np.int32)
     t0 = time.perf_counter()
     loss1 = trainer.step(toks)                 # warm-up: cuBLAS, kernels
-    log(f"[train] step 1 (untimed): loss {loss1:.4f} in "
+    log(f"{tag} step 1 (untimed): loss {loss1:.4f} in "
         f"{time.perf_counter() - t0:.2f} s")
 
     want_step = {k: LM["n_layers"] for k in fa.launches}
@@ -1941,9 +2001,9 @@ def lm_train_phase(dev, profile: bool):
     step_s = time.perf_counter() - t0
     per_step = dict(fa.launches)
     if per_step != want_step:
-        raise AssertionError(f"one training step launched {per_step}, "
-                             f"expected {want_step}")
-    log(f"[train] step 2: loss {loss2:.4f} in {step_s:.3f} s; launches "
+        raise AssertionError(f"one {compute_dtype} training step launched "
+                             f"{per_step}, expected {want_step}")
+    log(f"{tag} step 2: loss {loss2:.4f} in {step_s:.3f} s; launches "
         f"{per_step}")
 
     torch.cuda.synchronize()
@@ -1957,13 +2017,10 @@ def lm_train_phase(dev, profile: bool):
     if launches != {k: LM_STEPS * v for k, v in want_step.items()}:
         raise AssertionError(f"run({LM_STEPS}) launched {launches}")
     s_step = run_s / LM_STEPS
-    mfu = _lm_flops_per_step() / s_step / PEAK_BF16_FLOP_PER_S
-    log(f"[train] run({LM_STEPS}): {s_step:.4f} s/step = "
-        f"{LM_SEQ / s_step:.4g} tokens/s; lm_train_mfu {mfu:.4f} "
-        f"(model FLOPs {_lm_flops_per_step():.4g}/step against 989 TFLOP/s "
-        f"bf16); peak memory {peak / 2**30:.2f} GiB "
-        f"(max_memory_allocated); launches {launches}; last loss "
-        f"{loss_last:.4f}")
+    log(f"{tag} run({LM_STEPS}): {s_step:.4f} s/step = "
+        f"{LM_SEQ / s_step:.4g} tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB (max_memory_allocated); launches "
+        f"{launches}; last loss {loss_last:.4f}")
     if not (np.isfinite([loss1, loss2, loss_last]).all()
             and loss_last < loss1):
         raise AssertionError(f"losses {loss1}, {loss2}, {loss_last}: not "
@@ -1979,6 +2036,22 @@ def lm_train_phase(dev, profile: bool):
                                       row_limit=25))
     del trainer
     torch.cuda.empty_cache()
+    return dict(launches=launches, per_step=per_step, s_step=s_step,
+                tokens_per_s=LM_SEQ / s_step, peak=peak, n_params=n_params,
+                losses=[loss1, loss2, loss_last])
+
+
+def lm_train_phase(dev, profile: bool):
+    """The LM training path at the flagship width through
+    `PipelinedLMTrainer` (`_flagship_steps`, with `--profile` a
+    torch.profiler table of one step each): bf16 compute, as bench.py
+    trains it, with `lm_train_mfu`; then the trainer's default f32
+    compute; then the S=2048 flash-vs-dense update checks."""
+    res = _flagship_steps(dev, "bfloat16", profile)
+    res["mfu"] = _lm_flops_per_step() / res["s_step"] / PEAK_BF16_FLOP_PER_S
+    log(f"[train] lm_train_mfu {res['mfu']:.4f} (model FLOPs "
+        f"{_lm_flops_per_step():.4g}/step against 989 TFLOP/s bf16)")
+    res["f32"] = _flagship_steps(dev, "float32", profile)
 
     checks = {}
     for cdt in ("bfloat16", "float32"):
@@ -1991,10 +2064,7 @@ def lm_train_phase(dev, profile: bool):
         if worst > _TRAIN_TOL[cdt]:
             raise AssertionError(f"flash and dense training disagree ({cdt})")
         checks[cdt] = dict(worst=worst, leaf=leaf, attention=attn)
-    return dict(launches=launches, per_step=per_step, s_step=s_step,
-                tokens_per_s=LM_SEQ / s_step, mfu=mfu, peak=peak,
-                n_params=n_params, losses=[loss1, loss2, loss_last],
-                checks=checks)
+    return dict(res, checks=checks)
 
 
 # the ring trainer: the flagship LM on the four-card context-parallel
@@ -2319,6 +2389,8 @@ def main(argv) -> int:
             launches=train["launches"][kname],
             launches_per_step=train["per_step"][kname],
             launches_per_path={"lm_train_step": train["per_step"][kname],
+                               "lm_train_f32_step":
+                                   train["f32"]["per_step"][kname],
                                "ring_train_step": ring["per_step"][kname],
                                "ring_train_run": ring["launches"][kname]},
             passed=True,
@@ -2337,19 +2409,24 @@ def main(argv) -> int:
             variants=[{k: r.get(k) for k in (
                 "d", "dtype", "causal", "dq_ms", "dkv_ms", "plain_ms",
                 "library_ms", "bound_ms", "dq_bound_ms", "dkv_bound_ms",
-                "max_abs_err", "limit_used")} for r in bres if "dq_ms" in r],
-            ring_pairs=[{k: r[k] for k in (
+                "split3_bound_ms", "dq_split3_bound_ms",
+                "dkv_split3_bound_ms", "max_abs_err", "limit_used")}
+                for r in bres if "dq_ms" in r],
+            ring_pairs=[{k: r.get(k) for k in (
                 "pair", "dtype", "q_off", "k_off", "causal", f"{key}_ms",
                 "plain_ms", "library_ms", f"{key}_bound_ms",
-                f"{key}_bound_by", "max_abs_err", "limit_used")}
-                for r in sbres]))
+                f"{key}_bound_by", f"{key}_split3_bound_ms", "max_abs_err",
+                "limit_used")} for r in sbres]))
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the main "
                                  f"path")
     log(f"[train] lm_train_mfu {train['mfu']:.4f}, "
         f"{train['s_step']:.4f} s/step, {train['tokens_per_s']:.4g} "
-        f"tokens/s, peak {train['peak'] / 2**30:.2f} GiB")
+        f"tokens/s, peak {train['peak'] / 2**30:.2f} GiB; f32 compute "
+        f"{train['f32']['s_step']:.4f} s/step, "
+        f"{train['f32']['tokens_per_s']:.4g} tokens/s, peak "
+        f"{train['f32']['peak'] / 2**30:.2f} GiB")
     log(f"[ring train] mesh {RING_MESH}: lm_train_mfu {ring['mfu']:.4f}, "
         f"{ring['s_step']:.4f} s/step, {ring['tokens_per_s']:.4g} "
         f"tokens/s, peak {ring['peak'] / 2**30:.2f} GiB; encoder ring "

@@ -41,14 +41,18 @@
 //   two-kernel design does 7 (the dq kernel rebuilds S and dP). At
 //   S=16384, H=8, D=128, causal, that least work is 1.39 ms at the H100's
 //   989 TFLOP/s bf16 tensor-core rate (20.5 ms at its 67 TFLOP/s f32 rate),
-//   against ~0.1 ms for the bytes.
+//   against ~0.1 ms for the bytes. In f32 each product takes 6 bf16
+//   tensor-core products (below): its least time is 6x the bf16 one,
+//   8.3 ms at that shape, against 20.5 ms at the 67 TFLOP/s of f32 FMAs.
 //
 // TWO DESIGNS, BY DTYPE CODE
-//   bf16 (code 1, and code 2: bf16 q, k, v with an f32 dO) runs every
-//   product on the tensor cores: flash_bwd_dq_mma / flash_bwd_dkv_mma.
-//   f32 (code 0) stays on the CUDA cores in f32 FMAs
-//   (flash_bwd_dq_f32 / flash_bwd_dkv_f32): TF32 keeps 10 mantissa bits and
-//   cannot meet the f32 limit of _BWD_TOL.
+//   Every product runs on the tensor cores in both.
+//   bf16 (code 1, and code 2: bf16 q, k, v with an f32 dO):
+//   flash_bwd_dq_mma / flash_bwd_dkv_mma, which round p and ds as the plain
+//   version does.
+//   f32 (code 0): flash_bwd_dq_split3 / flash_bwd_dkv_split3, every f32
+//   operand split into three bf16 terms (TF32 alone keeps 10 mantissa bits
+//   and cannot meet the f32 limit of _BWD_TOL; three bf16 terms carry 24).
 //
 // THE TENSOR-CORE KERNELS (bf16)
 //   Products: mma.sync.m16n8k16 bf16 x bf16 -> f32, operands from shared
@@ -92,7 +96,7 @@
 //   far inside the bf16 limit code 2 is checked under (_BWD_TOL[bfloat16]:
 //   2^-7 |want| + 2^-8 r). S, dq and dk keep bf16 operands.
 //
-// MASKING AND SKIPPING (kept from the f32 design; the reference's)
+// MASKING AND SKIPPING (the reference's; both designs)
 //   Causal: the dq kernel stops at the global diagonal's tile and its
 //   blocks run the longest rows first; the dk/dv kernel starts at it.
 //   Every tile with no visible (row, key) is skipped, and a pair whose kv
@@ -104,13 +108,41 @@
 //   their p and ds are 0.
 //
 // THE F32 KERNELS (code 0)
-//   Block: 256 threads = 16 row groups of 16 lanes. Every tile sits in
-//   shared memory transposed, [D][68] f32, which serves both products
-//   without a second copy: the score products read float4s along the
-//   64-wide dimension (thread (r, c) holds rows 4r..4r+3 x keys 4c..4c+3 of
-//   s and dp), and the accumulating products read single columns, where
-//   the padding spreads a warp's 16 lanes over 8 banks. Shared memory at
-//   D=128: dq 157,184 B, dk/dv 209,408 B: one block per SM.
+//   The same products and tiles, with every f32 operand x held as three
+//   bf16 terms (split3 below: hi = bf16(x), mid = bf16(x - hi), lo =
+//   bf16(x - hi - mid), exactly x for normal x) and every product taking
+//   the six cross products whose terms' ranks sum to at most 2 (mma_x6):
+//   what is dropped is ~2^-24 of each term, as f32 rounding itself. p and
+//   ds are never rounded (T and TO are the identity), so none of the bf16
+//   kernels' rounding machinery (midpoint flags, lists, recomputation) is
+//   needed: the f32 limit allows any summation order. It does not allow
+//   a sum chained through one tensor-core accumulator: an mma aligns its
+//   accumulator input with its products and truncates below 24 bits, so
+//   it loses up to an ulp of the running sum a step, always toward zero.
+//   Each 16-deep step of s and dp, and each 64-deep tile of dq, dk and dv,
+//   goes to a fresh accumulator that the CUDA cores add to the running
+//   f32 sum. tests/test_torch_flash_bwd_f32_split.py rehearses this order
+//   on the CPU.
+//   Tiles are split once, as they land, into three bf16 planes of
+//   [kB][D+8] (RowsF32: global loads into registers, one splitting pass),
+//   so ldmatrix feeds every term as in the bf16 kernels. p and ds are split in
+//   registers and stored as planes of [kB][kLDS]. Warp w computes s and dp
+//   for rows 32(w%2).. x keys 16(w/2).. (2 x 2 tiles: each B fragment's
+//   three terms serve two row tiles) and accumulates as the bf16 kernels.
+//   dq: Q (q * scale), dO, K and V planes, one stage; ds takes V's space
+//   once every warp has taken dP (D >= 64); the next K and V load once
+//   the dq products are done. 208,896 B at D=128.
+//   dk/dv: the block's K and V stay f32 (split on each B fragment: three
+//   planes of each would not fit beside the q tile's), q * scale and dO
+//   planes one stage, p and ds planes; the next dO loads once every warp
+//   is done with the dv products, each warp going on to its dk products
+//   as soon as its share is stored, the next q after the dk products, lse
+//   and dsum by cp.async into two stages. dk sums ds^T against q * scale,
+//   which moves each term by at most 2^-24 of itself. 230,400 B at D=128.
+//   Both: 1 block per SM of 8 warps; one stage, because three planes of
+//   each tile take 1.5x the bytes of f32 and the registers are spent (240
+//   and 255 at D=128). Prefetching the next tile into registers spilled
+//   and ran slower.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -132,286 +164,6 @@ constexpr int kThreads = 256;   // 8 warps
 struct Strides {
   long long q[2], k[2], v[2], o[2], a[2], b[2];
 };
-
-// ---------------------------------------------------------------------------
-// f32 (code 0): the CUDA-core kernels
-
-constexpr int kLD = kB + 4;     // padded stride of a transposed f32 tile
-
-// rows [r0, r0 + kB) of x (S, H, D), head h, into transposed f32 tiles
-// [D][kLD]: `scaled` gets x * scale, `raw` the values; either may be null.
-// Rows past n are zeros. A warp covers 32 rows of one 16-byte chunk, so
-// the transposing stores are conflict-free.
-template <int D>
-__device__ __forceinline__ void load_t(float* scaled, float* raw,
-                                       const float* __restrict__ x, int r0,
-                                       int n, int h, long long ss,
-                                       long long hs, float scale) {
-  constexpr int kChunks = D / 4;
-  for (int idx = threadIdx.x; idx < kB * kChunks; idx += kThreads) {
-    const int r = idx % kB, ch = idx / kB;
-    float4 f4 = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n)
-      f4 = *reinterpret_cast<const float4*>(x + (r0 + r) * ss + h * hs +
-                                            ch * 4);
-    const float f[4] = {f4.x, f4.y, f4.z, f4.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int o = (ch * 4 + e) * kLD + r;
-      if (scaled) scaled[o] = f[e] * scale;
-      if (raw) raw[o] = f[e];
-    }
-  }
-}
-
-// lse and dsum of query rows [q0, q0 + kB); rows past Sq get lse = +inf
-// and dsum = 0, so their p and ds are exactly 0
-__device__ __forceinline__ void load_rows(float* Lse, float* Dsum,
-                                          const float* __restrict__ lse,
-                                          const float* __restrict__ dsum,
-                                          int q0, int Sq, int h) {
-  for (int i = threadIdx.x; i < kB; i += kThreads) {
-    const int row = q0 + i;
-    const bool in = row < Sq;
-    Lse[i] = in ? lse[h * (long long)Sq + row] : INFINITY;
-    Dsum[i] = in ? dsum[h * (long long)Sq + row] : 0.f;
-  }
-}
-
-// p and ds of query rows 4r..4r+3 x keys 4c..4c+3 of the tile at (q0, k0),
-// the reference's _bwd_common
-// delta = q_off - k_off: causal keeps local (i, j) with i + delta >= j
-template <int D>
-__device__ __forceinline__ void tile_p_ds_f32(
-    const float* Qt, const float* dOt, const float* Kt, const float* Vt,
-    const float* Lse, const float* Dsum, int q0, int k0, int Sk, int causal,
-    int delta, bool full, int r, int c, float p[4][4], float ds[4][4]) {
-  float dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) p[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    const float4 qv = *reinterpret_cast<const float4*>(Qt + d * kLD + 4 * r);
-    const float4 ov = *reinterpret_cast<const float4*>(dOt + d * kLD + 4 * r);
-    const float4 kv = *reinterpret_cast<const float4*>(Kt + d * kLD + 4 * c);
-    const float4 vv = *reinterpret_cast<const float4*>(Vt + d * kLD + 4 * c);
-    const float qr[4] = {qv.x, qv.y, qv.z, qv.w};
-    const float orr[4] = {ov.x, ov.y, ov.z, ov.w};
-    const float kr[4] = {kv.x, kv.y, kv.z, kv.w};
-    const float vr[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[i][j] = fmaf(qr[i], kr[j], p[i][j]);     // s, for now
-        dp[i][j] = fmaf(orr[i], vr[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float l = Lse[4 * r + i], dsm = Dsum[4 * r + i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qpos = q0 + 4 * r + i, kpos = k0 + 4 * c + j;
-      const bool masked =
-          !full && (kpos >= Sk || (causal && qpos + delta < kpos));
-      p[i][j] = masked ? 0.f : expf(p[i][j] - l);
-      ds[i][j] = p[i][j] * (dp[i][j] - dsm);
-    }
-  }
-}
-
-template <int D>
-constexpr size_t dq_f32_smem() {
-  return sizeof(float) * (size_t)(4 * D * kLD + kB * kLD + 2 * kB);
-}
-template <int D>
-constexpr size_t dkv_f32_smem() {
-  return sizeof(float) * (size_t)(5 * D * kLD + 2 * kB * kLD + 2 * kB);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ dsum, float* __restrict__ dq,
-                 int Sq, int Sk, Strides st, float scale, int causal,
-                 int delta) {
-  constexpr int kC = D / 16;  // accumulator columns per thread
-  float* Qt = reinterpret_cast<float*>(dyn_smem());  // [D][kLD] q * scale
-  float* dOt = Qt + D * kLD;                         // [D][kLD]
-  float* Kt = dOt + D * kLD;                         // [D][kLD]
-  float* Vt = Kt + D * kLD;                          // [D][kLD]
-  float* DSt = Vt + D * kLD;                         // [kB keys][kLD] ds^T
-  float* Lse = DSt + kB * kLD;
-  float* Dsum = Lse + kB;
-
-  const int h = blockIdx.y;
-  // the longest causal rows first: the last query tile has the most keys
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;
-  const int t = threadIdx.x, r = t >> 4, c = t & 15;
-
-  load_t<D>(Qt, nullptr, q, q0, Sq, h, st.q[0], st.q[1], scale);
-  load_t<D>(nullptr, dOt, dout, q0, Sq, h, st.o[0], st.o[1], 1.f);
-  load_rows(Lse, Dsum, lse, dsum, q0, Sq, h);
-
-  float acc[4][kC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < kC; ++jj) acc[i][jj] = 0.f;
-
-  const int n_k = (Sk + kB - 1) / kB;
-  // causal: key tiles wholly above the global diagonal of this block are
-  // skipped; none is left when the kv shard lies wholly after the block
-  int kb_end = n_k;
-  if (causal) {
-    const int last = q0 + kB - 1 + delta;  // the block's last visible key
-    kb_end = last < 0 ? 0 : min(n_k, last / kB + 1);
-  }
-  for (int kb = 0; kb < kb_end; ++kb) {
-    const int k0 = kb * kB;
-    __syncthreads();  // the previous tile's k, v and ds are consumed
-    load_t<D>(nullptr, Kt, k, k0, Sk, h, st.k[0], st.k[1], 1.f);
-    load_t<D>(nullptr, Vt, v, k0, Sk, h, st.v[0], st.v[1], 1.f);
-    __syncthreads();
-    const bool full =
-        (k0 + kB <= Sk) && (!causal || k0 + kB - 1 <= q0 + delta);
-    float p[4][4], ds[4][4];
-    tile_p_ds_f32<D>(Qt, dOt, Kt, Vt, Lse, Dsum, q0, k0, Sk, causal, delta,
-                     full, r, c, p, ds);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(DSt + (4 * c + j) * kLD + 4 * r) =
-          make_float4(ds[0][j], ds[1][j], ds[2][j], ds[3][j]);
-    __syncthreads();
-    // acc += ds . k over the tile's keys
-#pragma unroll 4
-    for (int kk = 0; kk < kB; ++kk) {
-      const float4 d4 = *reinterpret_cast<const float4*>(DSt + kk * kLD +
-                                                         4 * r);
-#pragma unroll
-      for (int jj = 0; jj < kC; ++jj) {
-        const float kv = Kt[(c + 16 * jj) * kLD + kk];
-        acc[0][jj] = fmaf(d4.x, kv, acc[0][jj]);
-        acc[1][jj] = fmaf(d4.y, kv, acc[1][jj]);
-        acc[2][jj] = fmaf(d4.z, kv, acc[2][jj]);
-        acc[3][jj] = fmaf(d4.w, kv, acc[3][jj]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * r + i;
-    if (row >= Sq) continue;
-    float* out = dq + row * st.a[0] + h * st.a[1];
-#pragma unroll
-    for (int jj = 0; jj < kC; ++jj) out[c + 16 * jj] = acc[i][jj] * scale;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v,
-                  const float* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ dsum, float* __restrict__ dk,
-                  float* __restrict__ dv, int Sq, int Sk, Strides st,
-                  float scale, int causal, int delta) {
-  constexpr int kC = D / 16;
-  float* Kt = reinterpret_cast<float*>(dyn_smem());  // [D][kLD], the block's
-  float* Vt = Kt + D * kLD;                          // [D][kLD]
-  float* Qt = Vt + D * kLD;                          // [D][kLD] q * scale
-  float* Qr = Qt + D * kLD;                          // [D][kLD] q
-  float* dOt = Qr + D * kLD;                         // [D][kLD]
-  float* Ps = dOt + D * kLD;                         // [kB rows][kLD] p
-  float* DSs = Ps + kB * kLD;                        // [kB rows][kLD] ds
-  float* Lse = DSs + kB * kLD;
-  float* Dsum = Lse + kB;
-
-  const int h = blockIdx.y;
-  const int k0 = blockIdx.x * kB;
-  const int t = threadIdx.x, r = t >> 4, c = t & 15;
-
-  load_t<D>(nullptr, Kt, k, k0, Sk, h, st.k[0], st.k[1], 1.f);
-  load_t<D>(nullptr, Vt, v, k0, Sk, h, st.v[0], st.v[1], 1.f);
-
-  float dka[4][kC], dva[4][kC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < kC; ++jj) dka[i][jj] = dva[i][jj] = 0.f;
-
-  const int n_q = (Sq + kB - 1) / kB;
-  // causal: query tiles wholly above the global diagonal see none of these
-  // keys; the first tile that does has q0 + kB - 1 + delta >= k0 (none,
-  // and zeros written, when the q shard lies wholly before the keys)
-  int qb_begin = 0;
-  if (causal) {
-    const int first = k0 - delta - kB + 1;
-    qb_begin = first <= 0 ? 0 : (first + kB - 1) / kB;
-  }
-  for (int qb = qb_begin; qb < n_q; ++qb) {
-    const int q0 = qb * kB;
-    __syncthreads();  // the previous tile's q, dO, p and ds are consumed
-    load_t<D>(Qt, Qr, q, q0, Sq, h, st.q[0], st.q[1], scale);
-    load_t<D>(nullptr, dOt, dout, q0, Sq, h, st.o[0], st.o[1], 1.f);
-    load_rows(Lse, Dsum, lse, dsum, q0, Sq, h);
-    __syncthreads();
-    const bool full =
-        (k0 + kB <= Sk) && (!causal || k0 + kB - 1 <= q0 + delta);
-    float p[4][4], ds[4][4];
-    tile_p_ds_f32<D>(Qt, dOt, Kt, Vt, Lse, Dsum, q0, k0, Sk, causal, delta,
-                     full, r, c, p, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      *reinterpret_cast<float4*>(Ps + (4 * r + i) * kLD + 4 * c) =
-          make_float4(p[i][0], p[i][1], p[i][2], p[i][3]);
-      *reinterpret_cast<float4*>(DSs + (4 * r + i) * kLD + 4 * c) =
-          make_float4(ds[i][0], ds[i][1], ds[i][2], ds[i][3]);
-    }
-    __syncthreads();
-    // keys 4r..4r+3: dv += p^T . dO, dk += ds^T . q
-#pragma unroll 2
-    for (int qq = 0; qq < kB; ++qq) {
-      const float4 p4 = *reinterpret_cast<const float4*>(Ps + qq * kLD +
-                                                         4 * r);
-      const float4 d4 = *reinterpret_cast<const float4*>(DSs + qq * kLD +
-                                                         4 * r);
-#pragma unroll
-      for (int jj = 0; jj < kC; ++jj) {
-        const float ov = dOt[(c + 16 * jj) * kLD + qq];
-        const float qv = Qr[(c + 16 * jj) * kLD + qq];
-        dva[0][jj] = fmaf(p4.x, ov, dva[0][jj]);
-        dva[1][jj] = fmaf(p4.y, ov, dva[1][jj]);
-        dva[2][jj] = fmaf(p4.z, ov, dva[2][jj]);
-        dva[3][jj] = fmaf(p4.w, ov, dva[3][jj]);
-        dka[0][jj] = fmaf(d4.x, qv, dka[0][jj]);
-        dka[1][jj] = fmaf(d4.y, qv, dka[1][jj]);
-        dka[2][jj] = fmaf(d4.z, qv, dka[2][jj]);
-        dka[3][jj] = fmaf(d4.w, qv, dka[3][jj]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + 4 * r + i;
-    if (key >= Sk) continue;
-    float* ok = dk + key * st.a[0] + h * st.a[1];
-    float* ov = dv + key * st.b[0] + h * st.b[1];
-#pragma unroll
-    for (int jj = 0; jj < kC; ++jj) {
-      ok[c + 16 * jj] = dka[i][jj] * scale;
-      ov[c + 16 * jj] = dva[i][jj];
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16 (codes 1 and 2): the tensor-core kernels
@@ -440,6 +192,20 @@ __device__ __forceinline__ void split3(float x, float y, uint32_t out[3]) {
     x -= __bfloat162float(v.x);
     y -= __bfloat162float(v.y);
   }
+}
+
+// d += a . b over one 16-deep step for three-term operands: the six cross
+// products whose terms' ranks (hi 0, mid 1, lo 2) sum to at most 2,
+// smallest first. What is dropped (mid.lo, lo.mid, lo.lo) is ~2^-24 of
+// |a||b| per product.
+__device__ __forceinline__ void mma_x6(float d[4], const uint32_t a[3][4],
+                                       const uint32_t b[3][2]) {
+  mma_bf16(d, a[1], b[1]);
+  mma_bf16(d, a[2], b[0]);
+  mma_bf16(d, a[0], b[2]);
+  mma_bf16(d, a[1], b[0]);
+  mma_bf16(d, a[0], b[1]);
+  mma_bf16(d, a[0], b[0]);
 }
 
 // f32 tiles (code 2's dO and p), split into three bf16 terms per element
@@ -1270,13 +1036,7 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int j = 0; j < kNT; ++j) {
           uint32_t ob[3][2];
           ldb_kn_f32(ob, dOt, LDO, d0 + 8 * j, kk);
-          // the cross products of rank <= 2, the smallest first
-          mma_bf16(dva[j], pa[1], ob[1]);
-          mma_bf16(dva[j], pa[2], ob[0]);
-          mma_bf16(dva[j], pa[0], ob[2]);
-          mma_bf16(dva[j], pa[1], ob[0]);
-          mma_bf16(dva[j], pa[0], ob[1]);
-          mma_bf16(dva[j], pa[0], ob[0]);
+          mma_x6(dva[j], pa, ob);
         }
       } else if constexpr (kNT == 1) {
         uint32_t pa[4], b[2];
@@ -1340,6 +1100,480 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// f32 (code 0): the tensor-core kernels with three-term bf16 operands
+
+// row stride of an f32 tile: float2 fragment loads are conflict-free
+template <int D>
+__host__ __device__ constexpr int ld_f32() { return D + 8; }
+
+// rows [r0, r0 + kB) of an (S, H, D) f32 tensor (x already at its head),
+// kB * D / 4 / kThreads float4 a thread; rows past n are zeros. load()
+// issues the global loads into registers, store() splits the values
+// (times sc, rounded in f32) into three bf16 planes of [kB][ld_h] at dst,
+// plane i at dst + i * kB * ld_h: one pass per tile, so that the products
+// take every term through ldmatrix as the bf16 kernels take their tiles.
+template <int D>
+struct RowsF32 {
+  static constexpr int kN = kB * D / 4 / kThreads;
+  float4 v[kN];
+  __device__ __forceinline__ void load(const float* __restrict__ x, int r0,
+                                       int n, long long ss) {
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / (D / 4), ch = idx % (D / 4);
+      v[i] = r0 + r < n ? __ldg(reinterpret_cast<const float4*>(
+                              x + (r0 + r) * ss + ch * 4))
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  __device__ __forceinline__ void store(bf16* dst, float sc) const {
+    constexpr int LD = ld_h<D>();
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / (D / 4), ch = idx % (D / 4);
+      uint32_t a[3], b[3];
+      split3(v[i].x * sc, v[i].y * sc, a);
+      split3(v[i].z * sc, v[i].w * sc, b);
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+        *reinterpret_cast<uint2*>(dst + t * kB * LD + r * LD + ch * 4) =
+            make_uint2(a[t], b[t]);
+    }
+  }
+};
+
+// B of n-tiles n0 and n0 + 8 at depth k0 from three bf16 planes of
+// [kB][ld], where B(k, n) = t[n][k]: b[j][i] is term i of n-tile j
+__device__ __forceinline__ void ldb_nk_x3(uint32_t b[2][3][2], const bf16* t,
+                                          int ld, int n0, int k0) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    uint32_t r[2][2];
+    ldb_nk(r, t + i * kB * ld, ld, n0, k0);
+    b[0][i][0] = r[0][0];
+    b[0][i][1] = r[0][1];
+    b[1][i][0] = r[1][0];
+    b[1][i][1] = r[1][1];
+  }
+}
+// the same from an f32 tile [kB][ld], split into its terms on the way
+__device__ __forceinline__ void ldb_nk_x3(uint32_t b[2][3][2],
+                                          const float* t, int ld, int n0,
+                                          int k0) {
+  const int l = lane_id(), g = l >> 2, c = 2 * (l & 3);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float2 x = *reinterpret_cast<const float2*>(
+          t + (n0 + 8 * j + g) * ld + k0 + c + 8 * i);
+      uint32_t s[3];
+      split3(x.x, x.y, s);
+      b[j][0][i] = s[0];
+      b[j][1][i] = s[1];
+      b[j][2][i] = s[2];
+    }
+}
+
+// acc = A . B for one warp's 32 rows at m0 x 16 keys at n0 (2 m-tiles x 2
+// n-tiles) over depth D: s = (q * scale) . k or dp = dO . v. A from three
+// planes of [kB][ld_h] (row-major), B(k, n) = bt[n][k] from three planes
+// (bf16) or an f32 tile [kB][ld_f32] split on the way (float). Each 16-deep
+// step's products go to a fresh accumulator, which is added to acc in f32:
+// chaining every step through one accumulator would lose up to an ulp of
+// the running sum a step, always toward zero (an mma aligns its accumulator
+// input with the products and truncates below 24 bits).
+template <int D, typename TB>
+__device__ __forceinline__ void rows_x_keys_x3(float acc[2][2][4],
+                                               const bf16* a_p,
+                                               const TB* b_t, int m0,
+                                               int n0) {
+  constexpr int LD = ld_h<D>();
+  constexpr int LB = sizeof(TB) == 2 ? ld_h<D>() : ld_f32<D>();
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+#pragma unroll 1
+  for (int kk = 0; kk < D; kk += 16) {
+    uint32_t a[2][3][4], b[2][3][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+        lda(a[i][t], a_p + t * kB * LD, LD, m0 + 16 * i, kk);
+    ldb_nk_x3(b, b_t, LB, n0, kk);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_x6(part, a[i], b[j]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[e];
+      }
+  }
+}
+
+// p and ds of the warp's s and dp fragments in place (s -> p, dp -> ds):
+// rows m0 + 16 i + g (+8), keys n0 + 8 j + c (+1) of the tile at (q0, k0);
+// l and dsm hold the rows' lse and dsum at [2 i + (row >= +8)]. Neither p
+// nor ds is rounded (T and TO are the identity for f32). delta = q_off -
+// k_off: causal keeps local (i, j) with i + delta >= j.
+__device__ __forceinline__ void p_ds_f32(float s[2][2][4], float dp[2][2][4],
+                                         const float l[4],
+                                         const float dsm[4], int q0, int k0,
+                                         int m0, int n0, int Sk, int causal,
+                                         int delta, bool full) {
+  const int lane = lane_id(), g = lane >> 2, c = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 2 * i + (e >> 1);
+        const int qpos = q0 + m0 + 16 * i + g + 8 * (e >> 1);
+        const int kpos = k0 + n0 + 8 * j + c + (e & 1);
+        const bool masked =
+            !full && (kpos >= Sk || (causal && qpos + delta < kpos));
+        const float p = masked ? 0.f : expf(s[i][j][e] - l[r]);
+        s[i][j][e] = p;
+        dp[i][j][e] = p * (dp[i][j][e] - dsm[r]);
+      }
+}
+
+// the warp's fragments x (as p_ds_f32 lays them out) into three bf16
+// planes of [kB][kLDS] at dst
+__device__ __forceinline__ void store_x3(bf16* dst, const float x[2][2][4],
+                                         int m0, int n0) {
+  const int lane = lane_id(), g = lane >> 2, c = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        uint32_t t[3];
+        split3(x[i][j][2 * hi], x[i][j][2 * hi + 1], t);
+        const int off = (m0 + 16 * i + g + 8 * hi) * kLDS + n0 + 8 * j + c;
+#pragma unroll
+        for (int u = 0; u < 3; ++u)
+          *reinterpret_cast<uint32_t*>(dst + u * kB * kLDS + off) = t[u];
+      }
+}
+
+// acc += A . B over one tile's 64-deep sum for a warp's 16 rows at m0 x
+// columns d0.. (D/16 n-tiles of 8): A from three planes of [kB][kLDS],
+// row-major (kTrans false: A(m, k) = t[m][k]) or transposed (A(m, k) =
+// t[k][m]); B(k, n) = bt[k][n] from three planes of [kB][ld_h]. The tile's
+// 4 steps x 6 products chain through one fresh accumulator, which is
+// added to acc in f32 (see rows_x_keys_x3).
+template <int D, bool kTrans>
+__device__ __forceinline__ void tile_acc_x3(float acc[D / 16][4],
+                                            const bf16* a_p,
+                                            const bf16* b_p, int m0,
+                                            int d0) {
+  constexpr int LD = ld_h<D>(), kNT = D / 16;
+  float part[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kB; kk += 16) {
+    uint32_t a[3][4];
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      if constexpr (kTrans)
+        lda_t(a[t], a_p + t * kB * kLDS, kLDS, m0, kk);
+      else
+        lda(a[t], a_p + t * kB * kLDS, kLDS, m0, kk);
+    }
+    if constexpr (kNT == 1) {
+      uint32_t b[3][2];
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+        ldb_kn1(b[t], b_p + t * kB * LD, LD, d0, kk);
+      mma_x6(part[0], a, b);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kNT; j += 2) {
+        uint32_t b[2][3][2];
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+          uint32_t r[2][2];
+          ldb_kn(r, b_p + t * kB * LD, LD, d0 + 8 * j, kk);
+          b[0][t][0] = r[0][0];
+          b[0][t][1] = r[0][1];
+          b[1][t][0] = r[1][0];
+          b[1][t][1] = r[1][1];
+        }
+        mma_x6(part[j], a, b[0]);
+        mma_x6(part[j + 1], a, b[1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+}
+
+// Q (q * scale), dO, K and V as three planes each; ds as three planes of
+// [kB][kLDS] in V's space where they fit (D >= 64), else beside it
+template <int D>
+__host__ __device__ constexpr bool ds_in_v() { return kLDS <= ld_h<D>(); }
+template <int D>
+constexpr size_t dq_split3_smem() {
+  return (size_t)3 * kB * 2 * (4 * ld_h<D>() + (ds_in_v<D>() ? 0 : kLDS));
+}
+// K and V f32; q (times scale) and dO, p and ds as three planes each; two
+// stages of the q tile's lse and dsum
+template <int D>
+constexpr size_t dkv_split3_smem() {
+  return (size_t)kB * (2 * ld_f32<D>() * 4 + 3 * 2 * (2 * ld_h<D>() + 2 * kLDS)
+                       + 2 * 2 * 4);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_split3(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ dsum, float* __restrict__ dq,
+                    int Sq, int Sk, Strides st, float scale, int causal,
+                    int delta) {
+  constexpr int kP = 3 * kB * ld_h<D>();   // one tile's three planes
+  constexpr int kNT = D / 16;
+  bf16* Qp = reinterpret_cast<bf16*>(dyn_smem());  // q * scale
+  bf16* dOp = Qp + kP;
+  bf16* Kp = dOp + kP;
+  bf16* Vp = Kp + kP;
+  // ds, once every warp has taken dP
+  bf16* dSp = ds_in_v<D>() ? Vp : Vp + kP;
+
+  const int h = blockIdx.y;
+  // the longest causal rows first: the last query tile has the most keys
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;
+  const int w = threadIdx.x >> 5, lane = lane_id();
+  const int g = lane >> 2, c = 2 * (lane & 3);
+  const int m0 = 32 * (w & 1), n0 = 16 * (w >> 1);  // s, dp: rows, keys
+  const int mq = 16 * (w & 3), d0 = (D / 2) * (w >> 2);  // dq: rows, cols
+  const float* kh = k + h * st.k[1];
+  const float* vh = v + h * st.v[1];
+
+  const int n_k = (Sk + kB - 1) / kB;
+  // causal: key tiles wholly above the global diagonal of this block are
+  // skipped; none is left when the kv shard lies wholly after the block
+  int kb_end = n_k;
+  if (causal) {
+    const int last = q0 + kB - 1 + delta;  // the block's last visible key
+    kb_end = last < 0 ? 0 : min(n_k, last / kB + 1);
+  }
+
+  float acc[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  if (kb_end > 0) {
+    RowsF32<D> a, b;
+    a.load(q + h * st.q[1], q0, Sq, st.q[0]);
+    b.load(dout + h * st.o[1], q0, Sq, st.o[0]);
+    a.store(Qp, scale);
+    b.store(dOp, 1.f);
+    a.load(kh, 0, Sk, st.k[0]);
+    b.load(vh, 0, Sk, st.v[0]);
+    a.store(Kp, 1.f);
+    b.store(Vp, 1.f);
+  }
+  // the lse and dsum of the warp's rows m0 + 16 (i / 2) + g + 8 (i % 2);
+  // rows past Sq take lse = +inf, so their p and ds are 0
+  float l[4], dsm[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + m0 + 16 * (i >> 1) + g + 8 * (i & 1);
+    const bool in = row < Sq;
+    l[i] = in ? lse[h * (long long)Sq + row] : INFINITY;
+    dsm[i] = in ? dsum[h * (long long)Sq + row] : 0.f;
+  }
+
+  for (int kb = 0; kb < kb_end; ++kb) {
+    const int k0 = kb * kB;
+    const bool more = kb + 1 < kb_end;
+    __syncthreads();  // this tile's K and V (and, first, Q and dO) are in
+    float s[2][2][4], dp[2][2][4];
+    rows_x_keys_x3<D>(s, Qp, Kp, m0, n0);
+    rows_x_keys_x3<D>(dp, dOp, Vp, m0, n0);
+    const bool full =
+        (k0 + kB <= Sk) && (!causal || k0 + kB - 1 <= q0 + delta);
+    p_ds_f32(s, dp, l, dsm, q0, k0, m0, n0, Sk, causal, delta, full);
+    __syncthreads();  // every warp has taken dP: V's planes are free
+    store_x3(dSp, dp, m0, n0);
+    __syncthreads();  // ds is in
+    tile_acc_x3<D, false>(acc, dSp, Kp, mq, d0);
+    __syncthreads();  // K and ds are consumed
+    // the next tile's K and V: loaded here, not into registers during the
+    // dq products (that spilled at D=128 and ran slower)
+    if (more) {
+      RowsF32<D> nk, nv;
+      nk.load(kh, k0 + kB, Sk, st.k[0]);
+      nv.load(vh, k0 + kB, Sk, st.v[0]);
+      nk.store(Kp, 1.f);
+      nv.store(Vp, 1.f);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + mq + g + 8 * i;
+    if (row >= Sq) continue;
+    float* out = dq + row * st.a[0] + h * st.a[1] + d0 + c;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+      *reinterpret_cast<float2*>(out + 8 * j) =
+          make_float2(acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_split3(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ dsum, float* __restrict__ dk,
+                     float* __restrict__ dv, int Sq, int Sk, Strides st,
+                     float scale, int causal, int delta) {
+  constexpr int LF = ld_f32<D>(), kP = 3 * kB * ld_h<D>();
+  constexpr int kNT = D / 16;
+  float* Kf = reinterpret_cast<float*>(dyn_smem());  // [kB][LF], the block's
+  float* Vf = Kf + kB * LF;                          // [kB][LF]
+  bf16* Qp = reinterpret_cast<bf16*>(Vf + kB * LF);  // q * scale
+  bf16* dOp = Qp + kP;
+  bf16* Pp = dOp + kP;                               // p, [kB][kLDS] planes
+  bf16* dSp = Pp + 3 * kB * kLDS;                    // ds
+  float* Rows = reinterpret_cast<float*>(dSp + 3 * kB * kLDS);  // 2 stages
+
+  const int h = blockIdx.y;
+  const int k0 = blockIdx.x * kB;
+  const int w = threadIdx.x >> 5, lane = lane_id();
+  const int g = lane >> 2, c = 2 * (lane & 3);
+  const int m0 = 32 * (w & 1), n0 = 16 * (w >> 1);  // s, dp: rows, keys
+  const int km = 16 * (w & 3), d0 = (D / 2) * (w >> 2);  // dk, dv: keys, cols
+  const float* qh = q + h * st.q[1];
+  const float* oh = dout + h * st.o[1];
+
+  const int n_q = (Sq + kB - 1) / kB;
+  // causal: query tiles wholly above the global diagonal see none of these
+  // keys; the first tile that does has q0 + kB - 1 + delta >= k0 (none,
+  // and zeros written, when the q shard lies wholly before the keys)
+  int qb_begin = 0;
+  if (causal) {
+    const int first = k0 - delta - kB + 1;
+    qb_begin = first <= 0 ? 0 : (first + kB - 1) / kB;
+  }
+  // the lse and dsum of the q tile at q0 into stage sg (rows past Sq zeros)
+  auto load_rows = [&](int sg, int q0) {
+    const int i = threadIdx.x;
+    if (i < 2 * kB) {
+      const int row = q0 + (i & (kB - 1));
+      const bool in = row < Sq;
+      const float* src = i < kB ? lse : dsum;
+      cp_async4(Rows + sg * 2 * kB + i,
+                in ? src + h * (long long)Sq + row : src, in);
+    }
+  };
+
+  float dka[kNT][4], dva[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  if (qb_begin < n_q) {
+    cp_tile<float, D>(Kf, LF, k + h * st.k[1], k0, Sk, st.k[0]);
+    cp_tile<float, D>(Vf, LF, v + h * st.v[1], k0, Sk, st.v[0]);
+    load_rows(0, qb_begin * kB);
+    cp_async_commit();
+    RowsF32<D> a, b;
+    a.load(qh, qb_begin * kB, Sq, st.q[0]);
+    b.load(oh, qb_begin * kB, Sq, st.o[0]);
+    a.store(Qp, scale);
+    b.store(dOp, 1.f);
+  }
+  for (int qb = qb_begin, it = 0; qb < n_q; ++qb, ++it) {
+    const int q0 = qb * kB;
+    const bool more = qb + 1 < n_q;
+    if (more) load_rows((it + 1) & 1, q0 + kB);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // this tile's q, dO, lse, dsum (and, first, K, V) are in
+    const float* Lse = Rows + (it & 1) * 2 * kB;
+    const float* Dsum = Lse + kB;
+
+    float s[2][2][4], dp[2][2][4];
+    rows_x_keys_x3<D>(s, Qp, Kf, m0, n0);
+    rows_x_keys_x3<D>(dp, dOp, Vf, m0, n0);
+    float l[4], dsm[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = m0 + 16 * (i >> 1) + g + 8 * (i & 1);
+      l[i] = q0 + r < Sq ? Lse[r] : INFINITY;
+      dsm[i] = Dsum[r];
+    }
+    const bool full =
+        (k0 + kB <= Sk) && (!causal || k0 + kB - 1 <= q0 + delta);
+    p_ds_f32(s, dp, l, dsm, q0, k0, m0, n0, Sk, causal, delta, full);
+    store_x3(Pp, s, m0, n0);
+    store_x3(dSp, dp, m0, n0);
+    __syncthreads();  // p and ds are in
+    // keys km..km+15: dv += p^T . dO
+    tile_acc_x3<D, true>(dva, Pp, dOp, km, d0);
+    __syncthreads();  // dO is consumed
+    // the next tile's dO (prefetching it into registers across the dv
+    // products spilled at D=128 and ran slower than this wait)
+    RowsF32<D> nx;
+    if (more) {
+      nx.load(oh, q0 + kB, Sq, st.o[0]);
+      nx.store(dOp, 1.f);
+    }
+    // dk += ds^T . (q * scale): the scale is taken once per q element
+    // here, which moves each term by at most 2^-24 of itself
+    tile_acc_x3<D, true>(dka, dSp, Qp, km, d0);
+    __syncthreads();  // q, p and ds are consumed
+    if (more) {
+      nx.load(qh, q0 + kB, Sq, st.q[0]);
+      nx.store(Qp, scale);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + km + g + 8 * i;
+    if (key >= Sk) continue;
+    float* ok = dk + key * st.a[0] + h * st.a[1] + d0 + c;
+    float* ov = dv + key * st.b[0] + h * st.b[1] + d0 + c;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      *reinterpret_cast<float2*>(ok + 8 * j) =
+          make_float2(dka[j][2 * i], dka[j][2 * i + 1]);
+      *reinterpret_cast<float2*>(ov + 8 * j) =
+          make_float2(dva[j][2 * i], dva[j][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 
 // the kernel of (DQ, dtype code, D) and its dynamic shared memory. Code 0:
@@ -1349,9 +1583,9 @@ template <bool DQ, int kCode, int D>
 const void* kernel_of(size_t* smem) {
   using TO = typename std::conditional<kCode == 1, bf16, float>::type;
   if constexpr (kCode == 0) {
-    *smem = DQ ? dq_f32_smem<D>() : dkv_f32_smem<D>();
-    return DQ ? reinterpret_cast<const void*>(flash_bwd_dq_f32<D>)
-              : reinterpret_cast<const void*>(flash_bwd_dkv_f32<D>);
+    *smem = DQ ? dq_split3_smem<D>() : dkv_split3_smem<D>();
+    return DQ ? reinterpret_cast<const void*>(flash_bwd_dq_split3<D>)
+              : reinterpret_cast<const void*>(flash_bwd_dkv_split3<D>);
   } else {
     *smem = DQ ? dq_mma_smem<TO, D>() : dkv_mma_smem<TO, D>();
     return DQ ? reinterpret_cast<const void*>(flash_bwd_dq_mma<TO, D>)
@@ -1378,10 +1612,10 @@ int launch_k(const void* const* ptr, int Sq, int Sk, int H,
   T *a = (T*)ptr[6], *b = (T*)ptr[7];
   if constexpr (kCode == 0) {
     if (DQ)
-      flash_bwd_dq_f32<D><<<grid, kThreads, smem, stream>>>(
+      flash_bwd_dq_split3<D><<<grid, kThreads, smem, stream>>>(
           q, k, v, dout, lse, dsum, a, Sq, Sk, st, scale, causal, delta);
     else
-      flash_bwd_dkv_f32<D><<<grid, kThreads, smem, stream>>>(
+      flash_bwd_dkv_split3<D><<<grid, kThreads, smem, stream>>>(
           q, k, v, dout, lse, dsum, a, b, Sq, Sk, st, scale, causal, delta);
   } else {
     if (DQ)

@@ -10,9 +10,10 @@ The tensor's device chooses the path: a CPU tensor takes the plain
 versions (`_flash_forward_lse_plain`, `_flash_backward_plain`: dense f32
 scores with the reference's semantics and rounding points); a CUDA tensor
 launches the hand-written kernels in `csrc/flash_attention.cu` (forward)
-and `csrc/flash_attention_bwd.cu` (the dq and dk/dv kernels), f32 on the
-CUDA cores or bf16 on the tensor cores, with D in {16, 32, 64, 128}, or
-raises. Nothing falls back.
+and `csrc/flash_attention_bwd.cu` (the dq and dk/dv kernels), with D in
+{16, 32, 64, 128}, or raises. Nothing falls back. bf16 runs on the tensor
+cores; so does the f32 backward, each f32 operand split into three bf16
+terms; the f32 forward runs on the CUDA cores.
 
 `flash_attention` is differentiable: its forward saves q, k, v, out and
 lse (the reference's residuals), and its backward computes

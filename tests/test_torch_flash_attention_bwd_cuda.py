@@ -9,12 +9,13 @@ the port is installed:
 
 Tolerances are per element, `flash_attention._BWD_TOL` against the
 output's magnitude and its term scale r (`_bwd_term_scales`, the root sum
-of squares of the terms it sums): f32 2^-21 |plain| + 2^-18 sqrt(n) r (a
-few ulps plus ~45 standard deviations of summing n terms in another
+of squares of the terms it sums): f32 2^-21 |plain| + 2^-14 r (a few ulps
+plus ~10 standard deviations of summing up to 16384 terms in another
 order); bf16 2^-7 |plain| + 2^-8 r (one output ulp plus the terms whose p
-or ds rounds to the neighbouring bf16 value on one side only). The bf16
-limit rejects the kernels run on dO shifted by one query row
-(`test_bf16_limit_rejects_do_one_row_off`).
+or ds rounds to the neighbouring bf16 value on one side only). Both limits
+reject the kernels run on dO shifted by one query row
+(`test_bf16_limit_rejects_do_one_row_off`,
+`test_f32_limit_rejects_do_one_row_off`).
 """
 import numpy as np
 import pytest
@@ -188,13 +189,10 @@ def test_near_uniform_attention_matches_plain(cuda_device, causal):
     assert _share_of_limit(got, want, lims) <= 1.0
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("causal", [False, True])
-def test_bf16_limit_rejects_do_one_row_off(cuda_device, causal):
-    """The bf16 limit sees a load one row off: the kernels' gradients on
-    dO shifted by one query row fail it at most outputs of each."""
-    ops = _operands(384, 384, 4, 64, torch.bfloat16, cuda_device, causal,
-                    0.125)
+def _limit_rejects_do_one_row_off(dtype, device, causal):
+    """The kernels' gradients on dO shifted by one query row (a load one
+    row off) fail the dtype's limit at most outputs of each."""
+    ops = _operands(384, 384, 4, 64, dtype, device, causal, 0.125)
     q, k, v, do, lse, dsum = ops
     want = fa._flash_backward_plain(*ops, causal, 0.125)
     lims = fa._bwd_limits(*ops, causal, 0.125, want)
@@ -204,6 +202,21 @@ def test_bf16_limit_rejects_do_one_row_off(cuda_device, causal):
     for g, w, lim in zip(got, want, lims):
         assert float(((g.float() - w.float()).abs() > lim).float().mean()) \
             > 0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_limit_rejects_do_one_row_off(cuda_device, causal):
+    """The bf16 limit sees a load one row off."""
+    _limit_rejects_do_one_row_off(torch.bfloat16, cuda_device, causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_limit_rejects_do_one_row_off(cuda_device, causal):
+    """The f32 limit sees it too, for the f32 kernels (three bf16 terms on
+    the tensor cores)."""
+    _limit_rejects_do_one_row_off(torch.float32, cuda_device, causal)
 
 
 @pytest.mark.gpu
