@@ -7,24 +7,33 @@
                                      # flash encode_long and of one LM
                                      # training step (bf16 and f32)
                                      # without and with the ring
-    python3 chip_smoke.py --sweep    # also times the shared-memory
-                                     # kernel's launch geometries
+    python3 chip_smoke.py --sweep    # also times the tiled histogram
+                                     # kernel over its planner's knobs
+    python3 chip_smoke.py --versus DIR
+                                     # also times the f32 forward, f32
+                                     # encode_long, f32 LM step and the
+                                     # headline fit of the checkout at DIR
+                                     # (e.g. the parent commit's) and of
+                                     # this one: parent, change, change,
+                                     # parent
 
 Phases (any failure exits non-zero before the last line is printed):
   1. card: name and power limit (nvidia-smi), torch's device name;
   2. build: every CUDA source of the port with nvcc for sm_90a, one nvcc
      per source, all started together, with the build seconds and the
-     -Xptxas -v register/shared-memory report; every bf16 instantiation of
-     the flash forward (both forms) and every instantiation of the
-     backward (f32 too) must hold tensor-core instructions (HMMA or HGMMA
-     in `cuobjdump -sass`) and have no ptxas spills; registers, shared
-     memory per block and blocks per SM at D=128;
+     -Xptxas -v register/shared-memory report; every instantiation of the
+     flash forward (f32 and bf16, both forms) and of the backward must
+     hold tensor-core instructions (HMMA or HGMMA in `cuobjdump -sass`)
+     and have no ptxas spills, nor may the tiled histogram kernel;
+     registers, shared memory per block and blocks per SM at D=128, and
+     the histogram planner's launches at the headline's levels;
   3. kernels vs plain: each kernel entry point against its plain PyTorch
      version on the same CUDA tensors, at the main path's shapes.
-     Histograms: 8M rows x 32 features x 64 bins, m in {1, 2, 4, 8}, with
-     inactive rows, both without count_w, as the trainer calls it, and
-     with it, and, for the global-atomics kernel, an m*B too large for
-     shared memory. Counts must be exactly equal; grad/hess within the
+     Histograms (`hist_tiled`, the planner's launch): 8M rows x 32
+     features x 64 bins, m in {1, 2, 4, 8}, with inactive rows, both
+     without count_w, as the trainer calls it, and with it, and two levels
+     whose m*B outgrows one block (m=128 at B=256; the deep fit's m=512).
+     Counts must be exactly equal; grad/hess within the
      tolerance stated at `_HIST_RTOL_OF_ABS_SUM`. Flash forward: out and
      lse at S=16384, H=8, D in {128, 64} (the shapes of bench.py's flash
      mode), a ragged S=16000, a cross shape Sq=96/Sk=40 and D=16, each
@@ -33,13 +42,14 @@ Phases (any failure exits non-zero before the last line is printed):
      that reads V one key off. Times from
      CUDA events after warm-up, beside the plain version, one library
      call as the yardstick (`index_add_`; `scaled_dot_product_attention`)
-     and the bound;
+     and the bound (f32 flash rows: also at the split's tensor-core rate,
+     six bf16 products per product);
   4. GBDT main path, two runs, each with the launch counts set to 0 just
      before it and read just after: the headline fit (binning on the
      card, `fit_booster` binary, depth 5, 31 leaves, 64 bins,
-     10 iterations at 8M x 32) with exactly 50 shared-memory launches,
-     then a 1-iteration max_depth=11 fit whose deepest level needs the
-     global-atomics kernel (10 + 1 launches). Between them: bulk and
+     10 iterations at 8M x 32) with exactly 50 `hist_tiled` launches,
+     then a 1-iteration max_depth=11 fit whose deepest level splits its
+     nodes over tiles (11 launches). Between them: bulk and
      serving-sized scoring through `Booster`, and train logloss/AUC
      against a fit whose histograms come from the plain version on the
      card;
@@ -71,12 +81,12 @@ Phases (any failure exits non-zero before the last line is printed):
      inactive rows, without and with count_w (counts exact, grad/hess
      within `_HIST_RTOL_OF_ABS_SUM`); the check shown to reject the
      kernel run on a plan of the bins shifted by one row; its largest
-     difference from `hist_smem` on the same inputs as a share of sum |g|
-     per bin (at most bf16's 2^-8); times beside `hist_smem`, the plain
+     difference from `hist_tiled` on the same inputs as a share of sum |g|
+     per bin (at most bf16's 2^-8); times beside `hist_tiled`, the plain
      version, one `index_add_` of the bf16-rounded stats and the bound
      with the plan's bytes. Then the headline fit with
      MMLSPARK_TPU_HIST=planes set in the process, bagging 0.8/1 and
-     feature_fraction 0.8: exactly 40 `hist_planes` and 10 `hist_smem`
+     feature_fraction 0.8: exactly 40 `hist_planes` and 10 `hist_tiled`
      launches, the plan's bytes, peak memory, logloss/AUC against the
      same fit on the plain histograms;
   8. boosting modes at the headline width: goss (0.2/0.1), dart
@@ -128,6 +138,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import re
@@ -253,14 +264,16 @@ def build_phase():
             elif "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
     return dict(fwd=_fwd_build_checks(reports["flash_attention"][0]),
-                bwd=_bwd_build_checks(reports["flash_attention_bwd"][0]))
+                bwd=_bwd_build_checks(reports["flash_attention_bwd"][0]),
+                hist=_hist_build_checks(reports["histogram"][0]))
 
 
 # the tensor-core kernels by mangled name. Backward: (kernel, dO's type, D),
 # bf16 dO is dtype code 1, f32 dO code 2; forward: (form, D)
 _BWD_MMA = re.compile(r"flash_bwd_(dq|dkv)_mmaI(13__nv_bfloat16|f)Li(\d+)E")
 _BWD_SPLIT3 = re.compile(r"flash_bwd_(dq|dkv)_split3ILi(\d+)E")
-_FWD_MMA = re.compile(r"flash_fwd_mmaILi(\d+)ELb([01])E")
+_FWD_MMA = re.compile(r"flash_fwd_(mma|split3)ILi(\d+)ELb([01])E")
+_HIST_TILE = re.compile(r"hist_tile_kernelILb([01])E")
 
 
 def _bwd_mma_key(line):
@@ -275,11 +288,20 @@ def _bwd_mma_key(line):
 
 
 def _fwd_mma_key(line):
-    """("normalized" or "stats", D) of a tensor-core forward kernel named in
-    a line of ptxas or cuobjdump output, else None."""
+    """("normalized" or "stats", dtype code, D) of a tensor-core forward
+    kernel named in a line of ptxas or cuobjdump output, else None:
+    `flash_fwd_mma` for code 1 (bf16), `flash_fwd_split3` (f32 as three
+    bf16 terms) for code 0."""
     m = _FWD_MMA.search(line)
-    return ("normalized" if m.group(2) == "1" else "stats",
-            int(m.group(1))) if m else None
+    return ("normalized" if m.group(3) == "1" else "stats",
+            1 if m.group(1) == "mma" else 0, int(m.group(2))) if m else None
+
+
+def _hist_tile_key(line):
+    """"cnt" or "no cnt" (with or without a count operand) of a tiled
+    histogram kernel named in a line of ptxas output, else None."""
+    m = _HIST_TILE.search(line)
+    return ("cnt" if m.group(1) == "1" else "no cnt") if m else None
 
 
 def _mma_build_checks(source, report, key, want):
@@ -328,29 +350,66 @@ def _mma_build_checks(source, report, key, want):
 
 
 def _fwd_build_checks(report):
-    """The redesigned forward kernel, from the built library: every bf16
-    instantiation (both forms, each D) holds tensor-core instructions and
-    has no ptxas spills (`_mma_build_checks`); registers, shared memory
-    per block and blocks per SM at D=128 for both forms, f32 and bf16."""
+    """The forward kernels, from the built library: every instantiation
+    (bf16 and f32, both forms, each D) holds tensor-core instructions and
+    has no ptxas spills (`_mma_build_checks`); registers (from ptxas),
+    shared memory per block and blocks per SM at D=128 for both forms, f32
+    and bf16."""
     from mmlspark_tpu_torch.ops import flash_attention as fa
     counts = _mma_build_checks(
         "flash_attention", report, _fwd_mma_key,
-        {(f, d) for f in ("normalized", "stats") for d in (16, 32, 64, 128)})
-    for (f, d), ops in sorted(counts.items()):
+        {(f, c, d) for f in ("normalized", "stats") for c in (0, 1)
+         for d in (16, 32, 64, 128)})
+    for (f, c, d), ops in sorted(counts.items()):
         if d == 128:
-            log(f"[build] flash_fwd_mma {f} D=128: SASS {ops['HMMA']} HMMA, "
-                f"{ops['HGMMA']} HGMMA")
+            log(f"[build] flash_fwd {f} code {c} D=128: SASS {ops['HMMA']} "
+                f"HMMA, {ops['HGMMA']} HGMMA")
+    ptxas = _ptxas_registers(report, _fwd_mma_key)
     occupancy = {}
     for f in ("normalized", "stats"):
         for c in (0, 1):
             regs, smem, blocks = fa.flash_fwd_occupancy(f == "normalized", c,
                                                         128)
             occupancy[f"{f} code {c}"] = dict(registers=regs, smem=smem,
-                                              blocks_per_sm=blocks)
+                                              blocks_per_sm=blocks,
+                                              ptxas_registers=ptxas.get(
+                                                  (f, c, 128)))
             log(f"[build] flash_fwd {f} code {c} D=128: {regs} registers, "
                 f"{smem} B shared memory per block, {blocks} block(s) per SM")
-    return dict(sass={f"{f} D={d}": ops
-                      for (f, d), ops in sorted(counts.items())},
+    return dict(sass={f"{f} code {c} D={d}": ops
+                      for (f, c, d), ops in sorted(counts.items())},
+                spills_checked=report is not None, occupancy=occupancy)
+
+
+def _hist_build_checks(report):
+    """The tiled histogram kernel, from the built library: no ptxas spills
+    in either instantiation (with or without a count operand); registers,
+    and the shared memory and blocks per SM of the planner's launches at
+    the headline's shapes (8M x 32 x 64 bins, m = 1, 2, 4, 8) and at
+    m=128, B=256 (`histogram_cuda.tile_occupancy`)."""
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+    regs, spills, fn = {}, {}, None
+    for line in (report or "").splitlines():
+        if "entry function" in line:
+            fn = _hist_tile_key(line)
+        elif fn is not None and "registers" in line:
+            regs[fn] = int(re.search(r"Used (\d+) registers", line).group(1))
+        elif fn is not None and "spill" in line:
+            n = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+            if any(n):
+                spills[fn] = n
+    if spills:
+        raise AssertionError(f"ptxas spills in hist_tile_kernel: {spills}")
+    occupancy = {}
+    for m, b in ((1, 64), (2, 64), (4, 64), (8, 64), (128, 256)):
+        plan = hc.plan_tiles(N_ROWS, N_FEAT, m, b, *hc._card(0))
+        blocks = hc.tile_occupancy(plan, False)
+        occupancy[f"m={m} B={b}"] = dict(plan._asdict(), blocks_per_sm=blocks)
+        log(f"[build] hist_tile_kernel m={m} B={b}: {plan}; {blocks} "
+            f"block(s) per SM")
+    log(f"[build] hist_tile_kernel registers: "
+        f"{regs if report is not None else 'already built'}")
+    return dict(registers=regs,
                 spills_checked=report is not None, occupancy=occupancy)
 
 
@@ -457,40 +516,40 @@ def _check_hist(got, want, abs_grad_hist, label):
     return err
 
 
+# the tiled histogram kernel's cases: the headline's levels (8M x 32 x 64
+# bins, m = 1, 2, 4, 8), a level whose m*B outgrows one block (m=128,
+# B=256: 3 * 128 * 256 * 4 B = 384 KiB a feature) and the deep fit's
+# deepest level (m=512)
+HIST_CASES = [(1, 64), (2, 64), (4, 64), (8, 64), (128, 256), (512, 64)]
+
+
 def kernel_phase(dev):
-    """Each kernel against `_torch_hist` on the same CUDA tensors."""
+    """The tiled kernel against `_torch_hist` on the same CUDA tensors at
+    every case of `HIST_CASES`, at the planner's launch."""
     import torch
     from mmlspark_tpu_torch.ops import histogram_cuda as hc
     from mmlspark_tpu_torch.ops.histogram import _torch_hist
     gen = torch.Generator(device=dev).manual_seed(0)
-    results = {}
-    cases = [("hist_smem", m, N_FEAT, MAX_BIN + 1) for m in (1, 2, 4, 8)]
-    # 3 * 128 * 256 * 4 B = 384 KiB per feature: no block can hold it
-    cases.append(("hist_global", 128, N_FEAT, 256))
-    for kname, m, f, b in cases:
+    results = []
+    for m, b in HIST_CASES:
+        f = N_FEAT
         inputs = _hist_inputs(gen, dev, N_ROWS, f, b, m)
         bins, grad, hess, node, active, cw = inputs
-        kern = getattr(hc, kname)
-        if kname == "hist_smem" and hc.smem_bytes_per_feature(m, b) > \
-                hc.smem_limit(dev):
-            raise AssertionError(f"m={m}, B={b} does not fit shared memory")
-        if kname == "hist_global" and hc.smem_bytes_per_feature(m, b) <= \
-                hc.smem_limit(dev):
-            raise AssertionError("the global-atomics case fits shared memory")
+        plan = hc.plan_tiles(N_ROWS, f, m, b, *hc._card(dev.index or 0))
         abs_grad = _torch_hist(bins, grad.abs(), hess, node, active, m, b)[0]
         err = 0.0
         # the trainer passes no count_w (every row counts 1); the
         # reference's callers with weights pass one
         for w in (None, cw):
-            got = kern(*inputs[:5], m, b, count_w=w)
+            got = hc.hist_tiled(*inputs[:5], m, b, count_w=w)
             want = _torch_hist(*inputs[:5], m, b, count_w=w)
             torch.cuda.synchronize()
-            label = f"{kname} m={m} B={b} count_w " + \
+            label = f"hist_tiled m={m} B={b} count_w " + \
                 ("set" if w is not None else "None")
             err = max(err, _check_hist(got, want, abs_grad, label))
             del got, want
         del abs_grad
-        ms = timed(lambda: kern(*inputs[:5], m, b))
+        ms = timed(lambda: hc.hist_tiled(*inputs[:5], m, b))
         plain_ms = timed(lambda: _torch_hist(*inputs[:5], m, b),
                          warmup=1, reps=5)
         lib = _index_add_call(*inputs[:5], torch.ones_like(cw), m, b)
@@ -498,59 +557,83 @@ def kernel_phase(dev):
         del lib
         bound_ms, bound_by = _bound(N_ROWS, int(active.sum()), f, b, m,
                                     with_count=False)
-        log(f"[kernel] {kname} n={N_ROWS} F={f} B={b} m={m}: match with and "
-            f"without count_w (counts exact, max abs err {err:.3g}); "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, one index_add_ "
-            f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        results.setdefault(kname, []).append(dict(
+        # each active row's stats are read once per feature tile
+        log(f"[kernel] hist_tiled n={N_ROWS} F={f} B={b} m={m}: match with "
+            f"and without count_w (counts exact, max abs err {err:.3g}); "
+            f"{plan.node_tiles} x {plan.feat_tiles} tiles of {plan.mt} "
+            f"nodes x {plan.ft} features, {plan.copies} copies, "
+            f"{plan.threads} threads, {plan.row_blocks} row blocks, "
+            f"{plan.smem} B (stats read {plan.feat_tiles} time(s), node "
+            f"{plan.node_tiles * plan.feat_tiles}); kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, one index_add_ {library_ms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+        results.append(dict(
             m=m, n=N_ROWS, f=f, b=b, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-            bound_by=bound_by))
+            bound_by=bound_by, plan=plan._asdict()))
         del inputs, bins, grad, hess, node, active, cw
         torch.cuda.empty_cache()
     return results
 
 
+# the sweep's knobs of the tiled kernel: features per tile, nodes per tile
+# (None: as many as fit), threads per block, copies of the histograms
+# (taken only where the tile leaves room)
+SWEEP_FT = (8, 16, 32)
+SWEEP_MT = (None, 2)
+SWEEP_THREADS = (256, 512, 1024)
+SWEEP_COPIES = (1, 2, 4)
+
+
 def sweep_phase(dev):
-    """Time `hist_smem_kernel` at the main path's shapes over launch
-    geometries: features per block (fg) and row blocks per SM in all.
-    Every geometry's output is checked against the plain version."""
+    """Time `hist_tile_kernel` at the headline's shapes (m = 1, 2, 4, 8)
+    and at m=128, B=256 over the planner's knobs: features per tile, nodes
+    per tile, threads per block and copies. Every launch's output is
+    checked against the plain version."""
     import torch
     from mmlspark_tpu_torch.ops import histogram_cuda as hc
     from mmlspark_tpu_torch.ops.histogram import _torch_hist
     gen = torch.Generator(device=dev).manual_seed(1)
-    limit, sms = hc.smem_limit(dev), hc._card(dev.index or 0)[1]
-    b = MAX_BIN + 1
-    for m in (1, 2, 4, 8):
+    card = hc._card(dev.index or 0)
+    rows = {}
+    for m, b in HIST_CASES[:5]:
         inputs = _hist_inputs(gen, dev, N_ROWS, N_FEAT, b, m)
         want = _torch_hist(*inputs[:5], m, b)
         abs_grad = _torch_hist(inputs[0], inputs[1].abs(),
                                *inputs[2:5], m, b)[0]
         ops, _ = hc._prepare(*inputs[:5], m, b, None)
-        chosen = hc.smem_geometry(N_ROWS, N_FEAT, m, b, dev)
-        row = []
-        for fg in (1, 2, 4, 8, 16, 32):
-            if fg * hc.smem_bytes_per_feature(m, b) > limit:
-                continue
-            groups = -(-N_FEAT // fg)
-            for per_sm in (1, 2, 4, 8, 16, 32):
-                rb = max(1, per_sm * sms // groups)
-                outs = [torch.zeros(m, N_FEAT, b, device=dev)
-                        for _ in range(3)]
+        chosen = hc.plan_tiles(N_ROWS, N_FEAT, m, b, *card)
+        row, seen = [], set()
+        for ft, mt, threads, copies in itertools.product(
+                SWEEP_FT, SWEEP_MT, SWEEP_THREADS, SWEEP_COPIES):
+            plan = hc.plan_tiles(N_ROWS, N_FEAT, m, b, *card,
+                                 threads=threads, copies=copies, ft=ft, mt=mt)
+            if plan in seen:
+                continue           # a cap or copies that changed nothing
+            seen.add(plan)
+            outs = [torch.zeros(m, N_FEAT, b, device=dev)
+                    for _ in range(3)]
 
-                def launch():
-                    for o in outs:
-                        o.zero_()
-                    hc._launch_smem(ops, outs, N_ROWS, N_FEAT, m, b, fg, rb)
-                launch()
-                torch.cuda.synchronize()
-                _check_hist(outs, want, abs_grad, f"sweep m={m} fg={fg}")
-                ms = timed(launch, warmup=2, reps=10)
-                mark = "*" if (fg, rb) == chosen else ""
-                row.append(f"fg{fg}/sm{per_sm}:{ms:.3f}{mark}")
-        log(f"[sweep] m={m} (ms; * = the rule's choice) " + " ".join(row))
+            def launch():
+                for o in outs:
+                    o.zero_()
+                hc._launch_tiled(ops, outs, N_ROWS, N_FEAT, m, b,
+                                 plan)
+            launch()
+            torch.cuda.synchronize()
+            _check_hist(outs, want, abs_grad,
+                        f"sweep m={m} B={b} {plan}")
+            ms = timed(launch, warmup=2, reps=10)
+            mark = "*" if plan == chosen else ""
+            row.append(f"ft{plan.ft}/mt{plan.mt}/t{threads}/"
+                       f"c{plan.copies}:{ms:.3f}{mark}")
+            rows.setdefault(f"m={m} B={b}", []).append(
+                dict(plan._asdict(), ms=ms, chosen=bool(mark)))
+        log(f"[sweep] m={m} B={b} (ms, zeroing included; * = the planner's "
+            f"choice) " + " ".join(row))
         del inputs, want, abs_grad, ops
         torch.cuda.empty_cache()
+    return rows
 
 
 @contextlib.contextmanager
@@ -681,7 +764,7 @@ def main_path_phase(dev, data, profile: bool):
 
     # headline path, timed FIT_REPEATS times: counts set to 0 just
     # before each fit, read just after
-    launches = dict(hist_smem=N_ITERS * DEPTH)
+    launches = dict(hist_tiled=N_ITERS * DEPTH)
     fit_times = []
     for _ in range(FIT_REPEATS):
         booster, base, fit_s, peak = _counted_fit(x, y, params, staged, dev,
@@ -748,8 +831,8 @@ def main_path_phase(dev, data, profile: bool):
     if not auc > 0.8:
         raise AssertionError(f"train AUC {auc} is not a trained model")
 
-    # deep path: the deepest level's m*B outgrows shared memory; counts
-    # set to 0 just before, read just after
+    # deep path: the deepest level's m*B outgrows one block, so its nodes
+    # are split over tiles; counts set to 0 just before, read just after
     deep = dataclasses.replace(params, num_iterations=1, max_depth=11)
     hc.reset_launches()
     t0 = time.perf_counter()
@@ -757,12 +840,11 @@ def main_path_phase(dev, data, profile: bool):
     torch.cuda.synchronize()
     deep_s = time.perf_counter() - t0
     deep_launches = dict(hc.launches)
-    if deep_launches != dict(hist_smem=10, hist_global=1, hist_planes=0):
+    if deep_launches != dict(hist_tiled=11, hist_planes=0):
         raise AssertionError(f"deep fit launches {deep_launches}, expected "
-                             f"10 shared-memory and 1 global")
+                             f"11 of the tiled kernel")
     log(f"[main] max_depth=11 fit, 1 iteration: {deep_s:.3f} s; launches "
-        f"{deep_launches} (levels 0-9 shared memory, level 10 global "
-        f"atomics)")
+        f"{deep_launches} (levels 0-10, the last split over node tiles)")
 
     if profile:
         from torch.profiler import ProfilerActivity, profile as tprof
@@ -798,7 +880,7 @@ def planes_kernel_phase(dev):
     tensors: 8M x 32 x 64 bins (LO = 16) at m in {1, 2, 4} and one
     B = 256 (LO = 64) case, with inactive rows, without and with count_w.
     A plan of the bins shifted by one row must fail the same check. Beside
-    the times: `hist_smem` on the same inputs and its largest difference
+    the times: `hist_tiled` on the same inputs and its largest difference
     from the planes kernel as a share of sum |g| per bin."""
     import torch
     from mmlspark_tpu_torch.ops import histogram as hist
@@ -839,18 +921,18 @@ def planes_kernel_phase(dev):
             raise AssertionError(f"m={m} B={b}: the check passed the kernel "
                                  f"run on a plan of shifted bins")
         del shifted, bad
-        # planes (bf16 stats) against hist_smem (f32 stats), same inputs
-        smem = hc.hist_smem(*inputs[:5], m, b, count_w=cw)
+        # planes (bf16 stats) against hist_tiled (f32 stats), same inputs
+        tiled = hc.hist_tiled(*inputs[:5], m, b, count_w=cw)
         f32_abs = hist._torch_hist(bins, grad.abs(), hess, node, active, m,
                                    b)[0]
         nz = f32_abs > 0
-        vs_smem = float(((got[0] - smem[0]).abs()[nz] / f32_abs[nz]).max())
-        if not vs_smem <= 2.0 ** -8:
-            raise AssertionError(f"hist_planes vs hist_smem: {vs_smem} of "
+        vs_tiled = float(((got[0] - tiled[0]).abs()[nz] / f32_abs[nz]).max())
+        if not vs_tiled <= 2.0 ** -8:
+            raise AssertionError(f"hist_planes vs hist_tiled: {vs_tiled} of "
                                  f"sum |g| per bin, above bf16's 2^-8")
-        del got, want, smem, f32_abs, abs_grad
+        del got, want, tiled, f32_abs, abs_grad
         ms = timed(lambda: hc.hist_planes(*inputs[:5], m, b, **kw))
-        smem_ms = timed(lambda: hc.hist_smem(*inputs[:5], m, b))
+        tiled_ms = timed(lambda: hc.hist_tiled(*inputs[:5], m, b))
         plain_ms = timed(lambda: hist._torch_hist_planes(*inputs[:5], m, b,
                                                          **kw),
                          warmup=1, reps=3)
@@ -864,14 +946,14 @@ def planes_kernel_phase(dev):
             f"plan {plan.numel() / 1e9:.3f} GB built in {plan_s:.3f} s; "
             f"match with and without count_w (counts exact, max abs err "
             f"{err:.3g}); shifted plan rejected ({caught[:60]}...); "
-            f"vs hist_smem {vs_smem:.3g} of sum |g| per bin; kernel "
-            f"{ms:.3f} ms, hist_smem {smem_ms:.3f} ms, plain {plain_ms:.3f} "
+            f"vs hist_tiled {vs_tiled:.3g} of sum |g| per bin; kernel "
+            f"{ms:.3f} ms, hist_tiled {tiled_ms:.3f} ms, plain {plain_ms:.3f} "
             f"ms, one index_add_ {library_ms:.3f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by})")
         results.append(dict(
             m=m, n=N_ROWS, f=f, b=b, lo=lo, max_abs_err=err, ms=ms,
-            smem_ms=smem_ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=bound_ms, bound_by=bound_by, vs_smem=vs_smem,
+            tiled_ms=tiled_ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bound_ms, bound_by=bound_by, vs_tiled=vs_tiled,
             plan_bytes=plan.numel()))
         del inputs, bins, grad, hess, node, active, cw, plan, kw
         torch.cuda.empty_cache()
@@ -888,7 +970,7 @@ def _fit_metrics(booster, base, x, d_y, dev):
 def planes_path_phase(dev, data):
     """The headline fit with MMLSPARK_TPU_HIST=planes set in the process,
     bagging 0.8 every iteration and feature_fraction 0.8: exactly 40
-    planes (m = 1, 1, 2, 4 per tree) and 10 shared-memory (m = 8)
+    planes (m = 1, 1, 2, 4 per tree) and 10 `hist_tiled` (m = 8)
     launches; its train logloss/AUC against the same fit, from the same
     seed, whose histograms come from the plain versions on the card."""
     import dataclasses
@@ -901,7 +983,7 @@ def planes_path_phase(dev, data):
     x, y, staged, d_y = data["x"], data["y"], data["staged"], data["d_y"]
     params = _headline_params(bagging_fraction=0.8, bagging_freq=1,
                               feature_fraction=0.8)
-    want = dict(hist_smem=N_ITERS, hist_planes=N_ITERS * (DEPTH - 1))
+    want = dict(hist_tiled=N_ITERS, hist_planes=N_ITERS * (DEPTH - 1))
     plan_bytes = N_FEAT * N_ROWS * hist.plan_lo_bins(MAX_BIN + 1)
     with env("MMLSPARK_TPU_HIST", "planes"):
         fit_booster(x, y, dataclasses.replace(params, num_iterations=1),
@@ -959,11 +1041,11 @@ def modes_phase(dev, data):
     for name, kw in BOOSTING_MODES.items():
         params = _headline_params(**kw)
         booster, base, fit_s, peak = _counted_fit(
-            x, y, params, staged, dev, dict(hist_smem=N_ITERS * DEPTH))
+            x, y, params, staged, dev, dict(hist_tiled=N_ITERS * DEPTH))
         logloss, auc = _fit_metrics(booster, base, x, d_y, dev)
         short = dataclasses.replace(params, num_iterations=TWIN_ITERS)
         twin, twin_base, _, _ = _counted_fit(
-            x, y, short, staged, dev, dict(hist_smem=TWIN_ITERS * DEPTH))
+            x, y, short, staged, dev, dict(hist_tiled=TWIN_ITERS * DEPTH))
         t_ll, t_auc = _fit_metrics(twin, twin_base, x, d_y, dev)
         with plain_histograms():
             ref, ref_base, _ = fit_booster(x, y, short, prebinned=staged,
@@ -1060,7 +1142,7 @@ def ranker_phase(dev):
     launches = {k: v for k, v in hc.launches.items() if v}
     peak = torch.cuda.max_memory_allocated()
     depth = LTR_PARAMS["max_depth"]
-    if launches != dict(hist_smem=LTR_ITERS * depth):
+    if launches != dict(hist_tiled=LTR_ITERS * depth):
         raise AssertionError(f"ranker fit launches {launches}")
     booster = model.booster
     ndcg = [_ndcg_at(torch.zeros(LTR_ROWS, device=dev), d_y, g_idx)]
@@ -1078,8 +1160,8 @@ def ranker_phase(dev):
     log(f"[ranker] GBDTRanker {LTR_PARAMS}, {LTR_ITERS} iters: "
         f"{fit_s:.3f} s (binning included) = "
         f"{LTR_ROWS * LTR_ITERS / fit_s:.4g} rows*iters/s; launches "
-        f"{launches} (the deepest level, m=64 x 256 bins, fits one block's "
-        f"shared memory); peak {peak / 2**30:.2f} GiB; NDCG@10 after 0.."
+        f"{launches} (the deepest level m=64 x 256 bins: nodes split over "
+        f"tiles); peak {peak / 2**30:.2f} GiB; NDCG@10 after 0.."
         f"{LTR_ITERS} trees {[round(v, 6) for v in ndcg]}; plain-histogram "
         f"fit of {TWIN_ITERS} iters {ref_s:.2f} s, NDCG@10 {ref_ndcg:.6f}")
     if not ndcg[0] < ndcg[1] < ndcg[LTR_ITERS]:
@@ -1108,14 +1190,25 @@ def _visible_pairs(sq, sk, q_off, k_off, causal):
     return sum(min(max(q_off + i - k_off + 1, 0), sk) for i in range(sq))
 
 
-def _flash_bound(sq, sk, h, d, dtype, causal):
+def _peak_flops(dtype, split3=False):
+    """The rate of the flash kernels' products: bf16 tensor cores, f32
+    FMAs, or (split3) the f32 kernels' own rate, six bf16 tensor-core
+    products per product."""
+    import torch
+    if split3:
+        return PEAK_BF16_FLOP_PER_S / 6
+    return PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
+        else PEAK_F32_FLOP_PER_S
+
+
+def _flash_bound(sq, sk, h, d, dtype, causal, split3=False):
     """(ms, "bytes" or "operations"): 4 * (visible q/k pairs) * D * H
-    FLOPs over the dtype's peak (f32 FMAs; bf16 tensor cores), against
-    q, k, v read once and out, lse written once."""
+    FLOPs over the dtype's peak (f32 FMAs; bf16 tensor cores; `split3`:
+    the f32 kernel's own rate, `_peak_flops`), against q, k, v read once
+    and out, lse written once."""
     import torch
     pairs = _visible_pairs(sq, sk, 0, 0, causal)
-    peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
-        else PEAK_F32_FLOP_PER_S
+    peak = _peak_flops(dtype, split3)
     t_ops = 4 * pairs * d * h / peak
     size = torch.tensor([], dtype=dtype).element_size()
     t_bytes = ((2 * sq + 2 * sk) * h * d * size + 4 * h * sq) \
@@ -1240,6 +1333,11 @@ def flash_kernel_phase(dev):
                             f"{row['plain_ms']:.3f} ms, one SDPA "
                             f"{row['library_ms']:.3f} ms, bound "
                             f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+                    if dtype == torch.float32:
+                        row["split3_bound_ms"] = _flash_bound(
+                            sq, sk, h, d, dtype, causal, split3=True)[0]
+                        msg += (f", {row['split3_bound_ms']:.4f} ms at the "
+                                f"split's tensor-core rate")
                 log(msg)
                 results.append(row)
                 del q, k, v
@@ -1577,16 +1675,15 @@ STATS_PAIRS = {"diagonal": (STATS_SHARD, STATS_SHARD, True),
                "noncausal": (0, 3 * STATS_SHARD, False)}
 
 
-def _stats_bound(sq, sk, h, d, dtype, q_off, k_off, causal):
+def _stats_bound(sq, sk, h, d, dtype, q_off, k_off, causal, split3=False):
     """(ms, "bytes" or "operations") of the stats form: 4 * (visible
-    pairs) * D * H FLOPs over the dtype's peak, against the f32 acc, m and
-    l written once and, where any pair is visible, q, k, v read once (a
-    pair with no visible key has acc = 0, l = 0, m = -1e30 whatever the
-    inputs)."""
+    pairs) * D * H FLOPs over the dtype's peak (`split3`: the f32 kernel's
+    own rate, `_peak_flops`), against the f32 acc, m and l written once
+    and, where any pair is visible, q, k, v read once (a pair with no
+    visible key has acc = 0, l = 0, m = -1e30 whatever the inputs)."""
     import torch
     pairs = _visible_pairs(sq, sk, q_off, k_off, causal)
-    peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
-        else PEAK_F32_FLOP_PER_S
+    peak = _peak_flops(dtype, split3)
     t_ops = 4 * pairs * d * h / peak
     size = torch.tensor([], dtype=dtype).element_size()
     reads = (sq + 2 * sk) * h * d * size if pairs else 0
@@ -1729,6 +1826,13 @@ def stats_kernel_phase(dev):
             row["bound_ms"], row["bound_by"] = _stats_bound(
                 STATS_SHARD, STATS_SHARD, STATS_H, STATS_D, dtype, q_off,
                 k_off, causal)
+            split = ""
+            if dtype == torch.float32:
+                row["split3_bound_ms"] = _stats_bound(
+                    STATS_SHARD, STATS_SHARD, STATS_H, STATS_D, dtype,
+                    q_off, k_off, causal, split3=True)[0]
+                split = (f", {row['split3_bound_ms']:.4f} ms at the split's "
+                         f"tensor-core rate")
             lib_s = (f"{row['library_ms']:.3f} ms"
                      if row["library_ms"] is not None else "none (no key "
                      "visible)")
@@ -1737,7 +1841,7 @@ def stats_kernel_phase(dev):
                 f"{used['out']:.3f} of their limits; {n_flagged} flagged "
                 f"rows{fault}); kernel {row['ms']:.3f} ms, plain "
                 f"{row['plain_ms']:.3f} ms, one SDPA {lib_s}, bound "
-                f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}){split}")
             results.append(row)
         del q, k, v
         torch.cuda.empty_cache()
@@ -2218,6 +2322,100 @@ def ring_train_phase(dev, cp1_first_loss: float, profile: bool):
                 checks=checks)
 
 
+# parent against change in one call: the f32 forward at the main shape,
+# the f32 encode_long, the f32 LM step and the headline fit, each tree in
+# its own process, in the order parent, change, change, parent
+VERSUS_ORDER = ("parent", "change", "change", "parent")
+
+
+def _versus_measure():
+    """One tree's numbers for `versus_phase`, in a process whose first
+    `sys.path` entry is that tree (its `mmlspark_tpu_torch` is the one
+    driven; this file's functions drive it). Prints one JSON line."""
+    import torch
+    from mmlspark_tpu_torch.models.dnn import (TransformerSentenceEncoder,
+                                               init_transformer)
+    from mmlspark_tpu_torch.models.gbdt import fit_booster
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    res = {}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn(SEQ, 8, 128, device=dev, generator=gen)
+               for _ in range(3))
+    for causal in (False, True):
+        res[f"flash_fwd_f32_causal={causal}_ms"] = timed(
+            lambda: fa.flash_fwd(q, k, v, causal, 128 ** -0.5),
+            warmup=2, reps=10)
+    del q, k, v
+
+    tree = init_transformer(1 << ENCODER["vocab_bits"], ENCODER["d_model"],
+                            ENCODER["n_heads"], ENCODER["n_layers"],
+                            ENCODER["d_ff"], ENCODER["max_len"], seed=0)
+    enc = TransformerSentenceEncoder(**ENCODER, input_col="text",
+                                     output_col="emb", device=dev)
+    enc.set_params_tree(tree)
+    enc.set(attention="flash", attention_dtype=None)
+    tokens = np.random.default_rng(0).integers(0, 1 << ENCODER["vocab_bits"],
+                                               SEQ)
+    enc.encode_long(tokens[:1024])
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc.encode_long(tokens)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    res["encode_long_f32_s"] = walls
+    del enc, tree
+    torch.cuda.empty_cache()
+
+    res["lm_step_f32_s"] = _flagship_steps(dev, "float32", False)["s_step"]
+    torch.cuda.empty_cache()
+
+    data = headline_data(dev)
+    params = _headline_params()
+    import dataclasses
+    fit_booster(data["x"], data["y"],             # warm-up, 1 iteration
+                dataclasses.replace(params, num_iterations=1),
+                prebinned=data["staged"], device=dev)
+    fits = []
+    for _ in range(FIT_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit_booster(data["x"], data["y"], params, prebinned=data["staged"],
+                    device=dev)
+        torch.cuda.synchronize()
+        fits.append(time.perf_counter() - t0)
+    res["headline_fit_s"] = fits
+    print(json.dumps(res), flush=True)
+
+
+def versus_phase(parent):
+    """`_versus_measure` of the parent tree (a checkout at `parent`) and of
+    this one, in the order of `VERSUS_ORDER`, each in its own process."""
+    import torch
+    torch.cuda.empty_cache()
+    code = ("import importlib.util, sys; sys.path.insert(0, sys.argv[1]); "
+            "spec = importlib.util.spec_from_file_location('chip_smoke_vs', "
+            "sys.argv[2]); m = importlib.util.module_from_spec(spec); "
+            "spec.loader.exec_module(m); m._versus_measure()")
+    trees = {"parent": os.path.abspath(parent), "change": HERE}
+    runs = []
+    for who in VERSUS_ORDER:
+        proc = subprocess.run(
+            [sys.executable, "-c", code, trees[who], os.path.abspath(__file__)],
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"versus run of the {who} failed:\n"
+                                 f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        log(f"[versus] {who} ({trees[who]}): {json.dumps(res)}")
+        runs.append(dict(who=who, **res))
+    return runs
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -2268,10 +2466,11 @@ def main(argv) -> int:
     train = phase("lm training", lm_train_phase, dev, profile)
     ring = phase("ring training", ring_train_phase, dev, train["losses"][0],
                  profile)
+    if "--versus" in argv:
+        phase("versus", versus_phase, argv[argv.index("--versus") + 1])
 
-    smem8 = [r for r in kres["hist_smem"] if r["m"] == 8][0]
+    hist8 = [r for r in kres if r["m"] == 8][0]
     planes4 = [r for r in pres if r["m"] == 4 and r["b"] == MAX_BIN + 1][0]
-    glob = kres["hist_global"][0]
     main_flash = [r for r in fres if r["case"] == "main"
                   and r["dtype"] == "float32" and not r["causal"]][0]
     # the training path's shape: bf16, causal
@@ -2286,27 +2485,26 @@ def main(argv) -> int:
                        if k.startswith(form + " ")})
     src = "mmlspark_tpu_torch/ops/csrc/histogram.cu"
     kernels = [
-        dict(name="hist_smem", route="cuda", source=src,
+        dict(name="hist_tiled", route="cuda", source=src,
              replaces="mmlspark_tpu/ops/histogram_pallas.py:172 "
-                      "(_hist_kernel) and :216 (_hist_kernel_joint)",
-             path="headline fit", launches=paths["launches"]["hist_smem"],
+                      "(_hist_kernel; pallas_call :438) and :216 "
+                      "(_hist_kernel_joint; pallas_call :421); "
+                      "mmlspark_tpu/ops/histogram.py:32 (_xla_hist, the "
+                      "route past M_MAX)",
+             path="headline fit", launches=paths["launches"]["hist_tiled"],
+             launches_per_path={"headline_fit": paths["launches"][
+                 "hist_tiled"], "max_depth=11 fit": paths["deep_launches"][
+                 "hist_tiled"]},
              passed=True,
-             **{k: smem8[k] for k in ("max_abs_err", "ms", "plain_ms",
+             **{k: hist8[k] for k in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by",
                                       "library_ms")},
-             shape=dict(n=smem8["n"], f=smem8["f"], b=smem8["b"], m=8),
-             per_m=[{k: r[k] for k in ("m", "ms", "plain_ms", "library_ms",
-                                       "bound_ms", "max_abs_err")}
-                    for r in kres["hist_smem"]]),
-        dict(name="hist_global", route="cuda", source=src,
-             replaces="mmlspark_tpu/ops/histogram.py:32 (_xla_hist, the "
-                      "route past M_MAX)",
-             path="max_depth=11 fit",
-             launches=paths["deep_launches"]["hist_global"],
-             passed=True,
-             **{k: glob[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms")},
-             shape=dict(n=glob["n"], f=glob["f"], b=glob["b"], m=glob["m"])),
+             shape=dict(n=hist8["n"], f=hist8["f"], b=hist8["b"], m=8),
+             build=build["hist"],
+             per_m=[{k: r[k] for k in ("m", "b", "ms", "plain_ms",
+                                       "library_ms", "bound_ms",
+                                       "max_abs_err", "plan")}
+                    for r in kres]),
         dict(name="flash_fwd", route="cuda",
              source="mmlspark_tpu_torch/ops/csrc/flash_attention.cu",
              replaces="mmlspark_tpu/ops/flash_attention.py:87 (_flash_kernel, "
@@ -2328,7 +2526,8 @@ def main(argv) -> int:
                                     "flash_fwd"]},
              variants=[{k: r.get(k) for k in (
                  "d", "dtype", "causal", "ms", "plain_ms", "library_ms",
-                 "bound_ms", "max_abs_err", "bf16_limit_used")}
+                 "bound_ms", "split3_bound_ms", "max_abs_err",
+                 "bf16_limit_used")}
                  for r in fres if "ms" in r]),
         dict(name="hist_planes", route="cuda", source=src,
              replaces="mmlspark_tpu/ops/histogram_pallas.py:259 "
@@ -2342,9 +2541,9 @@ def main(argv) -> int:
              library="one index_add_ of the bf16-rounded stats",
              shape=dict(n=planes4["n"], f=planes4["f"], b=planes4["b"],
                         lo=planes4["lo"], m=4),
-             per_m=[{k: r[k] for k in ("m", "b", "lo", "ms", "smem_ms",
+             per_m=[{k: r[k] for k in ("m", "b", "lo", "ms", "tiled_ms",
                                        "plain_ms", "library_ms", "bound_ms",
-                                       "max_abs_err", "vs_smem")}
+                                       "max_abs_err", "vs_tiled")}
                     for r in pres]),
     ]
     # the ring training path's pair: the diagonal, bf16 (the full pairs'
@@ -2368,10 +2567,11 @@ def main(argv) -> int:
                    q_off=diag["q_off"], k_off=diag["k_off"], causal=True),
         merged=sres["merged"],
         **fwd_build("stats"),
-        variants=[{k: r[k] for k in (
+        variants=[{k: r.get(k) for k in (
             "pair", "dtype", "q_off", "k_off", "causal", "ms", "plain_ms",
-            "library_ms", "bound_ms", "bound_by", "max_abs_err",
-            "limit_used", "flagged_rows")} for r in sres["pairs"]]))
+            "library_ms", "bound_ms", "bound_by", "split3_bound_ms",
+            "max_abs_err", "limit_used", "flagged_rows")}
+            for r in sres["pairs"]]))
     # the training path's shape: S=16384, H=8, D=128, bf16, causal
     main_bwd = [r for r in bres if r["case"] == "main"
                 and r["dtype"] == "bfloat16" and r["causal"]][0]

@@ -44,27 +44,27 @@
 //   every row sees one (causal row i sees key 0). In the stats form a row
 //   may see none: when every tile of its block is skipped (a kv shard wholly
 //   after the q shard) it keeps its initial acc = 0, l = 0, m = -1e30. When
-//   a computed tile masks all of its keys (offsets off the 64-key grid):
-//   - the bf16 kernel takes 0 in place of such a row's max in the exponent,
-//     so its p = exp(-1e30) = 0 and the row ends acc = 0, l = 0, m = -1e30,
-//     as in the plain version;
-//   - the f32 kernel leaves p unmasked: the row carries finite garbage
-//     (p = 1 on masked keys) until a visible key resets it through
-//     alpha = 0, and a row that never sees one ends flagged by m == -1e30,
-//     which the ring merge weighs with exp(-1e30 - m_new) = 0.
+//   a computed tile masks all of its keys (offsets off the key grid), both
+//   kernels take 0 in place of such a row's max in the exponent, so its
+//   p = exp(-1e30) = 0 and the row ends acc = 0, l = 0, m = -1e30, as in
+//   the plain version.
 //   Every output stays finite. Rows past Sq are computed on zeros and never
 //   written.
 //
 // WHAT BOUNDS IT
 //   Operations: 4 * Sq * Sk * D * H FLOPs (half of that causal) against
-//   ~256 MB of q/k/v/o at S=16384, H=8, D=128 in f32 -- 16.4 ms at the
-//   H100's 67 TFLOP/s f32 rate, 1.11 ms at its 989 TFLOP/s bf16 tensor-core
-//   rate, against 0.08 ms for the bytes.
+//   ~256 MB of q/k/v/o at S=16384, H=8, D=128 in f32 -- 1.11 ms at the
+//   H100's 989 TFLOP/s bf16 tensor-core rate, against 0.08 ms for the
+//   bytes. In f32 every product takes six bf16 tensor-core products (below):
+//   6.67 ms at that rate, against 16.4 ms at the 67 TFLOP/s of f32 FMAs.
 //
 // TWO DESIGNS, BY DTYPE CODE
-//   bf16 (code 1) runs both products on the tensor cores: flash_fwd_mma.
-//   f32 (code 0) stays on the CUDA cores in f32 FMAs (flash_fwd_f32): TF32
-//   keeps 10 mantissa bits and cannot meet the f32 limit.
+//   Both run both products on the tensor cores (mma.sync.m16n8k16, bf16 in,
+//   f32 accumulate; mma_frag.cuh).
+//   bf16 (code 1): flash_fwd_mma.
+//   f32 (code 0): flash_fwd_split3, every f32 operand as three bf16 terms
+//   (TF32 keeps 10 mantissa bits and cannot meet the f32 limit; three bf16
+//   terms carry 24).
 //
 // THE TENSOR-CORE KERNEL (bf16)
 //   Block: 128 threads, 4 warps; warp w owns query rows 16w..16w+15 of the
@@ -95,14 +95,32 @@
 //   Shared memory: 4 tiles of 64 x (D + 8) bf16, 69,632 B at D=128.
 //
 // THE F32 KERNEL (code 0)
-//   Block: 128 threads = 16 row groups of 8 lanes; a group owns 4 query
-//   rows. Tile: 64 query rows x 64 keys: shared memory holds q^T (D x 64),
-//   k^T (D x 64), v (64 x D) and p (64 x 64) in f32, 112 KB at D=128, so
-//   two blocks fit one SM. Lane c of a group holds keys {4c..4c+3,
-//   32+4c..32+4c+3} of its rows' scores (conflict-free float4 reads of
-//   k^T) and columns {4(c+8j)..} of the accumulator, so D is split across
-//   the lanes and no thread holds a whole row. Row maxima and sums are
-//   reduced over the 8 lanes with shuffles.
+//   flash_fwd_mma's block (4 warps of 16 query rows, 64 rows a block), its
+//   masking, skipping and longest-rows-first order, with:
+//   - Three-term operands (split3, mma_frag.cuh): hi = bf16(x), mid =
+//     bf16(x - hi), lo = bf16(x - hi - mid), which sum to x exactly for
+//     normal x. q * scale (rounded in f32, as the reference scales it), K,
+//     V and the unrounded p are split; each product takes the six cross
+//     products whose terms' ranks sum to at most 2, smallest first
+//     (mma_x6): what is dropped is ~2^-24 of each term, as f32 rounding.
+//   - Fresh accumulators. An mma aligns its accumulator input with the
+//     products and truncates what falls below 24 bits, so a sum chained
+//     through one loses up to an ulp a step, always toward zero. S takes a
+//     fresh accumulator every 16-deep step, added to S in f32; each tile's
+//     P.V takes one (by chunks of 64 columns), added to the alpha-rescaled
+//     O in f32 with one FMA (O chained through the tensor cores over 512
+//     tiles would drift ~1e-5 relative, too close to the f32 limit).
+//     tests/test_torch_flash_fwd_f32_split.py rehearses this order.
+//   - Shared memory holds three bf16 planes of each tile, row-major with 8
+//     elements of padding, so ldmatrix feeds every term as in the bf16
+//     kernel: q * scale (64 rows, loaded and split once), K and V (32 keys
+//     a tile, split as they land: global loads into registers, then one
+//     splitting pass). 104,448 B at D=128, so two blocks share an SM and
+//     one block's loads overlap the other's products. Tiles of 64 keys
+//     would take 156,672 B and one block per SM.
+//   - Softmax and l in f32 with expf: p is never rounded (T is the
+//     identity); its three terms are the A fragments of the P.V product,
+//     straight from the score registers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -117,264 +135,10 @@ namespace {
 using namespace mma_sync;
 
 constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile
+constexpr int kBK = 64;        // keys per tile of the bf16 kernel
 constexpr float kMask = -1e30f;
-// threads per block, both kernels: 16 row groups of 8 lanes (f32), 4 warps
-// of 16 query rows (bf16)
+// threads per block, both kernels: 4 warps of 16 query rows
 constexpr int kThreads = 128;
-
-// ---------------------------------------------------------------------------
-// f32 (code 0): the CUDA-core kernel
-
-constexpr int kRows = 4;       // query rows per thread
-constexpr int kKeys = 8;       // keys per thread in a score tile
-
-// 16 bytes as four floats
-__device__ __forceinline__ void unpack(const uint4& r, float* f) {
-  f[0] = __uint_as_float(r.x);
-  f[1] = __uint_as_float(r.y);
-  f[2] = __uint_as_float(r.z);
-  f[3] = __uint_as_float(r.w);
-}
-
-// the key index within the tile of slot j of lane c
-__device__ __forceinline__ int key_of(int c, int j) {
-  return (j < 4 ? 4 * c : 32 + 4 * c) + (j & 3);
-}
-
-// kNorm: o is the normalized output and r0 the lse; otherwise o is the
-// accumulator, r0 the row max m and r1 the row sum l
-template <int D, bool kNorm>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o,
-              float* __restrict__ r0, float* __restrict__ r1, int Sq, int Sk,
-              long long q_ss, long long q_hs, long long k_ss, long long k_hs,
-              long long v_ss, long long v_hs, long long o_ss, long long o_hs,
-              float scale, int causal, int q_off, int k_off) {
-  constexpr int kVec = 4;                  // floats per 16-byte load
-  constexpr int kChunks = D / kVec;        // 16-byte loads per row
-  constexpr int kCols = D / 4;             // float4 columns of a row
-  constexpr int kJJ = (kCols + 7) / 8;     // float4 columns per lane
-
-  extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);  // [D][kBQ], q * scale
-  float* Kt = Qt + D * kBQ;                     // [D][kBK]
-  float* Vs = Kt + D * kBK;                     // [kBK][D]
-  float* Ps = Vs + kBK * D;                     // [kBQ][kBK]
-
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
-  const int t = threadIdx.x;
-  const int rg = t >> 3;  // rows 4rg .. 4rg+3 of the block
-  const int c = t & 7;    // lane within the row group
-
-  // q tile, scaled, transposed; a warp covers 32 rows of one chunk so the
-  // transposing stores are conflict-free
-  for (int idx = t; idx < kBQ * kChunks; idx += kThreads) {
-    const int r = idx % kBQ, ch = idx / kBQ;
-    float f[kVec] = {};
-    if (q0 + r < Sq)
-      unpack(*reinterpret_cast<const uint4*>(q + (q0 + r) * q_ss + h * q_hs +
-                                             ch * kVec),
-             f);
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) Qt[(ch * kVec + e) * kBQ + r] = f[e] * scale;
-  }
-
-  float m_i[kRows], l_i[kRows];
-  float4 acc[kRows][kJJ];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m_i[i] = kMask;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < kJJ; ++jj) acc[i][jj] = make_float4(0, 0, 0, 0);
-  }
-
-  const int n_k = (Sk + kBK - 1) / kBK;
-  // global q position minus global k position at local (0, 0): causal
-  // keeps local (i, j) with i + delta >= j
-  const int delta = q_off - k_off;
-  // causal: tiles wholly above the global diagonal of this block are
-  // skipped; none is left when the kv shard lies wholly after the block
-  int kb_end = n_k;
-  if (causal) {
-    const int last = q0 + kBQ - 1 + delta;  // the block's last visible key
-    kb_end = last < 0 ? 0 : min(n_k, last / kBK + 1);
-  }
-  for (int kb = 0; kb < kb_end; ++kb) {
-    const int k0 = kb * kBK;
-    __syncthreads();  // the previous tile's k^T, v and p are consumed
-    for (int idx = t; idx < kBK * kChunks; idx += kThreads) {
-      const int r = idx % kBK, ch = idx / kBK;
-      float f[kVec] = {};
-      if (k0 + r < Sk)
-        unpack(*reinterpret_cast<const uint4*>(k + (k0 + r) * k_ss + h * k_hs +
-                                               ch * kVec),
-               f);
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) Kt[(ch * kVec + e) * kBK + r] = f[e];
-    }
-    for (int idx = t; idx < kBK * kChunks; idx += kThreads) {
-      const int r = idx / kChunks, ch = idx % kChunks;
-      float f[kVec] = {};
-      if (k0 + r < Sk)
-        unpack(*reinterpret_cast<const uint4*>(v + (k0 + r) * v_ss + h * v_hs +
-                                               ch * kVec),
-               f);
-#pragma unroll
-      for (int e = 0; e < kVec; e += 4)
-        *reinterpret_cast<float4*>(Vs + r * D + ch * kVec + e) =
-            make_float4(f[e], f[e + 1], f[e + 2], f[e + 3]);
-    }
-    __syncthreads();
-
-    // scores: 4 rows x 8 keys per thread
-    float s[kRows][kKeys];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 qv =
-          *reinterpret_cast<const float4*>(Qt + d * kBQ + 4 * rg);
-      const float4 ka = *reinterpret_cast<const float4*>(Kt + d * kBK + 4 * c);
-      const float4 kc =
-          *reinterpret_cast<const float4*>(Kt + d * kBK + 32 + 4 * c);
-      const float qr[kRows] = {qv.x, qv.y, qv.z, qv.w};
-      const float kr[kKeys] = {ka.x, ka.y, ka.z, ka.w, kc.x, kc.y, kc.z, kc.w};
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kKeys; ++j) s[i][j] = fmaf(qr[i], kr[j], s[i][j]);
-    }
-
-    const bool full =
-        (k0 + kBK <= Sk) && (!causal || k0 + kBK - 1 <= q0 + delta);
-    if (!full) {
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kKeys; ++j) {
-          const int kpos = k0 + key_of(c, j);
-          const int qpos = q0 + 4 * rg + i;
-          const bool valid = kpos < Sk && (!causal || qpos + delta >= kpos);
-          if (!valid) s[i][j] = kMask;
-        }
-    }
-
-    // online softmax; l is kept per lane and summed over the group at the end
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      float mb = s[i][0];
-#pragma unroll
-      for (int j = 1; j < kKeys; ++j) mb = fmaxf(mb, s[i][j]);
-      mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, 1));
-      mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, 2));
-      mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, 4));
-      const float mn = fmaxf(m_i[i], mb);
-      const float alpha = expf(m_i[i] - mn);
-      float ps = 0.f, pr[kKeys];
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const float p = expf(s[i][j] - mn);
-        ps += p;
-        pr[j] = p;
-      }
-      l_i[i] = l_i[i] * alpha + ps;
-      m_i[i] = mn;
-#pragma unroll
-      for (int jj = 0; jj < kJJ; ++jj) {
-        acc[i][jj].x *= alpha;
-        acc[i][jj].y *= alpha;
-        acc[i][jj].z *= alpha;
-        acc[i][jj].w *= alpha;
-      }
-      float* prow = Ps + (4 * rg + i) * kBK;
-      *reinterpret_cast<float4*>(prow + 4 * c) =
-          make_float4(pr[0], pr[1], pr[2], pr[3]);
-      *reinterpret_cast<float4*>(prow + 32 + 4 * c) =
-          make_float4(pr[4], pr[5], pr[6], pr[7]);
-    }
-    __syncthreads();
-
-    // acc += p . v: 4 rows x kJJ float4 columns per thread
-#pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float4 p4[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        p4[i] = *reinterpret_cast<const float4*>(Ps + (4 * rg + i) * kBK + kk);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-#pragma unroll
-        for (int jj = 0; jj < kJJ; ++jj) {
-          const int col = c + 8 * jj;
-          if (kCols % 8 != 0 && col >= kCols) continue;
-          const float4 vv =
-              *reinterpret_cast<const float4*>(Vs + (kk + e) * D + 4 * col);
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) {
-            const float pe = e == 0 ? p4[i].x
-                           : e == 1 ? p4[i].y
-                           : e == 2 ? p4[i].z
-                                    : p4[i].w;
-            acc[i][jj].x = fmaf(pe, vv.x, acc[i][jj].x);
-            acc[i][jj].y = fmaf(pe, vv.y, acc[i][jj].y);
-            acc[i][jj].z = fmaf(pe, vv.z, acc[i][jj].z);
-            acc[i][jj].w = fmaf(pe, vv.w, acc[i][jj].w);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    float l = l_i[i];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    l += __shfl_xor_sync(0xffffffffu, l, 4);
-    const int row = q0 + 4 * rg + i;
-    if (row >= Sq) continue;
-    const long long r = h * (long long)Sq + row;
-    auto* orow = o + row * o_ss + h * o_hs;
-    if constexpr (kNorm) {
-      const float den = fmaxf(l, 1e-30f);
-      if (c == 0) r0[r] = m_i[i] + logf(den);
-#pragma unroll
-      for (int jj = 0; jj < kJJ; ++jj) {
-        const int col = c + 8 * jj;
-        if (kCols % 8 != 0 && col >= kCols) continue;
-        orow[4 * col] = acc[i][jj].x / den;
-        orow[4 * col + 1] = acc[i][jj].y / den;
-        orow[4 * col + 2] = acc[i][jj].z / den;
-        orow[4 * col + 3] = acc[i][jj].w / den;
-      }
-    } else {
-      if (c == 0) {
-        r0[r] = m_i[i];
-        r1[r] = l;
-      }
-#pragma unroll
-      for (int jj = 0; jj < kJJ; ++jj) {
-        const int col = c + 8 * jj;
-        if (kCols % 8 != 0 && col >= kCols) continue;
-        orow[4 * col] = acc[i][jj].x;
-        orow[4 * col + 1] = acc[i][jj].y;
-        orow[4 * col + 2] = acc[i][jj].z;
-        orow[4 * col + 3] = acc[i][jj].w;
-      }
-    }
-  }
-}
-
-template <int D>
-constexpr size_t f32_smem() {
-  return sizeof(float) * (size_t)(D * kBQ + D * kBK + kBK * D + kBQ * kBK);
-}
 
 // ---------------------------------------------------------------------------
 // bf16 (code 1): the tensor-core kernel
@@ -602,14 +366,268 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// f32 (code 0): the tensor-core kernel with three-term bf16 operands
+
+constexpr int kBKS = 32;  // keys per tile of the f32 kernel
+
+// three bf16 planes of q * scale ([kBQ][D + 8] each), then of K and of V
+// ([kBKS][D + 8] each)
+template <int D>
+constexpr size_t split3_smem() {
+  return (size_t)3 * (kBQ + 2 * kBKS) * ld_h<D>() * sizeof(bf16);
+}
+
+// rows [r0, r0 + R) of an (S, H, D) f32 tensor (x already at its head),
+// times sc rounded in f32, split into three bf16 planes of [R][D + 8] at
+// dst (plane t at dst + t * R * (D + 8)); rows past n are zeros. Each
+// thread issues all its loads before it splits and stores.
+template <int D, int R>
+__device__ __forceinline__ void split_rows(bf16* dst,
+                                           const float* __restrict__ x,
+                                           int r0, int n, long long ss,
+                                           float sc) {
+  constexpr int LD = ld_h<D>(), kN = R * D / 4 / kThreads;
+  float4 v[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / (D / 4), ch = idx % (D / 4);
+    v[i] = r0 + r < n ? __ldg(reinterpret_cast<const float4*>(
+                            x + (r0 + r) * ss + ch * 4))
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / (D / 4), ch = idx % (D / 4);
+    uint32_t lo[3], hi[3];
+    split3(v[i].x * sc, v[i].y * sc, lo);
+    split3(v[i].z * sc, v[i].w * sc, hi);
+#pragma unroll
+    for (int t = 0; t < 3; ++t)
+      *reinterpret_cast<uint2*>(dst + t * R * LD + r * LD + ch * 4) =
+          make_uint2(lo[t], hi[t]);
+  }
+}
+
+// kNorm: o is the normalized output and r0 the lse; otherwise o is the
+// accumulator, r0 the row max m and r1 the row sum l. f32 throughout.
+template <int D, bool kNorm>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_split3(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ r0, float* __restrict__ r1, int Sq,
+                 int Sk, long long q_ss, long long q_hs, long long k_ss,
+                 long long k_hs, long long v_ss, long long v_hs,
+                 long long o_ss, long long o_hs, float scale, int causal,
+                 int q_off, int k_off) {
+  constexpr int LD = ld_h<D>();
+  constexpr int kKT = D / 16;             // 16-deep steps of s = q.K^T
+  constexpr int kNT = D / 8;              // n-tiles of the accumulator
+  constexpr int kCT = kNT < 8 ? kNT : 8;  // n-tiles of one P.V chunk
+  constexpr int kQP = kBQ * LD, kKP = kBKS * LD;  // one plane
+  bf16* Qp = reinterpret_cast<bf16*>(dyn_smem());  // q * scale
+  bf16* Kp = Qp + 3 * kQP;
+  bf16* Vp = Kp + 3 * kKP;
+
+  const int h = blockIdx.y;
+  // the longest causal rows first: the last query tile has the most keys
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int lane = lane_id(), g = lane >> 2, c = 2 * (lane & 3);
+  const int m0 = 16 * (threadIdx.x >> 5);  // the warp's rows
+  const float* kh = k + h * k_hs;
+  const float* vh = v + h * v_hs;
+
+  const int n_k = (Sk + kBKS - 1) / kBKS;
+  // global q position minus global k position at local (0, 0): causal
+  // keeps local (i, j) with i + delta >= j
+  const int delta = q_off - k_off;
+  // causal: tiles wholly above the global diagonal of this block are
+  // skipped; none is left when the kv shard lies wholly after the block
+  int kb_end = n_k;
+  if (causal) {
+    const int last = q0 + kBQ - 1 + delta;  // the block's last visible key
+    kb_end = last < 0 ? 0 : min(n_k, last / kBKS + 1);
+  }
+
+  // rows m0 + g (i = 0) and m0 + g + 8 (i = 1), as in flash_fwd_mma
+  float m_i[2] = {kMask, kMask}, l_i[2] = {0.f, 0.f};
+  float acc[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  if (kb_end > 0) split_rows<D, kBQ>(Qp, q + h * q_hs, q0, Sq, q_ss, scale);
+
+  for (int kb = 0; kb < kb_end; ++kb) {
+    const int k0 = kb * kBKS;
+    __syncthreads();  // the previous tile's K and V are consumed
+    split_rows<D, kBKS>(Kp, kh, k0, Sk, k_ss, 1.f);
+    split_rows<D, kBKS>(Vp, vh, k0, Sk, v_ss, 1.f);
+    __syncthreads();  // this tile's K and V (and, first, q) are in
+
+    // s: the warp's 16 rows x 32 keys, n-tile j = keys 8j..8j+7. Each
+    // 16-deep step's six products go to a fresh accumulator, added to s
+    // in f32: an mma truncates its accumulator input toward zero.
+    float s[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 2
+    for (int kt = 0; kt < kKT; ++kt) {
+      uint32_t a[3][4];
+#pragma unroll
+      for (int t = 0; t < 3; ++t) lda(a[t], Qp + t * kQP, LD, m0, 16 * kt);
+#pragma unroll
+      for (int jp = 0; jp < 4; jp += 2) {
+        uint32_t b[2][3][2];
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+          uint32_t r[2][2];
+          ldb_nk(r, Kp + t * kKP, LD, 8 * jp, 16 * kt);
+          b[0][t][0] = r[0][0];
+          b[0][t][1] = r[0][1];
+          b[1][t][0] = r[1][0];
+          b[1][t][1] = r[1][1];
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_x6(part, a, b[j]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[jp + j][e] += part[e];
+        }
+      }
+    }
+    const bool full =
+        (k0 + kBKS <= Sk) && (!causal || k0 + kBKS - 1 <= q0 + delta);
+    if (!full) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + c + (e & 1);
+          const int row = q0 + m0 + g + 8 * (e >> 1);
+          if (key >= Sk || (causal && row + delta < key)) s[j][e] = kMask;
+        }
+    }
+
+    // online softmax in f32. A row whose max is still the mask (no visible
+    // key yet) takes 0 in place of its max: its p are then exp(-1e30) = 0.
+    float alpha[2], mref[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mb = fmaxf(s[0][2 * i], s[0][2 * i + 1]);
+#pragma unroll
+      for (int j = 1; j < 4; ++j)
+        mb = fmaxf(mb, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+      mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, 1));
+      mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, 2));
+      const float mn = fmaxf(m_i[i], mb);
+      alpha[i] = expf(m_i[i] - mn);
+      m_i[i] = mn;
+      mref[i] = mn == kMask ? 0.f : mn;
+    }
+    // p, unrounded, into l and as three bf16 terms: score tiles 2t and
+    // 2t + 1 are the A fragment of keys 16t..16t+15 for the P.V product
+    uint32_t pa[2][3][4];
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float* sv = s[2 * t + hf] + 2 * i;
+          const float p0 = expf(sv[0] - mref[i]);
+          const float p1 = expf(sv[1] - mref[i]);
+          ps[i] += p0;
+          ps[i] += p1;
+          uint32_t sp[3];
+          split3(p0, p1, sp);
+#pragma unroll
+          for (int u = 0; u < 3; ++u) pa[t][u][2 * hf + i] = sp[u];
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l_i[i] = l_i[i] * alpha[i] + ps[i];
+
+    // O = alpha O + P.V: the tile's P.V in a fresh accumulator (by chunks
+    // of kCT n-tiles), added to the rescaled O in f32
+#pragma unroll
+    for (int j0 = 0; j0 < kNT; j0 += kCT) {
+      float part[kCT][4];
+#pragma unroll
+      for (int j = 0; j < kCT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+#pragma unroll
+        for (int j = 0; j < kCT; j += 2) {
+          uint32_t b[2][3][2];
+#pragma unroll
+          for (int u = 0; u < 3; ++u) {
+            uint32_t r[2][2];
+            ldb_kn(r, Vp + u * kKP, LD, 8 * (j0 + j), 16 * t);
+            b[0][u][0] = r[0][0];
+            b[0][u][1] = r[0][1];
+            b[1][u][0] = r[1][0];
+            b[1][u][1] = r[1][1];
+          }
+          mma_x6(part[j], pa[t], b[0]);
+          mma_x6(part[j + 1], pa[t], b[1]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kCT; ++j) {
+        acc[j0 + j][0] = fmaf(acc[j0 + j][0], alpha[0], part[j][0]);
+        acc[j0 + j][1] = fmaf(acc[j0 + j][1], alpha[0], part[j][1]);
+        acc[j0 + j][2] = fmaf(acc[j0 + j][2], alpha[1], part[j][2]);
+        acc[j0 + j][3] = fmaf(acc[j0 + j][3], alpha[1], part[j][3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_i[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = q0 + m0 + g + 8 * i;
+    if (row >= Sq) continue;
+    const long long r = h * (long long)Sq + row;
+    float* out = o + row * o_ss + h * o_hs + c;
+    if constexpr (kNorm) {
+      const float den = fmaxf(l, 1e-30f);
+      if ((lane & 3) == 0) r0[r] = m_i[i] + logf(den);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+        *reinterpret_cast<float2*>(out + 8 * j) =
+            make_float2(acc[j][2 * i] / den, acc[j][2 * i + 1] / den);
+    } else {
+      if ((lane & 3) == 0) {
+        r0[r] = m_i[i];
+        r1[r] = l;
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+        *reinterpret_cast<float2*>(out + 8 * j) =
+            make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 
 // the kernel of (dtype code, D, form) and its dynamic shared memory
 template <int kCode, int D, bool kNorm>
 const void* kernel_of(size_t* smem) {
   if constexpr (kCode == 0) {
-    *smem = f32_smem<D>();
-    return reinterpret_cast<const void*>(flash_fwd_f32<D, kNorm>);
+    *smem = split3_smem<D>();
+    return reinterpret_cast<const void*>(flash_fwd_split3<D, kNorm>);
   } else {
     *smem = mma_smem<D>();
     return reinterpret_cast<const void*>(flash_fwd_mma<D, kNorm>);
@@ -627,7 +645,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* r0,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + kBQ - 1) / kBQ, H);
   if constexpr (kCode == 0) {
-    flash_fwd_f32<D, kNorm><<<grid, kThreads, smem, stream>>>(
+    flash_fwd_split3<D, kNorm><<<grid, kThreads, smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o,
         (float*)r0, (float*)r1, Sq, Sk, st[0], st[1], st[2], st[3], st[4],
         st[5], st[6], st[7], scale, causal, q_off, k_off);

@@ -109,8 +109,8 @@
 //
 // THE F32 KERNELS (code 0)
 //   The same products and tiles, with every f32 operand x held as three
-//   bf16 terms (split3 below: hi = bf16(x), mid = bf16(x - hi), lo =
-//   bf16(x - hi - mid), exactly x for normal x) and every product taking
+//   bf16 terms (split3 in mma_frag.cuh: hi = bf16(x), mid = bf16(x - hi),
+//   lo = bf16(x - hi - mid), exactly x for normal x) and every product taking
 //   the six cross products whose terms' ranks sum to at most 2 (mma_x6):
 //   what is dropped is ~2^-24 of each term, as f32 rounding itself. p and
 //   ds are never rounded (T and TO are the identity), so none of the bf16
@@ -180,32 +180,6 @@ constexpr int kLDP = kB + 4;
 template <typename TO, int D>
 __host__ __device__ constexpr int ld_o() {
   return sizeof(TO) == 2 ? ld_h<D>() : ld_f<D>();
-}
-
-// x and y each split into three bf16 terms (hi, mid, lo; see the header),
-// packed pairwise: out[i] = (x_i, y_i)
-__device__ __forceinline__ void split3(float x, float y, uint32_t out[3]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
-    out[i] = *reinterpret_cast<const uint32_t*>(&v);
-    x -= __bfloat162float(v.x);
-    y -= __bfloat162float(v.y);
-  }
-}
-
-// d += a . b over one 16-deep step for three-term operands: the six cross
-// products whose terms' ranks (hi 0, mid 1, lo 2) sum to at most 2,
-// smallest first. What is dropped (mid.lo, lo.mid, lo.lo) is ~2^-24 of
-// |a||b| per product.
-__device__ __forceinline__ void mma_x6(float d[4], const uint32_t a[3][4],
-                                       const uint32_t b[3][2]) {
-  mma_bf16(d, a[1], b[1]);
-  mma_bf16(d, a[2], b[0]);
-  mma_bf16(d, a[0], b[2]);
-  mma_bf16(d, a[1], b[0]);
-  mma_bf16(d, a[0], b[1]);
-  mma_bf16(d, a[0], b[0]);
 }
 
 // f32 tiles (code 2's dO and p), split into three bf16 terms per element

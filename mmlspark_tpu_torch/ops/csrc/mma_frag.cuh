@@ -72,4 +72,37 @@ __device__ __forceinline__ void ldb_kn1(uint32_t b[2], const bf16* t, int ld,
   ldsm_x2_t(b, t + (k0 + (l & 7) + ((l >> 3) & 1) * 8) * ld + n0);
 }
 
+// ---------------------------------------------------------------------------
+// f32 operands on the bf16 tensor cores: the f32 kernels of both flash
+// sources hold each f32 value x as three bf16 terms, hi = bf16(x),
+// mid = bf16(x - hi), lo = bf16(x - hi - mid) (each remainder is exact in
+// f32), which sum to x exactly for normal x, and take each product as six
+// bf16 products.
+
+// x and y each split into three bf16 terms (hi, mid, lo), packed
+// pairwise: out[i] = (x_i, y_i)
+__device__ __forceinline__ void split3(float x, float y, uint32_t out[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+    out[i] = *reinterpret_cast<const uint32_t*>(&v);
+    x -= __bfloat162float(v.x);
+    y -= __bfloat162float(v.y);
+  }
+}
+
+// d += a . b over one 16-deep step for three-term operands: the six cross
+// products whose terms' ranks (hi 0, mid 1, lo 2) sum to at most 2,
+// smallest first. What is dropped (mid.lo, lo.mid, lo.lo) is ~2^-24 of
+// |a||b| per product.
+__device__ __forceinline__ void mma_x6(float d[4], const uint32_t a[3][4],
+                                       const uint32_t b[3][2]) {
+  mma_bf16(d, a[1], b[1]);
+  mma_bf16(d, a[2], b[0]);
+  mma_bf16(d, a[0], b[2]);
+  mma_bf16(d, a[1], b[0]);
+  mma_bf16(d, a[0], b[1]);
+  mma_bf16(d, a[0], b[0]);
+}
+
 }  // namespace mma_sync

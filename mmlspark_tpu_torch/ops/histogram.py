@@ -12,8 +12,8 @@ Two functions, each with a plain version here and a CUDA kernel in
 `histogram_cuda.py`:
 
 - the scatter histogram (`_torch_hist`, one `index_add_` per statistic,
-  mirroring the reference's `_xla_hist`; kernels `hist_smem` /
-  `hist_global`), f32 throughout;
+  mirroring the reference's `_xla_hist`; kernel `hist_tiled`), f32
+  throughout;
 - the planes histogram (`_torch_hist_planes`; kernel `hist_planes`),
   taken when the fit built a plan (`build_hist_plan`, under
   `MMLSPARK_TPU_HIST=planes`) and the level has m <= `PLANES_M_MAX`

@@ -14,10 +14,11 @@ the output plus ~10 standard deviations of what rounding p at another
 point does (the kernel rounds p to bf16 against each tile's running max,
 the plain version against the row's final max). A kernel that reads V
 one key off fails that limit (`test_bf16_limit_rejects_v_one_key_off`).
-bf16 runs on the tensor cores (`flash_fwd_mma`), f32 on the CUDA cores
-(`test_bf16_kernels_run_on_the_tensor_cores`); the cases where an
+bf16 runs on the tensor cores (`flash_fwd_mma`), and so does f32, each
+operand split into three bf16 terms (`flash_fwd_split3`;
+`test_bf16_kernels_run_on_the_tensor_cores`); the cases where an
 `mma.sync` design breaks are here: Sq not a multiple of 16, Sk of 8 and 72,
-near-uniform attention, large scores, strided bf16 inputs.
+near-uniform attention, large scores, strided inputs.
 """
 import numpy as np
 import pytest
@@ -120,27 +121,38 @@ def test_large_scores(cuda_device, causal):
 
 @pytest.mark.gpu
 def test_bf16_kernels_run_on_the_tensor_cores(cuda_device):
-    """Every bf16 instantiation (both forms, each D) holds tensor-core
-    instructions in its SASS; every f32 one holds none (the CUDA-core
-    body)."""
-    import re
-
+    """Every instantiation (both forms, each D) holds tensor-core
+    instructions in its SASS: the bf16 kernel and the f32 one, whose
+    operands are split into three bf16 terms."""
     import chip_smoke
     from mmlspark_tpu_torch.ops import _build
     _build.load("flash_attention")
-    want = {(f, d) for f in ("normalized", "stats")
+    want = {(f, c, d) for f in ("normalized", "stats") for c in (0, 1)
             for d in fa.HEAD_DIMS}
     counts = chip_smoke._mma_build_checks(
         "flash_attention", None, chip_smoke._fwd_mma_key, want)
     assert set(counts) == want
 
-    def f32_key(line):
-        m = re.search(r"flash_fwd_f32ILi(\d+)ELb([01])E", line)
-        return (m.group(1), m.group(2)) if m else None
-    f32 = chip_smoke._mma_build_checks("flash_attention", None, f32_key,
-                                       set())
-    assert len(f32) == 8
-    assert all(sum(ops.values()) == 0 for ops in f32.values())
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_near_uniform_and_large_scores(cuda_device, causal):
+    """f32 at q = 0 (every p exactly 1: lse is the log of the visible
+    keys' count) and at 10x the usual scale (alpha underflows to 0)."""
+    _, k, v = _qkv(200, 200, 2, 64, torch.float32, cuda_device)
+    q = torch.zeros_like(k)
+    got, lse = fa.flash_fwd(q, k, v, causal, 0.125)
+    want, _ = fa._flash_forward_lse_plain(q, k, v, causal, 0.125)
+    torch.testing.assert_close(got, want, **_F32_TOL)
+    n = torch.arange(1, 201, device=cuda_device) if causal else 200
+    torch.testing.assert_close(lse, torch.log(n * torch.ones(
+        2, 200, device=cuda_device)), **_F32_TOL)
+    q = _qkv(300, 300, 2, 64, torch.float32, cuda_device, seed=3)[0]
+    k, v = _qkv(300, 300, 2, 64, torch.float32, cuda_device, seed=4)[1:]
+    got, lse = fa.flash_fwd(q, k, v, causal, 1.25)
+    want, want_lse = fa._flash_forward_lse_plain(q, k, v, causal, 1.25)
+    torch.testing.assert_close(got, want, **_F32_TOL)
+    torch.testing.assert_close(lse, want_lse, **_F32_TOL)
 
 
 @pytest.mark.gpu

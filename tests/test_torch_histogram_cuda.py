@@ -32,15 +32,18 @@ def cuda_device():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("with_count_w", [True, False])
-@pytest.mark.parametrize("kernel,m,b", [("hist_smem", 1, 64),
-                                        ("hist_smem", 8, 64),
-                                        ("hist_smem", 64, 256),
-                                        ("hist_global", 128, 256)])
+@pytest.mark.parametrize("kernel,m,b", [("hist_tiled", 1, 64),
+                                        ("hist_tiled", 8, 64),
+                                        ("hist_tiled", 64, 256),
+                                        ("hist_tiled", 128, 256),
+                                        ("hist_tiled", 512, 64)])
 def test_cuda_kernel_matches_plain(cuda_device, kernel, m, b, with_count_w):
-    """Each CUDA entry point against `_torch_hist` on the same CUDA
-    tensors, with a count_w and without one (as the trainer calls it).
-    Counts are exact (integer sums below 2^24); grad/hess sums differ by
-    f32 atomic order: rtol 1e-4, atol 1e-3 over 200k rows."""
+    """The CUDA entry point against `_torch_hist` on the same CUDA
+    tensors, with a count_w and without one (as the trainer calls it), at
+    one tile of every feature (m = 1, 8), one node per tile (m=64, B=256)
+    and nodes split over tiles (m=128, B=256; m=512). Counts are exact
+    (integer sums below 2^24); grad/hess sums differ by f32 atomic order:
+    rtol 1e-4, atol 1e-3 over 200k rows."""
     from mmlspark_tpu_torch.ops import histogram_cuda as hc
     n, f = 200_000, 12
     t = [torch.as_tensor(a).to(cuda_device) for a in _data(n, f, m, b)]
@@ -54,18 +57,39 @@ def test_cuda_kernel_matches_plain(cuda_device, kernel, m, b, with_count_w):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("f,ft,threads,copies", [(12, 4, 256, 2),
+                                                 (137, 69, 512, 1),
+                                                 (137, 1, 1024, 4),
+                                                 (32, 16, 1024, 3)])
+def test_tile_plans_match_plain(cuda_device, f, ft, threads, copies):
+    """Launches away from the planner's choice (features per tile, more
+    and fewer than a warp's lanes; threads; copies) against the plain
+    version."""
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+    n, m, b = 50_000, 6, 64
+    t = [torch.as_tensor(a).to(cuda_device) for a in _data(n, f, m, b)]
+    plan = hc.plan_tiles(n, f, m, b, *hc._card(0), threads=threads,
+                         copies=copies, ft=ft)
+    want = port._torch_hist(*t[:5], m, b)
+    ops, got = hc._prepare(*t[:5], m, b, None)
+    hc._launch_tiled(ops, got, n, f, m, b, plan)
+    for w, g in zip(want[:2], got[:2]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-3)
+    assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.gpu
 def test_dispatch_launches_kernel_and_counts(cuda_device):
-    """A CUDA tensor goes to a kernel (never the plain version), chosen by
-    whether one feature's 3*m*B f32 fits a block, and each launch counts."""
+    """A CUDA tensor goes to the tiled kernel (never the plain version) at
+    every m*B, including one that outgrows a block, and each launch
+    counts."""
     from mmlspark_tpu_torch.ops import histogram_cuda as hc
     t = [torch.as_tensor(a).to(cuda_device) for a in _data(5000, 4, 4, 64)]
     hc.reset_launches()
     port.node_feature_histograms(*t[:5], 4, 64, count_w=t[5])
-    assert hc.launches == {"hist_smem": 1, "hist_global": 0,
-                           "hist_planes": 0}
+    assert hc.launches == {"hist_tiled": 1, "hist_planes": 0}
     port.node_feature_histograms(*t[:5], 512, 64)
-    assert hc.launches == {"hist_smem": 1, "hist_global": 1,
-                           "hist_planes": 0}
+    assert hc.launches == {"hist_tiled": 2, "hist_planes": 0}
 
 
 @pytest.mark.gpu

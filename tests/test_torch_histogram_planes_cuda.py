@@ -79,7 +79,7 @@ def test_shifted_plan_is_caught(cuda_device):
 @pytest.mark.gpu
 def test_dispatch_launches_planes_kernel_and_counts(cuda_device):
     """With a plan, levels of at most PLANES_M_MAX nodes launch the planes
-    kernel, deeper ones the shared-memory kernel; each launch counts."""
+    kernel, deeper ones the tiled kernel; each launch counts."""
     from mmlspark_tpu_torch.ops import histogram_cuda as hc
     t = [torch.as_tensor(a).to(cuda_device) for a in _data(5000, 4, 8, 64)]
     plan = port.build_hist_plan(t[0], 64)
@@ -87,8 +87,7 @@ def test_dispatch_launches_planes_kernel_and_counts(cuda_device):
     for m in (1, 2, 4, 8):
         port.node_feature_histograms(*t[:5], m, 64, count_w=t[5],
                                      lo_planes=plan, plane_lo=16)
-    assert hc.launches == {"hist_smem": 1, "hist_global": 0,
-                           "hist_planes": 3}
+    assert hc.launches == {"hist_tiled": 1, "hist_planes": 3}
     with pytest.raises(ValueError, match="plan"):
         port.node_feature_histograms(*t[:5], 2, 64, lo_planes=plan[:, :10],
                                      plane_lo=16)
@@ -109,8 +108,7 @@ def test_planes_fit_on_card_matches_cpu(cuda_device, monkeypatch):
     p = BoostParams(num_iterations=5, max_bin=63, max_depth=5)
     hc.reset_launches()
     gpu, base, _ = fit_booster(x, y, p, device=cuda_device)
-    assert hc.launches == {"hist_smem": 5, "hist_global": 0,
-                           "hist_planes": 20}
+    assert hc.launches == {"hist_tiled": 5, "hist_planes": 20}
     cpu, base_c, _ = fit_booster(x, y, p, device="cpu")
     assert base == base_c
     assert (gpu.split_feature == cpu.split_feature).mean() > 0.9
