@@ -11,11 +11,13 @@
                                      # kernel over its planner's knobs
     python3 chip_smoke.py --versus DIR
                                      # also times the f32 forward, f32
-                                     # encode_long, f32 LM step and the
-                                     # headline fit of the checkout at DIR
-                                     # (e.g. the parent commit's) and of
-                                     # this one: parent, change, change,
-                                     # parent
+                                     # encode_long, f32 LM step, the
+                                     # headline fit and the planes fit of
+                                     # the checkout at DIR (e.g. the
+                                     # parent commit's) and of this one,
+                                     # and DIR's planes kernel in the
+                                     # [planes] phase: parent, change,
+                                     # change, parent
 
 Phases (any failure exits non-zero before the last line is printed):
   1. card: name and power limit (nvidia-smi), torch's device name;
@@ -24,9 +26,11 @@ Phases (any failure exits non-zero before the last line is printed):
      -Xptxas -v register/shared-memory report; every instantiation of the
      flash forward (f32 and bf16, both forms) and of the backward must
      hold tensor-core instructions (HMMA or HGMMA in `cuobjdump -sass`)
-     and have no ptxas spills, nor may the tiled histogram kernel;
-     registers, shared memory per block and blocks per SM at D=128, and
-     the histogram planner's launches at the headline's levels;
+     and have no ptxas spills, nor may the tiled histogram kernel; every
+     instantiation of the planes kernel must hold HMMA and no
+     shared-memory atomics (ATOMS) and have no spills; registers, shared
+     memory per block and blocks per SM at D=128, and the histogram
+     planners' launches at the headline's levels;
   3. kernels vs plain: each kernel entry point against its plain PyTorch
      version on the same CUDA tensors, at the main path's shapes.
      Histograms (`hist_tiled`, the planner's launch): 8M rows x 32
@@ -83,8 +87,10 @@ Phases (any failure exits non-zero before the last line is printed):
      kernel run on a plan of the bins shifted by one row; its largest
      difference from `hist_tiled` on the same inputs as a share of sum |g|
      per bin (at most bf16's 2^-8); times beside `hist_tiled`, the plain
-     version, one `index_add_` of the bf16-rounded stats and the bound
-     with the plan's bytes. Then the headline fit with
+     version, one `index_add_` of the bf16-rounded stats, the bound with
+     the plan's bytes, the sector floor (the plan's 32-byte sectors that
+     hold an active row, read whole) and the dense one-hot product at the
+     bf16 tensor-core peak. Then the headline fit with
      MMLSPARK_TPU_HIST=planes set in the process, bagging 0.8/1 and
      feature_fraction 0.8: exactly 40 `hist_planes` and 10 `hist_tiled`
      launches, the plan's bytes, peak memory, logloss/AUC against the
@@ -274,6 +280,7 @@ _BWD_MMA = re.compile(r"flash_bwd_(dq|dkv)_mmaI(13__nv_bfloat16|f)Li(\d+)E")
 _BWD_SPLIT3 = re.compile(r"flash_bwd_(dq|dkv)_split3ILi(\d+)E")
 _FWD_MMA = re.compile(r"flash_fwd_(mma|split3)ILi(\d+)ELb([01])E")
 _HIST_TILE = re.compile(r"hist_tile_kernelILb([01])E")
+_HIST_PLANES = re.compile(r"hist_planes_kernelILi(\d+)ELi(\d)E")
 
 
 def _bwd_mma_key(line):
@@ -304,28 +311,45 @@ def _hist_tile_key(line):
     return ("cnt" if m.group(1) == "1" else "no cnt") if m else None
 
 
+def _hist_planes_key(line):
+    """(LO, HT) (the plan's digit width, h-tiles of 8 hi digits) of a
+    planes kernel named in a line of ptxas or cuobjdump output, else
+    None."""
+    m = _HIST_PLANES.search(line)
+    return (int(m.group(1)), int(m.group(2))) if m else None
+
+
 def _mma_build_checks(source, report, key, want):
     """The tensor-core kernels of one built source, each named by `key`
     (a line of ptxas or cuobjdump output -> its key, else None): every key
     in `want` must hold tensor-core instructions (HMMA or HGMMA in
     `cuobjdump -sass`), and ptxas must report no spills for them (when this
-    run built the library). Returns {key: {"HMMA": n, "HGMMA": n}}; raises
-    on a kernel without tensor-core instructions or with spills."""
+    run built the library). Returns {key: {"HMMA": n, "HGMMA": n, "ATOMS":
+    n, "span": n}} (ATOMS: shared-memory atomics; span: the instructions
+    from the first tensor-core instruction to the last, the product
+    loop's unrolled body); raises on a kernel without tensor-core
+    instructions or with spills."""
     from mmlspark_tpu_torch.ops import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run(
         [tool, "-sass", str(_build._target(source))],
         capture_output=True, text=True, timeout=300, check=True).stdout
-    counts, name = {}, None
+    counts, name, seen, first = {}, None, 0, None
     for line in sass.splitlines():
         if "Function :" in line:
-            name = key(line)
+            name, seen, first = key(line), 0, None
             if name is not None:
-                counts[name] = {"HMMA": 0, "HGMMA": 0}
-        elif name is not None:
-            for op in ("HGMMA", "HMMA"):
+                counts[name] = {"HMMA": 0, "HGMMA": 0, "ATOMS": 0,
+                                "span": 0}
+        elif name is not None and re.search(r"/\*[0-9a-f]{4,}\*/\s+[@A-Z]",
+                                            line):
+            seen += 1
+            for op in ("HGMMA", "HMMA", "ATOMS"):
                 if op + "." in line:
                     counts[name][op] += 1
+                    if op != "ATOMS":
+                        first = seen if first is None else first
+                        counts[name]["span"] = seen - first + 1
                     break
     missing = sorted(w for w in want
                      if sum(counts.get(w, {}).values()) == 0)
@@ -382,11 +406,16 @@ def _fwd_build_checks(report):
 
 
 def _hist_build_checks(report):
-    """The tiled histogram kernel, from the built library: no ptxas spills
-    in either instantiation (with or without a count operand); registers,
-    and the shared memory and blocks per SM of the planner's launches at
-    the headline's shapes (8M x 32 x 64 bins, m = 1, 2, 4, 8) and at
-    m=128, B=256 (`histogram_cuda.tile_occupancy`)."""
+    """The histogram kernels, from the built library. The tiled kernel: no
+    ptxas spills in either instantiation (with or without a count
+    operand); registers, and the shared memory and blocks per SM of the
+    planner's launches at the headline's shapes (8M x 32 x 64 bins, m =
+    1, 2, 4, 8) and at m=128, B=256 (`histogram_cuda.tile_occupancy`).
+    The planes kernel: every instantiation (LO = 16 at HT = 1-4, LO = 64
+    at HT = 1-2) holds tensor-core instructions, no shared-memory atomics
+    and no ptxas spills; its registers, and the shared memory and blocks
+    per SM of `plan_planes`' launches at the [planes] phase's shapes."""
+    from mmlspark_tpu_torch.ops import histogram as hist
     from mmlspark_tpu_torch.ops import histogram_cuda as hc
     regs, spills, fn = {}, {}, None
     for line in (report or "").splitlines():
@@ -409,8 +438,39 @@ def _hist_build_checks(report):
             f"block(s) per SM")
     log(f"[build] hist_tile_kernel registers: "
         f"{regs if report is not None else 'already built'}")
+    planes = _mma_build_checks("histogram", report, _hist_planes_key,
+                               {(16, 1), (16, 2), (16, 3), (16, 4),
+                                (64, 1), (64, 2)})
+    shared = {k: c["ATOMS"] for k, c in planes.items() if c["ATOMS"]}
+    if shared:
+        raise AssertionError(f"shared-memory atomics in hist_planes_kernel "
+                             f"((LO, HT): count): {shared}")
+    planes_regs = _ptxas_registers(report, _hist_planes_key)
+    for (lo, ht), ops in sorted(planes.items()):
+        log(f"[build] hist_planes_kernel<{lo}, {ht}>: SASS {ops['HMMA']} "
+            f"HMMA, {ops['ATOMS']} ATOMS, {ops['span']} instructions from "
+            f"the first HMMA to the last, "
+            f"{planes_regs.get((lo, ht), 'unreported')} registers, "
+            f"{'no spills' if report is not None else 'spills unchecked'}")
+    planes_occ = {}
+    for m, b in PLANES_CASES:
+        lo = hist.plan_lo_bins(b)
+        plan = hc.plan_planes(N_ROWS, N_FEAT, m, b, lo, *hc._card(0))
+        smem, blocks = hc.planes_occupancy(plan, N_FEAT, lo)
+        if smem != plan.smem:
+            raise AssertionError(f"plan_planes counts {plan.smem} B of "
+                                 f"shared memory, the kernel {smem}")
+        planes_occ[f"m={m} B={b}"] = dict(plan._asdict(), blocks_per_sm=blocks)
+        log(f"[build] hist_planes_kernel m={m} B={b}: {plan}; {blocks} "
+            f"block(s) per SM")
     return dict(registers=regs,
-                spills_checked=report is not None, occupancy=occupancy)
+                spills_checked=report is not None, occupancy=occupancy,
+                planes=dict(sass={f"LO={lo} HT={ht}": ops
+                                  for (lo, ht), ops in sorted(planes.items())},
+                            registers={f"LO={lo} HT={ht}": r
+                                       for (lo, ht), r in planes_regs.items()},
+                            spills_checked=report is not None,
+                            occupancy=planes_occ))
 
 
 def _ptxas_registers(report, key):
@@ -875,20 +935,71 @@ def _planes_bound(n, n_active, f, b, m, lo, with_count):
         ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def planes_kernel_phase(dev):
+def _planes_sector_floor(node, f, b, m, lo, with_count):
+    """`_planes_bound`'s bytes with the plan counted in 32-byte sectors,
+    the least a kernel can read of it: a sector that holds any active
+    row's plan bytes is read whole (at LO = 16 two rows share one), so at
+    m/(m+1) of the rows active nearly every sector is read. Returns ms at
+    PEAK_BYTES_PER_S."""
+    import torch
+    n = node.shape[0]
+    active = (node >= 0) & (node < m)
+    n_active = int(active.sum())
+    per = max(1, 32 // lo)                        # rows a sector
+    active = torch.cat([active, active.new_zeros((-n) % per)])
+    sectors = int(active.reshape(-1, per).any(1).sum())
+    nbytes = (4 * n + n_active * (f + 8 + 4 * with_count)
+              + f * sectors * max(32, per * lo) + 3 * m * f * b * 4)
+    return nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def _planes_tc_ms(n_active, f, b, m, lo):
+    """The TPU kernel's dense one-hot product, (3 m B/LO, rows) @ (rows,
+    LO) per feature over the active rows, at the card's dense bf16
+    tensor-core peak: ms."""
+    return 2 * 3 * m * (b // lo) * lo * n_active * f \
+        / PEAK_BF16_FLOP_PER_S * 1e3
+
+
+def _parent_histogram_cuda(parent):
+    """The `histogram_cuda` module of the checkout at `parent`, imported
+    beside this one's as package `chip_parent_ops` (its `_build` builds
+    that checkout's sources into that checkout's build directory)."""
+    import importlib
+    import importlib.util
+    root = os.path.join(os.path.abspath(parent), "mmlspark_tpu_torch", "ops")
+    spec = importlib.util.spec_from_file_location(
+        "chip_parent_ops", os.path.join(root, "__init__.py"),
+        submodule_search_locations=[root])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules["chip_parent_ops"] = pkg
+    spec.loader.exec_module(pkg)
+    return importlib.import_module("chip_parent_ops.histogram_cuda")
+
+
+# the planes kernel's cases (m, B): the planes fit's levels at the
+# headline's 64 bins (LO = 16) and one B = 256 level (LO = 64)
+PLANES_CASES = [(1, 64), (2, 64), (4, 64), (4, 256)]
+
+
+def planes_kernel_phase(dev, parent=None):
     """`hist_planes` against `_torch_hist_planes` on the same CUDA
     tensors: 8M x 32 x 64 bins (LO = 16) at m in {1, 2, 4} and one
     B = 256 (LO = 64) case, with inactive rows, without and with count_w.
     A plan of the bins shifted by one row must fail the same check. Beside
     the times: `hist_tiled` on the same inputs and its largest difference
-    from the planes kernel as a share of sum |g| per bin."""
+    from the planes kernel as a share of sum |g| per bin; the bound, the
+    sector floor and the dense product's tensor-core time; with `parent`
+    (a checkout, `--versus`), that checkout's `hist_planes` on the same
+    inputs, timed parent, change, change, parent."""
     import torch
     from mmlspark_tpu_torch.ops import histogram as hist
     from mmlspark_tpu_torch.ops import histogram_cuda as hc
     gen = torch.Generator(device=dev).manual_seed(2)
     results = []
-    cases = [(m, N_FEAT, MAX_BIN + 1) for m in (1, 2, 4)] + [(4, N_FEAT, 256)]
-    for m, f, b in cases:
+    parent_hc = _parent_histogram_cuda(parent) if parent else None
+    for m, b in PLANES_CASES:
+        f = N_FEAT
         inputs = _hist_inputs(gen, dev, N_ROWS, f, b, m)
         bins, grad, hess, node, active, cw = inputs
         lo = hist.plan_lo_bins(b)
@@ -932,6 +1043,13 @@ def planes_kernel_phase(dev):
                                  f"sum |g| per bin, above bf16's 2^-8")
         del got, want, tiled, f32_abs, abs_grad
         ms = timed(lambda: hc.hist_planes(*inputs[:5], m, b, **kw))
+        parent_ms = None
+        if parent_hc is not None:
+            runs = [timed(lambda: mod.hist_planes(*inputs[:5], m, b, **kw))
+                    for mod in (parent_hc, hc, hc, parent_hc)]
+            parent_ms = (runs[0] + runs[3]) / 2
+            log(f"[planes] versus m={m} B={b} (parent, change, change, "
+                f"parent): {', '.join(f'{x:.3f}' for x in runs)} ms")
         tiled_ms = timed(lambda: hc.hist_tiled(*inputs[:5], m, b))
         plain_ms = timed(lambda: hist._torch_hist_planes(*inputs[:5], m, b,
                                                          **kw),
@@ -940,20 +1058,30 @@ def planes_kernel_phase(dev):
                               torch.ones_like(cw), m, b)
         library_ms = timed(lib, warmup=1, reps=5)
         del lib
-        bound_ms, bound_by = _planes_bound(N_ROWS, int(active.sum()), f, b,
-                                           m, lo, with_count=False)
+        n_active = int(active.sum())
+        bound_ms, bound_by = _planes_bound(N_ROWS, n_active, f, b, m, lo,
+                                           with_count=False)
+        sector_ms = _planes_sector_floor(node, f, b, m, lo, False)
+        tc_ms = _planes_tc_ms(n_active, f, b, m, lo)
         log(f"[planes] hist_planes n={N_ROWS} F={f} B={b} LO={lo} m={m}: "
             f"plan {plan.numel() / 1e9:.3f} GB built in {plan_s:.3f} s; "
             f"match with and without count_w (counts exact, max abs err "
             f"{err:.3g}); shifted plan rejected ({caught[:60]}...); "
             f"vs hist_tiled {vs_tiled:.3g} of sum |g| per bin; kernel "
-            f"{ms:.3f} ms, hist_tiled {tiled_ms:.3f} ms, plain {plain_ms:.3f} "
+            f"{ms:.3f} ms (parent "
+            f"{'not measured' if parent_ms is None else f'{parent_ms:.3f}'}"
+            f"), hist_tiled {tiled_ms:.3f} ms, plain {plain_ms:.3f} "
             f"ms, one index_add_ {library_ms:.3f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by})")
+        log(f"[planes]   m={m} B={b}: sector floor {sector_ms:.4f} ms "
+            f"(kernel {ms / sector_ms:.2f}x); dense product at the bf16 "
+            f"tensor-core peak {tc_ms:.4f} ms; kernel {ms / bound_ms:.2f}x "
+            f"the bound")
         results.append(dict(
             m=m, n=N_ROWS, f=f, b=b, lo=lo, max_abs_err=err, ms=ms,
-            tiled_ms=tiled_ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=bound_ms, bound_by=bound_by, vs_tiled=vs_tiled,
+            parent_ms=parent_ms, tiled_ms=tiled_ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            sector_floor_ms=sector_ms, tc_ms=tc_ms, vs_tiled=vs_tiled,
             plan_bytes=plan.numel()))
         del inputs, bins, grad, hess, node, active, cw, plan, kw
         torch.cuda.empty_cache()
@@ -2323,8 +2451,9 @@ def ring_train_phase(dev, cp1_first_loss: float, profile: bool):
 
 
 # parent against change in one call: the f32 forward at the main shape,
-# the f32 encode_long, the f32 LM step and the headline fit, each tree in
-# its own process, in the order parent, change, change, parent
+# the f32 encode_long, the f32 LM step, the headline fit and the planes
+# fit, each tree in its own process, in the order parent, change, change,
+# parent
 VERSUS_ORDER = ("parent", "change", "change", "parent")
 
 
@@ -2389,6 +2518,23 @@ def _versus_measure():
         torch.cuda.synchronize()
         fits.append(time.perf_counter() - t0)
     res["headline_fit_s"] = fits
+    # the [planes path] fit: MMLSPARK_TPU_HIST=planes, bagging 0.8/1,
+    # feature_fraction 0.8
+    params = _headline_params(bagging_fraction=0.8, bagging_freq=1,
+                              feature_fraction=0.8)
+    fits = []
+    with env("MMLSPARK_TPU_HIST", "planes"):
+        fit_booster(data["x"], data["y"],
+                    dataclasses.replace(params, num_iterations=1),
+                    prebinned=data["staged"], device=dev)
+        for _ in range(FIT_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit_booster(data["x"], data["y"], params,
+                        prebinned=data["staged"], device=dev)
+            torch.cuda.synchronize()
+            fits.append(time.perf_counter() - t0)
+    res["planes_fit_s"] = fits
     print(json.dumps(res), flush=True)
 
 
@@ -2447,7 +2593,8 @@ def main(argv) -> int:
     dev = torch.device("cuda")
     profile = "--profile" in argv
     kres = phase("kernel", kernel_phase, dev)
-    pres = phase("planes kernel", planes_kernel_phase, dev)
+    parent = argv[argv.index("--versus") + 1] if "--versus" in argv else None
+    pres = phase("planes kernel", planes_kernel_phase, dev, parent)
     fres = phase("flash kernel", flash_kernel_phase, dev)
     bres = phase("flash backward kernel", flash_bwd_kernel_phase, dev)
     sres = phase("stats kernel", stats_kernel_phase, dev)
@@ -2467,7 +2614,7 @@ def main(argv) -> int:
     ring = phase("ring training", ring_train_phase, dev, train["losses"][0],
                  profile)
     if "--versus" in argv:
-        phase("versus", versus_phase, argv[argv.index("--versus") + 1])
+        phase("versus", versus_phase, parent)
 
     hist8 = [r for r in kres if r["m"] == 8][0]
     planes4 = [r for r in pres if r["m"] == 4 and r["b"] == MAX_BIN + 1][0]
@@ -2500,7 +2647,7 @@ def main(argv) -> int:
                                       "bound_ms", "bound_by",
                                       "library_ms")},
              shape=dict(n=hist8["n"], f=hist8["f"], b=hist8["b"], m=8),
-             build=build["hist"],
+             build={k: v for k, v in build["hist"].items() if k != "planes"},
              per_m=[{k: r[k] for k in ("m", "b", "ms", "plain_ms",
                                        "library_ms", "bound_ms",
                                        "max_abs_err", "plan")}
@@ -2541,8 +2688,10 @@ def main(argv) -> int:
              library="one index_add_ of the bf16-rounded stats",
              shape=dict(n=planes4["n"], f=planes4["f"], b=planes4["b"],
                         lo=planes4["lo"], m=4),
-             per_m=[{k: r[k] for k in ("m", "b", "lo", "ms", "tiled_ms",
-                                       "plain_ms", "library_ms", "bound_ms",
+             build=build["hist"]["planes"],
+             per_m=[{k: r[k] for k in ("m", "b", "lo", "ms", "parent_ms",
+                                       "tiled_ms", "plain_ms", "library_ms",
+                                       "bound_ms", "sector_floor_ms", "tc_ms",
                                        "max_abs_err", "vs_tiled")}
                     for r in pres]),
     ]

@@ -63,9 +63,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sync.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;      // hist_planes_kernel
 constexpr int kMaxThreads = 1024;  // hist_tile_kernel, any multiple of 32
 constexpr int kWindows = 4;        // 32-row windows a warp loads at once
 // rows a warp can queue: fewer than 32 left over, and kWindows windows
@@ -240,7 +241,8 @@ hist_tile_kernel(const uint8_t* __restrict__ bins,
 }
 
 // ---------------------------------------------------------------- planes
-// hist_planes_kernel: port of histogram_pallas.py::_hist_kernel_planes.
+// hist_planes_kernel<LO, HT>: port of
+// histogram_pallas.py::_hist_kernel_planes.
 //
 // WHAT IT COMPUTES
 //   The same (m, F, B) histograms, with the lo digit of the joint key
@@ -248,105 +250,416 @@ hist_tile_kernel(const uint8_t* __restrict__ bins,
 //     hi(r) = node[r] * W + bins[r, f] / LO             (W = B / LO)
 //     H_s[f, hi, lo] = sum_r bf16(s_r) * [hi(r) == hi] * plan[f, r, lo]
 //   for s in {grad, hess, count}; plan is (F, n, LO) int8, the one-hot of
-//   bin % LO (build_hist_plan). grad, hess and count are rounded to bf16
-//   (round to nearest even) before the product, as the TPU kernel rounds
-//   its matmul operands; accumulation is f32. A kernel that recomputed
-//   bin % LO from the bins would compute another function: this one reads
-//   lo from the plan, so a plan of other bins gives other histograms.
+//   bin % LO (build_hist_plan), and any int8 value v in it is the factor
+//   v. grad, hess and count are rounded to bf16 (round to nearest even)
+//   before the product, as the TPU kernel rounds its matmul operands;
+//   accumulation is f32. Rows that are inactive, whose node lies outside
+//   [0, m) or whose bin is >= B add nothing. The kernel reads lo from the
+//   plan and never from the bins, so a plan of other bins gives other
+//   histograms.
 //
 // WHAT BOUNDS IT
-//   Memory: each active (row, feature) reads LO plan bytes besides its bin
-//   byte: F*n*(1+LO) + 16n bytes, ~4.5 GB at 8M x 32 with LO = 16, i.e.
-//   ~1.33 ms at 3.35 TB/s when every row is active. On the TPU the plan
-//   saved vector work; here it only adds bytes, so this route cannot beat
-//   hist_tile_kernel (whose bound is ~0.06-0.09 ms) and stays opt-in.
+//   Memory: the plan is F*n*LO bytes, 4.1 GB at 8M x 32 with LO = 16. At
+//   LO = 16 a row's plan is half of a 32-byte sector, so with a random
+//   share of the rows active the kernel still reads nearly every sector:
+//   ~1.0-1.3 ms at 3.35 TB/s at m = 1-4. The dense product is 3*n_hi x LO
+//   multiply-adds per (row, feature), ~0.3 ms at the bf16 peak at m = 4;
+//   the int8 -> bf16 conversion and the one-hot masks around it cost more
+//   issue slots than the mma itself, so at HT = 2 (m = 4 at B = 64, B =
+//   256) the instructions, not the bytes, bound it (PERF.md). On the TPU
+//   the plan saved vector work; here it only adds bytes, so this route
+//   cannot beat hist_tile_kernel and stays opt-in.
 //
 // DESIGN
-//   A block owns fg features and a strided share of the rows, keeps a
-//   private 3 x m x fg x B f32 histogram in shared memory (hi*LO + lo ==
-//   bin within a node), and flushes it with global
-//   atomics. Per active row: node and stats loaded once, then per feature
-//   its bin byte and its LO plan bytes as LO/16 16-byte streaming loads
-//   (consecutive rows of a warp read consecutive 16-byte chunks), and one
-//   shared-memory atomic per statistic for every non-zero plan byte.
-//   Two choices measured on the H100 (PERF.md): a byte-by-byte test of
-//   the LO plan bytes made it instruction-bound (~7-9.5 ms at 8M x 32
-//   x 64 bins), so __ffs jumps from one non-zero byte to the next; and
-//   __launch_bounds__(kThreads, 8) holds it to 32 registers, so 8 blocks
-//   fit an SM, as the launch geometry assumes, with no spills.
-//   Tensor cores (the TPU's (3*m*W, T) @ (T, LO) per feature as bf16
-//   mma.sync) and TMA are later work.
-template <int LO>
-__global__ void __launch_bounds__(kThreads, 8)
-hist_planes_kernel(const int8_t* __restrict__ plan,
-                   const uint8_t* __restrict__ bins,
-                   const int32_t* __restrict__ node,
-                   const float* __restrict__ grad,
-                   const float* __restrict__ hess,
-                   const float* __restrict__ cnt,
-                   float* __restrict__ hg, float* __restrict__ hh,
-                   float* __restrict__ hc,
-                   long long n, int F, int m, int B, int fg) {
-  extern __shared__ float sh[];  // [3][m][fg][B]
-  const int f0 = blockIdx.x * fg;
-  const int nf = min(fg, F - f0);
-  const int span = m * fg * B;
-  float* sg = sh;
-  float* sh_h = sh + span;
-  float* sc = sh + 2 * span;
-  for (int i = threadIdx.x; i < 3 * span; i += blockDim.x) sh[i] = 0.f;
-  __syncthreads();
+//   The TPU kernel's product, per feature and tile of rows, on the tensor
+//   cores: mma.sync.m16n8k16 bf16 -> f32 with the operands swapped,
+//     D (LO x 3*8*HT) += plan^T (LO x 16 rows) . U^T (16 rows x 3*8*HT),
+//   U^T[r, (s*HT + ht)*8 + g] = bf16(stat_s(r)) where hi(r) == 8*ht + g,
+//   else 0 (HT = ceil(n_hi / 8) h-tiles of 8, n_hi = m*W <= 32). The plan
+//   is A because its tile is row-major (row, lo) in shared memory: one
+//   ldmatrix.x4.trans (int8 pairs as b16) hands each lane the bytes of A's
+//   fragments for two 16-row steps, rows 2q, 2q+1 (+8) at lo 2g, 2g+1. M
+//   is permuted so those two bytes are the fragment's rows g and g+8 (lo =
+//   16t + 2g + j for chunk t); K is the rows in order. int8 -> bf16 is
+//   exact in three ops a pair, two LOP3 and one HADD2 (bytes b -> (128 +
+//   (b&127)) - (128 or 256)), with the constants in registers (ptxas gives
+//   a LOP3 one immediate). U^T is built in registers: the B fragment's
+//   column g is one h, so a lane compares its 4 rows' hi bytes with h
+//   once per (feature, step) ((hi ^ h) + 0x7f in each byte; prmt spreads
+//   bit 7 to 16-bit masks) and clears the packed bf16 stats of the rows
+//   that differ, for the three statistics. Every product is exact in f32:
+//   an int8 value and a bf16 value each have 8 significant bits.
+//   - A block owns fg features (an item is a feature's 16-wide lo chunk;
+//     LO = 64 has four) and walks tiles of kRows rows, grid-strided. The
+//     tile's plan segments plan[f, r0:r0+kRows, :] (kRows*LO contiguous
+//     bytes each), its bins rows and its node and stats move into a
+//     kStages-deep shared-memory ring by 16-byte cp.async (zero-filled past
+//     n). LO = 64 rows are XOR-swizzled by 16-byte chunk so ldmatrix's
+//     eight rows hit eight bank groups.
+//   - One barrier a tile: after it the block refills the ring, writes the
+//     next tile's tables (each row's hi byte per feature, node*W + bin/LO
+//     with 0x40 set where the row adds nothing; the rows' packed bf16
+//     stats; both in the lanes' row order, double-buffered) and runs this
+//     tile's products, so the tables of one tile are built while the
+//     products of another run.
+//   - A fresh accumulator per tile: an mma truncates its accumulator
+//     input toward zero, so a tile's four steps chain through one and the
+//     tile's sum is added to the warp's running f32 totals in registers
+//     with ordinary adds. Counts are integer sums below 2^24, exact.
+//   - No shared-memory atomics: a warp owns its items' totals, and writes
+//     them once at the end, non-zero cells only, with global atomics.
+//   - A warp takes 4 / HT items (1 past HT = 2), so its totals stay at 48
+//     registers and two blocks of 8 warps fit an SM at HT <= 2.
+using mma_sync::cp_async16_n;
+using mma_sync::prmt;
 
-  const long long stride = (long long)gridDim.y * blockDim.x;
-  for (long long r = (long long)blockIdx.y * blockDim.x + threadIdx.x; r < n;
-       r += stride) {
-    const int nd = node[r];
-    if (nd < 0 || nd >= m) continue;
-    const float g = __bfloat162float(__float2bfloat16_rn(grad[r]));
-    const float h = __bfloat162float(__float2bfloat16_rn(hess[r]));
-    const float c =
-        cnt ? __bfloat162float(__float2bfloat16_rn(cnt[r])) : 1.f;
-    const uint8_t* row = bins + r * F + f0;
-    for (int j = 0; j < nf; ++j) {
-      const int b = row[j];
-      if (b >= B) continue;  // out-of-range bin ids are dropped
-      const uint4* p = reinterpret_cast<const uint4*>(
-          plan + ((long long)(f0 + j) * n + r) * LO);
-      const int base = (nd * fg + j) * B + (b / LO) * LO;
+constexpr int kPlanesThreads = 256;                 // 8 warps
+constexpr int kRows = 64;          // rows a tile: four 16-row mma steps
+constexpr int kStages = 3;         // cp.async ring depth
+// planes_load gives each thread one 16-byte chunk of a feature's tile
+static_assert(kPlanesThreads % (kRows * 4) == 0, "a tile's LO = 64 chunks");
+
+__host__ __device__ constexpr int planes_items_per_warp(int ht) {
+  return ht == 1 ? 4 : ht == 2 ? 2 : 1;
+}
+
+struct PlanesArgs {
+  const int8_t* plan;
+  const uint8_t* bins;
+  const int32_t* node;
+  const float* grad;
+  const float* hess;
+  const float* cnt;  // null: every row counts 1
+  float* hg;
+  float* hh;
+  float* hc;
+  long long n;
+  int F, m, B, W, n_hi, fg;
+  int bins_stage;    // bytes of a stage's bins rows (a multiple of 16)
+  int stage_bytes;   // one stage: plan, bins, node, grad, hess, cnt
+};
+
+// The int8 -> bf16 constants, in registers: m7 = 0x007f007f, m8 =
+// 0x00800080, p = 0x43004300 (bf16 128), q = 0xc300c300 (bf16 -128).
+struct Int8Cvt {
+  uint32_t m7, m8, p, q;
+};
+
+// bytes 0 and 2 of w (int8 values, two plan rows at one lo) as bf16x2,
+// exactly: 0x4300 | (b & 0x7f) is 128 + (b & 127), and subtracting 128
+// (b >= 0) or 256 (b < 0) leaves the int8 value b in one exact add
+__device__ __forceinline__ uint32_t int8x2_to_bf16x2(uint32_t w,
+                                                     const Int8Cvt& k) {
+  constexpr int kAndOr = (0xf0 & 0xcc) | 0xaa;  // (a & b) | c
+  return mma_sync::fma_bf16x2(mma_sync::lop3<kAndOr>(w, k.m7, k.p),
+                              0x3f803f80u,
+                              mma_sync::lop3<kAndOr>(w, k.m8, k.q));
+}
+
+// the tile's chunk c of plan row r sits at chunk c ^ swizzle(r): for LO =
+// 64 (four chunks a row) the eight rows of an ldmatrix then hit eight
+// bank groups; LO = 16 rows are 16 bytes apart and need none
+template <int LO>
+__device__ __forceinline__ int plan_swizzle(int r) {
+  return LO == 64 ? (r >> 1) & 3 : 0;
+}
+
+// issue the copies of tile `tile` into the ring stage at `stage`
+template <int LO>
+__device__ __forceinline__ void planes_load(const PlanesArgs& a,
+                                            char* stage, long long tile,
+                                            int f0) {
+  constexpr int C = LO / 16;                  // 16-byte chunks a row
+  constexpr int kPerFeature = kRows * C;      // chunks a feature, 64 or 256
+  const int tid = threadIdx.x;
+  const long long r0 = tile * kRows;
+  const int rows = (int)min((long long)kRows, a.n - r0);
+  // plan: thread tid takes chunk tid % kPerFeature of features
+  // tid / kPerFeature, + kPlanesThreads / kPerFeature, ...
+  {
+    const int pos = tid % kPerFeature, c = pos % C, r = pos / C;
+    const bool row_ok = r < rows;
+    const int8_t* src =
+        a.plan + ((long long)f0 * a.n + r0 + r) * LO + 16 * c;
+    int8_t* dst = reinterpret_cast<int8_t*>(stage) + r * LO +
+                  16 * (c ^ plan_swizzle<LO>(r));
+    const long long src_step = (long long)a.n * LO;
+    for (int fl = tid / kPerFeature; fl < a.fg;
+         fl += kPlanesThreads / kPerFeature) {
+      const bool ok = row_ok && f0 + fl < a.F;
+      mma_sync::cp_async16(dst + fl * kRows * LO,
+                           ok ? src + fl * src_step : a.plan, ok);
+    }
+  }
+  // bins: whole rows, from the 16-byte boundary at or before row r0
+  uint8_t* sbins = reinterpret_cast<uint8_t*>(stage + a.fg * kRows * LO);
+  const long long b0 = (r0 * a.F) & ~15ll;
+  const long long b1 = (r0 + rows) * a.F, total = a.n * a.F;
+  for (int i = tid; i < (int)((b1 - b0 + 15) / 16); i += kPlanesThreads) {
+    const long long at = b0 + 16ll * i;
+    cp_async16_n(sbins + 16 * i, a.bins + at,
+                 (int)min(16ll, total - at));
+  }
+  // node, grad, hess, cnt: kRows each, 4 rows a chunk
+  if (tid < 4 * (kRows / 4)) {
+    const int col = tid / (kRows / 4), k = tid % (kRows / 4);
+    const void* base = col == 0   ? (const void*)a.node
+                       : col == 1 ? (const void*)a.grad
+                       : col == 2 ? (const void*)a.hess
+                                  : (const void*)a.cnt;
+    if (base != nullptr) {
+      const int valid = max(0, min(16, 4 * (rows - 4 * k)));
+      const char* src = reinterpret_cast<const char*>(base) + 4 * r0;
+      cp_async16_n(stage + a.fg * kRows * LO + a.bins_stage +
+                       col * 4 * kRows + 16 * k,
+                   valid ? src + 16 * k : src, valid);
+    }
+  }
+}
+
+// bf16(x) of two rows, the first in the lower half
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the tile's tables, in the lanes' row order: a lane (g, q) takes rows
+// 2q, 2q+1, 2q+8, 2q+9 of each 16-row step, and byte e of word
+// [step * 4 + q] holds row {2q, 2q+1, 2q+8, 2q+9}[e].
+//   hiT[fl * kRows / 4 + 4 * step + q]: hi of those rows at local feature
+//     fl, bit 6 set where the row adds nothing (valid hi < 32, and every
+//     byte stays below 0x80);
+//   statT[(step * 4 + q) * 6 + 2 * s + {0, 1}]: bf16 stat s of rows
+//     (2q, 2q+1) and (2q+8, 2q+9), packed.
+template <int LO>
+__device__ __forceinline__ void planes_prep(const PlanesArgs& a,
+                                            const char* stage,
+                                            long long tile, int f0,
+                                            uint32_t* hiT, uint32_t* statT) {
+  constexpr int kShift = LO == 16 ? 4 : 6;
+  constexpr uint32_t kLow = LO == 16 ? 0x0f0f0f0fu : 0x03030303u;
+  const long long r0 = tile * kRows;
+  const int rows = (int)min((long long)kRows, a.n - r0);
+  const uint8_t* sbins =
+      reinterpret_cast<const uint8_t*>(stage + a.fg * kRows * LO);
+  const char* srow = stage + a.fg * kRows * LO + a.bins_stage;
+  const int32_t* snode = reinterpret_cast<const int32_t*>(srow);
+  const float* sgrad = reinterpret_cast<const float*>(srow + 4 * kRows);
+  const float* shess = reinterpret_cast<const float*>(srow + 8 * kRows);
+  const float* scnt = reinterpret_cast<const float*>(srow + 12 * kRows);
+  const long long b0 = (r0 * a.F) & ~15ll;
+  constexpr int kSq = (kRows / 16) * 4;       // (step, q) pairs, 16
+  const int hi_units = kSq * (a.fg / 4);      // x 4 features a word
+  // byte x + (0x40 - W) has bit 6 set iff x >= W, i.e. bin >= B (x < 16)
+  const uint32_t ge = (uint32_t)(0x40 - a.W) * 0x01010101u;
+  for (int u = threadIdx.x; u < hi_units + kSq; u += kPlanesThreads) {
+    const int sq = u < hi_units ? u % kSq : u - hi_units;
+    const int q = sq % 4, step = sq / 4;
+    int rr[4];
 #pragma unroll
-      for (int v = 0; v < LO / 16; ++v) {
-        const uint4 q = __ldcs(p + v);
-        const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+    for (int e = 0; e < 4; ++e)
+      rr[e] = 16 * step + 2 * q + (e & 1) + 8 * (e >> 1);
+    if (u < hi_units) {
+      const int j = u / kSq;                  // the word: features 4j..
+      uint32_t nw = 0, w[4];
 #pragma unroll
-        for (int w = 0; w < 4; ++w) {
-          // visit only the non-zero plan bytes (adding 0 * s is exact):
-          // __ffs finds the lowest set bit, so its byte is the next one
-          for (uint32_t word = words[w]; word != 0u;) {
-            const int k = (__ffs(word) - 1) >> 3;
-            const float s = (float)(int8_t)(word >> (8 * k));
-            word &= ~(0xffu << (8 * k));
-            const int idx = base + v * 16 + w * 4 + k;
-            atomicAdd(sg + idx, g * s);
-            atomicAdd(sh_h + idx, h * s);
-            atomicAdd(sc + idx, c * s);
-          }
+      for (int e = 0; e < 4; ++e) {
+        const int r = rr[e];
+        const int nd = snode[r];
+        const bool ok = r < rows && nd >= 0 && nd < a.m;
+        nw |= (ok ? (uint32_t)(nd * a.W) : 0x40u) << (8 * e);
+        const uint8_t* p = sbins + ((r0 + r) * a.F + f0 + 4 * j - b0);
+        if ((a.F & 3) == 0) {
+          w[e] = *reinterpret_cast<const uint32_t*>(p);
+        } else {
+          w[e] = 0;
+          for (int k = 0; k < 4; ++k)
+            if (f0 + 4 * j + k < a.F) w[e] |= (uint32_t)p[k] << (8 * k);
         }
+      }
+      // 4 rows x 4 features -> 4 words of one feature's 4 rows
+      const uint32_t t0 = prmt(w[0], w[1], 0x5140);
+      const uint32_t t1 = prmt(w[0], w[1], 0x7362);
+      const uint32_t t2 = prmt(w[2], w[3], 0x5140);
+      const uint32_t t3 = prmt(w[2], w[3], 0x7362);
+      const uint32_t fw[4] = {prmt(t0, t2, 0x5410), prmt(t0, t2, 0x7632),
+                              prmt(t1, t3, 0x5410), prmt(t1, t3, 0x7632)};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t x = (fw[k] >> kShift) & kLow;
+        hiT[(4 * j + k) * (kRows / 4) + sq] =
+            (x + nw) | ((x + ge) & 0x40404040u);
+      }
+    } else {
+      float st[3][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = rr[e];
+        st[0][e] = sgrad[r];
+        st[1][e] = shess[r];
+        st[2][e] = a.cnt ? scnt[r] : 1.f;
+      }
+      uint32_t* out = statT + sq * 6;
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        out[2 * s] = pack2(st[s][0], st[s][1]);
+        out[2 * s + 1] = pack2(st[s][2], st[s][3]);
       }
     }
   }
-  __syncthreads();
+}
 
-  for (int i = threadIdx.x; i < span; i += blockDim.x) {
-    const int b = i % B;
-    const int j = (i / B) % fg;
-    const int nd = i / (B * fg);
-    if (j >= nf) continue;
-    const float vg = sg[i], vh = sh_h[i], vc = sc[i];
-    if (vg == 0.f && vh == 0.f && vc == 0.f) continue;
-    const long long o = ((long long)nd * F + f0 + j) * B + b;
-    atomicAdd(hg + o, vg);
-    atomicAdd(hh + o, vh);
-    atomicAdd(hc + o, vc);
+template <int LO, int HT>
+__global__ void __launch_bounds__(kPlanesThreads, HT <= 2 ? 2 : 1)
+hist_planes_kernel(const PlanesArgs a) {
+  constexpr int IPW = planes_items_per_warp(HT);
+  constexpr int C = LO / 16;                  // items a feature
+  char* smem = mma_sync::dyn_smem();
+  // two sets of tables: the next tile's are written while this one's
+  // are read
+  uint32_t* tables =
+      reinterpret_cast<uint32_t*>(smem + kStages * a.stage_bytes);
+  const int table_words = a.fg * kRows / 4 + 6 * kRows / 4;
+  const int f0 = blockIdx.x * a.fg;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const long long n_tiles = (a.n + kRows - 1) / kRows;
+  const long long stride = gridDim.y;
+  // the conversion's constants, in registers (a.B >> 16 is 0: B <= 256)
+  const uint32_t zero = (uint32_t)a.B >> 16;
+  const Int8Cvt cvt = {0x007f007fu | zero, 0x00800080u | zero,
+                       0x43004300u | zero, 0xc300c300u | zero};
+
+  float tot[IPW][HT][3][4];
+#pragma unroll
+  for (int k = 0; k < IPW; ++k)
+#pragma unroll
+    for (int h = 0; h < HT; ++h)
+#pragma unroll
+      for (int s = 0; s < 3; ++s)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tot[k][h][s][e] = 0.f;
+  // h of this lane's B-fragment column in each h-tile, in every byte
+  uint32_t hcol[HT];
+#pragma unroll
+  for (int h = 0; h < HT; ++h) hcol[h] = (uint32_t)(8 * h + g) * 0x01010101u;
+
+  // The ring: tile `it` of this block sits in stage it % kStages. In
+  // iteration it the block waits for tile it + 1, refills the stage of
+  // tile it - 1 with tile it + kStages - 1, writes tile it + 1's tables
+  // and runs tile it's products: one barrier a tile, and the tables of
+  // one tile are written while the products of the last run.
+  const long long tile0 = blockIdx.y;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (tile0 + s * stride < n_tiles)
+      planes_load<LO>(a, smem + s * a.stage_bytes, tile0 + s * stride, f0);
+    mma_sync::cp_async_commit();
+  }
+  mma_sync::cp_async_wait<kStages - 2>();
+  __syncthreads();
+  if (tile0 < n_tiles)
+    planes_prep<LO>(a, smem, tile0, f0, tables, tables + a.fg * kRows / 4);
+  for (int it = 0; tile0 + it * stride < n_tiles; ++it) {
+    const long long tile = tile0 + it * stride;
+    mma_sync::cp_async_wait<kStages - 3>();
+    __syncthreads();  // tile + 1 landed, tile's tables written, tile - 1
+                      // done with
+    const long long ahead = tile + (kStages - 1) * stride;
+    if (ahead < n_tiles)
+      planes_load<LO>(
+          a, smem + ((it + kStages - 1) % kStages) * a.stage_bytes, ahead,
+          f0);
+    mma_sync::cp_async_commit();
+    if (tile + stride < n_tiles) {
+      uint32_t* next = tables + ((it + 1) & 1) * table_words;
+      planes_prep<LO>(a, smem + ((it + 1) % kStages) * a.stage_bytes,
+                      tile + stride, f0, next, next + a.fg * kRows / 4);
+    }
+    const char* stage = smem + (it % kStages) * a.stage_bytes;
+    const uint32_t* hiT = tables + (it & 1) * table_words;
+    const uint32_t* statT = hiT + a.fg * kRows / 4;
+
+#pragma unroll
+    for (int k = 0; k < IPW; ++k) {
+      const int item = warp * IPW + k;
+      const int fl = item / C, t = item % C;
+      if (fl >= a.fg || f0 + fl >= a.F) continue;  // warp-uniform
+      float d[HT][3][4];
+#pragma unroll
+      for (int h = 0; h < HT; ++h)
+#pragma unroll
+        for (int s = 0; s < 3; ++s)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[h][s][e] = 0.f;
+      const int8_t* pl =
+          reinterpret_cast<const int8_t*>(stage) + fl * kRows * LO;
+#pragma unroll
+      for (int p = 0; p < kRows / 32; ++p) {
+        // matrices 0-3: rows 32p + 8i .. +7; lane l addresses row 32p + l
+        const int r = 32 * p + lane;
+        uint32_t R[4];
+        mma_sync::ldsm_x4_t(R, pl + r * LO + 16 * (t ^ plan_swizzle<LO>(r)));
+#pragma unroll
+        for (int sub = 0; sub < 2; ++sub) {
+          const int step = 2 * p + sub;
+          // A(M, K): M = g -> lo 16t + 2g, M = g + 8 -> lo 16t + 2g + 1;
+          // K = row: R[2 sub] holds rows 2q, 2q+1, R[2 sub + 1] rows +8
+          const uint32_t af[4] = {
+              int8x2_to_bf16x2(R[2 * sub], cvt),
+              int8x2_to_bf16x2(R[2 * sub] >> 8, cvt),
+              int8x2_to_bf16x2(R[2 * sub + 1], cvt),
+              int8x2_to_bf16x2(R[2 * sub + 1] >> 8, cvt)};
+          const uint32_t hi4 = hiT[fl * (kRows / 4) + 4 * step + q];
+          const uint2* st =
+              reinterpret_cast<const uint2*>(statT + (step * 4 + q) * 6);
+          const uint2 sv[3] = {st[0], st[1], st[2]};
+#pragma unroll
+          for (int h = 0; h < HT; ++h) {
+            // bytes below 0x80 differ from this lane's h by x; x + 0x7f
+            // has bit 7 set iff x != 0, i.e. the row is not at h
+            const uint32_t ne = (hi4 ^ hcol[h]) + 0x7f7f7f7fu;
+            const uint32_t m0 = prmt(ne, ne, 0x9988);  // rows 2q, 2q+1
+            const uint32_t m1 = prmt(ne, ne, 0xbbaa);  // rows 2q+8, 2q+9
+#pragma unroll
+            for (int s = 0; s < 3; ++s) {
+              const uint32_t bf[2] = {sv[s].x & ~m0, sv[s].y & ~m1};
+              mma_sync::mma_bf16(d[h][s], af, bf);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < HT; ++h)
+#pragma unroll
+        for (int s = 0; s < 3; ++s)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tot[k][h][s][e] += d[h][s][e];
+    }
+  }
+  mma_sync::cp_async_wait<0>();
+
+  // D(M, N): d[e] at M = g + 8 (e >> 1), N = 2q + (e & 1); M -> lo, N -> h
+  float* outs[3] = {a.hg, a.hh, a.hc};
+#pragma unroll
+  for (int k = 0; k < IPW; ++k) {
+    const int item = warp * IPW + k;
+    const int fl = item / C, t = item % C;
+    if (fl >= a.fg || f0 + fl >= a.F) continue;
+#pragma unroll
+    for (int h = 0; h < HT; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = 8 * h + 2 * q + (e & 1);
+        if (hh >= a.n_hi) continue;
+        const int nd = hh / a.W;
+        const int bin = (hh - nd * a.W) * LO + 16 * t + 2 * g + (e >> 1);
+        const long long o = ((long long)nd * a.F + f0 + fl) * a.B + bin;
+#pragma unroll
+        for (int s = 0; s < 3; ++s)
+          if (tot[k][h][s][e] != 0.f)
+            atomicAdd(outs[s] + o, tot[k][h][s][e]);
+      }
   }
 }
 
@@ -412,35 +725,91 @@ int hist_tile_occupancy(int cnt, int threads, int smem,
       blocks_per_sm, fn, threads, smem);
 }
 
-// plan: (F, n, LO) int8, 16-byte aligned; LO in {16, 64} and LO | B.
-// Outputs must be zeroed by the caller. Returns a cudaError_t (0 =
-// launched), cudaErrorInvalidValue for an LO the kernel is not built for.
+// Shared memory of a hist_planes_kernel block of fg features: kStages
+// stages of (fg x kRows x LO plan bytes, the tile's bins rows, node and
+// three stats), then two sets of hi and stats tables. `histogram_cuda.
+// planes_smem` is the same formula.
+static void planes_geometry(int F, int LO, int fg, int* bins_stage,
+                            int* stage_bytes, int* smem) {
+  *bins_stage = ((kRows * F + fg + 32 + 15) / 16) * 16;
+  *stage_bytes = fg * kRows * LO + *bins_stage + 16 * kRows;
+  *smem = kStages * *stage_bytes + 2 * (fg * kRows + 6 * kRows);
+}
+
+// hist_planes_kernel<LO, HT>, instantiated for LO = 16 at HT 1-4 and
+// LO = 64 at HT 1-2 (m * B / LO <= 16 there), else null
+static const void* planes_fn(int lo, int ht) {
+  if (lo == 16) {
+    switch (ht) {
+      case 1: return reinterpret_cast<const void*>(hist_planes_kernel<16, 1>);
+      case 2: return reinterpret_cast<const void*>(hist_planes_kernel<16, 2>);
+      case 3: return reinterpret_cast<const void*>(hist_planes_kernel<16, 3>);
+      case 4: return reinterpret_cast<const void*>(hist_planes_kernel<16, 4>);
+    }
+  } else if (lo == 64) {
+    switch (ht) {
+      case 1: return reinterpret_cast<const void*>(hist_planes_kernel<64, 1>);
+      case 2: return reinterpret_cast<const void*>(hist_planes_kernel<64, 2>);
+    }
+  }
+  return nullptr;
+}
+
+// The planes kernel: a grid of (ceil(F / fg) feature groups, row_blocks)
+// blocks of kPlanesThreads threads. plan: (F, n, LO) int8; every operand
+// 16-byte aligned; LO in {16, 64} with LO | B; ht h-tiles of 8 with
+// m * B / LO <= 8 * ht <= 32; fg a multiple of 4. cnt may be null (every
+// row counts 1). Outputs must be zeroed by the caller. Returns a
+// cudaError_t (0 = launched), cudaErrorInvalidValue for arguments the
+// kernel does not take.
 int hist_planes_launch(const void* plan, const void* bins, const void* node,
                        const void* grad, const void* hess, const void* cnt,
                        void* hg, void* hh, void* hc, long long n, int F,
-                       int m, int B, int LO, int fg, int row_blocks,
+                       int m, int B, int LO, int ht, int fg, int row_blocks,
                        void* stream) {
-  const size_t smem = 3ull * m * fg * B * sizeof(float);
-  const dim3 grid((F + fg - 1) / fg, row_blocks);
-  cudaError_t e;
-#define HIST_PLANES_LAUNCH(lo)                                               \
-  e = cudaFuncSetAttribute(hist_planes_kernel<lo>,                           \
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,      \
-                           (int)smem);                                       \
-  if (e != cudaSuccess) return (int)e;                                       \
-  hist_planes_kernel<lo><<<grid, kThreads, smem, (cudaStream_t)stream>>>(    \
-      (const int8_t*)plan, (const uint8_t*)bins, (const int32_t*)node,       \
-      (const float*)grad, (const float*)hess, (const float*)cnt, (float*)hg, \
-      (float*)hh, (float*)hc, n, F, m, B, fg);
-  if (LO == 16) {
-    HIST_PLANES_LAUNCH(16)
-  } else if (LO == 64) {
-    HIST_PLANES_LAUNCH(64)
-  } else {
+  PlanesArgs a = {(const int8_t*)plan, (const uint8_t*)bins,
+                  (const int32_t*)node, (const float*)grad,
+                  (const float*)hess, (const float*)cnt, (float*)hg,
+                  (float*)hh, (float*)hc, n, F, m, B, 0, 0, fg, 0, 0};
+  const void* fn = planes_fn(LO, ht);
+  if (fn == nullptr || B % LO != 0 || fg < 4 || fg % 4 != 0)
     return (int)cudaErrorInvalidValue;
-  }
+  a.W = B / LO;
+  a.n_hi = m * a.W;
+  if (a.n_hi > 8 * ht) return (int)cudaErrorInvalidValue;
+  int smem;
+  planes_geometry(F, LO, fg, &a.bins_stage, &a.stage_bytes, &smem);
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((F + fg - 1) / fg, row_blocks);
+  const cudaStream_t st = (cudaStream_t)stream;
+#define HIST_PLANES_LAUNCH(lo, ht)                                      \
+  hist_planes_kernel<lo, ht><<<grid, kPlanesThreads, smem, st>>>(a)
+  if (LO == 16 && ht == 1) HIST_PLANES_LAUNCH(16, 1);
+  if (LO == 16 && ht == 2) HIST_PLANES_LAUNCH(16, 2);
+  if (LO == 16 && ht == 3) HIST_PLANES_LAUNCH(16, 3);
+  if (LO == 16 && ht == 4) HIST_PLANES_LAUNCH(16, 4);
+  if (LO == 64 && ht == 1) HIST_PLANES_LAUNCH(64, 1);
+  if (LO == 64 && ht == 2) HIST_PLANES_LAUNCH(64, 2);
 #undef HIST_PLANES_LAUNCH
   return (int)cudaGetLastError();
+}
+
+// The shared memory of a planes block (F features, digit LO, fg features
+// a block) and how many such blocks of hist_planes_kernel<LO, ht> fit one SM
+// of the current device. Returns a cudaError_t.
+int hist_planes_occupancy(int ht, int F, int LO, int fg, int* smem,
+                          int* blocks_per_sm) {
+  const void* fn = planes_fn(LO, ht);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  int bins_stage, stage_bytes;
+  planes_geometry(F, LO, fg, &bins_stage, &stage_bytes, smem);
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, fn, kPlanesThreads, *smem);
 }
 
 }  // extern "C"

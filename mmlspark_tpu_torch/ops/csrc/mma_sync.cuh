@@ -1,9 +1,10 @@
 // Warp-level tensor-core and async-copy primitives for sm_80+ (used on
-// sm_90a by flash_attention_bwd.cu): ldmatrix, mma.sync m16n8k16 bf16 with
-// f32 accumulation, cp.async with zero-fill, and the block's dynamic
-// shared memory. Every wrapper is one PTX instruction; the fragment
-// layouts they imply are written out where flash_attention_bwd.cu uses
-// them.
+// sm_90a by the flash kernels and histogram.cu's planes kernel):
+// ldmatrix, mma.sync m16n8k16 bf16 with f32 accumulation, cp.async with
+// zero-fill, the block's dynamic shared memory, and the byte-permute,
+// three-input logic and bf16x2 fma instructions. Every wrapper is one PTX
+// instruction; the fragment layouts they imply are written out where the
+// kernels use them.
 #pragma once
 #include <stdint.h>
 
@@ -83,6 +84,13 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 4 : 0));
 }
+// the same, copying the first `bytes` (0..16) and zero-filling the rest
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src,
+                                             int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -90,6 +98,36 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// byte permute: byte i of the result is byte c[4i+2..4i] of the pair
+// (a: bytes 0-3, b: bytes 4-7), or that byte's top bit replicated where
+// bit 4i+3 of c is set
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
+                                         uint32_t c) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// lop3.b32 with all three operands in registers (a mask and a constant
+// then both stay out of the instruction's one immediate slot)
+template <int kLut>
+__device__ __forceinline__ uint32_t lop3(uint32_t a, uint32_t b,
+                                         uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, %4;\n"
+      : "=r"(d)
+      : "r"(a), "r"(b), "r"(c), "n"(kLut));
+  return d;
+}
+
+// a * b + c on bf16x2 registers, each half rounded to nearest even
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
 }
 
 }  // namespace mma_sync

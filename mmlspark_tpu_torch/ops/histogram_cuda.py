@@ -17,6 +17,11 @@ call) and splits the nodes over tiles only where they do not: of the
 tilings that fit, it takes the one that reads the fewest bytes (every
 tile reads every row's node; each feature tile the stats of its nodes'
 rows), and the widest feature tile among equals.
+
+`plan_planes` is the planes kernel's planner, pure Python too: the h-tiles
+its level needs (HT = ceil(m * B / LO / 8)), the features a block takes
+(as many as its 8 warps have items for), the feature groups and the row
+blocks that fill the card.
 """
 from __future__ import annotations
 
@@ -33,13 +38,14 @@ from .histogram import check_plan
 # else) so a run can show that its path went through the kernels
 launches = {"hist_tiled": 0, "hist_planes": 0}
 
-# Launch geometry of the planes kernel (hist_planes_kernel), measured on
-# the H100 at 8M x 32 x 64 bins on the scatter loop it shares (PERF.md): a
-# block takes as many features as fit 12 KB; the grid holds 8 blocks per
-# SM in all.
-SMEM_TARGET_BYTES = 12 * 1024
-THREADS = 256                   # kThreads in histogram.cu
-BLOCKS_PER_SM = 8
+# The planes kernel (hist_planes_kernel): 256 threads = 8 warps a block,
+# tiles of 64 rows, a ring of 3 tile stages (kPlanesThreads, kRows and
+# kStages in histogram.cu). A warp takes 4 / HT items (a feature's
+# 16-wide lo chunk; 1 past HT = 2); blocks of HT <= 2 are built for two
+# per SM, wider ones for one.
+PLANES_WARPS = 8
+PLANES_ROWS = 64
+PLANES_STAGES = 3
 
 # The tiled kernel's knobs, from `chip_smoke.py --sweep` on the H100 at
 # the headline's 8M x 32 x 64 bins (PERF.md): all 32 features in a
@@ -79,15 +85,13 @@ def _library():
             ctypes.POINTER(ctypes.c_int)]
         lib.hist_tile_occupancy.restype = ctypes.c_int
         lib.hist_planes_launch.argtypes = [_P] * 9 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
+            ctypes.c_longlong] + [ctypes.c_int] * 7 + [_P]
         lib.hist_planes_launch.restype = ctypes.c_int
+        lib.hist_planes_occupancy.argtypes = [ctypes.c_int] * 4 + [
+            ctypes.POINTER(ctypes.c_int)] * 2
+        lib.hist_planes_occupancy.restype = ctypes.c_int
         _lib = lib
     return _lib
-
-
-def smem_bytes_per_feature(n_nodes: int, n_bins: int) -> int:
-    return 3 * n_nodes * n_bins * 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,26 +108,74 @@ def _card(index: int) -> tuple[int, int, int]:
             torch.cuda.get_device_properties(index).multi_processor_count)
 
 
-def smem_limit(device: torch.device) -> int:
-    return _card(device.index or 0)[0]
+class PlanesPlan(NamedTuple):
+    """A launch of the planes kernel: blocks of fg features (`groups`
+    feature groups x `row_blocks` row blocks), each taking ht h-tiles of 8
+    hi digits, in `smem` bytes of shared memory."""
+    ht: int
+    fg: int
+    groups: int
+    row_blocks: int
+    smem: int
 
 
-def smem_geometry(n: int, f: int, n_nodes: int, n_bins: int,
-                  device: torch.device) -> tuple[int, int]:
-    """(features per block, row blocks per feature group) of a
-    `hist_planes` launch. Raises when one feature's 3*m*B f32 does not
-    fit a block."""
-    per_feat = smem_bytes_per_feature(n_nodes, n_bins)
-    if per_feat > smem_limit(device):
-        raise ValueError(f"m={n_nodes}, B={n_bins} needs {per_feat} B of "
-                         f"shared memory per feature; the card allows "
-                         f"{smem_limit(device)}")
-    sms = _card(device.index or 0)[2]
-    fg = max(1, min(SMEM_TARGET_BYTES // per_feat, f))
+def planes_items_per_warp(ht: int) -> int:
+    """Items (a feature's 16-wide lo chunk) a warp of the planes kernel
+    takes at ht h-tiles: its running totals are 12 * ht f32 an item."""
+    return {1: 4, 2: 2}.get(ht, 1)
+
+
+def planes_smem(f: int, lo: int, fg: int) -> int:
+    """Shared memory of a planes block of fg features (`planes_geometry`
+    in histogram.cu): PLANES_STAGES stages of the tile's plan (fg x
+    PLANES_ROWS x LO bytes), its bins rows (whole rows, from a 16-byte
+    boundary) and node, grad, hess and count; then two sets of a tile's
+    hi bytes and packed stats."""
+    bins_stage = -(-(PLANES_ROWS * f + fg + 32) // 16) * 16
+    stage = fg * PLANES_ROWS * lo + bins_stage + 16 * PLANES_ROWS
+    return PLANES_STAGES * stage + 2 * (fg * PLANES_ROWS + 6 * PLANES_ROWS)
+
+
+def plan_planes(n: int, f: int, n_nodes: int, n_bins: int, lo: int,
+                per_block: int, per_sm: int, sms: int) -> PlanesPlan:
+    """The planes kernel's launch for (n, F, m, B) with digit LO on a card
+    with `per_block` / `per_sm` bytes of shared memory and `sms` SMs. A
+    block takes as many features as its 8 warps have items for (all 32
+    of the headline's at m <= 2, LO = 16), so node, stats and bins are
+    read once a feature group; the grid holds as many blocks as fit the
+    card. Raises for m * B / LO past the kernel's 32 hi digits (16 at LO =
+    64) or a block that does not fit."""
+    if lo not in (16, 64) or n_bins % lo:
+        raise ValueError(f"the planes kernel takes LO in (16, 64) with "
+                         f"LO | B, got LO={lo}, B={n_bins}")
+    n_hi = n_nodes * (n_bins // lo)
+    ht = -(-n_hi // 8)
+    fg = min(PLANES_WARPS * planes_items_per_warp(ht) * 16 // lo,
+             4 * -(-f // 4))
+    if ht > 4 or fg < 4:
+        raise ValueError(f"m={n_nodes}, B={n_bins}: {n_hi} hi digits of "
+                         f"LO={lo}; the planes kernel takes at most "
+                         f"{32 if lo == 16 else 16}")
+    smem = planes_smem(f, lo, fg)
+    if smem > per_block:
+        raise ValueError(f"F={f} needs {smem} B of shared memory for a "
+                         f"planes block; the card allows {per_block}")
     groups = -(-f // fg)
-    row_blocks = max(1, min(-(-n // THREADS), BLOCKS_PER_SM * sms // groups,
+    blocks = max(1, min(2 if ht <= 2 else 1, per_sm // (smem + 1024)))
+    row_blocks = max(1, min(-(-n // PLANES_ROWS), blocks * sms // groups,
                             65535))
-    return fg, row_blocks
+    return PlanesPlan(ht, fg, groups, row_blocks, smem)
+
+
+def planes_occupancy(plan: PlanesPlan, f: int, lo: int) -> tuple[int, int]:
+    """(shared memory, blocks per SM) of the planes kernel at `plan`, as
+    the built kernel and the current card give them."""
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    _check(_library().hist_planes_occupancy(plan.ht, f, lo, plan.fg,
+                                            ctypes.byref(smem),
+                                            ctypes.byref(blocks)),
+           "hist_planes_occupancy")
+    return smem.value, blocks.value
 
 
 class TilePlan(NamedTuple):
@@ -279,13 +331,17 @@ def _launch_tiled(ops, outs, n, f, n_nodes, n_bins, plan: TilePlan):
     launches["hist_tiled"] += 1
 
 
+def _aligned(t):
+    """t, or a copy of it, at a 16-byte aligned address (cp.async)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
 def hist_planes(bins, grad, hess, node_local, active, n_nodes: int,
                 n_bins: int, count_w=None, lo_planes=None, plane_lo: int = 0):
     """Planes kernel: the histograms from the fit's (F, n, LO) int8 plan,
     with grad/hess/count rounded to bf16 (`histogram._torch_hist_planes`
-    is its plain version). Launch geometry `smem_geometry`. Raises when
-    the plan does not fit these bins or one feature's 3*m*B f32 does not
-    fit a block."""
+    is its plain version), at `plan_planes`' launch. Raises when the plan
+    does not fit these bins or the level is past the kernel's hi digits."""
     if lo_planes is None:
         raise ValueError("hist_planes needs the fit's plan (lo_planes)")
     ops, outs = _prepare(bins, grad, hess, node_local, active, n_nodes,
@@ -293,15 +349,17 @@ def hist_planes(bins, grad, hess, node_local, active, n_nodes: int,
     check_plan(bins, lo_planes, plane_lo, n_bins)
     plan = lo_planes.contiguous()
     if plan.data_ptr() % 16:
-        raise ValueError("the plan must be 16-byte aligned (one vector "
-                         "load per 16 plan bytes)")
+        raise ValueError("the plan must be 16-byte aligned (cp.async of "
+                         "16-byte chunks)")
+    ops = [_aligned(t) for t in ops]
     n, f = bins.shape
-    fg, row_blocks = smem_geometry(n, f, n_nodes, n_bins, bins.device)
+    geo = plan_planes(n, f, n_nodes, n_bins, plane_lo,
+                      *_card(bins.device.index or 0))
     with torch.cuda.device(bins.device):
         stream = torch.cuda.current_stream().cuda_stream
         _check(_library().hist_planes_launch(
             plan.data_ptr(), *_ptrs(ops, outs), n, f, n_nodes, n_bins,
-            plane_lo, fg, row_blocks, stream), "hist_planes")
+            plane_lo, geo.ht, geo.fg, geo.row_blocks, stream), "hist_planes")
     launches["hist_planes"] += 1
     return tuple(outs)
 

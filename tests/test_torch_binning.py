@@ -4,9 +4,14 @@ NaN, +-inf, constant and low-cardinality columns and identity-binned
 categorical columns included."""
 import numpy as np
 import pytest
+import torch
 
 from mmlspark_tpu.ops import binning as ref
 from mmlspark_tpu_torch.ops import binning as port
+
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
 
 
 def _data(n=3000, seed=0):

@@ -29,6 +29,10 @@ from mmlspark_tpu_torch.models.gbdt.convert import (bin_mapper_from_reference,
                                                     booster_from_reference)
 from mmlspark_tpu_torch.ops.binning import apply_bins, fit_bins
 
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
+
 _TOL = dict(rtol=1e-4, atol=1e-4)
 _COMMON = dict(num_iterations=8, max_depth=4, num_leaves=15, max_bin=63,
                min_data_in_leaf=20)

@@ -38,6 +38,10 @@ from mmlspark_tpu_torch.models.gbdt import boosting as port_boosting
 from mmlspark_tpu_torch.models.gbdt import objectives as port_obj
 from mmlspark_tpu_torch.ops.binning import apply_bins, fit_bins
 
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
+
 _TOL = dict(rtol=1e-4, atol=1e-4)
 _COMMON = dict(num_iterations=6, max_depth=4, num_leaves=15, max_bin=63,
                min_data_in_leaf=20)

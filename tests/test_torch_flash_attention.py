@@ -29,6 +29,10 @@ from mmlspark_tpu_torch.ops import flash_attention as fa
 from mmlspark_tpu_torch.parallel import data_mesh
 from mmlspark_tpu_torch.parallel import ring_attention as ra
 
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
+
 
 def _qkv(sq, sk, h, d, seed=0):
     rng = np.random.default_rng(seed)

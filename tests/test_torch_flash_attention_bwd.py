@@ -33,6 +33,10 @@ from mmlspark_tpu.ops.flash_attention import _flash_backward, \
 from mmlspark_tpu.ops.flash_attention import flash_attention as jax_flash
 from mmlspark_tpu_torch.ops import flash_attention as fa
 
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
+
 
 def _arrays(*shapes, seed=0):
     rng = np.random.default_rng(seed)

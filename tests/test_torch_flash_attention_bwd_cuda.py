@@ -23,6 +23,10 @@ import torch
 
 from mmlspark_tpu_torch.ops import flash_attention as fa
 
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def cuda_device():

@@ -26,6 +26,10 @@ import torch
 
 from mmlspark_tpu_torch.ops import flash_attention as fa
 
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
+
 _F32_TOL = dict(rtol=2e-5, atol=2e-5)
 
 

@@ -44,6 +44,10 @@ import torch
 from mmlspark_tpu.ops.flash_attention import _flash_backward
 from mmlspark_tpu_torch.ops import flash_attention as fa
 
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
+
 _TILE, _STEP = 64, 16
 # (rank of A's term, rank of B's term): hi 0, mid 1, lo 2; smallest first
 _SPLIT3 = ((1, 1), (2, 0), (0, 2), (1, 0), (0, 1), (0, 0))

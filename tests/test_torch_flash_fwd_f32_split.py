@@ -49,6 +49,10 @@ from mmlspark_tpu_torch.ops import flash_attention as fa
 from test_torch_flash_bwd_f32_split import (_HI_ONLY, _SPLIT3, _STEP,
                                             _product)
 
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
+
 _TILE = 32        # keys per tile of flash_fwd_split3 (kBKS)
 _JAX_BLOCK = 64   # the reference's blocks
 _MASK = -1e30

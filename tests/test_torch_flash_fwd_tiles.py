@@ -33,6 +33,10 @@ from mmlspark_tpu.ops.flash_attention import \
     flash_attention_stats as jax_stats
 from mmlspark_tpu_torch.ops import flash_attention as fa
 
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
+
 _TILE, _CHUNK = 64, 16
 _LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
 _MASK = -1e30

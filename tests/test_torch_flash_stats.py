@@ -37,6 +37,10 @@ from mmlspark_tpu.ops.flash_attention import \
     flash_attention_stats as jax_stats
 from mmlspark_tpu_torch.ops import flash_attention as fa
 
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
+
 _S, _H, _D = 128, 2, 32
 _SCALE = 1.0 / _D ** 0.5
 # (q_offset, k_offset, causal): one shard of 128 rows against another

@@ -33,6 +33,10 @@ from mmlspark_tpu_torch.ops import flash_attention as fa
 from mmlspark_tpu_torch.parallel import data_mesh
 from mmlspark_tpu_torch.parallel.ring_attention import ring_attention
 
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
+
 _S = 256
 _PAIRS = {"diagonal": (256, 256, True), "full": (768, 0, True),
           "masked": (0, 768, True), "noncausal": (0, 768, False)}

@@ -18,6 +18,10 @@ from mmlspark_tpu.ops.histogram import _xla_hist
 from mmlspark_tpu.ops.histogram_pallas import pallas_hist
 from mmlspark_tpu_torch.ops import histogram as port
 
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
+
 
 def _data(n, f, m, b, seed=None, count_w=False):
     rng = np.random.default_rng(n if seed is None else seed)

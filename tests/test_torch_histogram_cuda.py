@@ -12,6 +12,10 @@ import torch
 
 from mmlspark_tpu_torch.ops import histogram as port
 
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
+
 
 def _data(n, f, m, b, seed=0):
     rng = np.random.default_rng(seed)

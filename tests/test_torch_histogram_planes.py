@@ -28,6 +28,10 @@ import torch
 from mmlspark_tpu.ops import histogram_pallas as hp
 from mmlspark_tpu_torch.ops import histogram as port
 
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
+
 _TOL = dict(rtol=1e-5, atol=1e-4)
 
 

@@ -13,6 +13,10 @@ import torch
 
 from mmlspark_tpu_torch.ops import histogram as port
 
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
+
 
 def _data(n, f, m, b, seed=0):
     rng = np.random.default_rng(seed)
@@ -40,23 +44,90 @@ def _assert_close(got, want):
     assert torch.equal(got[2], want[2])
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("with_count_w", [True, False])
-@pytest.mark.parametrize("m,b", [(1, 64), (2, 64), (4, 64), (4, 96),
-                                 (1, 256), (4, 256)])
-def test_planes_kernel_matches_plain(cuda_device, m, b, with_count_w):
+def _kernel_and_plain(t, m, b, cw=None, plan=None):
+    """The kernel and `_torch_hist_planes` on the same card tensors."""
     from mmlspark_tpu_torch.ops import histogram_cuda as hc
-    t = [torch.as_tensor(a).to(cuda_device)
-         for a in _data(200_000, 12, m, b)]
-    cw = t[5] if with_count_w else None
     lo = port.plan_lo_bins(b)
-    plan = port.build_hist_plan(t[0], b)
+    plan = port.build_hist_plan(t[0], b) if plan is None else plan
     want = port._torch_hist_planes(*t[:5], m, b, count_w=cw,
                                    lo_planes=plan, plane_lo=lo)
     got = hc.hist_planes(*t[:5], m, b, count_w=cw, lo_planes=plan,
                          plane_lo=lo)
     torch.cuda.synchronize()
-    _assert_close(got, want)
+    return got, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_count_w", [True, False])
+@pytest.mark.parametrize("b", [64, 96, 256])
+@pytest.mark.parametrize("m", range(1, port.PLANES_M_MAX + 1))
+def test_planes_kernel_matches_plain(cuda_device, m, b, with_count_w):
+    t = [torch.as_tensor(a).to(cuda_device)
+         for a in _data(200_000, 12, m, b)]
+    _assert_close(*_kernel_and_plain(t, m, b,
+                                     t[5] if with_count_w else None))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,f,m,b", [
+    (10, 3, 2, 64),        # fewer rows than one 16-row step
+    (63, 5, 4, 64),        # fewer than one 64-row tile
+    (70_001, 12, 3, 96),   # a ragged last tile
+    (20_000, 37, 4, 64),   # F past the 16-feature groups of HT = 2
+    (20_000, 33, 2, 64),   # F past the 32-feature group of HT = 1
+    (20_000, 9, 4, 256),   # F past the 4-feature groups of LO = 64
+])
+def test_planes_kernel_ragged_shapes(cuda_device, n, f, m, b):
+    t = [torch.as_tensor(a).to(cuda_device) for a in _data(n, f, m, b)]
+    _assert_close(*_kernel_and_plain(t, m, b, t[5]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [64, 192])
+def test_planes_kernel_drops_what_adds_nothing(cuda_device, b):
+    """Every row inactive, or with a node past m, gives zeros; bins >= B
+    (any value up to 255) add nothing, as in the plain version. B = 64
+    and 192 take LO = 16 and 64."""
+    bins, grad, hess, node, _, cw = _data(30_000, 8, 4, b, seed=3)
+    for nd, act in ((np.full_like(node, -1), np.ones_like(node, bool)),
+                    (node, np.zeros_like(node, bool)),
+                    (np.full_like(node, 4), np.ones_like(node, bool))):
+        t = [torch.as_tensor(a).to(cuda_device)
+             for a in (bins, grad, hess, nd, act, cw)]
+        got, _ = _kernel_and_plain(t, 4, b, t[5])
+        assert all(float(x.abs().max()) == 0.0 for x in got)
+    rng = np.random.default_rng(4)
+    out = rng.random(bins.shape) < 0.1
+    bins[out] = rng.integers(b, 256, size=int(out.sum()))
+    t = [torch.as_tensor(a).to(cuda_device)
+         for a in (bins, grad, hess, node, node >= 0, cw)]
+    _assert_close(*_kernel_and_plain(t, 4, b, t[5]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [64, 256])
+def test_planes_kernel_takes_plan_values_as_factors(cuda_device, b):
+    """Plan bytes 2, -1, -128 and 127 multiply the stats, as in the plain
+    version: counts stay exact integer sums; grad/hess within 1e-4 of the
+    sum of |stat x plan value| per bin (sums in another order, with
+    cancellation)."""
+    t = [torch.as_tensor(a).to(cuda_device)
+         for a in _data(50_000, 8, 3, b, seed=5)]
+    plan = port.build_hist_plan(t[0], b)
+    r = torch.rand(plan.shape, device=cuda_device,
+                   generator=torch.Generator(cuda_device).manual_seed(0))
+    plan[(plan == 1) & (r < 0.3)] = 2
+    plan[(plan == 0) & (r < 0.02)] = -1
+    plan[(plan == 0) & (r > 0.995)] = -128
+    plan[(plan == 0) & (r > 0.99) & (r <= 0.995)] = 127
+    got, want = _kernel_and_plain(t, 3, b, t[5], plan=plan)
+    assert torch.equal(got[2], want[2])
+    mag = torch.where(plan == -128, 127, plan.abs()).to(torch.int8)
+    scale = port._torch_hist_planes(t[0], t[1].abs(), t[2], *t[3:5], 3, b,
+                                    lo_planes=mag,
+                                    plane_lo=port.plan_lo_bins(b))
+    for g, w, sc in zip(got[:2], want[:2], scale[:2]):
+        assert bool(((g - w).abs() <= 1e-4 * sc + 1e-6).all())
 
 
 @pytest.mark.gpu

@@ -24,6 +24,10 @@ from mmlspark_tpu.ops.histogram import _xla_hist
 from mmlspark_tpu_torch.ops import histogram as port
 from mmlspark_tpu_torch.ops import histogram_cuda as hc
 
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
+
 # the H100's shared memory (cudaDevAttrMaxSharedMemoryPerBlockOptin, per
 # SM) and SM count
 _PER_BLOCK, _PER_SM, _SMS = 232_448, 233_472, 132

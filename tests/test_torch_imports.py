@@ -6,6 +6,12 @@ import os
 import subprocess
 import sys
 
+import torch
+
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

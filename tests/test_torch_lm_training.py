@@ -36,6 +36,10 @@ from mmlspark_tpu_torch.ops import flash_attention as fa
 from mmlspark_tpu_torch.parallel import MODEL_AXIS
 from mmlspark_tpu_torch.parallel import grid_mesh as port_grid_mesh
 
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
+
 _KW = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64,
            max_len=32, seed=0)
 

@@ -17,6 +17,7 @@ Tolerances, those of tests/test_torch_lm_training.py:
 import jax
 import numpy as np
 import pytest
+import torch
 
 from mmlspark_tpu.models.dnn.pp_training import \
     PipelinedLMTrainer as JaxPipelinedLMTrainer
@@ -26,6 +27,10 @@ from mmlspark_tpu_torch.models.dnn import (PipelinedLMTrainer,
                                            params_to_numpy)
 from mmlspark_tpu_torch.parallel import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS,
                                          SEQ_AXIS, grid_mesh)
+
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
 
 _AXES = (DATA_AXIS, PIPE_AXIS, MODEL_AXIS, SEQ_AXIS)
 _KW = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64,

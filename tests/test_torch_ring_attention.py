@@ -38,6 +38,10 @@ from mmlspark_tpu_torch.parallel.ring_attention import (reference_attention,
                                                         ring_attention,
                                                         ulysses_attention)
 
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
+
 _TOL = dict(rtol=2e-5, atol=2e-5)
 
 

@@ -15,6 +15,10 @@ from mmlspark_tpu.models.gbdt import trainer as ref
 from mmlspark_tpu.ops.binning import apply_bins, fit_bins
 from mmlspark_tpu_torch.models.gbdt import trainer as port
 
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
+
 _TOL = dict(rtol=1e-4, atol=1e-5)
 
 

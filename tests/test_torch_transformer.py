@@ -24,6 +24,10 @@ from mmlspark_tpu_torch.ops import flash_attention as fa
 from mmlspark_tpu_torch.ops.hashing import hash_token
 from mmlspark_tpu_torch.parallel import data_mesh
 
+# one torch intra-op thread: the suite runs in several xdist workers, and
+# each worker's torch would otherwise start a thread per core
+torch.set_num_threads(1)
+
 _SMALL = dict(vocab_size=50, d_model=64, n_heads=4, n_layers=2, d_ff=128,
               max_len=96, seed=0)
 _STAGE = dict(input_col="text", output_col="emb", d_model=32, n_heads=4,
