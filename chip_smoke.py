@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # the check: needs one CUDA card
     python3 chip_smoke.py --profile  # also prints torch.profiler tables
-                                     # of one boosting iteration, of one
-                                     # flash encode_long and of one LM
+                                     # of one boosting iteration (numeric
+                                     # and categorical), of one flash
+                                     # encode_long and of one LM
                                      # training step (bf16 and f32)
                                      # without and with the ring
     python3 chip_smoke.py --sweep    # also times the tiled histogram
@@ -128,6 +129,20 @@ Phases (any failure exits non-zero before the last line is printed):
      updated weights agree within `_TRAIN_TOL`. The encoder phase (5)
      also runs `encode_long` with attention="ring" over 4 positions of
      the card, held against its flash encode within `_ENCODE_TOL`.
+  11. categorical (slice 11): the headline's rows with columns 24-31
+     replaced by category ids (4-64 levels, frequencies 1/(id + 1), numpy
+     seed 1) and a label with one seeded effect per category; the
+     headline fit with `categorical_features` 24-31: 3 timed fits of
+     exactly 50 `hist_tiled` launches beside the numeric median, its
+     plain-histogram twin within `_METRIC_TOL`, categorical splits
+     present, train AUC above the ordinal twin's (the same bins, no
+     categorical slots) by more than `_CAT_AUC_LIFT`, one fit under
+     MMLSPARK_TPU_HIST=planes (40 `hist_planes` + 10 `hist_tiled`) held to
+     its planes plain twin, bulk and serving scoring; then
+     `Pipeline([GBDTClassifier(categorical_slot_names=...)])` fitted on the
+     card from `feature_names` metadata, saved, loaded and scored in a
+     subprocess that has not imported the estimators: predictions and
+     probabilities bit-identical, save/load seconds and bytes.
 The headline fit (4) is timed 3 times (min and median), and every
 phase's seconds are printed.
 The kernel phase (3) also holds the flash backward kernels, dq and dk/dv,
@@ -846,23 +861,7 @@ def main_path_phase(dev, data, profile: bool):
     score_s = time.perf_counter() - t0
     if margin.shape != (N_ROWS,) or not bool(torch.isfinite(margin).all()):
         raise AssertionError("bulk margins are not finite (n,) values")
-    bulk = booster.raw_score(x[:200_000], base, backend="device",
-                            device=dev)
-    plan = booster.scoring_plan(base)
-    for rows in (1, 16, 256):
-        batch = x[1000:1000 + rows]
-        t1 = time.perf_counter()
-        served = plan(batch)
-        t_plan = time.perf_counter() - t1
-        auto = booster.raw_score(batch, base)          # host route (< 4096)
-        if not (np.allclose(served, bulk[1000:1000 + rows], rtol=1e-5,
-                            atol=1e-5)
-                and np.array_equal(auto, booster.raw_score(
-                    batch, base, backend="host"))):
-            raise AssertionError(f"serving batch of {rows} disagrees with "
-                                 f"bulk device scoring")
-        log(f"[main] serving batch {rows} rows: scoring_plan "
-            f"{t_plan * 1e3:.3f} ms, agrees with device scoring")
+    _serving_check(booster, base, x, dev, "main")
     logloss, auc = _metrics(margin, d_y)
     log(f"[main] bulk raw_score on the card: {N_ROWS} rows in "
         f"{score_s:.3f} s ({N_ROWS / score_s:.4g} rows/s); train logloss "
@@ -1299,6 +1298,399 @@ def ranker_phase(dev):
                              "disagree")
     return dict(launches=launches, fit_s=fit_s, peak=peak, ndcg=ndcg,
                 ref_ndcg=ref_ndcg)
+
+
+# the [categorical] configuration: the headline's rows with columns 24-31
+# replaced by category ids of these level counts, drawn with frequencies
+# proportional to 1 / (id + 1) (id order is frequency order, as LightGBM
+# asks of categorical columns); the label adds one seeded effect per
+# category (a permutation of linspace(-1, 1, K)) to the 24 numeric
+# columns' linear part (weights of std 0.5, so that both kinds of split
+# carry weight)
+CAT_COLS = tuple(range(24, 32))
+CAT_LEVELS = (4, 8, 16, 24, 32, 48, 64, 64)
+# train AUC of the categorical fit over the same fit with no categorical
+# slots (tests/test_gbdt_categorical.py::test_categorical_beats_ordinal)
+_CAT_AUC_LIFT = 0.02
+# rows the pipeline transforms before and after its save and load
+PIPE_ROWS = 1 << 20
+
+
+def categorical_data(dev, data):
+    """The headline's x (numpy seed 0) with CAT_COLS replaced by category
+    ids from numpy seed 1, its label, and its bins on the card (identity
+    bins for CAT_COLS)."""
+    import torch
+    from mmlspark_tpu_torch.ops import binning
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1)
+    x = data["x"].copy()
+    n = x.shape[0]
+    z = x[:, :CAT_COLS[0]] @ rng.normal(scale=0.5, size=CAT_COLS[0])
+    for col, k in zip(CAT_COLS, CAT_LEVELS):
+        p = 1.0 / np.arange(1, k + 1)
+        ids = rng.choice(k, size=n, p=p / p.sum())
+        z += rng.permutation(np.linspace(-1.0, 1.0, k))[ids]
+        x[:, col] = ids
+    y = (z + rng.normal(scale=0.5, size=n) > 0).astype(np.float32)
+    log(f"[categorical] data {n} x {x.shape[1]}: columns {CAT_COLS[0]}-"
+        f"{CAT_COLS[-1]} category ids of {CAT_LEVELS} levels (numpy seed "
+        f"1), positive share {float(y.mean()):.4f}, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mapper = binning.fit_bins(x, max_bin=MAX_BIN, seed=0,
+                              categorical_features=CAT_COLS)
+    d_bins = binning.apply_bins_device(mapper, x, device=dev)
+    d_y = torch.as_tensor(y).to(dev)
+    torch.cuda.synchronize()
+    log(f"[categorical] fit_bins + apply_bins_device on the card: "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not np.array_equal(d_bins[:100_000].cpu().numpy(),
+                          binning.apply_bins(mapper, x[:100_000])):
+        raise AssertionError("device bins differ from host apply_bins")
+    return dict(x=x, y=y, staged=(mapper, d_bins, d_y), d_y=d_y)
+
+
+def _root_hist_accuracy(staged, d_y, dev):
+    """The root level's histograms of the categorical bins with the first
+    iteration's binary gradients (two values, so rounding has one sign)
+    against a float64 sum: the kernel, the plain version (row-block
+    partials) and one f32 `index_add_` per statistic (the plain version
+    before slice 11), as max |error| / sum |stat| of a bin. The first two
+    must be within `_HIST_RTOL_OF_ABS_SUM`; counts exact."""
+    import torch
+    from mmlspark_tpu_torch.ops import histogram as hist
+
+    bins = staged[1]
+    n, f = bins.shape
+    p0 = float(d_y.mean())
+    grad = (p0 - d_y).float()
+    hess = torch.full_like(grad, p0 * (1 - p0))
+    node = torch.zeros(n, dtype=torch.int64, device=dev)
+    act = torch.ones(n, dtype=torch.bool, device=dev)
+    keys = (torch.arange(f, device=dev)[None, :] * (MAX_BIN + 1)
+            + bins.long()).reshape(-1)
+
+    def scatter(dtype, *stats):
+        outs = []
+        for v in stats:
+            o = torch.zeros(f * (MAX_BIN + 1), dtype=dtype, device=dev)
+            o.index_add_(0, keys, v.to(dtype)[:, None].expand(n, f)
+                         .reshape(-1))
+            outs.append(o.reshape(1, f, MAX_BIN + 1))
+        return outs
+    exact = scatter(torch.float64, grad, hess, torch.ones_like(grad))
+    mags = scatter(torch.float64, grad.abs(), hess)
+    out = {}
+    for name, got in (("kernel", hist.node_feature_histograms(
+            bins, grad, hess, node, act, 1, MAX_BIN + 1)),
+            ("plain", hist._torch_hist(bins, grad, hess, node, act, 1,
+                                       MAX_BIN + 1)),
+            ("one index_add_", scatter(torch.float32, grad, hess,
+                                       torch.ones_like(grad)))):
+        errs = [float(((g.double() - e).abs() / m.clamp(min=1e-30)).max())
+                for g, e, m in zip(got[:2], exact[:2], mags)]
+        if not torch.equal(got[2].double(), exact[2]):
+            raise AssertionError(f"{name}: root counts are not exact")
+        out[name] = errs
+    log("[categorical] root histograms against a float64 sum, max |error| "
+        "/ sum |stat| of a bin (grad, hess): " + "; ".join(
+            f"{k} {v[0]:.3g}, {v[1]:.3g}" for k, v in out.items()))
+    for name in ("kernel", "plain"):
+        if max(out[name]) > _HIST_RTOL_OF_ABS_SUM:
+            raise AssertionError(f"{name} root histograms are off the "
+                                 f"float64 sum by {max(out[name])}")
+    return out
+
+
+def _serving_check(booster, base, x, dev, tag):
+    """scoring_plan batches of 1, 16 and 256 rows against bulk device
+    scoring, and the auto route (host under 4096 rows) against the host."""
+    bulk = booster.raw_score(x[:200_000], base, backend="device",
+                             device=dev)
+    plan = booster.scoring_plan(base)
+    for rows in (1, 16, 256):
+        batch = x[1000:1000 + rows]
+        t1 = time.perf_counter()
+        served = plan(batch)
+        t_plan = time.perf_counter() - t1
+        auto = booster.raw_score(batch, base)
+        if not (np.allclose(served, bulk[1000:1000 + rows], rtol=1e-5,
+                            atol=1e-5)
+                and np.array_equal(auto, booster.raw_score(
+                    batch, base, backend="host"))):
+            raise AssertionError(f"{tag}: serving batch of {rows} disagrees "
+                                 f"with bulk device scoring")
+        log(f"[{tag}] serving batch {rows} rows: scoring_plan "
+            f"{t_plan * 1e3:.3f} ms, agrees with device scoring")
+
+
+_PIPE_LOAD = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from mmlspark_tpu_torch.core import PipelineModel, Table
+mod = "mmlspark_tpu_torch.models.gbdt.estimators"
+before = mod in sys.modules
+t0 = time.perf_counter()
+model = PipelineModel.load(sys.argv[2])
+load_s = time.perf_counter() - t0
+out = model.transform(Table({"features": np.load(sys.argv[3])}))
+np.save(sys.argv[4], out["prediction"])
+np.save(sys.argv[5], out["probabilities"])
+print(json.dumps({"imported_before_load": before, "load_s": load_s,
+                  "device": str(model.get_or_default("stages")[0].device)}))
+"""
+
+
+def pipeline_check(dev, x, y):
+    """`Pipeline([GBDTClassifier(categorical_slot_names=...)])` fitted on
+    the card from a table whose features carry `feature_names`; saved,
+    loaded in a subprocess that has not imported the estimators, and
+    scored there: predictions and probabilities bit for bit the fitted
+    model's."""
+    import shutil
+    import tempfile
+
+    import torch
+    from mmlspark_tpu_torch.core import Pipeline, Table
+    from mmlspark_tpu_torch.models.gbdt import GBDTClassifier
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+
+    names = [f"num{i}" for i in range(CAT_COLS[0])] + [
+        f"cat{i}_{k}" for i, k in enumerate(CAT_LEVELS)]
+    table = Table({"features": x, "label": y}).with_column_meta(
+        "features", feature_names=names)
+    est = GBDTClassifier(categorical_slot_names=tuple(names[CAT_COLS[0]:]),
+                         num_iterations=N_ITERS, num_leaves=31,
+                         max_depth=DEPTH, max_bin=MAX_BIN,
+                         min_data_in_leaf=20, device=dev)
+    torch.cuda.synchronize()
+    hc.reset_launches()
+    t0 = time.perf_counter()
+    model = Pipeline([est]).fit(table)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {k: v for k, v in hc.launches.items() if v}
+    if launches != dict(hist_tiled=N_ITERS * DEPTH):
+        raise AssertionError(f"pipeline fit launches {launches}")
+    booster = model.get_or_default("stages")[0].booster
+    if booster.split_is_cat is None or not booster.split_is_cat.any():
+        raise AssertionError("the pipeline's model has no categorical split")
+    score = Table({"features": x[:PIPE_ROWS]})
+    t0 = time.perf_counter()
+    want = model.transform(score)
+    transform_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    try:
+        path = os.path.join(tmp, "model")
+        t0 = time.perf_counter()
+        model.save(path)
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(path) for f in fs)
+        files = [os.path.join(tmp, f) for f in ("x.npy", "pred.npy",
+                                                 "proba.npy")]
+        np.save(files[0], x[:PIPE_ROWS])
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", _PIPE_LOAD, HERE, path,
+                               *files], capture_output=True, text=True,
+                              timeout=600)
+        sub_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"loading in a subprocess failed:\n"
+                                 f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+        sub = json.loads(proc.stdout.strip().splitlines()[-1])
+        pred, proba = np.load(files[1]), np.load(files[2])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if sub["imported_before_load"]:
+        raise AssertionError("the subprocess had imported the estimators")
+    same = (np.array_equal(pred, want["prediction"])
+            and np.array_equal(proba, want["probabilities"]))
+    log(f"[categorical] Pipeline([GBDTClassifier(categorical_slot_names="
+        f"{len(CAT_COLS)} names)]) fit on the card {fit_s:.3f} s (binning "
+        f"included), launches {launches}; transform of {PIPE_ROWS} rows "
+        f"{transform_s:.3f} s; save {save_s:.4f} s, {size} bytes; load in a "
+        f"subprocess {sub['load_s']:.4f} s (on {sub['device']}; the "
+        f"subprocess {sub_s:.1f} s in all); predictions and probabilities "
+        f"after the load bit-identical: {same}")
+    if not same:
+        raise AssertionError("the loaded pipeline scores differently")
+    return dict(fit_s=fit_s, launches=launches, save_s=save_s,
+                load_s=sub["load_s"], bytes=size)
+
+
+@contextlib.contextmanager
+def _cat_ranges():
+    """torch.profiler ranges around the categorical split search and the
+    categorical routing step, for `--profile`."""
+    from torch.profiler import record_function
+    from mmlspark_tpu_torch.models.gbdt import trainer
+    saved = trainer._best_splits_for_level, trainer._cat_go_left
+
+    def split(*a, **k):
+        with record_function("cat.split_search"):
+            return saved[0](*a, **k)
+
+    def route(*a, **k):
+        with record_function("cat.route"):
+            return saved[1](*a, **k)
+    trainer._best_splits_for_level, trainer._cat_go_left = split, route
+    try:
+        yield
+    finally:
+        trainer._best_splits_for_level, trainer._cat_go_left = saved
+
+
+def _device_us(evt, own=False):
+    """Device microseconds of a profiler event (the name of the attribute
+    changed across torch versions)."""
+    for name in (("self_device_time_total", "self_cuda_time_total") if own
+                 else ("device_time_total", "cuda_time_total")):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def _profile_categorical(x, y, params, staged, dev):
+    """torch.profiler of one categorical iteration: kernel time in all (the
+    host-side events' own device time, so the annotation ranges' GPU spans
+    are not counted twice), the split search's and the categorical
+    routing's kernels, and the sorts' (aten::sort, which argsort calls)."""
+    import dataclasses
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprof
+    from mmlspark_tpu_torch.models.gbdt import fit_booster
+    one = dataclasses.replace(params, num_iterations=1)
+    with _cat_ranges(), tprof(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit_booster(x, y, one, prebinned=staged, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
+    host = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    total = sum(_device_us(e, own=True) for e in host)
+
+    def under(name):
+        return sum(_device_us(e) for e in host if e.name == name)
+    split, route, sort = (under("cat.split_search"), under("cat.route"),
+                          under("aten::sort"))
+    log(f"[categorical] profile of one iteration: {total / 1e3:.3f} ms of "
+        f"kernel time in {wall * 1e3:.1f} ms of wall (idle "
+        f"{100 * (1 - total / 1e3 / (wall * 1e3)):.1f}%); split search "
+        f"{split / 1e3:.3f} ms ({100 * split / max(total, 1):.2f}%), of "
+        f"which sorts {sort / 1e3:.3f} ms ({100 * sort / max(total, 1):.2f}"
+        f"%); categorical routing {route / 1e3:.3f} ms "
+        f"({100 * route / max(total, 1):.2f}%)")
+    return dict(kernel_ms=total / 1e3, wall_ms=wall * 1e3,
+                split_ms=split / 1e3, sort_ms=sort / 1e3,
+                route_ms=route / 1e3)
+
+
+def categorical_phase(dev, data, numeric_times, profile: bool):
+    """The [categorical] configuration at the headline's width: a warm-up,
+    FIT_REPEATS counted fits (50 `hist_tiled` each), its plain-histogram
+    twin within `_METRIC_TOL`, categorical splits present, train AUC over
+    the ordinal twin (the same bins, no categorical slots) by more than
+    `_CAT_AUC_LIFT`; one counted fit under MMLSPARK_TPU_HIST=planes and its
+    planes plain twin; bulk and serving scoring; the pipeline's save and
+    load (`pipeline_check`)."""
+    import dataclasses
+
+    import torch
+    from mmlspark_tpu_torch.models.gbdt import fit_booster
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+
+    cat = categorical_data(dev, data)
+    x, y, staged, d_y = cat["x"], cat["y"], cat["staged"], cat["d_y"]
+    root = _root_hist_accuracy(staged, d_y, dev)
+    params = _headline_params(categorical_features=CAT_COLS)
+    fit_booster(x, y, dataclasses.replace(params, num_iterations=1),
+                prebinned=staged, device=dev)
+    torch.cuda.synchronize()
+    want = dict(hist_tiled=N_ITERS * DEPTH)
+    fit_times = []
+    for _ in range(FIT_REPEATS):
+        booster, base, fit_s, peak = _counted_fit(x, y, params, staged, dev,
+                                                  want)
+        fit_times.append(fit_s)
+    fit_s = float(np.median(fit_times))
+    num_s = float(np.median(numeric_times))
+    if booster.split_is_cat is None or not booster.split_is_cat.any():
+        raise AssertionError("the categorical fit has no categorical split")
+    n_cat = int(booster.split_is_cat.sum())
+    n_split = int((booster.split_feature >= 0).sum())
+    log(f"[categorical] fit_booster binary depth {DEPTH} leaves 31 B="
+        f"{MAX_BIN + 1}, categorical_features {CAT_COLS}, {N_ITERS} iters, "
+        f"{FIT_REPEATS} fits: {', '.join(f'{t:.4f}' for t in fit_times)} "
+        f"s; median {fit_s:.4f} s = {N_ROWS * N_ITERS / fit_s:.4g} "
+        f"rows*iters/s (the numeric headline's median in this run "
+        f"{num_s:.4f} s, x{fit_s / num_s:.3f}); launches {want} per fit; "
+        f"peak memory {peak / 2**30:.2f} GiB; {n_cat} of {n_split} splits "
+        f"categorical")
+
+    t0 = time.perf_counter()
+    logloss, auc = _fit_metrics(booster, base, x, d_y, dev)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    _serving_check(booster, base, x, dev, "categorical")
+    hc.reset_launches()
+    with plain_histograms():
+        ref, ref_base, _ = fit_booster(x, y, params, prebinned=staged,
+                                       device=dev)
+    if any(hc.launches.values()):
+        raise AssertionError("the plain-histogram fit launched a kernel")
+    r_ll, r_auc = _fit_metrics(ref, ref_base, x, d_y, dev)
+    ordinal = dataclasses.replace(params, categorical_features=())
+    o_b, o_base, o_s, _ = _counted_fit(x, y, ordinal, staged, dev, want)
+    o_ll, o_auc = _fit_metrics(o_b, o_base, x, d_y, dev)
+    log(f"[categorical] bulk raw_score + metrics on the card {score_s:.3f} "
+        f"s; logloss {logloss:.6f}, AUC {auc:.6f}; plain-histogram twin "
+        f"logloss {r_ll:.6f}, AUC {r_auc:.6f}, categorical words equal at "
+        f"{float(np.mean(ref.cat_words == booster.cat_words)):.4f}; "
+        f"ordinal twin (no categorical slots) {o_s:.4f} s, logloss "
+        f"{o_ll:.6f}, AUC {o_auc:.6f}: lift {auc - o_auc:.6f}")
+    if abs(logloss - r_ll) > _METRIC_TOL or abs(auc - r_auc) > _METRIC_TOL:
+        raise AssertionError("categorical kernel fit and plain-histogram fit "
+                             "disagree")
+    if not auc > o_auc + _CAT_AUC_LIFT:
+        raise AssertionError(f"categorical AUC {auc} does not beat the "
+                             f"ordinal twin's {o_auc} by {_CAT_AUC_LIFT}")
+
+    planes_want = dict(hist_tiled=N_ITERS, hist_planes=N_ITERS * (DEPTH - 1))
+    with env("MMLSPARK_TPU_HIST", "planes"):
+        p_b, p_base, p_s, p_peak = _counted_fit(x, y, params, staged, dev,
+                                                planes_want)
+        p_ll, p_auc = _fit_metrics(p_b, p_base, x, d_y, dev)
+        hc.reset_launches()
+        with plain_histograms():
+            pr, pr_base, _ = fit_booster(x, y, params, prebinned=staged,
+                                         device=dev)
+    if any(hc.launches.values()):
+        raise AssertionError("the planes plain twin launched a kernel")
+    pr_ll, pr_auc = _fit_metrics(pr, pr_base, x, d_y, dev)
+    log(f"[categorical] MMLSPARK_TPU_HIST=planes fit: {p_s:.4f} s, launches "
+        f"{planes_want}, peak {p_peak / 2**30:.2f} GiB; logloss "
+        f"{p_ll:.6f}, AUC {p_auc:.6f}; planes plain twin logloss "
+        f"{pr_ll:.6f}, AUC {pr_auc:.6f}")
+    if abs(p_ll - pr_ll) > _METRIC_TOL or abs(p_auc - pr_auc) > _METRIC_TOL:
+        raise AssertionError("categorical planes fit and its plain twin "
+                             "disagree")
+    if p_b.split_is_cat is None or not p_b.split_is_cat.any():
+        raise AssertionError("the planes fit has no categorical split")
+
+    pipe = pipeline_check(dev, x, y)
+    prof = (_profile_categorical(x, y, params, staged, dev) if profile
+            else None)
+    return dict(launches=want, fit_times=fit_times, fit_s=fit_s, peak=peak,
+                auc=auc, ordinal_auc=o_auc, planes_launches=planes_want,
+                root_hist_errors=root,
+                planes_s=p_s, pipeline=pipe, profile=prof)
 
 
 def _flash_cases():
@@ -2605,6 +2997,8 @@ def main(argv) -> int:
     paths = phase("main", main_path_phase, dev, data, profile)
     planes = phase("planes path", planes_path_phase, dev, data)
     modes = phase("boosting modes", modes_phase, dev, data)
+    cat = phase("categorical", categorical_phase, dev, data,
+                paths["fit_times"], profile)
     del data
     torch.cuda.empty_cache()
     ranker = phase("ranker", ranker_phase, dev)
@@ -2641,7 +3035,9 @@ def main(argv) -> int:
              path="headline fit", launches=paths["launches"]["hist_tiled"],
              launches_per_path={"headline_fit": paths["launches"][
                  "hist_tiled"], "max_depth=11 fit": paths["deep_launches"][
-                 "hist_tiled"]},
+                 "hist_tiled"], "categorical fit": cat["launches"][
+                 "hist_tiled"], "categorical pipeline fit": cat["pipeline"][
+                 "launches"]["hist_tiled"]},
              passed=True,
              **{k: hist8[k] for k in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by",
@@ -2682,6 +3078,9 @@ def main(argv) -> int:
              path="headline fit under MMLSPARK_TPU_HIST=planes, bagging "
                   "0.8/1, feature_fraction 0.8",
              launches=planes["launches"]["hist_planes"], passed=True,
+             launches_per_path={"planes headline fit": planes["launches"][
+                 "hist_planes"], "categorical planes fit": cat[
+                 "planes_launches"]["hist_planes"]},
              **{k: planes4[k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
                                         "library_ms")},
@@ -2785,7 +3184,12 @@ def main(argv) -> int:
         f"{planes['fit_s']:.4f} s; " + ", ".join(
             f"{k} {v['fit_s']:.4f} s" for k, v in modes.items())
         + f"; ranker {ranker['fit_s']:.3f} s, NDCG@10 "
-        f"{ranker['ndcg'][-1]:.6f}")
+        f"{ranker['ndcg'][-1]:.6f}; categorical median {cat['fit_s']:.4f} "
+        f"s, AUC {cat['auc']:.6f} (ordinal twin {cat['ordinal_auc']:.6f}), "
+        f"planes {cat['planes_s']:.4f} s; pipeline save "
+        f"{cat['pipeline']['save_s']:.4f} s, load "
+        f"{cat['pipeline']['load_s']:.4f} s, {cat['pipeline']['bytes']} "
+        f"bytes")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; phases "
         + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
 """Param system: typed hyperparameters shared by every pipeline stage.
 
-A trimmed copy of `mmlspark_tpu/core/params.py`: plain Python descriptors
-collected per class, plus the column-role mixins the GBDT estimators and
-the encoder use.
+Port of `mmlspark_tpu/core/params.py`: plain Python descriptors collected
+per class, the column-role mixins and the validators. Values that are
+not JSON (arrays, tensors, nested stages, functions) are encoded by
+`core/serialize.py`.
 """
 from __future__ import annotations
 
@@ -13,14 +14,19 @@ from typing import Any, Callable, Optional
 class Param:
     """A single named, documented hyperparameter with optional validation."""
 
-    __slots__ = ("name", "doc", "default", "validator")
+    __slots__ = ("name", "doc", "default", "validator", "owner", "transient")
 
     def __init__(self, name: str, doc: str = "", default: Any = None,
-                 validator: Optional[Callable[[Any], bool]] = None):
+                 validator: Optional[Callable[[Any], bool]] = None,
+                 transient: bool = False):
         self.name = name
         self.doc = doc
         self.default = default
         self.validator = validator
+        self.owner = None  # set by Params.__init_subclass__
+        # transient params (callables, live handles) are skipped by save();
+        # a loaded stage reverts them to their default
+        self.transient = transient
 
     def validate(self, value: Any) -> None:
         if self.validator is not None and value is not None:
@@ -55,6 +61,9 @@ def one_of(*options):
     return lambda v: v in options
 
 
+positive = in_range(lo=0)
+
+
 class Params:
     """Base for anything carrying Params; collects Param descriptors
     across the MRO. A stage's state is its uid plus its param map."""
@@ -67,6 +76,7 @@ class Params:
         for klass in reversed(cls.__mro__):
             for val in vars(klass).values():
                 if isinstance(val, Param):
+                    val.owner = val.owner or klass.__name__
                     registry[val.name] = val
         cls._param_registry = registry
 
@@ -75,8 +85,20 @@ class Params:
         self.uid = f"{type(self).__name__}_{uuid.uuid4().hex[:12]}"
         self.set(**kwargs)
 
+    @classmethod
+    def params(cls) -> dict:
+        return dict(cls._param_registry)
+
+    def has_param(self, name: str) -> bool:
+        return name in self._param_registry
+
     def is_set(self, name: str) -> bool:
         return name in self._paramMap
+
+    def get(self, name: str) -> Any:
+        if name not in self._param_registry:
+            raise KeyError(f"{type(self).__name__} has no param {name!r}")
+        return self._paramMap.get(name)
 
     def get_or_default(self, name: str) -> Any:
         if name in self._paramMap:
@@ -95,6 +117,10 @@ class Params:
             self._paramMap[name] = value
         return self
 
+    def clear(self, name: str) -> "Params":
+        self._paramMap.pop(name, None)
+        return self
+
     def copy(self, extra: Optional[dict] = None) -> "Params":
         other = type(self).__new__(type(self))
         other.__dict__.update(
@@ -103,6 +129,20 @@ class Params:
         if extra:
             other.set(**extra)
         return other
+
+    def explain_params(self) -> str:
+        lines = []
+        for name, p in sorted(self._param_registry.items()):
+            cur = self._paramMap.get(name, p.default)
+            lines.append(f"{name}: {p.doc} (default: {p.default!r}, "
+                         f"current: {cur!r})")
+        return "\n".join(lines)
+
+    def param_map(self) -> dict:
+        """Effective values: explicit settings over defaults."""
+        out = {n: p.default for n, p in self._param_registry.items()}
+        out.update(self._paramMap)
+        return out
 
     def __repr__(self):
         explicit = ", ".join(f"{k}={v!r}"
@@ -118,6 +158,10 @@ class HasInputCol(Params):
 
 class HasOutputCol(Params):
     output_col = Param("output_col", "name of the output column", "output")
+
+
+class HasInputCols(Params):
+    input_cols = Param("input_cols", "names of the input columns", None)
 
 
 class HasLabelCol(Params):
@@ -138,7 +182,22 @@ class HasPredictionCol(Params):
                            "prediction")
 
 
+class HasScoredLabelsCol(Params):
+    scored_labels_col = Param(
+        "scored_labels_col", "column holding predicted labels",
+        "scored_labels")
+
+
+class HasScoresCol(Params):
+    scores_col = Param("scores_col", "column holding raw prediction scores",
+                       "scores")
+
+
 class HasProbabilitiesCol(Params):
     probabilities_col = Param(
         "probabilities_col", "column holding class probabilities",
         "probabilities")
+
+
+class HasSeed(Params):
+    seed = Param("seed", "random seed", 0)

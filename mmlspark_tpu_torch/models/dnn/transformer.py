@@ -7,10 +7,10 @@ sequence-parallel over a mesh (`ring_attention` with dense blocks,
 `ulysses_attention`). Parameters are a plain dict of tensors with the
 reference's tree layout, so the JAX package's weights convert leaf by
 leaf (`params_from_numpy`). `TransformerSentenceEncoder` wraps it as a
-pipeline stage: hash-tokenize -> embed -> encode -> mean-pool.
-
-Not ported yet: the stage's persistence (`_get_state`/`_set_state`, with
-`models/dnn/model.py`, ROADMAP Queue 1 item 22).
+pipeline stage: hash-tokenize -> embed -> encode -> mean-pool. The stage
+saves and loads with its weights in the reference's state layout
+(`leaf_{i}` in `jax.tree_util.tree_flatten` order), so a state saved by
+either package loads into the other.
 """
 from __future__ import annotations
 
@@ -105,6 +105,35 @@ def params_to_numpy(tree: dict) -> dict:
         return node.detach().float().cpu().numpy().copy()
 
     return {k: (dict(v) if k == "meta" else conv(v)) for k, v in tree.items()}
+
+
+def _flatten(tree) -> list:
+    """Leaves of a params tree (no `meta`) in `jax.tree_util.tree_flatten`
+    order: dict keys sorted, lists in order, recursively."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _flatten(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _flatten(v)]
+    return [tree]
+
+
+def _structure(tree):
+    """The tree with every leaf replaced by None (its treedef)."""
+    if isinstance(tree, dict):
+        return {k: _structure(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_structure(v) for v in tree]
+    return None
+
+
+def _unflatten(structure, leaves: list):
+    """The inverse of `_flatten` over `structure`; consumes `leaves`."""
+    if isinstance(structure, dict):
+        return {k: _unflatten(structure[k], leaves)
+                for k in sorted(structure)}
+    if isinstance(structure, list):
+        return [_unflatten(v, leaves) for v in structure]
+    return leaves.pop(0)
 
 
 def _layer_norm(x, p):
@@ -208,20 +237,63 @@ class TransformerSentenceEncoder(Model, HasInputCol, HasOutputCol):
     def __init__(self, **kw):
         super().__init__(**kw)
         self._params = None
+        self._loaded = None     # a loaded state's tree, moved on first use
 
     # -- weights ------------------------------------------------------------
     def _ensure_params(self) -> dict:
         if self._params is None:
-            self._params = params_from_numpy(init_transformer(
-                1 << self.vocab_bits, self.d_model, self.n_heads,
-                self.n_layers, self.d_ff, self.max_len, self.seed),
-                self.device)
+            tree = self._loaded
+            if tree is None:
+                tree = init_transformer(
+                    1 << self.vocab_bits, self.d_model, self.n_heads,
+                    self.n_layers, self.d_ff, self.max_len, self.seed)
+            self._params = params_from_numpy(tree, self.device)
+            self._loaded = None
         return self._params
+
+    def _architecture(self):
+        """(params structure without `meta`, `meta`) that this stage's
+        architecture Params give. The structure depends on n_layers alone,
+        so it is read off a one-wide tree."""
+        tree = init_transformer(1, 1, 1, self.n_layers, 1, 1)
+        meta = {"n_heads": self.n_heads, "d_model": self.d_model}
+        return _structure({k: v for k, v in tree.items() if k != "meta"}), \
+            meta
+
+    def _get_state(self):
+        p = self._ensure_params()
+        structure, _ = self._architecture()
+        no_meta = {k: v for k, v in p.items() if k != "meta"}
+        if _structure(no_meta) != structure:
+            # load rebuilds the tree from the Params: a custom tree from
+            # set_params_tree would bind its leaves wrongly, so refuse here
+            raise ValueError(
+                "params tree structure does not match this stage's "
+                "architecture Params (custom set_params_tree layout?); "
+                "align the Params with the tree before saving")
+        return {f"leaf_{i}": v.detach()
+                for i, v in enumerate(_flatten(no_meta))}
+
+    def _set_state(self, s):
+        """Take a state of either package (numpy arrays or tensors, the
+        reference's `leaf_{i}` layout); the weights move to `device` when
+        the stage is first used."""
+        structure, meta = self._architecture()
+        leaves = [s[f"leaf_{i}"] for i in range(len(s))]
+        if len(leaves) != len(_flatten(structure)):
+            raise ValueError(
+                f"state holds {len(leaves)} leaves; this stage's "
+                f"architecture Params need {len(_flatten(structure))}")
+        tree = _unflatten(structure, leaves)
+        tree["meta"] = meta
+        self._loaded = tree
+        self._params = None
 
     def set_params_tree(self, params: dict) -> "TransformerSentenceEncoder":
         """Use `params`, a tree in the reference's layout (numpy or JAX
         leaves; see `params_from_numpy`)."""
         self._params = params_from_numpy(params, self.device)
+        self._loaded = None
         return self
 
     # -- tokenization -------------------------------------------------------

@@ -1,13 +1,15 @@
 """Booster: the serializable trained GBDT ensemble.
 
-Port of `mmlspark_tpu/models/gbdt/booster.py` (numeric trees). The tree
-arrays are host numpy, stacked (n_trees, max_nodes), and the JSON model
-string is the reference's format, so either package loads the other's.
+Port of `mmlspark_tpu/models/gbdt/booster.py`. The tree arrays are host
+numpy, stacked (n_trees, max_nodes), and the JSON model string is the
+reference's format, categorical splits included, so either package loads
+the other's.
 
 Scoring has two paths, as in the reference: serving-sized batches descend
 on the host in numpy (no device round trip per request), bulk batches
 descend on the device (`trainer.predict_raw`). Both take the same
-decisions: go right unless x <= threshold, NaN right.
+decisions: go right unless x <= threshold, NaN right; a categorical node
+goes left iff the raw id's identity bin is in its packed set.
 """
 from __future__ import annotations
 
@@ -40,10 +42,22 @@ class Booster(NamedTuple):
     best_iteration: int = -1    # early stopping; -1 = use all trees
     gain: Optional[np.ndarray] = None    # (T, max_nodes) f32 split gains
     cover: Optional[np.ndarray] = None   # (T, max_nodes) f32 node row counts
+    # native categorical splits: flagged nodes route by membership of the
+    # raw category id in the node's packed 16-bit words; None = no
+    # categorical split
+    split_is_cat: Optional[np.ndarray] = None  # (T, max_nodes) bool
+    cat_words: Optional[np.ndarray] = None     # (T, max_nodes, W16) i32
 
     @property
     def n_trees(self) -> int:
         return self.split_feature.shape[0]
+
+    def _cat_args(self, s):
+        """(split_is_cat, cat_words) slices for scoring, or (None, None)
+        for a purely numeric ensemble."""
+        if self.split_is_cat is None or self.cat_words is None:
+            return None, None
+        return self.split_is_cat[s], self.cat_words[s]
 
     def _used_trees(self):
         if self.best_iteration >= 0:
@@ -62,6 +76,7 @@ class Booster(NamedTuple):
             raise ValueError(
                 f"backend must be auto|host|device, got {backend!r}")
         s = self._used_trees()
+        ic, cw = self._cat_args(s)
         n_used = len(range(*s.indices(self.n_trees)))
         n_rows = x.shape[0]
         work = n_rows * n_used * max(self.max_depth, 1)
@@ -71,7 +86,8 @@ class Booster(NamedTuple):
             out = _predict_raw_host(
                 np.asarray(x, dtype=np.float32), self.split_feature[s],
                 self.threshold[s], self.leaf_value[s], self.tree_class[s],
-                self.max_depth, self.n_classes)
+                self.max_depth, self.n_classes, split_is_cat=ic,
+                cat_words=cw)
         else:
             out = self.raw_score_device(x, device=device, trees=s)
             out = out.cpu().numpy()
@@ -86,11 +102,14 @@ class Booster(NamedTuple):
 
         def put(a, dtype):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(dev)
+        ic, cw = self._cat_args(s)
         return trainer.predict_raw(
             xd, put(self.split_feature[s], torch.int32),
             put(self.threshold[s], torch.float32),
             put(self.leaf_value[s], torch.float32),
-            np.asarray(self.tree_class[s]), self.max_depth, self.n_classes)
+            np.asarray(self.tree_class[s]), self.max_depth, self.n_classes,
+            split_is_cat=None if ic is None else put(ic, torch.bool),
+            cat_words=None if cw is None else put(cw, torch.int32))
 
     def scoring_plan(self, init_score: float = 0.0):
         """Prebuilt host scoring closure for the serving path: the
@@ -103,10 +122,16 @@ class Booster(NamedTuple):
         thr = np.ascontiguousarray(self.threshold[s], np.float32)
         lv = np.ascontiguousarray(self.leaf_value[s], np.float32)
         tc = np.ascontiguousarray(self.tree_class[s], np.int64)
+        ic, cw = self._cat_args(s)
         depth, k = self.max_depth, self.n_classes
         n_trees, m = sf.shape
         offs = np.arange(n_trees, dtype=np.int64) * m     # flat tree bases
         sf_f, thr_f, lv_f = sf.ravel(), thr.ravel(), lv.ravel()
+        has_cat = ic is not None and cw is not None and cw.shape[-1] > 0
+        if has_cat:
+            ic_f = np.ascontiguousarray(ic, bool).ravel()
+            w16 = cw.shape[-1]
+            cw_f = np.ascontiguousarray(cw, np.int64).ravel()
         class_mask = None
         if k > 1:
             class_mask = (tc[None, :] == np.arange(k)[:, None]).astype(
@@ -129,6 +154,11 @@ class Booster(NamedTuple):
                 xf = x[rows, np.clip(f, 0, n_feat - 1)]
                 with np.errstate(invalid="ignore"):
                     go_left = xf <= thr_f[idx]
+                if has_cat:
+                    b = _raw_to_cat_bin_np(xf, w16)
+                    member = ((cw_f[idx * w16 + (b >> 4)] >> (b & 15))
+                              & 1) == 1
+                    go_left = np.where(ic_f[idx], member, go_left)
                 child = np.where(go_left, 2 * node + 1, 2 * node + 2)
                 node = np.where(f < 0, node, child)
             leaf = lv_f[node + offs]                       # (n, T)
@@ -154,14 +184,13 @@ class Booster(NamedTuple):
             out["gain"] = self.gain
         if self.cover is not None:
             out["cover"] = self.cover
+        if self.split_is_cat is not None:
+            out["split_is_cat"] = self.split_is_cat
+            out["cat_words"] = self.cat_words
         return out
 
     @classmethod
     def from_dict(cls, d: dict) -> "Booster":
-        if "split_is_cat" in d and np.asarray(d["split_is_cat"]).any():
-            raise NotImplementedError(
-                "this booster has categorical splits; the port scores "
-                "numeric splits only (ROADMAP Queue 1 item 9)")
         meta = json.loads(str(d["meta"]))
         f32, i32 = np.float32, np.int32
         return cls(split_feature=np.asarray(d["split_feature"], i32),
@@ -172,6 +201,10 @@ class Booster(NamedTuple):
                    gain=(np.asarray(d["gain"], f32) if "gain" in d else None),
                    cover=(np.asarray(d["cover"], f32) if "cover" in d
                           else None),
+                   split_is_cat=(np.asarray(d["split_is_cat"], bool)
+                                 if "split_is_cat" in d else None),
+                   cat_words=(np.asarray(d["cat_words"], i32)
+                              if "cat_words" in d else None),
                    **meta)
 
     def save_model_string(self) -> str:
@@ -185,14 +218,37 @@ class Booster(NamedTuple):
         return cls.from_dict(json.loads(s))
 
 
+def _raw_to_cat_bin_np(xf: np.ndarray, w16: int) -> np.ndarray:
+    """`trainer.raw_to_cat_bin` in numpy, any shape: the one host copy of
+    the identity-bin mapping every host scoring path shares."""
+    top = w16 * 16 - 1
+    with np.errstate(invalid="ignore"):
+        b = np.clip(np.ceil(xf - 0.5), 0, top)
+    return np.where(np.isnan(xf), top, b).astype(np.int64)
+
+
+def _cat_member_np(xf, words_rows):
+    """Membership of raw values xf (n,) in (n, W16) packed words: the
+    numpy oracle of `trainer.raw_to_cat_bin` + `trainer.packed_member`."""
+    w16 = words_rows.shape[-1]
+    if w16 == 0:
+        return np.zeros(xf.shape, bool)
+    b = _raw_to_cat_bin_np(xf, w16)
+    word = words_rows[np.arange(xf.shape[0]), b >> 4]
+    return ((word >> (b & 15)) & 1) == 1
+
+
 def _predict_raw_host(x, split_feature, threshold, leaf_value, tree_class,
-                      max_depth: int, n_classes: int):
+                      max_depth: int, n_classes: int, split_is_cat=None,
+                      cat_words=None):
     """Vectorized numpy ensemble descent — the host mirror of
     `trainer.predict_raw`, with the same decisions and the same
     tree-order f32 sums."""
     n = x.shape[0]
     rows = np.arange(n)
     scores = np.zeros((n, n_classes), np.float32)
+    has_cat = (split_is_cat is not None and cat_words is not None
+               and cat_words.shape[-1] > 0)
     for t in range(split_feature.shape[0]):
         sf_t, thr_t, lv_t = split_feature[t], threshold[t], leaf_value[t]
         node = np.zeros(n, np.int32)
@@ -201,6 +257,9 @@ def _predict_raw_host(x, split_feature, threshold, leaf_value, tree_class,
             xf = x[rows, np.clip(f, 0, x.shape[1] - 1)]
             with np.errstate(invalid="ignore"):
                 go_left = xf <= thr_t[node]
+            if has_cat:
+                member = _cat_member_np(xf, cat_words[t][node])
+                go_left = np.where(split_is_cat[t][node], member, go_left)
             child = np.where(go_left, 2 * node + 1, 2 * node + 2)
             node = np.where(f < 0, node, child).astype(np.int32)
         scores[rows, tree_class[t]] += lv_t[node]

@@ -2,7 +2,8 @@
 
 Port of `mmlspark_tpu/models/gbdt/boosting.py`: every objective of
 `objectives.py` (lambdarank with its group index, the L1-family leaf
-renewal, a custom `fobj`), sample weights, `init_scores`, `prebinned`
+renewal, a custom `fobj`), native categorical splits
+(`categorical_features`), sample weights, `init_scores`, `prebinned`
 staging, a validation set with early stopping, bagging, feature_fraction,
 goss, rf and dart, and the planes histogram route
 (`MMLSPARK_TPU_HIST=planes`). The reference fuses a chunk of iterations
@@ -35,8 +36,7 @@ from .booster import Booster
 
 @dataclasses.dataclass(frozen=True)
 class BoostParams:
-    """The reference's parameter set, every field kept; those this slice
-    does not port raise in `check_ported`."""
+    """The reference's parameter set, every field kept."""
     objective: str = "binary"
     boosting: str = "gbdt"            # gbdt | rf | dart | goss
     num_iterations: int = 100
@@ -90,12 +90,7 @@ BOOSTING_MODES = ("gbdt", "rf", "dart", "goss")
 
 
 def check_ported(p: BoostParams) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item that will port
-    it, for a setting the port does not run yet; ValueError for an
-    unknown objective or boosting mode."""
-    if p.categorical_features:
-        raise NotImplementedError("categorical features are not ported "
-                                  "yet (ROADMAP Queue 1 item 9)")
+    """ValueError for an unknown objective or boosting mode."""
     if p.boosting not in BOOSTING_MODES:
         raise ValueError(f"unknown boosting {p.boosting!r}")
     if p.objective != "lambdarank" and p.objective not in obj_mod.OBJECTIVES:
@@ -219,7 +214,8 @@ def _renew_leaves(tree, d_bins, resid, keep, q: float, lr: float,
     output becomes lr x the q-quantile of the residuals resting there.
     Returns the renewed tree and its per-row delta."""
     nodes = trainer.leaf_of_binned(d_bins, tree.split_feature,
-                                   tree.split_bin, max_depth)
+                                   tree.split_bin, max_depth,
+                                   tree.split_is_cat, tree.cat_words)
     val, has = _leaf_quantiles(nodes, resid, keep, q,
                                tree.leaf_value.shape[0])
     lv = torch.where(has, (lr * val).to(torch.float32), tree.leaf_value)
@@ -254,11 +250,17 @@ def _device_metric(name, objective, margin, y):
 
 def _build_booster(sf, sb, lv, tree_classes, mapper, p: BoostParams,
                    k_out: int, n_features: int, best_iter: int,
-                   gain=None, cover=None):
-    """Stacked tree arrays -> Booster with real-valued thresholds."""
+                   gain=None, cover=None, is_cat=None, cat_words=None):
+    """Stacked tree arrays -> Booster with real-valued thresholds.
+    Categorical nodes keep threshold 0: they route by their words. A
+    booster with no categorical split carries no categorical arrays."""
     thr = mapper.upper_bounds[np.clip(sf, 0, n_features - 1),
                               np.clip(sb, 0, p.max_bin - 1)]
     thr = np.where(sf >= 0, thr, 0.0).astype(np.float32)
+    has_cat = (is_cat is not None and cat_words is not None
+               and cat_words.size and is_cat.any())
+    if has_cat:
+        thr = np.where(is_cat, 0.0, thr).astype(np.float32)
     return Booster(split_feature=sf.astype(np.int32), threshold=thr,
                    split_bin=sb.astype(np.int32),
                    leaf_value=lv.astype(np.float32),
@@ -267,7 +269,9 @@ def _build_booster(sf, sb, lv, tree_classes, mapper, p: BoostParams,
                    objective=p.objective, n_features=n_features,
                    best_iteration=best_iter,
                    gain=None if gain is None else gain.astype(np.float32),
-                   cover=None if cover is None else cover.astype(np.float32))
+                   cover=None if cover is None else cover.astype(np.float32),
+                   split_is_cat=is_cat.astype(bool) if has_cat else None,
+                   cat_words=cat_words.astype(np.int32) if has_cat else None)
 
 
 def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
@@ -316,7 +320,9 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
             mapper, d_bins = prebinned
         d_bins = torch.as_tensor(d_bins).to(dev)
     else:
-        mapper = binning.fit_bins(x, max_bin=p.max_bin, seed=p.seed)
+        mapper = binning.fit_bins(
+            x, max_bin=p.max_bin, seed=p.seed,
+            categorical_features=p.categorical_features)
         d_bins = binning.apply_bins_device(mapper, x, device=dev)
     # the level-invariant histogram plan, once per fit, where the
     # reference builds it (it also sets a plan-bytes gauge there; gauges
@@ -376,7 +382,10 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
         lambda_l1=p.lambda_l1, lambda_l2=p.lambda_l2,
         min_gain_to_split=p.min_gain_to_split,
         min_data_in_leaf=p.min_data_in_leaf,
-        min_sum_hessian_in_leaf=p.min_sum_hessian_in_leaf)
+        min_sum_hessian_in_leaf=p.min_sum_hessian_in_leaf,
+        categorical_features=tuple(int(i) for i in p.categorical_features),
+        cat_smooth=p.cat_smooth, cat_l2=p.cat_l2,
+        max_cat_threshold=p.max_cat_threshold)
     renew_q = (None if p.objective not in RENEWAL_OBJECTIVES else
                p.alpha if p.objective == "quantile" else 0.5)
     gen = torch.Generator(device=dev)
@@ -433,7 +442,8 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
             if has_valid:
                 vd = trainer.predict_binned(v_bins, tree.split_feature,
                                             tree.split_bin, tree.leaf_value,
-                                            cfg.max_depth)
+                                            cfg.max_depth, tree.split_is_cat,
+                                            tree.cat_words)
                 if multiclass:
                     v_it_delta[:, k] += vd
                 else:
@@ -474,18 +484,26 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
                 if patience > 0 and rounds_since >= patience:
                     break
 
-    # ONE device->host copy of every tree array
-    max_nodes = cfg.max_nodes
+    # ONE device->host copy of every tree array; categorical fits append
+    # split_is_cat and the words (< 2^16, exact in f32)
+    max_nodes, w16 = cfg.max_nodes, cfg.cat_words_width
+    n_cols = 6 + w16 if w16 else 5
     if trees:
-        packed = torch.stack([torch.cat([t.split_feature.to(torch.float32),
-                                         t.split_bin.to(torch.float32),
-                                         t.leaf_value, t.gain, t.cover])
-                              for t in trees]).cpu().numpy()
-        cols = [packed[:, i * max_nodes:(i + 1) * max_nodes]
-                for i in range(5)]
+        packed = torch.stack([torch.cat(
+            [t.split_feature.to(torch.float32), t.split_bin.to(torch.float32),
+             t.leaf_value, t.gain, t.cover]
+            + ([t.split_is_cat.to(torch.float32),
+                t.cat_words.to(torch.float32).reshape(-1)] if w16 else []))
+            for t in trees]).cpu().numpy()
     else:
-        cols = [np.zeros((0, max_nodes), np.float32) for _ in range(5)]
-    sf, sb, lv, gn, cv = cols
+        packed = np.zeros((0, n_cols * max_nodes), np.float32)
+    sf, sb, lv, gn, cv = [packed[:, i * max_nodes:(i + 1) * max_nodes]
+                          for i in range(5)]
+    ic = cw = None
+    if w16:
+        ic = packed[:, 5 * max_nodes:6 * max_nodes] > 0.5
+        cw = packed[:, 6 * max_nodes:].reshape(-1, max_nodes, w16).astype(
+            np.int32)
     if dart and trees:      # each tree carries its iteration's dart weight
         lv = lv * np.repeat(np.asarray(dart_weights, np.float32),
                             k_out)[:, None]
@@ -494,5 +512,5 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
     booster = _build_booster(
         sf.astype(np.int32), sb.astype(np.int32), lv, tree_classes, mapper, p,
         k_out, n_features, best_iter if (track and patience > 0) else -1,
-        gain=gn, cover=cv)
+        gain=gn, cover=cv, is_cat=ic, cat_words=cw)
     return booster, base, eval_history

@@ -15,7 +15,7 @@ from .booster import Booster
 
 def booster_from_reference(d: dict) -> Booster:
     """The reference `Booster.to_dict()` (or its JSON-decoded model
-    string) -> the port's Booster. Categorical splits raise (not ported)."""
+    string) -> the port's Booster, categorical splits included."""
     return Booster.from_dict(d)
 
 

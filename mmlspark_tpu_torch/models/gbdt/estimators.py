@@ -4,7 +4,11 @@ equivalents.
 Port of `mmlspark_tpu/models/gbdt/estimators.py`:
 `GBDTClassifier(...).fit(table).transform(table)`, likewise
 `GBDTRegressor` and `GBDTRanker` (lambdarank over a group column). Param
-names are the reference's, so a pipeline can switch packages. Params
+names are the reference's, so a pipeline can switch packages; the stages
+are `PipelineStage`s, and a fitted model saves and loads with its booster
+(`core/serialize.py`). Native categorical splits come from
+`categorical_slot_indexes` and from `categorical_slot_names`, resolved
+through the features column's `feature_names` metadata. Params
 whose features the port does not run yet raise NotImplementedError at
 fit when set to anything but their inert value, naming the ROADMAP item
 that will port them. One param is the port's own: `device` (None = the card). One
@@ -14,6 +18,7 @@ raises.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -42,8 +47,6 @@ def _device_count(device) -> int:
 
 # param -> (is its value one this slice cannot run?, ROADMAP Queue 1 item)
 _UNPORTED = {
-    "categorical_slot_indexes": (bool, 9),
-    "categorical_slot_names": (bool, 9),
     "num_batches": (lambda v: v > 1, 11),
     "checkpoint_dir": (bool, 11),
     "leaf_prediction_col": (bool, 14),
@@ -127,7 +130,7 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
     features_shap_col = Param("features_shap_col",
                               "output column for SHAP contributions", None)
     fobj = Param("fobj", "custom objective: (margin, y) -> (grad, hess)",
-                 None)
+                 None, transient=True)
     num_ingest_workers = Param(
         "num_ingest_workers", "host ingest/binning workers (1=serial)", 1,
         validator=in_range(0))
@@ -197,9 +200,34 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
             sigmoid=self.sigmoid, seed=self.seed,
             early_stopping_round=self.early_stopping_round,
             metric=self.metric, boost_from_average=self.boost_from_average,
+            categorical_features=tuple(
+                int(i) for i in (self.categorical_slot_indexes or ())),
             cat_smooth=self.cat_smooth, cat_l2=self.cat_l2,
             max_cat_threshold=self.max_cat_threshold,
             verbosity=self.verbosity)
+
+    def _resolve_categoricals(self, table: Table, params: BoostParams):
+        """Merge categorical_slot_names, resolved through the features
+        column's `feature_names` metadata, into the slot-index set."""
+        names = tuple(self.categorical_slot_names or ())
+        if not names:
+            return params
+        feature_names = table.column_meta(self.features_col).get(
+            "feature_names")
+        if feature_names is None:
+            raise ValueError(
+                "categorical_slot_names given but the features column "
+                f"{self.features_col!r} carries no feature_names metadata; "
+                "use categorical_slot_indexes or attach names via "
+                "Table.with_column_meta")
+        name_to_idx = {nm: i for i, nm in enumerate(feature_names)}
+        missing = [nm for nm in names if nm not in name_to_idx]
+        if missing:
+            raise KeyError(f"categorical_slot_names not in feature_names: "
+                           f"{missing}")
+        merged = tuple(sorted(set(params.categorical_features)
+                              | {name_to_idx[nm] for nm in names}))
+        return dataclasses.replace(params, categorical_features=merged)
 
     def _split_validation(self, table: Table):
         vcol = self.validation_indicator_col
@@ -228,9 +256,10 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
             # the training rows' ids (the reference passes the whole
             # table's: ROADMAP Queue 3 (n))
             group = group[~_host(table[self.validation_indicator_col], bool)]
-        return fit_booster(x, y, self._boost_params(objective, num_class),
-                           weights=w, init_scores=init, valid=valid,
-                           group=group, device=self.device)
+        params = self._resolve_categoricals(
+            table, self._boost_params(objective, num_class))
+        return fit_booster(x, y, params, weights=w, init_scores=init,
+                           valid=valid, group=group, device=self.device)
 
 
 class _GBDTModelBase(Model, HasFeaturesCol, HasPredictionCol):
@@ -243,6 +272,15 @@ class _GBDTModelBase(Model, HasFeaturesCol, HasPredictionCol):
         super().__init__(**kw)
         self._booster = booster
         self._init_score = init_score
+
+    def _get_state(self):
+        d = self._booster.to_dict()
+        d["init_score"] = np.float64(self._init_score)
+        return d
+
+    def _set_state(self, s):
+        self._init_score = float(np.asarray(s.pop("init_score")))
+        self._booster = Booster.from_dict(s)
 
     @property
     def booster(self) -> Booster:

@@ -11,9 +11,9 @@ hess, because user sample weights must not change data counts.
 Two functions, each with a plain version here and a CUDA kernel in
 `histogram_cuda.py`:
 
-- the scatter histogram (`_torch_hist`, one `index_add_` per statistic,
-  mirroring the reference's `_xla_hist`; kernel `hist_tiled`), f32
-  throughout;
+- the scatter histogram (`_torch_hist`, one `index_add_` per statistic
+  into per-row-block partial histograms that are then added, mirroring
+  the reference's `_xla_hist`; kernel `hist_tiled`), f32 throughout;
 - the planes histogram (`_torch_hist_planes`; kernel `hist_planes`),
   taken when the fit built a plan (`build_hist_plan`, under
   `MMLSPARK_TPU_HIST=planes`) and the level has m <= `PLANES_M_MAX`
@@ -33,6 +33,13 @@ import torch
 # levels with more nodes than this take the scatter kernels even when the
 # fit built a plan (the reference's `histogram_pallas.PLANES_M_MAX`)
 PLANES_M_MAX = 4
+
+# `_torch_hist` sums rows in contiguous blocks of at least this many rows
+# (one block up to it), at most _PLAIN_BLOCKS of them, with at most
+# _PLAIN_CELLS partial-histogram cells in all
+_PLAIN_BLOCK_ROWS = 1 << 14
+_PLAIN_BLOCKS = 1024
+_PLAIN_CELLS = 1 << 25
 
 
 def plan_lo_bins(n_bins: int) -> int:
@@ -98,21 +105,34 @@ def _torch_hist(bins, grad, hess, node_local, active, n_nodes: int,
                 n_bins: int, count_w=None):
     """Plain version: one `index_add_` per statistic over the key
     ((node * F) + f) * B + bin. Inactive rows go to one extra slot that is
-    sliced off (the reference drops them as out-of-range scatter ids)."""
+    sliced off (the reference drops them as out-of-range scatter ids).
+
+    Past `_PLAIN_BLOCK_ROWS` rows, rows are added in contiguous row
+    blocks, each into its own partial histogram, and the partials are
+    then summed, as the kernel sums per block before its flush. One f32 cell that takes
+    millions of rows one at a time drifts: on an H100 at 8M rows with a
+    category holding half of them, a single index_add_ was off by 6e-3 of
+    sum |grad| (`chip_smoke.py` [categorical] prints it)."""
     n, f = bins.shape
     dev = bins.device
     num_segments = n_nodes * f * n_bins
+    blocks = max(1, min(-(-n // _PLAIN_BLOCK_ROWS), _PLAIN_BLOCKS,
+                        _PLAIN_CELLS // (num_segments + 1)))
     feat_ids = torch.arange(f, dtype=torch.int64, device=dev)[None, :]
     keys = ((node_local.to(torch.int64)[:, None] * f + feat_ids) * n_bins
             + bins.to(torch.int64))
     keys = torch.where(active[:, None], keys,
-                       torch.full_like(keys, num_segments)).reshape(-1)
+                       torch.full_like(keys, num_segments))
+    block = torch.arange(n, dtype=torch.int64, device=dev) * blocks // n
+    keys += (block * (num_segments + 1))[:, None]
+    keys = keys.reshape(-1)
 
     def seg(vals):
-        out = torch.zeros(num_segments + 1, dtype=torch.float32, device=dev)
-        out.index_add_(0, keys, vals.to(torch.float32)[:, None]
-                       .expand(n, f).reshape(-1))
-        return out[:num_segments].reshape(n_nodes, f, n_bins)
+        out = torch.zeros((blocks, num_segments + 1), dtype=torch.float32,
+                          device=dev)
+        out.view(-1).index_add_(0, keys, vals.to(torch.float32)[:, None]
+                                .expand(n, f).reshape(-1))
+        return out[:, :num_segments].sum(0).reshape(n_nodes, f, n_bins)
 
     cnt = (torch.ones_like(hess, dtype=torch.float32) if count_w is None
            else count_w.to(torch.float32))

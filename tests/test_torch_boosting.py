@@ -215,8 +215,7 @@ def test_no_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("params", [
-    dict(categorical_features=(1,)), dict(init_booster="a Booster"),
-    dict(callbacks="a Callbacks")])
+    dict(init_booster="a Booster"), dict(callbacks="a Callbacks")])
 def test_unported_params_raise(params):
     """Settings of later slices raise, naming their ROADMAP item; a
     BoostParams field goes to BoostParams, the rest to fit_booster."""
@@ -233,7 +232,7 @@ def test_unported_params_raise(params):
     dict(checkpoint_dir="ck"), dict(out_of_core=True),
     dict(num_ingest_workers=2),
     dict(parallelism="voting_parallel", num_tasks=2),
-    dict(categorical_slot_indexes=(0,)), dict(features_shap_col="shap"),
+    dict(features_shap_col="shap"),
     dict(quality_profile=True)])
 def test_unported_estimator_params_raise(param):
     x, y = _data("binary", n=200)

@@ -104,3 +104,31 @@ def test_unknown_device_raises():
     args = _data(100, 2, 1, 16)
     with pytest.raises(ValueError, match="no histogram path"):
         _port(args, 1, 16, None, device="meta")
+
+
+def test_plain_sums_row_blocks_past_block_size():
+    """Past `_PLAIN_BLOCK_ROWS` rows the plain version adds per row block
+    and then over blocks. With a bin holding half the rows and binary
+    gradients at their first iteration (two values, so each f32 rounding
+    has one sign), it stays within 5e-5 of sum |stat| of a float64 sum,
+    half of `chip_smoke._HIST_RTOL_OF_ABS_SUM`; counts exact."""
+    n, f, m, b = 3 * port._PLAIN_BLOCK_ROWS + 5, 3, 2, 64
+    rng = np.random.default_rng(7)
+    bins = np.where(rng.random((n, f)) < 0.5, 0,
+                    rng.integers(0, b, (n, f))).astype(np.uint8)
+    y = rng.random(n) < 0.4
+    grad = np.where(y, 0.6 - 1.0, 0.6).astype(np.float32)
+    hess = np.full(n, 0.24, np.float32)
+    node = rng.integers(0, m, n).astype(np.int32)
+    got = _port((bins, grad, hess, node, np.ones(n, bool), None), m, b,
+                None)
+    keys = ((node[:, None] * f + np.arange(f)) * b + bins).reshape(-1)
+    for stat, g in zip((grad, hess), got[:2]):
+        vals = np.repeat(stat.astype(np.float64), f)
+        exact = np.bincount(keys, vals, m * f * b).reshape(m, f, b)
+        mag = np.bincount(keys, np.abs(vals), m * f * b).reshape(m, f, b)
+        err = np.abs(g.numpy() - exact) / np.maximum(mag, 1e-30)
+        assert err.max() < 5e-5, err.max()
+    np.testing.assert_array_equal(
+        got[2].numpy(), np.bincount(keys, minlength=m * f * b)
+        .reshape(m, f, b))

@@ -20,6 +20,8 @@ def test_import_loads_no_jax():
             "import mmlspark_tpu_torch\n"
             "import mmlspark_tpu_torch.models.gbdt\n"
             "import mmlspark_tpu_torch.models.gbdt.convert\n"
+            "import mmlspark_tpu_torch.core.serialize\n"
+            "import mmlspark_tpu_torch.core.model_equality\n"
             "import mmlspark_tpu_torch.ops.histogram_cuda\n"
             "import mmlspark_tpu_torch.models.dnn.transformer\n"
             "import mmlspark_tpu_torch.ops.flash_attention\n"
