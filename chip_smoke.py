@@ -143,6 +143,27 @@ Phases (any failure exits non-zero before the last line is printed):
      card from `feature_names` metadata, saved, loaded and scored in a
      subprocess that has not imported the estimators: predictions and
      probabilities bit-identical, save/load seconds and bytes.
+  12. resume (slice 12): the fixed-order histogram kernels
+     (`hist_tiled_fixed`, `hist_planes_fixed`) at the headline's levels,
+     the ranker's widest level, the deep fit's split levels, the leaf
+     sums' shape and the planes levels: two launches equal bit for bit,
+     with and without count_w, and `_check_hist`'s limits against the
+     plain versions; times beside the atomic kernels, the plain versions,
+     one `index_add_` and the bounds, with the plans and scratch bytes.
+     Whether `torch.cumsum` repeated itself on the split search's
+     lattices. The checkpointed headline fit (bagging 0.8/1,
+     feature_fraction 0.8, a checkpoint every 3 iterations) beside the
+     default fit, 3 each, with exactly 60 `hist_tiled_fixed` launches and
+     no other, logloss/AUC within `_METRIC_TOL`, save seconds and bytes.
+     On the default route, under MMLSPARK_TPU_HIST=planes (40
+     `hist_planes_fixed` + 20 `hist_tiled_fixed`) and on the categorical
+     data: two uninterrupted checkpointed `GBDTClassifier` fits, a 6 -> 10
+     resume, and a subprocess SIGTERMed after its second checkpoint and
+     resumed in a fresh process, margins, split_feature, threshold and
+     leaf_value all equal bit for bit. The flagship bf16 LM: two steps,
+     `save_checkpoint`, a trainer of another seed restores: parameters
+     equal, the next loss within rtol 1e-6; save and restore seconds and
+     bytes. Checkpoints go to a temporary directory, deleted after.
 The headline fit (4) is timed 3 times (min and median), and every
 phase's seconds are printed.
 The kernel phase (3) also holds the flash backward kernels, dq and dk/dv,
@@ -164,6 +185,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -294,7 +316,9 @@ def build_phase():
 _BWD_MMA = re.compile(r"flash_bwd_(dq|dkv)_mmaI(13__nv_bfloat16|f)Li(\d+)E")
 _BWD_SPLIT3 = re.compile(r"flash_bwd_(dq|dkv)_split3ILi(\d+)E")
 _FWD_MMA = re.compile(r"flash_fwd_(mma|split3)ILi(\d+)ELb([01])E")
-_HIST_TILE = re.compile(r"hist_tile_kernelILb([01])E")
+_HIST_TILE = re.compile(r"hist_tile_kernelILb([01])ELb([01])E")
+# bytes of spill stores or loads allowed in hist_tile_kernel<false, true>
+_FIXED_SPILL_MAX = 4
 _HIST_PLANES = re.compile(r"hist_planes_kernelILi(\d+)ELi(\d)E")
 
 
@@ -320,10 +344,14 @@ def _fwd_mma_key(line):
 
 
 def _hist_tile_key(line):
-    """"cnt" or "no cnt" (with or without a count operand) of a tiled
-    histogram kernel named in a line of ptxas output, else None."""
+    """"cnt" or "no cnt" (with or without a count operand), and " fixed"
+    for the fixed-order form, of a tiled histogram kernel named in a line
+    of ptxas output, else None."""
     m = _HIST_TILE.search(line)
-    return ("cnt" if m.group(1) == "1" else "no cnt") if m else None
+    if m is None:
+        return None
+    return ("cnt" if m.group(1) == "1" else "no cnt") + \
+        (" fixed" if m.group(2) == "1" else "")
 
 
 def _hist_planes_key(line):
@@ -422,10 +450,13 @@ def _fwd_build_checks(report):
 
 def _hist_build_checks(report):
     """The histogram kernels, from the built library. The tiled kernel: no
-    ptxas spills in either instantiation (with or without a count
-    operand); registers, and the shared memory and blocks per SM of the
-    planner's launches at the headline's shapes (8M x 32 x 64 bins, m =
-    1, 2, 4, 8) and at m=128, B=256 (`histogram_cuda.tile_occupancy`).
+    ptxas spills in any instantiation (atomic or fixed-order, with or
+    without a count operand) but the fixed-order one without a count, at
+    most `_FIXED_SPILL_MAX` bytes there; registers, and the
+    shared memory and blocks per SM of the planner's launches at the
+    headline's shapes (8M x 32 x 64 bins, m = 1, 2, 4, 8) and at m=128,
+    B=256 (`histogram_cuda.tile_occupancy`), and of the fixed-order
+    plans at the headline's, the leaf sums' and the ranker's shapes.
     The planes kernel: every instantiation (LO = 16 at HT = 1-4, LO = 64
     at HT = 1-2) holds tensor-core instructions, no shared-memory atomics
     and no ptxas spills; its registers, and the shared memory and blocks
@@ -442,8 +473,17 @@ def _hist_build_checks(report):
             n = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
             if any(n):
                 spills[fn] = n
-    if spills:
-        raise AssertionError(f"ptxas spills in hist_tile_kernel: {spills}")
+    # no instantiation may spill but the fixed-order one without a count
+    # (a 64-bit compare-and-swap loop per add), where ptxas stores and
+    # reloads one 4-byte value at any register budget: at most that
+    over = {k: v for k, v in spills.items()
+            if k != "no cnt fixed" or max(v) > _FIXED_SPILL_MAX}
+    if over:
+        raise AssertionError(f"ptxas spills in hist_tile_kernel (stores, "
+                             f"loads in bytes; 'no cnt fixed' may spill "
+                             f"{_FIXED_SPILL_MAX}): {over}")
+    log(f"[build] hist_tile_kernel spills (stores, loads in bytes): "
+        f"{spills if report is not None else 'unreported'}")
     occupancy = {}
     for m, b in ((1, 64), (2, 64), (4, 64), (8, 64), (128, 256)):
         plan = hc.plan_tiles(N_ROWS, N_FEAT, m, b, *hc._card(0))
@@ -451,6 +491,15 @@ def _hist_build_checks(report):
         occupancy[f"m={m} B={b}"] = dict(plan._asdict(), blocks_per_sm=blocks)
         log(f"[build] hist_tile_kernel m={m} B={b}: {plan}; {blocks} "
             f"block(s) per SM")
+    for n, f, m, b in ((N_ROWS, N_FEAT, 1, 64), (N_ROWS, N_FEAT, 8, 64),
+                       (N_ROWS, 1, 2 ** (DEPTH + 1) - 1, 1),
+                       (LTR_ROWS, LTR_FEAT, 64, 256)):
+        plan = hc.plan_tiles(n, f, m, b, *hc._card(0), fixed=True)
+        blocks = hc.tile_occupancy(plan, False, fixed=True)
+        occupancy[f"fixed n={n} F={f} m={m} B={b}"] = dict(
+            plan._asdict(), blocks_per_sm=blocks)
+        log(f"[build] hist_tile_kernel fixed-order n={n} F={f} m={m} "
+            f"B={b}: {plan}; {blocks} block(s) per SM")
     log(f"[build] hist_tile_kernel registers: "
         f"{regs if report is not None else 'already built'}")
     planes = _mma_build_checks("histogram", report, _hist_planes_key,
@@ -478,7 +527,7 @@ def _hist_build_checks(report):
         planes_occ[f"m={m} B={b}"] = dict(plan._asdict(), blocks_per_sm=blocks)
         log(f"[build] hist_planes_kernel m={m} B={b}: {plan}; {blocks} "
             f"block(s) per SM")
-    return dict(registers=regs,
+    return dict(registers=regs, spills=spills,
                 spills_checked=report is not None, occupancy=occupancy,
                 planes=dict(sass={f"LO={lo} HT={ht}": ops
                                   for (lo, ht), ops in sorted(planes.items())},
@@ -721,7 +770,8 @@ def plain_histograms():
     from mmlspark_tpu_torch.ops import histogram as hist
 
     def plain(bins, grad, hess, node_local, active, n_nodes, n_bins,
-              count_w=None, lo_planes=None, plane_lo=0):
+              count_w=None, lo_planes=None, plane_lo=0, fixed_order=False):
+        # the plain versions add in a fixed order already
         if hist.planes_route(n_nodes, n_bins, lo_planes is not None):
             return hist._torch_hist_planes(
                 bins, grad, hess, node_local, active, n_nodes, n_bins,
@@ -898,8 +948,8 @@ def main_path_phase(dev, data, profile: bool):
     fit_booster(x, y, deep, prebinned=staged, device=dev)
     torch.cuda.synchronize()
     deep_s = time.perf_counter() - t0
-    deep_launches = dict(hc.launches)
-    if deep_launches != dict(hist_tiled=11, hist_planes=0):
+    deep_launches = {k: v for k, v in hc.launches.items() if v}
+    if deep_launches != dict(hist_tiled=11):
         raise AssertionError(f"deep fit launches {deep_launches}, expected "
                              f"11 of the tiled kernel")
     log(f"[main] max_depth=11 fit, 1 iteration: {deep_s:.3f} s; launches "
@@ -2508,6 +2558,11 @@ def stats_bwd_kernel_phase(dev):
 LM = dict(vocab_size=32768, d_model=1024, n_heads=8, n_layers=12,
           d_ff=4096, max_len=16384)
 LM_SEQ, LM_STEPS = 16384, 3
+# the restored flagship LM's fourth-step loss against the original's: the
+# reference's rtol 1e-6 holds for the third step, whose weights are the
+# checkpoint's; the fourth's come from step 3's atomic gradient sums (the
+# embedding's and the log-probabilities' backward) in a bf16 model
+LM_STEP4_RTOL = 1e-4
 # the S=2048 flash-vs-dense SGD check, per leaf: max |w_flash - w_dense|
 # <= this x max |w_dense - w_0|. f32: the two attentions sum the same
 # exact products in other orders. bf16: the flash backward rounds ds to
@@ -2846,6 +2901,478 @@ def ring_train_phase(dev, cp1_first_loss: float, profile: bool):
 # the f32 encode_long, the f32 LM step, the headline fit and the planes
 # fit, each tree in its own process, in the order parent, change, change,
 # parent
+# ------------------------------------------------------------ [resume]
+# slice 12: checkpoint/resume on the card. The fixed-order kernels'
+# cases (kind, n, F, B, m): the headline's levels (8M x 32, 64 bins), the
+# ranker's widest level (2,270,296 x 137, 256 bins, m = 64), the deep
+# fit's split levels (m = 128 at B = 256, m = 512), the leaf sums (one
+# feature, one bin, a node per heap node of a depth-5 tree) and the planes
+# form at the [planes] phase's levels
+FIXED_CASES = ([("tiled", N_ROWS, N_FEAT, 64, m) for m in (1, 2, 4, 8)]
+               + [("tiled", LTR_ROWS, LTR_FEAT, 256, 64),
+                  ("tiled", N_ROWS, N_FEAT, 256, 128),
+                  ("tiled", N_ROWS, N_FEAT, 64, 512),
+                  ("leaf", N_ROWS, 1, 1, 2 ** (DEPTH + 1) - 1)]
+               + [("planes", N_ROWS, N_FEAT, b, m) for m, b in PLANES_CASES])
+# the checkpointed fits: the headline's with bagging 0.8/1 and
+# feature_fraction 0.8 (so the draws must line up across a resume) and a
+# checkpoint every 3 iterations
+RESUME_INTERVAL = 3
+RESUME_PARAMS = dict(num_iterations=N_ITERS, max_depth=DEPTH, num_leaves=31,
+                     max_bin=MAX_BIN, min_data_in_leaf=20,
+                     bagging_fraction=0.8, bagging_freq=1,
+                     feature_fraction=0.8,
+                     checkpoint_interval=RESUME_INTERVAL)
+# a subprocess fit that SIGTERMs itself right after its second periodic
+# checkpoint (phase "kill") or resumes from the directory (phase
+# "resume"); it writes the booster and its margins
+_RESUME_PROC = """
+import json, os, signal, sys
+import numpy as np
+import torch
+sys.path.insert(0, {here!r})
+from mmlspark_tpu_torch.core import Table
+from mmlspark_tpu_torch.models.gbdt import GBDTClassifier
+from mmlspark_tpu_torch.utils.checkpoint import CheckpointManager
+
+phase, xfile, yfile, ckdir, params, device, out = sys.argv[1:8]
+if phase == "kill":
+    orig = CheckpointManager.save
+    def save(self, step, payload, prune_newer=False):
+        orig(self, step, payload, prune_newer=prune_newer)
+        if step >= 2 * {interval} and not payload.get("final"):
+            os.kill(os.getpid(), signal.SIGTERM)
+    CheckpointManager.save = save
+x, y = np.load(xfile, mmap_mode="r"), np.load(yfile)
+model = GBDTClassifier(checkpoint_dir=ckdir, checkpoint_async=False,
+                       device=device, **json.loads(params)).fit(
+    Table({{"features": x, "label": y}}))
+raw = model.booster.raw_score(x, model._init_score, device=device)
+np.savez(out, raw=raw, booster=model.booster.save_model_string())
+"""
+
+
+def _fixed_inputs(gen, dev, kind, n, f, b, m):
+    """`_hist_inputs`, with the leaf sums' layout for kind "leaf": every
+    row active at its heap node, one zero bin column."""
+    import torch
+    inputs = _hist_inputs(gen, dev, n, f, b, m)
+    if kind != "leaf":
+        return inputs
+    node = torch.randint(0, m, (n,), dtype=torch.int32, device=dev,
+                         generator=gen)
+    return (inputs[0], inputs[1], inputs[2], node, node >= 0, inputs[5])
+
+
+def fixed_kernel_phase(dev):
+    """Each fixed-order kernel (`hist_tiled_fixed`, `hist_planes_fixed`)
+    at every case of `FIXED_CASES`: two launches equal bit for bit
+    (`torch.equal`), with and without count_w; counts exact and grad/hess
+    within `_check_hist`'s limits of the plain version (`_torch_hist`,
+    `_torch_hist_planes`); times beside the atomic kernel on the same
+    inputs, the plain version, one `index_add_` and the bound; the plan
+    and the scratch (the int64 sums)."""
+    import torch
+    from mmlspark_tpu_torch.ops import histogram as hist
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+    gen = torch.Generator(device=dev).manual_seed(12)
+    results = []
+    for kind, n, f, b, m in FIXED_CASES:
+        inputs = _fixed_inputs(gen, dev, kind, n, f, b, m)
+        bins, grad, hess, node, active, cw = inputs
+        kw, lo = {}, 0
+        if kind == "planes":
+            lo = hist.plan_lo_bins(b)
+            kw = dict(lo_planes=hist.build_hist_plan(bins, b), plane_lo=lo)
+            fixed, atomic = hc.hist_planes_fixed, hc.hist_planes
+            plain = hist._torch_hist_planes
+            plan = hc.plan_planes(n, f, m, b, lo, *hc._card(0))
+            abs_grad = hist._torch_hist(bins, _bf16(grad).abs(), hess, node,
+                                        active, m, b)[0]
+        else:
+            fixed, atomic, plain = (hc.hist_tiled_fixed, hc.hist_tiled,
+                                    hist._torch_hist)
+            plan = hc.plan_tiles(n, f, m, b, *hc._card(0), fixed=True)
+            abs_grad = hist._torch_hist(bins, grad.abs(), hess, node, active,
+                                        m, b)[0]
+        err = 0.0
+        for w in (None, cw):
+            label = f"{fixed.__name__} {kind} n={n} F={f} B={b} m={m} " \
+                f"count_w {'set' if w is not None else 'None'}"
+            got = fixed(*inputs[:5], m, b, count_w=w, **kw)
+            again = fixed(*inputs[:5], m, b, count_w=w, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"{label}: two launches differ")
+            want = plain(*inputs[:5], m, b, count_w=w, **kw)
+            err = max(err, _check_hist(got, want, abs_grad, label))
+            del got, again, want
+        del abs_grad
+        ms = timed(lambda: fixed(*inputs[:5], m, b, **kw))
+        atomic_ms = timed(lambda: atomic(*inputs[:5], m, b, **kw))
+        plain_ms = timed(lambda: plain(*inputs[:5], m, b, **kw), warmup=1,
+                         reps=3)
+        if kind == "planes":
+            lib = _index_add_call(bins, _bf16(grad), _bf16(hess), node,
+                                  active, torch.ones_like(cw), m, b)
+        else:
+            lib = _index_add_call(*inputs[:5], torch.ones_like(cw), m, b)
+        library_ms = timed(lib, warmup=1, reps=5)
+        del lib
+        n_active = int(active.sum())
+        bound_ms, bound_by = (
+            _planes_bound(n, n_active, f, b, m, lo, with_count=False)
+            if kind == "planes" else
+            _bound(n, n_active, f, b, m, with_count=False))
+        scratch = hc.fixed_scratch_bytes(m, f, b)
+        log(f"[resume] {fixed.__name__} {kind} n={n} F={f} B={b} m={m}: "
+            f"two launches equal, match with and without count_w (counts "
+            f"exact, max abs err {err:.3g}); kernel {ms:.3f} ms, atomic "
+            f"{atomic.__name__} {atomic_ms:.3f} ms ({ms / atomic_ms:.2f}x), "
+            f"plain {plain_ms:.3f} ms, one index_add_ {library_ms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}); scratch {scratch} B; "
+            f"{plan}")
+        results.append(dict(
+            kernel=fixed.__name__, kind=kind, n=n, f=f, b=b, m=m, lo=lo,
+            max_abs_err=err, ms=ms, atomic_ms=atomic_ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            scratch_bytes=scratch, plan=plan._asdict()))
+        del inputs, bins, grad, hess, node, active, cw, kw
+        torch.cuda.empty_cache()
+    return results
+
+
+def _cumsum_repeats(dev):
+    """Whether `torch.cumsum` along the last axis of the split search's
+    (m, F, B) lattices gave one result over repeated calls on this card:
+    the fixed-order fit takes it as it is (`trainer` module docstring).
+    Returns the number of (shape, call) pairs that differed from the
+    first call."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(5)
+    differ = 0
+    for shape in ((16, N_FEAT, 64), (64, LTR_FEAT, 256), (16, 40, 64)):
+        x = torch.randn(shape, device=dev, generator=gen)
+        first = torch.cumsum(x, dim=-1)
+        differ += sum(not torch.equal(first, torch.cumsum(x, dim=-1))
+                      for _ in range(50))
+    return differ
+
+
+def _ckpt_fit(x, y, ckdir, dev, **kw):
+    """A checkpointed `GBDTClassifier` fit on `dev` (periodic writes in
+    the background, as by default); returns (model, s)."""
+    import torch
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.models.gbdt import GBDTClassifier
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = GBDTClassifier(checkpoint_dir=ckdir, device=str(dev),
+                           **{**RESUME_PARAMS, **kw}).fit(
+        Table({"features": x, "label": y}))
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def _same_fit(a_raw, a_booster, b_raw, b_booster, what):
+    """Margins, split features, thresholds and leaf values equal bit for
+    bit, or fail naming `what`."""
+    if not np.array_equal(a_raw, b_raw):
+        raise AssertionError(f"{what}: margins differ at "
+                             f"{int((a_raw != b_raw).sum())} rows")
+    for field in ("split_feature", "threshold", "leaf_value"):
+        if not np.array_equal(getattr(a_booster, field),
+                              getattr(b_booster, field)):
+            raise AssertionError(f"{what}: {field} differs")
+
+
+# the histogram launches of one checkpointed fit on each route: a tree's
+# five levels and its leaf sums, the planes route's three shallowest
+# levels (m = 1, 1, 2, 4) through the planes form
+_RESUME_LAUNCHES = {
+    "default": dict(hist_tiled_fixed=N_ITERS * (DEPTH + 1)),
+    "planes": dict(hist_planes_fixed=N_ITERS * 4,
+                   hist_tiled_fixed=N_ITERS * 2),
+    "categorical": dict(hist_tiled_fixed=N_ITERS * (DEPTH + 1))}
+
+
+def _resume_route(dev, tmp, route, x, y, xfile, yfile, **kw):
+    """The resume contract on one route (`route`: a key of
+    `_RESUME_LAUNCHES`; MMLSPARK_TPU_HIST is set by the caller): two
+    uninterrupted checkpointed fits (the first with the launch counts set
+    to 0 just before and read just after), a fit of 6 iterations resumed
+    to 10, and a subprocess SIGTERMed after its second periodic checkpoint
+    and resumed in a fresh process, all equal bit for bit. Returns the
+    seconds and the launches."""
+    from mmlspark_tpu_torch.models.gbdt import Booster
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+    from mmlspark_tpu_torch.utils.checkpoint import CheckpointManager
+    d = os.path.join(tmp, route)
+    hc.reset_launches()
+    fits = [_ckpt_fit(x, y, os.path.join(d, "full0"), dev, **kw)]
+    launches = {k: v for k, v in hc.launches.items() if v}
+    if launches != _RESUME_LAUNCHES[route]:
+        raise AssertionError(f"{route}: a checkpointed fit launched "
+                             f"{launches}, expected "
+                             f"{_RESUME_LAUNCHES[route]}")
+    fits.append(_ckpt_fit(x, y, os.path.join(d, "full1"), dev, **kw))
+    raws = [m.booster.raw_score(x, m._init_score, device=dev)
+            for m, _ in fits]
+    _same_fit(raws[0], fits[0][0].booster, raws[1], fits[1][0].booster,
+              f"{route}: two uninterrupted checkpointed fits")
+    ck6 = os.path.join(d, "six")
+    _ckpt_fit(x, y, ck6, dev, num_iterations=6, **kw)
+    resumed, resume_s = _ckpt_fit(x, y, ck6, dev, **kw)
+    if resumed.booster.n_trees != N_ITERS:
+        raise AssertionError(f"{route}: the resumed fit has "
+                             f"{resumed.booster.n_trees} trees")
+    _same_fit(raws[0], fits[0][0].booster,
+              resumed.booster.raw_score(x, resumed._init_score, device=dev),
+              resumed.booster, f"{route}: 6 -> {N_ITERS} resume")
+
+    script = os.path.join(d, "fit.py")
+    with open(script, "w") as fh:
+        fh.write(_RESUME_PROC.format(here=HERE, interval=RESUME_INTERVAL))
+    params = json.dumps({k: list(v) if isinstance(v, tuple) else v
+                         for k, v in {**RESUME_PARAMS, **kw}.items()})
+    ck = os.path.join(d, "killed")
+    procs = {}
+    for phase in ("kill", "resume"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, script, phase, xfile, yfile, ck, params,
+             str(dev), os.path.join(d, f"{phase}.npz")],
+            capture_output=True, text=True, timeout=600)
+        procs[phase] = (proc.returncode, time.perf_counter() - t0)
+        if phase == "kill":
+            steps = CheckpointManager(ck).all_steps()
+            if proc.returncode != -signal.SIGTERM or \
+                    steps != [RESUME_INTERVAL, 2 * RESUME_INTERVAL]:
+                raise AssertionError(
+                    f"{route}: the killed fit exited {proc.returncode} with "
+                    f"steps {steps}: {proc.stderr[-2000:]}")
+        elif proc.returncode != 0:
+            raise AssertionError(f"{route}: the resumed process failed: "
+                                 f"{proc.stderr[-2000:]}")
+    out = np.load(os.path.join(d, "resume.npz"))
+    _same_fit(raws[0], fits[0][0].booster, out["raw"],
+              Booster.load_model_string(str(out["booster"])),
+              f"{route}: SIGTERM kill and resume in a fresh process")
+    fit_s = [s for _, s in fits]
+    log(f"[resume] {route}: two uninterrupted checkpointed GBDTClassifier "
+        f"fits ({', '.join(f'{t:.3f}' for t in fit_s)} s, binning "
+        f"included), the 6 -> {N_ITERS} resume ({resume_s:.3f} s) and the "
+        f"SIGTERM kill (exit {procs['kill'][0]}, {procs['kill'][1]:.1f} s, "
+        f"steps {RESUME_INTERVAL} and {2 * RESUME_INTERVAL} on disk) and "
+        f"resume in a fresh process ({procs['resume'][1]:.1f} s): margins, "
+        f"split_feature, threshold and leaf_value equal bit for bit; "
+        f"launches {launches} a fit")
+    return dict(fit_s=fit_s, resume_s=resume_s, launches=launches,
+                proc_s={k: v[1] for k, v in procs.items()})
+
+
+def _checkpointed_fit_cost(dev, data, tmp, default_times):
+    """The checkpointed headline fit against the default one, both
+    `prebinned` with `fit_booster`, FIT_REPEATS each in this run: with a
+    checkpoint callback that writes every RESUME_INTERVAL iterations
+    (`CheckpointManager.save` on this thread: the booster and the 32 MB
+    margin), and with one that writes nothing (fixed order alone). Counts
+    set to 0 just before a counted checkpointed fit and read just after.
+    Train logloss/AUC of the checkpointed fit within `_METRIC_TOL` of the
+    default fit's. Returns the numbers."""
+    import shutil as _shutil
+
+    import torch
+    from mmlspark_tpu_torch.models.gbdt import BoostParams, fit_booster
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+    from mmlspark_tpu_torch.utils.checkpoint import CheckpointManager
+    x, y, staged, d_y = data["x"], data["y"], data["staged"], data["d_y"]
+    params = BoostParams(objective="binary", **{
+        k: v for k, v in RESUME_PARAMS.items() if k != "checkpoint_interval"})
+    saves = []
+
+    def write(ckdir):
+        mgr = CheckpointManager(ckdir)
+
+        def ck(it, booster, base, final=False, margin=None, rng_key=None):
+            t0 = time.perf_counter()
+            mgr.save(it, {"booster": booster.save_model_string(),
+                          "iteration": it, "base": float(base),
+                          "final": bool(final), "margin": margin})
+            saves.append((time.perf_counter() - t0, sum(
+                os.path.getsize(os.path.join(mgr._step_dir(it), fn))
+                for fn in os.listdir(mgr._step_dir(it)))))
+        return ck
+
+    def fit(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fit_booster(x, y, params, prebinned=staged, device=dev,
+                          checkpoint_interval=RESUME_INTERVAL, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def nothing(*a, **k):
+        return None
+    default = [fit()[1] for _ in range(FIT_REPEATS)]
+    fixed_only = [fit(checkpoint_fn=nothing)[1] for _ in range(FIT_REPEATS)]
+    written = []
+    for i in range(FIT_REPEATS):
+        ckdir = os.path.join(tmp, f"cost{i}")
+        written.append(fit(checkpoint_fn=write(ckdir))[1])
+        _shutil.rmtree(ckdir)
+    torch.cuda.synchronize()
+    hc.reset_launches()
+    (booster, base, _), _ = fit(checkpoint_fn=nothing)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in hc.launches.items() if v}
+    want = dict(hist_tiled_fixed=N_ITERS * (DEPTH + 1))
+    if launches != want:
+        raise AssertionError(f"checkpointed fit launched {launches}, "
+                             f"expected {want}")
+    (ref, ref_base, _), _ = fit()
+    got_m = booster.raw_score_device(x, device=dev)[:, 0] + base
+    ref_m = ref.raw_score_device(x, device=dev)[:, 0] + ref_base
+    (ll, auc), (ref_ll, ref_auc) = _metrics(got_m, d_y), _metrics(ref_m, d_y)
+    if abs(ll - ref_ll) > _METRIC_TOL or abs(auc - ref_auc) > _METRIC_TOL:
+        raise AssertionError(f"checkpointed fit logloss/AUC {ll}/{auc} "
+                             f"against the default fit's {ref_ll}/{ref_auc}")
+    med = {k: float(np.median(v)) for k, v in (
+        ("default", default), ("fixed_only", fixed_only),
+        ("written", written))}
+    save_s = float(np.median([t for t, _ in saves]))
+    save_bytes = int(np.median([nb for _, nb in saves]))
+    log(f"[resume] headline fit (prebinned, bagging 0.8/1, "
+        f"feature_fraction 0.8), {FIT_REPEATS} each: default "
+        f"{', '.join(f'{t:.4f}' for t in default)} s (median "
+        f"{med['default']:.4f}; [main]'s unbagged median "
+        f"{float(np.median(default_times)):.4f}); fixed order, no write "
+        f"{', '.join(f'{t:.4f}' for t in fixed_only)} s (median "
+        f"{med['fixed_only']:.4f}, {med['fixed_only'] / med['default']:.3f}x"
+        f"); checkpointed every {RESUME_INTERVAL} "
+        f"{', '.join(f'{t:.4f}' for t in written)} s (median "
+        f"{med['written']:.4f}, {med['written'] / med['default']:.3f}x); "
+        f"a save {save_s:.4f} s, {save_bytes} bytes (median of "
+        f"{len(saves)}); launches {launches} a fit; logloss {ll:.6f} / "
+        f"{ref_ll:.6f}, AUC {auc:.6f} / {ref_auc:.6f} (checkpointed / "
+        f"default)")
+    return dict(medians=med, default=default, fixed_only=fixed_only,
+                written=written, save_s=save_s, save_bytes=save_bytes,
+                launches=launches, logloss=(ll, ref_ll), auc=(auc, ref_auc))
+
+
+def _lm_resume(dev, tmp):
+    """The flagship bf16 LM (`PipelinedLMTrainer`, flash, remat=
+    "save_attn", Adam): two steps, `save_checkpoint`, a third and a
+    fourth step; a trainer of another seed restores: its parameters and
+    Adam's state (step count, exp_avg, exp_avg_sq) equal the saved ones
+    bit for bit, its third-step loss equals the original's within rtol
+    1e-6 (the reference's) and its fourth within `LM_STEP4_RTOL`: step 3
+    adds the embedding's and the log-probabilities' gradients with
+    atomics, as every step does, so step 4 starts from weights that may
+    differ in their last bits."""
+    import torch
+    from mmlspark_tpu_torch.models.dnn import PipelinedLMTrainer
+    from mmlspark_tpu_torch.models.dnn.lm_training import _adam_leaves
+    from mmlspark_tpu_torch.models.dnn.transformer import _flatten
+
+    def adam_state(t):
+        return [torch.as_tensor(x).clone() for x in _adam_leaves(t.params,
+                                                                  t._opt)]
+
+    def trainer(seed):
+        return PipelinedLMTrainer(
+            n_microbatches=1, attention="flash", optimizer="adam", seed=seed,
+            compute_dtype="bfloat16", remat="save_attn", device=dev, **LM)
+    toks = np.random.default_rng(0).integers(
+        0, LM["vocab_size"], size=(1, LM_SEQ)).astype(np.int32)
+    ckdir = os.path.join(tmp, "lm")
+    a = trainer(0)
+    a.step(toks)
+    a.step(toks)
+    saved = [t.detach().clone() for t in _flatten(a.params)]
+    saved_opt = adam_state(a)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.save_checkpoint(ckdir, 2)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(r, fn))
+                 for r, _, fns in os.walk(ckdir) for fn in fns)
+    want = [a.step(toks), a.step(toks)]
+    del a
+    torch.cuda.empty_cache()
+    b = trainer(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = b.restore_checkpoint(ckdir)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same = all(torch.equal(x, y) for x, y in zip(_flatten(b.params), saved))
+    got_opt = adam_state(b)
+    same_opt = (len(got_opt) == len(saved_opt) == 1 + 2 * len(saved)
+                and all(torch.equal(x, y) for x, y in zip(got_opt, saved_opt)))
+    del saved, saved_opt, got_opt
+    got = [b.step(toks), b.step(toks)]
+    del b
+    torch.cuda.empty_cache()
+    rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    log(f"[resume] flagship LM bf16 ({LM_SEQ} tokens): save_checkpoint "
+        f"{save_s:.2f} s, {nbytes} bytes; restore into a trainer of seed 1 "
+        f"{restore_s:.2f} s (step {step}), parameters equal to the saved "
+        f"ones: {same}, Adam's state: {same_opt}; step 3 loss {got[0]:.7f} against {want[0]:.7f} "
+        f"(relative {rel[0]:.3g}); step 4 {got[1]:.7f} against "
+        f"{want[1]:.7f} (relative {rel[1]:.3g}, the atomic gradient sums "
+        f"of step 3 between them)")
+    if (step != 2 or not same or not same_opt or not rel[0] <= 1e-6
+            or not rel[1] <= LM_STEP4_RTOL):
+        raise AssertionError("the flagship LM did not resume from its "
+                             "checkpoint")
+    return dict(save_s=save_s, restore_s=restore_s, bytes=nbytes,
+                losses=want, resumed_losses=got, rel=rel,
+                same_params=same, same_adam=same_opt)
+
+
+def resume_phase(dev, data, default_times):
+    """[resume]: the fixed-order kernels, then the GBDT resume contract on
+    the default route, the planes route and the categorical data, the
+    checkpointed fit's cost, and the flagship LM's save and restore; all
+    checkpoints in a temporary directory, deleted after."""
+    import tempfile
+
+    import torch
+    kernels = fixed_kernel_phase(dev)
+    differ = _cumsum_repeats(dev)
+    log(f"[resume] torch.cumsum over (m, F, B) lattices, 50 repeats of 3 "
+        f"shapes: {differ} differed from the first call")
+    if differ:
+        raise AssertionError("torch.cumsum did not repeat itself on the "
+                             "split search's lattices")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp:
+        cost = _checkpointed_fit_cost(dev, data, tmp, default_times)
+        routes = {}
+        cat = categorical_data(dev, data)
+        for route, dset, kw in (("default", data, {}),
+                                ("planes", data, {}),
+                                ("categorical", cat, dict(
+                                    categorical_slot_indexes=CAT_COLS))):
+            xfile = os.path.join(tmp, f"{route}_x.npy")
+            yfile = os.path.join(tmp, f"{route}_y.npy")
+            np.save(xfile, dset["x"])
+            np.save(yfile, dset["y"])
+            ctx = (env("MMLSPARK_TPU_HIST", "planes") if route == "planes"
+                   else contextlib.nullcontext())
+            with ctx:
+                routes[route] = _resume_route(dev, tmp, route, dset["x"],
+                                              dset["y"], xfile, yfile, **kw)
+            os.remove(xfile)
+            torch.cuda.empty_cache()
+        del cat
+        torch.cuda.empty_cache()
+        lm = _lm_resume(dev, tmp)
+    return dict(kernels=kernels, cumsum_differ=differ, cost=cost,
+                routes=routes, lm=lm)
+
+
 VERSUS_ORDER = ("parent", "change", "change", "parent")
 
 
@@ -2999,6 +3526,7 @@ def main(argv) -> int:
     modes = phase("boosting modes", modes_phase, dev, data)
     cat = phase("categorical", categorical_phase, dev, data,
                 paths["fit_times"], profile)
+    resume = phase("resume", resume_phase, dev, data, paths["fit_times"])
     del data
     torch.cuda.empty_cache()
     ranker = phase("ranker", ranker_phase, dev)
@@ -3094,6 +3622,36 @@ def main(argv) -> int:
                                        "max_abs_err", "vs_tiled")}
                     for r in pres]),
     ]
+    # the fixed-order forms: the headline's m=8 level and the planes
+    # form's m=4 level at 64 bins, as for their atomic kernels
+    fixed8 = [r for r in resume["kernels"] if r["kind"] == "tiled"
+              and r["m"] == 8 and r["b"] == MAX_BIN + 1][0]
+    fixed_planes4 = [r for r in resume["kernels"] if r["kind"] == "planes"
+                     and r["m"] == 4 and r["b"] == MAX_BIN + 1][0]
+    for name, row, replaces, path, launches in (
+            ("hist_tiled_fixed", fixed8, kernels[0]["replaces"],
+             "checkpointed headline fit (bagging 0.8/1, feature_fraction "
+             "0.8): its levels and leaf sums",
+             resume["cost"]["launches"]["hist_tiled_fixed"]),
+            ("hist_planes_fixed", fixed_planes4, kernels[2]["replaces"],
+             "checkpointed GBDTClassifier headline fit under "
+             "MMLSPARK_TPU_HIST=planes",
+             resume["routes"]["planes"]["launches"]["hist_planes_fixed"])):
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            path=path, launches=launches, passed=True,
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+            atomic_ms=row["atomic_ms"], scratch_bytes=row["scratch_bytes"],
+            plan=row["plan"], shape=dict(n=row["n"], f=row["f"], b=row["b"],
+                                         m=row["m"]),
+            launches_per_path={r: v["launches"].get(name, 0)
+                               for r, v in resume["routes"].items()},
+            per_case=[{k: r[k] for k in (
+                "kind", "n", "f", "b", "m", "ms", "atomic_ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by", "max_abs_err",
+                "scratch_bytes")} for r in resume["kernels"]
+                if r["kernel"] == name]))
     # the ring training path's pair: the diagonal, bf16 (the full pairs'
     # times are in `variants`)
     diag = [r for r in sres["pairs"] if r["pair"] == "diagonal"
@@ -3190,6 +3748,15 @@ def main(argv) -> int:
         f"{cat['pipeline']['save_s']:.4f} s, load "
         f"{cat['pipeline']['load_s']:.4f} s, {cat['pipeline']['bytes']} "
         f"bytes")
+    med = resume["cost"]["medians"]
+    log(f"[resume] checkpointed headline fit median {med['written']:.4f} s "
+        f"(fixed order alone {med['fixed_only']:.4f} s) against the "
+        f"default fit's {med['default']:.4f} s; save "
+        f"{resume['cost']['save_s']:.4f} s, {resume['cost']['save_bytes']} "
+        f"bytes; bit-identical resume on "
+        f"{', '.join(resume['routes'])}; LM save "
+        f"{resume['lm']['save_s']:.2f} s, restore "
+        f"{resume['lm']['restore_s']:.2f} s, {resume['lm']['bytes']} bytes")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; phases "
         + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     print(json.dumps({"kernels": kernels}))

@@ -7,8 +7,16 @@ the collectives; on one device that is one Adam step of the mean
 next-token cross-entropy of `transformer_apply` (causal, dense). It is
 the reference's own oracle for `PipelinedLMTrainer`.
 
-Not ported yet: a mesh (ROADMAP Queue 1 item 15), `run_stream` with its
-prefetcher and supervisor (item 17) and checkpoints (item 11).
+Step checkpoints of both LM trainers live here, as in the reference:
+`save_lm_checkpoint` / `restore_lm_checkpoint` over `utils.checkpoint`'s
+`CheckpointManager`, in the reference's payload (its `meta`, the params
+by `payload.tree_to_payload`, and the optimizer's leaves in
+`optax.adam`'s flatten order, count, mu..., nu..., which map to and from
+`torch.optim.Adam`'s `step`, `exp_avg` and `exp_avg_sq`), so a checkpoint
+written by either package restores in the other.
+
+Not ported yet: a mesh (ROADMAP Queue 1 item 15) and `run_stream` with its
+prefetcher and supervisor (item 17).
 """
 from __future__ import annotations
 
@@ -18,8 +26,10 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
-from .pp_training import CHECKPOINT_TODO, _leaves
-from .transformer import init_transformer, params_from_numpy, \
+from ...utils.checkpoint import CheckpointManager
+from .payload import tree_from_payload, tree_to_payload
+from .pp_training import _leaves
+from .transformer import _flatten, init_transformer, params_from_numpy, \
     transformer_apply
 
 MESH_TODO = ("ShardedLMTrainer on a mesh (the reference's GSPMD dp x tp "
@@ -95,7 +105,108 @@ class ShardedLMTrainer:
         raise NotImplementedError(RUN_STREAM_TODO)
 
     def save_checkpoint(self, directory: str, step: int) -> None:
-        raise NotImplementedError(CHECKPOINT_TODO)
+        """Params and optimizer state as checkpoint `step` of
+        `directory`."""
+        save_lm_checkpoint(directory, step, self.params, self._opt,
+                           self.meta)
 
     def restore_checkpoint(self, directory: str, step: int = None) -> int:
-        raise NotImplementedError(CHECKPOINT_TODO)
+        """Load params and optimizer state from the latest (or the given)
+        step into this trainer, in place; returns the step loaded."""
+        return restore_lm_checkpoint(directory, step, self.params,
+                                     self._opt, self.meta)
+
+
+def _adam_leaves(params, opt) -> list:
+    """The optimizer's state as `optax.adam`'s flattened state: [count,
+    mu leaves..., nu leaves...] in the params' flatten order (zeros before
+    the first step); [] for SGD, which keeps none."""
+    if not isinstance(opt, torch.optim.Adam):
+        return []
+    leaves = _flatten(params)
+    states = [opt.state.get(p, {}) for p in leaves]
+    count = int(states[0]["step"]) if states[0] else 0
+    mu = [s["exp_avg"] if s else torch.zeros_like(p)
+          for p, s in zip(leaves, states)]
+    nu = [s["exp_avg_sq"] if s else torch.zeros_like(p)
+          for p, s in zip(leaves, states)]
+    return [np.asarray(count, np.int32)] + mu + nu
+
+
+def lm_state_payload(params, opt, meta) -> dict:
+    """A trainer's live state as a checkpoint payload, the reference's
+    layout: `meta`, the params with their treedef (prefix "p"), and the
+    optimizer's leaves alone (prefix "o")."""
+    payload = {"meta": dict(meta)}
+    payload.update(tree_to_payload(params, "p"))
+    payload.update(tree_to_payload(_adam_leaves(params, opt), "o",
+                                   leaves_only=True))
+    return payload
+
+
+def save_lm_checkpoint(directory: str, step: int, params, opt,
+                       meta) -> None:
+    """Write the trainer's state as step `step` (shared by both
+    trainers: one implementation, one on-disk format)."""
+    CheckpointManager(directory).save(step, lm_state_payload(params, opt,
+                                                             meta))
+
+
+def restore_lm_checkpoint(directory: str, step, params, opt, meta) -> int:
+    """Load step `step` (None: the newest readable one, past a torn or
+    corrupt newest step) into the live params and optimizer; returns the
+    step loaded."""
+    mgr = CheckpointManager(directory)
+    if step is None:
+        payload, step = mgr.restore(with_step=True)
+    else:
+        payload = mgr.restore(step)
+    lm_state_from_payload(payload, params, opt, meta)
+    return step
+
+
+def lm_state_from_payload(payload, params, opt, meta) -> None:
+    """Apply a checkpoint payload to the live state in place: every param
+    leaf copied into its tensor (the optimizer keeps its references), the
+    optimizer's state rebuilt from `optax.adam`'s leaves. Refuses another
+    model config ("different model") and another layout ("parameter
+    leaves", shapes), as the reference does."""
+    saved_meta = payload.get("meta")
+    if saved_meta is not None and dict(saved_meta) != dict(meta):
+        raise ValueError(
+            f"checkpoint was saved with model config {saved_meta} but "
+            f"this trainer has {dict(meta)} — resuming would "
+            f"silently train a different model")
+    live = _flatten(params)
+    new = _flatten(tree_from_payload(payload, "p"))
+    if len(new) != len(live):
+        raise ValueError(
+            f"checkpoint has {len(new)} parameter leaves but this "
+            f"trainer expects {len(live)} — it was saved by a different "
+            f"architecture or trainer layout")
+    for i, (a, t) in enumerate(zip(new, live)):
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(
+                f"checkpoint parameter leaf {i} has shape {a.shape} but "
+                f"this trainer expects {tuple(t.shape)} — saved by a "
+                f"different architecture or trainer layout")
+    o = tree_from_payload(payload, "o", leaves_only=True)
+    want = 1 + 2 * len(live) if isinstance(opt, torch.optim.Adam) else 0
+    if len(o) != want:
+        raise ValueError(
+            f"checkpoint has {len(o)} optimizer leaves but this trainer's "
+            f"optimizer expects {want} — optimizer config changed since "
+            f"the save")
+    with torch.no_grad():
+        for a, t in zip(new, live):
+            t.copy_(torch.as_tensor(a, dtype=t.dtype))
+    if want:
+        count = float(np.asarray(o[0]))
+        n = len(live)
+        for i, t in enumerate(live):
+            opt.state[t] = {
+                "step": torch.tensor(count, dtype=torch.float32),
+                "exp_avg": torch.as_tensor(o[1 + i], dtype=t.dtype).to(
+                    t.device),
+                "exp_avg_sq": torch.as_tensor(o[1 + n + i],
+                                              dtype=t.dtype).to(t.device)}

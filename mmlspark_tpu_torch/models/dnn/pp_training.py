@@ -24,9 +24,12 @@ flash kernels take one (S, H, D) sequence, so a microbatch's sequences
 are looped over inside the attention sublayer (ROADMAP Queue 1 item 25:
 a batched kernel).
 
+Step checkpoints (`save_checkpoint` / `restore_checkpoint`) are
+`lm_training`'s, in the reference's format: the parameters live once, so
+the mesh's data and seq axes change nothing in them.
+
 Not ported yet: pipe and model axes of size > 1 (the GPipe schedule and
-the Megatron f/g operators, ROADMAP Queue 1 item 15) and checkpoints
-(items 11 and 22).
+the Megatron f/g operators, ROADMAP Queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -48,8 +51,6 @@ from .transformer import _layer_norm, init_transformer, params_from_numpy
 PIPE_TP_TODO = ("pipe and model axes of size > 1 (the GPipe schedule and "
                 "the Megatron f/g operators) are not ported yet: ROADMAP "
                 "Queue 1 item 15; the data and seq axes are")
-CHECKPOINT_TODO = ("LM trainer checkpoints are not ported yet: ROADMAP "
-                   "Queue 1 items 11 and 22")
 
 
 def _stack_layers(layers: list) -> dict:
@@ -336,7 +337,16 @@ class PipelinedLMTrainer:
         return float(loss)
 
     def save_checkpoint(self, directory: str, step: int) -> None:
-        raise NotImplementedError(CHECKPOINT_TODO)
+        """Params and optimizer state as checkpoint `step` of
+        `directory` (`lm_training.save_lm_checkpoint`)."""
+        from .lm_training import save_lm_checkpoint
+        save_lm_checkpoint(directory, step, self.params, self._opt,
+                           self.meta)
 
     def restore_checkpoint(self, directory: str, step: int = None) -> int:
-        raise NotImplementedError(CHECKPOINT_TODO)
+        """Load params and optimizer state from the latest (or the given)
+        step into this trainer, in place; returns the step loaded. A
+        differently seeded trainer continues the saved trajectory."""
+        from .lm_training import restore_lm_checkpoint
+        return restore_lm_checkpoint(directory, step, self.params,
+                                     self._opt, self.meta)

@@ -217,6 +217,80 @@ class Booster(NamedTuple):
     def load_model_string(cls, s: str) -> "Booster":
         return cls.from_dict(json.loads(s))
 
+    def merge(self, other: "Booster") -> "Booster":
+        """This ensemble's trees, then `other`'s: batch continuation and
+        checkpoint resume (the reference's `merge`). The shallower side is
+        padded to the deeper one's heap. An early-stopped `other` keeps
+        its truncation, offset by this ensemble's iterations. Raises for
+        two ensembles of different output or feature widths, and for
+        categorical words of different widths where the narrower side has
+        categorical splits: widening its words would move the bin its
+        unseen categories and NaN route by."""
+        if (self.n_classes != other.n_classes
+                or self.n_features != other.n_features):
+            raise ValueError(
+                f"cannot merge a booster of {other.n_classes} outputs x "
+                f"{other.n_features} features into one of "
+                f"{self.n_classes} x {self.n_features}")
+        md = max(self.max_depth, other.max_depth)
+        a, b = _pad_depth(self, md), _pad_depth(other, md)
+        per_iter = max(self.n_classes, 1)
+        best = (self.n_trees // per_iter + other.best_iteration
+                if other.best_iteration >= 0 else -1)
+        both_aux = (self.gain is not None and other.gain is not None
+                    and self.cover is not None and other.cover is not None)
+        ic = cw = None
+        if self.split_is_cat is not None or other.split_is_cat is not None:
+            w16 = max(a[7].shape[2], b[7].shape[2])
+            if any(side[7].shape[2] < w16 and side[6].any()
+                   for side in (a, b)):
+                raise ValueError(
+                    "cannot merge boosters with different categorical bin "
+                    f"widths ({a[7].shape[2] * 16} vs {b[7].shape[2] * 16} "
+                    "bins) when the narrower one contains categorical "
+                    "splits: unseen-category/NaN routing would change; "
+                    "retrain the continuation with the same max_bin")
+
+            def widen(w):
+                return np.pad(w, ((0, 0), (0, 0), (0, w16 - w.shape[2])))
+            ic = np.concatenate([a[6], b[6]])
+            cw = np.concatenate([widen(a[7]), widen(b[7])])
+        return Booster(
+            split_feature=np.concatenate([a[0], b[0]]),
+            threshold=np.concatenate([a[1], b[1]]),
+            split_bin=np.concatenate([a[2], b[2]]),
+            leaf_value=np.concatenate([a[3], b[3]]),
+            tree_class=np.concatenate([self.tree_class, other.tree_class]),
+            max_depth=md, n_classes=self.n_classes, objective=self.objective,
+            n_features=self.n_features, best_iteration=best,
+            gain=np.concatenate([a[4], b[4]]) if both_aux else None,
+            cover=np.concatenate([a[5], b[5]]) if both_aux else None,
+            split_is_cat=ic, cat_words=cw)
+
+
+def _pad_depth(b: Booster, max_depth: int):
+    """b's eight tree arrays (split_feature, threshold, split_bin,
+    leaf_value, gain, cover, split_is_cat, cat_words; absent ones as
+    zeros, cat_words of width 0) padded to the heap of `max_depth`: the
+    new deeper nodes are leaves (-1) that no row reaches."""
+    target = 2 ** (max_depth + 1) - 1
+    cur = b.split_feature.shape[1]
+    shape = (b.split_feature.shape[0], cur)
+    gain = b.gain if b.gain is not None else np.zeros(shape, np.float32)
+    cover = b.cover if b.cover is not None else np.zeros(shape, np.float32)
+    ic = (b.split_is_cat if b.split_is_cat is not None
+          else np.zeros(shape, bool))
+    cw = (b.cat_words if b.cat_words is not None
+          else np.zeros(shape + (0,), np.int32))
+    pad = target - cur
+
+    def p(a, fill):
+        return np.pad(a, ((0, 0), (0, pad)), constant_values=fill)
+    return (p(b.split_feature, -1), p(b.threshold, 0.0),
+            p(b.split_bin, 0), p(b.leaf_value, 0.0),
+            p(gain, 0.0), p(cover, 0.0), p(ic, False),
+            np.pad(cw, ((0, 0), (0, pad), (0, 0))))
+
 
 def _raw_to_cat_bin_np(xf: np.ndarray, w16: int) -> np.ndarray:
     """`trainer.raw_to_cat_bin` in numpy, any shape: the one host copy of

@@ -17,10 +17,23 @@ Random draws come from one `torch.Generator` on the fit's device, seeded
 anew each iteration from (`seed`, iteration): an iteration's bagging,
 GOSS, feature and drop draws depend on the seed and the iteration alone.
 They cannot match the reference's threefry streams (ROADMAP Queue 3 (b)).
+
+Checkpoint and resume follow the reference's contract: `checkpoint_fn`
+receives the live margin every `checkpoint_interval` iterations, and a fit
+given it back as `init_margin`, with `init_booster` (the trees so far) and
+`iter_offset` (the iterations done), continues on the same state, so the
+resumed model equals an uninterrupted checkpointed fit bit for bit. Such a
+fit (one with `checkpoint_fn` or `init_margin`) grows its trees in fixed
+order (`trainer.train_one_tree(fixed_order=True)`); other fits keep the
+atomic kernels. The port's payload carries no `rng_key`: iteration i's
+draws come from (`seed`, i) alone, so `iter_offset` lines them up, and an
+`init_rng_key` (a reference checkpoint's threefry key, which cannot seed a
+torch generator) is accepted and not used.
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import os
 from typing import Callable, Optional
 
@@ -82,6 +95,17 @@ class BoostParams:
     metric: Optional[str] = None
     boost_from_average: bool = True
     verbosity: int = -1
+
+
+@dataclasses.dataclass
+class Callbacks:
+    """Delegate hooks, the reference's (LightGBM's delegate):
+    `before_iteration(it)`, `after_iteration(it, metric)` (NaN when no
+    metric is tracked) and `get_learning_rate(it)`, the iteration's
+    shrinkage (rf keeps 1 / total)."""
+    before_iteration: Optional[Callable[[int], None]] = None
+    after_iteration: Optional[Callable[[int, float], None]] = None
+    get_learning_rate: Optional[Callable[[int], float]] = None
 
 
 # objectives whose leaf outputs are refit to a residual quantile
@@ -250,10 +274,12 @@ def _device_metric(name, objective, margin, y):
 
 def _build_booster(sf, sb, lv, tree_classes, mapper, p: BoostParams,
                    k_out: int, n_features: int, best_iter: int,
-                   gain=None, cover=None, is_cat=None, cat_words=None):
-    """Stacked tree arrays -> Booster with real-valued thresholds.
-    Categorical nodes keep threshold 0: they route by their words. A
-    booster with no categorical split carries no categorical arrays."""
+                   gain=None, cover=None, is_cat=None, cat_words=None,
+                   init_booster=None):
+    """Stacked tree arrays -> Booster with real-valued thresholds, after
+    `init_booster`'s trees where there is one. Categorical nodes keep
+    threshold 0: they route by their words. A booster with no categorical
+    split carries no categorical arrays."""
     thr = mapper.upper_bounds[np.clip(sf, 0, n_features - 1),
                               np.clip(sb, 0, p.max_bin - 1)]
     thr = np.where(sf >= 0, thr, 0.0).astype(np.float32)
@@ -261,17 +287,70 @@ def _build_booster(sf, sb, lv, tree_classes, mapper, p: BoostParams,
                and cat_words.size and is_cat.any())
     if has_cat:
         thr = np.where(is_cat, 0.0, thr).astype(np.float32)
-    return Booster(split_feature=sf.astype(np.int32), threshold=thr,
-                   split_bin=sb.astype(np.int32),
-                   leaf_value=lv.astype(np.float32),
-                   tree_class=np.asarray(tree_classes, np.int32),
-                   max_depth=p.max_depth, n_classes=k_out,
-                   objective=p.objective, n_features=n_features,
-                   best_iteration=best_iter,
-                   gain=None if gain is None else gain.astype(np.float32),
-                   cover=None if cover is None else cover.astype(np.float32),
-                   split_is_cat=is_cat.astype(bool) if has_cat else None,
-                   cat_words=cat_words.astype(np.int32) if has_cat else None)
+    booster = Booster(
+        split_feature=sf.astype(np.int32), threshold=thr,
+        split_bin=sb.astype(np.int32), leaf_value=lv.astype(np.float32),
+        tree_class=np.asarray(tree_classes, np.int32),
+        max_depth=p.max_depth, n_classes=k_out, objective=p.objective,
+        n_features=n_features, best_iteration=best_iter,
+        gain=None if gain is None else gain.astype(np.float32),
+        cover=None if cover is None else cover.astype(np.float32),
+        split_is_cat=is_cat.astype(bool) if has_cat else None,
+        cat_words=cat_words.astype(np.int32) if has_cat else None)
+    return booster if init_booster is None else init_booster.merge(booster)
+
+
+def _fetch_trees(trees, cfg, dart_weights, k_out: int):
+    """ONE device->host copy of every tree array: (split_feature,
+    split_bin, leaf_value, gain, cover, split_is_cat, cat_words) stacked
+    over trees (the last two None without categorical features; the
+    words are < 2^16, exact in f32), dart's iteration weights folded into
+    the leaf values."""
+    max_nodes, w16 = cfg.max_nodes, cfg.cat_words_width
+    n_cols = 6 + w16 if w16 else 5
+    if trees:
+        packed = torch.stack([torch.cat(
+            [t.split_feature.to(torch.float32), t.split_bin.to(torch.float32),
+             t.leaf_value, t.gain, t.cover]
+            + ([t.split_is_cat.to(torch.float32),
+                t.cat_words.to(torch.float32).reshape(-1)] if w16 else []))
+            for t in trees]).cpu().numpy()
+    else:
+        packed = np.zeros((0, n_cols * max_nodes), np.float32)
+    sf, sb, lv, gn, cv = [packed[:, i * max_nodes:(i + 1) * max_nodes]
+                          for i in range(5)]
+    ic = cw = None
+    if w16:
+        ic = packed[:, 5 * max_nodes:6 * max_nodes] > 0.5
+        cw = packed[:, 6 * max_nodes:].reshape(-1, max_nodes, w16).astype(
+            np.int32)
+    if dart_weights and trees:  # each tree carries its iteration's weight
+        lv = lv * np.repeat(np.asarray(dart_weights, np.float32),
+                            k_out)[:, None]
+    return sf.astype(np.int32), sb.astype(np.int32), lv, gn, cv, ic, cw
+
+
+def _checkpoint_caller(checkpoint_fn):
+    """`checkpoint_fn` as (it, booster, base, final=, margin=, rng_key=)
+    with the margin as host numpy; a callback of the legacy signature
+    (it, booster, base, final=False) is called without the last two, as
+    the reference calls it (it then loses exact-resume margins)."""
+    try:
+        ck_params = inspect.signature(checkpoint_fn).parameters
+        extended = ("margin" in ck_params
+                    or any(q.kind == q.VAR_KEYWORD
+                           for q in ck_params.values()))
+    except (TypeError, ValueError):
+        extended = True
+
+    def call(it, booster, fit_base, final=False, margin=None, rng_key=None):
+        if not extended:
+            return checkpoint_fn(it, booster, fit_base, final=final)
+        if margin is not None:
+            margin = margin.detach().cpu().numpy()
+        return checkpoint_fn(it, booster, fit_base, final=final,
+                             margin=margin, rng_key=rng_key)
+    return call
 
 
 def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
@@ -280,7 +359,11 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
                 valid: Optional[tuple] = None,
                 prebinned: Optional[tuple] = None,
                 device=None, group=None, init_booster=None, callbacks=None,
-                checkpoint_fn=None, ingest=None, oocore=None):
+                checkpoint_fn=None, checkpoint_interval: int = 25,
+                init_base: float = 0.0,
+                init_margin: Optional[np.ndarray] = None,
+                init_rng_key=None, iter_offset: int = 0,
+                ingest=None, oocore=None):
     """Train a Booster. Returns (booster, base, eval_history) like the
     reference.
 
@@ -292,17 +375,24 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
     With `MMLSPARK_TPU_HIST=planes` in the environment, the fit builds
     the histogram plan once (`ops.histogram.build_hist_plan`) and every
     tree's shallow levels take the planes histogram.
-    `init_booster`, `callbacks`, `checkpoint_fn`, `ingest` and `oocore`
-    belong to later slices and raise NotImplementedError.
+
+    Continuation and checkpoints, as the reference: `init_booster`'s trees
+    come first and the new ones fit its residuals (scored by
+    `init_booster.raw_score` unless `init_margin`, a checkpoint's live
+    margin, is given), from `init_base`; `callbacks` (`Callbacks`);
+    `checkpoint_fn(it, booster, base, final=, margin=, rng_key=)` every
+    `checkpoint_interval` iterations and at an early stop (final=True);
+    `iter_offset`: iterations done before this fit, for the draws and the
+    bagging phase. `init_rng_key` is not used (the module docstring).
+    `ingest` and `oocore` belong to a later slice and raise
+    NotImplementedError.
     """
-    for name, val, item in (("init_booster", init_booster, 11),
-                            ("callbacks", callbacks, 11),
-                            ("checkpoint_fn", checkpoint_fn, 11),
-                            ("ingest", ingest, 17), ("oocore", oocore, 17)):
+    for name, val, item in (("ingest", ingest, 17), ("oocore", oocore, 17)):
         if val is not None:
             _unported(name, item)
     p = params
     check_ported(p)
+    cb = callbacks or Callbacks()
     n, n_features = x.shape
     if p.objective == "lambdarank" and group is None:
         raise ValueError("objective='lambdarank' needs per-row group ids")
@@ -311,6 +401,12 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
     dev = resolve_device(device)
     multiclass = p.objective == "multiclass"
     k_out = p.num_class if multiclass else 1
+    # a fit that checkpoints or resumes grows its trees in fixed order, so
+    # that its resumed continuation equals the uninterrupted fit bit for bit
+    fixed_order = checkpoint_fn is not None or init_margin is not None
+    if checkpoint_fn is not None:
+        checkpoint_fn = _checkpoint_caller(checkpoint_fn)
+    iter_offset = int(iter_offset)
 
     staged_y = None
     if prebinned is not None:
@@ -345,8 +441,18 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
              if group is not None else None)
 
     base = 0.0
-    if p.boost_from_average and init_scores is None and not multiclass:
+    if init_booster is not None:
+        # continuation: the new trees fit the residuals of the restored
+        # ensemble, whose base carries over
+        base = float(init_base)
+    elif p.boost_from_average and init_scores is None and not multiclass:
         base = obj_mod.init_score(p.objective, y, weights=weights)
+    cont = None
+    if init_booster is not None and init_margin is None:
+        # a warm start or a checkpoint without a margin: score the
+        # restored ensemble (its float sums need not equal the live
+        # margin's, so such a resume is not bit-exact)
+        cont = init_booster.raw_score(x, device=dev)            # (n, K)
     if multiclass:
         margin = torch.zeros((n, p.num_class), dtype=torch.float32, device=dev)
         if init_scores is not None:
@@ -360,7 +466,27 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
         margin = torch.full((n,), base, dtype=torch.float32, device=dev)
         if init_scores is not None:
             margin = margin + put(init_scores)
-    init_margin = margin        # rf: every tree's gradients start here
+    # rf: every tree's gradients start at the margin before any restored
+    # ensemble, so resumed trees fit the same target as the first ones
+    rf_margin = margin
+    if cont is not None:
+        margin = margin + put(cont if multiclass else cont[:, 0])
+    if init_margin is not None:
+        # the checkpoint's live margin REPLACES the reconstruction: the
+        # resumed state is the uninterrupted fit's, bit for bit. It only
+        # makes sense against the same rows.
+        init_margin = np.asarray(init_margin, np.float32)
+        if init_margin.shape != tuple(margin.shape):
+            raise ValueError(
+                f"init_margin has shape {init_margin.shape} but this fit's "
+                f"margin is {tuple(margin.shape)}: the checkpoint was saved "
+                f"against different data; delete the checkpoint dir (or "
+                f"drop init_margin) to restart from the restored trees "
+                f"alone")
+        margin = put(init_margin)
+    rf = p.boosting == "rf"
+    if not (rf and init_booster is not None):
+        rf_margin = margin
 
     has_valid = valid is not None
     v_margin = v_it_delta = None
@@ -373,12 +499,14 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
                     if multiclass else
                     torch.full((vx.shape[0],), base, dtype=torch.float32,
                                device=dev))
+        if init_booster is not None:
+            v_init = put(init_booster.raw_score(vx, device=dev))
+            v_margin = v_margin + (v_init if multiclass else v_init[:, 0])
 
-    rf, dart = p.boosting == "rf", p.boosting == "dart"
-    lr = 1.0 / (p.rf_total or p.num_iterations) if rf else p.learning_rate
+    dart = p.boosting == "dart"
     cfg = trainer.TreeConfig(
         n_features=n_features, n_bins=p.max_bin + 1, max_depth=p.max_depth,
-        num_leaves=p.num_leaves, learning_rate=lr,
+        num_leaves=p.num_leaves, learning_rate=p.learning_rate,
         lambda_l1=p.lambda_l1, lambda_l2=p.lambda_l2,
         min_gain_to_split=p.min_gain_to_split,
         min_data_in_leaf=p.min_data_in_leaf,
@@ -394,9 +522,27 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
     trees, eval_history = [], []
     train_deltas, val_deltas, dart_weights = [], [], []
     best_metric, best_iter, rounds_since = None, -1, 0
+    n_grown = 0
+
+    def booster_so_far(best):
+        sf, sb, lv, gn, cv, ic, cw = _fetch_trees(trees, cfg, dart_weights,
+                                                  k_out)
+        return _build_booster(
+            sf, sb, lv, np.tile(np.arange(k_out, dtype=np.int32),
+                                len(trees) // k_out),
+            mapper, p, k_out, n_features, best, gain=gn, cover=cv,
+            is_cat=ic, cat_words=cw, init_booster=init_booster)
 
     for it in range(p.num_iterations):
-        gen.manual_seed(_iteration_seed(p.seed, it))
+        if cb.before_iteration:
+            cb.before_iteration(it)
+        lr = (1.0 / (p.rf_total or p.num_iterations) if rf
+              else cb.get_learning_rate(it) if cb.get_learning_rate
+              else p.learning_rate)
+        cfg = cfg._replace(learning_rate=lr)
+        # the draws of the absolute iteration, so that a resumed fit
+        # (iter_offset = iterations done) draws as the uninterrupted one
+        gen.manual_seed(_iteration_seed(p.seed, it + iter_offset))
         # dart: drop a subset of earlier iterations from this one's margin
         dropped = _dart_drops(p, gen, len(train_deltas)) if dart else []
         if dropped:
@@ -405,7 +551,7 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
                 margin_used = (margin_used
                                - train_deltas[t_i] * dart_weights[t_i])
         elif rf:
-            margin_used = init_margin
+            margin_used = rf_margin
         else:
             margin_used = margin
 
@@ -413,7 +559,7 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
         if w_j is not None:
             grad = grad * (w_j[:, None] if multiclass else w_j)
             hess = hess * (w_j[:, None] if multiclass else w_j)
-        row_w = _row_weights(p, grad, gen, it, multiclass)
+        row_w = _row_weights(p, grad, gen, it + iter_offset, multiclass)
         if row_w is not None:
             grad = grad * (row_w[:, None] if multiclass else row_w)
             hess = hess * (row_w[:, None] if multiclass else row_w)
@@ -428,7 +574,8 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
             hk = hess[:, k] if multiclass else hess
             tree, delta = trainer.train_one_tree(
                 d_bins, gk, hk, fmask, cfg, count_w=count_w,
-                lo_planes=lo_planes, plane_lo=plane_lo)
+                lo_planes=lo_planes, plane_lo=plane_lo,
+                fixed_order=fixed_order)
             if renew_q is not None:
                 tree, delta = _renew_leaves(
                     tree, d_bins, y_j - margin_used,
@@ -448,6 +595,7 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
                     v_it_delta[:, k] += vd
                 else:
                     v_it_delta = vd
+        n_grown += 1
 
         if dart:
             # LightGBM's weight normalization; with nothing dropped the new
@@ -472,6 +620,7 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
             if has_valid:
                 v_margin = v_margin + v_it_delta
 
+        mv = float("nan")
         if track:
             mv, larger = _device_metric(p.metric, p.objective, v_margin, vy_j)
             mv = float(mv)      # the early-stopping decision needs the host
@@ -482,35 +631,20 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
             else:
                 rounds_since += 1
                 if patience > 0 and rounds_since >= patience:
+                    if cb.after_iteration:
+                        cb.after_iteration(it, mv)
                     break
+        if cb.after_iteration:
+            cb.after_iteration(it, mv)
+        if (checkpoint_fn is not None
+                and (it + 1) % max(int(checkpoint_interval), 1) == 0):
+            checkpoint_fn(it + 1, booster_so_far(-1), base, final=False,
+                          margin=margin, rng_key=None)
 
-    # ONE device->host copy of every tree array; categorical fits append
-    # split_is_cat and the words (< 2^16, exact in f32)
-    max_nodes, w16 = cfg.max_nodes, cfg.cat_words_width
-    n_cols = 6 + w16 if w16 else 5
-    if trees:
-        packed = torch.stack([torch.cat(
-            [t.split_feature.to(torch.float32), t.split_bin.to(torch.float32),
-             t.leaf_value, t.gain, t.cover]
-            + ([t.split_is_cat.to(torch.float32),
-                t.cat_words.to(torch.float32).reshape(-1)] if w16 else []))
-            for t in trees]).cpu().numpy()
-    else:
-        packed = np.zeros((0, n_cols * max_nodes), np.float32)
-    sf, sb, lv, gn, cv = [packed[:, i * max_nodes:(i + 1) * max_nodes]
-                          for i in range(5)]
-    ic = cw = None
-    if w16:
-        ic = packed[:, 5 * max_nodes:6 * max_nodes] > 0.5
-        cw = packed[:, 6 * max_nodes:].reshape(-1, max_nodes, w16).astype(
-            np.int32)
-    if dart and trees:      # each tree carries its iteration's dart weight
-        lv = lv * np.repeat(np.asarray(dart_weights, np.float32),
-                            k_out)[:, None]
-    tree_classes = np.tile(np.arange(k_out, dtype=np.int32),
-                           len(trees) // max(k_out, 1))
-    booster = _build_booster(
-        sf.astype(np.int32), sb.astype(np.int32), lv, tree_classes, mapper, p,
-        k_out, n_features, best_iter if (track and patience > 0) else -1,
-        gain=gn, cover=cv, is_cat=ic, cat_words=cw)
+    booster = booster_so_far(best_iter if (track and patience > 0) else -1)
+    if (checkpoint_fn is not None and patience > 0
+            and rounds_since >= patience):
+        # early stop: the truncated model, marked complete, so that a
+        # re-fit does not continue past the stop
+        checkpoint_fn(n_grown, booster, base, final=True)
     return booster, base, eval_history

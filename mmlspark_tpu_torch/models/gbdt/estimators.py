@@ -8,7 +8,13 @@ names are the reference's, so a pipeline can switch packages; the stages
 are `PipelineStage`s, and a fitted model saves and loads with its booster
 (`core/serialize.py`). Native categorical splits come from
 `categorical_slot_indexes` and from `categorical_slot_names`, resolved
-through the features column's `feature_names` metadata. Params
+through the features column's `feature_names` metadata.
+`checkpoint_dir` saves a step checkpoint (`utils.checkpoint`, the
+reference's format) every `checkpoint_interval` iterations, in the
+background with `checkpoint_async`, and a fit that finds one resumes from
+its newest readable step, bit for bit as the uninterrupted fit would have
+gone on; `num_batches` trains on sequential row batches, each continuing
+the last one's booster. Params
 whose features the port does not run yet raise NotImplementedError at
 fit when set to anything but their inert value, naming the ROADMAP item
 that will port them. One param is the port's own: `device` (None = the card). One
@@ -28,6 +34,8 @@ from ...core import (Estimator, HasFeaturesCol, HasLabelCol,
                      HasPredictionCol, HasProbabilitiesCol, HasWeightCol,
                      Model, Param, Table, in_range, one_of)
 from ...device import resolve_device
+from ...reliability.supervisor import AsyncCheckpointWriter
+from ...utils.checkpoint import CheckpointManager
 from .boosting import BoostParams, fit_booster
 from .booster import Booster
 
@@ -47,8 +55,6 @@ def _device_count(device) -> int:
 
 # param -> (is its value one this slice cannot run?, ROADMAP Queue 1 item)
 _UNPORTED = {
-    "num_batches": (lambda v: v > 1, 11),
-    "checkpoint_dir": (bool, 11),
     "leaf_prediction_col": (bool, 14),
     "features_shap_col": (bool, 14),
     "num_tasks": (lambda v: v > 1, 15),
@@ -241,6 +247,65 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
             return table.filter(~mask), (vx, vy)
         return table, None
 
+    def _resume(self, params: BoostParams):
+        """The checkpoint directory's state, the reference's way: (None,
+        the params of the remaining iterations, fit_booster's keywords,
+        the background writer or None), or ((booster, base), None, None,
+        None) when the newest readable step is final or no iteration
+        remains."""
+        mgr = CheckpointManager(self.checkpoint_dir)
+        total, done = params.num_iterations, 0
+        fit_kw = dict(init_booster=None, init_base=0.0, init_margin=None,
+                      init_rng_key=None)
+        if mgr.latest_step() is not None:
+            # restore() falls back past a torn or corrupt newest step
+            payload = mgr.restore()
+            booster = Booster.load_model_string(str(payload["booster"]))
+            base = float(payload.get("base", 0.0))
+            if payload.get("final"):
+                return (booster, base), None, None, None
+            done = int(payload["iteration"])
+            fit_kw = dict(init_booster=booster, init_base=base,
+                          init_margin=payload.get("margin"),
+                          init_rng_key=payload.get("rng_key"))
+            denom = int(payload.get("rf_denom", total))
+            if self.boosting == "rf" and denom != total:
+                # restored rf leaves carry 1/denom weights; a forest grown
+                # to a new total takes 1/total, and the saved margin, which
+                # holds the old weights, no longer applies
+                fit_kw.update(
+                    init_booster=booster._replace(leaf_value=(
+                        booster.leaf_value * (denom / total)).astype(
+                            np.float32)),
+                    init_margin=None, init_rng_key=None)
+        if total <= done:
+            return ((fit_kw["init_booster"], fit_kw["init_base"]), None,
+                    None, None)
+        writer = AsyncCheckpointWriter(mgr) if self.checkpoint_async \
+            else None
+
+        def ck_fn(it, booster, fit_base, final=False, margin=None,
+                  rng_key=None):
+            payload = {"booster": booster.save_model_string(),
+                       "iteration": done + it, "base": float(fit_base),
+                       "final": bool(final), "rf_denom": total}
+            if margin is not None:
+                payload["margin"] = np.asarray(margin, np.float32)
+            if rng_key is not None:
+                payload["rng_key"] = np.asarray(rng_key)
+            if writer is None:
+                mgr.save(done + it, payload, prune_newer=final)
+            elif final:
+                writer.write_sync(done + it, payload, prune_newer=True)
+            else:
+                writer.submit(done + it, payload)
+        # rf averaging weights stay 1/total across the resume split
+        params = dataclasses.replace(params, num_iterations=total - done,
+                                     rf_total=total)
+        return None, params, dict(
+            fit_kw, checkpoint_fn=ck_fn, iter_offset=done,
+            checkpoint_interval=self.checkpoint_interval), writer
+
     def _train(self, table: Table, objective: str, num_class: int = 1,
                group: Optional[np.ndarray] = None):
         self._check_ported()
@@ -258,8 +323,35 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
             group = group[~_host(table[self.validation_indicator_col], bool)]
         params = self._resolve_categoricals(
             table, self._boost_params(objective, num_class))
-        return fit_booster(x, y, params, weights=w, init_scores=init,
-                           valid=valid, group=group, device=self.device)
+        n_batches = self.num_batches or 0
+        if n_batches > 1:
+            # batch continuation: each batch's trees fit the residuals of
+            # the booster so far (checkpoints are single-batch, as in the
+            # reference)
+            booster, base, hist = None, 0.0, []
+            for bi in np.array_split(np.arange(x.shape[0]), n_batches):
+                if bi.size == 0:
+                    continue
+                booster, base, hist = fit_booster(
+                    x[bi], y[bi], params,
+                    weights=None if w is None else w[bi],
+                    init_scores=None if init is None else init[bi],
+                    group=None if group is None else group[bi],
+                    valid=valid, init_booster=booster, init_base=base,
+                    device=self.device)
+            return booster, base, hist
+        fit_kw, writer = {}, None
+        if self.checkpoint_dir:
+            finished, params, fit_kw, writer = self._resume(params)
+            if finished is not None:
+                return (*finished, [])
+        try:
+            return fit_booster(x, y, params, weights=w, init_scores=init,
+                               valid=valid, group=group, device=self.device,
+                               **fit_kw)
+        finally:
+            if writer is not None:
+                writer.close()
 
 
 class _GBDTModelBase(Model, HasFeaturesCol, HasPredictionCol):

@@ -112,6 +112,10 @@ def lambdarank_grad_hess(scores, y, group_index, sigmoid: float = 1.0,
 
     g_elem = lam.sum(2) - lam.sum(1)                       # (n_groups, G)
     h_elem = hpair.sum(2) + hpair.sum(1)
+    # order-free on the card too: a row belongs to one group and fills one
+    # slot of it, so each of the n kept entries takes exactly one add; only
+    # the padding slot n takes many, and it is dropped. A checkpointed fit
+    # needs no fixed-order form here.
     flat = torch.where(valid, idx, n).reshape(-1)          # padding -> n
     grad = torch.zeros(n + 1, dtype=scores.dtype, device=scores.device)
     hess = torch.zeros(n + 1, dtype=scores.dtype, device=scores.device)

@@ -26,6 +26,18 @@ The reference routes rows with select chains and one-hot matmuls because
 per-row gathers serialise on a TPU; on the card one per-row gather does
 it, for every level width. The level loop makes no host sync: counts and
 the leaf budget stay tensors.
+
+`fixed_order=True` (checkpointed fits) grows the same tree from the same
+inputs on every call, as the reference's fixed-order XLA sums do, so that
+a killed and resumed fit equals an uninterrupted one bit for bit. On the
+card two steps add in no fixed order by default: the histogram kernels'
+atomics and the leaf sums' `index_add_`. Fixed order takes the histogram
+kernels' fixed-order forms and computes the leaf sums as a one-bin
+histogram of every row's node with the same kernel. Everything else the
+tree takes from the card is elementwise, a gather, a stable sort, a
+reduction or a `cumsum` along the bin axis (one scan per (node, feature)
+row), which add in one order; `chip_smoke.py [resume]` repeats those
+cumsums on the card and fails if one ever differs.
 """
 from __future__ import annotations
 
@@ -280,13 +292,14 @@ def _cat_go_left(go_left, b, node, is_cat, words):
 def train_one_tree(bins: torch.Tensor, grad: torch.Tensor,
                    hess: torch.Tensor, feature_mask: torch.Tensor,
                    cfg: TreeConfig, count_w=None, lo_planes=None,
-                   plane_lo: int = 0):
+                   plane_lo: int = 0, fixed_order: bool = False):
     """Grow one tree. grad/hess already fold in sample weights and
     bagging/GOSS row weights. `count_w` is the presence indicator for
     min_data_in_leaf counting (None = every row counts). `lo_planes`/
     `plane_lo`: the fit's histogram plan (`ops.histogram.build_hist_plan`),
-    which every level of every tree reuses. Returns (Tree, delta) with
-    delta = leaf_value of each row's resting node."""
+    which every level of every tree reuses. `fixed_order`: the same tree
+    from the same inputs on every call (the module docstring). Returns
+    (Tree, delta) with delta = leaf_value of each row's resting node."""
     n = bins.shape[0]
     dev = bins.device
     i32 = torch.int32
@@ -318,14 +331,15 @@ def train_one_tree(bins: torch.Tensor, grad: torch.Tensor,
         if depth == 0:
             hg, hh, hc = node_feature_histograms(
                 bins, grad, hess, node_local, active, m, cfg.n_bins,
-                count_w=count_w, lo_planes=lo_planes, plane_lo=plane_lo)
+                count_w=count_w, lo_planes=lo_planes, plane_lo=plane_lo,
+                fixed_order=fixed_order)
             child_valid = torch.ones(m, dtype=torch.bool, device=dev)
         else:
             left_active = active & (node_local % 2 == 0)
             lg, lh, lc = node_feature_histograms(
                 bins, grad, hess, node_local // 2, left_active, m // 2,
                 cfg.n_bins, count_w=count_w, lo_planes=lo_planes,
-                plane_lo=plane_lo)
+                plane_lo=plane_lo, fixed_order=fixed_order)
             hg = _interleave(lg, prev_hists[0] - lg)
             hh = _interleave(lh, prev_hists[1] - lh)
             hc = _interleave(lc, prev_hists[2] - lc)
@@ -374,13 +388,25 @@ def train_one_tree(bins: torch.Tensor, grad: torch.Tensor,
         node_of_row = torch.where(active & apply[nl], child, node_of_row)
 
     # leaf values from resting nodes (shrinkage applied here, like LightGBM)
-    cw = (count_w.to(torch.float32) if count_w is not None
-          else torch.ones(n, dtype=torch.float32, device=dev))
-    sums = torch.zeros((cfg.max_nodes, 3), dtype=torch.float32, device=dev)
-    sums.index_add_(0, node_of_row,
-                    torch.stack([grad.to(torch.float32),
-                                 hess.to(torch.float32), cw], dim=1))
-    seg_g, seg_h, seg_c = sums[:, 0], sums[:, 1], sums[:, 2]
+    if fixed_order:
+        # every row's node as a one-feature, one-bin histogram level of
+        # max_nodes nodes: the histogram kernel's fixed-order form on the
+        # card, `_torch_hist` on the CPU
+        seg_g, seg_h, seg_c = (
+            h[:, 0, 0] for h in node_feature_histograms(
+                torch.zeros((n, 1), dtype=torch.uint8, device=dev), grad,
+                hess, node_of_row, torch.ones(n, dtype=torch.bool,
+                                              device=dev),
+                cfg.max_nodes, 1, count_w=count_w, fixed_order=True))
+    else:
+        cw = (count_w.to(torch.float32) if count_w is not None
+              else torch.ones(n, dtype=torch.float32, device=dev))
+        sums = torch.zeros((cfg.max_nodes, 3), dtype=torch.float32,
+                           device=dev)
+        sums.index_add_(0, node_of_row,
+                        torch.stack([grad.to(torch.float32),
+                                     hess.to(torch.float32), cw], dim=1))
+        seg_g, seg_h, seg_c = sums[:, 0], sums[:, 1], sums[:, 2]
     leaf_value = (-cfg.learning_rate * _soft_threshold(seg_g, cfg.lambda_l1)
                   / (seg_h + cfg.lambda_l2 + 1e-12))
     leaf_value = torch.where(seg_h > 0, leaf_value, 0.0)

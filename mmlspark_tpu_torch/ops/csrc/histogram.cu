@@ -23,7 +23,23 @@
 //   grad/hess are accumulated in f32 with no bf16 rounding (the TPU
 //   kernels round their operands to bf16). Per-bin counts are integers
 //   below 2^24 at 8M rows and come out exact; grad/hess sums differ from
-//   run to run in their last bits because atomics add in no fixed order.
+//   run to run in their last bits because atomics add in no fixed order:
+//   a block's warps share copies, and blocks flush with global atomics.
+//
+// THE FIXED-ORDER FORM (hist_tile_kernel<kCnt, true>, and
+// hist_planes_kernel with qg set)
+//   Checkpointed GBDT fits need histograms that are a pure function of
+//   their inputs, so that a killed and resumed fit equals an uninterrupted
+//   one bit for bit. Here every statistic is added as a 64-bit integer:
+//   q = rint(s * 2^(k - e)), with 2^e above the largest |s| of the call
+//   and k = 62 - bit_length(n), so no sum of n terms can overflow. Integer
+//   adds are exact, so their order cannot change the result, and the same
+//   shared-memory copies and global atomics serve. The wrapper turns the
+//   sums back into f32 (histogram_cuda.hist_tiled_fixed). Each term is off
+//   by at most 2^(e - k - 1) (2^-40 of the largest |grad| at 8M rows), far
+//   below what the f32 sums of the atomic form lose; the planes form rounds
+//   its f32 register totals (one per warp, item and row block, summed in a
+//   fixed order) the same way.
 //
 // WHAT BOUNDS IT
 //   Memory: each call reads 4 B of node per row and, for the active rows,
@@ -63,6 +79,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mma_sync.cuh"
 
 namespace {
@@ -93,9 +111,17 @@ __device__ __forceinline__ void rotate_bytes(uint32_t w[8], int k) {
 
 // kCnt: count sums cnt[r] in f32; otherwise every row counts 1, summed as
 // an integer in shared memory (exact, and an integer atomic is one
-// instruction where a float one is a compare-and-swap loop)
-template <bool kCnt>
+// instruction where a float one is a compare-and-swap loop).
+// kFixed: the fixed-order form. Each statistic is added as a 64-bit
+// integer, q = rint(stat * scale) with a power-of-two scale per statistic
+// (the wrapper picks it from the largest |stat|, so no sum can overflow):
+// integer adds give one result in any order, so the shared-memory copies
+// and the flush's global atomics stay as they are and the histograms are a
+// pure function of the inputs. A row without cnt counts 1.
+template <bool kCnt, bool kFixed>
 struct TileRows {
+  using Acc = typename std::conditional<kFixed, unsigned long long,
+                                        float>::type;
   const uint8_t* __restrict__ bins;
   const int32_t* __restrict__ node;
   const float* __restrict__ grad;
@@ -103,15 +129,24 @@ struct TileRows {
   const float* __restrict__ cnt;
   int F, B, n0, f0, nf, FP;
   bool vec;        // the row's 32-byte chunks are 16-byte aligned
+  float s_g, s_h, s_c;  // kFixed: the statistics' scales
 
   // row r (of this tile) into the block's histograms at h (one copy;
   // statistic s at h + s * span). Lane l takes feature (t + l) % 32 of
   // each 32-feature chunk at step t, so a warp's 32 lanes add into 32
   // distinct features, hence distinct banks, at every step.
-  __device__ __forceinline__ void add(int r, float* h, int span) const {
+  __device__ __forceinline__ void add(int r, Acc* h, int span) const {
     const int lane = threadIdx.x & 31;
     const float g = grad[r], hs = hess[r];
     const float c = kCnt ? cnt[r] : 1.f;
+    // kFixed: the integers; stat * scale is exact (a power of two), and
+    // rounding it to an integer is the only loss
+    const unsigned long long qg =
+        kFixed ? (unsigned long long)__float2ll_rn(g * s_g) : 0ull;
+    const unsigned long long qh =
+        kFixed ? (unsigned long long)__float2ll_rn(hs * s_h) : 0ull;
+    const unsigned long long qc =
+        kFixed && kCnt ? (unsigned long long)__float2ll_rn(c * s_c) : 0ull;
     const int base = (node[r] - n0) * B * FP;
     const uint8_t* row = bins + (long long)r * F + f0;
     for (int f32 = 0; f32 < nf; f32 += 32) {
@@ -138,42 +173,57 @@ struct TileRows {
         const int b = (w[t >> 2] >> (8 * (t & 3))) & 0xff;
         if (f >= nf || b >= B) continue;  // out-of-range bins are dropped
         const int idx = base + b * FP + f;
-        atomicAdd(h + idx, g);
-        atomicAdd(h + span + idx, hs);
-        if constexpr (kCnt)
-          atomicAdd(h + 2 * span + idx, c);
-        else
-          atomicAdd(reinterpret_cast<unsigned*>(h + 2 * span) + idx, 1u);
+        if constexpr (kFixed) {
+          atomicAdd(h + idx, qg);
+          atomicAdd(h + span + idx, qh);
+          if constexpr (kCnt)
+            atomicAdd(h + 2 * span + idx, qc);
+          else  // the cell's low word: counts below 2^31 never carry
+            atomicAdd(reinterpret_cast<unsigned*>(h + 2 * span + idx), 1u);
+        } else {
+          atomicAdd(h + idx, g);
+          atomicAdd(h + span + idx, hs);
+          if constexpr (kCnt)
+            atomicAdd(h + 2 * span + idx, c);
+          else
+            atomicAdd(reinterpret_cast<unsigned*>(h + 2 * span) + idx, 1u);
+        }
       }
     }
   }
 };
 
-template <bool kCnt>
+// hg, hh, hc: (m, F, B) f32 outputs, or (kFixed) u64 ones; scale: the
+// three statistics' scales (kFixed), else null
+template <bool kCnt, bool kFixed>
 __global__ void __launch_bounds__(kMaxThreads)
 hist_tile_kernel(const uint8_t* __restrict__ bins,
                  const int32_t* __restrict__ node,
                  const float* __restrict__ grad,
                  const float* __restrict__ hess,
-                 const float* __restrict__ cnt, float* __restrict__ hg,
-                 float* __restrict__ hh, float* __restrict__ hc, long long n,
+                 const float* __restrict__ cnt, void* __restrict__ hg,
+                 void* __restrict__ hh, void* __restrict__ hc,
+                 const float* __restrict__ scale, long long n,
                  int F, int m, int B, int mt, int ft, int copies,
                  int n_ftiles, int vec) {
-  // [3][copies][mt][B][FP] f32, FP = ft rounded up to 32 (feature f of a
+  using Acc = typename TileRows<kCnt, kFixed>::Acc;
+  // [3][copies][mt][B][FP] Acc, FP = ft rounded up to 32 (feature f of a
   // (node, bin) in bank f % 32), then a queue of kQueue rows per warp
-  extern __shared__ float sh[];
+  Acc* sh = reinterpret_cast<Acc*>(mma_sync::dyn_smem());
   const int FP = 32 * ((ft + 31) / 32);
   const int n0 = (blockIdx.x / n_ftiles) * mt;
   const int f0 = (blockIdx.x % n_ftiles) * ft;
   const int nm = min(mt, m - n0), nf = min(ft, F - f0);
   const int cell = mt * B * FP;       // one copy of one statistic
   const int span = copies * cell;     // one statistic
-  for (int i = threadIdx.x; i < 3 * span; i += blockDim.x) sh[i] = 0.f;
+  for (int i = threadIdx.x; i < 3 * span; i += blockDim.x) sh[i] = 0;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int* q = reinterpret_cast<int*>(sh + 3 * span) + kQueue * warp;
-  float* const h = sh + (warp % copies) * cell;
-  const TileRows<kCnt> rows = {bins, node, grad, hess, cnt,
-                               F,    B,    n0,   f0,   nf, FP, vec != 0};
+  Acc* const h = sh + (warp % copies) * cell;
+  const TileRows<kCnt, kFixed> rows = {
+      bins, node, grad, hess, cnt, F, B, n0, f0, nf, FP, vec != 0,
+      kFixed ? scale[0] : 0.f, kFixed ? scale[1] : 0.f,
+      kFixed ? scale[2] : 0.f};
   __syncthreads();
 
   // A warp walks windows of 32 rows, kWindows windows' nodes loaded at
@@ -216,27 +266,40 @@ hist_tile_kernel(const uint8_t* __restrict__ bins,
   __syncthreads();
 
   // the copies summed, each non-zero cell added once into the output
-  float* sg = sh;
-  float* sh_h = sh + span;
-  float* sc = sh + 2 * span;
+  const Acc* sg = sh;
+  const Acc* sh_h = sh + span;
+  const Acc* sc = sh + 2 * span;
   for (int i = threadIdx.x; i < nm * nf * B; i += blockDim.x) {
     const int j = i % nf;
     const int b = (i / nf) % B;
     const int nd = i / (B * nf);
     const int src = (nd * B + b) * FP + j;
-    float vg = 0.f, vh = 0.f, vc = 0.f;
-    for (int k = 0; k < copies; ++k) {
-      vg += sg[k * cell + src];
-      vh += sh_h[k * cell + src];
-      vc += kCnt ? sc[k * cell + src]
-                 : (float)reinterpret_cast<const unsigned*>(sc)[k * cell +
-                                                                 src];
-    }
-    if (vg == 0.f && vh == 0.f && vc == 0.f) continue;
     const long long o = ((long long)(n0 + nd) * F + f0 + j) * B + b;
-    atomicAdd(hg + o, vg);
-    atomicAdd(hh + o, vh);
-    atomicAdd(hc + o, vc);
+    if constexpr (kFixed) {
+      unsigned long long vg = 0, vh = 0, vc = 0;
+      for (int k = 0; k < copies; ++k) {
+        vg += sg[k * cell + src];
+        vh += sh_h[k * cell + src];
+        vc += sc[k * cell + src];
+      }
+      if (vg == 0 && vh == 0 && vc == 0) continue;
+      atomicAdd(static_cast<unsigned long long*>(hg) + o, vg);
+      atomicAdd(static_cast<unsigned long long*>(hh) + o, vh);
+      atomicAdd(static_cast<unsigned long long*>(hc) + o, vc);
+    } else {
+      float vg = 0.f, vh = 0.f, vc = 0.f;
+      for (int k = 0; k < copies; ++k) {
+        vg += sg[k * cell + src];
+        vh += sh_h[k * cell + src];
+        vc += kCnt ? sc[k * cell + src]
+                   : (float)reinterpret_cast<const unsigned*>(sc)[k * cell +
+                                                                   src];
+      }
+      if (vg == 0.f && vh == 0.f && vc == 0.f) continue;
+      atomicAdd(static_cast<float*>(hg) + o, vg);
+      atomicAdd(static_cast<float*>(hh) + o, vh);
+      atomicAdd(static_cast<float*>(hc) + o, vc);
+    }
   }
 }
 
@@ -333,6 +396,12 @@ struct PlanesArgs {
   float* hg;
   float* hh;
   float* hc;
+  // the fixed-order form (null otherwise): (m, F, B) u64 fixed-point
+  // outputs in place of hg/hh/hc, and the statistics' three scales
+  unsigned long long* qg;
+  unsigned long long* qh;
+  unsigned long long* qc;
+  const float* scale;
   long long n;
   int F, m, B, W, n_hi, fg;
   int bins_stage;    // bytes of a stage's bins rows (a multiple of 16)
@@ -639,8 +708,16 @@ hist_planes_kernel(const PlanesArgs a) {
   }
   mma_sync::cp_async_wait<0>();
 
-  // D(M, N): d[e] at M = g + 8 (e >> 1), N = 2q + (e & 1); M -> lo, N -> h
+  // D(M, N): d[e] at M = g + 8 (e >> 1), N = 2q + (e & 1); M -> lo, N -> h.
+  // The fixed-order form adds each total as the integer rint(total *
+  // scale): the warp's totals are summed in a fixed order, and integer
+  // adds across row blocks give one result in any order.
   float* outs[3] = {a.hg, a.hh, a.hc};
+  unsigned long long* qouts[3] = {a.qg, a.qh, a.qc};
+  const bool fixed = a.qg != nullptr;
+  const float qscale[3] = {fixed ? a.scale[0] : 0.f,
+                           fixed ? a.scale[1] : 0.f,
+                           fixed ? a.scale[2] : 0.f};
 #pragma unroll
   for (int k = 0; k < IPW; ++k) {
     const int item = warp * IPW + k;
@@ -656,11 +733,62 @@ hist_planes_kernel(const PlanesArgs a) {
         const int bin = (hh - nd * a.W) * LO + 16 * t + 2 * g + (e >> 1);
         const long long o = ((long long)nd * a.F + f0 + fl) * a.B + bin;
 #pragma unroll
-        for (int s = 0; s < 3; ++s)
-          if (tot[k][h][s][e] != 0.f)
+        for (int s = 0; s < 3; ++s) {
+          if (tot[k][h][s][e] == 0.f) continue;
+          if (fixed)
+            atomicAdd(qouts[s] + o, (unsigned long long)__float2ll_rn(
+                                        tot[k][h][s][e] * qscale[s]));
+          else
             atomicAdd(outs[s] + o, tot[k][h][s][e]);
+        }
       }
   }
+}
+
+// hist_tile_kernel<cnt, fixed> as a function pointer
+static const void* tile_fn(bool cnt, bool fixed) {
+  if (fixed)
+    return cnt ? reinterpret_cast<const void*>(hist_tile_kernel<true, true>)
+               : reinterpret_cast<const void*>(hist_tile_kernel<false, true>);
+  return cnt ? reinterpret_cast<const void*>(hist_tile_kernel<true, false>)
+             : reinterpret_cast<const void*>(hist_tile_kernel<false, false>);
+}
+
+// Shared memory of a tiled block: 3 statistics x copies x mt x B x FP
+// cells of 4 bytes (8 in the fixed-order form), then the warps' queues.
+// `histogram_cuda.tile_smem` is the same formula.
+static size_t tile_smem(int mt, int ft, int B, int copies, int threads,
+                        bool fixed) {
+  return 3ull * copies * mt * B * (32 * ((ft + 31) / 32)) *
+             (fixed ? 8 : 4) +
+         (threads / 32) * kQueue * sizeof(int);
+}
+
+template <bool kFixed>
+static int tile_launch(const void* bins, const void* node, const void* grad,
+                       const void* hess, const void* cnt, void* hg, void* hh,
+                       void* hc, const void* scale, long long n, int F,
+                       int m, int B, int mt, int ft, int copies, int threads,
+                       int row_blocks, int vec, void* stream) {
+  const size_t smem = tile_smem(mt, ft, B, copies, threads, kFixed);
+  const int n_ftiles = (F + ft - 1) / ft;
+  const dim3 grid(((m + mt - 1) / mt) * n_ftiles, row_blocks);
+  cudaError_t e = cudaFuncSetAttribute(
+      tile_fn(cnt != nullptr, kFixed),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (cnt)
+    hist_tile_kernel<true, kFixed><<<grid, threads, smem, st>>>(
+        (const uint8_t*)bins, (const int32_t*)node, (const float*)grad,
+        (const float*)hess, (const float*)cnt, hg, hh, hc,
+        (const float*)scale, n, F, m, B, mt, ft, copies, n_ftiles, vec);
+  else
+    hist_tile_kernel<false, kFixed><<<grid, threads, smem, st>>>(
+        (const uint8_t*)bins, (const int32_t*)node, (const float*)grad,
+        (const float*)hess, nullptr, hg, hh, hc, (const float*)scale, n, F,
+        m, B, mt, ft, copies, n_ftiles, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -681,43 +809,40 @@ int hist_card_smem(int device, int* per_block, int* per_sm) {
 // blocks of `threads` threads (a multiple of 32), each tile mt nodes x ft
 // features with `copies` copies of its histograms; n < 2^31. vec: F and
 // ft are multiples of 16 and the bins 16-byte aligned. cnt may be null
-// (every row counts 1). Outputs must be zeroed by the caller. Returns a
-// cudaError_t (0 = launched).
+// (every row counts 1). Outputs (m, F, B) f32 must be zeroed by the
+// caller. Returns a cudaError_t (0 = launched).
 int hist_tile_launch(const void* bins, const void* node, const void* grad,
                      const void* hess, const void* cnt, void* hg, void* hh,
                      void* hc, long long n, int F, int m, int B, int mt,
                      int ft, int copies, int threads, int row_blocks,
                      int vec, void* stream) {
-  const size_t smem =
-      (3ull * copies * mt * B * (32 * ((ft + 31) / 32)) +
-       (threads / 32) * kQueue) * sizeof(float);
-  const int n_ftiles = (F + ft - 1) / ft;
-  const dim3 grid(((m + mt - 1) / mt) * n_ftiles, row_blocks);
-  const void* fn = cnt ? reinterpret_cast<const void*>(hist_tile_kernel<true>)
-                       : reinterpret_cast<const void*>(hist_tile_kernel<false>);
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  if (cnt)
-    hist_tile_kernel<true><<<grid, threads, smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)bins, (const int32_t*)node, (const float*)grad,
-        (const float*)hess, (const float*)cnt, (float*)hg, (float*)hh,
-        (float*)hc, n, F, m, B, mt, ft, copies, n_ftiles, vec);
-  else
-    hist_tile_kernel<false><<<grid, threads, smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)bins, (const int32_t*)node, (const float*)grad,
-        (const float*)hess, nullptr, (float*)hg, (float*)hh, (float*)hc, n,
-        F, m, B, mt, ft, copies, n_ftiles, vec);
-  return (int)cudaGetLastError();
+  return tile_launch<false>(bins, node, grad, hess, cnt, hg, hh, hc,
+                            nullptr, n, F, m, B, mt, ft, copies, threads,
+                            row_blocks, vec, stream);
 }
 
-// How many blocks of hist_tile_kernel<cnt != 0> with `threads` threads
-// and `smem` bytes of shared memory fit one SM of the current device
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Returns a cudaError_t.
-int hist_tile_occupancy(int cnt, int threads, int smem,
+// The fixed-order form of the same launch: outputs are (m, F, B) u64
+// fixed-point sums, zeroed by the caller; `scale` holds three f32 powers
+// of two on the device (grad, hess, count), the factor each statistic is
+// rounded to an integer at. Returns a cudaError_t.
+int hist_tile_fixed_launch(const void* bins, const void* node,
+                           const void* grad, const void* hess,
+                           const void* cnt, void* qg, void* qh, void* qc,
+                           const void* scale, long long n, int F, int m,
+                           int B, int mt, int ft, int copies, int threads,
+                           int row_blocks, int vec, void* stream) {
+  return tile_launch<true>(bins, node, grad, hess, cnt, qg, qh, qc, scale,
+                           n, F, m, B, mt, ft, copies, threads, row_blocks,
+                           vec, stream);
+}
+
+// How many blocks of hist_tile_kernel<cnt != 0, fixed != 0> with
+// `threads` threads and `smem` bytes of shared memory fit one SM of the
+// current device (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Returns
+// a cudaError_t.
+int hist_tile_occupancy(int cnt, int fixed, int threads, int smem,
                         int* blocks_per_sm) {
-  const void* fn = cnt ? reinterpret_cast<const void*>(hist_tile_kernel<true>)
-                       : reinterpret_cast<const void*>(hist_tile_kernel<false>);
+  const void* fn = tile_fn(cnt != 0, fixed != 0);
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -755,6 +880,35 @@ static const void* planes_fn(int lo, int ht) {
   return nullptr;
 }
 
+// launch hist_planes_kernel<LO, ht> for `a` (its dimensions, operands
+// and outputs set); cudaErrorInvalidValue for arguments it does not take
+static int planes_launch(PlanesArgs a, int LO, int ht, int row_blocks,
+                         void* stream) {
+  const void* fn = planes_fn(LO, ht);
+  if (fn == nullptr || a.B % LO != 0 || a.fg < 4 || a.fg % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  a.W = a.B / LO;
+  a.n_hi = a.m * a.W;
+  if (a.n_hi > 8 * ht) return (int)cudaErrorInvalidValue;
+  int smem;
+  planes_geometry(a.F, LO, a.fg, &a.bins_stage, &a.stage_bytes, &smem);
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a.F + a.fg - 1) / a.fg, row_blocks);
+  const cudaStream_t st = (cudaStream_t)stream;
+#define HIST_PLANES_LAUNCH(lo, ht)                                      \
+  hist_planes_kernel<lo, ht><<<grid, kPlanesThreads, smem, st>>>(a)
+  if (LO == 16 && ht == 1) HIST_PLANES_LAUNCH(16, 1);
+  if (LO == 16 && ht == 2) HIST_PLANES_LAUNCH(16, 2);
+  if (LO == 16 && ht == 3) HIST_PLANES_LAUNCH(16, 3);
+  if (LO == 16 && ht == 4) HIST_PLANES_LAUNCH(16, 4);
+  if (LO == 64 && ht == 1) HIST_PLANES_LAUNCH(64, 1);
+  if (LO == 64 && ht == 2) HIST_PLANES_LAUNCH(64, 2);
+#undef HIST_PLANES_LAUNCH
+  return (int)cudaGetLastError();
+}
+
 // The planes kernel: a grid of (ceil(F / fg) feature groups, row_blocks)
 // blocks of kPlanesThreads threads. plan: (F, n, LO) int8; every operand
 // 16-byte aligned; LO in {16, 64} with LO | B; ht h-tiles of 8 with
@@ -767,33 +921,30 @@ int hist_planes_launch(const void* plan, const void* bins, const void* node,
                        void* hg, void* hh, void* hc, long long n, int F,
                        int m, int B, int LO, int ht, int fg, int row_blocks,
                        void* stream) {
-  PlanesArgs a = {(const int8_t*)plan, (const uint8_t*)bins,
-                  (const int32_t*)node, (const float*)grad,
-                  (const float*)hess, (const float*)cnt, (float*)hg,
-                  (float*)hh, (float*)hc, n, F, m, B, 0, 0, fg, 0, 0};
-  const void* fn = planes_fn(LO, ht);
-  if (fn == nullptr || B % LO != 0 || fg < 4 || fg % 4 != 0)
-    return (int)cudaErrorInvalidValue;
-  a.W = B / LO;
-  a.n_hi = m * a.W;
-  if (a.n_hi > 8 * ht) return (int)cudaErrorInvalidValue;
-  int smem;
-  planes_geometry(F, LO, fg, &a.bins_stage, &a.stage_bytes, &smem);
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((F + fg - 1) / fg, row_blocks);
-  const cudaStream_t st = (cudaStream_t)stream;
-#define HIST_PLANES_LAUNCH(lo, ht)                                      \
-  hist_planes_kernel<lo, ht><<<grid, kPlanesThreads, smem, st>>>(a)
-  if (LO == 16 && ht == 1) HIST_PLANES_LAUNCH(16, 1);
-  if (LO == 16 && ht == 2) HIST_PLANES_LAUNCH(16, 2);
-  if (LO == 16 && ht == 3) HIST_PLANES_LAUNCH(16, 3);
-  if (LO == 16 && ht == 4) HIST_PLANES_LAUNCH(16, 4);
-  if (LO == 64 && ht == 1) HIST_PLANES_LAUNCH(64, 1);
-  if (LO == 64 && ht == 2) HIST_PLANES_LAUNCH(64, 2);
-#undef HIST_PLANES_LAUNCH
-  return (int)cudaGetLastError();
+  const PlanesArgs a = {(const int8_t*)plan, (const uint8_t*)bins,
+                        (const int32_t*)node, (const float*)grad,
+                        (const float*)hess, (const float*)cnt, (float*)hg,
+                        (float*)hh, (float*)hc, nullptr, nullptr, nullptr,
+                        nullptr, n, F, m, B, 0, 0, fg, 0, 0};
+  return planes_launch(a, LO, ht, row_blocks, stream);
+}
+
+// The fixed-order form of the same launch: outputs are (m, F, B) u64
+// fixed-point sums, zeroed by the caller, and `scale` holds three f32
+// powers of two on the device (grad, hess, count).
+int hist_planes_fixed_launch(const void* plan, const void* bins,
+                             const void* node, const void* grad,
+                             const void* hess, const void* cnt, void* qg,
+                             void* qh, void* qc, const void* scale,
+                             long long n, int F, int m, int B, int LO,
+                             int ht, int fg, int row_blocks, void* stream) {
+  const PlanesArgs a = {(const int8_t*)plan, (const uint8_t*)bins,
+                        (const int32_t*)node, (const float*)grad,
+                        (const float*)hess, (const float*)cnt, nullptr,
+                        nullptr, nullptr, (unsigned long long*)qg,
+                        (unsigned long long*)qh, (unsigned long long*)qc,
+                        (const float*)scale, n, F, m, B, 0, 0, fg, 0, 0};
+  return planes_launch(a, LO, ht, row_blocks, stream);
 }
 
 // The shared memory of a planes block (F features, digit LO, fg features

@@ -25,6 +25,12 @@ Two functions, each with a plain version here and a CUDA kernel in
 The tensor's device chooses the implementation: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises. Nothing falls
 back.
+
+`fixed_order=True` asks for histograms that are a pure function of the
+inputs, as a checkpointed fit needs to resume bit for bit: on the card
+the kernels' fixed-order forms (`histogram_cuda.hist_tiled_fixed`,
+`hist_planes_fixed`); on the CPU the plain versions, which already add in
+a fixed order.
 """
 from __future__ import annotations
 
@@ -174,13 +180,16 @@ def _torch_hist_planes(bins, grad, hess, node_local, active, n_nodes: int,
 
 def node_feature_histograms(bins, grad, hess, node_local, active,
                             n_nodes: int, n_bins: int, count_w=None,
-                            lo_planes=None, plane_lo: int = 0):
+                            lo_planes=None, plane_lo: int = 0,
+                            fixed_order: bool = False):
     """(n, F) uint8 bins + per-row grad/hess -> three (n_nodes, F, n_bins)
     f32 histograms. Rows with active=False contribute nothing; rows with
     count_w=0 contribute to no count (see `_torch_hist`).
 
     `lo_planes`/`plane_lo`: the fit's plan (`build_hist_plan`); with one,
-    levels of at most `PLANES_M_MAX` nodes take the planes histogram."""
+    levels of at most `PLANES_M_MAX` nodes take the planes histogram.
+    `fixed_order`: the same histograms from the same inputs on every call
+    (the module docstring)."""
     planes = planes_route(n_nodes, n_bins, lo_planes is not None)
     if bins.device.type == "cpu":
         if planes:
@@ -193,8 +202,11 @@ def node_feature_histograms(bins, grad, hess, node_local, active,
         raise ValueError(f"no histogram path for device {bins.device}")
     from . import histogram_cuda
     if planes:
-        return histogram_cuda.hist_planes(
-            bins, grad, hess, node_local, active, n_nodes, n_bins,
-            count_w=count_w, lo_planes=lo_planes, plane_lo=plane_lo)
-    return histogram_cuda.cuda_hist(bins, grad, hess, node_local, active,
-                                    n_nodes, n_bins, count_w=count_w)
+        fn = (histogram_cuda.hist_planes_fixed if fixed_order
+              else histogram_cuda.hist_planes)
+        return fn(bins, grad, hess, node_local, active, n_nodes, n_bins,
+                  count_w=count_w, lo_planes=lo_planes, plane_lo=plane_lo)
+    fn = (histogram_cuda.hist_tiled_fixed if fixed_order
+          else histogram_cuda.cuda_hist)
+    return fn(bins, grad, hess, node_local, active, n_nodes, n_bins,
+              count_w=count_w)

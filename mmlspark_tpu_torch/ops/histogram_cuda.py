@@ -22,6 +22,14 @@ rows), and the widest feature tile among equals.
 its level needs (HT = ceil(m * B / LO / 8)), the features a block takes
 (as many as its 8 warps have items for), the feature groups and the row
 blocks that fill the card.
+
+`hist_tiled_fixed` and `hist_planes_fixed` are the fixed-order forms of
+the two kernels, which checkpointed fits take: every statistic is added as
+a 64-bit fixed-point integer (`fixed_scales`), so the histograms are a pure
+function of the inputs, whatever order the atomics land in. The planner
+is `plan_tiles(..., fixed=True)`: the same search over cells of 24 bytes
+in place of 12. Their only scratch is the (m, F, B) int64 sums of the
+three statistics (`fixed_scratch_bytes`), one set for the whole grid.
 """
 from __future__ import annotations
 
@@ -36,7 +44,8 @@ from .histogram import check_plan
 
 # launches per kernel, counted where each wrapper launches (and nowhere
 # else) so a run can show that its path went through the kernels
-launches = {"hist_tiled": 0, "hist_planes": 0}
+launches = {"hist_tiled": 0, "hist_planes": 0, "hist_tiled_fixed": 0,
+            "hist_planes_fixed": 0}
 
 # The planes kernel (hist_planes_kernel): 256 threads = 8 warps a block,
 # tiles of 64 rows, a ring of 3 tile stages (kPlanesThreads, kRows and
@@ -81,12 +90,18 @@ def _library():
         lib.hist_tile_launch.argtypes = [_P] * 8 + [
             ctypes.c_longlong] + [ctypes.c_int] * 9 + [_P]
         lib.hist_tile_launch.restype = ctypes.c_int
-        lib.hist_tile_occupancy.argtypes = [ctypes.c_int] * 3 + [
+        lib.hist_tile_fixed_launch.argtypes = [_P] * 9 + [
+            ctypes.c_longlong] + [ctypes.c_int] * 9 + [_P]
+        lib.hist_tile_fixed_launch.restype = ctypes.c_int
+        lib.hist_tile_occupancy.argtypes = [ctypes.c_int] * 4 + [
             ctypes.POINTER(ctypes.c_int)]
         lib.hist_tile_occupancy.restype = ctypes.c_int
         lib.hist_planes_launch.argtypes = [_P] * 9 + [
             ctypes.c_longlong] + [ctypes.c_int] * 7 + [_P]
         lib.hist_planes_launch.restype = ctypes.c_int
+        lib.hist_planes_fixed_launch.argtypes = [_P] * 10 + [
+            ctypes.c_longlong] + [ctypes.c_int] * 7 + [_P]
+        lib.hist_planes_fixed_launch.restype = ctypes.c_int
         lib.hist_planes_occupancy.argtypes = [ctypes.c_int] * 4 + [
             ctypes.POINTER(ctypes.c_int)] * 2
         lib.hist_planes_occupancy.restype = ctypes.c_int
@@ -194,36 +209,38 @@ class TilePlan(NamedTuple):
 
 
 def tile_smem(mt: int, ft: int, n_bins: int, copies: int = 1,
-              threads: int = 0) -> int:
-    """Shared memory of a block: 3 statistics x copies x mt x B x ft f32,
-    ft rounded up to a multiple of 32 (feature f of a (node, bin) in bank
-    f % 32), and a queue of QUEUE_PER_THREAD row indices per thread."""
-    return 4 * (3 * copies * mt * n_bins * 32 * -(-ft // 32)
-                + QUEUE_PER_THREAD * threads)
+              threads: int = 0, fixed: bool = False) -> int:
+    """Shared memory of a block: 3 statistics x copies x mt x B x ft
+    cells, ft rounded up to a multiple of 32 (feature f of a (node, bin)
+    in bank f % 32), of 4 bytes (f32) or, in the fixed-order form, 8
+    (u64); then a queue of QUEUE_PER_THREAD row indices per thread
+    (`tile_smem` in histogram.cu)."""
+    return (8 if fixed else 4) * 3 * copies * mt * n_bins * 32 * \
+        -(-ft // 32) + 4 * QUEUE_PER_THREAD * threads
 
 
 def plan_tiles(n: int, f: int, n_nodes: int, n_bins: int, per_block: int,
                per_sm: int, sms: int, *, threads: int = TILE_THREADS,
                copies: int = TILE_COPIES, ft: int | None = None,
-               mt: int | None = None) -> TilePlan:
+               mt: int | None = None, fixed: bool = False) -> TilePlan:
     """The tiled kernel's launch for (n, F, m, B) on a card with
     `per_block` / `per_sm` bytes of shared memory and `sms` SMs. `ft` and
     `mt` pin the features and nodes of a tile (the sweep's knobs);
     otherwise the planner picks them (the module docstring). Copies are
-    taken only where the tile leaves room for them. Raises when one
+    taken only where the tile leaves room for them. `fixed`: the plan of
+    the fixed-order form, whose cells are twice as wide. Raises when one
     (node, feature) histogram does not fit a block."""
-    if tile_smem(1, 1, n_bins, 1, threads) > per_block:
-        raise ValueError(f"B={n_bins} needs "
-                         f"{tile_smem(1, 1, n_bins, 1, threads)} B of shared "
-                         f"memory for one node; the card allows "
-                         f"{per_block}")
+    one = tile_smem(1, 1, n_bins, 1, threads, fixed)
+    if one > per_block:
+        raise ValueError(f"B={n_bins} needs {one} B of shared memory for "
+                         f"one node; the card allows {per_block}")
     best = None
     widths = range(1, f + 1) if ft is None else [-(-f // ft)]
     for n_ft in widths:
         t_ft = -(-f // n_ft)                   # balanced feature tiles
         n_ft = -(-f // t_ft)
         fit = (per_block - tile_smem(0, 0, 0, 0, threads)) \
-            // tile_smem(1, t_ft, n_bins)
+            // tile_smem(1, t_ft, n_bins, fixed=fixed)
         if mt is not None:
             fit = min(fit, mt)
         if fit < 1:
@@ -239,8 +256,8 @@ def plan_tiles(n: int, f: int, n_nodes: int, n_bins: int, per_block: int,
                          f"B={n_bins}")
     _, t_mt, t_ft, n_mt, n_ft = best
     cps = max(1, min(copies, (per_block - tile_smem(0, 0, 0, 0, threads))
-                     // tile_smem(t_mt, t_ft, n_bins)))
-    smem = tile_smem(t_mt, t_ft, n_bins, cps, threads)
+                     // tile_smem(t_mt, t_ft, n_bins, fixed=fixed)))
+    smem = tile_smem(t_mt, t_ft, n_bins, cps, threads, fixed)
     per_sm_blocks = max(1, min(MAX_THREADS_PER_SM // threads,
                                per_sm // (smem + 1024)))
     tiles = n_mt * n_ft
@@ -252,8 +269,9 @@ def plan_tiles(n: int, f: int, n_nodes: int, n_bins: int, per_block: int,
 
 
 def _prepare(bins, grad, hess, node_local, active, n_nodes, n_bins,
-             count_w):
-    """Check the inputs and return the kernel's operands and outputs."""
+             count_w, out_dtype=torch.float32):
+    """Check the inputs and return the kernel's operands and its zeroed
+    outputs of `out_dtype`."""
     if bins.device.type != "cuda":
         raise ValueError(f"CUDA histogram kernel got a {bins.device} tensor")
     if bins.dtype != torch.uint8 or bins.dim() != 2:
@@ -279,7 +297,7 @@ def _prepare(bins, grad, hess, node_local, active, n_nodes, n_bins,
         ops.append(count_w.to(torch.float32).contiguous())
     else:
         ops.append(None)
-    outs = [torch.zeros((n_nodes, f, n_bins), dtype=torch.float32,
+    outs = [torch.zeros((n_nodes, f, n_bins), dtype=out_dtype,
                         device=bins.device) for _ in range(3)]
     return ops, outs
 
@@ -309,31 +327,97 @@ def hist_tiled(bins, grad, hess, node_local, active, n_nodes: int,
     return tuple(outs)
 
 
-def tile_occupancy(plan: TilePlan, with_count: bool) -> int:
+def tile_occupancy(plan: TilePlan, with_count: bool,
+                   fixed: bool = False) -> int:
     """Blocks of the tiled kernel at `plan` (with or without a count
-    operand) that fit one SM of the current card."""
+    operand; the atomic or the fixed-order form) that fit one SM of the
+    current card."""
     blocks = ctypes.c_int()
-    _check(_library().hist_tile_occupancy(int(with_count), plan.threads,
-                                          plan.smem, ctypes.byref(blocks)),
+    _check(_library().hist_tile_occupancy(int(with_count), int(fixed),
+                                          plan.threads, plan.smem,
+                                          ctypes.byref(blocks)),
            "hist_tile_occupancy")
     return blocks.value
 
 
-def _launch_tiled(ops, outs, n, f, n_nodes, n_bins, plan: TilePlan):
-    """Launch `hist_tile_kernel` at a given plan and count it."""
+def _launch_tiled(ops, outs, n, f, n_nodes, n_bins, plan: TilePlan,
+                  scale=None):
+    """Launch `hist_tile_kernel` at a given plan and count it: the atomic
+    form, or with `scale` (`fixed_scales`) the fixed-order form into u64
+    outputs."""
     vec = f % 16 == 0 and plan.ft % 16 == 0 and ops[0].data_ptr() % 16 == 0
+    args = (n, f, n_nodes, n_bins, plan.mt, plan.ft, plan.copies,
+            plan.threads, plan.row_blocks, int(vec))
     with torch.cuda.device(outs[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        _check(_library().hist_tile_launch(
-            *_ptrs(ops, outs), n, f, n_nodes, n_bins, plan.mt, plan.ft,
-            plan.copies, plan.threads, plan.row_blocks, int(vec), stream),
-            "hist_tiled")
-    launches["hist_tiled"] += 1
+        if scale is None:
+            _check(_library().hist_tile_launch(*_ptrs(ops, outs), *args,
+                                               stream), "hist_tiled")
+        else:
+            _check(_library().hist_tile_fixed_launch(
+                *_ptrs(ops, outs), scale.data_ptr(), *args, stream),
+                "hist_tiled_fixed")
+    launches["hist_tiled" if scale is None else "hist_tiled_fixed"] += 1
 
 
 def _aligned(t):
     """t, or a copy of it, at a 16-byte aligned address (cp.async)."""
     return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
+def fixed_scales(n: int, stats) -> torch.Tensor:
+    """The fixed-order kernels' scales, a (3,) f32 tensor on the
+    statistics' device (no host sync): for each of grad, hess and count,
+    the power of two 2^(k - e) with 2^e above its largest |value| and k =
+    62 - bit_length(n), so that a term rounds to an integer of at most
+    2^k and n of them sum below 2^62; 1 for a count of None (every row
+    counts 1, summed as an integer)."""
+    k = 62 - int(n).bit_length()
+    dev = next(s for s in stats if s is not None).device
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    out = []
+    for s in stats:
+        if s is None:
+            out.append(one)
+            continue
+        e = torch.frexp(s.detach().abs().amax().to(torch.float32)).exponent
+        # 2^126 is f32's largest power of two whose inverse is normal
+        out.append(torch.ldexp(one, (k - e).clamp(max=126)))
+    return torch.stack(out)
+
+
+def _from_fixed(outs, scale):
+    """The fixed-point sums back to f32 histograms: sum / scale, in f64
+    (an exact power-of-two division) and then rounded once to f32."""
+    inv = 1.0 / scale.to(torch.float64)
+    return tuple((q.to(torch.float64) * inv[i]).to(torch.float32)
+                 for i, q in enumerate(outs))
+
+
+def fixed_scratch_bytes(n_nodes: int, f: int, n_bins: int) -> int:
+    """Device scratch of one fixed-order call: the three (m, F, B) int64
+    sums, whatever the grid's row blocks."""
+    return 3 * 8 * n_nodes * f * n_bins
+
+
+def hist_tiled_fixed(bins, grad, hess, node_local, active, n_nodes: int,
+                     n_bins: int, count_w=None):
+    """The tiled kernel's fixed-order form, any m*B, at the planner's
+    `fixed=True` launch: the histograms are a pure function of the
+    inputs. `_torch_hist` is its plain version (f32 sums in a fixed
+    order, on the CPU)."""
+    ops, outs = _prepare(bins, grad, hess, node_local, active, n_nodes,
+                         n_bins, count_w, out_dtype=torch.int64)
+    n, f = bins.shape
+    if n >= 2 ** 31:
+        raise ValueError(f"the tiled kernel takes fewer than 2^31 rows, got "
+                         f"{n}")
+    scale = fixed_scales(n, (ops[2], ops[3], ops[4]))
+    _launch_tiled(ops, outs, n, f, n_nodes, n_bins,
+                  plan_tiles(n, f, n_nodes, n_bins,
+                             *_card(bins.device.index or 0), fixed=True),
+                  scale=scale)
+    return _from_fixed(outs, scale)
 
 
 def hist_planes(bins, grad, hess, node_local, active, n_nodes: int,
@@ -342,10 +426,28 @@ def hist_planes(bins, grad, hess, node_local, active, n_nodes: int,
     with grad/hess/count rounded to bf16 (`histogram._torch_hist_planes`
     is its plain version), at `plan_planes`' launch. Raises when the plan
     does not fit these bins or the level is past the kernel's hi digits."""
+    return _planes(bins, grad, hess, node_local, active, n_nodes, n_bins,
+                   count_w, lo_planes, plane_lo, fixed=False)
+
+
+def hist_planes_fixed(bins, grad, hess, node_local, active, n_nodes: int,
+                      n_bins: int, count_w=None, lo_planes=None,
+                      plane_lo: int = 0):
+    """The planes kernel's fixed-order form: the same bf16 products and
+    per-warp f32 totals, each total added across row blocks as a 64-bit
+    fixed-point integer, so the histograms are a pure function of the
+    inputs and the launch."""
+    return _planes(bins, grad, hess, node_local, active, n_nodes, n_bins,
+                   count_w, lo_planes, plane_lo, fixed=True)
+
+
+def _planes(bins, grad, hess, node_local, active, n_nodes, n_bins, count_w,
+            lo_planes, plane_lo, fixed: bool):
     if lo_planes is None:
         raise ValueError("hist_planes needs the fit's plan (lo_planes)")
     ops, outs = _prepare(bins, grad, hess, node_local, active, n_nodes,
-                         n_bins, count_w)
+                         n_bins, count_w,
+                         out_dtype=torch.int64 if fixed else torch.float32)
     check_plan(bins, lo_planes, plane_lo, n_bins)
     plan = lo_planes.contiguous()
     if plan.data_ptr() % 16:
@@ -355,13 +457,22 @@ def hist_planes(bins, grad, hess, node_local, active, n_nodes: int,
     n, f = bins.shape
     geo = plan_planes(n, f, n_nodes, n_bins, plane_lo,
                       *_card(bins.device.index or 0))
+    args = (n, f, n_nodes, n_bins, plane_lo, geo.ht, geo.fg,
+            geo.row_blocks)
     with torch.cuda.device(bins.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _check(_library().hist_planes_launch(
-            plan.data_ptr(), *_ptrs(ops, outs), n, f, n_nodes, n_bins,
-            plane_lo, geo.ht, geo.fg, geo.row_blocks, stream), "hist_planes")
-    launches["hist_planes"] += 1
-    return tuple(outs)
+        if not fixed:
+            _check(_library().hist_planes_launch(
+                plan.data_ptr(), *_ptrs(ops, outs), *args, stream),
+                "hist_planes")
+            launches["hist_planes"] += 1
+            return tuple(outs)
+        scale = fixed_scales(n, (ops[2], ops[3], ops[4]))
+        _check(_library().hist_planes_fixed_launch(
+            plan.data_ptr(), *_ptrs(ops, outs), scale.data_ptr(), *args,
+            stream), "hist_planes_fixed")
+    launches["hist_planes_fixed"] += 1
+    return _from_fixed(outs, scale)
 
 
 def cuda_hist(bins, grad, hess, node_local, active, n_nodes: int,

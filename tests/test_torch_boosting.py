@@ -214,22 +214,8 @@ def test_no_card_raises(monkeypatch):
                                                    "label": y}))
 
 
-@pytest.mark.parametrize("params", [
-    dict(init_booster="a Booster"), dict(callbacks="a Callbacks")])
-def test_unported_params_raise(params):
-    """Settings of later slices raise, naming their ROADMAP item; a
-    BoostParams field goes to BoostParams, the rest to fit_booster."""
-    x, y = _data("binary", n=200)
-    fields = {k: v for k, v in params.items()
-              if k in BoostParams.__dataclass_fields__}
-    fit_kw = {k: v for k, v in params.items() if k not in fields}
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        fit_booster(x, y, BoostParams(num_iterations=1, **fields),
-                    device="cpu", **fit_kw)
-
-
 @pytest.mark.parametrize("param", [
-    dict(checkpoint_dir="ck"), dict(out_of_core=True),
+    dict(out_of_core=True),
     dict(num_ingest_workers=2),
     dict(parallelism="voting_parallel", num_tasks=2),
     dict(features_shap_col="shap"),

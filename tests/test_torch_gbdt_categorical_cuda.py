@@ -62,7 +62,8 @@ def test_categorical_fit_matches_plain_histograms(cuda_device, monkeypatch,
         assert hc.launches["hist_planes"] > 0
 
     def plain(bins, grad, hess, node_local, active, n_nodes, n_bins,
-              count_w=None, lo_planes=None, plane_lo=0):
+              count_w=None, lo_planes=None, plane_lo=0, fixed_order=False):
+        # the plain versions add in a fixed order already
         if hist.planes_route(n_nodes, n_bins, lo_planes is not None):
             return hist._torch_hist_planes(
                 bins, grad, hess, node_local, active, n_nodes, n_bins,

@@ -158,7 +158,8 @@ def test_dispatch_launches_planes_kernel_and_counts(cuda_device):
     for m in (1, 2, 4, 8):
         port.node_feature_histograms(*t[:5], m, 64, count_w=t[5],
                                      lo_planes=plan, plane_lo=16)
-    assert hc.launches == {"hist_tiled": 1, "hist_planes": 3}
+    assert hc.launches == {"hist_tiled": 1, "hist_planes": 3,
+                           "hist_tiled_fixed": 0, "hist_planes_fixed": 0}
     with pytest.raises(ValueError, match="plan"):
         port.node_feature_histograms(*t[:5], 2, 64, lo_planes=plan[:, :10],
                                      plane_lo=16)
@@ -179,7 +180,8 @@ def test_planes_fit_on_card_matches_cpu(cuda_device, monkeypatch):
     p = BoostParams(num_iterations=5, max_bin=63, max_depth=5)
     hc.reset_launches()
     gpu, base, _ = fit_booster(x, y, p, device=cuda_device)
-    assert hc.launches == {"hist_tiled": 5, "hist_planes": 20}
+    assert hc.launches == {"hist_tiled": 5, "hist_planes": 20,
+                           "hist_tiled_fixed": 0, "hist_planes_fixed": 0}
     cpu, base_c, _ = fit_booster(x, y, p, device="cpu")
     assert base == base_c
     assert (gpu.split_feature == cpu.split_feature).mean() > 0.9

@@ -29,6 +29,9 @@ def test_import_loads_no_jax():
             "import mmlspark_tpu_torch.models.dnn.lm_training\n"
             "import mmlspark_tpu_torch.parallel.mesh\n"
             "import mmlspark_tpu_torch.parallel.ring_attention\n"
+            "import mmlspark_tpu_torch.models.dnn.payload\n"
+            "import mmlspark_tpu_torch.reliability\n"
+            "import mmlspark_tpu_torch.utils.checkpoint\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'mmlspark_tpu.')) "
             "or m == 'mmlspark_tpu')\n"
