@@ -164,6 +164,30 @@ Phases (any failure exits non-zero before the last line is printed):
      `save_checkpoint`, a trainer of another seed restores: parameters
      equal, the next loss within rtol 1e-6; save and restore seconds and
      bytes. Checkpoints go to a temporary directory, deleted after.
+  13. introspect (slice 13), on the headline fit's and the categorical
+     fit's boosters: `predict_leaf` on 1,048,576 rows on the card equal to
+     the host descent, their leaf values summing to `raw_score` within
+     1e-5; device TreeSHAP (`shap_device.shap_contributions_device`,
+     torch ops, no kernel) within 1e-4 of the float64 host oracle on 2,048
+     rows, and on 65,536 rows (SHAP rows/s, peak memory) summing to the
+     raw score plus the init score within 1e-4; split importances summing
+     to the internal node count; a native model file saved, loaded and
+     scoring bit-identically; a model's transform filling the leaf and
+     SHAP columns.
+  14. data_parallel (slice 13): `fit_booster_distributed` over a mesh of
+     4 positions on the card (`data_mesh(devices=[cuda:0] * 4)`): the
+     headline fit timed beside the one-position fit, in turn, 3 each,
+     with exactly 200 `hist_tiled` launches against 50, train
+     logloss/AUC within `_METRIC_TOL` of it and the first tree's split
+     features equal; a ragged fit of 8,000,003 rows (root covers count
+     the real rows, the base is unmoved, AUC within 0.02 of the
+     one-position fit); voting_parallel with top_k=8 (AUC within 0.01 of
+     data_parallel, the voted features' share of the summed histograms per
+     level at most 2k/F); the planes route over the mesh (160
+     `hist_planes` + 40 `hist_tiled`) within `_METRIC_TOL` of the
+     one-position planes fit; a fixed-order checkpointed fit (240
+     `hist_tiled_fixed`) that repeats itself bit for bit and whose 6 -> 10
+     resume equals it bit for bit.
 The headline fit (4) is timed 3 times (min and median), and every
 phase's seconds are printed.
 The kernel phase (3) also holds the flash backward kernels, dq and dk/dv,
@@ -965,7 +989,7 @@ def main_path_phase(dev, data, profile: bool):
         log(prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=25))
     return dict(launches=launches, deep_launches=deep_launches,
-                fit_times=fit_times)
+                fit_times=fit_times, booster=booster, base=base)
 
 
 def _bf16(t):
@@ -1740,7 +1764,8 @@ def categorical_phase(dev, data, numeric_times, profile: bool):
     return dict(launches=want, fit_times=fit_times, fit_s=fit_s, peak=peak,
                 auc=auc, ordinal_auc=o_auc, planes_launches=planes_want,
                 root_hist_errors=root,
-                planes_s=p_s, pipeline=pipe, profile=prof)
+                planes_s=p_s, pipeline=pipe, profile=prof, booster=booster,
+                base=base, x_head=x[:INTROSPECT_ROWS].copy())
 
 
 def _flash_cases():
@@ -3373,6 +3398,386 @@ def resume_phase(dev, data, default_times):
                 routes=routes, lm=lm)
 
 
+# ------------------------------------------------------------ [introspect]
+# slice 13: Booster introspection on the card. Leaf indices of this many
+# rows against the host descent; device TreeSHAP against the float64 host
+# oracle on SHAP_ORACLE_ROWS rows (the reference's limit,
+# tests/test_shap_device.py:28) and local accuracy on SHAP_ROWS rows
+INTROSPECT_ROWS = 1 << 20
+SHAP_ORACLE_ROWS = 2048
+SHAP_ROWS = 65536
+_SHAP_ATOL = 1e-4
+_LEAF_SUM_ATOL = 1e-5
+
+
+def _introspect_one(tag, booster, base, x, dev, tmp):
+    """[introspect] on one fitted booster: leaf indices on the card
+    against the host descent, their leaf values against raw_score, device
+    TreeSHAP against the host oracle and summing to the raw score plus the
+    init score, split importances against the node count, a native model
+    file round trip and a model's transform with both new columns."""
+    import torch
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.models.gbdt import load_native_model
+    from mmlspark_tpu_torch.models.gbdt.estimators import (
+        GBDTClassificationModel)
+    from mmlspark_tpu_torch.models.gbdt.shap_device import (
+        shap_contributions_device)
+
+    n = INTROSPECT_ROWS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    leaves = booster.predict_leaf_device(x[:n], device=dev)
+    torch.cuda.synchronize()
+    leaf_s = time.perf_counter() - t0
+    leaves = leaves.cpu().numpy()
+    host = booster.predict_leaf(x[:n], backend="host")
+    if leaves.shape != (n, booster.n_trees) or not np.array_equal(leaves,
+                                                                  host):
+        raise AssertionError(f"{tag}: device leaf indices differ from the "
+                             f"host descent")
+    lv_sum = booster.leaf_value[np.arange(booster.n_trees)[None, :],
+                                leaves].sum(1, dtype=np.float64)
+    raw = booster.raw_score(x[:n], device=dev)[:, 0]
+    leaf_err = float(np.abs(lv_sum - raw).max())
+    if leaf_err > _LEAF_SUM_ATOL:
+        raise AssertionError(f"{tag}: leaf values sum {leaf_err} from the "
+                             f"raw score")
+
+    s = booster._used_trees()
+    ic, cw = booster._cat_args(s)
+    args = (booster.split_feature[s], booster.threshold[s],
+            booster.leaf_value[s], booster.cover[s], booster.n_features,
+            booster.max_depth)
+    m = SHAP_ORACLE_ROWS
+    got = shap_contributions_device(x[:m], *args, split_is_cat=ic,
+                                    cat_words=cw, device=dev)
+    t0 = time.perf_counter()
+    oracle = booster.feature_contributions(x[:m], backend="host")
+    oracle_s = time.perf_counter() - t0
+    shap_err = float(np.abs(got.cpu().numpy().astype(np.float64)
+                            - oracle).max())
+    if shap_err > _SHAP_ATOL:
+        raise AssertionError(f"{tag}: device TreeSHAP {shap_err} from the "
+                             f"host oracle")
+    xs = torch.as_tensor(x[:SHAP_ROWS]).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    phi = shap_contributions_device(xs, *args, split_is_cat=ic,
+                                    cat_words=cw, device=dev)
+    torch.cuda.synchronize()
+    shap_s = time.perf_counter() - t0
+    shap_peak = torch.cuda.max_memory_allocated()
+    # the same call under torch.profiler: its kernels' time against the
+    # unprofiled wall says how much of it the card is busy
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprof
+    with tprof(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        shap_contributions_device(xs, *args, split_is_cat=ic, cat_words=cw,
+                                  device=dev)
+        torch.cuda.synchronize()
+    shap_kernel_s = sum(_device_us(e, own=True) for e in prof.events()
+                        if e.device_type == DeviceType.CPU) / 1e6
+    n_kernels = sum(1 for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+    if phi.shape != (SHAP_ROWS, booster.n_features + 1) or not bool(
+            phi.isfinite().all()):
+        raise AssertionError(f"{tag}: SHAP values are not finite "
+                             f"(n, F + 1) values")
+    acc_err = float((phi.sum(1).double() + base - torch.as_tensor(
+        booster.raw_score(x[:SHAP_ROWS], base, device=dev)[:, 0],
+        device=dev).double()).abs().max())
+    if acc_err > _SHAP_ATOL:
+        raise AssertionError(f"{tag}: SHAP rows sum {acc_err} from the raw "
+                             f"score plus init")
+
+    split = booster.feature_importances("split")
+    n_internal = int((booster.split_feature >= 0).sum())
+    if split.sum() != n_internal:
+        raise AssertionError(f"{tag}: split importances sum {split.sum()}, "
+                             f"{n_internal} internal nodes")
+    gain = booster.feature_importances("gain")
+
+    model = GBDTClassificationModel(
+        booster=booster, init_score=base, device=str(dev),
+        leaf_prediction_col="leaves", features_shap_col="shap")
+    path = os.path.join(tmp, f"{tag}_native.json")
+    model.save_native_model(path)
+    back = load_native_model(path, GBDTClassificationModel)
+    back.set(device=str(dev))
+    probe = x[:200_000]
+    if not np.array_equal(back.booster.raw_score(probe, back._init_score,
+                                                 device=dev),
+                          booster.raw_score(probe, base, device=dev)):
+        raise AssertionError(f"{tag}: the native model's predictions "
+                             f"differ after a load")
+    t0 = time.perf_counter()
+    out = model.transform(Table({"features": x[:SHAP_ROWS]}))
+    transform_s = time.perf_counter() - t0
+    cols = np.asarray(out["shap"])
+    if (np.asarray(out["leaves"]).shape != (SHAP_ROWS, booster.n_trees)
+            or cols.shape != (SHAP_ROWS, booster.n_features + 1)
+            or float(np.abs(cols.sum(1) - np.asarray(
+                out["raw_prediction"])[:, 0]).max()) > _SHAP_ATOL):
+        raise AssertionError(f"{tag}: the transform's leaf/SHAP columns "
+                             f"are wrong")
+    log(f"[introspect] {tag}: predict_leaf on the card {n} rows x "
+        f"{booster.n_trees} trees in {leaf_s:.4f} s ({n / leaf_s:.4g} "
+        f"rows/s), equal to the host descent, leaf values within "
+        f"{leaf_err:.3g} of raw_score; device TreeSHAP {m} rows within "
+        f"{shap_err:.3g} of the float64 host oracle ({oracle_s:.3f} s on "
+        f"the host); {SHAP_ROWS} rows in {shap_s:.4f} s = "
+        f"{SHAP_ROWS / shap_s:.4g} SHAP rows/s, peak "
+        f"{shap_peak / 2**20:.1f} MiB, {shap_kernel_s * 1e3:.2f} ms of "
+        f"kernel time in {n_kernels} kernels (busy "
+        f"{100 * shap_kernel_s / shap_s:.1f}% of the wall), rows sum to "
+        f"raw + init within "
+        f"{acc_err:.3g}; split importances sum {int(split.sum())} = "
+        f"internal nodes, top gain feature {int(gain.argmax())}; native "
+        f"model {os.path.getsize(path)} bytes, bit-identical after a "
+        f"load; transform with leaf and SHAP columns {transform_s:.3f} s")
+    return dict(leaf_s=leaf_s, leaf_rows_per_s=n / leaf_s,
+                leaf_err=leaf_err, shap_err=shap_err, shap_s=shap_s,
+                shap_rows_per_s=SHAP_ROWS / shap_s, shap_peak=shap_peak,
+                shap_kernel_s=shap_kernel_s, shap_kernels=n_kernels,
+                acc_err=acc_err, oracle_s=oracle_s,
+                transform_s=transform_s)
+
+
+def introspect_phase(dev, data, headline, cat):
+    """[introspect] on the headline fit's and the categorical fit's
+    boosters."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        return {tag: _introspect_one(tag, b["booster"], b["base"], x, dev,
+                                     tmp)
+                for tag, b, x in (("headline", headline, data["x"]),
+                                  ("categorical", cat, cat["x_head"]))}
+
+
+# ------------------------------------------------------------ [data_parallel]
+# slice 13: data-/voting-parallel GBDT over a mesh of DP_POSITIONS
+# positions on one card (the ring's layout, `devices=[cuda:0] * 4`)
+DP_POSITIONS = 4
+DP_TOP_K = 8               # voting: 2k = 16 of the 32 features are summed
+_RAGGED_EXTRA = 3          # 8,000,003 rows: one padding row
+_RAGGED_AUC_TOL = 0.02     # the reference's tests/test_gbdt.py:277-290
+_VOTING_AUC_TOL = 0.01
+
+
+def _dp_fit(x, y, params, staged, mesh, want, **kw):
+    """One `fit_booster_distributed` over `mesh` with the launch counts set
+    to 0 just before and read just after; fails unless they equal
+    `want`. Returns (booster, base, s, peak bytes)."""
+    import torch
+    from mmlspark_tpu_torch.models.gbdt import fit_booster_distributed
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+    torch.cuda.synchronize()
+    hc.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    booster, base, _ = fit_booster_distributed(x, y, params, mesh=mesh,
+                                               prebinned=staged, **kw)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {k: v for k, v in hc.launches.items() if v}
+    if launches != want:
+        raise AssertionError(f"data-parallel launches {launches}, expected "
+                             f"{want}")
+    return booster, base, fit_s, torch.cuda.max_memory_allocated()
+
+
+@contextlib.contextmanager
+def _voting_shares(shares):
+    """Record, per voting level, the share of (node, feature) histograms
+    that cross the sum (elected and voted for); read after the fit."""
+    from mmlspark_tpu_torch.models.gbdt import trainer
+    saved = trainer._voting_feature_mask
+
+    def spy(local_hists, feature_mask, cfg, top_k):
+        vidx, has_vote = saved(local_hists, feature_mask, cfg, top_k)
+        shares.append((has_vote.sum(), has_vote.shape[0] * cfg.n_features))
+        return vidx, has_vote
+    trainer._voting_feature_mask = spy
+    try:
+        yield
+    finally:
+        trainer._voting_feature_mask = saved
+
+
+def data_parallel_phase(dev, data):
+    """[data_parallel]: the headline fit over DP_POSITIONS positions of
+    the card beside the one-position fit, a ragged fit, a voting fit, the
+    planes route, and a fixed-order checkpointed fit's repeat and 6 -> 10
+    resume."""
+    import dataclasses
+
+    import torch
+    from mmlspark_tpu_torch.parallel import data_mesh
+
+    x, y, staged, d_y = data["x"], data["y"], data["staged"], data["d_y"]
+    mesh = data_mesh(devices=[dev] * DP_POSITIONS)
+    params = _headline_params()
+    per_fit = N_ITERS * DEPTH
+    dp_want = dict(hist_tiled=per_fit * DP_POSITIONS)
+    _dp_fit(x, y, dataclasses.replace(params, num_iterations=1), staged,
+            mesh, dict(hist_tiled=DEPTH * DP_POSITIONS))
+    one_times, dp_times = [], []
+    for _ in range(FIT_REPEATS):
+        one, one_base, s1, one_peak = _counted_fit(
+            x, y, params, staged, dev, dict(hist_tiled=per_fit))
+        one_times.append(s1)
+        dp, dp_base, s4, dp_peak = _dp_fit(x, y, params, staged, mesh,
+                                           dp_want)
+        dp_times.append(s4)
+    one_ll, one_auc = _fit_metrics(one, one_base, x, d_y, dev)
+    dp_ll, dp_auc = _fit_metrics(dp, dp_base, x, d_y, dev)
+    same_first = bool(np.array_equal(dp.split_feature[0],
+                                     one.split_feature[0]))
+    log(f"[data_parallel] mesh {mesh}: fit_booster_distributed "
+        f"data_parallel {FIT_REPEATS} fits "
+        f"{', '.join(f'{t:.4f}' for t in dp_times)} s (median "
+        f"{float(np.median(dp_times)):.4f} s) against the one-position fit's "
+        f"{', '.join(f'{t:.4f}' for t in one_times)} s (median "
+        f"{float(np.median(one_times)):.4f} s) in turn; launches {dp_want} "
+        f"a fit against {dict(hist_tiled=per_fit)}; peak "
+        f"{dp_peak / 2**30:.2f} GiB against {one_peak / 2**30:.2f} GiB; "
+        f"logloss {dp_ll:.6f} / {one_ll:.6f}, AUC {dp_auc:.6f} / "
+        f"{one_auc:.6f}; first tree's split features equal: {same_first}; "
+        f"split features equal at "
+        f"{float(np.mean(dp.split_feature == one.split_feature)):.3f}")
+    if abs(dp_ll - one_ll) > _METRIC_TOL or abs(dp_auc - one_auc) > \
+            _METRIC_TOL:
+        raise AssertionError("the data-parallel fit and the one-position "
+                             "fit disagree")
+    if not same_first:
+        raise AssertionError("the first tree's split features differ")
+
+    # ragged: 8,000,003 rows, padded to a multiple of the positions
+    n_r = N_ROWS + _RAGGED_EXTRA
+    x_r = np.concatenate([x, x[:_RAGGED_EXTRA]])
+    y_r = np.concatenate([y, y[:_RAGGED_EXTRA]])
+    mapper, d_bins, _ = staged
+    staged_r = (mapper, torch.cat([d_bins, d_bins[:_RAGGED_EXTRA]]),
+                torch.cat([d_y, d_y[:_RAGGED_EXTRA]]))
+    r_one, r_one_base, _, _ = _counted_fit(x_r, y_r, params, staged_r, dev,
+                                           dict(hist_tiled=per_fit))
+    r_dp, r_dp_base, r_s, _ = _dp_fit(x_r, y_r, params, staged_r, mesh,
+                                      dp_want)
+    _, r_one_auc = _metrics(r_one.raw_score_device(x_r, device=dev)[:, 0]
+                            + r_one_base, staged_r[2])
+    _, r_dp_auc = _metrics(r_dp.raw_score_device(x_r, device=dev)[:, 0]
+                           + r_dp_base, staged_r[2])
+    roots = set(r_dp.cover[:, 0].tolist())
+    log(f"[data_parallel] ragged {n_r} rows (padded to "
+        f"{n_r + (-n_r) % DP_POSITIONS}): {r_s:.4f} s; root covers "
+        f"{sorted(roots)} (padding presence 0), base {r_dp_base:.9f} "
+        f"against the one-position fit's {r_one_base:.9f} (padding weight "
+        f"0); AUC {r_dp_auc:.6f} against {r_one_auc:.6f}")
+    if roots != {float(n_r)} or abs(r_dp_base - r_one_base) > 1e-12:
+        raise AssertionError("the padding rows counted or weighed")
+    if abs(r_dp_auc - r_one_auc) > _RAGGED_AUC_TOL:
+        raise AssertionError("the ragged fit's AUC moved")
+    del x_r, y_r, staged_r
+
+    # voting: only the elected features' histograms are summed
+    shares = []
+    with _voting_shares(shares):
+        v, v_base, v_s, v_peak = _dp_fit(x, y, params, staged, mesh, dp_want,
+                                         parallelism="voting_parallel",
+                                         top_k=DP_TOP_K)
+    per_level = [[] for _ in range(DEPTH)]
+    for i, (voted, cells) in enumerate(shares):
+        per_level[i % DEPTH].append(float(voted) / cells)
+    level_share = [float(np.mean(v)) for v in per_level]
+    _, v_auc = _fit_metrics(v, v_base, x, d_y, dev)
+    log(f"[data_parallel] voting_parallel top_k {DP_TOP_K}: {v_s:.4f} s, "
+        f"launches {dp_want}, peak {v_peak / 2**30:.2f} GiB; voted "
+        f"features' share of the summed histograms per level "
+        f"{', '.join(f'{r:.4f}' for r in level_share)}; AUC {v_auc:.6f} "
+        f"against data_parallel {dp_auc:.6f}")
+    if abs(v_auc - dp_auc) > _VOTING_AUC_TOL:
+        raise AssertionError("the voting fit's AUC is off the "
+                             "data-parallel fit's")
+    if max(level_share) > 2 * DP_TOP_K / N_FEAT:
+        raise AssertionError("more than 2k features crossed the sum")
+
+    # the planes route, over the positions (a plan per position)
+    planes_want = dict(hist_tiled=N_ITERS * DP_POSITIONS,
+                       hist_planes=N_ITERS * (DEPTH - 1) * DP_POSITIONS)
+    with env("MMLSPARK_TPU_HIST", "planes"):
+        p_one, p_one_base, _, _ = _counted_fit(
+            x, y, params, staged, dev,
+            dict(hist_tiled=N_ITERS, hist_planes=N_ITERS * (DEPTH - 1)))
+        p_dp, p_dp_base, p_s, p_peak = _dp_fit(x, y, params, staged, mesh,
+                                               planes_want)
+    p_one_ll, p_one_auc = _fit_metrics(p_one, p_one_base, x, d_y, dev)
+    p_ll, p_auc = _fit_metrics(p_dp, p_dp_base, x, d_y, dev)
+    log(f"[data_parallel] MMLSPARK_TPU_HIST=planes over the mesh: "
+        f"{p_s:.4f} s, launches {planes_want}, peak "
+        f"{p_peak / 2**30:.2f} GiB; logloss {p_ll:.6f}, AUC {p_auc:.6f} "
+        f"against the one-position planes fit's {p_one_ll:.6f}, "
+        f"{p_one_auc:.6f}")
+    if abs(p_ll - p_one_ll) > _METRIC_TOL or abs(p_auc - p_one_auc) > \
+            _METRIC_TOL:
+        raise AssertionError("the data-parallel planes fit disagrees")
+
+    # fixed order: a checkpointed fit repeats itself, and its resume from
+    # the iteration-6 checkpoint equals it bit for bit
+    ck_params = dataclasses.replace(
+        params, bagging_fraction=0.8, bagging_freq=1, feature_fraction=0.8)
+    fixed_want = dict(hist_tiled_fixed=N_ITERS * (DEPTH + 1) * DP_POSITIONS)
+    runs = []
+    for _ in range(2):
+        saved = {}
+
+        def ck(it, booster, base, final=False, margin=None, rng_key=None,
+               saved=saved):
+            saved[it] = (booster, base, margin)
+        b, base, f_s, f_peak = _dp_fit(
+            x, y, ck_params, staged, mesh, fixed_want, checkpoint_fn=ck,
+            checkpoint_interval=RESUME_INTERVAL)
+        runs.append((b, base, f_s, saved))
+    (a, a_base, a_s, a_saved), (b, b_base, b_s, b_saved) = runs
+    a_raw = a.raw_score(x, a_base, device=dev)
+    _same_fit(a_raw, a, b.raw_score(x, b_base, device=dev), b,
+              "two fixed-order data-parallel fits")
+    if not np.array_equal(a_saved[9][2], b_saved[9][2]):
+        raise AssertionError("two fixed-order data-parallel fits' margins "
+                             "differ")
+    b6, base6, m6 = a_saved[6]
+    resumed = {}
+
+    def ck_resumed(it, booster, base, final=False, margin=None,
+                   rng_key=None):
+        resumed[it] = margin
+    r, _, r_s, _ = _dp_fit(
+        x, y, dataclasses.replace(ck_params, num_iterations=N_ITERS - 6),
+        staged, mesh,
+        dict(hist_tiled_fixed=(N_ITERS - 6) * (DEPTH + 1) * DP_POSITIONS),
+        init_booster=b6, init_base=base6, init_margin=m6, iter_offset=6,
+        checkpoint_fn=ck_resumed, checkpoint_interval=RESUME_INTERVAL)
+    _same_fit(a_raw, a, r.raw_score(x, base6, device=dev), r,
+              "the data-parallel 6 -> 10 resume")
+    if not np.array_equal(resumed[3], a_saved[9][2]):
+        raise AssertionError("the resumed data-parallel margin differs")
+    log(f"[data_parallel] fixed-order checkpointed fit (bagging 0.8/1, "
+        f"feature_fraction 0.8, a checkpoint every {RESUME_INTERVAL}): "
+        f"{a_s:.4f} / {b_s:.4f} s, launches {fixed_want}, peak "
+        f"{f_peak / 2**30:.2f} GiB; two fits equal bit for bit; 6 -> "
+        f"{N_ITERS} resume ({r_s:.4f} s) equal to the uninterrupted fit bit "
+        f"for bit")
+    return dict(launches=dp_want, one_times=one_times, dp_times=dp_times,
+                peak=dp_peak, one_peak=one_peak, logloss=dp_ll, auc=dp_auc,
+                one_logloss=one_ll, one_auc=one_auc, ragged_s=r_s,
+                ragged_auc=r_dp_auc, voting_s=v_s, voting_auc=v_auc,
+                voting_share=level_share, planes_launches=planes_want,
+                planes_s=p_s, fixed_launches=fixed_want,
+                fixed_s=[a_s, b_s], resume_s=r_s)
+
+
 VERSUS_ORDER = ("parent", "change", "change", "parent")
 
 
@@ -3527,6 +3932,8 @@ def main(argv) -> int:
     cat = phase("categorical", categorical_phase, dev, data,
                 paths["fit_times"], profile)
     resume = phase("resume", resume_phase, dev, data, paths["fit_times"])
+    intro = phase("introspect", introspect_phase, dev, data, paths, cat)
+    dp = phase("data_parallel", data_parallel_phase, dev, data)
     del data
     torch.cuda.empty_cache()
     ranker = phase("ranker", ranker_phase, dev)
@@ -3565,7 +3972,13 @@ def main(argv) -> int:
                  "hist_tiled"], "max_depth=11 fit": paths["deep_launches"][
                  "hist_tiled"], "categorical fit": cat["launches"][
                  "hist_tiled"], "categorical pipeline fit": cat["pipeline"][
-                 "launches"]["hist_tiled"]},
+                 "launches"]["hist_tiled"],
+                 "data_parallel fit (4 positions)": dp["launches"][
+                     "hist_tiled"],
+                 "voting_parallel fit (4 positions)": dp["launches"][
+                     "hist_tiled"],
+                 "data_parallel planes fit (4 positions)": dp[
+                     "planes_launches"]["hist_tiled"]},
              passed=True,
              **{k: hist8[k] for k in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by",
@@ -3608,7 +4021,9 @@ def main(argv) -> int:
              launches=planes["launches"]["hist_planes"], passed=True,
              launches_per_path={"planes headline fit": planes["launches"][
                  "hist_planes"], "categorical planes fit": cat[
-                 "planes_launches"]["hist_planes"]},
+                 "planes_launches"]["hist_planes"],
+                 "data_parallel planes fit (4 positions)": dp[
+                     "planes_launches"]["hist_planes"]},
              **{k: planes4[k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
                                         "library_ms")},
@@ -3645,8 +4060,11 @@ def main(argv) -> int:
             atomic_ms=row["atomic_ms"], scratch_bytes=row["scratch_bytes"],
             plan=row["plan"], shape=dict(n=row["n"], f=row["f"], b=row["b"],
                                          m=row["m"]),
-            launches_per_path={r: v["launches"].get(name, 0)
-                               for r, v in resume["routes"].items()},
+            launches_per_path={
+                **{r: v["launches"].get(name, 0)
+                   for r, v in resume["routes"].items()},
+                "checkpointed data_parallel fit (4 positions)":
+                    dp["fixed_launches"].get(name, 0)},
             per_case=[{k: r[k] for k in (
                 "kind", "n", "f", "b", "m", "ms", "atomic_ms", "plain_ms",
                 "library_ms", "bound_ms", "bound_by", "max_abs_err",
@@ -3757,6 +4175,20 @@ def main(argv) -> int:
         f"{', '.join(resume['routes'])}; LM save "
         f"{resume['lm']['save_s']:.2f} s, restore "
         f"{resume['lm']['restore_s']:.2f} s, {resume['lm']['bytes']} bytes")
+    log(f"[introspect] SHAP rows/s on the card: " + ", ".join(
+        f"{k} {v['shap_rows_per_s']:.4g} (peak {v['shap_peak'] / 2**20:.1f} "
+        f"MiB, busy {100 * v['shap_kernel_s'] / v['shap_s']:.1f}%, "
+        f"{v['shap_err']:.3g} from the oracle)" for k, v in
+        intro.items()) + "; predict_leaf rows/s: " + ", ".join(
+        f"{k} {v['leaf_rows_per_s']:.4g}" for k, v in intro.items()))
+    log(f"[data_parallel] {DP_POSITIONS} positions on one card: median "
+        f"{float(np.median(dp['dp_times'])):.4f} s a fit against the "
+        f"one-position fit's {float(np.median(dp['one_times'])):.4f} s; "
+        f"AUC {dp['auc']:.6f} / {dp['one_auc']:.6f}; voting "
+        f"{dp['voting_s']:.4f} s, AUC {dp['voting_auc']:.6f}; planes "
+        f"{dp['planes_s']:.4f} s; fixed order "
+        f"{', '.join(f'{t:.4f}' for t in dp['fixed_s'])} s, resume "
+        f"{dp['resume_s']:.4f} s, bit for bit")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; phases "
         + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     print(json.dumps({"kernels": kernels}))

@@ -9,11 +9,19 @@ Scoring has two paths, as in the reference: serving-sized batches descend
 on the host in numpy (no device round trip per request), bulk batches
 descend on the device (`trainer.predict_raw`). Both take the same
 decisions: go right unless x <= threshold, NaN right; a categorical node
-goes left iff the raw id's identity bin is in its packed set.
+goes left iff the raw id's identity bin is in its packed set. Leaf
+indices (`predict_leaf`) take the same two paths.
+
+Introspection as in the reference: split and gain importances, and exact
+path-dependent TreeSHAP (`feature_contributions`) on the device
+(`shap_device.py`, torch ops in f32) or on the host (`_tree_shap`, the
+float64 oracle), with the Saabas approximation for boosters that carry no
+node covers.
 """
 from __future__ import annotations
 
 import json
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -27,6 +35,9 @@ from . import trainer
 # round trip per batch
 _HOST_PREDICT_MAX_ROWS = 4096
 _HOST_PREDICT_MAX_WORK = 20_000_000
+# device TreeSHAP holds (leaves, depth, rows) tensors and unrolled masked
+# loops of depth + 2 slots; past this depth the host oracle takes over
+_DEVICE_SHAP_MAX_DEPTH = 8
 
 
 class Booster(NamedTuple):
@@ -72,17 +83,10 @@ class Booster(NamedTuple):
 
         backend: "auto" scores small batches on the host and bulk batches
         on `device` (None = the card); "host"/"device" force a path."""
-        if backend not in ("auto", "host", "device"):
-            raise ValueError(
-                f"backend must be auto|host|device, got {backend!r}")
         s = self._used_trees()
         ic, cw = self._cat_args(s)
         n_used = len(range(*s.indices(self.n_trees)))
-        n_rows = x.shape[0]
-        work = n_rows * n_used * max(self.max_depth, 1)
-        if backend == "host" or (backend == "auto"
-                                 and n_rows < _HOST_PREDICT_MAX_ROWS
-                                 and work <= _HOST_PREDICT_MAX_WORK):
+        if self._host_route(x.shape[0], n_used, backend):
             out = _predict_raw_host(
                 np.asarray(x, dtype=np.float32), self.split_feature[s],
                 self.threshold[s], self.leaf_value[s], self.tree_class[s],
@@ -99,17 +103,160 @@ class Booster(NamedTuple):
         dev = resolve_device(device)
         s = self._used_trees() if trees is None else trees
         xd = torch.as_tensor(x, dtype=torch.float32).to(dev)
+        sf, thr, ic, cw = self._put_trees(s, dev)
+        return trainer.predict_raw(
+            xd, sf, thr,
+            torch.as_tensor(self.leaf_value[s], dtype=torch.float32).to(dev),
+            np.asarray(self.tree_class[s]), self.max_depth, self.n_classes,
+            split_is_cat=ic, cat_words=cw)
 
+    def _host_route(self, n_rows: int, n_trees: int, backend: str) -> bool:
+        """Whether a descent of `n_rows` through `n_trees` runs on the
+        host: "auto" keeps serving-sized batches there."""
+        if backend not in ("auto", "host", "device"):
+            raise ValueError(
+                f"backend must be auto|host|device, got {backend!r}")
+        work = n_rows * n_trees * max(self.max_depth, 1)
+        return backend == "host" or (backend == "auto"
+                                     and n_rows < _HOST_PREDICT_MAX_ROWS
+                                     and work <= _HOST_PREDICT_MAX_WORK)
+
+    def _put_trees(self, s, dev):
+        """The used trees' (split_feature, threshold, split_is_cat,
+        cat_words) as tensors on `dev` (the last two None without
+        categorical splits)."""
         def put(a, dtype):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(dev)
         ic, cw = self._cat_args(s)
-        return trainer.predict_raw(
-            xd, put(self.split_feature[s], torch.int32),
-            put(self.threshold[s], torch.float32),
-            put(self.leaf_value[s], torch.float32),
-            np.asarray(self.tree_class[s]), self.max_depth, self.n_classes,
-            split_is_cat=None if ic is None else put(ic, torch.bool),
-            cat_words=None if cw is None else put(cw, torch.int32))
+        return (put(self.split_feature[s], torch.int32),
+                put(self.threshold[s], torch.float32),
+                None if ic is None else put(ic, torch.bool),
+                None if cw is None else put(cw, torch.int32))
+
+    # -- introspection -------------------------------------------------------
+    def predict_leaf(self, x, backend: str = "auto", device=None):
+        """(n, F) rows -> (n, T) int32 numpy: each used tree's original
+        resting heap index (the reference's predictLeaf column). Routed
+        like `raw_score`: "auto" descends serving-sized batches on the
+        host and bulk batches on `device` (None = the card)."""
+        s = self._used_trees()
+        n_used = len(range(*s.indices(self.n_trees)))
+        if self._host_route(x.shape[0], n_used, backend):
+            ic, cw = self._cat_args(s)
+            x = np.asarray(x, dtype=np.float32)
+            sf, thr = self.split_feature[s], self.threshold[s]
+            out = np.zeros((x.shape[0], n_used), np.int32)
+            for t in range(n_used):
+                out[:, t] = _descend_host(
+                    x, sf[t], thr[t], self.max_depth,
+                    None if ic is None else ic[t],
+                    None if cw is None else cw[t])
+            return out
+        return self.predict_leaf_device(x, device=device).cpu().numpy()
+
+    def predict_leaf_device(self, x, device=None) -> torch.Tensor:
+        """Device leaf indices: (n, F) rows (numpy or tensor) -> (n, T)
+        int32 tensor on `device` (None = the card)."""
+        dev = resolve_device(device)
+        sf, thr, ic, cw = self._put_trees(self._used_trees(), dev)
+        return trainer.predict_leaf_index(
+            torch.as_tensor(x, dtype=torch.float32).to(dev), sf, thr,
+            self.max_depth, split_is_cat=ic, cat_words=cw)
+
+    def feature_contributions(self, x, backend: str = "auto", device=None):
+        """Per-feature additive contributions by exact path-dependent
+        TreeSHAP (Lundberg et al. 2018, Algorithm 2), the reference's
+        featuresShap column: (n, n_features + 1) float64 numpy, the last
+        column the expected value (bias). A multiclass booster's classes
+        are summed per feature. Rows sum to the raw score (without the
+        init score, which a model adds to the bias).
+
+        backend: "device" runs `shap_device.shap_contributions_device` on
+        `device` (None = the card) and raises for a booster deeper than
+        `_DEVICE_SHAP_MAX_DEPTH` or without node covers; "host" runs the
+        float64 oracle `_tree_shap`; "auto" takes the device where it
+        may and the host otherwise. A booster without covers gets the
+        Saabas approximation on "auto" and "host"."""
+        if backend not in ("auto", "device", "host"):
+            raise ValueError(
+                f"backend must be auto|device|host, got {backend!r}")
+        s = self._used_trees()
+        sf, thr, lv = (self.split_feature[s], self.threshold[s],
+                       self.leaf_value[s])
+        ic, cw = self._cat_args(s)
+        if self.cover is None:
+            if backend == "device":
+                # an exact-path request must not become the Saabas
+                # approximation quietly
+                raise ValueError(
+                    "device TreeSHAP needs node covers; this booster "
+                    "carries none (Saabas fallback only)")
+            return self._saabas_contributions(np.asarray(x, np.float32),
+                                              sf, thr, lv, ic, cw)
+        cover = self.cover[s]
+        device_ok = self.max_depth <= _DEVICE_SHAP_MAX_DEPTH
+        if backend == "device" and not device_ok:
+            raise ValueError(
+                f"device TreeSHAP supports max_depth <= "
+                f"{_DEVICE_SHAP_MAX_DEPTH}; this booster has "
+                f"{self.max_depth}")
+        if backend in ("auto", "device") and device_ok and sf.shape[0]:
+            from .shap_device import shap_contributions_device
+            out = shap_contributions_device(
+                x, sf, thr, lv, cover, self.n_features, self.max_depth,
+                split_is_cat=ic, cat_words=cw, device=device)
+            return out.cpu().numpy().astype(np.float64)
+        x = np.asarray(x, np.float32)
+        contrib = np.zeros((x.shape[0], self.n_features + 1), np.float64)
+        for t in range(sf.shape[0]):
+            contrib += _tree_shap(sf[t], thr[t], lv[t], cover[t], x,
+                                  self.n_features,
+                                  is_cat=None if ic is None else ic[t],
+                                  cat_words=None if cw is None else cw[t])
+        return contrib
+
+    def _saabas_contributions(self, x, sf, thr, lv, ic=None, cw=None):
+        """Fallback without covers: uniform-weight path attribution."""
+        n = x.shape[0]
+        rows = np.arange(n)
+        contrib = np.zeros((n, self.n_features + 1), dtype=np.float64)
+        for t in range(sf.shape[0]):
+            node = np.zeros(n, dtype=np.int64)
+            ev = _node_expectations(sf[t], lv[t])
+            contrib[:, -1] += ev[0]
+            for _ in range(self.max_depth):
+                f = sf[t][node]
+                leaf = f < 0
+                fc = np.clip(f, 0, self.n_features - 1)
+                xf = x[rows, fc]
+                with np.errstate(invalid="ignore"):
+                    go_left = xf <= thr[t][node]
+                if ic is not None:
+                    member = _cat_member_np(xf, cw[t][node])
+                    go_left = np.where(ic[t][node], member, go_left)
+                child = np.where(go_left, 2 * node + 1, 2 * node + 2)
+                nxt = np.where(leaf, node, child)
+                np.add.at(contrib, (rows, fc),
+                          np.where(~leaf, ev[nxt] - ev[node], 0.0))
+                node = nxt
+        return contrib
+
+    def feature_importances(self, importance_type: str = "split"):
+        """(n_features,) float64: "split" counts each feature's splits,
+        "gain" sums their gains (LightGBM's featureImportances); a booster
+        without recorded gains warns and counts splits."""
+        s = self._used_trees()
+        sf = self.split_feature[s]
+        if importance_type != "split" and self.gain is None:
+            warnings.warn(
+                "booster has no recorded split gains (an artifact without "
+                "them, or a merge with one); falling back to split counts",
+                stacklevel=2)
+        weights = None
+        if importance_type != "split" and self.gain is not None:
+            weights = self.gain[s][sf >= 0].ravel().astype(np.float64)
+        return np.bincount(sf[sf >= 0].ravel(), weights=weights,
+                           minlength=self.n_features).astype(np.float64)
 
     def scoring_plan(self, init_score: float = 0.0):
         """Prebuilt host scoring closure for the serving path: the
@@ -312,6 +459,26 @@ def _cat_member_np(xf, words_rows):
     return ((word >> (b & 15)) & 1) == 1
 
 
+def _descend_host(x, sf_t, thr_t, max_depth: int, ic_t=None, cw_t=None):
+    """Resting heap node (n,) int32 of each row through one tree: the
+    host mirror of `trainer._descend` on raw rows, the same decisions."""
+    n = x.shape[0]
+    rows = np.arange(n)
+    has_cat = ic_t is not None and cw_t is not None and cw_t.shape[-1] > 0
+    node = np.zeros(n, np.int32)
+    for _ in range(max_depth):
+        f = sf_t[node]
+        xf = x[rows, np.clip(f, 0, x.shape[1] - 1)]
+        with np.errstate(invalid="ignore"):
+            go_left = xf <= thr_t[node]
+        if has_cat:
+            member = _cat_member_np(xf, cw_t[node])
+            go_left = np.where(ic_t[node], member, go_left)
+        child = np.where(go_left, 2 * node + 1, 2 * node + 2)
+        node = np.where(f < 0, node, child).astype(np.int32)
+    return node
+
+
 def _predict_raw_host(x, split_feature, threshold, leaf_value, tree_class,
                       max_depth: int, n_classes: int, split_is_cat=None,
                       cat_words=None):
@@ -321,20 +488,147 @@ def _predict_raw_host(x, split_feature, threshold, leaf_value, tree_class,
     n = x.shape[0]
     rows = np.arange(n)
     scores = np.zeros((n, n_classes), np.float32)
-    has_cat = (split_is_cat is not None and cat_words is not None
-               and cat_words.shape[-1] > 0)
+    has_cat = split_is_cat is not None and cat_words is not None
     for t in range(split_feature.shape[0]):
-        sf_t, thr_t, lv_t = split_feature[t], threshold[t], leaf_value[t]
-        node = np.zeros(n, np.int32)
-        for _ in range(max_depth):
-            f = sf_t[node]
-            xf = x[rows, np.clip(f, 0, x.shape[1] - 1)]
-            with np.errstate(invalid="ignore"):
-                go_left = xf <= thr_t[node]
-            if has_cat:
-                member = _cat_member_np(xf, cat_words[t][node])
-                go_left = np.where(split_is_cat[t][node], member, go_left)
-            child = np.where(go_left, 2 * node + 1, 2 * node + 2)
-            node = np.where(f < 0, node, child).astype(np.int32)
-        scores[rows, tree_class[t]] += lv_t[node]
+        node = _descend_host(x, split_feature[t], threshold[t], max_depth,
+                             split_is_cat[t] if has_cat else None,
+                             cat_words[t] if has_cat else None)
+        scores[rows, tree_class[t]] += leaf_value[t][node]
     return scores
+
+
+def _node_expectations(sf, lv):
+    """Uniform-child-weight expected value per heap node (Saabas)."""
+    m = sf.shape[0]
+    ev = np.array(lv, dtype=np.float64)
+    for i in range(m - 1, -1, -1):
+        l, r = 2 * i + 1, 2 * i + 2
+        if sf[i] >= 0 and r < m:
+            ev[i] = 0.5 * (ev[l] + ev[r])
+    return ev
+
+
+def _tree_shap(sf, thr, lv, cover, x, n_features, is_cat=None,
+               cat_words=None):
+    """Exact path-dependent TreeSHAP for one heap tree, vectorized over
+    rows, in float64: the host oracle (the reference's `_tree_shap`, a
+    transcription of Lundberg, Erion & Lee 2018, Algorithm 2). The node
+    sequence is the same for every row, only the followed ('hot') child
+    differs, so the path state holds (n,) vectors for one_fraction and
+    pweight and scalars for zero_fraction and feature; one DFS over at
+    most 2^(d+1) nodes explains every row."""
+    n = x.shape[0]
+    max_len = int(np.log2(sf.shape[0] + 1)) + 2
+    phi = np.zeros((n, n_features + 1), dtype=np.float64)
+
+    def extend(feats, zeros, ones, pweights, plen, pz, po, pi):
+        """EXTEND: append (pi, pz, po) and update the subset weights."""
+        feats[plen] = pi
+        zeros[plen] = pz
+        ones[:, plen] = po
+        pweights[:, plen] = 1.0 if plen == 0 else 0.0
+        for i in range(plen - 1, -1, -1):
+            pweights[:, i + 1] += po * pweights[:, i] * (i + 1) / (plen + 1)
+            pweights[:, i] *= pz * (plen - i) / (plen + 1)
+
+    def unwound_sum(zeros, ones, pweights, plen, idx):
+        """UNWOUND_PATH_SUM: the total pweight with element idx removed."""
+        one_f = ones[:, idx]
+        zero_f = float(zeros[idx])
+        nonzero = one_f != 0
+        safe_one = np.where(nonzero, one_f, 1.0)
+        nxt = pweights[:, plen].copy()
+        total = np.zeros(n)
+        for i in range(plen - 1, -1, -1):
+            tmp_a = nxt * (plen + 1) / ((i + 1) * safe_one)
+            nxt_a = pweights[:, i] - tmp_a * zero_f * (plen - i) / (plen + 1)
+            if zero_f != 0:
+                tmp_b = (pweights[:, i] / zero_f) / ((plen - i) / (plen + 1))
+            else:
+                tmp_b = np.zeros(n)
+            total += np.where(nonzero, tmp_a, tmp_b)
+            nxt = np.where(nonzero, nxt_a, nxt)
+        return total
+
+    def unwind(feats, zeros, ones, pweights, plen, idx):
+        """UNWIND: remove element idx in place; the caller shortens plen."""
+        one_f = ones[:, idx].copy()
+        zero_f = float(zeros[idx])
+        nonzero = one_f != 0
+        safe_one = np.where(nonzero, one_f, 1.0)
+        nxt = pweights[:, plen].copy()
+        for i in range(plen - 1, -1, -1):
+            old = pweights[:, i].copy()
+            new_a = nxt * (plen + 1) / ((i + 1) * safe_one)
+            if zero_f != 0:
+                new_b = (old / zero_f) / ((plen - i) / (plen + 1))
+            else:
+                new_b = np.zeros(n)
+            pweights[:, i] = np.where(nonzero, new_a, new_b)
+            nxt = np.where(nonzero,
+                           old - new_a * zero_f * (plen - i) / (plen + 1),
+                           nxt)
+        for i in range(idx, plen):
+            feats[i] = feats[i + 1]
+            zeros[i] = zeros[i + 1]
+            ones[:, i] = ones[:, i + 1]
+
+    def recurse(node, plen, feats, zeros, ones, pweights, pz, po, pi):
+        feats = feats.copy()
+        zeros = zeros.copy()
+        ones = ones.copy()
+        pweights = pweights.copy()
+        extend(feats, zeros, ones, pweights, plen, pz, po, pi)
+        f = int(sf[node])
+        if f < 0 or 2 * node + 2 >= sf.shape[0]:  # leaf
+            for i in range(1, plen + 1):
+                w = unwound_sum(zeros, ones, pweights, plen, i)
+                phi[:, feats[i]] += (w * (ones[:, i] - zeros[i])
+                                     * float(lv[node]))
+            return
+        left, right = 2 * node + 1, 2 * node + 2
+        with np.errstate(invalid="ignore"):
+            hot_is_left = x[:, f] <= thr[node]
+        if is_cat is not None and is_cat[node]:
+            wrow = np.broadcast_to(cat_words[node], (n, cat_words.shape[-1]))
+            hot_is_left = _cat_member_np(x[:, f], wrow)
+        c_node = max(float(cover[node]), 1e-12)
+        rz_left = float(cover[left]) / c_node
+        rz_right = float(cover[right]) / c_node
+        # a feature met again on the path: its earlier element is unwound
+        # and its fractions multiply into this split's (Algorithm 2, l. 17)
+        iz, io = 1.0, np.ones(n)
+        sub_plen = plen
+        dup = next((i for i in range(1, plen + 1) if feats[i] == f), -1)
+        if dup >= 0:
+            iz = float(zeros[dup])
+            io = ones[:, dup].copy()
+            unwind(feats, zeros, ones, pweights, sub_plen, dup)
+            sub_plen -= 1
+        recurse(left, sub_plen + 1, feats, zeros, ones, pweights,
+                iz * rz_left, np.where(hot_is_left, io, 0.0), f)
+        recurse(right, sub_plen + 1, feats, zeros, ones, pweights,
+                iz * rz_right, np.where(hot_is_left, 0.0, io), f)
+
+    # expected value (bias): the cover-weighted mean over terminal nodes
+    phi[:, -1] += _cover_weighted_expectation(sf, lv, cover)
+    feats0 = np.full(max_len, -1, dtype=np.int64)
+    zeros0 = np.ones(max_len)
+    ones0 = np.ones((n, max_len))
+    pweights0 = np.zeros((n, max_len))
+    recurse(0, 0, feats0, zeros0, ones0, pweights0, 1.0, np.ones(n), -1)
+    return phi
+
+
+def _cover_weighted_expectation(sf, lv, cover):
+    """E[f(x)] over the training rows: the cover-weighted leaf mean."""
+    m = sf.shape[0]
+    is_internal = np.zeros(m, bool)
+    for i in range(m):
+        if sf[i] >= 0 and 2 * i + 2 < m:
+            is_internal[i] = True
+    leaf_mask = ~is_internal & (cover > 0)
+    total = cover[leaf_mask].sum()
+    if total <= 0:
+        return 0.0
+    return float((lv[leaf_mask] * cover[leaf_mask]).sum() / total)

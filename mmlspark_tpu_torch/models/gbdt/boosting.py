@@ -29,6 +29,15 @@ atomic kernels. The port's payload carries no `rng_key`: iteration i's
 draws come from (`seed`, i) alone, so `iter_offset` lines them up, and an
 `init_rng_key` (a reference checkpoint's threefry key, which cannot seed a
 torch generator) is accepted and not used.
+
+Every fit grows its trees over the rows of a mesh's data axis
+(`trainer.train_one_tree_sharded`); the plain fit is the one-position
+mesh of its device, and `distributed.fit_booster_distributed` passes a
+mesh of several (`mesh=`) after padding the rows. The per-row state lives
+on the first position's device. Bagging and GOSS draw per position, as
+the reference's `fold_in(axis_index)`: position 0 from the iteration's
+generator, position q > 0 from one keyed by (`seed`, iteration, q), so a
+one-position mesh draws what the plain fit always drew.
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ import torch
 
 from ...device import resolve_device
 from ...ops import binning, histogram
+from ...parallel.mesh import DATA_AXIS, data_mesh, row_sharding
 from . import objectives as obj_mod
 from . import trainer
 from .booster import Booster
@@ -155,11 +165,32 @@ def _iteration_seed(seed: int, it: int) -> int:
                .generate_state(1, np.uint64)[0])
 
 
-def _presence(row_w):
+def _position_seed(seed: int, it: int, position: int) -> int:
+    """The generator's seed for one mesh position's bagging/GOSS draws:
+    the iteration's own seed at position 0."""
+    if position == 0:
+        return _iteration_seed(seed, it)
+    return int(np.random.SeedSequence((seed % 2 ** 64, it, position))
+               .generate_state(1, np.uint64)[0])
+
+
+def _presence(pres_j, row_w):
     """min_data_in_leaf count indicator (None when every row counts):
-    rows the bagging/GOSS weights drop are absent. User sample weights
-    deliberately do NOT change counts (LightGBM semantics)."""
-    return None if row_w is None else (row_w != 0).to(torch.float32)
+    rows the bagging/GOSS weights drop and the mesh's padding rows
+    (`pres_j` 0) are absent. User sample weights deliberately do NOT
+    change counts (LightGBM semantics)."""
+    present = None if pres_j is None else pres_j != 0
+    if row_w is not None:
+        present = row_w != 0 if present is None else present & (row_w != 0)
+    return None if present is None else present.to(torch.float32)
+
+
+def _cat_positions(parts):
+    """The positions' row blocks as one tensor (one block as it is); None
+    where the positions hold none."""
+    if parts[0] is None:
+        return None
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def _row_weights(p: BoostParams, grad, gen, it: int, multiclass: bool):
@@ -363,7 +394,9 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
                 init_base: float = 0.0,
                 init_margin: Optional[np.ndarray] = None,
                 init_rng_key=None, iter_offset: int = 0,
-                ingest=None, oocore=None):
+                ingest=None, oocore=None, mesh=None,
+                voting_top_k: Optional[int] = None,
+                presence: Optional[np.ndarray] = None):
     """Train a Booster. Returns (booster, base, eval_history) like the
     reference.
 
@@ -386,6 +419,12 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
     bagging phase. `init_rng_key` is not used (the module docstring).
     `ingest` and `oocore` belong to a later slice and raise
     NotImplementedError.
+
+    `mesh`: grow every tree over the rows split across the mesh's data
+    axis (the row count must divide; `fit_booster_distributed` pads),
+    the fit's state on the first position's device (`device` is then not
+    used); `voting_top_k`: PV-tree voting over it; `presence`: per-row 1 /
+    0 for real / padding rows, which never count toward min_data_in_leaf.
     """
     for name, val, item in (("ingest", ingest, 17), ("oocore", oocore, 17)):
         if val is not None:
@@ -398,7 +437,15 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
         raise ValueError("objective='lambdarank' needs per-row group ids")
     if group is not None and len(group) != n:
         raise ValueError(f"group has {len(group)} ids for {n} rows")
-    dev = resolve_device(device)
+    if mesh is None:
+        # the plain fit is the one-position case of the mesh's
+        mesh = data_mesh(devices=[resolve_device(device)])
+    positions = mesh.axis_devices(DATA_AXIS)
+    n_pos = len(positions)
+    if n % n_pos:
+        raise ValueError(f"{n} rows do not split over {n_pos} positions; "
+                         f"fit_booster_distributed pads them")
+    dev = positions[0]
     multiclass = p.objective == "multiclass"
     k_out = p.num_class if multiclass else 1
     # a fit that checkpoints or resumes grows its trees in fixed order, so
@@ -423,11 +470,15 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
     # the level-invariant histogram plan, once per fit, where the
     # reference builds it (it also sets a plan-bytes gauge there; gauges
     # are telemetry, ROADMAP Queue 1 item 23)
+    # each position's rows on its device: views of d_bins on one card
+    rows = row_sharding(mesh)
+    bin_shards = rows.put(d_bins)
     lo_planes, plane_lo = None, 0
     if os.environ.get("MMLSPARK_TPU_HIST") == "planes":
         plane_lo = histogram.plan_lo_bins(p.max_bin + 1)
         if plane_lo:
-            lo_planes = histogram.build_hist_plan(d_bins, p.max_bin + 1)
+            lo_planes = [histogram.build_hist_plan(b, p.max_bin + 1)
+                         for b in bin_shards]
 
     def put(a):
         return torch.as_tensor(np.asarray(a, np.float32)).to(dev)
@@ -435,6 +486,7 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
     y_j = (torch.as_tensor(staged_y).to(dev, torch.float32)
            if staged_y is not None else put(y))
     w_j = None if weights is None else put(weights)
+    pres_j = None if presence is None else put(presence)
     y_onehot = (torch.nn.functional.one_hot(y_j.to(torch.int64), p.num_class)
                 .to(torch.float32) if multiclass else None)
     g_idx = (torch.as_tensor(obj_mod.make_group_index(group)).to(dev)
@@ -517,6 +569,8 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
     renew_q = (None if p.objective not in RENEWAL_OBJECTIVES else
                p.alpha if p.objective == "quantile" else 0.5)
     gen = torch.Generator(device=dev)
+    # one generator per mesh position; position 0's is the fit's own
+    gens = [gen] + [torch.Generator(device=dev) for _ in range(n_pos - 1)]
     patience = p.early_stopping_round
     track = has_valid and (patience > 0 or p.metric is not None)
     trees, eval_history = [], []
@@ -559,12 +613,18 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
         if w_j is not None:
             grad = grad * (w_j[:, None] if multiclass else w_j)
             hess = hess * (w_j[:, None] if multiclass else w_j)
-        row_w = _row_weights(p, grad, gen, it + iter_offset, multiclass)
+        # each position draws over its own rows (GOSS ranks them
+        # locally), as the reference's per-shard fold_in
+        for q in range(1, n_pos):
+            gens[q].manual_seed(_position_seed(p.seed, it + iter_offset, q))
+        parts = [_row_weights(p, g_q, gens[q], it + iter_offset, multiclass)
+                 for q, g_q in enumerate(grad.chunk(n_pos))]
+        row_w = _cat_positions(parts)
         if row_w is not None:
             grad = grad * (row_w[:, None] if multiclass else row_w)
             hess = hess * (row_w[:, None] if multiclass else row_w)
         fmask = _feature_mask(p, gen, n_features)
-        count_w = _presence(row_w)
+        count_w = _presence(pres_j, row_w)
 
         it_deltas = torch.zeros_like(margin) if multiclass else 0.0
         if has_valid:
@@ -572,10 +632,12 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
         for k in range(k_out):
             gk = grad[:, k] if multiclass else grad
             hk = hess[:, k] if multiclass else hess
-            tree, delta = trainer.train_one_tree(
-                d_bins, gk, hk, fmask, cfg, count_w=count_w,
+            tree, deltas = trainer.train_one_tree_sharded(
+                bin_shards, rows.put(gk), rows.put(hk), fmask, cfg,
+                count_w=None if count_w is None else rows.put(count_w),
                 lo_planes=lo_planes, plane_lo=plane_lo,
-                fixed_order=fixed_order)
+                fixed_order=fixed_order, voting_top_k=voting_top_k)
+            delta = _cat_positions([d.to(dev) for d in deltas])
             if renew_q is not None:
                 tree, delta = _renew_leaves(
                     tree, d_bins, y_j - margin_used,

@@ -14,7 +14,13 @@ reference's format) every `checkpoint_interval` iterations, in the
 background with `checkpoint_async`, and a fit that finds one resumes from
 its newest readable step, bit for bit as the uninterrupted fit would have
 gone on; `num_batches` trains on sequential row batches, each continuing
-the last one's booster. Params
+the last one's booster. `num_tasks > 1`, or `num_tasks=0` with more than
+one card, trains over a mesh of that many positions
+(`distributed.fit_booster_distributed`), data_parallel or
+voting_parallel (`parallelism`, `top_k`). The models add the
+reference's `leaf_prediction_col` and `features_shap_col` columns and its
+`set_best_iteration`, `feature_importances` and `save_native_model`;
+`load_native_model` reads either package's native file. Params
 whose features the port does not run yet raise NotImplementedError at
 fit when set to anything but their inert value, naming the ROADMAP item
 that will port them. One param is the port's own: `device` (None = the card). One
@@ -25,6 +31,8 @@ raises.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import json
 from typing import Optional
 
 import numpy as np
@@ -38,6 +46,7 @@ from ...reliability.supervisor import AsyncCheckpointWriter
 from ...utils.checkpoint import CheckpointManager
 from .boosting import BoostParams, fit_booster
 from .booster import Booster
+from .distributed import default_mesh, fit_booster_distributed
 
 
 def _host(col, dtype) -> np.ndarray:
@@ -55,9 +64,6 @@ def _device_count(device) -> int:
 
 # param -> (is its value one this slice cannot run?, ROADMAP Queue 1 item)
 _UNPORTED = {
-    "leaf_prediction_col": (bool, 14),
-    "features_shap_col": (bool, 14),
-    "num_tasks": (lambda v: v > 1, 15),
     "num_ingest_workers": (lambda v: v != 1, 17),
     "out_of_core": (bool, 17),
     "quality_profile": (bool, 23),
@@ -169,17 +175,12 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
                 raise NotImplementedError(
                     f"{name}={self.get_or_default(name)!r} is not ported "
                     f"yet (ROADMAP Queue 1 item {item})")
-        if self.parallelism == "voting_parallel" and self.num_tasks == 0:
-            # the reference shards over every device here (its _use_mesh),
-            # and voting picks features per shard, so one device's fit is
-            # not that model; with one device it runs the plain fit, and a
-            # data_parallel fit is the plain fit's model on any count
-            n = _device_count(self.device)
-            if n > 1:
-                raise NotImplementedError(
-                    f"parallelism='voting_parallel' over {n} devices is "
-                    f"not ported yet (ROADMAP Queue 1 item 15); pass "
-                    f"num_tasks=1")
+
+    def _use_mesh(self) -> bool:
+        """The reference's rule: shard over num_tasks positions, or over
+        every card when num_tasks is 0 and more than one is visible."""
+        return self.num_tasks > 1 or (self.num_tasks == 0
+                                      and _device_count(self.device) > 1)
 
     def _boost_params(self, objective: str, num_class: int = 1) -> BoostParams:
         return BoostParams(
@@ -323,6 +324,12 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
             group = group[~_host(table[self.validation_indicator_col], bool)]
         params = self._resolve_categoricals(
             table, self._boost_params(objective, num_class))
+        fit = fit_booster
+        if self._use_mesh():
+            fit = functools.partial(
+                fit_booster_distributed, parallelism=self.parallelism,
+                top_k=self.top_k,
+                mesh=default_mesh(self.num_tasks, self.device))
         n_batches = self.num_batches or 0
         if n_batches > 1:
             # batch continuation: each batch's trees fit the residuals of
@@ -332,7 +339,7 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
             for bi in np.array_split(np.arange(x.shape[0]), n_batches):
                 if bi.size == 0:
                     continue
-                booster, base, hist = fit_booster(
+                booster, base, hist = fit(
                     x[bi], y[bi], params,
                     weights=None if w is None else w[bi],
                     init_scores=None if init is None else init[bi],
@@ -346,9 +353,9 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
             if finished is not None:
                 return (*finished, [])
         try:
-            return fit_booster(x, y, params, weights=w, init_scores=init,
-                               valid=valid, group=group, device=self.device,
-                               **fit_kw)
+            return fit(x, y, params, weights=w, init_scores=init,
+                       valid=valid, group=group, device=self.device,
+                       **fit_kw)
         finally:
             if writer is not None:
                 writer.close()
@@ -358,6 +365,9 @@ class _GBDTModelBase(Model, HasFeaturesCol, HasPredictionCol):
     """Shared scoring surface."""
     device = Param("device", "torch device for bulk scoring (None = the "
                    "card)", None)
+    leaf_prediction_col = Param("leaf_prediction_col",
+                                "leaf index output col", None)
+    features_shap_col = Param("features_shap_col", "SHAP output col", None)
 
     def __init__(self, booster: Optional[Booster] = None,
                  init_score: float = 0.0, **kw):
@@ -378,10 +388,44 @@ class _GBDTModelBase(Model, HasFeaturesCol, HasPredictionCol):
     def booster(self) -> Booster:
         return self._booster
 
-    def _raw(self, t: Table) -> np.ndarray:
-        x = _host(t[self.features_col], np.float32)
+    def set_best_iteration(self, it: int):
+        """Score with the first it + 1 iterations' trees (-1: all)."""
+        self._booster = self._booster._replace(best_iteration=it)
+        return self
+
+    def feature_importances(self, importance_type="split"):
+        return self._booster.feature_importances(importance_type)
+
+    def save_native_model(self, path: str):
+        """The reference's native file: the booster's JSON model string
+        with the model's `init_score` beside its arrays."""
+        payload = json.loads(self._booster.save_model_string())
+        payload["init_score"] = self._init_score
+        with open(path, "w") as f:
+            f.write(json.dumps(payload))
+
+    def _x(self, t: Table) -> np.ndarray:
+        return _host(t[self.features_col], np.float32)
+
+    def _raw(self, x: np.ndarray) -> np.ndarray:
         return self._booster.raw_score(x, self._init_score,
                                        device=self.device)
+
+    def _maybe_extra_cols(self, t: Table, x: np.ndarray) -> Table:
+        """The leaf-index and SHAP columns, where their params are set.
+        The init score belongs to the model's expected value, so it is
+        added to the bias column: each SHAP row sums to the raw
+        prediction, as LightGBM's pred_contrib."""
+        if self.leaf_prediction_col:
+            t = t.with_column(self.leaf_prediction_col,
+                              self._booster.predict_leaf(x,
+                                                         device=self.device))
+        if self.features_shap_col:
+            contrib = self._booster.feature_contributions(
+                x, device=self.device)
+            contrib[:, -1] += self._init_score
+            t = t.with_column(self.features_shap_col, contrib)
+        return t
 
 
 class GBDTClassifier(Estimator, _GBDTParams, HasProbabilitiesCol):
@@ -403,7 +447,9 @@ class GBDTClassifier(Estimator, _GBDTParams, HasProbabilitiesCol):
             features_col=self.features_col, prediction_col=self.prediction_col,
             probabilities_col=self.probabilities_col,
             raw_prediction_col=self.raw_prediction_col,
-            sigmoid=self.sigmoid, device=self.device)
+            sigmoid=self.sigmoid, device=self.device,
+            leaf_prediction_col=self.leaf_prediction_col,
+            features_shap_col=self.features_shap_col)
 
 
 class GBDTClassificationModel(_GBDTModelBase, HasProbabilitiesCol):
@@ -420,12 +466,14 @@ class GBDTClassificationModel(_GBDTModelBase, HasProbabilitiesCol):
         return np.stack([1 - p1, p1], axis=1)
 
     def _transform(self, t: Table) -> Table:
-        raw = self._raw(t)
+        x = self._x(t)
+        raw = self._raw(x)
         proba = self._proba_from_raw(raw)
         pred = proba.argmax(axis=1).astype(np.float64)
-        return (t.with_column(self.raw_prediction_col, raw)
-                 .with_column(self.probabilities_col, proba)
-                 .with_column(self.prediction_col, pred))
+        return self._maybe_extra_cols(
+            t.with_column(self.raw_prediction_col, raw)
+             .with_column(self.probabilities_col, proba)
+             .with_column(self.prediction_col, pred), x)
 
 
 class GBDTRegressor(Estimator, _GBDTParams):
@@ -443,7 +491,9 @@ class GBDTRegressor(Estimator, _GBDTParams):
         booster, base, _ = self._train(table, self.objective)
         return GBDTRegressionModel(
             booster=booster, init_score=base, features_col=self.features_col,
-            prediction_col=self.prediction_col, device=self.device)
+            prediction_col=self.prediction_col, device=self.device,
+            leaf_prediction_col=self.leaf_prediction_col,
+            features_shap_col=self.features_shap_col)
 
 
 class GBDTRegressionModel(_GBDTModelBase):
@@ -453,8 +503,10 @@ class GBDTRegressionModel(_GBDTModelBase):
         return raw.astype(np.float64)
 
     def _transform(self, t: Table) -> Table:
-        return t.with_column(self.prediction_col,
-                             self._link(self._raw(t)[:, 0]))
+        x = self._x(t)
+        return self._maybe_extra_cols(
+            t.with_column(self.prediction_col, self._link(self._raw(x)[:, 0])),
+            x)
 
 
 class GBDTRanker(Estimator, _GBDTParams):
@@ -469,10 +521,24 @@ class GBDTRanker(Estimator, _GBDTParams):
                                        group=group_ids.astype(np.int32))
         return GBDTRankerModel(
             booster=booster, init_score=base, features_col=self.features_col,
-            prediction_col=self.prediction_col, device=self.device)
+            prediction_col=self.prediction_col, device=self.device,
+            leaf_prediction_col=self.leaf_prediction_col,
+            features_shap_col=self.features_shap_col)
 
 
 class GBDTRankerModel(_GBDTModelBase):
     def _transform(self, t: Table) -> Table:
-        return t.with_column(self.prediction_col,
-                             self._raw(t)[:, 0].astype(np.float64))
+        x = self._x(t)
+        return self._maybe_extra_cols(
+            t.with_column(self.prediction_col,
+                          self._raw(x)[:, 0].astype(np.float64)), x)
+
+
+def load_native_model(path: str, model_cls=GBDTRegressionModel):
+    """A native file of either package (`save_native_model`) as a model
+    of `model_cls` (the reference's loadNativeModelFromFile)."""
+    with open(path) as f:
+        payload = json.loads(f.read())
+    init_score = float(payload.pop("init_score", 0.0))
+    return model_cls(booster=Booster.from_dict(payload),
+                     init_score=init_score)

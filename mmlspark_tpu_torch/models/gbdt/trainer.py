@@ -38,6 +38,13 @@ tree takes from the card is elementwise, a gather, a stable sort, a
 reduction or a `cumsum` along the bin axis (one scan per (node, feature)
 row), which add in one order; `chip_smoke.py [resume]` repeats those
 cumsums on the card and fails if one ever differs.
+
+Trees grow over rows split across a mesh's data axis
+(`train_one_tree_sharded`; a plain fit is one position): each position
+builds its histograms with the same op, the port sums them over the
+positions where the reference's `shard_map` runs a `lax.psum`, and one
+split search on the sums decides for every position. PV-tree voting
+(`voting_top_k`) sums only the elected features' histograms.
 """
 from __future__ import annotations
 
@@ -300,11 +307,97 @@ def train_one_tree(bins: torch.Tensor, grad: torch.Tensor,
     which every level of every tree reuses. `fixed_order`: the same tree
     from the same inputs on every call (the module docstring). Returns
     (Tree, delta) with delta = leaf_value of each row's resting node."""
-    n = bins.shape[0]
-    dev = bins.device
+    tree, (delta,) = train_one_tree_sharded(
+        [bins], [grad], [hess], feature_mask, cfg,
+        count_w=None if count_w is None else [count_w],
+        lo_planes=None if lo_planes is None else [lo_planes],
+        plane_lo=plane_lo, fixed_order=fixed_order)
+    return tree, delta
+
+
+def _sum_positions(parts, dev):
+    """The positions' tensors added in position order on `dev` (position
+    0's device): the port's `lax.psum` over the data axis. `.to(dev)` is
+    a no-op for a position on `dev` and a copy from another card. One
+    position's tensor comes back as it is."""
+    total = parts[0]
+    for t in parts[1:]:
+        total = total + t.to(dev)
+    return total
+
+
+def _voting_feature_mask(local_hists, feature_mask, cfg: TreeConfig,
+                         top_k: int):
+    """PV-tree voting (the reference's `_voting_feature_mask`, LightGBM's
+    `voting_parallel`): each position ranks the features by its LOCAL best
+    split gain, a categorical feature by its sorted-set gain, and votes
+    its top-k per node; the int32 tallies are summed over the positions,
+    and the top 2k by tally are elected, ties broken by feature id (a
+    stable sort). `local_hists`: one (hg, hh, hc) of (m, F, B) per
+    position. Returns (elected feature ids (m, 2k) i64, got-a-vote (m, 2k)
+    bool) on position 0's device."""
+    dev = local_hists[0][0].device
+    cat = tuple(cfg.categorical_features)
+    fmask_num = feature_mask
+    if cat:
+        cat_idx, num_mask, _, _ = _cat_tensors(cfg, dev)
+        fmask_num = feature_mask & num_mask
+    F = cfg.n_features
+    k = min(top_k, F)
+    tallies = []
+    for hg, hh, hc in local_hists:
+        pg, ph, pc = hg[:, 0].sum(-1), hh[:, 0].sum(-1), hc[:, 0].sum(-1)
+        fm = fmask_num.to(hg.device)
+        per_feat = _gain_lattice(hg, hh, hc, fm, cfg, pg, ph, pc).amax(-1)
+        if cat:
+            gain_cat, _, _ = _cat_gain_lattice(
+                hg, hh, hc, feature_mask.to(hg.device), cfg, pg, ph, pc)
+            per_feat[:, cat_idx.to(hg.device)] = gain_cat.amax(-1)
+        order = torch.argsort(-per_feat, dim=-1, stable=True)
+        rank = torch.argsort(order, dim=-1, stable=True)
+        votes = (rank < k) & torch.isfinite(per_feat)
+        tallies.append(votes.to(torch.int32))
+    tally = _sum_positions(tallies, dev)                          # (m, F)
+    k2 = min(2 * k, F)
+    vidx = torch.argsort(-tally, dim=-1, stable=True)[:, :k2]
+    return vidx, tally.gather(1, vidx) > 0
+
+
+def train_one_tree_sharded(bins, grad, hess, feature_mask: torch.Tensor,
+                           cfg: TreeConfig, count_w=None, lo_planes=None,
+                           plane_lo: int = 0, fixed_order: bool = False,
+                           voting_top_k: Optional[int] = None):
+    """Grow one tree over rows split across the positions of a data axis
+    (the reference's `train_one_tree` under `shard_map`, its `lax.psum`
+    made explicit). `bins`, `grad`, `hess` (and `count_w`, `lo_planes`
+    when given) are sequences with one entry per position, each on its
+    position's device; `feature_mask` and the tree live on position 0's
+    device.
+
+    Per level, each position's histograms come from the same histogram
+    op as a one-position fit (`node_feature_histograms`: `hist_tiled`,
+    `hist_tiled_fixed` under `fixed_order`, `hist_planes` with a plan);
+    they are summed over the positions in position order on position 0's
+    device, siblings come from parent - left of the sums, and the split
+    search runs once on the sums. Its decisions (feature, bin, applied,
+    categorical words) go to every position, which routes its own rows;
+    the leaf sums are per position and summed the same way.
+    `voting_top_k`: PV-tree voting (`_voting_feature_mask`); only the
+    elected features' histograms are summed, and each voting level is a
+    full pass (no subtraction), as in the reference.
+
+    One position is the plain fit: nothing is added, so its tree is the
+    one-position tree bit for bit. Returns (Tree, [delta per position])."""
+    n_pos = len(bins)
+    dev = bins[0].device
+    devs = [b.device for b in bins]
+    cws = count_w if count_w is not None else [None] * n_pos
+    plans = lo_planes if lo_planes is not None else [None] * n_pos
     i32 = torch.int32
     w16 = cfg.cat_words_width     # 0: no categorical code runs
-    node_of_row = torch.zeros(n, dtype=torch.int64, device=dev)
+    voting = bool(voting_top_k)
+    node_of_row = [torch.zeros(b.shape[0], dtype=torch.int64, device=d)
+                   for b, d in zip(bins, devs)]
     split_feature = torch.full((cfg.max_nodes,), -1, dtype=i32, device=dev)
     split_bin = torch.zeros(cfg.max_nodes, dtype=i32, device=dev)
     gain_arr = torch.zeros(cfg.max_nodes, dtype=torch.float32, device=dev)
@@ -322,35 +415,65 @@ def train_one_tree(bins: torch.Tensor, grad: torch.Tensor,
         return torch.stack([left, sub], dim=1).reshape(
             left.shape[0] * 2, *left.shape[1:])
 
+    def _hists(node_sel, act, m):
+        """Each position's (hg, hh, hc) of one level."""
+        return [node_feature_histograms(
+            bins[p], grad[p], hess[p], node_sel[p], act[p], m, cfg.n_bins,
+            count_w=cws[p], lo_planes=plans[p], plane_lo=plane_lo,
+            fixed_order=fixed_order) for p in range(n_pos)]
+
+    def _summed(local):
+        return tuple(_sum_positions([h[i] for h in local], dev)
+                     for i in range(3))
+
     for depth in range(cfg.max_depth):
         level_base = 2 ** depth - 1
         m = 2 ** depth
-        node_local = node_of_row - level_base
-        active = (node_local >= 0) & (node_local < m)
+        node_local = [nr - level_base for nr in node_of_row]
+        active = [(nl >= 0) & (nl < m) for nl in node_local]
 
-        if depth == 0:
-            hg, hh, hc = node_feature_histograms(
-                bins, grad, hess, node_local, active, m, cfg.n_bins,
-                count_w=count_w, lo_planes=lo_planes, plane_lo=plane_lo,
-                fixed_order=fixed_order)
+        if depth == 0 or voting:
+            local = _hists(node_local, active, m)
+            if voting:
+                parent_g, parent_h, parent_c = (
+                    _sum_positions([h[i][:, 0].sum(-1) for h in local], dev)
+                    for i in range(3))
+                vidx, has_vote = _voting_feature_mask(
+                    local, feature_mask, cfg, voting_top_k)
+                # only the elected features' histograms are summed:
+                # gather (m, 2k, B), add over positions, scatter back to
+                # full width (the others stay zero, so the search never
+                # picks them)
+                take = vidx[:, :, None].expand(-1, -1, cfg.n_bins)
+                hg, hh, hc = (torch.zeros_like(local[0][i]).scatter_(
+                    1, take, _sum_positions(
+                        [h[i].gather(1, take.to(h[i].device))
+                         * has_vote.to(h[i].device)[:, :, None]
+                         for h in local], dev)) for i in range(3))
+            else:
+                hg, hh, hc = _summed(local)
+                parent_g = hg[:, 0].sum(-1)
+                parent_h = hh[:, 0].sum(-1)
+                parent_c = hc[:, 0].sum(-1)
             child_valid = torch.ones(m, dtype=torch.bool, device=dev)
         else:
-            left_active = active & (node_local % 2 == 0)
-            lg, lh, lc = node_feature_histograms(
-                bins, grad, hess, node_local // 2, left_active, m // 2,
-                cfg.n_bins, count_w=count_w, lo_planes=lo_planes,
-                plane_lo=plane_lo, fixed_order=fixed_order)
+            left_active = [a & (nl % 2 == 0)
+                           for a, nl in zip(active, node_local)]
+            lg, lh, lc = _summed(_hists([nl // 2 for nl in node_local],
+                                        left_active, m // 2))
             hg = _interleave(lg, prev_hists[0] - lg)
             hh = _interleave(lh, prev_hists[1] - lh)
             hc = _interleave(lc, prev_hists[2] - lc)
             # children of non-split nodes inherit garbage hists — mask them
             child_valid = torch.repeat_interleave(prev_apply, 2)
-        parent_g = hg[:, 0].sum(-1)
-        parent_h = hh[:, 0].sum(-1)
-        parent_c = hc[:, 0].sum(-1)
+            parent_g = hg[:, 0].sum(-1)
+            parent_h = hh[:, 0].sum(-1)
+            parent_c = hc[:, 0].sum(-1)
+        level_fmask = (torch.ones_like(feature_mask) if voting
+                       else feature_mask)
 
         gain, feat, thr, is_cat, words = _best_splits_for_level(
-            hg, hh, hc, feature_mask, cfg, parent_g, parent_h, parent_c)
+            hg, hh, hc, level_fmask, cfg, parent_g, parent_h, parent_c)
         gain = torch.where(child_valid, gain, torch.full_like(gain, -torch.inf))
         prev_hists = (hg, hh, hc)
 
@@ -376,36 +499,47 @@ def train_one_tree(bins: torch.Tensor, grad: torch.Tensor,
             is_cat_arr[sl] = applied_cat
             cat_words_arr[sl] = torch.where(applied_cat[:, None], words, 0)
 
-        # advance rows whose node split: one per-row gather of the node's
-        # (feature, threshold, applied) and of the row's bin in that feature
-        nl = node_local.clamp(0, m - 1)
-        row_feat = feat.to(torch.int64)[nl]
-        row_bin = bins.gather(1, row_feat[:, None])[:, 0].to(i32)
-        go_left = row_bin <= thr[nl]
-        if w16:
-            go_left = _cat_go_left(go_left, row_bin, nl, is_cat, words)
-        child = torch.where(go_left, 2 * node_of_row + 1, 2 * node_of_row + 2)
-        node_of_row = torch.where(active & apply[nl], child, node_of_row)
+        # every position advances its rows whose node split: one per-row
+        # gather of the node's (feature, threshold, applied) and of the
+        # row's bin in that feature
+        for p in range(n_pos):
+            d = devs[p]
+            feat_p, thr_p, apply_p = feat.to(d), thr.to(d), apply.to(d)
+            nl = node_local[p].clamp(0, m - 1)
+            row_feat = feat_p.to(torch.int64)[nl]
+            row_bin = bins[p].gather(1, row_feat[:, None])[:, 0].to(i32)
+            go_left = row_bin <= thr_p[nl]
+            if w16:
+                go_left = _cat_go_left(go_left, row_bin, nl, is_cat.to(d),
+                                       words.to(d))
+            nr = node_of_row[p]
+            child = torch.where(go_left, 2 * nr + 1, 2 * nr + 2)
+            node_of_row[p] = torch.where(active[p] & apply_p[nl], child, nr)
 
     # leaf values from resting nodes (shrinkage applied here, like LightGBM)
     if fixed_order:
         # every row's node as a one-feature, one-bin histogram level of
         # max_nodes nodes: the histogram kernel's fixed-order form on the
         # card, `_torch_hist` on the CPU
-        seg_g, seg_h, seg_c = (
-            h[:, 0, 0] for h in node_feature_histograms(
-                torch.zeros((n, 1), dtype=torch.uint8, device=dev), grad,
-                hess, node_of_row, torch.ones(n, dtype=torch.bool,
-                                              device=dev),
-                cfg.max_nodes, 1, count_w=count_w, fixed_order=True))
+        seg_g, seg_h, seg_c = (h[:, 0, 0] for h in _summed([
+            node_feature_histograms(
+                torch.zeros((b.shape[0], 1), dtype=torch.uint8,
+                            device=b.device), g, h, nr,
+                torch.ones(b.shape[0], dtype=torch.bool, device=b.device),
+                cfg.max_nodes, 1, count_w=cw, fixed_order=True)
+            for b, g, h, nr, cw in zip(bins, grad, hess, node_of_row,
+                                       cws)]))
     else:
-        cw = (count_w.to(torch.float32) if count_w is not None
-              else torch.ones(n, dtype=torch.float32, device=dev))
-        sums = torch.zeros((cfg.max_nodes, 3), dtype=torch.float32,
-                           device=dev)
-        sums.index_add_(0, node_of_row,
-                        torch.stack([grad.to(torch.float32),
-                                     hess.to(torch.float32), cw], dim=1))
+        def leaf_sums(g, h, nr, cw):
+            cw = (cw.to(torch.float32) if cw is not None
+                  else torch.ones(g.shape[0], dtype=torch.float32,
+                                  device=g.device))
+            sums = torch.zeros((cfg.max_nodes, 3), dtype=torch.float32,
+                               device=g.device)
+            return sums.index_add_(0, nr, torch.stack(
+                [g.to(torch.float32), h.to(torch.float32), cw], dim=1))
+        sums = _sum_positions([leaf_sums(*a) for a in zip(
+            grad, hess, node_of_row, cws)], dev)
         seg_g, seg_h, seg_c = sums[:, 0], sums[:, 1], sums[:, 2]
     leaf_value = (-cfg.learning_rate * _soft_threshold(seg_g, cfg.lambda_l1)
                   / (seg_h + cfg.lambda_l2 + 1e-12))
@@ -418,7 +552,7 @@ def train_one_tree(bins: torch.Tensor, grad: torch.Tensor,
     tree = Tree(split_feature=split_feature, split_bin=split_bin,
                 leaf_value=leaf_value, gain=gain_arr, cover=cover_arr,
                 split_is_cat=is_cat_arr, cat_words=cat_words_arr)
-    return tree, leaf_value[node_of_row]
+    return tree, [leaf_value.to(d)[nr] for d, nr in zip(devs, node_of_row)]
 
 
 def _has_cat(split_is_cat, cat_words) -> bool:
@@ -485,3 +619,21 @@ def predict_raw(x, split_feature, threshold, leaf_value, tree_class,
         k = int(tree_class[t])
         scores[:, k] = scores[:, k] + leaf_value[t][node]
     return scores
+
+
+def predict_leaf_index(x, split_feature, threshold, max_depth: int,
+                       split_is_cat=None, cat_words=None):
+    """Each tree's ORIGINAL resting heap index per row, (n, T) int32: the
+    reference's `predict_leaf_index` (its predictLeaf column), by the same
+    descent as `predict_raw` on unbinned f32 rows: right unless x <=
+    threshold, NaN right, categorical nodes by membership of the raw id's
+    bin; a row that rests early reports its early leaf."""
+    cat = _has_cat(split_is_cat, cat_words)
+    nodes = [_descend(x, split_feature[t], threshold[t], max_depth,
+                      split_is_cat[t] if cat else None,
+                      cat_words[t] if cat else None)
+             for t in range(split_feature.shape[0])]
+    if not nodes:
+        return torch.zeros((x.shape[0], 0), dtype=torch.int32,
+                           device=x.device)
+    return torch.stack(nodes, dim=1).to(torch.int32)

@@ -1,13 +1,15 @@
-"""Device meshes (port of `mmlspark_tpu/parallel/mesh.py`, the part the
-sequence-parallel slice uses).
+"""Device meshes (port of `mmlspark_tpu/parallel/mesh.py`).
 
 The reference names its topology with `jax.sharding.Mesh` and runs one
 program over it with `shard_map`: JAX drives every device of a mesh from
 one Python process. The port keeps that single-controller form. A `Mesh`
 is an ndarray of `torch.device`s with axis names; the code that runs on
-it (ring and Ulysses attention, the context-parallel trainer) loops over
-the positions itself, places each shard on its position's device and
-moves tensors between positions with `.to(device)`.
+it (ring and Ulysses attention, the context-parallel trainer, the
+data-parallel GBDT fit) loops over the positions itself, places each
+shard on its position's device and moves tensors between positions with
+`.to(device)`. A sharding (`row_sharding`, `replicated`) names a layout
+as the reference's `NamedSharding` does; `put` places a tensor in it,
+one tensor per position.
 
 One device may fill several positions when the caller lists it several
 times (`devices=[torch.device("cuda:0")] * 4`): a sequence axis of 4 on
@@ -21,18 +23,16 @@ Axis conventions, as in the reference:
     "model" -- tensor parallelism (tp)
     "seq"   -- sequence/context parallelism (ring attention)
     "pipe"  -- pipeline stages
-
-Not ported yet: `row_sharding`, `shard_rows`, `replicated`,
-`pad_to_multiple`, `valid_row_mask` and `full_mesh`, which the GBDT
-scale-out needs (ROADMAP Queue 1 item 15).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..device import resolve_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -123,3 +123,97 @@ def grid_mesh(shape: Sequence[int],
     devices=[cuda:0] * 4: the four-card layout on one card."""
     n = math.prod(shape)
     return Mesh(_array(_devices(n, devices), shape), axis_names)
+
+
+def full_mesh(axis_names: Sequence[str], shape: Optional[Sequence[int]] = None,
+              devices=None) -> Mesh:
+    """A mesh over every device: by default all of them on the last axis
+    and 1 on the others, as the reference's."""
+    if shape is None:
+        n = (torch.cuda.device_count() if devices is None
+             else len(devices))
+        if n == 0:
+            _devices(1, devices)       # raises: no card is visible
+        shape = (len(axis_names) - 1) * (1,) + (n,)
+    return grid_mesh(shape, axis_names, devices=devices)
+
+
+class NamedSharding(NamedTuple):
+    """A layout on a mesh, as the reference's `NamedSharding(mesh, P(...))`:
+    `spec[i]` names the mesh axis that dimension i is split over (None:
+    not split); an empty spec is replicated. `put` places a tensor."""
+    mesh: Mesh
+    spec: tuple
+
+    def devices(self) -> list:
+        """The devices that hold a piece: one per position of the split
+        axis (the other axes at position 0), or every distinct device of
+        the mesh for a replicated layout."""
+        split = [a for a in self.spec if a is not None]
+        if not split:
+            return list(dict.fromkeys(self.mesh.devices.flat))
+        return self.mesh.axis_devices(split[0])
+
+    def put(self, arr) -> list:
+        """`arr` (numpy or tensor) in this layout: one tensor per entry of
+        `devices()`, dimension i split into equal blocks along its axis.
+        A block already on its device is a view, not a copy. Raises where
+        the split dimension does not divide (`pad_to_multiple` first)."""
+        t = torch.as_tensor(arr)
+        devs = self.devices()
+        split = [i for i, a in enumerate(self.spec) if a is not None]
+        if not split:
+            return [t.to(d) for d in devs]
+        dim = split[0]
+        if t.shape[dim] % len(devs):
+            raise ValueError(
+                f"dimension {dim} of size {t.shape[dim]} does not split "
+                f"over {len(devs)} positions; pad it (pad_to_multiple)")
+        return [b.to(d) for b, d in zip(t.chunk(len(devs), dim), devs)]
+
+
+def row_sharding(mesh: Mesh, axis: str = DATA_AXIS,
+                 ndim: int = 1) -> NamedSharding:
+    """Axis 0 (rows) split over `axis`; the rest whole."""
+    return NamedSharding(mesh, (axis,) + (None,) * (ndim - 1))
+
+
+def replicated(mesh: Mesh) -> NamedSharding:
+    return NamedSharding(mesh, ())
+
+
+def pad_to_multiple(arr, multiple: int, axis: int = 0, fill=0):
+    """Pad `axis` so that it splits evenly over `multiple` positions;
+    returns (padded, original length), `arr` itself when nothing is
+    missing. numpy in, numpy out, as the reference; a tensor is padded on
+    its device."""
+    n = arr.shape[axis]
+    rem = (-n) % multiple
+    if rem == 0:
+        return arr, n
+    if torch.is_tensor(arr):
+        shape = list(arr.shape)
+        shape[axis] = rem
+        return torch.cat([arr, torch.full(shape, fill, dtype=arr.dtype,
+                                          device=arr.device)], axis), n
+    pad_width = [(0, 0)] * arr.ndim
+    pad_width[axis] = (0, rem)
+    return np.pad(arr, pad_width, constant_values=fill), n
+
+
+def shard_rows(mesh: Mesh, arr, axis_name: str = DATA_AXIS):
+    """A host array (or a tensor) split by rows over the mesh, zero-padded
+    where ragged: (one tensor per position on its device, the number of
+    real rows). Padding rows are zeros, so any aggregate other than a sum
+    needs the true count (or `valid_row_mask`)."""
+    if not torch.is_tensor(arr):
+        arr = np.asarray(arr)
+    padded, n = pad_to_multiple(arr, mesh.shape[axis_name], 0)
+    return row_sharding(mesh, axis_name, padded.ndim).put(padded), n
+
+
+def valid_row_mask(n_padded: int, n_valid: int, device=None) -> torch.Tensor:
+    """float32 {1, 0} mask of real against padding rows, on `device`
+    (None = the card)."""
+    return (torch.arange(n_padded, device=resolve_device(device))
+            < n_valid).to(torch.float32)

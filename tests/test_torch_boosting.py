@@ -217,8 +217,6 @@ def test_no_card_raises(monkeypatch):
 @pytest.mark.parametrize("param", [
     dict(out_of_core=True),
     dict(num_ingest_workers=2),
-    dict(parallelism="voting_parallel", num_tasks=2),
-    dict(features_shap_col="shap"),
     dict(quality_profile=True)])
 def test_unported_estimator_params_raise(param):
     x, y = _data("binary", n=200)
@@ -244,15 +242,27 @@ def test_voting_parallel_on_one_device_matches_reference():
 
 
 def test_voting_parallel_over_many_cards_raises(monkeypatch):
-    """Where the reference would shard (num_tasks=0 and more than one
-    card), the port raises naming item 15."""
+    """Where the reference shards (num_tasks=0 and more than one card),
+    the port now shards too: the fit goes to `fit_booster_distributed`
+    over a mesh of the four cards (the stand-in raises to stop there)."""
+    from mmlspark_tpu_torch.models.gbdt import estimators
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    seen = {}
+
+    def fake_fit(x, y, params, **kw):
+        seen.update(kw)
+        raise RuntimeError("reached the mesh fit")
+    monkeypatch.setattr(estimators, "fit_booster_distributed", fake_fit)
     x, y = _data("binary", n=200)
     est = GBDTClassifier(num_iterations=1, device="cuda",
-                         parallelism="voting_parallel")
-    with pytest.raises(NotImplementedError, match="item 15"):
+                         parallelism="voting_parallel", top_k=3)
+    with pytest.raises(RuntimeError, match="reached the mesh fit"):
         est.fit(Table({"features": x, "label": y}))
+    assert seen["mesh"].shape == {"data": 4}
+    assert [str(d) for d in seen["mesh"].devices] == [
+        f"cuda:{i}" for i in range(4)]
+    assert seen["parallelism"] == "voting_parallel" and seen["top_k"] == 3
 
 
 def test_regressor_validation_column_matches_reference():
