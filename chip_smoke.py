@@ -188,6 +188,20 @@ Phases (any failure exits non-zero before the last line is printed):
      one-position planes fit; a fixed-order checkpointed fit (240
      `hist_tiled_fixed`) that repeats itself bit for bit and whose 6 -> 10
      resume equals it bit for bit.
+  15. pipe train (slice 14): `flash_fwd`, `flash_bwd_dq` and
+     `flash_bwd_dkv` at a model position's shape (16384, 4, 128), bf16,
+     causal, against their plain versions (timed); the flagship LM
+     (bf16, Adam, remat="save_attn", flash) on a (data, pipe, model,
+     seq) = (1, 4, 2, 1) mesh of one card, tokens (2, 16384) in two
+     microbatches: one step with exactly 48 `flash_fwd`, 48
+     `flash_bwd_dq` and 48 `flash_bwd_dkv` launches, then `run` of 3
+     timed steps (s/step, tokens/s, `lm_train_mfu`, peak memory, a
+     falling loss) beside the one-position [train] step; one SGD step at
+     S=2048 on (1, 4, 2, 1) and (1, 2, 2, 2) against (1, 1, 1, 1), f32
+     and bf16, updated weights within `_TRAIN_TOL`, losses within
+     `_PIPE_LOSS_TOL`, launches exact; `ShardedLMTrainer` at the flagship
+     width on a (2, 2) data x model mesh, f32, 3 Adam steps within rtol
+     2e-4 of mesh=None.
 The headline fit (4) is timed 3 times (min and median), and every
 phase's seconds are printed.
 The kernel phase (3) also holds the flash backward kernels, dq and dk/dv,
@@ -1863,81 +1877,88 @@ def _bf16_check_sees_faults(q, k, v, causal, scale, want, lim, tag):
         f"bf16 uses {_limit_used(f32, want, lim):.3f} of it")
 
 
+def _fwd_case(dev, gen, label, sq, sk, h, d, is_timed, dtype,
+              causal):
+    """One case of `flash_kernel_phase`: `flash_fwd` against the plain
+    version at (Sq, Sk, H, D, dtype, causal), timed if `is_timed`;
+    returns its row."""
+    import torch
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    q = torch.randn(sq, h, d, device=dev, generator=gen)
+    k = torch.randn(sk, h, d, device=dev, generator=gen)
+    v = torch.randn(sk, h, d, device=dev, generator=gen)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    scale = 1.0 / d ** 0.5
+    got, got_lse = fa.flash_fwd(q, k, v, causal, scale)
+    want, want_lse = fa._flash_forward_lse_plain(q, k, v,
+                                                 causal, scale)
+    torch.cuda.synchronize()
+    tag = (f"flash_fwd {label} Sq={sq} Sk={sk} H={h} D={d} "
+           f"{str(dtype)[6:]} causal={causal}")
+    torch.testing.assert_close(got_lse, want_lse,
+                               rtol=_LSE_TOL[0],
+                               atol=_LSE_TOL[1], msg=tag)
+    err = float((got.float() - want.float()).abs().max())
+    lse_err = float((got_lse - want_lse).abs().max())
+    row = dict(case=label, sq=sq, sk=sk, h=h, d=d,
+               dtype=str(dtype)[6:], causal=causal,
+               max_abs_err=err, lse_max_abs_err=lse_err)
+    msg = f"[kernel] {tag}: match (out {err:.3g}, lse " \
+          f"{lse_err:.3g})"
+    if dtype == torch.float32:
+        torch.testing.assert_close(
+            got, want, rtol=_FLASH_F32_TOL[0],
+            atol=_FLASH_F32_TOL[1], msg=tag)
+    else:
+        lim = _bf16_limit(q, k, v, causal, scale, want)
+        used = _limit_used(got, want, lim)
+        if used > 1:
+            raise AssertionError(f"{tag}: out off by {used:.3g}"
+                                 f" x the bf16 limit")
+        row["bf16_limit_used"] = used
+        msg += f", {used:.3f} of the bf16 limit"
+        if label == "main":
+            _bf16_check_sees_faults(q, k, v, causal, scale,
+                                    want, lim, tag)
+        del lim
+    del got, want, got_lse, want_lse
+    if is_timed:
+        row["ms"] = timed(lambda: fa.flash_fwd(q, k, v, causal,
+                                               scale),
+                          warmup=2, reps=10)
+        row["plain_ms"] = timed(
+            lambda: fa._flash_forward_lse_plain(q, k, v, causal,
+                                                scale),
+            warmup=1, reps=3)
+        lib = _sdpa_call(q, k, v, causal, scale)
+        row["library_ms"] = timed(lib, warmup=2, reps=10)
+        del lib
+        row["bound_ms"], row["bound_by"] = _flash_bound(
+            sq, sk, h, d, dtype, causal)
+        msg += (f"; kernel {row['ms']:.3f} ms, plain "
+                f"{row['plain_ms']:.3f} ms, one SDPA "
+                f"{row['library_ms']:.3f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        if dtype == torch.float32:
+            row["split3_bound_ms"] = _flash_bound(
+                sq, sk, h, d, dtype, causal, split3=True)[0]
+            msg += (f", {row['split3_bound_ms']:.4f} ms at the "
+                    f"split's tensor-core rate")
+    log(msg)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
 def flash_kernel_phase(dev):
     """`flash_fwd` against `_flash_forward_lse_plain` on the same CUDA
     tensors, out and lse; the main-path shapes timed."""
     import torch
-    from mmlspark_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(2)
-    results = []
-    for label, sq, sk, h, d, is_timed in _flash_cases():
-        for dtype in (torch.float32, torch.bfloat16):
-            for causal in (False, True):
-                q = torch.randn(sq, h, d, device=dev, generator=gen)
-                k = torch.randn(sk, h, d, device=dev, generator=gen)
-                v = torch.randn(sk, h, d, device=dev, generator=gen)
-                q, k, v = (t.to(dtype) for t in (q, k, v))
-                scale = 1.0 / d ** 0.5
-                got, got_lse = fa.flash_fwd(q, k, v, causal, scale)
-                want, want_lse = fa._flash_forward_lse_plain(q, k, v,
-                                                             causal, scale)
-                torch.cuda.synchronize()
-                tag = (f"flash_fwd {label} Sq={sq} Sk={sk} H={h} D={d} "
-                       f"{str(dtype)[6:]} causal={causal}")
-                torch.testing.assert_close(got_lse, want_lse,
-                                           rtol=_LSE_TOL[0],
-                                           atol=_LSE_TOL[1], msg=tag)
-                err = float((got.float() - want.float()).abs().max())
-                lse_err = float((got_lse - want_lse).abs().max())
-                row = dict(case=label, sq=sq, sk=sk, h=h, d=d,
-                           dtype=str(dtype)[6:], causal=causal,
-                           max_abs_err=err, lse_max_abs_err=lse_err)
-                msg = f"[kernel] {tag}: match (out {err:.3g}, lse " \
-                      f"{lse_err:.3g})"
-                if dtype == torch.float32:
-                    torch.testing.assert_close(
-                        got, want, rtol=_FLASH_F32_TOL[0],
-                        atol=_FLASH_F32_TOL[1], msg=tag)
-                else:
-                    lim = _bf16_limit(q, k, v, causal, scale, want)
-                    used = _limit_used(got, want, lim)
-                    if used > 1:
-                        raise AssertionError(f"{tag}: out off by {used:.3g}"
-                                             f" x the bf16 limit")
-                    row["bf16_limit_used"] = used
-                    msg += f", {used:.3f} of the bf16 limit"
-                    if label == "main":
-                        _bf16_check_sees_faults(q, k, v, causal, scale,
-                                                want, lim, tag)
-                    del lim
-                del got, want, got_lse, want_lse
-                if is_timed:
-                    row["ms"] = timed(lambda: fa.flash_fwd(q, k, v, causal,
-                                                           scale),
-                                      warmup=2, reps=10)
-                    row["plain_ms"] = timed(
-                        lambda: fa._flash_forward_lse_plain(q, k, v, causal,
-                                                            scale),
-                        warmup=1, reps=3)
-                    lib = _sdpa_call(q, k, v, causal, scale)
-                    row["library_ms"] = timed(lib, warmup=2, reps=10)
-                    del lib
-                    row["bound_ms"], row["bound_by"] = _flash_bound(
-                        sq, sk, h, d, dtype, causal)
-                    msg += (f"; kernel {row['ms']:.3f} ms, plain "
-                            f"{row['plain_ms']:.3f} ms, one SDPA "
-                            f"{row['library_ms']:.3f} ms, bound "
-                            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
-                    if dtype == torch.float32:
-                        row["split3_bound_ms"] = _flash_bound(
-                            sq, sk, h, d, dtype, causal, split3=True)[0]
-                        msg += (f", {row['split3_bound_ms']:.4f} ms at the "
-                                f"split's tensor-core rate")
-                log(msg)
-                results.append(row)
-                del q, k, v
-                torch.cuda.empty_cache()
-    return results
+    return [_fwd_case(dev, gen, *case, dtype, causal)
+            for case in _flash_cases()
+            for dtype in (torch.float32, torch.bfloat16)
+            for causal in (False, True)]
 
 
 def _documents(n_docs, max_words, seed=0):
@@ -2134,88 +2155,95 @@ def _sdpa_backward_call(q, k, v, do, causal, scale):
     return lambda: out.backward(g, retain_graph=True)
 
 
+def _bwd_case(dev, gen, label, sq, sk, h, d, is_timed, dtype,
+              causal):
+    """One case of `flash_bwd_kernel_phase`: `flash_bwd_dq` and
+    `flash_bwd_dkv` against the plain version at (Sq, Sk, H, D, dtype,
+    causal), timed if `is_timed`; returns its row."""
+    import torch
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = (torch.randn(s, h, d, device=dev,
+                               generator=gen).to(dtype)
+                   for s in (sq, sk, sk, sq))
+    scale = 1.0 / d ** 0.5
+    out, lse = fa.flash_fwd(q, k, v, causal, scale)
+    dsum = (do.float() * out.float()).sum(-1).T.contiguous()
+    del out
+    ops = (q, k, v, do, lse, dsum)
+    got = (fa.flash_bwd_dq(*ops, causal, scale),
+           *fa.flash_bwd_dkv(*ops, causal, scale))
+    want = fa._flash_backward_plain(*ops, causal, scale)
+    torch.cuda.synchronize()
+    lims = fa._bwd_limits(*ops, causal, scale, want)
+    tag = (f"flash_bwd {label} Sq={sq} Sk={sk} H={h} D={d} "
+           f"{str(dtype)[6:]} causal={causal}")
+    used, errs = [], []
+    for name, g, w, lim in zip(("dq", "dk", "dv"), got, want,
+                               lims):
+        if g.dtype != dtype or not bool(
+                torch.isfinite(g.float()).all()):
+            raise AssertionError(f"{tag}: {name} is not finite "
+                                 f"{dtype}")
+        used.append(_limit_used(g, w, lim))
+        errs.append(float((g.float() - w.float()).abs().max()))
+    if max(used) > 1:
+        raise AssertionError(f"{tag}: off by {max(used):.3g} x "
+                             f"the limit (dq, dk, dv: {used})")
+    row = dict(case=label, sq=sq, sk=sk, h=h, d=d,
+               dtype=str(dtype)[6:], causal=causal,
+               max_abs_err=max(errs), limit_used=max(used),
+               err_dq_dk_dv=errs, used_dq_dk_dv=used)
+    msg = (f"[kernel] {tag}: match, max abs err dq/dk/dv "
+           f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g}, "
+           f"{used[0]:.3f}/{used[1]:.3f}/{used[2]:.3f} of the "
+           f"limit")
+    if label == "main":
+        _bwd_check_sees_faults(ops, causal, scale, want, lims,
+                               tag)
+    del got, want, lims
+    if is_timed:
+        row["dq_ms"] = timed(lambda: fa.flash_bwd_dq(
+            *ops, causal, scale), warmup=1, reps=5)
+        row["dkv_ms"] = timed(lambda: fa.flash_bwd_dkv(
+            *ops, causal, scale), warmup=1, reps=5)
+        row["plain_ms"] = timed(lambda: fa._flash_backward_plain(
+            *ops, causal, scale), warmup=1, reps=2)
+        lib = _sdpa_backward_call(q, k, v, do, causal, scale)
+        row["library_ms"] = timed(lib, warmup=1, reps=5)
+        del lib
+        for key, kernel in (("bound", "all"),
+                            ("dq_bound", "dq"),
+                            ("dkv_bound", "dkv")):
+            row[f"{key}_ms"], row[f"{key}_by"] = _bwd_bound(
+                sq, sk, h, d, dtype, causal, kernel)
+        msg += (f"; dq {row['dq_ms']:.3f} ms (bound "
+                f"{row['dq_bound_ms']:.4f}), dk/dv "
+                f"{row['dkv_ms']:.3f} ms (bound "
+                f"{row['dkv_bound_ms']:.4f}), together bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
+                f"plain {row['plain_ms']:.3f} ms, one SDPA "
+                f"backward {row['library_ms']:.3f} ms")
+        if dtype == torch.float32:
+            msg += _split3_bounds(
+                row, (sq, sk, h, d, dtype, causal),
+                ("all", "dq", "dkv"))
+    log(msg)
+    del q, k, v, do, lse, dsum, ops
+    torch.cuda.empty_cache()
+    return row
+
+
 def flash_bwd_kernel_phase(dev):
     """`flash_bwd_dq` and `flash_bwd_dkv` against `_flash_backward_plain`
     on the same CUDA tensors, dq, dk and dv per element within
     `flash_attention._BWD_TOL`; lse and dsum from `flash_fwd` (the same
     inputs to both sides). The main-path shapes timed."""
     import torch
-    from mmlspark_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(3)
-    results = []
-    for label, sq, sk, h, d, is_timed in _flash_cases():
-        for dtype in (torch.float32, torch.bfloat16):
-            for causal in (False, True):
-                q, k, v, do = (torch.randn(s, h, d, device=dev,
-                                           generator=gen).to(dtype)
-                               for s in (sq, sk, sk, sq))
-                scale = 1.0 / d ** 0.5
-                out, lse = fa.flash_fwd(q, k, v, causal, scale)
-                dsum = (do.float() * out.float()).sum(-1).T.contiguous()
-                del out
-                ops = (q, k, v, do, lse, dsum)
-                got = (fa.flash_bwd_dq(*ops, causal, scale),
-                       *fa.flash_bwd_dkv(*ops, causal, scale))
-                want = fa._flash_backward_plain(*ops, causal, scale)
-                torch.cuda.synchronize()
-                lims = fa._bwd_limits(*ops, causal, scale, want)
-                tag = (f"flash_bwd {label} Sq={sq} Sk={sk} H={h} D={d} "
-                       f"{str(dtype)[6:]} causal={causal}")
-                used, errs = [], []
-                for name, g, w, lim in zip(("dq", "dk", "dv"), got, want,
-                                           lims):
-                    if g.dtype != dtype or not bool(
-                            torch.isfinite(g.float()).all()):
-                        raise AssertionError(f"{tag}: {name} is not finite "
-                                             f"{dtype}")
-                    used.append(_limit_used(g, w, lim))
-                    errs.append(float((g.float() - w.float()).abs().max()))
-                if max(used) > 1:
-                    raise AssertionError(f"{tag}: off by {max(used):.3g} x "
-                                         f"the limit (dq, dk, dv: {used})")
-                row = dict(case=label, sq=sq, sk=sk, h=h, d=d,
-                           dtype=str(dtype)[6:], causal=causal,
-                           max_abs_err=max(errs), limit_used=max(used),
-                           err_dq_dk_dv=errs, used_dq_dk_dv=used)
-                msg = (f"[kernel] {tag}: match, max abs err dq/dk/dv "
-                       f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g}, "
-                       f"{used[0]:.3f}/{used[1]:.3f}/{used[2]:.3f} of the "
-                       f"limit")
-                if label == "main":
-                    _bwd_check_sees_faults(ops, causal, scale, want, lims,
-                                           tag)
-                del got, want, lims
-                if is_timed:
-                    row["dq_ms"] = timed(lambda: fa.flash_bwd_dq(
-                        *ops, causal, scale), warmup=1, reps=5)
-                    row["dkv_ms"] = timed(lambda: fa.flash_bwd_dkv(
-                        *ops, causal, scale), warmup=1, reps=5)
-                    row["plain_ms"] = timed(lambda: fa._flash_backward_plain(
-                        *ops, causal, scale), warmup=1, reps=2)
-                    lib = _sdpa_backward_call(q, k, v, do, causal, scale)
-                    row["library_ms"] = timed(lib, warmup=1, reps=5)
-                    del lib
-                    for key, kernel in (("bound", "all"),
-                                        ("dq_bound", "dq"),
-                                        ("dkv_bound", "dkv")):
-                        row[f"{key}_ms"], row[f"{key}_by"] = _bwd_bound(
-                            sq, sk, h, d, dtype, causal, kernel)
-                    msg += (f"; dq {row['dq_ms']:.3f} ms (bound "
-                            f"{row['dq_bound_ms']:.4f}), dk/dv "
-                            f"{row['dkv_ms']:.3f} ms (bound "
-                            f"{row['dkv_bound_ms']:.4f}), together bound "
-                            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
-                            f"plain {row['plain_ms']:.3f} ms, one SDPA "
-                            f"backward {row['library_ms']:.3f} ms")
-                    if dtype == torch.float32:
-                        msg += _split3_bounds(
-                            row, (sq, sk, h, d, dtype, causal),
-                            ("all", "dq", "dkv"))
-                log(msg)
-                results.append(row)
-                del q, k, v, do, lse, dsum, ops
-                torch.cuda.empty_cache()
-    return results
+    return [_bwd_case(dev, gen, *case, dtype, causal)
+            for case in _flash_cases()
+            for dtype in (torch.float32, torch.bfloat16)
+            for causal in (False, True)]
 
 
 def _split3_bounds(row, shape, kernels, offsets=(0, 0)):
@@ -2921,6 +2949,228 @@ def ring_train_phase(dev, cp1_first_loss: float, profile: bool):
                 losses=[loss1, loss_last], cp1_first_loss=cp1_first_loss,
                 checks=checks)
 
+
+
+# ------------------------------------------------------------ [pipe train]
+# slice 14: pipeline and tensor parallelism. The flagship LM on the
+# four-stage, two-way Megatron layout of eight positions, run on one card:
+# (data, pipe, model, seq) = (1, 4, 2, 1), 3 layers a stage, 4 heads and
+# d_ff 2048 a model position; two 16,384-token sequences a step in two
+# microbatches
+PIPE_MESH = (1, 4, 2, 1)
+# the reference's 4D composition for the S=2048 update checks: a ring over
+# two 1,024-token shards inside each of two model positions of 4 heads
+PIPE_4D_MESH = (1, 2, 2, 2)
+PIPE_BATCH, PIPE_MICROBATCHES = 2, 2
+# the check meshes' losses against the one-position trainer's, in f32 and
+# bf16, as `_RING_LOSS_TOL`
+_PIPE_LOSS_TOL = 1e-3
+# ShardedLMTrainer on a data x model mesh against mesh=None: the
+# reference's own tolerance (tests/test_lm_training.py:37-48)
+SHARDED_MESH, SHARDED_STEPS = (2, 2), 3
+_SHARDED_RTOL, _SHARDED_ATOL = 2e-4, 2e-5
+_PIPE_AXES = ("data", "pipe", "model", "seq")
+
+
+def _pipe_launches(shape, seq, n_seqs):
+    """The flash launches of one step of the flagship LM on `shape`: each
+    layer runs at every model position for every sequence, normalized
+    without a seq axis, stats blocks over cp^2 shard pairs with one."""
+    _, _, tp, cp = shape
+    per = LM["n_layers"] * tp * n_seqs
+    if cp == 1:
+        return {"flash_fwd": per, "flash_stats_fwd": 0,
+                "flash_bwd_dq": per, "flash_bwd_dkv": per}
+    return {"flash_fwd": 0, "flash_stats_fwd": per * cp * cp,
+            "flash_bwd_dq": per * cp * cp, "flash_bwd_dkv": per * cp * cp}
+
+
+def _pipe_trainer(dev, shape, **kw):
+    from mmlspark_tpu_torch.models.dnn import PipelinedLMTrainer
+    from mmlspark_tpu_torch.parallel import grid_mesh
+    mesh = grid_mesh(shape, _PIPE_AXES, devices=[dev] * int(np.prod(shape)))
+    return PipelinedLMTrainer(mesh=mesh, n_microbatches=PIPE_MICROBATCHES,
+                              attention="flash", remat="save_attn", seed=0,
+                              **kw, **LM)
+
+
+def _pipe_update_check(dev, compute_dtype):
+    """One SGD step at S=2048 on (1, 4, 2, 1), (1, 2, 2, 2) and (1, 1, 1, 1)
+    from the same weights, tokens (2, 2048) in two microbatches: per mesh
+    its launches, loss and the per-leaf disagreement of its updated
+    weights with the one-position trainer's (`_update_disagreement`)."""
+    import torch
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    toks = np.random.default_rng(1).integers(
+        0, LM["vocab_size"], size=(PIPE_BATCH, _TRAIN_CHECK_SEQ)).astype(
+        np.int32)
+    one = (1, 1, 1, 1)
+    updated, losses, launches = {}, {}, {}
+    for shape in (one, PIPE_MESH, PIPE_4D_MESH):
+        t = _pipe_trainer(dev, shape, optimizer="sgd", lr=1.0,
+                          compute_dtype=compute_dtype)
+        if shape == one:
+            names, start = zip(*((n, a.detach().clone())
+                                 for n, a in _named_leaves(t.params)))
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        losses[shape] = t.step(toks)
+        launches[shape] = dict(fa.launches)
+        updated[shape] = [a.detach().clone()
+                          for _, a in _named_leaves(t.params)]
+        del t
+        torch.cuda.empty_cache()
+    out = {shape: _update_disagreement(names, start, updated[shape],
+                                       updated[one])
+           for shape in (PIPE_MESH, PIPE_4D_MESH)}
+    del start, updated
+    torch.cuda.empty_cache()
+    return out, losses, launches
+
+
+def _sharded_check(dev):
+    """ShardedLMTrainer at the flagship width, f32, on a (2, 2) data x
+    model mesh of one card and with mesh=None from the same seed:
+    SHARDED_STEPS Adam steps on tokens (2, 2048). Dense attention: no
+    kernel launches."""
+    import torch
+    from mmlspark_tpu_torch.models.dnn import ShardedLMTrainer
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    from mmlspark_tpu_torch.parallel import grid_mesh
+    toks = np.random.default_rng(2).integers(
+        0, LM["vocab_size"], size=(2, _TRAIN_CHECK_SEQ)).astype(np.int32)
+    losses, seconds = {}, {}
+    for name, mesh in (("mesh", grid_mesh(SHARDED_MESH,
+                                          devices=[dev] * 4)),
+                       ("none", None)):
+        t = ShardedLMTrainer(mesh=mesh, seed=0,
+                             device=None if mesh else dev, **LM)
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        losses[name] = [t.step(toks) for _ in range(SHARDED_STEPS)]
+        seconds[name] = (time.perf_counter() - t0) / SHARDED_STEPS
+        if any(fa.launches.values()):
+            raise AssertionError(f"ShardedLMTrainer launched {fa.launches}")
+        del t
+        torch.cuda.empty_cache()
+    return losses, seconds
+
+
+def pipe_train_phase(dev, train):
+    """The LM training path on pipe and model axes at the flagship width:
+    the flash kernels at the model position's 4 heads against their plain
+    versions; one step of the flagship LM on PIPE_MESH with the launch
+    counts set to 0 just before and read just after, then `run` of
+    LM_STEPS timed steps (counts again set to 0 before and read after),
+    beside `train`, the one-position [train] result; the S=2048 update
+    checks of PIPE_MESH and PIPE_4D_MESH against (1, 1, 1, 1) in f32 and
+    bf16; ShardedLMTrainer on a data x model mesh against mesh=None."""
+    import torch
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+
+    h_loc = LM["n_heads"] // PIPE_MESH[2]
+    d = LM["d_model"] // LM["n_heads"]
+    gen = torch.Generator(device=dev).manual_seed(14)
+    kernels = {"fwd": _fwd_case(dev, gen, "h4", LM_SEQ, LM_SEQ, h_loc, d,
+                                True, torch.bfloat16, True),
+               "bwd": _bwd_case(dev, gen, "h4", LM_SEQ, LM_SEQ, h_loc, d,
+                                True, torch.bfloat16, True)}
+
+    trainer = _pipe_trainer(dev, PIPE_MESH, optimizer="adam",
+                            compute_dtype="bfloat16")
+    log(f"[pipe train] {LM} on {trainer.mesh}: {PIPE_MICROBATCHES} "
+        f"microbatches of {PIPE_BATCH // PIPE_MICROBATCHES} x {LM_SEQ} "
+        f"tokens, {LM['n_layers'] // PIPE_MESH[1]} layers a stage, "
+        f"{h_loc} heads a model position; bf16 compute, f32 master + "
+        f"Adam, remat=save_attn, flash")
+    toks = np.random.default_rng(0).integers(
+        0, LM["vocab_size"], size=(PIPE_BATCH, LM_SEQ)).astype(np.int32)
+    want_step = _pipe_launches(PIPE_MESH, LM_SEQ, PIPE_BATCH)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    loss1 = trainer.step(toks)
+    step1_s = time.perf_counter() - t0
+    per_step = dict(fa.launches)
+    log(f"[pipe train] step 1 (untimed): loss {loss1:.6f} in "
+        f"{step1_s:.2f} s; launches {per_step}")
+    if per_step != want_step:
+        raise AssertionError(f"one pipe training step launched {per_step}, "
+                             f"expected {want_step}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    loss_last = trainer.run(toks, LM_STEPS)    # one host sync, at the end
+    run_s = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {k: LM_STEPS * v for k, v in want_step.items()}:
+        raise AssertionError(f"run({LM_STEPS}) launched {launches}")
+    s_step = run_s / LM_STEPS
+    tokens = PIPE_BATCH * LM_SEQ
+    flops = PIPE_BATCH * _lm_flops_per_step()
+    mfu = flops / s_step / PEAK_BF16_FLOP_PER_S
+    log(f"[pipe train] run({LM_STEPS}): {s_step:.4f} s/step = "
+        f"{tokens / s_step:.4g} tokens/s; lm_train_mfu {mfu:.4f} (model "
+        f"FLOPs {flops:.4g}/step); peak memory {peak / 2**30:.2f} GiB; "
+        f"launches {launches}; losses {loss1:.4f} -> {loss_last:.4f}; "
+        f"[train] one position, {LM_SEQ} tokens: {train['s_step']:.4f} "
+        f"s/step, {train['tokens_per_s']:.4g} tokens/s, peak "
+        f"{train['peak'] / 2**30:.2f} GiB")
+    if not (np.isfinite([loss1, loss_last]).all() and loss_last < loss1):
+        raise AssertionError(f"losses {loss1}, {loss_last}: not finite and "
+                             f"falling")
+    del trainer
+    torch.cuda.empty_cache()
+
+    checks = {}
+    one = (1, 1, 1, 1)
+    for cdt in ("float32", "bfloat16"):
+        worst, losses, check_launches = _pipe_update_check(dev, cdt)
+        for shape, (w, leaf, attn) in worst.items():
+            log(f"[pipe train] S={_TRAIN_CHECK_SEQ} SGD step {cdt}, mesh "
+                f"{shape} vs {one} from the same weights: losses "
+                f"{losses[shape]:.6f} / {losses[one]:.6f}; updated weights "
+                f"differ by at most {w:.3g} of the update per leaf ({leaf};"
+                f" the attention weights alone {attn:.3g}; limit "
+                f"{_TRAIN_TOL[cdt]}); launches {check_launches[shape]}")
+            if w > _TRAIN_TOL[cdt]:
+                raise AssertionError(f"mesh {shape} and one-position "
+                                     f"training disagree ({cdt})")
+            if not abs(losses[shape] - losses[one]) <= _PIPE_LOSS_TOL:
+                raise AssertionError(f"mesh {shape}'s loss differs from "
+                                     f"the one-position trainer's ({cdt})")
+            checks[f"{cdt} {shape}"] = dict(worst=w, leaf=leaf,
+                                            attention=attn,
+                                            loss=losses[shape],
+                                            one_loss=losses[one])
+        for shape in (one, PIPE_MESH, PIPE_4D_MESH):
+            want = _pipe_launches(shape, _TRAIN_CHECK_SEQ, PIPE_BATCH)
+            if check_launches[shape] != want:
+                raise AssertionError(f"mesh {shape} launched "
+                                     f"{check_launches[shape]}, expected "
+                                     f"{want}")
+
+    sharded, sharded_s = _sharded_check(dev)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(sharded["mesh"],
+                                                   sharded["none"]))
+    log(f"[pipe train] ShardedLMTrainer f32 on a {SHARDED_MESH} data x "
+        f"model mesh: losses {', '.join(f'{x:.6f}' for x in sharded['mesh'])}"
+        f" ({sharded_s['mesh']:.3f} s/step); mesh=None "
+        f"{', '.join(f'{x:.6f}' for x in sharded['none'])} "
+        f"({sharded_s['none']:.3f} s/step); largest relative difference "
+        f"{rel:.3g} (rtol {_SHARDED_RTOL}, atol {_SHARDED_ATOL})")
+    np.testing.assert_allclose(sharded["mesh"], sharded["none"],
+                               rtol=_SHARDED_RTOL, atol=_SHARDED_ATOL)
+    if not sharded["mesh"][-1] < sharded["mesh"][0]:
+        raise AssertionError(f"ShardedLMTrainer's losses {sharded['mesh']} "
+                             f"do not fall")
+    return dict(launches=launches, per_step=per_step, s_step=s_step,
+                tokens_per_s=tokens / s_step, mfu=mfu, peak=peak,
+                losses=[loss1, loss_last], checks=checks, kernels=kernels,
+                sharded=dict(losses=sharded, s_step=sharded_s, rel=rel))
 
 # parent against change in one call: the f32 forward at the main shape,
 # the f32 encode_long, the f32 LM step, the headline fit and the planes
@@ -3942,6 +4192,7 @@ def main(argv) -> int:
     train = phase("lm training", lm_train_phase, dev, profile)
     ring = phase("ring training", ring_train_phase, dev, train["losses"][0],
                  profile)
+    pipe = phase("pipe training", pipe_train_phase, dev, train)
     if "--versus" in argv:
         phase("versus", versus_phase, parent)
 
@@ -4007,7 +4258,15 @@ def main(argv) -> int:
              launches_per_path={**{k: v["launches"]
                                    for k, v in enc_paths.items()},
                                 "lm_train_step": train["per_step"][
+                                    "flash_fwd"],
+                                "pipe_train_step": pipe["per_step"][
+                                    "flash_fwd"],
+                                "pipe_train_run": pipe["launches"][
                                     "flash_fwd"]},
+             pipe_h4={k: pipe["kernels"]["fwd"].get(k) for k in (
+                 "sq", "h", "d", "dtype", "causal", "ms", "plain_ms",
+                 "library_ms", "bound_ms", "bound_by", "max_abs_err",
+                 "bf16_limit_used")},
              variants=[{k: r.get(k) for k in (
                  "d", "dtype", "causal", "ms", "plain_ms", "library_ms",
                  "bound_ms", "split3_bound_ms", "max_abs_err",
@@ -4116,7 +4375,13 @@ def main(argv) -> int:
                                "lm_train_f32_step":
                                    train["f32"]["per_step"][kname],
                                "ring_train_step": ring["per_step"][kname],
-                               "ring_train_run": ring["launches"][kname]},
+                               "ring_train_run": ring["launches"][kname],
+                               "pipe_train_step": pipe["per_step"][kname],
+                               "pipe_train_run": pipe["launches"][kname]},
+            pipe_h4={k: pipe["kernels"]["bwd"].get(k) for k in (
+                "sq", "h", "d", "dtype", "causal", f"{key}_ms", "plain_ms",
+                "library_ms", f"{key}_bound_ms", f"{key}_bound_by",
+                "max_abs_err", "limit_used")},
             passed=True,
             max_abs_err=main_bwd["max_abs_err"], ms=main_bwd[f"{key}_ms"],
             plain_ms=main_bwd["plain_ms"],
@@ -4155,6 +4420,13 @@ def main(argv) -> int:
         f"{ring['s_step']:.4f} s/step, {ring['tokens_per_s']:.4g} "
         f"tokens/s, peak {ring['peak'] / 2**30:.2f} GiB; encoder ring "
         f"encode {enc_paths['ring']['s']:.3f} s")
+    log(f"[pipe train] mesh {PIPE_MESH}: lm_train_mfu {pipe['mfu']:.4f}, "
+        f"{pipe['s_step']:.4f} s/step, {pipe['tokens_per_s']:.4g} tokens/s, "
+        f"peak {pipe['peak'] / 2**30:.2f} GiB; flash at "
+        f"{LM['n_heads'] // PIPE_MESH[2]} heads: "
+        f"fwd {pipe['kernels']['fwd']['ms']:.3f} ms, dq "
+        f"{pipe['kernels']['bwd']['dq_ms']:.3f} ms, dk/dv "
+        f"{pipe['kernels']['bwd']['dkv_ms']:.3f} ms")
     log(f"[gbdt] headline fit min {min(paths['fit_times']):.4f} s, median "
         f"{float(np.median(paths['fit_times'])):.4f} s; planes fit "
         f"{planes['fit_s']:.4f} s; " + ", ".join(

@@ -1,11 +1,17 @@
-"""Causal LM training with dense attention on one device (port of
-`mmlspark_tpu/models/dnn/lm_training.py`'s `_lm_loss` and
-`ShardedLMTrainer`, restricted to one device).
+"""Causal LM training with dense attention over a data x model mesh
+(port of `mmlspark_tpu/models/dnn/lm_training.py`'s `_lm_loss` and
+`ShardedLMTrainer`).
 
-The reference lays the parameters over a dp x tp mesh and lets XLA insert
-the collectives; on one device that is one Adam step of the mean
-next-token cross-entropy of `transformer_apply` (causal, dense). It is
-the reference's own oracle for `PipelinedLMTrainer`.
+The reference lays the parameters over a dp x tp mesh in the Megatron
+layout (`_param_shardings`: wq/wk/wv/w1/b1 cut on their outputs, wo/w2
+on their inputs, the rest replicated) and lets XLA insert the
+collectives. The port holds the same blocks once each, per model
+position, and drives every position from one process with the Megatron
+f/g operators and blocks of `pp_training` (one copy of that code): batch
+rows shard over the data axis, attention is dense (the reference keeps
+dense attention under GSPMD), and the loss is the mean next-token
+cross-entropy over the whole batch. With mesh=None it trains on one
+device; it is the reference's own oracle for `PipelinedLMTrainer`.
 
 Step checkpoints of both LM trainers live here, as in the reference:
 `save_lm_checkpoint` / `restore_lm_checkpoint` over `utils.checkpoint`'s
@@ -13,10 +19,13 @@ Step checkpoints of both LM trainers live here, as in the reference:
 by `payload.tree_to_payload`, and the optimizer's leaves in
 `optax.adam`'s flatten order, count, mu..., nu..., which map to and from
 `torch.optim.Adam`'s `step`, `exp_avg` and `exp_avg_sq`), so a checkpoint
-written by either package restores in the other.
+written by either package, on any mesh, restores in the other. A trainer
+that holds its parameters in blocks over a mesh (`pp_training._Blocks`)
+gathers every leaf and its Adam state to the full leaf on save and cuts
+them back into its blocks on restore.
 
-Not ported yet: a mesh (ROADMAP Queue 1 item 15) and `run_stream` with its
-prefetcher and supervisor (item 17).
+Not ported yet: `run_stream` with its prefetcher and supervisor (ROADMAP
+Queue 1 item 17).
 """
 from __future__ import annotations
 
@@ -26,73 +35,128 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
+from ...parallel.mesh import DATA_AXIS, MODEL_AXIS
 from ...utils.checkpoint import CheckpointManager
 from .payload import tree_from_payload, tree_to_payload
-from .pp_training import _leaves
-from .transformer import _flatten, init_transformer, params_from_numpy, \
-    transformer_apply
+from .pp_training import (_Blocks, _block, _check_device, _copies_per_step,
+                          _gather, _megatron_index, _mesh_sizes)
+from .transformer import _flatten, _layer_norm, init_transformer
 
-MESH_TODO = ("ShardedLMTrainer on a mesh (the reference's GSPMD dp x tp "
-             "layout) is not ported yet: ROADMAP Queue 1 item 15; mesh=None "
-             "trains on one device, and PipelinedLMTrainer takes a mesh's "
-             "data and seq axes")
 RUN_STREAM_TODO = ("ShardedLMTrainer.run_stream (prefetching ingest and "
                    "supervised checkpoints) is not ported yet: ROADMAP "
                    "Queue 1 item 17")
 
 
-def _lm_loss(params, meta, tokens):
-    """Mean next-token cross-entropy for a (B, S) batch (causal): the
-    forward is `transformer_apply`, the head the tied embedding."""
-    emb = transformer_apply({**params, "meta": meta}, tokens, causal=True)
-    logits = emb @ params["embed"].T
-    logp = torch.log_softmax(logits[:, :-1], dim=-1)
-    nll = -logp.gather(-1, tokens[:, 1:, None].long())[..., 0]
-    return nll.mean()
-
-
 class ShardedLMTrainer:
-    """Causal LM trainer with dense attention and Adam on one device:
-    loss = t.step(tokens), (B, S) int tokens. The reference's parameters,
-    plus `device` (None = the card); `mesh` must be None."""
+    """Causal LM trainer with dense attention and Adam: loss =
+    t.step(tokens), (B, S) int tokens, B % dp == 0. The reference's
+    parameters, plus `device` (None = the card). With mesh=None it trains
+    on `device`; a mesh (`parallel.grid_mesh((dp, tp))`) must have the
+    "data" and "model" axes: batch rows shard over data, the heads and
+    d_ff over model. The embedding, positions, layer norms and b2 live on
+    the mesh's first device; `device`, if given, must be that device."""
 
     def __init__(self, vocab_size: int, mesh=None, d_model: int = 128,
                  n_heads: int = 8, n_layers: int = 2, d_ff: int = 256,
                  max_len: int = 512, lr: float = 1e-3, seed: int = 0,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_TODO)
         if d_model % n_heads:
             raise ValueError(
                 f"d_model ({d_model}) must divide by n_heads ({n_heads})")
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.dp = self.tp = 1
+            self._devs = [[self.device]]
+        else:
+            for axis in (DATA_AXIS, MODEL_AXIS):
+                if axis not in mesh.shape:
+                    raise ValueError(f"ShardedLMTrainer's mesh needs the "
+                                     f"{DATA_AXIS!r} and {MODEL_AXIS!r} "
+                                     f"axes; got axes {mesh.axis_names}")
+            _, self.tp, _ = _mesh_sizes(mesh, n_heads, d_ff)
+            self.dp = mesh.shape[DATA_AXIS]
+            self.device = mesh.device_at()
+            _check_device(device, self.device)
+            # _devs[d][j]: the device of (data d, model j)
+            self._devs = [[mesh.device_at(data=d, model=j)
+                           for j in range(self.tp)] for d in range(self.dp)]
+        self.mesh = mesh
         raw = init_transformer(vocab_size, d_model, n_heads, n_layers, d_ff,
                                max_len, seed)
         self.meta = raw.pop("meta")
-        self.params = params_from_numpy(raw, self.device)
-        leaves = list(_leaves(self.params))
-        for a in leaves:
-            a.requires_grad_(True)
-        self._opt = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999),
-                                     eps=1e-8)
+
+        def placement(path, shape):
+            if path[0] != "layers":
+                yield "shared", self.device, ()
+                return
+            for j in range(self.tp):
+                index = _megatron_index(path[2], shape, j, self.tp)
+                if index is not None:
+                    yield j, self._devs[0][j], index
+        self._blocks = _Blocks(raw, placement)
+        self._opt = torch.optim.Adam(self._blocks.masters(), lr=lr,
+                                     betas=(0.9, 0.999), eps=1e-8)
+
+    @property
+    def params(self) -> dict:
+        """The parameters in the reference's layout (a list of per-layer
+        dicts): a leaf held whole is its master, a cut one a detached
+        tensor on the first device assembled from its blocks."""
+        return self._blocks.tree(self.device)
+
+    def position_params(self, model: int = 0) -> list:
+        """The per-layer masters that model position `model` holds, e.g.
+        wq of shape (d, d / model); ln1, ln2 and b2 at model 0."""
+        layers = self._blocks.trees[model]["layers"]
+        return [layers[i] for i in sorted(layers)]
+
+    def _loss(self, tokens):
+        """The reference's `_lm_loss`, the mean next-token cross-entropy
+        of the causal dense forward over the whole batch: per data shard
+        the sum of its NLL, then the sum over shards over the count."""
+        on = _copies_per_step(self._blocks.trees, torch.float32)
+        n_heads, d = self.meta["n_heads"], self.meta["d_model"]
+        dh, h_loc = d // n_heads, n_heads // self.tp
+        b, seq = tokens.shape
+        b_loc = b // self.dp
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for di, devs in enumerate(self._devs):
+            pc = on("shared", devs[0])
+            layers = [on(j, dev)["layers"] for j, dev in enumerate(devs)]
+            rows = tokens[di * b_loc:(di + 1) * b_loc].to(devs[0])
+            x = pc["embed"][rows] + pc["pos"][:seq]
+            for i in range(len(layers[0])):
+                x, = _block([x], [[lp[i] for lp in layers]], h_loc, dh)
+            logits = _layer_norm(x, pc["final_ln"]) @ pc["embed"].T
+            logp = torch.log_softmax(logits[:, :-1], dim=-1)
+            nll = -logp.gather(-1, rows[:, 1:, None])[..., 0]
+            total = total + nll.sum().to(self.device)
+        return total / (b * (seq - 1))
 
     def _update(self, tokens):
         self._opt.zero_grad(set_to_none=True)
-        loss = _lm_loss(self.params, self.meta, tokens)
+        loss = self._loss(tokens)
         loss.backward()
         self._opt.step()
         return loss.detach()
+
+    def _check_batch(self, tokens) -> None:
+        if tokens.shape[0] % self.dp:
+            raise ValueError(f"batch {tokens.shape[0]} must divide by the "
+                             f"data axis ({self.dp})")
 
     def _to_device(self, tokens):
         return torch.as_tensor(np.asarray(tokens), device=self.device).long()
 
     def step(self, tokens: np.ndarray) -> float:
         """One Adam update; returns the batch loss (before the update)."""
+        self._check_batch(tokens)
         return float(self._update(self._to_device(tokens)))
 
     def run(self, tokens: np.ndarray, n_steps: int) -> float:
         """n_steps chained updates on the same batch with ONE host sync, at
         the end; returns the last step's loss."""
+        self._check_batch(tokens)
         n_steps = operator.index(n_steps)
         if n_steps < 1:
             raise ValueError(f"n_steps must be >= 1, got {n_steps}")
@@ -105,54 +169,71 @@ class ShardedLMTrainer:
         raise NotImplementedError(RUN_STREAM_TODO)
 
     def save_checkpoint(self, directory: str, step: int) -> None:
-        """Params and optimizer state as checkpoint `step` of
-        `directory`."""
+        """Params and optimizer state, gathered into the reference's
+        leaves, as checkpoint `step` of `directory`."""
         save_lm_checkpoint(directory, step, self.params, self._opt,
-                           self.meta)
+                           self.meta, self._blocks)
 
     def restore_checkpoint(self, directory: str, step: int = None) -> int:
         """Load params and optimizer state from the latest (or the given)
-        step into this trainer, in place; returns the step loaded."""
+        step into this trainer's blocks, in place; returns the step
+        loaded."""
         return restore_lm_checkpoint(directory, step, self.params,
-                                     self._opt, self.meta)
+                                     self._opt, self.meta, self._blocks)
 
 
-def _adam_leaves(params, opt) -> list:
+def _pieces(params, blocks) -> list:
+    """Each leaf's (master, index) pieces in flatten order: the blocks',
+    or, without blocks, every leaf of `params` its own master, whole."""
+    if blocks is not None:
+        return blocks.pieces
+    return [[(t, ())] for t in _flatten(params)]
+
+
+def _adam_leaves(params, opt, blocks=None) -> list:
     """The optimizer's state as `optax.adam`'s flattened state: [count,
     mu leaves..., nu leaves...] in the params' flatten order (zeros before
-    the first step); [] for SGD, which keeps none."""
+    the first step), each leaf gathered from its pieces (`_pieces`); []
+    for SGD, which keeps none."""
     if not isinstance(opt, torch.optim.Adam):
         return []
-    leaves = _flatten(params)
-    states = [opt.state.get(p, {}) for p in leaves]
-    count = int(states[0]["step"]) if states[0] else 0
-    mu = [s["exp_avg"] if s else torch.zeros_like(p)
-          for p, s in zip(leaves, states)]
-    nu = [s["exp_avg_sq"] if s else torch.zeros_like(p)
-          for p, s in zip(leaves, states)]
+    pieces, like = _pieces(params, blocks), _flatten(params)
+    first = opt.state.get(pieces[0][0][0], {})
+    count = int(first["step"]) if first else 0
+
+    def state(key):
+        return lambda m: (opt.state[m][key] if m in opt.state
+                          else torch.zeros_like(m))
+    mu = [_gather(p, t.shape, t.device, state("exp_avg"))
+          for p, t in zip(pieces, like)]
+    nu = [_gather(p, t.shape, t.device, state("exp_avg_sq"))
+          for p, t in zip(pieces, like)]
     return [np.asarray(count, np.int32)] + mu + nu
 
 
-def lm_state_payload(params, opt, meta) -> dict:
+def lm_state_payload(params, opt, meta, blocks=None) -> dict:
     """A trainer's live state as a checkpoint payload, the reference's
     layout: `meta`, the params with their treedef (prefix "p"), and the
-    optimizer's leaves alone (prefix "o")."""
+    optimizer's leaves alone (prefix "o"). `params` is the reference's
+    tree; `blocks`, where the trainer holds it in blocks, says where each
+    leaf's optimizer state lives."""
     payload = {"meta": dict(meta)}
     payload.update(tree_to_payload(params, "p"))
-    payload.update(tree_to_payload(_adam_leaves(params, opt), "o",
+    payload.update(tree_to_payload(_adam_leaves(params, opt, blocks), "o",
                                    leaves_only=True))
     return payload
 
 
-def save_lm_checkpoint(directory: str, step: int, params, opt,
-                       meta) -> None:
+def save_lm_checkpoint(directory: str, step: int, params, opt, meta,
+                       blocks=None) -> None:
     """Write the trainer's state as step `step` (shared by both
     trainers: one implementation, one on-disk format)."""
-    CheckpointManager(directory).save(step, lm_state_payload(params, opt,
-                                                             meta))
+    CheckpointManager(directory).save(step, lm_state_payload(
+        params, opt, meta, blocks))
 
 
-def restore_lm_checkpoint(directory: str, step, params, opt, meta) -> int:
+def restore_lm_checkpoint(directory: str, step, params, opt, meta,
+                          blocks=None) -> int:
     """Load step `step` (None: the newest readable one, past a torn or
     corrupt newest step) into the live params and optimizer; returns the
     step loaded."""
@@ -161,16 +242,17 @@ def restore_lm_checkpoint(directory: str, step, params, opt, meta) -> int:
         payload, step = mgr.restore(with_step=True)
     else:
         payload = mgr.restore(step)
-    lm_state_from_payload(payload, params, opt, meta)
+    lm_state_from_payload(payload, params, opt, meta, blocks)
     return step
 
 
-def lm_state_from_payload(payload, params, opt, meta) -> None:
+def lm_state_from_payload(payload, params, opt, meta, blocks=None) -> None:
     """Apply a checkpoint payload to the live state in place: every param
-    leaf copied into its tensor (the optimizer keeps its references), the
-    optimizer's state rebuilt from `optax.adam`'s leaves. Refuses another
-    model config ("different model") and another layout ("parameter
-    leaves", shapes), as the reference does."""
+    leaf copied into its masters (cut into the blocks' pieces; the
+    optimizer keeps its references), the optimizer's state rebuilt from
+    `optax.adam`'s leaves the same way. Refuses another model config
+    ("different model") and another layout ("parameter leaves", shapes),
+    as the reference does."""
     saved_meta = payload.get("meta")
     if saved_meta is not None and dict(saved_meta) != dict(meta):
         raise ValueError(
@@ -197,16 +279,21 @@ def lm_state_from_payload(payload, params, opt, meta) -> None:
             f"checkpoint has {len(o)} optimizer leaves but this trainer's "
             f"optimizer expects {want} — optimizer config changed since "
             f"the save")
+
+    def block(a, m, index):
+        return torch.as_tensor(np.ascontiguousarray(np.asarray(a)[index]),
+                               dtype=m.dtype).to(m.device)
+    pieces = _pieces(params, blocks)
     with torch.no_grad():
-        for a, t in zip(new, live):
-            t.copy_(torch.as_tensor(a, dtype=t.dtype))
+        for a, leaf in zip(new, pieces):
+            for m, index in leaf:
+                m.copy_(block(a, m, index))
     if want:
         count = float(np.asarray(o[0]))
         n = len(live)
-        for i, t in enumerate(live):
-            opt.state[t] = {
-                "step": torch.tensor(count, dtype=torch.float32),
-                "exp_avg": torch.as_tensor(o[1 + i], dtype=t.dtype).to(
-                    t.device),
-                "exp_avg_sq": torch.as_tensor(o[1 + n + i],
-                                              dtype=t.dtype).to(t.device)}
+        for i, leaf in enumerate(pieces):
+            for m, index in leaf:
+                opt.state[m] = {
+                    "step": torch.tensor(count, dtype=torch.float32),
+                    "exp_avg": block(o[1 + i], m, index),
+                    "exp_avg_sq": block(o[1 + n + i], m, index)}

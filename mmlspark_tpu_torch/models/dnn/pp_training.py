@@ -1,35 +1,50 @@
-"""Causal LM training, on one device or over a mesh's data and seq axes
-(port of `mmlspark_tpu/models/dnn/pp_training.py`).
+"""Causal LM training over a data x pipe x model x seq mesh (port of
+`mmlspark_tpu/models/dnn/pp_training.py`).
 
 The reference's `PipelinedLMTrainer` runs a GPipe schedule in one
 `shard_map` over a mesh that may compose data, pipe, tensor and sequence
-parallelism. This module ports its one-stage schedule (the microbatches
-in order) and the data and seq axes: the same blocks (`_block_attn`,
-`_block_ff`, `_block`), the same loss (next-token targets across
-sequence shards, the globally last position masked, a masked sum over
-the microbatches divided by M * mb * (S_loc * cp - 1), the mean over
-data shards), bf16 mixed precision with f32 master weights and optimizer
+parallelism. This module ports it in single-controller form
+(`parallel/mesh.py`): one process drives every position, places each
+block of the parameters on its position's device and moves activations
+between positions with `.to(device)`, the identity where two positions
+share a device. It keeps the reference's blocks (`_block_attn`,
+`_block_ff`, `_block`), its loss (next-token targets across sequence
+shards, the globally last position masked, a masked sum over the
+microbatches divided by M * mb * (S_loc * cp - 1), the mean over data
+shards), bf16 mixed precision with f32 master weights and optimizer
 state, `remat` through `torch.utils.checkpoint`, and attention="flash"
 through the flash kernels with their backward.
 
-With a seq axis of cp > 1 positions the sequence is cut into cp shards
-and attention is ring attention over them (`parallel/ring_attention.
-_ring_attention_sharded`, the flash kernel's stats form for
-attention="flash"). One process drives every (data, seq) shard
-(`parallel/mesh.py`): the parameters live once, on the mesh's first
-device, and each shard computes with a differentiable `.to(its device)`
-copy, the identity where the device is the same, so autograd's sum over
-the shards is the reference's psum over seq and its mean over data. The
-flash kernels take one (S, H, D) sequence, so a microbatch's sequences
-are looped over inside the attention sublayer (ROADMAP Queue 1 item 25:
-a batched kernel).
+- pipe: the stacked (L, ...) layers are cut into P stages of L/P layers,
+  each held on its stage's devices. At tick t of M + P - 1, stage s runs
+  microbatch t - s and its output hops to stage s + 1; a (stage, tick)
+  pair outside the schedule (a bubble) computes nothing.
+- model: Megatron slices (`_MODEL_DIM`): wq/wk/wv/w1/b1 cut on their
+  outputs, wo/w2 on their inputs, each model position computing its
+  h / tp heads and d_ff / tp hidden units. `_tp_f` copies the layer-normed
+  input to every model position (its backward sums their cotangents) and
+  `_tp_g` sums the partial outputs on the stage's home position, model 0
+  (its backward hands each its cotangent). The layer norms, residual adds,
+  embedding and head run once per (data shard, stage, seq shard), on the
+  home position, as the reference's replicated work counts once.
+- seq: the sequence is cut into cp shards and attention is ring attention
+  over them (`parallel/ring_attention._ring_attention_sharded`, the flash
+  kernel's stats form for attention="flash"), inside each model position
+  at its h / tp heads.
+- data: batch rows shard over data; every data shard computes with its own
+  differentiable copies of the masters, so autograd's sum over the copies
+  is the reference's psum, and the loss's mean over data shards its pmean.
 
-Step checkpoints (`save_checkpoint` / `restore_checkpoint`) are
-`lm_training`'s, in the reference's format: the parameters live once, so
-the mesh's data and seq axes change nothing in them.
+Every master lives once (`_Blocks`): a stage's model-j blocks on the
+device at (data 0, pipe s, model j, seq 0), ln1/ln2/b2 once per stage at
+model 0, embed/pos/final_ln on the mesh's first device. Stage 0's lookup
+and the last stage's tied head use copies of the one embed, and autograd
+sums them, as the reference's pipe psum does. `params` reads them in the
+reference's layout.
 
-Not ported yet: pipe and model axes of size > 1 (the GPipe schedule and
-the Megatron f/g operators, ROADMAP Queue 1 item 15).
+The flash kernels take one (S, H, D) sequence, so a microbatch's
+sequences are looped over inside the attention sublayer (ROADMAP Queue 1
+item 25: a batched kernel).
 """
 from __future__ import annotations
 
@@ -46,19 +61,116 @@ from ...ops.flash_attention import flash_attention
 from ...parallel.mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS
 from ...parallel.ring_attention import (_ring_attention_sharded,
                                         reference_attention)
-from .transformer import _layer_norm, init_transformer, params_from_numpy
+from .transformer import _layer_norm, _structure, _unflatten, \
+    init_transformer
 
-PIPE_TP_TODO = ("pipe and model axes of size > 1 (the GPipe schedule and "
-                "the Megatron f/g operators) are not ported yet: ROADMAP "
-                "Queue 1 item 15; the data and seq axes are")
+# the Megatron layout: the dimension of each layer leaf cut over the model
+# axis, counted from the end so that it names the same dimension of a
+# stacked (L, ...) leaf and of one layer's; ln1, ln2 and b2 are replicated
+# in the reference and held once, at model position 0
+_MODEL_DIM = {"wq": -1, "wk": -1, "wv": -1, "w1": -1, "b1": -1,
+              "wo": -2, "w2": -2}
 
 
-def _stack_layers(layers: list) -> dict:
-    """List of per-layer param dicts -> one dict with (L, ...) leaves."""
-    first = layers[0]
-    if isinstance(first, dict):
-        return {k: _stack_layers([lp[k] for lp in layers]) for k in first}
-    return np.stack(layers)
+def _megatron_index(key: str, shape, j: int, tp: int, lead=()):
+    """The index of model position j's block of layer leaf `key` of
+    `shape`: its j-th of tp equal blocks along `_MODEL_DIM[key]`, or a
+    replicated leaf whole at j = 0 and nowhere else (None). `lead`
+    indexes the leading dimensions first (a stage's layers)."""
+    if key not in _MODEL_DIM:
+        return tuple(lead) if j == 0 else None
+    dim = len(shape) + _MODEL_DIM[key]
+    size = shape[dim] // tp
+    return (tuple(lead) + (slice(None),) * (dim - len(lead))
+            + (slice(j * size, (j + 1) * size),))
+
+
+def _paths(tree, path=()):
+    """(path, leaf) of a tree of dicts and lists, in
+    `jax.tree_util.tree_flatten` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, path + (i,))
+    else:
+        yield path, tree
+
+
+class _Blocks:
+    """A parameter tree held in blocks over a mesh's positions, the
+    reference's shardings in single-controller form.
+
+    `placement(path, shape)` yields (position key, device, index) for
+    each block of a leaf. `trees[key]` is the position's masters: dicts
+    (a list's items under int keys) of f32 tensors on its device that
+    autograd tracks. `pieces[i]` holds, for the i-th leaf of the full
+    tree in flatten order, its (master, index into the full leaf); a
+    leaf held whole has the one piece (master, ())."""
+
+    def __init__(self, full: dict, placement):
+        self.structure = _structure(full)
+        self.shapes, self.pieces, self.trees = [], [], {}
+        for path, leaf in _paths(full):
+            leaf = np.asarray(leaf, np.float32)
+            self.shapes.append(leaf.shape)
+            pieces = []
+            for key, dev, index in placement(path, leaf.shape):
+                block = leaf[index]
+                if block.shape == leaf.shape:
+                    index = ()
+                m = torch.as_tensor(np.ascontiguousarray(block)).to(dev)
+                m.requires_grad_(True)
+                node = self.trees.setdefault(key, {})
+                for k in path[:-1]:
+                    node = node.setdefault(k, {})
+                node[path[-1]] = m
+                pieces.append((m, index))
+            self.pieces.append(pieces)
+
+    def masters(self) -> list:
+        return [m for pieces in self.pieces for m, _ in pieces]
+
+    def tree(self, device) -> dict:
+        """The parameters in the reference's layout: a leaf held whole is
+        its master, a cut one a detached tensor on `device` assembled
+        from its blocks."""
+        return _unflatten(self.structure, [
+            _gather(p, shape, device)
+            for p, shape in zip(self.pieces, self.shapes)])
+
+
+def _gather(pieces, shape, device, get=None):
+    """One leaf from its (master, index) pieces: `get(master)` (default:
+    the master) where one piece holds it whole, else a tensor of `shape`
+    on `device` assembled from `get` of each piece, detached."""
+    get = get or (lambda m: m)
+    if pieces[0][1] == ():
+        return get(pieces[0][0])
+    with torch.no_grad():
+        out = torch.empty(shape, dtype=torch.float32, device=device)
+        for m, index in pieces:
+            out[index] = get(m).to(device)
+    return out
+
+
+def _copies_per_step(trees: dict, dtype):
+    """`on(key, device)`: position `key`'s masters cast to `dtype` (once a
+    step, on their own device) and copied to `device` (once a step per
+    device; the tree itself where the device is its own). Both are
+    differentiable, so the gradients of every copy sum into the f32
+    masters."""
+    cast = trees if dtype == torch.float32 else {
+        k: _tree_map(lambda a: a.to(dtype), t) for k, t in trees.items()}
+    copies = {}
+
+    def on(key, device):
+        if (key, device) not in copies:
+            copies[key, device] = _tree_map(lambda a: a.to(device),
+                                            cast[key])
+        return copies[key, device]
+    return on
 
 
 def _tree_map(fn, tree):
@@ -68,12 +180,31 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def _tp_f(y, devices):
+    """Megatron's `f` (reference `_tp_f`): the layer-normed input, one
+    differentiable copy on each model position's device. Forward the
+    identity; backward autograd sums the copies' cotangents, the
+    reference's psum over the model axis."""
+    return [y.to(d) for d in devices]
+
+
+def _tp_g(parts, device):
+    """Megatron's `g` (reference `_tp_g`): the model positions' partial
+    outputs summed on `device`, the home position. Backward each part
+    receives the sum's cotangent as it is, the reference's identity (no
+    second psum, so no gradient counts tp times)."""
+    out = parts[0].to(device)
+    for p in parts[1:]:
+        out = out + p.to(device)
+    return out
+
+
 def _attend(qs, ks, vs, attention: str):
     """Causal attention of the seq shards of (mb, S_loc, H, D) q/k/v, one
-    microbatch: with one shard, the flash kernels one sequence at a time
-    or dense attention over the batch; with cp > 1, ring attention over
-    the shards for each sequence (flash stats blocks for "flash"). Returns
-    the shards' outputs."""
+    microbatch at one model position: with one shard, the flash kernels
+    one sequence at a time or dense attention over the batch; with
+    cp > 1, ring attention over the shards for each sequence (flash stats
+    blocks for "flash"). Returns the shards' outputs."""
     if len(qs) == 1:
         q, k, v = qs[0], ks[0], vs[0]
         if attention == "flash":
@@ -93,26 +224,39 @@ def _attend(qs, ks, vs, attention: str):
 
 def _block_attn(xs, lps, h: int, dh: int, attention: str = "dense"):
     """Attention sublayer of one transformer block on the seq shards
-    (mb, S_loc, d) of one microbatch, each with its device's copy of the
-    layer's parameters: ln1 -> qkv -> (ring/flash/dense) causal attention
-    -> wo -> residual add."""
-    qkv = []
-    for x, lp in zip(xs, lps):
+    (mb, S_loc, d) of one microbatch, each on its home position.
+    lps[c][j] is layer parameters on the device of (seq shard c, model
+    position j), j's Megatron slices (ln1 at j = 0): ln1 -> f -> each
+    position's h local heads of q, k, v -> (ring/flash/dense) causal
+    attention over the seq shards -> its rows of wo -> g -> residual
+    add."""
+    tp = len(lps[0])
+    qkv = [[] for _ in range(tp)]          # [j][c] -> (q, k, v)
+    for x, lp_c in zip(xs, lps):
         mb, seq, _ = x.shape
-        y = _layer_norm(x, lp["ln1"])
-        qkv.append([(y @ lp[w]).reshape(mb, seq, h, dh)
-                    for w in ("wq", "wk", "wv")])
-    a = _attend(*(list(t) for t in zip(*qkv)), attention)
-    return [x + ai.reshape(x.shape[0], x.shape[1], h * dh) @ lp["wo"]
-            for x, ai, lp in zip(xs, a, lps)]
+        y = _layer_norm(x, lp_c[0]["ln1"])
+        for j, (yj, lp) in enumerate(zip(
+                _tp_f(y, [lp["wq"].device for lp in lp_c]), lp_c)):
+            qkv[j].append([(yj @ lp[w]).reshape(mb, seq, h, dh)
+                           for w in ("wq", "wk", "wv")])
+    a = [_attend(*(list(t) for t in zip(*qkv_j)), attention)
+         for qkv_j in qkv]                 # [j][c]
+    return [x + _tp_g([a[j][c].reshape(x.shape[0], x.shape[1], h * dh)
+                       @ lp["wo"] for j, lp in enumerate(lp_c)], x.device)
+            for c, (x, lp_c) in enumerate(zip(xs, lps))]
 
 
-def _block_ff(x, lp):
-    """Feed-forward sublayer: ln2 -> tanh-GELU MLP -> residual add, with
-    b2 added after the MLP, as the reference adds it."""
-    y = _layer_norm(x, lp["ln2"])
-    ff = F.gelu(y @ lp["w1"] + lp["b1"], approximate="tanh") @ lp["w2"]
-    return x + ff + lp["b2"]
+def _block_ff(x, lps):
+    """Feed-forward sublayer on a home position, lps[j] the layer's
+    parameters at model position j: ln2 -> f -> each position's slice of
+    the tanh-GELU MLP -> g -> residual add, with b2 added after the sum,
+    as the reference adds it (inside, it would count tp times)."""
+    y = _layer_norm(x, lps[0]["ln2"])
+    parts = [F.gelu(yj @ lp["w1"] + lp["b1"], approximate="tanh")
+             @ lp["w2"]
+             for yj, lp in zip(_tp_f(y, [lp["w1"].device for lp in lps]),
+                               lps)]
+    return x + _tp_g(parts, x.device) + lps[0]["b2"]
 
 
 def _block(xs, lps, h: int, dh: int, attention: str = "dense"):
@@ -132,6 +276,31 @@ def _leaves(tree):
         yield tree
 
 
+def _mesh_sizes(mesh, n_heads: int, d_ff: int, n_layers=None) -> tuple:
+    """(pipe, model, seq) sizes of a mesh, checked as the reference checks
+    them: the layers divide over the pipe axis (when `n_layers` is
+    given), the heads and d_ff over the model axis."""
+    shape = mesh.shape
+    pp, tp = shape.get(PIPE_AXIS, 1), shape.get(MODEL_AXIS, 1)
+    if n_layers is not None and n_layers % pp:
+        raise ValueError(
+            f"n_layers ({n_layers}) must divide by the pipe axis ({pp}) "
+            f"so every stage holds the same layer count")
+    if n_heads % tp:
+        raise ValueError(
+            f"n_heads ({n_heads}) must divide by the model axis ({tp})")
+    if d_ff % tp:
+        raise ValueError(
+            f"d_ff ({d_ff}) must divide by the model axis ({tp})")
+    return pp, tp, shape.get(SEQ_AXIS, 1)
+
+
+def _check_device(device, first):
+    if device is not None and torch.device(device) != first:
+        raise ValueError(f"device={device!r} is not the mesh's first "
+                         f"device {first}, where the parameters live")
+
+
 class PipelinedLMTrainer:
     """Causal LM trainer: loss = t.step(tokens), (B, S) int tokens with
     B % (dp * n_microbatches) == 0 and S % cp == 0.
@@ -139,11 +308,11 @@ class PipelinedLMTrainer:
     The reference's parameters, plus `device` (None = the card). With
     mesh=None it trains on `device`. A mesh (`parallel.grid_mesh`) must
     have the "data" and "pipe" axes and may have "model" and "seq", as
-    the reference's 2D/3D/4D meshes do; data and seq may have any size
-    (batch rows shard over data, the sequence over seq with ring
-    attention), pipe and model only 1 (a larger one raises
-    NotImplementedError naming ROADMAP item 15). The parameters live on
-    the mesh's first device; `device`, if given, must be that device."""
+    the reference's 2D/3D/4D meshes do: batch rows shard over data, the
+    layers over pipe (GPipe), the heads and d_ff over model (Megatron),
+    the sequence over seq (ring attention). The embedding, positions and
+    final norm live on the mesh's first device; `device`, if given, must
+    be that device."""
 
     def __init__(self, vocab_size: int, mesh=None, n_microbatches: int = 4,
                  d_model: int = 128, n_heads: int = 8, n_layers: int = 4,
@@ -152,17 +321,17 @@ class PipelinedLMTrainer:
                  optimizer: str = "adam", compute_dtype: str = "float32",
                  remat: bool = False, device=None):
         """compute_dtype="bfloat16" trains mixed-precision: master weights
-        and the optimizer state stay f32; every f32 leaf is cast to bf16
-        once per step (a differentiable cast, so the gradients reach the
-        f32 masters) while layer norm, softmax and the loss compute in
-        f32, and the logits come from the bf16 operands with f32
-        accumulation.
+        and the optimizer state stay f32; every f32 master is cast to bf16
+        once per step on its own position (a differentiable cast, so the
+        gradients reach the f32 masters) while layer norm, softmax and the
+        loss compute in f32, and the logits come from the bf16 operands
+        with f32 accumulation.
 
         remat=True (= "full") checkpoints each block, so the backward
         recomputes its activations (the flash forward runs twice per layer
         per step); remat="save_attn" checkpoints only the FF sublayer and
         keeps the attention sublayer's residuals (q, k, v, out, lse), so
-        the flash forward runs once per layer."""
+        the flash forward runs once per layer and model position."""
         if attention not in ("dense", "flash"):
             raise ValueError("attention must be dense|flash")
         if optimizer not in ("adam", "sgd"):
@@ -175,16 +344,26 @@ class PipelinedLMTrainer:
             raise ValueError("compute_dtype must be float32|bfloat16")
         if mesh is None:
             self.device = resolve_device(device)
-            self.dp, self.cp = 1, 1
-            self._grid = [[self.device]]
+            self.dp = self.n_stages = self.tp = self.cp = 1
+            self._devs = [[[[self.device]]]]
         else:
-            self._grid = self._mesh_grid(mesh)
-            self.dp, self.cp = len(self._grid), len(self._grid[0])
-            self.device = self._grid[0][0]
-            if device is not None and torch.device(device) != self.device:
-                raise ValueError(f"device={device!r} is not the mesh's first "
-                                 f"device {self.device}, where the "
-                                 f"parameters live")
+            for axis in (DATA_AXIS, PIPE_AXIS):
+                if axis not in mesh.shape:
+                    raise ValueError(f"PipelinedLMTrainer's mesh needs a "
+                                     f"{axis!r} axis; got axes "
+                                     f"{mesh.axis_names}")
+            self.n_stages, self.tp, self.cp = _mesh_sizes(
+                mesh, n_heads, d_ff, n_layers)
+            self.dp = mesh.shape[DATA_AXIS]
+            self.device = mesh.device_at()
+            _check_device(device, self.device)
+            # _devs[d][s][j][c]: the device of (data d, pipe s, model j,
+            # seq c), where that position computes
+            self._devs = [[[[mesh.device_at(data=d, pipe=s, model=j, seq=c)
+                             for c in range(self.cp)]
+                            for j in range(self.tp)]
+                           for s in range(self.n_stages)]
+                          for d in range(self.dp)]
         self.mesh = mesh
         self.n_microbatches = n_microbatches
         self.attention = attention
@@ -195,106 +374,131 @@ class PipelinedLMTrainer:
         raw = init_transformer(vocab_size, d_model, n_heads, n_layers, d_ff,
                                max_len, seed)
         self.meta = raw.pop("meta")
-        self.params = params_from_numpy({
+        per_stage = self._per_stage = n_layers // self.n_stages
+
+        def placement(path, shape):
+            if path[0] != "layers":
+                yield "shared", self.device, ()
+                return
+            for s in range(self.n_stages):
+                lead = (slice(s * per_stage, (s + 1) * per_stage),)
+                for j in range(self.tp):
+                    index = _megatron_index(path[1], shape, j, self.tp,
+                                            lead)
+                    if index is not None:
+                        yield (s, j), self._devs[0][s][j][0], index
+        self._blocks = _Blocks({
             "layers": _stack_layers(raw["layers"]),   # leaves (L, ...)
             "embed": raw["embed"], "pos": raw["pos"],
-            "final_ln": raw["final_ln"]}, self.device)
-        leaves = list(_leaves(self.params))
-        for a in leaves:
-            a.requires_grad_(True)
+            "final_ln": raw["final_ln"]}, placement)
+        masters = self._blocks.masters()
         # sgd exists for gradient-parity testing: Adam is invariant to a
-        # uniform scaling of the gradients, SGD is not
-        self._opt = (torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999),
+        # uniform scaling of the gradients, SGD is not. Both act element
+        # by element, so the blocks update as the whole leaves would
+        self._opt = (torch.optim.Adam(masters, lr=lr, betas=(0.9, 0.999),
                                       eps=1e-8)
-                     if optimizer == "adam" else torch.optim.SGD(leaves,
+                     if optimizer == "adam" else torch.optim.SGD(masters,
                                                                  lr=lr))
 
-    @staticmethod
-    def _mesh_grid(mesh) -> list:
-        """The (dp, cp) grid of devices that run the shards: the mesh's
-        pipe and model coordinates at 0 (both must be of size 1)."""
-        shape = mesh.shape
-        for axis in (DATA_AXIS, PIPE_AXIS):
-            if axis not in shape:
-                raise ValueError(f"PipelinedLMTrainer's mesh needs a "
-                                 f"{axis!r} axis; got axes {mesh.axis_names}")
-        if shape[PIPE_AXIS] > 1 or shape.get(MODEL_AXIS, 1) > 1:
-            raise NotImplementedError(PIPE_TP_TODO)
-        cp = shape.get(SEQ_AXIS, 1)
+    @property
+    def params(self) -> dict:
+        """The parameters in the reference's layout, (L, ...) stacked
+        layer leaves: a leaf held whole is its master, a cut one a
+        detached tensor on the first device assembled from its blocks."""
+        return self._blocks.tree(self.device)
 
-        def at(d, c):
-            idx = {DATA_AXIS: d, SEQ_AXIS: c}
-            return mesh.devices[tuple(idx.get(a, 0)
-                                      for a in mesh.axis_names)]
-        return [[at(d, c) for c in range(cp)]
-                for d in range(shape[DATA_AXIS])]
+    def position_params(self, pipe: int = 0, model: int = 0) -> dict:
+        """The layer masters that position (pipe, model) holds, e.g. wq
+        of shape (L / pipe, d, d / model); ln1, ln2 and b2 at model 0."""
+        return self._blocks.trees[pipe, model]["layers"]
 
     def _loss(self, tokens):
-        """The reference's `device_loss` for every (data, seq) shard,
-        summed: per data shard, a masked sum of the next-token NLL over its
-        microbatches, taken in order, divided by the count of positions
-        with a target; then the mean over data shards."""
-        p = self.params
-        if self.compute_dtype != torch.float32:
-            # one differentiable downcast per step
-            p = _tree_map(lambda a: a.to(self.compute_dtype), p)
-        # each shard's device computes with its own differentiable copy,
-        # the tree itself where the device is the same (autograd sums the
-        # copies' gradients back into the masters)
-        on = {dev: _tree_map(lambda a, d=dev: a.to(d), p)
-              for row in self._grid for dev in row}
+        """The reference's `device_loss` for every position, summed: per
+        data shard, the GPipe ticks over the stages, a masked sum of the
+        next-token NLL over its microbatches, taken in order on the last
+        stage, divided by the count of positions with a target; then the
+        mean over data shards."""
+        on = _copies_per_step(self._blocks.trees, self.compute_dtype)
         n_heads, d = self.meta["n_heads"], self.meta["d_model"]
         dh = d // n_heads
-        n_layers = p["layers"]["wq"].shape[0]
-        M, dp, cp = self.n_microbatches, self.dp, self.cp
+        h_loc = n_heads // self.tp
+        M, dp, P, tp, cp = (self.n_microbatches, self.dp, self.n_stages,
+                            self.tp, self.cp)
+        per_stage = self._per_stage
         b, seq = tokens.shape
         b_loc, s_loc = b // dp, seq // cp
         mb = b_loc // M
 
         def block(xs, lps):
             if self.remat == "save_attn":
-                xs = _block_attn(xs, lps, n_heads, dh, self.attention)
+                xs = _block_attn(xs, lps, h_loc, dh, self.attention)
                 return [checkpoint(_block_ff, x, lp, use_reentrant=False)
                         for x, lp in zip(xs, lps)]
             if self.remat:
-                return checkpoint(_block, xs, lps, n_heads, dh,
+                return checkpoint(_block, xs, lps, h_loc, dh,
                                   self.attention, use_reentrant=False)
-            return _block(xs, lps, n_heads, dh, self.attention)
+            return _block(xs, lps, h_loc, dh, self.attention)
 
         total = torch.zeros((), dtype=torch.float32, device=self.device)
-        for di, devs in enumerate(self._grid):
-            ps = [on[dev] for dev in devs]
+        for di, devs in enumerate(self._devs):
+            # home[s][c]: where stage s runs its replicated work for seq
+            # shard c (model position 0)
+            home = [[devs[s][0][c] for c in range(cp)] for s in range(P)]
             rows = tokens[di * b_loc:(di + 1) * b_loc]
-            # (M, mb, S_loc) token shards, shard c on its device
+            # (M, mb, S_loc) token shards, shard c on stage 0's device
             mbs = [rows[:, c * s_loc:(c + 1) * s_loc].reshape(M, mb, s_loc)
-                   .to(dev) for c, dev in enumerate(devs)]
+                   .to(dev) for c, dev in enumerate(home[0])]
             # next-token targets by one GLOBAL position: the last local
             # position's target is the next seq shard's first token; the
             # globally last position has none and is masked
             tgts = [torch.cat([mbs[c][:, :, 1:],
-                               mbs[(c + 1) % cp][:, :, :1].to(dev)], dim=2)
-                    for c, dev in enumerate(devs)]
+                               mbs[(c + 1) % cp][:, :, :1].to(mbs[c].device)],
+                              dim=2).to(dev)
+                    for c, dev in enumerate(home[-1])]
             masks = [(torch.arange(s_loc, device=dev) != s_loc - 1).float()
-                     if c == cp - 1 else None for c, dev in enumerate(devs)]
-            for m in range(M):
-                xs = [pc["embed"][mbs[c][m]]
-                      + pc["pos"][c * s_loc:(c + 1) * s_loc]
-                      for c, pc in enumerate(ps)]
-                for i in range(n_layers):
-                    xs = block(xs, [_tree_map(lambda a: a[i], pc["layers"])
-                                    for pc in ps])
-                for c, (x, pc) in enumerate(zip(xs, ps)):
-                    z = _layer_norm(x, pc["final_ln"])
-                    # tied softmax head: bf16 operands, f32 accumulation.
-                    # torch's bf16 matmul would round the logits to bf16;
-                    # the f32 upcast of both operands keeps every product
-                    # exact and sums in f32
-                    logits = z.float() @ pc["embed"].float().T
-                    logp = torch.log_softmax(logits, dim=-1)
-                    nll = -logp.gather(-1, tgts[c][m][..., None])[..., 0]
-                    if masks[c] is not None:
-                        nll = nll * masks[c]
-                    total = total + nll.sum().to(self.device)
+                     if c == cp - 1 else None
+                     for c, dev in enumerate(home[-1])]
+            first = [on("shared", dev) for dev in home[0]]
+            last = [on("shared", dev) for dev in home[-1]]
+            # stage_lps[s][c][j]: stage s's layers at (seq c, model j)
+            stage_lps = [[[on((s, j), devs[s][j][c])["layers"]
+                           for j in range(tp)] for c in range(cp)]
+                         for s in range(P)]
+            acts = [None] * M    # each microbatch's shards between stages
+            for t in range(M + P - 1):
+                for s in range(P):
+                    m = t - s
+                    if not 0 <= m < M:
+                        continue             # a bubble computes nothing
+                    if s == 0:
+                        xs = [pc["embed"][mbs[c][m]]
+                              + pc["pos"][c * s_loc:(c + 1) * s_loc]
+                              for c, pc in enumerate(first)]
+                    else:
+                        xs = acts[m]
+                    for i in range(per_stage):
+                        xs = block(xs, [[_tree_map(lambda a: a[i], lp)
+                                         for lp in row]
+                                        for row in stage_lps[s]])
+                    if s < P - 1:
+                        # the hop to stage s + 1
+                        acts[m] = [x.to(dev) for x, dev in zip(xs,
+                                                               home[s + 1])]
+                        continue
+                    acts[m] = None
+                    for c, (x, pc) in enumerate(zip(xs, last)):
+                        z = _layer_norm(x, pc["final_ln"])
+                        # tied softmax head: bf16 operands, f32
+                        # accumulation. torch's bf16 matmul would round
+                        # the logits to bf16; the f32 upcast of both
+                        # operands keeps every product exact and sums in
+                        # f32
+                        logits = z.float() @ pc["embed"].float().T
+                        logp = torch.log_softmax(logits, dim=-1)
+                        nll = -logp.gather(-1, tgts[c][m][..., None])[..., 0]
+                        if masks[c] is not None:
+                            nll = nll * masks[c]
+                        total = total + nll.sum().to(self.device)
         return total / (M * mb * (s_loc * cp - 1)) / dp
 
     def _check_batch(self, tokens) -> None:
@@ -337,16 +541,26 @@ class PipelinedLMTrainer:
         return float(loss)
 
     def save_checkpoint(self, directory: str, step: int) -> None:
-        """Params and optimizer state as checkpoint `step` of
-        `directory` (`lm_training.save_lm_checkpoint`)."""
+        """Params and optimizer state, gathered into the reference's
+        (L, ...) leaves, as checkpoint `step` of `directory`
+        (`lm_training.save_lm_checkpoint`)."""
         from .lm_training import save_lm_checkpoint
         save_lm_checkpoint(directory, step, self.params, self._opt,
-                           self.meta)
+                           self.meta, self._blocks)
 
     def restore_checkpoint(self, directory: str, step: int = None) -> int:
         """Load params and optimizer state from the latest (or the given)
-        step into this trainer, in place; returns the step loaded. A
-        differently seeded trainer continues the saved trajectory."""
+        step into this trainer's blocks, in place, whatever mesh wrote it;
+        returns the step loaded. A differently seeded trainer continues
+        the saved trajectory."""
         from .lm_training import restore_lm_checkpoint
         return restore_lm_checkpoint(directory, step, self.params,
-                                     self._opt, self.meta)
+                                     self._opt, self.meta, self._blocks)
+
+
+def _stack_layers(layers: list) -> dict:
+    """List of per-layer param dicts -> one dict with (L, ...) leaves."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack_layers([lp[k] for lp in layers]) for k in first}
+    return np.stack(layers)

@@ -68,6 +68,17 @@ class Mesh:
                       for j in range(self.devices.ndim))
         return list(self.devices[index])
 
+    def device_at(self, **coords) -> torch.device:
+        """The device of the position at named coordinates, an axis left
+        out at 0: `mesh.device_at(pipe=s, model=j)`. A coordinate of an
+        axis the mesh lacks must be 0 (a size-1 axis)."""
+        for axis, i in coords.items():
+            if axis not in self.axis_names and i != 0:
+                raise ValueError(f"mesh axes {self.axis_names} have no "
+                                 f"{axis!r} axis for coordinate {i}")
+        return self.devices[tuple(coords.get(a, 0)
+                                  for a in self.axis_names)]
+
     def __repr__(self):
         return (f"Mesh({dict(self.shape)}, "
                 f"devices={[str(d) for d in self.devices.flat]})")

@@ -198,17 +198,21 @@ def test_validation_and_unported_paths():
                        (dict(compute_dtype="float16"), "compute_dtype")):
         with pytest.raises(ValueError, match=match):
             _port_pp(**bad)
-    # what a mesh still cannot do: a pipe or model axis > 1, and the
-    # ShardedLMTrainer's GSPMD layout (the data and seq axes are ported)
-    for shape in ((1, 2), (1, 1, 2)):
+    # a mesh's pipe and model axes must divide the layers, the heads and
+    # d_ff (the reference's words): 2 layers over a pipe of 4, 2 heads
+    # and d_ff 64 over a model axis of 3
+    for shape, match in (((1, 4), "n_layers .* must divide by the pipe "
+                                  "axis"),
+                         ((1, 1, 3), "n_heads .* must divide by the model "
+                                     "axis")):
         axes = (DATA_AXIS, PIPE_AXIS, MODEL_AXIS)[:len(shape)]
-        with pytest.raises(NotImplementedError, match="item 15"):
-            PipelinedLMTrainer(mesh=port_grid_mesh(shape, axes,
-                                                   devices=["cpu"] * 2),
-                               **_KW)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ShardedLMTrainer(mesh=port_grid_mesh((1, 1), devices=["cpu"]),
-                         device="cpu", **_KW)
+        with pytest.raises(ValueError, match=match):
+            PipelinedLMTrainer(mesh=port_grid_mesh(
+                shape, axes, devices=["cpu"] * int(np.prod(shape))), **_KW)
+    with pytest.raises(ValueError, match="d_ff .* must divide by the model "
+                                         "axis"):
+        ShardedLMTrainer(mesh=port_grid_mesh((1, 2), devices=["cpu"] * 2),
+                         device="cpu", **{**_KW, "d_ff": 63})
     with pytest.raises(ValueError, match="must divide by n_heads"):
         ShardedLMTrainer(device="cpu", **{**_KW, "n_heads": 3})
     t = _port_pp()

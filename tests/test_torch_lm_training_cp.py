@@ -105,15 +105,23 @@ def test_mesh_errors_are_kept():
     with pytest.raises(ValueError, match="dp\\*microbatches = 4"):
         PipelinedLMTrainer(mesh=_cpu_mesh((2, 1, 1, 2)), **_KW).step(
             _tokens()[:2])
-    for shape in ((1, 2, 1, 1), (1, 1, 2, 1)):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            PipelinedLMTrainer(mesh=_cpu_mesh(shape), **_KW)
+    # n_layers 2 over a pipe of 4; n_heads 2 and d_ff 64 over a model
+    # axis of 3 (the reference's words)
+    with pytest.raises(ValueError, match="must divide by the pipe axis"):
+        PipelinedLMTrainer(mesh=_cpu_mesh((1, 4, 1, 1)), **_KW)
+    with pytest.raises(ValueError, match="n_heads .* must divide by the "
+                                         "model axis"):
+        PipelinedLMTrainer(mesh=_cpu_mesh((1, 1, 3, 1)), **_KW)
+    with pytest.raises(ValueError, match="d_ff .* must divide by the "
+                                         "model axis"):
+        PipelinedLMTrainer(mesh=_cpu_mesh((1, 1, 2, 1)),
+                           **{**_KW, "d_ff": 63})
     with pytest.raises(ValueError, match="'pipe' axis"):
         PipelinedLMTrainer(mesh=grid_mesh((1, 2), (DATA_AXIS, SEQ_AXIS),
                                           devices=["cpu"] * 2), **_KW)
     with pytest.raises(ValueError, match="first device"):
         PipelinedLMTrainer(mesh=_cpu_mesh((1, 1, 1, 2)), device="meta",
                            **_KW)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ShardedLMTrainer(mesh=_cpu_mesh((1, 1, 1, 2)), vocab_size=64,
+    with pytest.raises(ValueError, match="n_heads .* model axis"):
+        ShardedLMTrainer(mesh=_cpu_mesh((1, 1, 3, 1)), vocab_size=64,
                          d_model=32, n_heads=2, device="cpu")
