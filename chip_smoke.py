@@ -202,6 +202,27 @@ Phases (any failure exits non-zero before the last line is printed):
      `_PIPE_LOSS_TOL`, launches exact; `ShardedLMTrainer` at the flagship
      width on a (2, 2) data x model mesh, f32, 3 Adam steps within rtol
      2e-4 of mesh=None.
+  16. ingest (slice 15), on the headline's rows: `stage_binned` with 8
+     thread workers and prefetch 2 (bins `torch.equal` to
+     `apply_bins_device`'s; seconds beside the serial fit_bins +
+     apply_bins_device, the card's idle share under torch.profiler), the
+     process pool's start-up, a `ChunkStager` over the rows saved as a
+     memory-mapped .npy under a 256 MiB residency budget (bins equal, the
+     resident gauge within the budget), `fit_booster(ingest=...)` and
+     `fit_booster(x.npy, oocore=...)` (exactly 50 `hist_tiled` each,
+     metrics within `_METRIC_TOL` of [main]'s), and the out-of-core
+     checkpointed `GBDTClassifier` uninterrupted and after a child staging
+     the same file is SIGTERMed mid-staging and a fresh process resumes
+     from the spill cache's cursor: booster equal field for field, 60
+     `hist_tiled_fixed` launches as [resume]'s.
+  17. stream train (slice 15): `ShardedLMTrainer` at the flagship width,
+     f32, dense, on 12 seeded (4, 2048) batches: `run_stream(prefetch=2)`
+     losses equal a `step()` loop's; supervised with a checkpoint every 6
+     batches, uninterrupted and with an injected train.step7 crash absorbed
+     in-run (losses and parameters bit-identical); a child SIGTERMed after
+     5 steps and resumed in a fresh process (the loss history and the
+     parameters bit-identical); s/step, tokens/s, prefetch stalls and the
+     checkpoint write seconds.
 The headline fit (4) is timed 3 times (min and median), and every
 phase's seconds are printed.
 The kernel phase (3) also holds the flash backward kernels, dq and dk/dv,
@@ -4136,6 +4157,563 @@ def versus_phase(parent):
     return runs
 
 
+# ------------------------------------------------------------ [ingest]
+# slice 15: the data plane on the card. The headline's rows staged by host
+# workers chunk by chunk while earlier chunks ride to the card
+# (`data.stage_binned`), the same rows memory-mapped from a 1 GiB .npy
+# under a residency budget (`data.ChunkStager`), the ingest fit, and the
+# out-of-core checkpointed estimator killed mid-staging and resumed in a
+# fresh process
+INGEST_WORKERS = 8
+INGEST_PREFETCH = 2
+OOCORE_BUDGET = 256 << 20
+# the killed child's injected delay before each chunk's commit, and the
+# cursor past which the parent sends it SIGTERM
+OOCORE_DELAY_S = 0.15
+OOCORE_KILL_CURSOR = 5
+OOCORE_PARAMS = dict(num_iterations=N_ITERS, max_depth=DEPTH, num_leaves=31,
+                     max_bin=MAX_BIN, min_data_in_leaf=20,
+                     checkpoint_interval=RESUME_INTERVAL, out_of_core=True,
+                     max_resident_bytes=OOCORE_BUDGET,
+                     num_ingest_workers=INGEST_WORKERS,
+                     ingest_prefetch=INGEST_PREFETCH)
+# phase "kill": stage the file into the estimator's spill cache with a
+# delay injector of its own, until the parent's SIGTERM; phase "resume":
+# the estimator's fit from that directory (the stager resumes from the
+# cache's cursor), writing its booster, its launches and the first chunk
+# it staged itself
+_OOCORE_PROC = """
+import json, os, sys
+import numpy as np
+import torch
+sys.path.insert(0, {here!r})
+from mmlspark_tpu_torch.core import Table
+from mmlspark_tpu_torch.data import ChunkStager, OocoreOptions, oocore
+from mmlspark_tpu_torch.models.gbdt import GBDTClassifier
+from mmlspark_tpu_torch.ops import binning
+from mmlspark_tpu_torch.ops import histogram_cuda as hc
+from mmlspark_tpu_torch.reliability import FaultInjector
+
+phase, xfile, yfile, ckdir, params, device, out = sys.argv[1:8]
+params = json.loads(params)
+if phase == "kill":
+    x = np.load(xfile, mmap_mode="r")
+    mapper = binning.fit_bins(x, max_bin=params["max_bin"], seed=0)
+    faults = FaultInjector(seed=0, rules=[
+        {{"site": "data.oocore.stage*", "kind": "delay", "prob": 1.0,
+          "param": {delay}}}])
+    opts = OocoreOptions(
+        max_resident_bytes=params["max_resident_bytes"],
+        cache_path=os.path.join(ckdir, "oocore_bins.npy"),
+        num_workers=params["num_ingest_workers"], mode="thread",
+        prefetch=params["ingest_prefetch"])
+    print("STAGING", flush=True)
+    ChunkStager(xfile, mapper, opts, faults=faults).stage(device=device)
+    print("DONE", flush=True)
+    sys.exit(0)
+commits = []
+commit = oocore.ChunkStager._commit
+def counted(self, index):
+    commits.append(index)
+    commit(self, index)
+oocore.ChunkStager._commit = counted
+x, y = np.load(xfile), np.load(yfile)
+hc.reset_launches()
+model = GBDTClassifier(checkpoint_dir=ckdir, device=device, **params).fit(
+    Table({{"features": x, "label": y}}))
+np.savez(out, booster=model.booster.save_model_string(),
+         init_score=model._init_score,
+         launches=json.dumps({{k: v for k, v in hc.launches.items() if v}}),
+         first_commit=commits[0] if commits else -1, commits=len(commits))
+"""
+
+
+def _staging_busy_s(fn):
+    """Device seconds of the kernels and copies that `fn` issues, from
+    torch.profiler (the busy share against an unprofiled wall)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprof
+    with tprof(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(_device_us(e, own=True) for e in prof.events()
+               if e.device_type == DeviceType.CPU) / 1e6
+
+
+def _sidecar_cursor(cache):
+    try:
+        with open(cache + ".cursor.json") as f:
+            return int(json.load(f)["cursor"])
+    except (OSError, ValueError, KeyError):
+        return 0
+
+
+def _oocore_estimator(dev, tmp, x, y, xfile, yfile, n_chunks, resume):
+    """The out-of-core checkpointed GBDTClassifier uninterrupted (counted),
+    then a child staging the same file with a delay injector, SIGTERMed
+    once its cursor is past OOCORE_KILL_CURSOR, and a fresh process that
+    resumes the estimator's fit from that cache: booster equal field for
+    field, fixed-order launches equal [resume]'s checkpointed fit's."""
+    import torch
+    from mmlspark_tpu_torch.core import Table
+    from mmlspark_tpu_torch.models.gbdt import Booster, GBDTClassifier
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+    from mmlspark_tpu_torch.utils.checkpoint import CheckpointManager
+    full_dir = os.path.join(tmp, "oocore_full")
+    torch.cuda.synchronize()
+    hc.reset_launches()
+    t0 = time.perf_counter()
+    full = GBDTClassifier(checkpoint_dir=full_dir, device=str(dev),
+                          **OOCORE_PARAMS).fit(
+        Table({"features": x, "label": y}))
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    launches = {k: v for k, v in hc.launches.items() if v}
+    want_launches = (resume["routes"]["default"]["launches"]
+                     if resume is not None else _RESUME_LAUNCHES["default"])
+    if launches != want_launches:
+        raise AssertionError(f"the out-of-core checkpointed fit launched "
+                             f"{launches}, expected {want_launches}")
+    payload = CheckpointManager(full_dir).restore()
+    if payload.get("oocore_cursor") != n_chunks:
+        raise AssertionError(f"the out-of-core fit's last checkpoint has "
+                             f"oocore_cursor {payload.get('oocore_cursor')},"
+                             f" not {n_chunks}")
+
+    script = os.path.join(tmp, "oocore_fit.py")
+    with open(script, "w") as fh:
+        fh.write(_OOCORE_PROC.format(here=HERE, delay=OOCORE_DELAY_S))
+    params = json.dumps(OOCORE_PARAMS)
+    ck = os.path.join(tmp, "oocore_killed")
+    cache = os.path.join(ck, "oocore_bins.npy")
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, script, "kill", xfile, yfile, ck, params,
+         str(dev), "-"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        if not child.stdout.readline().startswith("STAGING"):
+            raise AssertionError(f"the staging child did not start: "
+                                 f"{child.stderr.read()[-2000:]}")
+        deadline = time.time() + 300
+        while (_sidecar_cursor(cache) <= OOCORE_KILL_CURSOR
+               and child.poll() is None and time.time() < deadline):
+            time.sleep(0.02)
+        child.send_signal(signal.SIGTERM)
+        code = child.wait(timeout=60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    kill_s = time.perf_counter() - t0
+    cursor = _sidecar_cursor(cache)
+    if code != -signal.SIGTERM or not OOCORE_KILL_CURSOR < cursor < n_chunks:
+        raise AssertionError(f"the staging child exited {code} at cursor "
+                             f"{cursor} of {n_chunks} chunks")
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "oocore_resume.npz")
+    proc = subprocess.run(
+        [sys.executable, script, "resume", xfile, yfile, ck, params,
+         str(dev), out],
+        capture_output=True, text=True, timeout=600)
+    resume_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the resumed estimator fit failed: "
+                             f"{proc.stderr[-3000:]}")
+    res = np.load(out)
+    got = Booster.load_model_string(str(res["booster"]))
+    want = Booster.load_model_string(full.booster.save_model_string())
+    for field in want._fields:
+        if not np.array_equal(np.asarray(getattr(want, field)),
+                              np.asarray(getattr(got, field))):
+            raise AssertionError(f"the resumed out-of-core fit's {field} "
+                                 f"differs from the uninterrupted fit's")
+    if float(res["init_score"]) != full._init_score:
+        raise AssertionError("the resumed out-of-core fit's init score "
+                             "differs")
+    resumed_launches = json.loads(str(res["launches"]))
+    first = int(res["first_commit"])
+    if resumed_launches != want_launches or first != cursor or \
+            int(res["commits"]) != n_chunks - cursor:
+        raise AssertionError(
+            f"the resumed fit launched {resumed_launches} (expected "
+            f"{want_launches}) and staged from chunk {first} "
+            f"({int(res['commits'])} chunks; the cursor was {cursor})")
+    log(f"[ingest] GBDTClassifier(out_of_core=True, max_resident_bytes="
+        f"{OOCORE_BUDGET}, num_ingest_workers={INGEST_WORKERS}, "
+        f"checkpoint_interval={RESUME_INTERVAL}): {full_s:.3f} s "
+        f"uninterrupted, {n_chunks} chunks, launches {launches}, "
+        f"oocore_cursor {n_chunks} in its last checkpoint; a child staging "
+        f"with {OOCORE_DELAY_S} s a chunk SIGTERMed at cursor {cursor} "
+        f"(exit {code}, {kill_s:.1f} s), a fresh process resumed from chunk "
+        f"{first} ({resume_s:.1f} s, process start included): booster "
+        f"equal field for field, launches {resumed_launches}")
+    return dict(full_s=full_s, launches=launches, n_chunks=n_chunks,
+                kill_cursor=cursor, kill_s=kill_s, resume_s=resume_s,
+                resumed_launches=resumed_launches)
+
+
+def ingest_phase(dev, data, paths, resume):
+    """[ingest]: `stage_binned` (INGEST_WORKERS thread workers, prefetch
+    INGEST_PREFETCH) against the serial card path on the headline's rows,
+    the memory-mapped `ChunkStager` under OOCORE_BUDGET, the ingest fit
+    (exactly 50 `hist_tiled`, metrics within `_METRIC_TOL` of [main]'s),
+    and the out-of-core estimator's kill and resume."""
+    import tempfile
+
+    import torch
+    from mmlspark_tpu_torch.data import (ChunkStager, IngestOptions,
+                                         OocoreOptions, parallel_apply_bins,
+                                         stage_binned)
+    from mmlspark_tpu_torch.models.gbdt import fit_booster
+    from mmlspark_tpu_torch.ops import binning
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+    from mmlspark_tpu_torch.reliability import names as rnames
+    from mmlspark_tpu_torch.reliability import reliability_metrics
+
+    x, y, d_y = data["x"], data["y"], data["d_y"]
+    mapper, want = data["staged"][0], data["staged"][1]
+    opts = IngestOptions(num_workers=INGEST_WORKERS, mode="thread",
+                         prefetch=INGEST_PREFETCH)
+    # the serial path, timed in this phase: host fit_bins, then one
+    # searchsorted pass on the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serial_mapper = binning.fit_bins(x, max_bin=MAX_BIN, seed=0)
+    fit_bins_s = time.perf_counter() - t0
+    serial = binning.apply_bins_device(serial_mapper, x, device=dev)
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    if not torch.equal(serial, want):
+        raise AssertionError("the serial card bins differ from [main]'s")
+    del serial
+    # one staging run, timed under torch.profiler (a few hundred host
+    # ops: its overhead is noise against seconds of host binning)
+    staged = {}
+
+    def stage():
+        staged["bins"] = stage_binned(mapper, x, opts, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    busy_s = _staging_busy_s(stage)
+    stage_s = time.perf_counter() - t0
+    if not torch.equal(staged.pop("bins"), want):
+        raise AssertionError("stage_binned's bins differ from "
+                             "apply_bins_device's")
+    idle = 1.0 - busy_s / stage_s
+    log(f"[ingest] stage_binned {N_ROWS} x {N_FEAT} f32, {INGEST_WORKERS} "
+        f"thread workers, prefetch {INGEST_PREFETCH}: {stage_s:.3f} s "
+        f"(under the profiler), bins torch.equal "
+        f"to apply_bins_device's; the serial path fit_bins + "
+        f"apply_bins_device {serial_s:.3f} s (fit_bins {fit_bins_s:.3f} s); "
+        f"the card busy {busy_s * 1e3:.2f} ms of the staging (idle "
+        f"{100 * idle:.2f}%)")
+    # a process worker imports torch with the binning module: the pool's
+    # spawn and import cost, on two tiny chunks
+    t0 = time.perf_counter()
+    small = parallel_apply_bins(mapper, x[:8192], IngestOptions(
+        num_workers=2, mode="process", chunk_rows=4096))
+    spawn_s = time.perf_counter() - t0
+    if not np.array_equal(small, want[:8192].cpu().numpy()):
+        raise AssertionError("process-worker bins differ")
+    log(f"[ingest] process workers (spawn): 2 workers on 8,192 rows "
+        f"{spawn_s:.2f} s, their start-up and `import torch` included")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ingest_") as tmp:
+        xfile = os.path.join(tmp, "x.npy")
+        yfile = os.path.join(tmp, "y.npy")
+        np.save(xfile, x)
+        np.save(yfile, y)
+        reliability_metrics.reset(prefix="data.")
+        stager = ChunkStager(xfile, mapper, OocoreOptions(
+            max_resident_bytes=OOCORE_BUDGET, num_workers=INGEST_WORKERS,
+            prefetch=INGEST_PREFETCH))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        staged = stager.stage(device=dev)
+        torch.cuda.synchronize()
+        oocore_s = time.perf_counter() - t0
+        resident = reliability_metrics.peek_gauge(
+            rnames.DATA_OOCORE_RESIDENT_BYTES)
+        n_chunks = len(stager.source)
+        if not torch.equal(staged, want) or stager.cursor != n_chunks:
+            raise AssertionError("the memory-mapped ChunkStager's bins "
+                                 "differ")
+        if resident is None or resident > OOCORE_BUDGET:
+            raise AssertionError(f"resident bytes {resident} above the "
+                                 f"budget {OOCORE_BUDGET}")
+        del staged
+        log(f"[ingest] ChunkStager over a memory-mapped {os.path.getsize(xfile)}"
+            f"-byte .npy, max_resident_bytes {OOCORE_BUDGET}: {n_chunks} "
+            f"chunks of {stager.source.chunk_rows} rows in {oocore_s:.3f} s, "
+            f"bins torch.equal; data.oocore.resident_bytes {resident:.0f}")
+
+        main_ll, main_auc = _fit_metrics(paths["booster"], paths["base"], x,
+                                         d_y, dev)
+        torch.cuda.synchronize()
+        hc.reset_launches()
+        t0 = time.perf_counter()
+        booster, base, _ = fit_booster(x, y, _headline_params(),
+                                       ingest=opts, device=dev)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {k: v for k, v in hc.launches.items() if v}
+        if launches != dict(hist_tiled=N_ITERS * DEPTH):
+            raise AssertionError(f"the ingest fit launched {launches}")
+        logloss, auc = _fit_metrics(booster, base, x, d_y, dev)
+        log(f"[ingest] fit_booster(ingest=IngestOptions({INGEST_WORKERS} "
+            f"workers)) at the headline parameters: {fit_s:.3f} s, binning "
+            f"included; launches {launches}; logloss {logloss:.6f}, AUC "
+            f"{auc:.6f} ([main] {main_ll:.6f} / {main_auc:.6f})")
+        if abs(logloss - main_ll) > _METRIC_TOL or \
+                abs(auc - main_auc) > _METRIC_TOL:
+            raise AssertionError("the ingest fit and [main]'s disagree")
+        torch.cuda.synchronize()
+        hc.reset_launches()
+        t0 = time.perf_counter()
+        booster, base, _ = fit_booster(xfile, y, _headline_params(),
+                                       oocore=OocoreOptions(
+                                           max_resident_bytes=OOCORE_BUDGET,
+                                           num_workers=INGEST_WORKERS,
+                                           prefetch=INGEST_PREFETCH),
+                                       device=dev)
+        torch.cuda.synchronize()
+        oofit_s = time.perf_counter() - t0
+        oofit_launches = {k: v for k, v in hc.launches.items() if v}
+        if oofit_launches != dict(hist_tiled=N_ITERS * DEPTH):
+            raise AssertionError(f"the out-of-core fit launched "
+                                 f"{oofit_launches}")
+        oo_ll, oo_auc = _fit_metrics(booster, base, x, d_y, dev)
+        log(f"[ingest] fit_booster(x.npy, oocore=OocoreOptions("
+            f"max_resident_bytes={OOCORE_BUDGET})): {oofit_s:.3f} s, "
+            f"staging included; launches {oofit_launches}; logloss "
+            f"{oo_ll:.6f}, AUC {oo_auc:.6f}")
+        if abs(oo_ll - main_ll) > _METRIC_TOL or \
+                abs(oo_auc - main_auc) > _METRIC_TOL:
+            raise AssertionError("the out-of-core fit and [main]'s disagree")
+        est = _oocore_estimator(dev, tmp, x, y, xfile, yfile, n_chunks,
+                                resume)
+    torch.cuda.empty_cache()
+    return dict(stage_s=stage_s, serial_s=serial_s,
+                fit_bins_s=fit_bins_s, busy_s=busy_s, idle=idle,
+                spawn_s=spawn_s, oocore_s=oocore_s, n_chunks=n_chunks,
+                resident=resident, fit_s=fit_s, launches=launches,
+                logloss=logloss, auc=auc, oofit_s=oofit_s,
+                oofit_launches=oofit_launches, estimator=est)
+
+
+# ------------------------------------------------------- [stream train]
+# slice 15: `ShardedLMTrainer.run_stream` at the flagship width, f32,
+# dense attention, on STREAM_BATCHES seeded (4, 2048) batches of Zipf
+# token ids: against a
+# `step()` loop, then supervised (a checkpoint every STREAM_EVERY batches)
+# with and without an injected crash, and a child preempted by SIGTERM
+# and resumed in a fresh process
+STREAM_BATCHES = 12
+STREAM_SHAPE = (4, 2048)
+STREAM_EVERY = 6
+STREAM_CRASH_STEP = 7
+STREAM_KILL_AFTER = 5
+_STREAM_PROC = """
+import json, os, signal, sys
+import numpy as np
+import torch
+sys.path.insert(0, {here!r})
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke
+from mmlspark_tpu_torch.models.dnn import ShardedLMTrainer
+from mmlspark_tpu_torch.reliability import Preempted
+
+phase, ckdir, cfg, device, out = sys.argv[1:6]
+cfg = json.loads(cfg)
+batches = chip_smoke._stream_batches(cfg["lm"], cfg["shape"], cfg["n"])
+t = ShardedLMTrainer(seed=0, device=device, **cfg["lm"])
+if phase == "kill":
+    update, done = t._update, []
+    def counted(tok):
+        loss = update(tok)
+        done.append(1)
+        if len(done) == cfg["kill_after"]:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return loss
+    t._update = counted
+    try:
+        t.run_stream(batches, checkpoint_dir=ckdir,
+                     checkpoint_every=cfg["every"])
+    except Preempted as e:
+        with open(out, "w") as f:
+            json.dump(dict(step=e.step, signum=e.signum), f)
+        sys.exit(0)
+    sys.exit(3)
+losses = t.run_stream(batches, checkpoint_dir=ckdir,
+                      checkpoint_every=cfg["every"])
+with open(out, "w") as f:
+    json.dump(dict(losses=losses,
+                   digests=chip_smoke._param_digests(t)), f)
+"""
+
+
+def _stream_batches(lm, shape, n):
+    """n seeded batches of Zipf-distributed token ids (a = 1.2): a stream
+    whose unigram statistics a model learns within a few steps, so the
+    loss falls across batches that never repeat."""
+    rng = np.random.default_rng(11)
+    return [((rng.zipf(1.2, size=tuple(shape)) - 1) % lm["vocab_size"])
+            .astype(np.int32) for _ in range(n)]
+
+
+def _param_digests(trainer):
+    import hashlib
+
+    from mmlspark_tpu_torch.models.dnn.transformer import _flatten
+    return [hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+            for t in _flatten(trainer.params)]
+
+
+def _stream_child(script, phase, ck, dev, out):
+    cfg = json.dumps(dict(lm=LM, shape=STREAM_SHAPE, n=STREAM_BATCHES,
+                          every=STREAM_EVERY, kill_after=STREAM_KILL_AFTER))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, script, phase, ck, cfg, str(dev),
+                           out],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the {phase} child exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    with open(out) as f:
+        return json.load(f), time.perf_counter() - t0
+
+
+def stream_train_phase(dev):
+    """[stream train]: a `step()` loop, then `run_stream(prefetch=2)`
+    supervised (a checkpoint every STREAM_EVERY batches) from the same
+    initial state, uninterrupted (losses equal the loop's) and with an
+    injected train.step{STREAM_CRASH_STEP} crash absorbed in-run (losses
+    and parameters bit-identical), and a child SIGTERMed after
+    STREAM_KILL_AFTER steps and resumed in a fresh process (the full loss
+    history and the parameters bit-identical). s/step and tokens/s of the
+    stream's steps (its goodput clock's step walls), the prefetcher's
+    stalls and the checkpoint write seconds. One trainer serves the three
+    in-process runs: its initial state, as a payload, is restored before
+    each (building the flagship from its seed takes ~12 s on the host)."""
+    import tempfile
+
+    import torch
+    from mmlspark_tpu_torch.models.dnn import ShardedLMTrainer
+    from mmlspark_tpu_torch.models.dnn.lm_training import (
+        lm_state_from_payload, lm_state_payload)
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    from mmlspark_tpu_torch.reliability import (FaultInjector,
+                                                reliability_metrics)
+    from mmlspark_tpu_torch.reliability import names as rnames
+    from mmlspark_tpu_torch.telemetry import StepClock
+    from mmlspark_tpu_torch.utils.checkpoint import CheckpointManager
+
+    batches = _stream_batches(LM, STREAM_SHAPE, STREAM_BATCHES)
+    tokens = STREAM_SHAPE[0] * STREAM_SHAPE[1]
+    t = ShardedLMTrainer(seed=0, device=dev, **LM)
+    init = lm_state_payload(t.params, t._opt, t.meta, t._blocks)
+
+    def from_init():
+        lm_state_from_payload(init, t.params, t._opt, t.meta, t._blocks)
+
+    def timed_run(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / len(batches)
+
+    fa.reset_launches()
+    want, step_s = timed_run(lambda: [t.step(b) for b in batches])
+    write = reliability_metrics.histogram(rnames.CHECKPOINT_WRITE)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
+        from_init()
+        clock = StepClock()
+        stalls0 = reliability_metrics.get(rnames.DATA_PREFETCH_STALLS)
+        n0, ms0 = write.count, write.snapshot()["sum"]
+        sup, sup_s = timed_run(lambda: t.run_stream(
+            batches, prefetch=2, checkpoint_dir=os.path.join(tmp, "a"),
+            checkpoint_every=STREAM_EVERY, step_clock=clock))
+        stalls = reliability_metrics.get(
+            rnames.DATA_PREFETCH_STALLS) - stalls0
+        writes = write.count - n0
+        save_s = (write.snapshot()["sum"] - ms0) / 1e3 / max(writes, 1)
+        acct = clock.snapshot()
+        stream_s = (acct["wall_s"] - acct["phases"]["checkpoint_s"]) \
+            / acct["steps"]
+        log(f"[stream train] ShardedLMTrainer flagship f32, "
+            f"{STREAM_BATCHES} batches {STREAM_SHAPE}: step() loop "
+            f"{step_s:.4f} s/step; run_stream(prefetch=2), a checkpoint "
+            f"every {STREAM_EVERY} batches: {stream_s:.4f} s a step = "
+            f"{tokens / stream_s:.4g} tokens/s ({sup_s:.4f} s/step with "
+            f"the checkpoints: {writes} writes of {save_s:.2f} s each), "
+            f"{stalls} prefetch stalls, goodput {acct['goodput']:.3f}; "
+            f"losses equal the loop's: {sup == want} ({want[0]:.6f} -> "
+            f"{want[-1]:.6f})")
+        if sup != want or not want[-1] < want[0]:
+            raise AssertionError("run_stream's losses differ from the "
+                                 "step() loop's, or do not fall")
+        digests = _param_digests(t)
+        from_init()
+        restarts0 = reliability_metrics.get(rnames.TRAIN_STEP_RESTARTS)
+        crashed, crash_s = timed_run(lambda: t.run_stream(
+            batches, checkpoint_dir=os.path.join(tmp, "b"),
+            checkpoint_every=STREAM_EVERY, faults=FaultInjector(
+                seed=7, rules=[{"site": f"train.step{STREAM_CRASH_STEP}",
+                                "kind": "crash", "at": [0]}])))
+        restarts = reliability_metrics.get(rnames.TRAIN_STEP_RESTARTS) \
+            - restarts0
+        same_params = _param_digests(t) == digests
+        del t, init
+        torch.cuda.empty_cache()
+        if any(fa.launches.values()):
+            raise AssertionError(f"ShardedLMTrainer launched {fa.launches}")
+        log(f"[stream train] with an injected train.step{STREAM_CRASH_STEP} "
+            f"crash ({restarts} restart from the step-{STREAM_EVERY} "
+            f"snapshot): {crash_s:.4f} s/step with the checkpoints; losses "
+            f"equal the uninterrupted run's: {crashed == sup}; parameters "
+            f"equal: {same_params}")
+        if crashed != sup or not same_params or restarts != 1:
+            raise AssertionError("the in-run restart is not bit-identical")
+
+        script = os.path.join(tmp, "stream.py")
+        with open(script, "w") as fh:
+            fh.write(_STREAM_PROC.format(here=HERE))
+        ck = os.path.join(tmp, "killed")
+        killed, kill_s = _stream_child(script, "kill", ck, dev,
+                                       os.path.join(tmp, "kill.json"))
+        # the final checkpoint's scalars (meta.json), not its 2.4 GB
+        mgr = CheckpointManager(ck)
+        with open(os.path.join(mgr._step_dir(mgr.latest_step()),
+                               "meta.json")) as f:
+            on_disk = json.load(f)
+        if killed["signum"] != signal.SIGTERM or \
+                killed["step"] != STREAM_KILL_AFTER or \
+                on_disk.get("sup_step") != STREAM_KILL_AFTER or \
+                on_disk.get("sup_preempted") is not True:
+            raise AssertionError(f"the preempted child wrote {killed}, step "
+                                 f"{on_disk.get('sup_step')} on disk")
+        resumed, resume_s = _stream_child(script, "resume", ck, dev,
+                                          os.path.join(tmp, "resume.json"))
+    log(f"[stream train] a child SIGTERMed after {STREAM_KILL_AFTER} steps "
+        f"(Preempted at step {killed['step']}, final checkpoint written; "
+        f"{kill_s:.1f} s) and a fresh process resumed ({resume_s:.1f} s, "
+        f"process start included): loss history equal: "
+        f"{resumed['losses'] == sup}, parameters equal: "
+        f"{resumed['digests'] == digests}")
+    if resumed["losses"] != sup or resumed["digests"] != digests:
+        raise AssertionError("the preempted and resumed run is not "
+                             "bit-identical")
+    return dict(step_s=step_s, stream_s=stream_s, tokens_per_s=tokens /
+                stream_s, stalls=stalls, sup_s=sup_s, crash_s=crash_s,
+                save_s=save_s, writes=writes, goodput=acct["goodput"],
+                kill_s=kill_s, resume_s=resume_s, losses=sup)
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -4184,6 +4762,7 @@ def main(argv) -> int:
     resume = phase("resume", resume_phase, dev, data, paths["fit_times"])
     intro = phase("introspect", introspect_phase, dev, data, paths, cat)
     dp = phase("data_parallel", data_parallel_phase, dev, data)
+    ingest = phase("ingest", ingest_phase, dev, data, paths, resume)
     del data
     torch.cuda.empty_cache()
     ranker = phase("ranker", ranker_phase, dev)
@@ -4193,6 +4772,7 @@ def main(argv) -> int:
     ring = phase("ring training", ring_train_phase, dev, train["losses"][0],
                  profile)
     pipe = phase("pipe training", pipe_train_phase, dev, train)
+    stream = phase("stream train", stream_train_phase, dev)
     if "--versus" in argv:
         phase("versus", versus_phase, parent)
 
@@ -4229,7 +4809,9 @@ def main(argv) -> int:
                  "voting_parallel fit (4 positions)": dp["launches"][
                      "hist_tiled"],
                  "data_parallel planes fit (4 positions)": dp[
-                     "planes_launches"]["hist_tiled"]},
+                     "planes_launches"]["hist_tiled"],
+                 "ingest fit": ingest["launches"]["hist_tiled"],
+                 "out-of-core fit": ingest["oofit_launches"]["hist_tiled"]},
              passed=True,
              **{k: hist8[k] for k in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by",
@@ -4323,7 +4905,11 @@ def main(argv) -> int:
                 **{r: v["launches"].get(name, 0)
                    for r, v in resume["routes"].items()},
                 "checkpointed data_parallel fit (4 positions)":
-                    dp["fixed_launches"].get(name, 0)},
+                    dp["fixed_launches"].get(name, 0),
+                "out-of-core checkpointed fit": ingest["estimator"][
+                    "launches"].get(name, 0),
+                "out-of-core checkpointed fit, resumed after SIGTERM":
+                    ingest["estimator"]["resumed_launches"].get(name, 0)},
             per_case=[{k: r[k] for k in (
                 "kind", "n", "f", "b", "m", "ms", "atomic_ms", "plain_ms",
                 "library_ms", "bound_ms", "bound_by", "max_abs_err",
@@ -4461,6 +5047,21 @@ def main(argv) -> int:
         f"{dp['planes_s']:.4f} s; fixed order "
         f"{', '.join(f'{t:.4f}' for t in dp['fixed_s'])} s, resume "
         f"{dp['resume_s']:.4f} s, bit for bit")
+    est = ingest["estimator"]
+    log(f"[ingest] stage_binned {ingest['stage_s']:.3f} s against the "
+        f"serial card path's {ingest['serial_s']:.3f} s (card idle "
+        f"{100 * ingest['idle']:.2f}% of the staging); ChunkStager "
+        f"{ingest['oocore_s']:.3f} s, {ingest['n_chunks']} chunks, resident "
+        f"{ingest['resident']:.0f} bytes; ingest fit {ingest['fit_s']:.3f} "
+        f"s, out-of-core fit {ingest['oofit_s']:.3f} s; out-of-core "
+        f"estimator {est['full_s']:.3f} s, killed at cursor "
+        f"{est['kill_cursor']} and resumed bit for bit")
+    log(f"[stream train] run_stream {stream['stream_s']:.4f} s/step "
+        f"({stream['tokens_per_s']:.4g} tokens/s, {stream['stalls']} "
+        f"stalls) against step() {stream['step_s']:.4f}; supervised "
+        f"{stream['sup_s']:.4f} s/step, {stream['writes']} checkpoint writes "
+        f"of {stream['save_s']:.2f} s; crash and SIGTERM resumes bit for "
+        f"bit")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; phases "
         + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     print(json.dumps({"kernels": kernels}))

@@ -24,8 +24,10 @@ that holds its parameters in blocks over a mesh (`pp_training._Blocks`)
 gathers every leaf and its Adam state to the full leaf on save and cuts
 them back into its blocks on restore.
 
-Not ported yet: `run_stream` with its prefetcher and supervisor (ROADMAP
-Queue 1 item 17).
+`ShardedLMTrainer.run_stream` trains over a stream of host batches, each
+copied to the card by `data.DevicePrefetcher` while the one before trains;
+with `checkpoint_dir` it runs under `reliability.TrainingSupervisor`
+(restart, resume and preemption), its snapshots in the same payload.
 """
 from __future__ import annotations
 
@@ -41,11 +43,6 @@ from .payload import tree_from_payload, tree_to_payload
 from .pp_training import (_Blocks, _block, _check_device, _copies_per_step,
                           _gather, _megatron_index, _mesh_sizes)
 from .transformer import _flatten, _layer_norm, init_transformer
-
-RUN_STREAM_TODO = ("ShardedLMTrainer.run_stream (prefetching ingest and "
-                   "supervised checkpoints) is not ported yet: ROADMAP "
-                   "Queue 1 item 17")
-
 
 class ShardedLMTrainer:
     """Causal LM trainer with dense attention and Adam: loss =
@@ -165,8 +162,96 @@ class ShardedLMTrainer:
             loss = self._update(tok)
         return float(loss)
 
-    def run_stream(self, batches, *args, **kwargs) -> list:
-        raise NotImplementedError(RUN_STREAM_TODO)
+    def run_stream(self, batches, steps_per_batch: int = 1,
+                   prefetch: int = 2, checkpoint_dir: str = None,
+                   checkpoint_every: int = 10, resume: bool = True,
+                   step_clock=None, **supervisor_kw) -> list:
+        """Train over an iterable of host (B, S) token batches with the
+        bounded prefetcher (`data.DevicePrefetcher`): batch k+1 is copied
+        to the trainer's device (and any upstream loading the iterable
+        does runs) WHILE batch k trains. Returns the per-batch final
+        losses; `steps_per_batch > 1` chains that many updates on each
+        batch, as `run` does, with one host sync.
+
+        `checkpoint_dir` turns on supervision
+        (`reliability.TrainingSupervisor`): the state is snapshotted every
+        `checkpoint_every` batches in `lm_state_payload`'s format and
+        written in the background, SIGTERM/SIGINT write a final
+        synchronous checkpoint and raise `reliability.Preempted`, failed
+        steps restart from the last snapshot, and a run started again
+        with `resume=True` continues from the newest digest-valid
+        checkpoint, bit for bit as the uninterrupted run (the batch
+        cursor and loss history ride in the payload). `batches` must then
+        be a finite re-indexable sequence. Extra keywords (step_timeout,
+        retry_policy, faults, ...) pass to TrainingSupervisor; without
+        `checkpoint_dir` they raise TypeError.
+
+        `step_clock` (`telemetry.goodput.StepClock`, created when
+        supervised) books the prefetcher's data-wait, the loss fetch as
+        device time, and every step's goodput account."""
+        from ...data import DevicePrefetcher
+        steps_per_batch = operator.index(steps_per_batch)
+        if steps_per_batch < 1:
+            raise ValueError(
+                f"steps_per_batch must be >= 1, got {steps_per_batch}")
+        clock = step_clock
+
+        def one_batch(tok_dev):
+            self._check_batch(tok_dev)
+            tok = tok_dev.long()
+            for _ in range(steps_per_batch):
+                loss = self._update(tok)
+            # float(loss) is the step's sync with the card
+            if clock is not None:
+                return clock.device_block(lambda: float(loss))
+            return float(loss)
+
+        def prefetcher(source):
+            return DevicePrefetcher(source, depth=prefetch,
+                                    device=self.device, step_clock=clock)
+
+        if checkpoint_dir is None:
+            if supervisor_kw:
+                raise TypeError(
+                    f"supervisor options {sorted(supervisor_kw)} require "
+                    f"checkpoint_dir")
+            with prefetcher(batches) as pf:
+                return [one_batch(tok_dev) for tok_dev in pf]
+
+        from ...reliability.supervisor import TrainingSupervisor
+        from ...telemetry.goodput import StepClock
+        if clock is None:
+            clock = StepClock()
+        batches = list(batches)   # rewind/resume needs random access
+
+        def snapshot():
+            return lm_state_payload(self.params, self._opt, self.meta,
+                                    self._blocks)
+
+        def restore(payload):
+            lm_state_from_payload(payload, self.params, self._opt,
+                                  self.meta, self._blocks)
+
+        stream = {"pf": None, "it": None}
+
+        def seek(step):
+            if stream["pf"] is not None:
+                stream["pf"].close()
+            pf = prefetcher(batches[step:])
+            stream["pf"], stream["it"] = pf, iter(pf)
+
+        def step_fn(step):
+            return one_batch(next(stream["it"]))
+
+        sup = TrainingSupervisor(checkpoint_dir, snapshot, restore,
+                                 checkpoint_every=checkpoint_every,
+                                 step_clock=clock, **supervisor_kw)
+        try:
+            return sup.run(step_fn, len(batches), seek=seek, resume=resume)
+        finally:
+            if stream["pf"] is not None:
+                stream["pf"].close()
+            sup.close()
 
     def save_checkpoint(self, directory: str, step: int) -> None:
         """Params and optimizer state, gathered into the reference's
@@ -281,8 +366,12 @@ def lm_state_from_payload(payload, params, opt, meta, blocks=None) -> None:
             f"the save")
 
     def block(a, m, index):
+        # always a copy: on the CPU `as_tensor` shares the payload's
+        # memory, and the optimizer's moments are updated in place (a
+        # payload restored twice, as the supervisor's in-memory snapshot
+        # is, must not change in between)
         return torch.as_tensor(np.ascontiguousarray(np.asarray(a)[index]),
-                               dtype=m.dtype).to(m.device)
+                               dtype=m.dtype).to(m.device, copy=True)
     pieces = _pieces(params, blocks)
     with torch.no_grad():
         for a, leaf in zip(new, pieces):

@@ -49,9 +49,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ...data import ChunkStager, parallel_apply_bins, stage_binned
 from ...device import resolve_device
 from ...ops import binning, histogram
 from ...parallel.mesh import DATA_AXIS, data_mesh, row_sharding
+from ...reliability import names as tnames
+from ...reliability.metrics import reliability_metrics
+from ...utils import tracing
 from . import objectives as obj_mod
 from . import trainer
 from .booster import Booster
@@ -129,12 +133,6 @@ def check_ported(p: BoostParams) -> None:
         raise ValueError(f"unknown boosting {p.boosting!r}")
     if p.objective != "lambdarank" and p.objective not in obj_mod.OBJECTIVES:
         raise ValueError(f"unknown objective {p.objective!r}")
-
-
-def _unported(name: str, item: int):
-    raise NotImplementedError(
-        f"fit_booster({name}=...) is not ported yet "
-        f"(ROADMAP Queue 1 item {item})")
 
 
 def _grad_hess(p: BoostParams, margin, y_j, y_onehot, g_idx):
@@ -417,8 +415,15 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
     `checkpoint_interval` iterations and at an early stop (final=True);
     `iter_offset`: iterations done before this fit, for the draws and the
     bagging phase. `init_rng_key` is not used (the module docstring).
-    `ingest` and `oocore` belong to a later slice and raise
-    NotImplementedError.
+
+    `ingest` (a `data.IngestOptions`) builds the bin matrix with the
+    parallel host pipeline: chunked multi-worker binning overlapped with
+    the per-chunk copy to the card (`data.stage_binned`), or, over a mesh
+    of several positions, `data.parallel_apply_bins` and one placement.
+    `oocore` (a `data.OocoreOptions`) takes precedence: chunked binning
+    under a residency budget with a durable resume cursor
+    (`data.ChunkStager`; `x` may be an .npy path, memory-mapped here). The
+    bins, and so the fit, equal the serial path's bit for bit.
 
     `mesh`: grow every tree over the rows split across the mesh's data
     axis (the row count must divide; `fit_booster_distributed` pads),
@@ -426,9 +431,10 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
     used); `voting_top_k`: PV-tree voting over it; `presence`: per-row 1 /
     0 for real / padding rows, which never count toward min_data_in_leaf.
     """
-    for name, val, item in (("ingest", ingest, 17), ("oocore", oocore, 17)):
-        if val is not None:
-            _unported(name, item)
+    if isinstance(x, str):
+        # out-of-core source: an .npy path memory-maps here, so nothing
+        # below holds the raw matrix in host memory
+        x = np.load(x, mmap_mode="r")
     p = params
     check_ported(p)
     cb = callbacks or Callbacks()
@@ -463,10 +469,28 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
             mapper, d_bins = prebinned
         d_bins = torch.as_tensor(d_bins).to(dev)
     else:
-        mapper = binning.fit_bins(
-            x, max_bin=p.max_bin, seed=p.seed,
-            categorical_features=p.categorical_features)
-        d_bins = binning.apply_bins_device(mapper, x, device=dev)
+        with tracing.wall_clock(tnames.DATA_FIT_BINS,
+                                sink=reliability_metrics.observe):
+            mapper = binning.fit_bins(
+                x, max_bin=p.max_bin, seed=p.seed,
+                categorical_features=p.categorical_features)
+        # over a mesh of several positions the host matrix is placed once
+        # on the first position's device and cut by `row_sharding` below
+        place = None
+        if n_pos > 1:
+            def place(host):
+                return torch.from_numpy(np.asarray(host)).to(dev, copy=True)
+        if oocore is not None:
+            d_bins = ChunkStager(x, mapper, oocore).stage(put=place,
+                                                         device=dev)
+        elif ingest is not None:
+            if place is None:
+                # one device: chunk binning overlaps the copies to it
+                d_bins = stage_binned(mapper, x, ingest, device=dev)
+            else:
+                d_bins = place(parallel_apply_bins(mapper, x, ingest))
+        else:
+            d_bins = binning.apply_bins_device(mapper, x, device=dev)
     # the level-invariant histogram plan, once per fit, where the
     # reference builds it (it also sets a plan-bytes gauge there; gauges
     # are telemetry, ROADMAP Queue 1 item 23)
@@ -544,7 +568,11 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
     v_margin = v_it_delta = None
     if has_valid:
         vx, vy = valid
-        v_bins = binning.apply_bins_device(mapper, vx, device=dev)
+        if ingest is not None:
+            v_bins = torch.from_numpy(
+                parallel_apply_bins(mapper, vx, ingest)).to(dev)
+        else:
+            v_bins = binning.apply_bins_device(mapper, vx, device=dev)
         vy_j = put(vy)
         v_margin = (torch.zeros((vx.shape[0], p.num_class),
                                 dtype=torch.float32, device=dev)

@@ -92,12 +92,18 @@ def fit_booster_distributed(x, y, params, weights=None, init_scores=None,
     `prebinned=(mapper, bins[, y])` (the port's own, as `fit_booster`'s):
     bins already on the first position's device, padded there. A
     checkpoint's `init_margin` is the padded fit's margin, and resumes
-    the fit on the same rows and mesh size."""
+    the fit on the same rows and mesh size. `ingest` and `oocore` pass
+    through to `fit_booster` (`x` may then be an .npy path)."""
     if parallelism not in ("data_parallel", "voting_parallel"):
         raise ValueError(f"unknown parallelism {parallelism!r}")
     if mesh is None:
         mesh = default_mesh(num_tasks, device)
     nsh = mesh.shape[DATA_AXIS]
+    if isinstance(x, str):
+        # out-of-core source: memory-map here; the f32 asarray below is a
+        # view when rows already divide the mesh, so the raw matrix never
+        # materializes and `oocore`'s stager streams its binning
+        x = np.load(x, mmap_mode="r")
     n = x.shape[0]
     ragged = n % nsh != 0
     x_p, _ = pad_to_multiple(np.asarray(x, np.float32), nsh)

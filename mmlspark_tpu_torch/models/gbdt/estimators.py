@@ -20,19 +20,23 @@ one card, trains over a mesh of that many positions
 voting_parallel (`parallelism`, `top_k`). The models add the
 reference's `leaf_prediction_col` and `features_shap_col` columns and its
 `set_best_iteration`, `feature_importances` and `save_native_model`;
-`load_native_model` reads either package's native file. Params
-whose features the port does not run yet raise NotImplementedError at
-fit when set to anything but their inert value, naming the ROADMAP item
-that will port them. One param is the port's own: `device` (None = the card). One
-default differs: `quality_profile` is False here, because freezing a
-fit-time profile (the reference's default) is not ported yet; True
-raises.
+`load_native_model` reads either package's native file.
+`num_ingest_workers` (with `ingest_mode`, `ingest_chunk_rows` and
+`ingest_prefetch`) builds the bin matrix with the data plane's parallel
+ingest (`data.stage_binned`), and `out_of_core` with `max_resident_bytes`
+stages it out of core (`data.ChunkStager`), its spill cache at
+`checkpoint_dir/oocore_bins.npy` and its cursor in the checkpoint payload
+(`oocore_cursor`). One param is the port's own: `device` (None = the
+card). One default differs: `quality_profile` is False here, because
+freezing a fit-time profile (the reference's default) is not ported yet
+(ROADMAP Queue 1 item 23); True raises NotImplementedError at fit.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import json
+import os
 from typing import Optional
 
 import numpy as np
@@ -41,7 +45,10 @@ import torch
 from ...core import (Estimator, HasFeaturesCol, HasLabelCol,
                      HasPredictionCol, HasProbabilitiesCol, HasWeightCol,
                      Model, Param, Table, in_range, one_of)
+from ...data import IngestOptions, OocoreOptions
 from ...device import resolve_device
+from ...reliability import names as tnames
+from ...reliability.metrics import reliability_metrics
 from ...reliability.supervisor import AsyncCheckpointWriter
 from ...utils.checkpoint import CheckpointManager
 from .boosting import BoostParams, fit_booster
@@ -64,8 +71,6 @@ def _device_count(device) -> int:
 
 # param -> (is its value one this slice cannot run?, ROADMAP Queue 1 item)
 _UNPORTED = {
-    "num_ingest_workers": (lambda v: v != 1, 17),
-    "out_of_core": (bool, 17),
     "quality_profile": (bool, 23),
 }
 
@@ -290,6 +295,13 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
             payload = {"booster": booster.save_model_string(),
                        "iteration": done + it, "base": float(fit_base),
                        "final": bool(final), "rf_denom": total}
+            if self.out_of_core:
+                # the staging cursor rides the payload for observability;
+                # its source of truth for resume is the spill cache's
+                # sidecar (data/oocore.py), which survives kills the
+                # checkpoint cadence would miss
+                payload["oocore_cursor"] = int(reliability_metrics.peek_gauge(
+                    tnames.DATA_OOCORE_CURSOR) or 0)
             if margin is not None:
                 payload["margin"] = np.asarray(margin, np.float32)
             if rng_key is not None:
@@ -306,6 +318,28 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
         return None, params, dict(
             fit_kw, checkpoint_fn=ck_fn, iter_offset=done,
             checkpoint_interval=self.checkpoint_interval), writer
+
+    def _data_plane(self) -> dict:
+        """fit_booster's `ingest` and `oocore` from the Params, as the
+        reference's `_train` builds them."""
+        ingest = oocore = None
+        if self.num_ingest_workers != 1:
+            ingest = IngestOptions(num_workers=self.num_ingest_workers,
+                                   mode=self.ingest_mode,
+                                   chunk_rows=self.ingest_chunk_rows,
+                                   prefetch=self.ingest_prefetch)
+        if self.out_of_core:
+            cache = None
+            if self.checkpoint_dir:
+                cache = os.path.join(self.checkpoint_dir, "oocore_bins.npy")
+            oocore = OocoreOptions(
+                max_resident_bytes=self.max_resident_bytes,
+                cache_path=cache, num_workers=self.num_ingest_workers,
+                mode=("thread" if self.ingest_mode == "auto"
+                      else self.ingest_mode),
+                chunk_rows=self.ingest_chunk_rows,
+                prefetch=self.ingest_prefetch)
+        return dict(ingest=ingest, oocore=oocore)
 
     def _train(self, table: Table, objective: str, num_class: int = 1,
                group: Optional[np.ndarray] = None):
@@ -330,6 +364,7 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
                 fit_booster_distributed, parallelism=self.parallelism,
                 top_k=self.top_k,
                 mesh=default_mesh(self.num_tasks, self.device))
+        fit = functools.partial(fit, **self._data_plane())
         n_batches = self.num_batches or 0
         if n_batches > 1:
             # batch continuation: each batch's trees fit the residuals of

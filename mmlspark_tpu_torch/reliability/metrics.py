@@ -3,10 +3,11 @@ resilience paths (checkpoint writes, coalesced snapshots, corrupt steps
 skipped) record what they survived.
 
 Port of the reference's `reliability/metrics.py` (which imports no JAX),
-kept to what the port records into: monotonic counters, last-value gauges
-and bounded geometric-bucket latency histograms (`observe_ms`), read back
-through `get` and `snapshot` in the reference's key layout. The
-reference's wall-clock sink, windowed shards, exemplars, custom grids and
+kept to what the port records into: monotonic counters, last-value gauges,
+bounded geometric-bucket latency histograms (`observe_ms`) and the
+wall-clock sink (`observe`, for `utils.tracing.wall_clock`), read back
+through `get`, `gauge`, `peek_gauge` and `snapshot` in the reference's key
+layout. The reference's windowed shards, exemplars, custom grids and
 mergeable exports belong to telemetry (ROADMAP Queue 1 item 23).
 """
 from __future__ import annotations
@@ -114,6 +115,7 @@ class MetricsRegistry:
     def __init__(self):
         self._lock = threading.Lock()
         self._counters: dict = {}
+        self._timings: dict = {}   # label -> [total_seconds, count]
         self._hists: dict = {}     # name -> Histogram
         self._gauges: dict = {}    # name -> float (last value wins)
 
@@ -132,6 +134,13 @@ class MetricsRegistry:
             c = self._counters.get(name)
         return c.value if c is not None else 0
 
+    def observe(self, label: str, seconds: float) -> None:
+        """`utils.tracing.wall_clock(label, sink=registry.observe)`."""
+        with self._lock:
+            t = self._timings.setdefault(label, [0.0, 0])
+            t[0] += seconds
+            t[1] += 1
+
     def histogram(self, name: str) -> Histogram:
         with self._lock:
             h = self._hists.get(name)
@@ -146,10 +155,23 @@ class MetricsRegistry:
         with self._lock:
             self._gauges[name] = float(value)
 
+    def gauge(self, name: str, default: float = 0.0) -> float:
+        with self._lock:
+            return self._gauges.get(name, default)
+
+    def peek_gauge(self, name: str) -> Optional[float]:
+        """The gauge's last value, or None when it was never set."""
+        with self._lock:
+            return self._gauges.get(name)
+
     def snapshot(self) -> dict:
-        """Counters, gauges and `{histogram}.{p50, p95, ...}`, flat."""
+        """Counters, `{label}.seconds` / `{label}.count` of the wall
+        clocks, gauges and `{histogram}.{p50, p95, ...}`, flat."""
         with self._lock:
             out = {name: c.value for name, c in self._counters.items()}
+            for label, (total, count) in self._timings.items():
+                out[f"{label}.seconds"] = total
+                out[f"{label}.count"] = count
             hists = list(self._hists.items())
             out.update(self._gauges)
         for name, h in hists:
@@ -160,7 +182,8 @@ class MetricsRegistry:
     def reset(self, prefix: Optional[str] = None) -> None:
         """Zero everything, or the names under `prefix`."""
         with self._lock:
-            for store in (self._counters, self._hists, self._gauges):
+            for store in (self._counters, self._timings, self._hists,
+                          self._gauges):
                 for name in [n for n in store
                              if prefix is None or n.startswith(prefix)]:
                     del store[name]

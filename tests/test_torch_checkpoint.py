@@ -7,8 +7,8 @@ package restore in the other; a torn or silently corrupted newest step
 falls back to the next-newest readable one; the writer never blocks its
 caller and absorbs a failed background write (the reference's
 tests/test_supervisor.py and tests/test_checkpoint_tracing.py cases,
-driven here through the writer itself: the supervisor loop is ROADMAP
-Queue 1 item 17).
+driven here through the writer itself; the supervisor loop's are in
+tests/test_torch_supervisor.py).
 """
 import json
 import os

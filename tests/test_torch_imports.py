@@ -32,6 +32,10 @@ def test_import_loads_no_jax():
             "import mmlspark_tpu_torch.models.dnn.payload\n"
             "import mmlspark_tpu_torch.reliability\n"
             "import mmlspark_tpu_torch.utils.checkpoint\n"
+            "import mmlspark_tpu_torch.data\n"
+            "import mmlspark_tpu_torch.telemetry\n"
+            "import mmlspark_tpu_torch.utils.async_utils\n"
+            "import mmlspark_tpu_torch.utils.tracing\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'mmlspark_tpu.')) "
             "or m == 'mmlspark_tpu')\n"

@@ -222,6 +222,10 @@ def test_validation_and_unported_paths():
         t.run(_tokens(), 2.9)
     with pytest.raises(ValueError, match="n_steps must be >= 1"):
         t.run(_tokens(), 0)
+    # run_stream is ported (slice 15): supervisor options need a
+    # checkpoint_dir, and a one-batch stream is one step
     s = ShardedLMTrainer(device="cpu", **_KW)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        s.run_stream([_tokens()])
+    with pytest.raises(TypeError, match="checkpoint_dir"):
+        s.run_stream([_tokens()], step_timeout=1.0)
+    assert s.run_stream([_tokens()]) == \
+        [ShardedLMTrainer(device="cpu", **_KW).step(_tokens())]

@@ -310,9 +310,13 @@ def test_validation_errors():
     with pytest.raises(ValueError, match="data axis \\(2\\)"):
         ShardedLMTrainer(mesh=_cpu_mesh((2, 1), (DATA_AXIS, MODEL_AXIS)),
                          **sharded).step(_tokens()[:3])
-    with pytest.raises(NotImplementedError, match="item 17"):
-        ShardedLMTrainer(mesh=_cpu_mesh((2, 2), (DATA_AXIS, MODEL_AXIS)),
-                         **sharded).run_stream([_tokens()])
+    # run_stream is ported (slice 15): over the mesh, a one-batch stream
+    # is one step
+    assert ShardedLMTrainer(
+        mesh=_cpu_mesh((2, 2), (DATA_AXIS, MODEL_AXIS)),
+        **sharded).run_stream([_tokens()]) == [ShardedLMTrainer(
+            mesh=_cpu_mesh((2, 2), (DATA_AXIS, MODEL_AXIS)),
+            **sharded).step(_tokens())]
     mesh = _cpu_mesh((1, 2, 2, 1))
     assert mesh.device_at(pipe=1, model=1) == torch.device("cpu")
     with pytest.raises(ValueError, match="no 'expert' axis"):
