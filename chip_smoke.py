@@ -19,6 +19,12 @@
                                      # and DIR's planes kernel in the
                                      # [planes] phase: parent, change,
                                      # change, parent
+    python3 chip_smoke.py --only PHASE
+                                     # card, build, the headline data and
+                                     # one phase (e.g. multiprocess), with
+                                     # every check of that phase; prints
+                                     # no result line (the full run is the
+                                     # proof run)
 
 Phases (any failure exits non-zero before the last line is printed):
   1. card: name and power limit (nvidia-smi), torch's device name;
@@ -223,6 +229,21 @@ Phases (any failure exits non-zero before the last line is printed):
      5 steps and resumed in a fresh process (the loss history and the
      parameters bit-identical); s/step, tokens/s, prefetch stalls and the
      checkpoint write seconds.
+  18. multiprocess (slice 16): the headline fit over 2 processes on the
+     card under gloo (`parallel.cluster`, a data axis that spans them, one
+     position each), each rank memory-mapping the staged bins saved once
+     to an .npy: the whole-table fit, default (50 `hist_tiled` a rank) and
+     fixed order (50 + 10 leaf-sum `hist_tiled_fixed` a rank), and the
+     scale-out form (each rank reads its `process_row_range` only, the
+     leader's mapper broadcast). The ranks' boosters bit-identical in
+     every fit; the fixed-order fit bit-identical to this process's
+     `data_mesh(devices=[dev] * 2)` fit; the scale-out fit's split
+     features equal the whole-table fixed-order fit's, margins within
+     ROADMAP Queue 3 (e)'s limits; logloss/AUC within `_METRIC_TOL` of
+     the one-position fit; per rank the fit's seconds against the
+     one-process 2-position fit, the exchange's seconds and share, peak
+     memory. A second pair: rank 1 SIGKILLed mid-fit, rank 0's
+     `HostLeases` must declare it dead within the lease budget.
 The headline fit (4) is timed 3 times (min and median), and every
 phase's seconds are printed.
 The kernel phase (3) also holds the flash backward kernels, dq and dk/dv,
@@ -3867,8 +3888,9 @@ def _voting_shares(shares):
     from mmlspark_tpu_torch.models.gbdt import trainer
     saved = trainer._voting_feature_mask
 
-    def spy(local_hists, feature_mask, cfg, top_k):
-        vidx, has_vote = saved(local_hists, feature_mask, cfg, top_k)
+    def spy(local_hists, feature_mask, cfg, top_k, exchange=None):
+        vidx, has_vote = saved(local_hists, feature_mask, cfg, top_k,
+                               exchange)
         shares.append((has_vote.sum(), has_vote.shape[0] * cfg.n_features))
         return vidx, has_vote
     trainer._voting_feature_mask = spy
@@ -4714,6 +4736,419 @@ def stream_train_phase(dev):
                 kill_s=kill_s, resume_s=resume_s, losses=sup)
 
 
+# ------------------------------------------------------- [multiprocess]
+MP_RANKS = 2
+MP_LEASE_S = 3.0           # the SIGKILL run's lease budget
+_MP_KILL_SLACK_S = 2.0     # beats every 0.1 s, leases checked every 0.1 s
+# the scale-out form's init score comes from float64 partial sums, so its
+# trees may differ from the whole-table fit's in near ties: ROADMAP
+# Queue 3 (e)'s limits
+_SCALE_OUT_MARGIN_ATOL = 1e-4
+_SCALE_OUT_MARGIN_SHARE = 0.999
+_SCALE_OUT_LOGLOSS_TOL = 1e-4
+_MP_PROC = """
+import json, os, pickle, sys, threading, time
+import numpy as np
+import torch
+sys.path.insert(0, {here!r})
+from mmlspark_tpu_torch.models.gbdt import BoostParams, fit_booster_distributed
+from mmlspark_tpu_torch.ops import histogram_cuda as hc
+from mmlspark_tpu_torch.parallel import cluster, data_mesh
+from mmlspark_tpu_torch.parallel.cluster import Heartbeat
+from mmlspark_tpu_torch.reliability import HostLeases, MetricsRegistry
+
+mode, rank, tmp, params = sys.argv[1], int(sys.argv[2]), sys.argv[3], \\
+    json.loads(sys.argv[4])
+cluster.initialize_cluster(init_method="file://" + os.path.join(
+    tmp, f"rdv_{{mode}}"), num_processes={ranks}, process_id=rank,
+    timeout_s=120)
+assert cluster.backend_name() == "gloo", cluster.backend_name()
+dev = cluster.local_device()
+torch.cuda.set_device(dev)
+mesh = data_mesh()
+bins = np.load(os.path.join(tmp, "bins.npy"), mmap_mode="r")
+y = np.load(os.path.join(tmp, "y.npy"))
+mapper = None
+if rank == 0:
+    with open(os.path.join(tmp, "mapper.pkl"), "rb") as f:
+        mapper = pickle.load(f)
+mapper = cluster.broadcast_from_leader(mapper)
+# a prebinned fit reads only the shape of x: a zero-stride stand-in
+x = np.broadcast_to(np.float32(0), bins.shape)
+p = BoostParams(**params)
+noop = lambda *a, **k: None
+
+
+def fit(**kw):
+    return fit_booster_distributed(x, y, p, mesh=mesh,
+                                   prebinned=(mapper, bins, y), **kw)
+
+
+if mode == "kill":
+    hb = Heartbeat(os.path.join(tmp, "hb"), process_id=rank)
+    leases = HostLeases(hb, lease_timeout_s={lease}, metrics=MetricsRegistry())
+    state = dict(killed_at=None)
+
+    def beat():
+        i = 0
+        while True:
+            hb.beat(i)
+            i += 1
+            if rank == 0:
+                dead = leases.check()
+                if dead:
+                    with open(os.path.join(tmp, "dead.json"), "w") as f:
+                        json.dump(dict(dead=dead, t=time.time(),
+                                       live=leases.live), f)
+                    os._exit(0)
+            time.sleep(0.1)
+    threading.Thread(target=beat, daemon=True).start()
+    print("FITTING", flush=True)
+    try:
+        while True:
+            fit()
+    except Exception:
+        # the peer is gone mid-exchange: the leases decide, not this
+        while True:
+            time.sleep(1.0)
+out = {{}}
+p1 = BoostParams(**dict(params, num_iterations=1))
+for kw in ({{}}, dict(checkpoint_fn=noop)):     # warm-up, not counted
+    fit_booster_distributed(x, y, p1, mesh=mesh,
+                            prebinned=(mapper, bins, y), **kw)
+for name, kw, reps in (("default", {{}}, {reps}),
+                       ("fixed", dict(checkpoint_fn=noop), 1)):
+    for rep in range(reps):
+        torch.cuda.synchronize()
+        hc.reset_launches()
+        mesh.exchange.reset_stats()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        b, base, _ = fit(**kw)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {{k: v for k, v in hc.launches.items() if v}}
+        runs = out.setdefault(name, dict(runs=[]))["runs"]
+        runs.append(dict(s=fit_s, launches=launches,
+                         exchange=mesh.exchange.stats(),
+                         peak=torch.cuda.max_memory_allocated()))
+    np.savez(os.path.join(tmp, f"{{name}}_{{rank}}.npz"), base=base,
+             **b.to_dict())
+# the exchange alone, back to back after a barrier: the deepest level's
+# (3, 8 left nodes, F, B) histograms, 60 times as in a fit
+probe = torch.zeros((1, 3, 2 ** (p.max_depth - 2), bins.shape[1],
+                     p.max_bin + 1), device=mesh.devices[0])
+cluster.barrier("probe")
+mesh.exchange.reset_stats()
+for _ in range(60):
+    mesh.exchange.gather(probe)
+out["bare_exchange"] = mesh.exchange.stats()
+# the scale-out form: only this rank's rows are read
+lo, hi = cluster.process_row_range(bins.shape[0])
+torch.cuda.synchronize()
+hc.reset_launches()
+t0 = time.perf_counter()
+b, base, _ = fit_booster_distributed(
+    x[lo:hi], y[lo:hi], p, mesh=mesh, local_rows=True, checkpoint_fn=noop,
+    prebinned=(mapper, np.array(bins[lo:hi]), y[lo:hi]))
+torch.cuda.synchronize()
+out["scale_out"] = dict(s=time.perf_counter() - t0, rows=[lo, hi],
+                        launches={{k: v for k, v in hc.launches.items()
+                                  if v}})
+np.savez(os.path.join(tmp, f"scale_out_{{rank}}.npz"), base=base,
+         **b.to_dict())
+with open(os.path.join(tmp, f"out_{{rank}}.json"), "w") as f:
+    json.dump(out, f)
+cluster.barrier("done")
+cluster.shutdown()
+"""
+
+
+def _mp_load(path):
+    from mmlspark_tpu_torch.models.gbdt import Booster
+    with np.load(path) as z:
+        d = {k: z[k] for k in z.files}
+    return Booster.from_dict(d), float(d["base"])
+
+
+def _mp_same(a, b, what):
+    for f in a._fields:
+        va, vb = getattr(a, f), getattr(b, f)
+        same = (np.array_equal(va, vb) if isinstance(va, np.ndarray)
+                or isinstance(vb, np.ndarray) else va == vb)
+        if not same:
+            raise AssertionError(f"[multiprocess] {what}: {f} differs")
+
+
+def _mp_spawn(script, mode, tmp, params):
+    return [subprocess.Popen(
+        [sys.executable, script, mode, str(r), tmp, json.dumps(params)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(MP_RANKS)]
+
+
+def _mp_reap(procs, timeout):
+    """Wait for the ranks; kill any left after `timeout` s. Returns their
+    outputs; a rank that failed fails the run."""
+    outs = []
+    try:
+        for pr in procs:
+            outs.append(pr.communicate(timeout=timeout)[0])
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    for r, (pr, out) in enumerate(zip(procs, outs)):
+        if pr.returncode != 0:
+            raise AssertionError(f"[multiprocess] rank {r} exited "
+                                 f"{pr.returncode}:\n{out[-3000:]}")
+    return outs
+
+
+def multiprocess_phase(dev, data):
+    """[multiprocess]: the headline fit over MP_RANKS processes on the
+    card under gloo, one position each (`parallel.cluster`, a data axis
+    that spans the processes). The staged bins are saved once to an .npy;
+    each rank memory-maps it and fits 10 iterations in the whole-table
+    form (default and fixed order) and once in the scale-out form (its
+    `process_row_range` only, the leader's broadcast mapper). The ranks'
+    boosters must be bit-identical; the fixed-order fit also equal to
+    this process's `data_mesh(devices=[dev] * 2)` fit; the scale-out fit
+    must have its split features with margins within Queue 3 (e)'s
+    limits; logloss and AUC within _METRIC_TOL of the one-position fit;
+    50 `hist_tiled` a rank (default), 50 + 10 leaf sums
+    `hist_tiled_fixed` (fixed). Then a second pair: rank 1 SIGKILLed
+    mid-fit, and rank 0's HostLeases must declare it dead within
+    MP_LEASE_S (+ _MP_KILL_SLACK_S)."""
+    import dataclasses
+    import pickle
+    import tempfile
+
+    import torch
+    from mmlspark_tpu_torch.models.gbdt import fit_booster_distributed
+    from mmlspark_tpu_torch.parallel import data_mesh
+
+    x, y, staged, d_y = data["x"], data["y"], data["staged"], data["d_y"]
+    params = _headline_params()
+    pdict = dict(objective="binary", num_iterations=N_ITERS,
+                 num_leaves=31, max_depth=DEPTH, max_bin=MAX_BIN,
+                 min_data_in_leaf=20)
+    per_fit = N_ITERS * DEPTH
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    try:
+        t0 = time.perf_counter()
+        np.save(os.path.join(tmp, "bins.npy"), staged[1].cpu().numpy())
+        np.save(os.path.join(tmp, "y.npy"), y)
+        with open(os.path.join(tmp, "mapper.pkl"), "wb") as f:
+            pickle.dump(staged[0], f)
+        save_s = time.perf_counter() - t0
+        script = os.path.join(tmp, "rank.py")
+        with open(script, "w") as f:
+            f.write(_MP_PROC.format(here=HERE, ranks=MP_RANKS,
+                                    lease=MP_LEASE_S, reps=FIT_REPEATS))
+        # first this process alone on the card: the one-position fit and
+        # the one-process two-position fits of the same data, warm
+        noop = lambda *a, **k: None   # noqa: E731
+        mesh2 = data_mesh(devices=[dev] * MP_RANKS)
+        one = dataclasses.replace(params, num_iterations=1)
+        for mesh_w in (data_mesh(devices=[dev]), mesh2):
+            for kw in ({}, dict(checkpoint_fn=noop)):
+                fit_booster_distributed(x, y, one, mesh=mesh_w,
+                                        prebinned=staged, **kw)
+        one_b, one_base, one_s, _ = _counted_fit(x, y, params, staged, dev,
+                                                 dict(hist_tiled=per_fit))
+        times2 = []
+        for kw in [{}] * FIT_REPEATS + [dict(checkpoint_fn=noop)]:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fixed2, fixed2_base, _ = fit_booster_distributed(
+                x, y, params, mesh=mesh2, prebinned=staged, **kw)
+            torch.cuda.synchronize()
+            times2.append(time.perf_counter() - t1)
+        two_s, two_fixed_s = float(np.median(times2[:-1])), times2[-1]
+        t0 = time.perf_counter()
+        procs = _mp_spawn(script, "fit", tmp, pdict)
+        _mp_reap(procs, 600)
+        wall_s = time.perf_counter() - t0
+        res = []
+        for r in range(MP_RANKS):
+            with open(os.path.join(tmp, f"out_{r}.json")) as f:
+                res.append(json.load(f))
+        fits = {name: [_mp_load(os.path.join(tmp, f"{name}_{r}.npz"))
+                       for r in range(MP_RANKS)]
+                for name in ("default", "fixed", "scale_out")}
+        for name, boosters in fits.items():
+            for r in range(1, MP_RANKS):
+                if boosters[r][1] != boosters[0][1]:
+                    raise AssertionError(f"[multiprocess] {name}: bases "
+                                         f"differ between ranks")
+                _mp_same(boosters[0][0], boosters[r][0],
+                         f"{name} rank 0 against rank {r}")
+        _mp_same(fits["fixed"][0][0], fixed2, "fixed-order fit against "
+                 "the one-process two-position fit")
+        if fits["fixed"][0][1] != fixed2_base:
+            raise AssertionError("[multiprocess] fixed-order base differs")
+        want = {"default": dict(hist_tiled=per_fit),
+                "fixed": dict(hist_tiled_fixed=per_fit + N_ITERS),
+                "scale_out": dict(hist_tiled_fixed=per_fit + N_ITERS)}
+        for r, out in enumerate(res):
+            for name, w in want.items():
+                for run in out[name].get("runs", [out[name]]):
+                    if run["launches"] != w:
+                        raise AssertionError(
+                            f"[multiprocess] rank {r} {name} launches "
+                            f"{run['launches']}, expected {w}")
+        # metrics of the ranks' default booster against the one-position
+        # fit's, on the card
+        booster, base = fits["default"][0]
+        margin = booster.raw_score_device(x, device=dev)[:, 0] + base
+        logloss, auc = _metrics(margin, d_y)
+        one_margin = one_b.raw_score_device(x, device=dev)[:, 0] + one_base
+        one_logloss, one_auc = _metrics(one_margin, d_y)
+        if abs(logloss - one_logloss) > _METRIC_TOL or \
+                abs(auc - one_auc) > _METRIC_TOL:
+            raise AssertionError(
+                f"[multiprocess] logloss/AUC {logloss}/{auc} against the "
+                f"one-position fit's {one_logloss}/{one_auc}")
+        # the scale-out form against the whole-table fixed-order fit
+        sb, sbase = fits["scale_out"][0]
+        fb, fbase = fits["fixed"][0]
+        if not np.array_equal(sb.split_feature, fb.split_feature):
+            raise AssertionError("[multiprocess] scale-out split features "
+                                 "differ from the whole-table fit's")
+        s_margin = sb.raw_score_device(x, device=dev)[:, 0] + sbase
+        f_margin = fb.raw_score_device(x, device=dev)[:, 0] + fbase
+        close = float(((s_margin - f_margin).abs()
+                       <= _SCALE_OUT_MARGIN_ATOL).float().mean())
+        s_logloss, _ = _metrics(s_margin, d_y)
+        f_logloss, _ = _metrics(f_margin, d_y)
+        if close < _SCALE_OUT_MARGIN_SHARE or \
+                abs(s_logloss - f_logloss) > _SCALE_OUT_LOGLOSS_TOL:
+            raise AssertionError(
+                f"[multiprocess] scale-out margins within "
+                f"{_SCALE_OUT_MARGIN_ATOL} for {close:.6f} of the rows, "
+                f"logloss {s_logloss} against {f_logloss}")
+
+        # the SIGKILL run: rank 1 killed mid-fit, rank 0's leases
+        procs = _mp_spawn(script, "kill", tmp, pdict)
+        try:
+            line = ""
+            deadline = time.monotonic() + 300
+            while "FITTING" not in line and time.monotonic() < deadline:
+                line = procs[1].stdout.readline()
+                if not line and procs[1].poll() is not None:
+                    break
+            if "FITTING" not in line:
+                raise AssertionError("[multiprocess] rank 1 never started "
+                                     "its fit")
+            time.sleep(2.0)                    # mid-fit
+            procs[1].send_signal(signal.SIGKILL)
+            killed = time.time()
+            procs[1].wait()
+            dead_file = os.path.join(tmp, "dead.json")
+            while not os.path.exists(dead_file) and time.time() < \
+                    killed + MP_LEASE_S + _MP_KILL_SLACK_S + 30:
+                time.sleep(0.05)
+            if not os.path.exists(dead_file):
+                raise AssertionError("[multiprocess] rank 0 never declared "
+                                     "rank 1 dead")
+            with open(dead_file) as f:
+                verdict = json.load(f)
+        finally:
+            for pr in procs:
+                if pr.poll() is None:
+                    pr.kill()
+                pr.wait()
+        detect_s = verdict["t"] - killed
+        if verdict["dead"] != [1] or \
+                detect_s > MP_LEASE_S + _MP_KILL_SLACK_S:
+            raise AssertionError(f"[multiprocess] verdict {verdict} "
+                                 f"{detect_s:.2f} s after the kill")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # per rank: the median of its default fits, and that fit's exchange
+    med = [sorted(r["default"]["runs"], key=lambda run: run["s"])[
+        len(r["default"]["runs"]) // 2] for r in res]
+    d_s = [m["s"] for m in med]
+    ex = [m["exchange"] for m in med]
+    fixed_s = [r["fixed"]["runs"][0]["s"] for r in res]
+    peak = [max(run["peak"] for run in r["default"]["runs"]
+                + r["fixed"]["runs"]) for r in res]
+
+    def per_rank(vals, fmt="{:.4f}"):
+        return ", ".join(fmt.format(v) for v in vals)
+    log(f"[multiprocess] {MP_RANKS} ranks under gloo on one card, one "
+        f"position each: bins saved in {save_s:.2f} s; the ranks' pass "
+        f"{wall_s:.1f} s with start-up; default fit per rank, median of "
+        f"{FIT_REPEATS}: {per_rank(d_s)} s (all: "
+        f"{'; '.join(per_rank([run['s'] for run in r['default']['runs']]) for r in res)})"
+        f" against the one-process 2-position fit's {two_s:.4f} s (all: "
+        f"{per_rank(times2[:-1])}) and one position's {one_s:.4f} s; "
+        f"exchange per rank {per_rank([e['seconds'] for e in ex])} s in "
+        f"{per_rank([e['calls'] for e in ex], '{}')} calls "
+        f"({per_rank([e['bytes'] for e in ex], '{}')} B), share of the fit "
+        f"{per_rank([e['seconds'] / s for e, s in zip(ex, d_s)], '{:.3f}')}"
+        f" (copies to and from the card "
+        f"{per_rank([e['copy_seconds'] for e in ex])} s, the collective "
+        f"with the wait for the peer "
+        f"{per_rank([e['gather_seconds'] for e in ex])} s; every run's "
+        f"share: "
+        f"{'; '.join(per_rank([run['exchange']['seconds'] / run['s'] for run in r['default']['runs']], '{:.3f}') for r in res)})"
+        f", wait for the card before it "
+        f"{per_rank([e['wait_seconds'] for e in ex])} s; 60 bare exchanges "
+        f"of the deepest level's "
+        f"{res[0]['bare_exchange']['bytes'] // 60 // MP_RANKS} B a rank, "
+        f"back to back: {per_rank([r['bare_exchange']['seconds'] for r in res])}"
+        f" s (copies "
+        f"{per_rank([r['bare_exchange']['copy_seconds'] for r in res])} s)"
+        f"; fixed order per "
+        f"rank {per_rank(fixed_s)} s against {two_fixed_s:.4f} s, bit for "
+        f"bit; scale-out {per_rank([r['scale_out']['s'] for r in res])} s,"
+        f" margins within {_SCALE_OUT_MARGIN_ATOL} for {close:.6f} of the "
+        f"rows; peak memory per rank "
+        f"{per_rank([v / 2**20 for v in peak], '{:.1f}')} MiB; logloss "
+        f"{logloss:.6f}, AUC {auc:.6f} (one position {one_logloss:.6f}, "
+        f"{one_auc:.6f}); SIGKILLed rank 1 declared dead {detect_s:.2f} s "
+        f"after the kill (lease {MP_LEASE_S} s)")
+    return dict(launches=med[0]["launches"],
+                fixed_launches=res[0]["fixed"]["runs"][0]["launches"],
+                scale_out_launches=res[0]["scale_out"]["launches"],
+                fit_s=d_s, fixed_s=fixed_s, two_pos_s=[two_s, two_fixed_s],
+                one_s=one_s, exchange=ex, peak=peak, detect_s=detect_s,
+                bare_exchange=[r["bare_exchange"] for r in res],
+                auc=auc, logloss=logloss)
+
+
+def only_phase(name, dev, phase, t_start) -> int:
+    """`--only NAME`: one phase after card and build (with the headline
+    data where it needs them), for runs that iterate on that phase; the
+    full run stays the proof run."""
+    import torch
+    needs_data = {"main": lambda d, data: main_path_phase(d, data, False),
+                  "planes path": planes_path_phase,
+                  "boosting modes": modes_phase,
+                  "data_parallel": data_parallel_phase,
+                  "multiprocess": multiprocess_phase}
+    alone = {"kernel": kernel_phase, "planes kernel": planes_kernel_phase,
+             "flash kernel": flash_kernel_phase,
+             "flash backward kernel": flash_bwd_kernel_phase,
+             "stats kernel": stats_kernel_phase,
+             "stats backward": stats_bwd_kernel_phase,
+             "ranker": ranker_phase, "stream train": stream_train_phase}
+    if name in needs_data:
+        data = phase("headline data", headline_data, dev)
+        phase(name, needs_data[name], dev, data)
+    elif name in alone:
+        phase(name, alone[name], dev)
+    else:
+        raise SystemExit(f"--only {name!r}: one of "
+                         f"{sorted(set(needs_data) | set(alone))}")
+    log(f"[only] {name}: {time.perf_counter() - t_start:.1f} s in all")
+    torch.cuda.synchronize()
+    return 0
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -4744,6 +5179,9 @@ def main(argv) -> int:
     build = phase("build", build_phase)
     dev = torch.device("cuda")
     profile = "--profile" in argv
+    if "--only" in argv:
+        return only_phase(argv[argv.index("--only") + 1], dev, phase,
+                          t_start)
     kres = phase("kernel", kernel_phase, dev)
     parent = argv[argv.index("--versus") + 1] if "--versus" in argv else None
     pres = phase("planes kernel", planes_kernel_phase, dev, parent)
@@ -4762,6 +5200,7 @@ def main(argv) -> int:
     resume = phase("resume", resume_phase, dev, data, paths["fit_times"])
     intro = phase("introspect", introspect_phase, dev, data, paths, cat)
     dp = phase("data_parallel", data_parallel_phase, dev, data)
+    mp = phase("multiprocess", multiprocess_phase, dev, data)
     ingest = phase("ingest", ingest_phase, dev, data, paths, resume)
     del data
     torch.cuda.empty_cache()
@@ -4811,7 +5250,9 @@ def main(argv) -> int:
                  "data_parallel planes fit (4 positions)": dp[
                      "planes_launches"]["hist_tiled"],
                  "ingest fit": ingest["launches"]["hist_tiled"],
-                 "out-of-core fit": ingest["oofit_launches"]["hist_tiled"]},
+                 "out-of-core fit": ingest["oofit_launches"]["hist_tiled"],
+                 "multiprocess fit (per rank, 2 ranks on one card)": mp[
+                     "launches"]["hist_tiled"]},
              passed=True,
              **{k: hist8[k] for k in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by",
@@ -4909,7 +5350,11 @@ def main(argv) -> int:
                 "out-of-core checkpointed fit": ingest["estimator"][
                     "launches"].get(name, 0),
                 "out-of-core checkpointed fit, resumed after SIGTERM":
-                    ingest["estimator"]["resumed_launches"].get(name, 0)},
+                    ingest["estimator"]["resumed_launches"].get(name, 0),
+                "multiprocess fixed-order fit (per rank, 2 ranks)":
+                    mp["fixed_launches"].get(name, 0),
+                "multiprocess scale-out fit (per rank, 2 ranks)":
+                    mp["scale_out_launches"].get(name, 0)},
             per_case=[{k: r[k] for k in (
                 "kind", "n", "f", "b", "m", "ms", "atomic_ms", "plain_ms",
                 "library_ms", "bound_ms", "bound_by", "max_abs_err",
@@ -5062,6 +5507,13 @@ def main(argv) -> int:
         f"{stream['sup_s']:.4f} s/step, {stream['writes']} checkpoint writes "
         f"of {stream['save_s']:.2f} s; crash and SIGTERM resumes bit for "
         f"bit")
+    log(f"[multiprocess] {MP_RANKS} ranks: default fit "
+        f"{', '.join(f'{v:.4f}' for v in mp['fit_s'])} s against the "
+        f"one-process 2-position fit's {mp['two_pos_s'][0]:.4f} s; "
+        f"exchange share "
+        f"{', '.join(f'{e_s:.3f}' for e_s in (e['seconds'] / v for e, v in zip(mp['exchange'], mp['fit_s'])))}; "
+        f"peak {', '.join(f'{v / 2**20:.1f}' for v in mp['peak'])} MiB; "
+        f"death by lease in {mp['detect_s']:.2f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; phases "
         + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     print(json.dumps({"kernels": kernels}))

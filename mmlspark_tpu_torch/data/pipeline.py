@@ -20,7 +20,7 @@ are written back by range, never by completion order.
 prefers its host C++ binner (`mmlspark_tpu/native/kernels.cpp`) and pins
 its numpy path as bit-identical to it, so the bins are the same either
 way; the native binner is ROADMAP Queue 1 item 28. `profile_columns`
-belongs to the quality profile (item 23) and raises.
+folds columns into the fit-time quality profile (`telemetry.quality`).
 """
 from __future__ import annotations
 
@@ -80,52 +80,73 @@ def parallel_apply_bins(mapper, x: np.ndarray,
 
 
 def stage_binned(mapper, x: np.ndarray, opts: Optional[IngestOptions] = None,
-                 faults=None, device=None):
+                 put: Optional[Callable] = None, faults=None, device=None):
     """Bin on host workers AND stream chunks to the device concurrently:
     chunk k+1 bins while chunk k rides its copy, behind a bounded prefetch
     queue. Returns the (n, F) uint8 bin matrix on `device` (None = the
-    card).
+    card), or, with `put` (the reference's argument: a chunk's host array
+    -> its placed tensor), wherever `put` places the chunks.
 
-    On a card the matrix is allocated once and each prefetched chunk is
-    copied into its row range (the port's form of the reference's donated
-    `dynamic_update_slice`): peak device memory is one matrix plus the
-    chunks in flight. On the CPU the chunks are concatenated once."""
+    When the chunks land on a card the matrix is allocated once and each
+    prefetched chunk is copied into its row range (the port's form of the
+    reference's donated `dynamic_update_slice`): peak device memory is one
+    matrix plus the chunks in flight. Elsewhere the chunks are
+    concatenated once."""
     opts = opts or IngestOptions()
     pool = opts.pool(faults=faults)
     x = np.asarray(x)   # bin at the input's dtype, like the serial path
     n = x.shape[0]
     n_features = mapper.n_features
-    dev = resolve_device(device)
+    dev = resolve_device(device) if put is None else None
     fn = functools.partial(_bin_rows, mapper)
     with tracing.wall_clock(tnames.DATA_STAGE_BINNED,
                             sink=reliability_metrics.observe):
         source = (rows for _c, rows in pool.imap_rows(
             fn, x, chunk_rows=opts.chunk_rows))
-        with DevicePrefetcher(source, depth=opts.prefetch,
+        with DevicePrefetcher(source, depth=opts.prefetch, put=put,
                               device=dev) as pf:
-            if dev.type == "cuda":
-                buf = torch.empty((n, n_features), dtype=torch.uint8,
-                                  device=dev)
-                lo = 0
-                for dev_chunk in pf:
-                    hi = lo + dev_chunk.shape[0]
-                    buf[lo:hi].copy_(dev_chunk)
-                    lo = hi
+            buf, lo, parts = None, 0, []
+            for dev_chunk in pf:
+                if buf is None and dev_chunk.device.type == "cuda":
+                    buf = torch.empty((n, n_features), dtype=torch.uint8,
+                                      device=dev_chunk.device)
+                if buf is None:
+                    parts.append(dev_chunk)
+                    continue
+                hi = lo + dev_chunk.shape[0]
+                buf[lo:hi].copy_(dev_chunk)
+                lo = hi
+            if buf is not None:
                 if lo != n:
                     raise RuntimeError(f"staged {lo} of {n} rows")
                 return buf
-            parts = list(pf)
     if not parts:   # zero-row input: an empty matrix, not a crash
-        return torch.zeros((0, n_features), dtype=torch.uint8, device=dev)
+        empty = np.zeros((0, n_features), np.uint8)
+        return put(empty) if put is not None else torch.from_numpy(
+            empty).to(dev)
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def profile_columns(profile, columns: dict, chunk_rows: int = 0,
                     max_rows: int = 0):
-    """The reference's ingest-side quality-profile tap: not ported."""
-    raise NotImplementedError(
-        "profile_columns folds columns into the quality profile, which is "
-        "not ported yet (ROADMAP Queue 1 item 23)")
+    """Fold named column arrays into a `telemetry.quality.DatasetProfile`
+    in row CHUNKS: the ingest-side reference-profile tap. Each chunk
+    merges through the sketches' exact merge (counts sum, Welford
+    combine), so a chunked fold gives the state a fleet merge of
+    per-worker profiles gives. `max_rows` bounds the fold (0 = all rows);
+    the columns are chunked by row range, so they share a row count."""
+    if not columns:
+        return profile
+    names = sorted(columns)
+    n = min(int(np.asarray(columns[c]).shape[0]) for c in names)
+    if max_rows:
+        n = min(n, int(max_rows))
+    chunk_rows = chunk_rows or default_chunk_rows(n, len(names), 1)
+    for chunk in make_chunks(n, chunk_rows):
+        for name in names:
+            profile.observe(name,
+                            np.asarray(columns[name])[chunk.lo:chunk.hi])
+    return profile
 
 
 class ParallelTransform:
@@ -172,11 +193,12 @@ class IngestPipeline:
             step(dev_chunk)
 
     Chunks are copied to `device` (None = the card), as
-    `DevicePrefetcher` copies them.
+    `DevicePrefetcher` copies them, or placed by `put` where it is given.
     """
 
     def __init__(self, source, transform: Callable,
-                 opts: Optional[IngestOptions] = None, faults=None,
+                 opts: Optional[IngestOptions] = None,
+                 put: Optional[Callable] = None, faults=None,
                  device=None):
         self.opts = opts or IngestOptions()
         self.source = (source if isinstance(source, ChunkSource)
@@ -185,7 +207,8 @@ class IngestPipeline:
                                         or (WorkerPool(0).num_workers)))
         self.transform = transform
         self._pool = self.opts.pool(faults=faults)
-        self._device = resolve_device(device)
+        self._put = put
+        self._device = resolve_device(device) if put is None else None
 
     def __iter__(self):
         arr = self.source.array
@@ -197,7 +220,7 @@ class IngestPipeline:
             src = (self.transform(rows) for _c, rows in self.source)
         # generator, not the raw prefetcher: a consumer that breaks early
         # must still close the feeder thread and drop its pinned buffers
-        pf = DevicePrefetcher(src, depth=self.opts.prefetch,
+        pf = DevicePrefetcher(src, depth=self.opts.prefetch, put=self._put,
                               device=self._device)
 
         def consume():

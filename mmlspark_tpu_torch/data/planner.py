@@ -11,14 +11,21 @@ is identical no matter which host bins which chunk. The seeded
 injected error skips that reassignment round (the plan stays as it is), it
 never corrupts the assignment.
 
-The reference's `train.chunk.reassign` event and ledger journal are
-telemetry (ROADMAP Queue 1 item 23); the detector that flags stragglers
-and the multi-host supervisor that drives this planner are item 15(f).
+The multi-process supervisor drives it
+(`reliability.TrainingSupervisor(chunk_planner=...)`): on each beat the
+`telemetry.goodput.StragglerDetector`'s flagged processes go to
+`reassign`, and `reliability.elastic.HostLeases`' dead ones to
+`remove_hosts` (through `ElasticPlan.shrink`). Each process stages its
+own `pending` chunks (`data.ChunkStager(only=...)`) into the shared
+spill cache. A move is journaled as a `train.chunk.reassign` event to the
+`tracer` (`.event(name, **attrs)`) and `ledger` (`.append_event`) given;
+the port's tracer is ROADMAP Queue 1 item 23.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
+from ..reliability import names as tnames
 from ..reliability.faults import FaultInjector, InjectedFault
 
 _REASSIGN_SITE = "data.planner.reassign"
@@ -28,7 +35,8 @@ class ChunkPlanner:
     """Deterministic chunk->host plan with straggler-driven drain."""
 
     def __init__(self, n_chunks: int, hosts: Sequence[int],
-                 faults: Optional[FaultInjector] = None):
+                 faults: Optional[FaultInjector] = None, tracer=None,
+                 ledger=None):
         self.hosts: List[int] = sorted(set(int(h) for h in hosts))
         if not self.hosts:
             raise ValueError("ChunkPlanner needs at least one host")
@@ -39,6 +47,8 @@ class ChunkPlanner:
             i: self.hosts[i % len(self.hosts)] for i in range(self.n_chunks)}
         self._done: set = set()
         self._faults = faults      # None: no fault injection
+        self._tracer = tracer
+        self._ledger = ledger
 
     # -- plan queries --------------------------------------------------------
     def owner(self, index: int) -> int:
@@ -82,6 +92,7 @@ class ChunkPlanner:
             except InjectedFault:
                 return {}
         moved: Dict[int, tuple] = {}
+        per_host: Dict[int, List[int]] = {}
         k = 0
         for frm in sorted(bad):
             for idx in self.pending(frm):
@@ -89,6 +100,20 @@ class ChunkPlanner:
                 k += 1
                 self._owner[idx] = to
                 moved[idx] = (frm, to)
+                per_host.setdefault(frm, []).append(idx)
+        for frm, idxs in sorted(per_host.items()):
+            to_hosts = sorted({moved[i][1] for i in idxs})
+            if self._tracer is not None:
+                self._tracer.event(tnames.TRAIN_CHUNK_REASSIGN_EVENT,
+                                   from_host=frm, to_hosts=to_hosts,
+                                   chunks=len(idxs))
+            if self._ledger is not None:
+                try:
+                    self._ledger.append_event(
+                        tnames.TRAIN_CHUNK_REASSIGN_EVENT,
+                        from_host=frm, to_hosts=to_hosts, chunks=idxs)
+                except Exception:  # noqa: BLE001 - journal, not control
+                    pass
         return moved
 
     def remove_hosts(self, dead) -> Dict[int, tuple]:

@@ -111,6 +111,10 @@ class DevicePrefetcher:
         # handed-out copies whose pinned source may still be read
         self._pinned: collections.deque = collections.deque()
 
+    def queue_depth(self) -> int:
+        """Items ready in the queue now (approximate; for monitoring)."""
+        return self._q.qsize()
+
     @property
     def stalls(self) -> int:
         """Mid-stream waits on an empty queue so far."""

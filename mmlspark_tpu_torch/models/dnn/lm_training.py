@@ -65,6 +65,7 @@ class ShardedLMTrainer:
             self.dp = self.tp = 1
             self._devs = [[self.device]]
         else:
+            mesh.single_process("ShardedLMTrainer")
             for axis in (DATA_AXIS, MODEL_AXIS):
                 if axis not in mesh.shape:
                     raise ValueError(f"ShardedLMTrainer's mesh needs the "

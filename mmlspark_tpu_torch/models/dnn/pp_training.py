@@ -347,6 +347,7 @@ class PipelinedLMTrainer:
             self.dp = self.n_stages = self.tp = self.cp = 1
             self._devs = [[[[self.device]]]]
         else:
+            mesh.single_process("PipelinedLMTrainer")
             for axis in (DATA_AXIS, PIPE_AXIS):
                 if axis not in mesh.shape:
                     raise ValueError(f"PipelinedLMTrainer's mesh needs a "

@@ -38,6 +38,19 @@ on the first position's device. Bagging and GOSS draw per position, as
 the reference's `fold_in(axis_index)`: position 0 from the iteration's
 generator, position q > 0 from one keyed by (`seed`, iteration, q), so a
 one-position mesh draws what the plain fit always drew.
+
+Over a mesh whose data axis spans processes (`parallel.cluster`), each
+process holds the per-row state of its own rows on its first local
+position, and q above is the GLOBAL position index; a process without
+position 0 draws position 0's bagging or GOSS numbers from the
+iteration's generator all the same (and drops them), so the feature
+mask and dart's drops after them are every process's. Every sum over
+all rows is global: the trees' sums (`trainer._sum_positions`), the
+boost-from-average score (float64 partial sums added in process order,
+or the caller's `base_score`), the renewal objectives' leaf quantiles and
+the validation metric (the rows gathered in process order), so every
+process grows the same trees and takes the same early stop. Lambdarank
+groups must not straddle processes.
 """
 from __future__ import annotations
 
@@ -52,6 +65,7 @@ import torch
 from ...data import ChunkStager, parallel_apply_bins, stage_binned
 from ...device import resolve_device
 from ...ops import binning, histogram
+from ...parallel import cluster
 from ...parallel.mesh import DATA_AXIS, data_mesh, row_sharding
 from ...reliability import names as tnames
 from ...reliability.metrics import reliability_metrics
@@ -261,16 +275,68 @@ def _leaf_quantiles(nodes, resid, keep, q: float, n_nodes: int):
     return val, counts > 0
 
 
+def _gather_rows(t, exchange):
+    """A per-row tensor with every process's rows, in process order (the
+    tensor itself without an exchange)."""
+    if exchange is None or t is None:
+        return t
+    if t.dtype == torch.bool:
+        return exchange.gather_rows(t.to(torch.uint8)).to(torch.bool)
+    return exchange.gather_rows(t)
+
+
+def _global_init_score(objective: str, y, weights, presence):
+    """`objectives.init_score` over the rows of every process: the
+    weighted mean from float64 partial sums added in process order, a
+    median from the gathered labels. Padding rows (`presence` 0) count
+    as weight 0, as `fit_booster_distributed` weights them."""
+    y = np.asarray(y, np.float64)
+    w = (np.ones_like(y) if weights is None
+         else np.asarray(weights, np.float64))
+    if presence is not None:
+        w = w * (np.asarray(presence) != 0)
+    if objective in ("regression_l1", "quantile"):
+        keep = w > 0
+        y_all = np.concatenate(cluster.all_gather_object(y[keep]))
+        return obj_mod.init_score(objective, y_all)
+    sums = cluster.all_gather_object((float((w * y).sum()),
+                                      float(w.sum())))
+    total_wy = total_w = 0.0
+    for wy, ws in sums:
+        total_wy += wy
+        total_w += ws
+    mean = total_wy / total_w if total_w else 0.0
+    return obj_mod.init_score(objective, np.array([mean]))
+
+
+def _check_groups_local(group, presence) -> None:
+    """Lambdarank over processes: a group's rows must all lie in one
+    process (its gradients pair rows within the group)."""
+    ids = np.asarray(group)
+    if presence is not None:
+        ids = ids[np.asarray(presence) != 0]
+    seen: dict = {}
+    for pid, mine in enumerate(cluster.all_gather_object(np.unique(ids))):
+        for g in mine.tolist():
+            if g in seen:
+                raise ValueError(
+                    f"lambdarank group {g} straddles processes {seen[g]} "
+                    f"and {pid}: give each process whole groups")
+            seen[g] = pid
+
+
 def _renew_leaves(tree, d_bins, resid, keep, q: float, lr: float,
-                  max_depth: int):
+                  max_depth: int, exchange=None):
     """L1-family leaf renewal (LightGBM's RenewTreeOutput): each leaf's
-    output becomes lr x the q-quantile of the residuals resting there.
-    Returns the renewed tree and its per-row delta."""
+    output becomes lr x the q-quantile of the residuals resting there,
+    over every process's rows with an `exchange`. Returns the renewed
+    tree and its per-row delta."""
     nodes = trainer.leaf_of_binned(d_bins, tree.split_feature,
                                    tree.split_bin, max_depth,
                                    tree.split_is_cat, tree.cat_words)
-    val, has = _leaf_quantiles(nodes, resid, keep, q,
-                               tree.leaf_value.shape[0])
+    val, has = _leaf_quantiles(
+        _gather_rows(nodes, exchange), _gather_rows(resid, exchange),
+        _gather_rows(keep, exchange), q, tree.leaf_value.shape[0])
     lv = torch.where(has, (lr * val).to(torch.float32), tree.leaf_value)
     return tree._replace(leaf_value=lv), lv[nodes]
 
@@ -394,7 +460,8 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
                 init_rng_key=None, iter_offset: int = 0,
                 ingest=None, oocore=None, mesh=None,
                 voting_top_k: Optional[int] = None,
-                presence: Optional[np.ndarray] = None):
+                presence: Optional[np.ndarray] = None,
+                base_score: Optional[float] = None):
     """Train a Booster. Returns (booster, base, eval_history) like the
     reference.
 
@@ -429,7 +496,15 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
     axis (the row count must divide; `fit_booster_distributed` pads),
     the fit's state on the first position's device (`device` is then not
     used); `voting_top_k`: PV-tree voting over it; `presence`: per-row 1 /
-    0 for real / padding rows, which never count toward min_data_in_leaf.
+    0 for real / padding rows, which never count toward min_data_in_leaf;
+    `base_score`: the boost-from-average score, computed by the caller
+    over all rows (None: from `y`).
+
+    A mesh whose data axis spans processes takes this process's rows: `x`,
+    `y`, `weights`, `init_scores`, `group`, `presence`, `valid` and
+    `init_margin` are its own, and `prebinned` is required (bins from one
+    mapper on every process; `fit_booster_distributed` makes them). The
+    module docstring says what is global.
     """
     if isinstance(x, str):
         # out-of-core source: an .npy path memory-maps here, so nothing
@@ -444,14 +519,24 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
     if group is not None and len(group) != n:
         raise ValueError(f"group has {len(group)} ids for {n} rows")
     if mesh is None:
-        # the plain fit is the one-position case of the mesh's
-        mesh = data_mesh(devices=[resolve_device(device)])
+        # the plain fit is the one-position case of the mesh's, in this
+        # process alone even in a multi-process job
+        mesh = data_mesh(devices=[resolve_device(device)],
+                         span_processes=False)
     positions = mesh.axis_devices(DATA_AXIS)
     n_pos = len(positions)
     if n % n_pos:
         raise ValueError(f"{n} rows do not split over {n_pos} positions; "
                          f"fit_booster_distributed pads them")
     dev = positions[0]
+    exchange = mesh.exchange if mesh.process_count > 1 else None
+    if exchange is not None and prebinned is None:
+        raise ValueError(
+            "a mesh that spans processes needs prebinned=(mapper, bins"
+            "[, y]) with one mapper on every process; "
+            "fit_booster_distributed bins the rows")
+    if exchange is not None and group is not None:
+        _check_groups_local(group, presence)
     multiclass = p.objective == "multiclass"
     k_out = p.num_class if multiclass else 1
     # a fit that checkpoints or resumes grows its trees in fixed order, so
@@ -522,7 +607,12 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
         # ensemble, whose base carries over
         base = float(init_base)
     elif p.boost_from_average and init_scores is None and not multiclass:
-        base = obj_mod.init_score(p.objective, y, weights=weights)
+        if base_score is not None:
+            base = float(base_score)
+        elif exchange is not None:
+            base = _global_init_score(p.objective, y, weights, presence)
+        else:
+            base = obj_mod.init_score(p.objective, y, weights=weights)
     cont = None
     if init_booster is not None and init_margin is None:
         # a warm start or a checkpoint without a margin: score the
@@ -597,8 +687,11 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
     renew_q = (None if p.objective not in RENEWAL_OBJECTIVES else
                p.alpha if p.objective == "quantile" else 0.5)
     gen = torch.Generator(device=dev)
-    # one generator per mesh position; position 0's is the fit's own
-    gens = [gen] + [torch.Generator(device=dev) for _ in range(n_pos - 1)]
+    # one generator per mesh position; global position 0's is the fit's
+    # own, and q_off is this process's first global position
+    q_off = mesh.position_offset
+    gens = [gen if q_off + q == 0 else torch.Generator(device=dev)
+            for q in range(n_pos)]
     patience = p.early_stopping_round
     track = has_valid and (patience > 0 or p.metric is not None)
     trees, eval_history = [], []
@@ -643,10 +736,17 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
             hess = hess * (w_j[:, None] if multiclass else w_j)
         # each position draws over its own rows (GOSS ranks them
         # locally), as the reference's per-shard fold_in
-        for q in range(1, n_pos):
-            gens[q].manual_seed(_position_seed(p.seed, it + iter_offset, q))
+        for q in range(n_pos):
+            if q_off + q:
+                gens[q].manual_seed(_position_seed(
+                    p.seed, it + iter_offset, q_off + q))
+        chunks = grad.chunk(n_pos)
+        if q_off:
+            # position 0 draws from `gen` on its own process: draw the
+            # same numbers here (positions have equal rows) and drop them
+            _row_weights(p, chunks[0], gen, it + iter_offset, multiclass)
         parts = [_row_weights(p, g_q, gens[q], it + iter_offset, multiclass)
-                 for q, g_q in enumerate(grad.chunk(n_pos))]
+                 for q, g_q in enumerate(chunks)]
         row_w = _cat_positions(parts)
         if row_w is not None:
             grad = grad * (row_w[:, None] if multiclass else row_w)
@@ -664,13 +764,14 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
                 bin_shards, rows.put(gk), rows.put(hk), fmask, cfg,
                 count_w=None if count_w is None else rows.put(count_w),
                 lo_planes=lo_planes, plane_lo=plane_lo,
-                fixed_order=fixed_order, voting_top_k=voting_top_k)
+                fixed_order=fixed_order, voting_top_k=voting_top_k,
+                exchange=exchange)
             delta = _cat_positions([d.to(dev) for d in deltas])
             if renew_q is not None:
                 tree, delta = _renew_leaves(
                     tree, d_bins, y_j - margin_used,
                     None if w_j is None else w_j > 0, renew_q, lr,
-                    cfg.max_depth)
+                    cfg.max_depth, exchange)
             trees.append(tree)
             if multiclass:
                 it_deltas[:, k] += delta
@@ -712,7 +813,11 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
 
         mv = float("nan")
         if track:
-            mv, larger = _device_metric(p.metric, p.objective, v_margin, vy_j)
+            # over every process's validation rows: each process reads the
+            # same value and takes the same early stop
+            mv, larger = _device_metric(p.metric, p.objective,
+                                        _gather_rows(v_margin, exchange),
+                                        _gather_rows(vy_j, exchange))
             mv = float(mv)      # the early-stopping decision needs the host
             eval_history.append(mv)
             if (best_metric is None

@@ -26,10 +26,11 @@ reference's `leaf_prediction_col` and `features_shap_col` columns and its
 ingest (`data.stage_binned`), and `out_of_core` with `max_resident_bytes`
 stages it out of core (`data.ChunkStager`), its spill cache at
 `checkpoint_dir/oocore_bins.npy` and its cursor in the checkpoint payload
-(`oocore_cursor`). One param is the port's own: `device` (None = the
-card). One default differs: `quality_profile` is False here, because
-freezing a fit-time profile (the reference's default) is not ported yet
-(ROADMAP Queue 1 item 23); True raises NotImplementedError at fit.
+(`oocore_cursor`). `quality_profile` (True by default, as in the
+reference) freezes a fit-time reference profile of the training rows,
+label and predictions onto the fitted model (`model.quality_profile`,
+a `telemetry.quality.DatasetProfile` state). One param is the port's own:
+`device` (None = the card).
 """
 from __future__ import annotations
 
@@ -67,12 +68,6 @@ def _device_count(device) -> int:
     every visible card for CUDA."""
     return (torch.cuda.device_count()
             if resolve_device(device).type == "cuda" else 1)
-
-
-# param -> (is its value one this slice cannot run?, ROADMAP Queue 1 item)
-_UNPORTED = {
-    "quality_profile": (bool, 23),
-}
 
 
 class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
@@ -169,17 +164,47 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
                              "write periodic checkpoints in the background",
                              True)
     quality_profile = Param(
-        "quality_profile", "freeze a fit-time reference profile (not "
-        "ported: False by default, True raises)", False)
+        "quality_profile",
+        "freeze a reference feature/label/prediction distribution profile "
+        "at fit time (telemetry.quality; bounded head sample)", True)
     device = Param("device", "torch device to train and score on "
                    "(None = the card)", None)
 
-    def _check_ported(self):
-        for name, (unported, item) in _UNPORTED.items():
-            if unported(self.get_or_default(name)):
-                raise NotImplementedError(
-                    f"{name}={self.get_or_default(name)!r} is not ported "
-                    f"yet (ROADMAP Queue 1 item {item})")
+    def _attach_quality_profile(self, table: Table, model,
+                                score_rows: int = 8192):
+        """Freeze the fit-time reference profile onto the fitted model, as
+        the reference does: quantile grids from a bounded head sample
+        (`quality.MAX_REFERENCE_ROWS`) of the features, the label and the
+        model's predictions on its first `score_rows` rows, the feature
+        counts folded chunk by chunk through
+        `data.pipeline.profile_columns`. The profile rides the model as a
+        JSON-safe state dict. Profiling never fails a fit."""
+        if not self.quality_profile:
+            return model
+        try:
+            from ...data.pipeline import profile_columns
+            from ...telemetry import quality as tquality
+            cap = tquality.MAX_REFERENCE_ROWS
+            x = _host(table[self.features_col][:cap], np.float32)
+            y = _host(table[self.label_col][:cap], np.float64)
+            feature_cols = tquality.matrix_columns(x)
+            categorical = tuple(
+                f"f{int(i)}" for i in (self.categorical_slot_indexes or ()))
+            head = Table({self.features_col: x[:score_rows]})
+            pred = np.asarray(
+                model.transform(head)[self.prediction_col], np.float64)
+            all_cols = dict(feature_cols)
+            all_cols["label"] = y
+            all_cols["prediction"] = pred
+            prof = tquality.DatasetProfile.fit(
+                all_cols, categorical=categorical, observe=False)
+            profile_columns(prof, feature_cols)
+            prof.observe("label", y)
+            prof.observe("prediction", pred)
+            model.quality_profile = prof.state()
+        except Exception:  # noqa: BLE001 - observability never fails a fit
+            pass
+        return model
 
     def _use_mesh(self) -> bool:
         """The reference's rule: shard over num_tasks positions, or over
@@ -343,7 +368,6 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
 
     def _train(self, table: Table, objective: str, num_class: int = 1,
                group: Optional[np.ndarray] = None):
-        self._check_ported()
         train, valid = self._split_validation(table)
         x = _host(train[self.features_col], np.float32)
         y = _host(train[self.label_col], np.float32)
@@ -477,14 +501,14 @@ class GBDTClassifier(Estimator, _GBDTParams, HasProbabilitiesCol):
         n_classes = max(int(y.max()) + 1, self.num_class) if multiclass else 2
         booster, base, _ = self._train(
             table, self.objective, num_class=n_classes if multiclass else 1)
-        return GBDTClassificationModel(
+        return self._attach_quality_profile(table, GBDTClassificationModel(
             booster=booster, init_score=base, n_classes=n_classes,
             features_col=self.features_col, prediction_col=self.prediction_col,
             probabilities_col=self.probabilities_col,
             raw_prediction_col=self.raw_prediction_col,
             sigmoid=self.sigmoid, device=self.device,
             leaf_prediction_col=self.leaf_prediction_col,
-            features_shap_col=self.features_shap_col)
+            features_shap_col=self.features_shap_col))
 
 
 class GBDTClassificationModel(_GBDTModelBase, HasProbabilitiesCol):
@@ -524,11 +548,11 @@ class GBDTRegressor(Estimator, _GBDTParams):
 
     def _fit(self, table: Table) -> "GBDTRegressionModel":
         booster, base, _ = self._train(table, self.objective)
-        return GBDTRegressionModel(
+        return self._attach_quality_profile(table, GBDTRegressionModel(
             booster=booster, init_score=base, features_col=self.features_col,
             prediction_col=self.prediction_col, device=self.device,
             leaf_prediction_col=self.leaf_prediction_col,
-            features_shap_col=self.features_shap_col)
+            features_shap_col=self.features_shap_col))
 
 
 class GBDTRegressionModel(_GBDTModelBase):
@@ -554,11 +578,11 @@ class GBDTRanker(Estimator, _GBDTParams):
                                  return_inverse=True)
         booster, base, _ = self._train(table, "lambdarank",
                                        group=group_ids.astype(np.int32))
-        return GBDTRankerModel(
+        return self._attach_quality_profile(table, GBDTRankerModel(
             booster=booster, init_score=base, features_col=self.features_col,
             prediction_col=self.prediction_col, device=self.device,
             leaf_prediction_col=self.leaf_prediction_col,
-            features_shap_col=self.features_shap_col)
+            features_shap_col=self.features_shap_col))
 
 
 class GBDTRankerModel(_GBDTModelBase):

@@ -315,11 +315,21 @@ def train_one_tree(bins: torch.Tensor, grad: torch.Tensor,
     return tree, delta
 
 
-def _sum_positions(parts, dev):
-    """The positions' tensors added in position order on `dev` (position
-    0's device): the port's `lax.psum` over the data axis. `.to(dev)` is
-    a no-op for a position on `dev` and a copy from another card. One
-    position's tensor comes back as it is."""
+def _sum_positions(parts, dev, exchange=None):
+    """The positions' tensors added in position order on `dev` (the first
+    local position's device): the port's `lax.psum` over the data axis.
+    `.to(dev)` is a no-op for a position on `dev` and a copy from another
+    card. One position's tensor comes back as it is.
+
+    Over a data axis that spans processes (`exchange`, a
+    `parallel.cluster.Exchange`), every position's tensor, this
+    process's and the others', is gathered in global position order and
+    added in that order on every process: the same adds, in the same
+    order, as a one-process mesh of the same positions, so each process
+    holds the same sums bit for bit and grows the same tree."""
+    if exchange is not None:
+        parts = list(exchange.gather(torch.stack(
+            [t.to(dev) for t in parts])).unbind(0))
     total = parts[0]
     for t in parts[1:]:
         total = total + t.to(dev)
@@ -327,7 +337,7 @@ def _sum_positions(parts, dev):
 
 
 def _voting_feature_mask(local_hists, feature_mask, cfg: TreeConfig,
-                         top_k: int):
+                         top_k: int, exchange=None):
     """PV-tree voting (the reference's `_voting_feature_mask`, LightGBM's
     `voting_parallel`): each position ranks the features by its LOCAL best
     split gain, a categorical feature by its sorted-set gain, and votes
@@ -357,7 +367,7 @@ def _voting_feature_mask(local_hists, feature_mask, cfg: TreeConfig,
         rank = torch.argsort(order, dim=-1, stable=True)
         votes = (rank < k) & torch.isfinite(per_feat)
         tallies.append(votes.to(torch.int32))
-    tally = _sum_positions(tallies, dev)                          # (m, F)
+    tally = _sum_positions(tallies, dev, exchange)                # (m, F)
     k2 = min(2 * k, F)
     vidx = torch.argsort(-tally, dim=-1, stable=True)[:, :k2]
     return vidx, tally.gather(1, vidx) > 0
@@ -366,7 +376,8 @@ def _voting_feature_mask(local_hists, feature_mask, cfg: TreeConfig,
 def train_one_tree_sharded(bins, grad, hess, feature_mask: torch.Tensor,
                            cfg: TreeConfig, count_w=None, lo_planes=None,
                            plane_lo: int = 0, fixed_order: bool = False,
-                           voting_top_k: Optional[int] = None):
+                           voting_top_k: Optional[int] = None,
+                           exchange=None):
     """Grow one tree over rows split across the positions of a data axis
     (the reference's `train_one_tree` under `shard_map`, its `lax.psum`
     made explicit). `bins`, `grad`, `hess` (and `count_w`, `lo_planes`
@@ -387,7 +398,10 @@ def train_one_tree_sharded(bins, grad, hess, feature_mask: torch.Tensor,
     full pass (no subtraction), as in the reference.
 
     One position is the plain fit: nothing is added, so its tree is the
-    one-position tree bit for bit. Returns (Tree, [delta per position])."""
+    one-position tree bit for bit. `exchange`: the positions span
+    processes, and each sum gathers every process's positions
+    (`_sum_positions`); `bins`, `grad`, `hess` are then this process's
+    positions only. Returns (Tree, [delta per position])."""
     n_pos = len(bins)
     dev = bins[0].device
     devs = [b.device for b in bins]
@@ -423,8 +437,10 @@ def train_one_tree_sharded(bins, grad, hess, feature_mask: torch.Tensor,
             fixed_order=fixed_order) for p in range(n_pos)]
 
     def _summed(local):
-        return tuple(_sum_positions([h[i] for h in local], dev)
-                     for i in range(3))
+        """The (hg, hh, hc) of the positions added up: one sum of the three
+        stacked, so a cross-process level is one exchange."""
+        return tuple(_sum_positions([torch.stack(h) for h in local], dev,
+                                    exchange).unbind(0))
 
     for depth in range(cfg.max_depth):
         level_base = 2 ** depth - 1
@@ -435,21 +451,23 @@ def train_one_tree_sharded(bins, grad, hess, feature_mask: torch.Tensor,
         if depth == 0 or voting:
             local = _hists(node_local, active, m)
             if voting:
-                parent_g, parent_h, parent_c = (
-                    _sum_positions([h[i][:, 0].sum(-1) for h in local], dev)
-                    for i in range(3))
+                parent_g, parent_h, parent_c = _sum_positions(
+                    [torch.stack([h[i][:, 0].sum(-1) for i in range(3)])
+                     for h in local], dev, exchange).unbind(0)
                 vidx, has_vote = _voting_feature_mask(
-                    local, feature_mask, cfg, voting_top_k)
+                    local, feature_mask, cfg, voting_top_k, exchange)
                 # only the elected features' histograms are summed:
                 # gather (m, 2k, B), add over positions, scatter back to
                 # full width (the others stay zero, so the search never
                 # picks them)
                 take = vidx[:, :, None].expand(-1, -1, cfg.n_bins)
+                voted = _sum_positions(
+                    [torch.stack([h[i].gather(1, take.to(h[i].device))
+                                  * has_vote.to(h[i].device)[:, :, None]
+                                  for i in range(3)]) for h in local],
+                    dev, exchange)
                 hg, hh, hc = (torch.zeros_like(local[0][i]).scatter_(
-                    1, take, _sum_positions(
-                        [h[i].gather(1, take.to(h[i].device))
-                         * has_vote.to(h[i].device)[:, :, None]
-                         for h in local], dev)) for i in range(3))
+                    1, take, voted[i]) for i in range(3))
             else:
                 hg, hh, hc = _summed(local)
                 parent_g = hg[:, 0].sum(-1)
@@ -539,7 +557,7 @@ def train_one_tree_sharded(bins, grad, hess, feature_mask: torch.Tensor,
             return sums.index_add_(0, nr, torch.stack(
                 [g.to(torch.float32), h.to(torch.float32), cw], dim=1))
         sums = _sum_positions([leaf_sums(*a) for a in zip(
-            grad, hess, node_of_row, cws)], dev)
+            grad, hess, node_of_row, cws)], dev, exchange)
         seg_g, seg_h, seg_c = sums[:, 0], sums[:, 1], sums[:, 2]
     leaf_value = (-cfg.learning_rate * _soft_threshold(seg_g, cfg.lambda_l1)
                   / (seg_h + cfg.lambda_l2 + 1e-12))

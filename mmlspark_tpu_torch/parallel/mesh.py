@@ -1,12 +1,11 @@
 """Device meshes (port of `mmlspark_tpu/parallel/mesh.py`).
 
 The reference names its topology with `jax.sharding.Mesh` and runs one
-program over it with `shard_map`: JAX drives every device of a mesh from
-one Python process. The port keeps that single-controller form. A `Mesh`
-is an ndarray of `torch.device`s with axis names; the code that runs on
-it (ring and Ulysses attention, the context-parallel trainer, the
-data-parallel GBDT fit) loops over the positions itself, places each
-shard on its position's device and moves tensors between positions with
+program over it with `shard_map`. Here a `Mesh` is an ndarray of
+`torch.device`s with axis names; the code that runs on it (ring and
+Ulysses attention, the context-parallel trainer, the data-parallel GBDT
+fit) loops over the positions itself, places each shard on its
+position's device and moves tensors between positions with
 `.to(device)`. A sharding (`row_sharding`, `replicated`) names a layout
 as the reference's `NamedSharding` does; `put` places a tensor in it,
 one tensor per position.
@@ -17,6 +16,16 @@ one card then runs the same ring program four cards would run, as the
 reference's tests run theirs on 8 virtual CPU devices. Moving a tensor
 between two positions of one device costs nothing. The constructors
 never repeat a device on their own.
+
+The data axis may span processes (`data_mesh` in a job that
+`parallel.cluster.initialize_cluster` formed): with P processes of L
+local positions each, global position q belongs to process q // L. Each
+process holds tensors only for its own positions: `devices` and
+`axis_devices` list the local ones, `mesh.shape["data"]` is the global
+size, and `mesh.exchange` (a `cluster.Exchange`) gathers the positions'
+tensors across processes. The GBDT fit runs over such a mesh; the LM
+trainers and ring attention take one process's mesh only (ROADMAP item
+15(g)). A mesh of one process behaves as a single-controller mesh.
 
 Axis conventions, as in the reference:
     "data"  -- batch/row sharding (dp)
@@ -33,6 +42,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from . import cluster
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -42,9 +52,14 @@ PIPE_AXIS = "pipe"   # pipeline stages (GPipe microbatch schedule)
 
 class Mesh:
     """An ndarray of `torch.device`s with one name per axis.
-    `mesh.shape[axis]` is the axis' size, as in JAX."""
+    `mesh.shape[axis]` is the axis' size, as in JAX. With
+    `process_count` > 1 the data axis spans that many processes: `devices`
+    holds this process's positions (`process_index`'s block of the data
+    axis) and `exchange` gathers across processes (module docstring)."""
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str],
+                 process_count: int = 1, process_index: int = 0,
+                 exchange=None):
         devices = np.asarray(devices, dtype=object)
         axis_names = tuple(axis_names)
         if devices.ndim != len(axis_names):
@@ -52,17 +67,47 @@ class Mesh:
                              f"{devices.ndim} axis names, got {axis_names}")
         if len(set(axis_names)) != len(axis_names):
             raise ValueError(f"axis names must differ: {axis_names}")
+        if process_count > 1 and (DATA_AXIS not in axis_names
+                                  or exchange is None):
+            raise ValueError("only a data axis spans processes, with an "
+                             "exchange (data_mesh)")
         self.devices = devices
         self.axis_names = axis_names
+        self.process_count = int(process_count)
+        self.process_index = int(process_index)
+        self.exchange = exchange
 
     @property
     def shape(self) -> dict:
-        return dict(zip(self.axis_names, self.devices.shape))
+        shape = dict(zip(self.axis_names, self.devices.shape))
+        if self.process_count > 1:
+            shape[DATA_AXIS] *= self.process_count
+        return shape
+
+    @property
+    def local_positions(self) -> int:
+        """This process's positions on the data axis (all of them with
+        one process)."""
+        return self.devices.shape[self.axis_names.index(DATA_AXIS)]
+
+    @property
+    def position_offset(self) -> int:
+        """The global index of this process's first data position."""
+        return self.process_index * self.local_positions
+
+    def single_process(self, what: str) -> None:
+        """Raise where `what` runs over one process's mesh only."""
+        if self.process_count > 1:
+            raise NotImplementedError(
+                f"{what} over a mesh that spans {self.process_count} "
+                f"processes is not ported yet (ROADMAP Queue 1 item "
+                f"15(g)); the GBDT fit is")
 
     def axis_devices(self, axis: str) -> list:
         """The devices along `axis` with every other axis at position 0:
         where a program sharded over `axis` alone runs (the others hold
-        replicas)."""
+        replicas). On a data axis that spans processes, this process's
+        positions only."""
         i = self.axis_names.index(axis)
         index = tuple(slice(None) if j == i else 0
                       for j in range(self.devices.ndim))
@@ -80,8 +125,10 @@ class Mesh:
                                   for a in self.axis_names)]
 
     def __repr__(self):
+        procs = (f", process {self.process_index} of {self.process_count}"
+                 if self.process_count > 1 else "")
         return (f"Mesh({dict(self.shape)}, "
-                f"devices={[str(d) for d in self.devices.flat]})")
+                f"devices={[str(d) for d in self.devices.flat]}{procs})")
 
 
 def _devices(n: int, devices) -> list:
@@ -115,9 +162,42 @@ def _array(devs: list, shape) -> np.ndarray:
     return out.reshape(tuple(shape))
 
 
-def data_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
+def device_count() -> int:
+    """The positions `data_mesh()` makes: one card per process in a
+    multi-process job, else every visible card."""
+    if cluster.process_count() > 1:
+        return cluster.process_count()
+    return torch.cuda.device_count()
+
+
+def data_mesh(n_devices: Optional[int] = None, devices=None,
+              span_processes: Optional[bool] = None) -> Mesh:
     """1-D mesh over the `data` axis: the visible CUDA devices (or the
-    first n of them), or the caller's `devices`."""
+    first n of them), or the caller's `devices`.
+
+    In a multi-process job (`cluster.initialize_cluster`) the axis spans
+    the processes unless `span_processes=False`: `devices` (default: the
+    process's card, `cluster.local_device()`) are this process's
+    positions, and `n_devices`, when given, counts the positions of all
+    processes."""
+    procs = cluster.process_count() if span_processes is not False else 1
+    if procs > 1:
+        if n_devices is not None and n_devices % procs:
+            raise ValueError(f"{n_devices} positions do not split over "
+                             f"{procs} processes")
+        local = None if n_devices is None else n_devices // procs
+        if devices is None:
+            if local not in (None, 1):
+                raise ValueError(
+                    f"{local} positions a process need devices=: a process "
+                    f"takes its own card (cluster.local_device())")
+            devs = [cluster.local_device()]
+        else:
+            devs = _devices(local or len(devices), devices)
+        return Mesh(_array(devs, (len(devs),)), (DATA_AXIS,),
+                    process_count=procs,
+                    process_index=cluster.process_index(),
+                    exchange=cluster.Exchange())
     if n_devices is None:
         n_devices = (torch.cuda.device_count() if devices is None
                      else len(devices))
@@ -216,10 +296,16 @@ def shard_rows(mesh: Mesh, arr, axis_name: str = DATA_AXIS):
     """A host array (or a tensor) split by rows over the mesh, zero-padded
     where ragged: (one tensor per position on its device, the number of
     real rows). Padding rows are zeros, so any aggregate other than a sum
-    needs the true count (or `valid_row_mask`)."""
+    needs the true count (or `valid_row_mask`). On a mesh that spans
+    processes `arr` is the whole table and each process keeps its
+    positions' rows."""
     if not torch.is_tensor(arr):
         arr = np.asarray(arr)
     padded, n = pad_to_multiple(arr, mesh.shape[axis_name], 0)
+    if mesh.process_count > 1:
+        block = padded.shape[0] // mesh.process_count
+        lo = mesh.process_index * block
+        padded = padded[lo:lo + block]
     return row_sharding(mesh, axis_name, padded.ndim).put(padded), n
 
 

@@ -146,6 +146,7 @@ def _shards(x, devs):
 
 def _axis_devices(mesh, axis, seq, what):
     mesh = mesh or data_mesh()
+    mesh.single_process(what)
     devs = mesh.axis_devices(axis)
     if seq % len(devs):
         raise ValueError(f"{what} shards the sequence over the {len(devs)} "

@@ -7,8 +7,11 @@ kept to what the port records into: monotonic counters, last-value gauges,
 bounded geometric-bucket latency histograms (`observe_ms`) and the
 wall-clock sink (`observe`, for `utils.tracing.wall_clock`), read back
 through `get`, `gauge`, `peek_gauge` and `snapshot` in the reference's key
-layout. The reference's windowed shards, exemplars, custom grids and
-mergeable exports belong to telemetry (ROADMAP Queue 1 item 23).
+layout. A histogram may carry an external grid (`bounds`, the quality
+sketches' value-domain buckets) and has the reference's mergeable state
+(`state`, `from_state`, `merge_state`). The reference's windowed shards,
+exemplars and registry-wide exports belong to telemetry (ROADMAP Queue 1
+item 23).
 """
 from __future__ import annotations
 
@@ -54,20 +57,40 @@ class Histogram:
     """Bounded-bucket latency histogram (HDR-style geometric buckets):
     O(1) memory, ~6% relative quantile error across 1 us .. 80 s.
     `percentile(p)` is the geometric midpoint of the bucket holding the
-    p-th sample, clamped to the observed min/max."""
+    p-th sample, clamped to the observed min/max.
 
-    def __init__(self, name: str):
+    `bounds` swaps in an external grid of strictly increasing upper edges
+    (the quality sketches' quantile edges): negative values are legal
+    there, and `percentile` takes the arithmetic midpoint where the
+    geometric one is undefined. `state()` / `from_state()` / `merge_state`
+    are the reference's mergeable form: counts sum elementwise over one
+    grid, never averaged."""
+
+    def __init__(self, name: str, bounds: Optional[tuple] = None):
         self.name = name
-        self._counts = [0] * (len(_HIST_BOUNDS) + 1)
+        if bounds is None:
+            self._bounds = _HIST_BOUNDS
+        else:
+            b = tuple(float(x) for x in bounds)
+            if not b or any(b[i] >= b[i + 1] for i in range(len(b) - 1)):
+                raise ValueError(
+                    "bounds must be a non-empty strictly-increasing grid "
+                    "of bucket upper edges")
+            self._bounds = b
+        self._counts = [0] * (len(self._bounds) + 1)
         self._count = 0
         self._sum_ms = 0.0
         self._min_ms = float("inf")
-        self._max_ms = 0.0
+        # an external grid may be all negative: its running max starts
+        # below any observation
+        self._max_ms = 0.0 if self._bounds is _HIST_BOUNDS \
+            else float("-inf")
         self._lock = threading.Lock()
 
     def observe_ms(self, ms: float) -> None:
-        ms = max(ms, 0.0)
-        idx = bisect_right(_HIST_BOUNDS, ms)
+        if ms < 0.0 and self._bounds is _HIST_BOUNDS:
+            ms = 0.0
+        idx = bisect_right(self._bounds, ms)
         with self._lock:
             self._counts[idx] += 1
             self._count += 1
@@ -89,11 +112,16 @@ class Histogram:
             for idx, c in enumerate(self._counts):
                 seen += c
                 if seen >= target:
-                    if idx >= len(_HIST_BOUNDS):
+                    if idx >= len(self._bounds):
                         return self._max_ms   # open-ended overflow bucket
-                    lo = _HIST_BOUNDS[idx - 1] if idx > 0 else 0.0
-                    hi = _HIST_BOUNDS[idx]
-                    rep = (lo * hi) ** 0.5 if lo > 0.0 else hi
+                    lo = self._bounds[idx - 1] if idx > 0 else 0.0
+                    hi = self._bounds[idx]
+                    if lo > 0.0:
+                        rep = (lo * hi) ** 0.5
+                    elif self._bounds is not _HIST_BOUNDS:
+                        rep = (lo + hi) / 2.0
+                    else:
+                        rep = hi
                     return min(max(rep, self._min_ms), self._max_ms)
             return self._max_ms
 
@@ -106,6 +134,64 @@ class Histogram:
                 "p50": self.percentile(50.0), "p95": self.percentile(95.0),
                 "p99": self.percentile(99.0), "p999": self.percentile(99.9),
                 "max": observed_max}
+
+    def state(self) -> dict:
+        """Raw bucket counts and aggregates, the reference's layout: an
+        empty histogram has `min_ms` None; an external grid rides along
+        under `bounds`."""
+        with self._lock:
+            out = {"counts": list(self._counts), "count": self._count,
+                   "sum_ms": self._sum_ms,
+                   "min_ms": self._min_ms if self._count else None,
+                   "max_ms": self._max_ms if self._count else 0.0}
+            if self._bounds is not _HIST_BOUNDS:
+                out["bounds"] = list(self._bounds)
+        return out
+
+    @classmethod
+    def from_state(cls, name: str, state: dict) -> "Histogram":
+        bounds = state.get("bounds")
+        h = cls(name, bounds=tuple(bounds) if bounds is not None else None)
+        counts = list(state["counts"])
+        if len(counts) != len(h._counts):
+            raise ValueError(f"histogram state has {len(counts)} buckets, "
+                             f"expected {len(h._counts)}")
+        h._counts = [int(c) for c in counts]
+        h._count = int(state["count"])
+        h._sum_ms = float(state["sum_ms"])
+        mn = state.get("min_ms")
+        h._min_ms = float("inf") if mn is None else float(mn)
+        if h._count:
+            h._max_ms = float(state.get("max_ms", 0.0))
+        return h
+
+    def merge_state(self, state: dict) -> "Histogram":
+        """Fold another histogram's `state()` in: counts sum, count and
+        sum add, min and max extend. The grids must match exactly."""
+        bounds = state.get("bounds")
+        if bounds is not None:
+            if tuple(float(b) for b in bounds) != tuple(self._bounds):
+                raise ValueError(f"cannot merge histogram states over "
+                                 f"different bucket grids ({self.name})")
+        elif self._bounds is not _HIST_BOUNDS:
+            raise ValueError(f"cannot merge a default-grid state into the "
+                             f"external-grid histogram {self.name}")
+        counts = state["counts"]
+        if len(counts) != len(self._counts):
+            raise ValueError(f"histogram state has {len(counts)} buckets, "
+                             f"expected {len(self._counts)}")
+        mn = state.get("min_ms")
+        with self._lock:
+            for i, c in enumerate(counts):
+                self._counts[i] += int(c)
+            self._count += int(state["count"])
+            self._sum_ms += float(state["sum_ms"])
+            if mn is not None and float(mn) < self._min_ms:
+                self._min_ms = float(mn)
+            mx = float(state.get("max_ms", 0.0))
+            if int(state["count"]) and mx > self._max_ms:
+                self._max_ms = mx
+        return self
 
 
 class MetricsRegistry:

@@ -1,8 +1,9 @@
 """The metric names the port records, copied from the reference's
 `telemetry/names.py` (the same strings, so a dashboard reads either
 package): the checkpoint path, the data plane (`data/`) and the training
-supervisor with its goodput clock. Telemetry proper is ROADMAP Queue 1
-item 23."""
+supervisor with its goodput clock, and the multi-process layer
+(`parallel.cluster`, `reliability.elastic`, the straggler detector).
+Telemetry proper is ROADMAP Queue 1 item 23."""
 
 CHECKPOINT_SAVE_COUNT = "checkpoint.save.count"
 CHECKPOINT_SAVE_BYTES = "checkpoint.save.bytes"
@@ -32,6 +33,35 @@ TRAIN_GOODPUT = "train.goodput"
 TRAIN_MFU = "train.mfu"
 TRAIN_LOST_SECONDS = "train.lost_seconds"
 TRAIN_STEP_WALL = "train.step.wall"
+
+# the cluster: rendezvous, heartbeats, fences (counters; gauges below)
+CLUSTER_REJOINS = "cluster.rejoins"
+CLUSTER_HEARTBEAT_ERRORS = "cluster.heartbeat_errors"
+CLUSTER_RENDEZVOUS_RETRIES = "cluster.rendezvous_retries"
+CLUSTER_FENCE_REJECTS = "cluster.fence_rejects"
+CLUSTER_HEARTBEAT_TMP_SWEPT = "cluster.heartbeat_tmp_swept"
+CLUSTER_EXCHANGES = "cluster.exchanges"
+CLUSTER_EXCHANGE_BYTES = "cluster.exchange_bytes"
+# gauges
+CLUSTER_RESUME_EPOCH = "cluster.resume_epoch"
+CLUSTER_HOSTS_LIVE = "cluster.hosts.live"
+CLUSTER_HOSTS_DEAD = "cluster.hosts.dead"
+TRAIN_STRAGGLERS = "train.stragglers"
+# histogram (ms): one cross-process exchange of the data axis
+CLUSTER_EXCHANGE = "cluster.exchange"
+
+# elastic shrink-resume (counters)
+ELASTIC_MANIFEST_COMMITS = "elastic.manifest.commits"
+ELASTIC_MANIFEST_REJECTED = "elastic.manifest.rejected"
+ELASTIC_SHRINKS = "elastic.shrinks"
+ELASTIC_RESUMES = "elastic.resumes"
+
+# events (a tracer's and a run ledger's names; the tracer is item 23)
+TRAIN_STRAGGLER_EVENT = "train.straggler"
+TRAIN_CHUNK_REASSIGN_EVENT = "train.chunk.reassign"
+TRAIN_HOST_DEAD_EVENT = "train.host.dead"
+ELASTIC_PLAN_EVENT = "elastic.plan"
+ELASTIC_RESUME_EVENT = "elastic.resume"
 
 # the data plane: counters
 DATA_WORKER_FAILURES = "data.worker_failures"

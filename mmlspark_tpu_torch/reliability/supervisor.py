@@ -12,15 +12,22 @@ Port of the reference's `reliability/supervisor.py` (`:69-84`,
   the newest digest-valid checkpoint; in-run restart of a failed step from
   the in-memory snapshot under a `RetryPolicy`; a per-step `step_timeout`
   (`StepTimeout`); SIGTERM/SIGINT write a final synchronous checkpoint,
-  then raise `Preempted`. The payload carries the reference's reserved keys
-  (`sup_step`, `sup_results`, `sup_preempted`, `sup_clock`), so a
-  directory that either package wrote resumes in the other. Fault sites
-  `train.step<k>`, `train.ckpt.write` and `train.ckpt.read`.
+  then raise `Preempted` (or exit 0 with `run(exit_on_preempt=True)`).
+  The payload carries the reference's reserved keys (`sup_step`,
+  `sup_results`, `sup_preempted`, `sup_clock`), so a directory that
+  either package wrote resumes in the other. Fault sites `train.step<k>`,
+  `train.ckpt.write` and `train.ckpt.read`.
 
-The reference's multi-host arguments (`heartbeat`, `straggler`,
-`chunk_planner`, `host_leases`, `elastic`) are ROADMAP Queue 1 item 15(f)
-and raise NotImplementedError when set; its spans and trace annotations
-are telemetry (item 23).
+Its multi-process arguments work as the reference's: a `heartbeat`
+(`parallel.cluster.Heartbeat`) beats at every checkpoint mark with the
+step clock's stats and clears on a clean finish; on each beat the
+`straggler` detector (`telemetry.goodput.StragglerDetector`, made from
+the heartbeat at `straggler_threshold` when not given) flags slow hosts,
+whose pending chunks the `chunk_planner` (`data.ChunkPlanner`) drains,
+and `host_leases` (`reliability.elastic.HostLeases`) declares silent
+hosts dead, which the `elastic` plan (`ElasticPlan.shrink`) acts on (or,
+without one, the planner's `remove_hosts`). None of these may kill the
+training loop. The spans and trace annotations are telemetry (item 23).
 """
 from __future__ import annotations
 
@@ -50,10 +57,6 @@ RESULTS_KEY = "sup_results"
 PREEMPTED_KEY = "sup_preempted"
 CLOCK_KEY = "sup_clock"          # StepClock accounting (goodput survives kill)
 _RESERVED = (STEP_KEY, RESULTS_KEY, PREEMPTED_KEY, CLOCK_KEY)
-
-_MULTI_HOST = ("heartbeat", "straggler", "chunk_planner", "host_leases",
-               "elastic")
-
 
 class StepTimeout(RuntimeError):
     """A training step exceeded its wall-clock budget (`step_timeout`)."""
@@ -214,7 +217,8 @@ class TrainingSupervisor:
     and step timeouts) restore the last in-memory snapshot and replay from
     its step; `retry_policy` bounds the restarts of a run. Anything else
     propagates, and the checkpoints on disk make the next process's
-    `run()` resume. `faults=None` injects nothing.
+    `run()` resume. `faults=None` injects nothing. The multi-process
+    arguments are the module docstring's.
     """
 
     def __init__(self, directory: str,
@@ -229,19 +233,11 @@ class TrainingSupervisor:
                  heartbeat=None, manager: Optional["CheckpointManager"] = None,
                  metrics=None, faults: Optional[FaultInjector] = None,
                  step_clock=None, straggler=None,
+                 straggler_threshold: float = 1.5,
                  chunk_planner=None, host_leases=None, elastic=None):
-        given = dict(heartbeat=heartbeat, straggler=straggler,
-                     chunk_planner=chunk_planner, host_leases=host_leases,
-                     elastic=elastic)
-        for name in _MULTI_HOST:
-            if given[name] is not None:
-                raise NotImplementedError(
-                    f"TrainingSupervisor({name}=...) is multi-host "
-                    f"supervision, not ported yet (ROADMAP Queue 1 item "
-                    f"15(f))")
         # lazy imports: utils.checkpoint imports this package's metrics,
         # and telemetry.goodput imports this package's names
-        from ..telemetry.goodput import StepClock
+        from ..telemetry.goodput import StepClock, StragglerDetector
         from ..utils.checkpoint import CheckpointManager
         self.snapshot_fn = snapshot_fn
         self.restore_fn = restore_fn
@@ -263,6 +259,17 @@ class TrainingSupervisor:
         # payload so a killed-and-resumed run keeps cumulative goodput
         self.clock = (step_clock if step_clock is not None
                       else StepClock(registry=self.metrics))
+        self.heartbeat = heartbeat
+        if straggler is None and heartbeat is not None:
+            # processes exchange their step p50s through the heartbeat
+            # files; every process runs the same check on its beat
+            straggler = StragglerDetector(heartbeat,
+                                          threshold=straggler_threshold,
+                                          registry=self.metrics)
+        self.straggler = straggler or None
+        self.chunk_planner = chunk_planner
+        self.host_leases = host_leases
+        self.elastic = elastic
         self.resumed_step: Optional[int] = None
         self._resumed_results: list = []
         self._last: Optional[tuple] = None   # (step, payload, results) rewind
@@ -304,7 +311,11 @@ class TrainingSupervisor:
     # -- the loop -------------------------------------------------------------
     def run(self, step_fn: Callable[[int], object], n_steps: int, *,
             seek: Optional[Callable[[int], None]] = None,
-            resume: bool = True) -> list:
+            resume: bool = True, exit_on_preempt: bool = False) -> list:
+        """Train steps [resume point, n_steps); returns every step's
+        result. On SIGTERM/SIGINT the final checkpoint is written, then
+        `Preempted` is raised, or `SystemExit(0)` with
+        `exit_on_preempt`."""
         start = self.resume() if resume else 0
         results = list(self._resumed_results)
         del results[start:]   # history beyond the restored step is stale
@@ -321,7 +332,7 @@ class TrainingSupervisor:
         try:
             while step < n_steps:
                 if self._preempt is not None:
-                    self._preempted(step, results)
+                    self._preempted(step, results, exit_on_preempt)
                 try:
                     # the clock wraps the fault site too: a failed
                     # attempt's wall books as lost
@@ -346,7 +357,7 @@ class TrainingSupervisor:
             if self._preempt is not None:
                 # the signal landed DURING the last step: the scheduler
                 # expects the process to exit
-                self._preempted(step, results)
+                self._preempted(step, results, exit_on_preempt)
             self._finalize(n_steps, results, preempted=False)
             return results
         finally:
@@ -355,9 +366,16 @@ class TrainingSupervisor:
     def close(self) -> None:
         self.writer.close(flush=True)
 
+    @property
+    def preempted(self) -> bool:
+        """Did a SIGTERM/SIGINT arrive during `run`?"""
+        return self._preempt is not None
+
     # -- internals ------------------------------------------------------------
-    def _preempted(self, step: int, results: list):
+    def _preempted(self, step: int, results: list, exit_on_preempt: bool):
         self._finalize(step, results, preempted=True)
+        if exit_on_preempt:
+            raise SystemExit(0)
         raise Preempted(step, self._preempt)
 
     def _call_step(self, step_fn, step: int):
@@ -439,6 +457,51 @@ class TrainingSupervisor:
                                 (time.perf_counter() - t0) * 1000.0)
         return payload
 
+    def _beat(self, step: Optional[int]) -> None:
+        """Heartbeat write (or clear, step=None), then the straggler and
+        liveness checks and their actuation. A lost beat (an injected
+        fault, a full disk) is counted and logged, and a failed
+        actuation logged: none of it may kill a healthy training loop."""
+        if self.heartbeat is None:
+            return
+        try:
+            if step is None:
+                self.heartbeat.clear()
+            else:
+                # the beat carries this process's windowed step p50, so
+                # every peer's straggler check sees it
+                self.heartbeat.beat(step, stats=self.clock.beat_stats())
+        except Exception as e:  # noqa: BLE001 - observability must not kill
+            self.metrics.inc(tnames.CLUSTER_HEARTBEAT_ERRORS)
+            logger.warning("heartbeat update failed (%s: %s)",
+                           type(e).__name__, e)
+        if step is not None and self.straggler is not None:
+            flagged = self.straggler.check()   # never raises
+            if flagged and self.chunk_planner is not None:
+                # drain the flagged hosts' pending chunks; on a failure
+                # the straggler keeps its chunks
+                try:
+                    self.chunk_planner.reassign(flagged)
+                except Exception as e:  # noqa: BLE001
+                    logger.warning("chunk reassignment failed (%s: %s)",
+                                   type(e).__name__, e)
+        # getattr: tests drive _beat on supervisors made with __new__
+        leases = getattr(self, "host_leases", None)
+        if step is not None and leases is not None:
+            dead = leases.check()              # never raises
+            if dead:
+                # shrink over the survivors, or at least drain the dead
+                # hosts' chunks
+                try:
+                    elastic = getattr(self, "elastic", None)
+                    if elastic is not None:
+                        elastic.shrink(dead)
+                    elif self.chunk_planner is not None:
+                        self.chunk_planner.remove_hosts(dead)
+                except Exception as e:  # noqa: BLE001
+                    logger.warning("elastic shrink failed (%s: %s)",
+                                   type(e).__name__, e)
+
     def _mark(self, step: int, results: list, write: bool) -> None:
         t0 = time.perf_counter()
         payload = self._snapshot(step, results)
@@ -449,6 +512,7 @@ class TrainingSupervisor:
         # durable mark also resets the rewindable-wall window
         self.clock.note("checkpoint", time.perf_counter() - t0)
         self.clock.marked()
+        self._beat(step)
 
     def _finalize(self, step: int, results: list, preempted: bool) -> None:
         t0 = time.perf_counter()
@@ -474,6 +538,9 @@ class TrainingSupervisor:
         self.clock.publish()
         if preempted:
             self.metrics.inc(tnames.TRAIN_PREEMPTED)
+            self._beat(step)
+        else:
+            self._beat(None)   # clean finish: the next start is fresh
 
     # -- signals --------------------------------------------------------------
     def _install_signals(self):

@@ -19,8 +19,15 @@ rolled into goodput = 1 - (data_wait + checkpoint + lost) / wall and, when
 a per-step flops figure and a peak are known, a model-flops-utilization
 gauge. The accounting state rides the supervisor's checkpoint payload
 (`state_vector`, the reference's layout), so a killed-and-resumed run
-keeps its cumulative goodput, in either package. The reference's
-`StragglerDetector` is ROADMAP Queue 1 item 15(f).
+keeps its cumulative goodput, in either package.
+
+`StragglerDetector` (the reference's `:370-458`): processes exchange
+their windowed step p50s through the `parallel.cluster.Heartbeat` files
+(`beat(epoch, stats=clock.beat_stats())`); each reads every peer's file
+on its own beat, takes the fleet median, and flags processes whose p50
+exceeds `threshold` x the median, with the `train.stragglers` gauge and
+a `train.straggler` event on the flag transition (given a `tracer`; the
+tracer is ROADMAP Queue 1 item 23).
 """
 from __future__ import annotations
 
@@ -236,6 +243,14 @@ class StepClock:
             recent = sorted(self._recent)
         return recent[len(recent) // 2] if recent else 0.0
 
+    def beat_stats(self) -> dict:
+        """The per-process stats a `Heartbeat.beat` carries to peers."""
+        with self._lock:
+            steps = self._steps
+            goodput = self._goodput_locked()
+        return {"step_p50_ms": round(self.step_p50_ms(), 3),
+                "steps": steps, "goodput": round(goodput, 4)}
+
     def snapshot(self) -> dict:
         """The step-phase breakdown."""
         with self._lock:
@@ -275,3 +290,69 @@ class StepClock:
         host_s = max(step_wall_s - noted, 0.0)
         if host_s > 0.0:
             m.observe_ms(tnames.train_step_phase("host"), host_s * 1000.0)
+
+
+class StragglerDetector:
+    """Flag processes whose windowed step p50 exceeds `threshold` x the
+    fleet median, from heartbeat-exchanged stats (module docstring).
+    Driven by the supervisor on each of its own beats; every process runs
+    the same check over the same files, so they agree. Rows older than
+    `max_age_s` leave the check (a dead host's frozen stats are
+    `reliability.elastic.HostLeases`' business); None keeps them."""
+
+    def __init__(self, heartbeat, threshold: float = 1.5,
+                 min_steps: int = 4, registry=None, tracer=None,
+                 profile_on_flag: bool = True,
+                 max_age_s: Optional[float] = 30.0):
+        self.heartbeat = heartbeat
+        self.threshold = float(threshold)
+        self.min_steps = max(int(min_steps), 1)
+        self.max_age_s = max_age_s
+        self._metrics = registry if registry is not None \
+            else reliability_metrics
+        self._tracer = tracer
+        # the reference captures a device profile when THIS process is
+        # newly flagged; profiles are ROADMAP Queue 1 item 23, so the
+        # flag is kept and nothing is captured
+        self.profile_on_flag = bool(profile_on_flag)
+        self._flagged: set = set()
+
+    def check(self) -> list:
+        """One detection pass; returns the straggler rows (process_id,
+        step_p50_ms, fleet_p50_ms, threshold). Never raises: detection is
+        observability."""
+        try:
+            rows = self.heartbeat.read_all(max_age_s=self.max_age_s)
+        except Exception:  # noqa: BLE001 - a torn beat loses one pass
+            return []
+        p50s = []
+        for row in rows:
+            stats = row.get("stats") or {}
+            p50 = stats.get("step_p50_ms")
+            if (isinstance(p50, (int, float)) and p50 > 0.0
+                    and stats.get("steps", 0) >= self.min_steps):
+                p50s.append((int(row.get("process_id", -1)), float(p50)))
+        if len(p50s) < 2:       # a fleet of one has no stragglers
+            self._metrics.set_gauge(tnames.TRAIN_STRAGGLERS, 0)
+            return []
+        ordered = sorted(v for _, v in p50s)
+        half = len(ordered) // 2
+        median = ordered[half] if len(ordered) % 2 else \
+            0.5 * (ordered[half - 1] + ordered[half])
+        stragglers = [
+            {"process_id": pid, "step_p50_ms": p50,
+             "fleet_p50_ms": median, "threshold": self.threshold}
+            for pid, p50 in p50s
+            if median > 0.0 and p50 > self.threshold * median]
+        now_flagged = {s["process_id"] for s in stragglers}
+        if self._tracer is not None:
+            for s in stragglers:
+                if s["process_id"] not in self._flagged:
+                    self._tracer.event(
+                        tnames.TRAIN_STRAGGLER_EVENT, host=s["process_id"],
+                        step_p50_ms=round(s["step_p50_ms"], 3),
+                        fleet_p50_ms=round(s["fleet_p50_ms"], 3),
+                        threshold=self.threshold)
+        self._flagged = now_flagged
+        self._metrics.set_gauge(tnames.TRAIN_STRAGGLERS, len(now_flagged))
+        return stragglers

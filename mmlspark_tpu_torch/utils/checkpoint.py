@@ -36,6 +36,18 @@ def _file_sha256(path: str) -> str:
     return h.hexdigest()
 
 
+def array_sha256(arr) -> str:
+    """SHA-256 of one array's CONTENT, qualified by dtype and shape (a
+    float32 zero vector does not collide with the float64 one), over its
+    C-contiguous bytes, so the digest does not depend on the source's
+    strides: the reference's fitted-weight digest."""
+    a = np.ascontiguousarray(arr)
+    h = hashlib.sha256()
+    h.update(f"{a.dtype}{a.shape}:".encode())
+    h.update(a.tobytes())
+    return h.hexdigest()
+
+
 def _canonical_meta(meta: dict) -> bytes:
     """Canonical bytes of the meta payload (sans the _digests record) for
     content digesting: sort_keys + fixed separators make the dump identical

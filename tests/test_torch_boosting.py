@@ -219,22 +219,26 @@ def test_no_card_raises(monkeypatch):
     dict(num_ingest_workers=2),
     dict(quality_profile=True)])
 def test_unported_estimator_params_raise(param):
-    """quality_profile raises naming its ROADMAP item (23); the data
-    plane's out_of_core and num_ingest_workers, ported in slice 15 (item
-    17), fit the serial fit's booster."""
+    """The params that once raised for want of a slice now run: the data
+    plane's out_of_core and num_ingest_workers (slice 15, item 17) and
+    quality_profile (Queue 3 (p)) fit the serial fit's booster, and
+    quality_profile attaches a profile of the features, label and
+    prediction."""
     x, y = _data("binary", n=200)
     t = Table({"features": x, "label": y})
     est = GBDTClassifier(num_iterations=1, device="cpu", **param)
-    if "quality_profile" in param:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 23"):
-            est.fit(t)
-        return
-    want = GBDTClassifier(num_iterations=1, device="cpu").fit(t).booster
-    got = est.fit(t).booster
+    want = GBDTClassifier(num_iterations=1, device="cpu",
+                          quality_profile=False).fit(t).booster
+    model = est.fit(t)
+    got = model.booster
     for field in want._fields:
         assert np.array_equal(np.asarray(getattr(want, field)),
                               np.asarray(getattr(got, field))), field
+    if "quality_profile" in param:
+        cols = model.quality_profile["columns"]
+        assert sorted(cols) == sorted(
+            [f"f{i}" for i in range(x.shape[1])] + ["label", "prediction"])
+        assert cols["label"]["hist"]["count"] == 200
 
 
 def test_voting_parallel_on_one_device_matches_reference():

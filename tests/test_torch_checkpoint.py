@@ -203,3 +203,17 @@ def test_fault_schedule_is_seeded():
             inj.fire("train.ckpt.write")
         return inj.schedule()
     assert run() == run() and 0 < len(run()) < 50
+
+
+def test_array_sha256_matches_the_reference():
+    """ROADMAP Queue 3 (w): `utils.checkpoint.array_sha256`, the
+    reference's digest, for dtypes, shapes and strides."""
+    from mmlspark_tpu.utils.checkpoint import array_sha256 as ref_sha
+    from mmlspark_tpu_torch.utils.checkpoint import array_sha256
+    a = np.arange(24, dtype=np.float32).reshape(4, 6)
+    for arr in (a, a.T, a[:, ::2], a.astype(np.float64), np.zeros(0),
+                np.array(3, np.int8)):
+        assert array_sha256(arr) == ref_sha(arr)
+    assert array_sha256(a.T) == array_sha256(np.ascontiguousarray(a.T))
+    assert array_sha256(np.zeros(4, np.float32)) != \
+        array_sha256(np.zeros(4, np.float64))

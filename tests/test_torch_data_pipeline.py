@@ -188,6 +188,39 @@ def test_stage_binned_on_the_cpu_matches_sequential():
     assert tuple(empty.shape) == (0, 5)
 
 
+def test_stage_binned_and_pipeline_take_the_reference_s_put():
+    """ROADMAP Queue 3 (w): `put=` places each chunk (the reference's
+    argument); the bins equal the sequential ones."""
+    x = _toy_features(6000, 5)
+    mapper = binning.fit_bins(x, max_bin=63)
+    placed = []
+
+    def put(rows):
+        placed.append(rows.shape[0])
+        return torch.from_numpy(np.asarray(rows))
+    d = stage_binned(mapper, x, IngestOptions(num_workers=2,
+                                              chunk_rows=1000), put=put)
+    assert np.array_equal(d.numpy(), binning.apply_bins(mapper, x))
+    assert sum(placed) == 6000 and len(placed) == 6
+    pipe = IngestPipeline(x, transform=lambda rows: rows * 2,
+                          opts=IngestOptions(num_workers=2, chunk_rows=1000),
+                          put=lambda rows: ("placed", rows.shape[0]))
+    assert pipe.run() == [("placed", 1000)] * 6
+
+
+def test_prefetch_queue_depth_reports_ready_items():
+    """ROADMAP Queue 3 (w): `DevicePrefetcher.queue_depth()`."""
+    pf = DevicePrefetcher(range(3), depth=3, put=lambda v: v)
+    assert pf.queue_depth() == 0
+    it = iter(pf)
+    deadline = time.time() + 5
+    while pf.queue_depth() < 3 and time.time() < deadline:
+        time.sleep(0.01)
+    assert pf.queue_depth() == 3    # full: the end marker waits behind
+    assert list(it) == [0, 1, 2]
+    pf.close()
+
+
 def test_parallel_transform_and_pipeline_reassemble_in_order():
     x = _toy_features(8000, 4)
     t = Table({"a": x[:, 0], "b": x[:, 1:]})
@@ -221,8 +254,22 @@ def test_ingest_pipeline_early_break_closes_feeder():
 
 
 def test_profile_columns_names_its_item():
-    with pytest.raises(NotImplementedError, match="item 23"):
-        profile_columns(None, {"a": np.zeros(3)})
+    """profile_columns, once a raise naming item 23, folds columns chunk
+    by chunk into a profile equal to the reference's (ROADMAP Queue 3
+    (p))."""
+    from mmlspark_tpu.data.pipeline import profile_columns as ref_profile
+    from mmlspark_tpu.telemetry import quality as ref_quality
+    from mmlspark_tpu_torch.telemetry import quality
+    rng = np.random.default_rng(3)
+    cols = {"a": rng.normal(size=1000), "b": rng.integers(0, 5, 1000)}
+    got = quality.DatasetProfile.fit(cols, categorical=("b",),
+                                     observe=False)
+    want = ref_quality.DatasetProfile.fit(cols, categorical=("b",),
+                                          observe=False)
+    profile_columns(got, cols, chunk_rows=128)
+    ref_profile(want, cols, chunk_rows=128)
+    assert got.state() == want.state()
+    assert got.columns["a"].count == 1000
 
 
 # -- the prefetcher -----------------------------------------------------------

@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import pytest
 import torch
 
 # one torch intra-op thread: the suite runs in several xdist workers, and
@@ -36,6 +37,9 @@ def test_import_loads_no_jax():
             "import mmlspark_tpu_torch.telemetry\n"
             "import mmlspark_tpu_torch.utils.async_utils\n"
             "import mmlspark_tpu_torch.utils.tracing\n"
+            "import mmlspark_tpu_torch.parallel.cluster\n"
+            "import mmlspark_tpu_torch.reliability.elastic\n"
+            "import mmlspark_tpu_torch.telemetry.quality\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'mmlspark_tpu.')) "
             "or m == 'mmlspark_tpu')\n"
@@ -67,3 +71,33 @@ def test_sources_import_no_jax_or_reference():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "mmlspark_tpu"), \
                 f"{os.path.relpath(path, _REPO)} imports {mod}"
+
+
+@pytest.mark.parametrize("module, names", [
+    ("", ["Table", "Pipeline", "PipelineModel", "Estimator", "Transformer",
+          "Model", "Params", "Param", "__version__"]),
+    ("models.gbdt", ["LightGBMClassifier", "LightGBMClassificationModel",
+                     "LightGBMRegressor", "LightGBMRegressionModel",
+                     "LightGBMRanker", "LightGBMRankerModel", "Tree",
+                     "TreeConfig", "train_one_tree"]),
+    ("parallel", ["device_count", "initialize_cluster", "ClusterInfo",
+                  "Heartbeat", "barrier", "broadcast_from_leader",
+                  "global_array", "padded_process_rows",
+                  "process_row_range", "cluster"]),
+    ("reliability", ["Attempt", "ElasticPlan", "FleetCheckpoint",
+                     "HostLeases", "leader"]),
+])
+def test_reference_exports_are_the_port_s(module, names):
+    """ROADMAP Queue 3 (v): the names the reference's packages export
+    import from the port's, and each is in its `__all__`."""
+    import importlib
+    port = importlib.import_module(
+        "mmlspark_tpu_torch" + ("." + module if module else ""))
+    ref = importlib.import_module(
+        "mmlspark_tpu" + ("." + module if module else ""))
+    for name in names:
+        assert hasattr(ref, name), name
+        assert hasattr(port, name), name
+        assert name in port.__all__, name
+    if not module:
+        assert port.__version__ == ref.__version__

@@ -97,12 +97,19 @@ def test_restored_state_leaves_the_payload_unchanged():
     assert losses[0] == losses[1]
 
 
-def test_supervisor_options_need_checkpoint_dir():
+def test_supervisor_options_need_checkpoint_dir(tmp_path):
+    """Supervisor options need checkpoint_dir; with it, the multi-process
+    options are taken (a heartbeat beats at each mark and clears on the
+    clean finish)."""
+    from mmlspark_tpu_torch.parallel.cluster import Heartbeat
     with pytest.raises(TypeError, match="checkpoint_dir"):
         _trainer().run_stream(_batches(2), faults=_crash())
-    with pytest.raises(NotImplementedError, match=r"15\(f\)"):
-        _trainer().run_stream(_batches(2), checkpoint_dir="unused",
-                              heartbeat=object())
+    hb = Heartbeat(str(tmp_path / "hb"), process_id=0)
+    losses = _trainer().run_stream(
+        _batches(2), checkpoint_dir=str(tmp_path / "ck"), checkpoint_every=1,
+        heartbeat=hb)
+    assert len(losses) == 2
+    assert not os.path.exists(hb.path)
 
 
 def test_kill_resume_bit_identity(tmp_path):
@@ -192,6 +199,31 @@ def test_preemption_writes_final_checkpoint_and_raises(tmp_path):
     c = _trainer()
     assert c.run_stream(batches, checkpoint_dir=d, checkpoint_every=3) == ref
     assert _same_params(a, c)
+
+
+def test_exit_on_preempt_exits_zero_after_the_final_checkpoint(tmp_path):
+    """ROADMAP Queue 3 (w): `run(exit_on_preempt=True)` ends with
+    SystemExit(0) after the final checkpoint, and `preempted` says so."""
+    from mmlspark_tpu_torch.reliability import TrainingSupervisor
+    state = {"x": 0.0}
+    sup = TrainingSupervisor(
+        str(tmp_path / "ck"), lambda: {"x": state["x"]},
+        lambda p: state.update(x=float(p["x"])), checkpoint_every=2,
+        metrics=MetricsRegistry())
+    assert sup.preempted is False
+
+    def step(k):
+        state["x"] += 1
+        if k == 2:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return state["x"]
+
+    with pytest.raises(SystemExit) as exc:
+        sup.run(step, 10, exit_on_preempt=True)
+    sup.close()
+    assert exc.value.code == 0 and sup.preempted is True
+    payload = CheckpointManager(str(tmp_path / "ck")).restore()
+    assert payload["sup_step"] == 3 and payload["sup_preempted"] is True
 
 
 def test_step_timeout_restarts_the_step(tmp_path):
