@@ -244,6 +244,27 @@ Phases (any failure exits non-zero before the last line is printed):
      one-process 2-position fit, the exchange's seconds and share, peak
      memory. A second pair: rank 1 SIGKILLed mid-fit, rank 0's
      `HostLeases` must declare it dead within the lease budget.
+  19. multiprocess lm (slice 17): the flagship LM over 2 gloo ranks on
+     the card, each configuration of `MPLM` first in this process on a
+     mesh of the same shape (`devices=[dev] * n`), then in the ranks: (a)
+     `PipelinedLMTrainer` bf16, Adam, flash, remat="save_attn" on
+     (data, pipe, model, seq) = (1, 2, 2, 1), two (1, 16384) sequences in
+     two microbatches, 3 steps, the pipe axis across the ranks; (b)
+     `ShardedLMTrainer` f32 dense on (2, 2), [stream train]'s seeded
+     (4, 2048) batches, 3 steps, the data axis across the ranks; (c)
+     `PipelinedLMTrainer` bf16 flash on (1, 1, 1, 2), one (1, 16384)
+     sequence, 2 steps, the ring's seq axis across the ranks; (d) as (c)
+     on (1, 1, 2, 1), the model axis across the ranks (Megatron's f and
+     g, the messages a checkpointed region keeps for its recompute). Per
+     configuration both ranks' losses equal and within `_MPLM_LOSS_TOL`
+     of this process's, every replicated master bit-identical across the
+     ranks ((d) has none), the flash launches of step 1 per rank summing
+     to this process's (each rank launching); (a), (c), (d) one SGD step at
+     S=2048 whose updates agree with this process's within
+     `_MPLM_UPDATE_TOL`, (b) the Adam updates' norms within
+     `_MPLM_ADAM_F32_TOL`; s/step per rank beside this process's, the
+     exchange's seconds, bytes and share of the step by primitive (copies
+     and wire), `lm_train_mfu` and peak memory per rank.
 The headline fit (4) is timed 3 times (min and median), and every
 phase's seconds are printed.
 The kernel phase (3) also holds the flash backward kernels, dq and dk/dv,
@@ -260,6 +281,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import json
 import os
@@ -5120,6 +5142,423 @@ def multiprocess_phase(dev, data):
                 auc=auc, logloss=logloss)
 
 
+# ----------------------------------------------------- [multiprocess lm]
+# slice 17: LM training over MP_RANKS gloo ranks on the one card, each
+# configuration at the flagship width (`LM`) beside the same mesh shape
+# in this one process. (a) GPipe stages across the ranks, two model
+# positions a rank; (b) the data axis across the ranks; (c) the ring's
+# seq axis across the ranks; (d) the model axis across the ranks, where
+# no master has a replica on another rank (`replicas` False)
+MPLM = {
+    "a": dict(kind="pipelined", mesh=(1, 2, 2, 1), steps=3,
+              batch=(PIPE_BATCH, LM_SEQ), microbatches=PIPE_MICROBATCHES),
+    "b": dict(kind="sharded", mesh=SHARDED_MESH, steps=3,
+              batch=STREAM_SHAPE),
+    "c": dict(kind="pipelined", mesh=(1, 1, 1, 2), steps=2,
+              batch=(1, LM_SEQ), microbatches=1),
+    "d": dict(kind="pipelined", mesh=(1, 1, 2, 1), steps=2,
+              batch=(1, LM_SEQ), microbatches=1, replicas=False),
+}
+# the ranks' losses against this process's: bf16 as `_PIPE_LOSS_TOL`,
+# f32 as tests/test_torch_lm_training_pp.py's Adam trajectories
+_MPLM_LOSS_TOL = {"a": _PIPE_LOSS_TOL, "b": 1e-5, "c": _PIPE_LOSS_TOL,
+                  "d": _PIPE_LOSS_TOL}
+# the updates of one SGD step at S=_TRAIN_CHECK_SEQ (a, c, d: the ranks'
+# against this process's, per leaf over the larger update,
+# `_update_disagreement`): PR 14's bf16 measurement of its meshes against
+# (1, 1, 1, 1). Adam's final weights are no probe of the gradients: its
+# first steps move each weight by about lr * sign(g), so a gradient that
+# two sum orders round to opposite signs moves that weight 2 lr apart.
+# (b), f32 Adam: per leaf, the L2 norm of the difference of the two runs'
+# updates over the norm of this process's update
+_MPLM_UPDATE_TOL = 1.54e-2
+_MPLM_ADAM_F32_TOL = 1e-4
+_MPLM_PROC = """
+import json, os, sys
+import torch
+sys.path.insert(0, {here!r})
+import chip_smoke
+from mmlspark_tpu_torch.parallel import cluster
+
+rank, tmp = int(sys.argv[1]), sys.argv[2]
+cluster.initialize_cluster(init_method="file://" + os.path.join(tmp, "rdv"),
+                           num_processes={ranks}, process_id=rank,
+                           timeout_s=600)
+assert cluster.backend_name() == "gloo", cluster.backend_name()
+dev = cluster.local_device()
+torch.cuda.set_device(dev)
+out = chip_smoke._mplm_all(dev, True, tmp)
+out["bare"] = chip_smoke._mplm_bare(dev, out["b"]["masters"])
+with open(os.path.join(tmp, f"out_{{rank}}.json"), "w") as f:
+    json.dump(out, f)
+cluster.barrier("done")
+cluster.shutdown()
+"""
+
+
+def _mplm_tokens(name):
+    cfg = MPLM[name]
+    if cfg["kind"] == "sharded":
+        return _stream_batches(LM, cfg["batch"], cfg["steps"])
+    toks = np.random.default_rng(0).integers(
+        0, LM["vocab_size"], size=cfg["batch"]).astype(np.int32)
+    return [toks] * cfg["steps"]
+
+
+def _mplm_trainer(name, dev, span, **kw):
+    """Configuration `name`'s trainer on its mesh of `dev`: over the
+    ranks (`span`, this process's share of the positions) or all in this
+    process."""
+    from mmlspark_tpu_torch.models.dnn import (PipelinedLMTrainer,
+                                               ShardedLMTrainer)
+    from mmlspark_tpu_torch.parallel import grid_mesh
+    cfg = MPLM[name]
+    n = int(np.prod(cfg["mesh"]))
+    devs = [dev] * (n // MP_RANKS if span else n)
+    if cfg["kind"] == "sharded":
+        return ShardedLMTrainer(mesh=grid_mesh(cfg["mesh"], devices=devs),
+                                seed=0, **LM)
+    return PipelinedLMTrainer(
+        mesh=grid_mesh(cfg["mesh"], _PIPE_AXES, devices=devs),
+        n_microbatches=cfg["microbatches"], attention="flash",
+        remat="save_attn", compute_dtype="bfloat16", seed=0, **kw, **LM)
+
+
+def _mplm_replicas(trainer):
+    """blake2b of every master this process holds that another one holds
+    too, by key and path."""
+    import hashlib
+    from mmlspark_tpu_torch.models.dnn.pp_training import _paths
+    span = trainer._span
+    return {f"{key}/{'/'.join(map(str, path))}": hashlib.blake2b(
+        a.detach().cpu().numpy().tobytes()).hexdigest()
+        for key, tree in trainer._blocks.trees.items()
+        if len(span.replicas[key]) > 1 for path, a in _paths(tree)}
+
+
+def _mplm_flat(trainer):
+    """The full parameters (a collective over ranks): their
+    `_named_leaves` names and host arrays."""
+    names, arrays = zip(*((n, a.detach().to("cpu", copy=True).numpy())
+                          for n, a in _named_leaves(trainer.params)))
+    return list(names), list(arrays)
+
+
+def _mplm_adam(name, dev, span, tmp):
+    """Configuration `name`'s Adam steps: step 1 with the flash launch
+    counts set to 0 just before and read just after, then the rest timed
+    (s/step, peak memory, the exchange by primitive). Over the ranks also
+    the replicated masters' digests; (b) writes its final parameters."""
+    import torch
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    cfg = MPLM[name]
+    t0 = time.perf_counter()
+    trainer = _mplm_trainer(name, dev, span)
+    init_s = time.perf_counter() - t0
+    batches = _mplm_tokens(name)
+    start = _mplm_flat(trainer) if name == "b" and not span else None
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    losses = [trainer.step(batches[0])]
+    step1_s = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if span:
+        trainer.mesh.exchange.reset_stats()
+    t0 = time.perf_counter()
+    for toks in batches[1:]:
+        losses.append(trainer.step(toks))
+    torch.cuda.synchronize()
+    timed = time.perf_counter() - t0
+    out = dict(losses=losses, launches=launches, init_s=init_s,
+               step1_s=step1_s, s_step=timed / (cfg["steps"] - 1),
+               peak=torch.cuda.max_memory_allocated(),
+               masters=sum(m.numel() for m in trainer._blocks.masters()))
+    if span:
+        out["exchange"] = trainer.mesh.exchange.stats()["primitives"]
+        out["replicas"] = _mplm_replicas(trainer)
+    if name == "b":
+        names, final = _mplm_flat(trainer)
+        if not span:
+            out.update(names=names, start=start[1], final=final)
+        elif trainer._span.rank == 0:
+            np.savez(os.path.join(tmp, "b_final.npz"), *final)
+    # a process's first torch.optim constructor leaves its caller's
+    # frame (the trainer's __init__) in a reference cycle through a
+    # lazy import, so only the collector frees that trainer: collected
+    # here, the next configuration's peak is its own
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mplm_probe(name, dev, span, tmp):
+    """One SGD step (lr 1) of configuration `name` at S=_TRAIN_CHECK_SEQ:
+    the loss, the launches and the updated parameters (this process:
+    kept with the start; the ranks: written by rank 0)."""
+    import torch
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    cfg = MPLM[name]
+    trainer = _mplm_trainer(name, dev, span, optimizer="sgd", lr=1.0)
+    toks = np.random.default_rng(1).integers(
+        0, LM["vocab_size"], size=(cfg["batch"][0], _TRAIN_CHECK_SEQ)
+    ).astype(np.int32)
+    start = None if span else _mplm_flat(trainer)[1]
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    loss = trainer.step(toks)
+    out = dict(loss=loss, launches=dict(fa.launches))
+    names, updated = _mplm_flat(trainer)
+    if not span:
+        out.update(names=names, start=start, updated=updated)
+    elif trainer._span.rank == 0:
+        np.savez(os.path.join(tmp, f"{name}_probe.npz"), *updated)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mplm_all(dev, span, tmp):
+    """Every configuration's Adam steps and (a, c, d) its SGD probe, in
+    this process or in a rank."""
+    out = {}
+    for name in MPLM:
+        out[name] = _mplm_adam(name, dev, span, tmp)
+        if MPLM[name]["kind"] == "pipelined":
+            out[name]["probe"] = _mplm_probe(name, dev, span, tmp)
+    return out
+
+
+def _mplm_bare(dev, n):
+    """The messages alone, between two ranks after a barrier: 10 round
+    trips of one hop's activation ((1, LM_SEQ, d_model) bf16, 32 MiB)
+    and 2 ordered sums of `n` f32 values (the whole model's gradient).
+    Seconds each and the exchange's stats by primitive."""
+    import torch
+    from mmlspark_tpu_torch.parallel import cluster
+    ex = cluster.Exchange()
+    peer = 1 - ex.rank
+    hop = torch.zeros((1, LM_SEQ, LM["d_model"]), dtype=torch.bfloat16,
+                      device=dev)
+    grads = torch.zeros(n, dtype=torch.float32, device=dev)
+    cluster.barrier("bare")
+    t0 = time.perf_counter()
+    for i in range(10):
+        if ex.rank == 0:
+            ex.send(hop, peer, 2 * i)
+            ex.recv(hop.shape, hop.dtype, dev, peer, 2 * i + 1)
+        else:
+            got = ex.recv(hop.shape, hop.dtype, dev, peer, 2 * i)
+            ex.send(got, peer, 2 * i + 1)
+        ex.wait_sends()
+    hop_s = (time.perf_counter() - t0) / 10
+    hop_stats = ex.stats()["primitives"]
+    ex.reset_stats()
+    t0 = time.perf_counter()
+    for i in range(2):
+        ex.ordered_sum(grads, range(MP_RANKS),
+                       cluster.MessageTags.SUM_TAGS + i)
+    sum_s = (time.perf_counter() - t0) / 2
+    return dict(hop_bytes=hop.numel() * hop.element_size(),
+                hop_round_trip_s=hop_s, hop=hop_stats,
+                sum_bytes=grads.numel() * grads.element_size(),
+                sum_s=sum_s, sum=ex.stats()["primitives"]["sum"])
+
+
+def _mplm_flops(name):
+    """bench.py's model FLOPs of one step of configuration `name`
+    (`_lm_flops_per_step` at its sequence length, times its sequences)."""
+    b, s = MPLM[name]["batch"]
+    n, d = LM["n_layers"], LM["d_model"]
+    fwd = (2 * s * n * (4 * d * d + 2 * d * LM["d_ff"])
+           + 2 * s * d * LM["vocab_size"] + n * 2 * s * s * d)
+    return 3 * fwd * b
+
+
+def _mplm_launches(mplm, kernel):
+    """`kernel`'s launches in one step of each [multiprocess lm]
+    configuration, per rank, beside the one-process count."""
+    return {f"multiprocess lm ({n}) step, per rank ({MP_RANKS} ranks; one "
+            f"process {r['one_launches'][kernel]})":
+            [g[kernel] for g in r["launches"]] for n, r in mplm.items()
+            if MPLM[n]["kind"] == "pipelined"}
+
+
+def multiprocess_lm_phase(dev):
+    """[multiprocess lm]: the flagship LM over MP_RANKS gloo ranks on the
+    card (`MPLM`): each configuration first in this process on a mesh of
+    the same shape (`devices=[dev] * n`), then in the ranks. Per
+    configuration: both ranks' losses equal and within `_MPLM_LOSS_TOL`
+    of this process's, every replicated master bit-identical across the
+    ranks, the ranks' flash launches of one step summing to this
+    process's count, each rank launching; (a, c, d) one SGD step's updates
+    within `_MPLM_UPDATE_TOL` of this process's, (b) the Adam updates'
+    norms within `_MPLM_ADAM_F32_TOL`. Prints s/step per rank beside this
+    process's, the exchange's seconds, bytes and share of the step
+    (copies and wire), `lm_train_mfu` and peak memory per rank."""
+    import tempfile
+
+    import torch
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mplm_")
+    try:
+        t0 = time.perf_counter()
+        one = _mplm_all(dev, False, tmp)
+        one_s = time.perf_counter() - t0
+        script = os.path.join(tmp, "rank.py")
+        with open(script, "w") as f:
+            f.write(_MPLM_PROC.format(here=HERE, ranks=MP_RANKS))
+        torch.cuda.empty_cache()       # the card to the ranks
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, script, str(r), tmp], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(MP_RANKS)]
+        _mp_reap(procs, 600)
+        wall_s = time.perf_counter() - t0
+        res = []
+        for r in range(MP_RANKS):
+            with open(os.path.join(tmp, f"out_{r}.json")) as f:
+                res.append(json.load(f))
+        saved = {}
+        for name in [f"{n}_probe" for n, c in MPLM.items()
+                     if c["kind"] == "pipelined"] + ["b_final"]:
+            with np.load(os.path.join(tmp, f"{name}.npz")) as z:
+                saved[name] = [z[f"arr_{i}"] for i in range(len(z.files))]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary = {}
+    for name, cfg in MPLM.items():
+        want, got = one[name], [r[name] for r in res]
+        tag = f"[multiprocess lm] ({name})"
+        if got[1]["losses"] != got[0]["losses"]:
+            raise AssertionError(f"{tag} the ranks' losses differ: "
+                                 f"{got[0]['losses']} / {got[1]['losses']}")
+        losses = got[0]["losses"]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"{tag} losses {losses}: not finite and "
+                                 f"falling")
+        loss_err = max(abs(a - b) for a, b in zip(losses, want["losses"]))
+        if loss_err > _MPLM_LOSS_TOL[name]:
+            raise AssertionError(f"{tag} losses {losses} against one "
+                                 f"process's {want['losses']}")
+        common = got[0]["replicas"].keys() & got[1]["replicas"].keys()
+        if bool(common) != cfg.get("replicas", True) or any(
+                got[0]["replicas"][k] != got[1]["replicas"][k]
+                for k in common):
+            raise AssertionError(f"{tag} replicated masters differ between "
+                                 f"the ranks ({len(common)} shared)")
+        summed = {k: sum(g["launches"][k] for g in got)
+                  for k in want["launches"]}
+        if summed != want["launches"] or (
+                cfg["kind"] == "pipelined" and not all(
+                    any(g["launches"].values()) for g in got)):
+            raise AssertionError(f"{tag} launches per rank "
+                                 f"{[g['launches'] for g in got]} against "
+                                 f"one process's {want['launches']}")
+        row = dict(losses=losses, one_losses=want["losses"],
+                   loss_err=loss_err, replicas=len(common),
+                   launches=[g["launches"] for g in got],
+                   one_launches=want["launches"],
+                   s_step=[g["s_step"] for g in got],
+                   one_s_step=want["s_step"],
+                   step1_s=[g["step1_s"] for g in got],
+                   peak=[g["peak"] for g in got], one_peak=want["peak"],
+                   exchange=[g["exchange"] for g in got])
+        dtype = torch.float32 if cfg["kind"] == "sharded" else torch.bfloat16
+        row["mfu"] = [_mplm_flops(name) / s / _peak_flops(dtype)
+                      for s in row["s_step"]]
+        row["one_mfu"] = _mplm_flops(name) / want["s_step"] / \
+            _peak_flops(dtype)
+        if cfg["kind"] == "pipelined":
+            pw, pg = want["probe"], [g["probe"] for g in got]
+            if pg[0]["loss"] != pg[1]["loss"] or \
+                    abs(pg[0]["loss"] - pw["loss"]) > _PIPE_LOSS_TOL:
+                raise AssertionError(f"{tag} SGD probe losses "
+                                     f"{[p['loss'] for p in pg]} against "
+                                     f"{pw['loss']}")
+            worst, leaf, attn = _update_disagreement(
+                pw["names"], [torch.as_tensor(a) for a in pw["start"]],
+                [torch.as_tensor(a) for a in saved[f"{name}_probe"]],
+                [torch.as_tensor(a) for a in pw["updated"]])
+            if worst > _MPLM_UPDATE_TOL:
+                raise AssertionError(f"{tag} SGD probe updates differ by "
+                                     f"{worst:.3g} of the update ({leaf})")
+            summed = {k: sum(p["launches"][k] for p in pg)
+                      for k in pw["launches"]}
+            if summed != pw["launches"]:
+                raise AssertionError(f"{tag} SGD probe launches "
+                                     f"{[p['launches'] for p in pg]} against "
+                                     f"{pw['launches']}")
+            row["probe"] = dict(worst=worst, leaf=leaf, attention=attn,
+                                loss=pg[0]["loss"], one_loss=pw["loss"])
+        else:
+            worst, leaf = 0.0, None
+            for nm, a0, ag, aw in zip(want["names"], want["start"],
+                                      saved["b_final"], want["final"]):
+                d = float(np.linalg.norm((ag - a0) - (aw - a0))) / max(
+                    float(np.linalg.norm(aw - a0)), 1e-30)
+                if d > worst:
+                    worst, leaf = d, nm
+            if worst > _MPLM_ADAM_F32_TOL:
+                raise AssertionError(f"{tag} Adam updates differ by "
+                                     f"{worst:.3g} in norm ({leaf})")
+            row["adam_update_norm"] = dict(worst=worst, leaf=leaf)
+        summary[name] = row
+    for name, row in summary.items():
+        ex = row["exchange"]
+        prim = [sum(e[p]["seconds"] for p in ("send", "recv", "sum"))
+                for e in ex]
+        copy = [sum(e[p]["copy_seconds"] for p in ("send", "recv", "sum"))
+                for e in ex]
+        nbytes = [sum(e[p]["bytes"] for p in ("send", "recv", "sum"))
+                  for e in ex]
+        timed = [s * (MPLM[name]["steps"] - 1) for s in row["s_step"]]
+        row["exchange_share"] = [p / t for p, t in zip(prim, timed)]
+        probe = row.get("probe") or row.get("adam_update_norm")
+        log(f"[multiprocess lm] ({name}) {MPLM[name]['kind']} mesh "
+            f"{MPLM[name]['mesh']}, {MP_RANKS} gloo ranks on one card, "
+            f"batch {MPLM[name]['batch']}: losses "
+            f"{', '.join(f'{x:.6f}' for x in row['losses'])} on both ranks "
+            f"(one process {', '.join(f'{x:.6f}' for x in row['one_losses'])}"
+            f", largest difference {row['loss_err']:.3g}); {row['replicas']}"
+            f" replicated masters bit-identical; s/step per rank "
+            f"{', '.join(f'{x:.4f}' for x in row['s_step'])} (step 1 "
+            f"{', '.join(f'{x:.2f}' for x in row['step1_s'])}) against one "
+            f"process's {row['one_s_step']:.4f}; exchange per rank "
+            f"{', '.join(f'{x:.4f}' for x in prim)} s over "
+            f"{MPLM[name]['steps'] - 1} timed steps, "
+            f"{', '.join(str(x) for x in nbytes)} B, share "
+            f"{', '.join(f'{x:.3f}' for x in row['exchange_share'])} (copies "
+            f"{', '.join(f'{x:.4f}' for x in copy)} s, the rest the wire and "
+            f"the wait for the peer; by primitive "
+            f"{[{p: round(e[p]['seconds'], 4) for p in ('send', 'recv', 'sum')} for e in ex]}"
+            f"); lm_train_mfu per rank "
+            f"{', '.join(f'{x:.4f}' for x in row['mfu'])} (one process "
+            f"{row['one_mfu']:.4f}); peak memory per rank "
+            f"{', '.join(f'{x / 2**30:.2f}' for x in row['peak'])} GiB (one "
+            f"process {row['one_peak'] / 2**30:.2f}); flash launches of one "
+            f"step per rank {row['launches']} = one process's "
+            f"{row['one_launches']}; parameters {probe}")
+    bare = [r["bare"] for r in res]
+    hop_s = [b["hop_round_trip_s"] for b in bare]
+    hop_copy = [sum(b["hop"][p]["copy_seconds"] for p in ("send", "recv"))
+                / 10 for b in bare]
+    sum_s = [b["sum_s"] for b in bare]
+    sum_copy = [b["sum"]["copy_seconds"] / 2 for b in bare]
+    log(f"[multiprocess lm] the messages alone, after a barrier: a "
+        f"{bare[0]['hop_bytes']} B hop there and back "
+        f"{', '.join(f'{x:.4f}' for x in hop_s)} s per rank (copies "
+        f"{', '.join(f'{x:.4f}' for x in hop_copy)} s); an ordered sum of "
+        f"{bare[0]['sum_bytes']} B {', '.join(f'{x:.4f}' for x in sum_s)} "
+        f"s per rank (copies {', '.join(f'{x:.4f}' for x in sum_copy)} s)")
+    log(f"[multiprocess lm] this process's runs {one_s:.1f} s, the ranks' "
+        f"{wall_s:.1f} s with start-up")
+    return summary
+
+
 def only_phase(name, dev, phase, t_start) -> int:
     """`--only NAME`: one phase after card and build (with the headline
     data where it needs them), for runs that iterate on that phase; the
@@ -5135,7 +5574,8 @@ def only_phase(name, dev, phase, t_start) -> int:
              "flash backward kernel": flash_bwd_kernel_phase,
              "stats kernel": stats_kernel_phase,
              "stats backward": stats_bwd_kernel_phase,
-             "ranker": ranker_phase, "stream train": stream_train_phase}
+             "ranker": ranker_phase, "stream train": stream_train_phase,
+             "multiprocess_lm": multiprocess_lm_phase}
     if name in needs_data:
         data = phase("headline data", headline_data, dev)
         phase(name, needs_data[name], dev, data)
@@ -5212,6 +5652,7 @@ def main(argv) -> int:
                  profile)
     pipe = phase("pipe training", pipe_train_phase, dev, train)
     stream = phase("stream train", stream_train_phase, dev)
+    mplm = phase("multiprocess lm", multiprocess_lm_phase, dev)
     if "--versus" in argv:
         phase("versus", versus_phase, parent)
 
@@ -5285,7 +5726,8 @@ def main(argv) -> int:
                                 "pipe_train_step": pipe["per_step"][
                                     "flash_fwd"],
                                 "pipe_train_run": pipe["launches"][
-                                    "flash_fwd"]},
+                                    "flash_fwd"],
+                                **_mplm_launches(mplm, "flash_fwd")},
              pipe_h4={k: pipe["kernels"]["fwd"].get(k) for k in (
                  "sq", "h", "d", "dtype", "causal", "ms", "plain_ms",
                  "library_ms", "bound_ms", "bound_by", "max_abs_err",
@@ -5373,6 +5815,7 @@ def main(argv) -> int:
                  "stats form; pallas_call :373 in _flash_stats_forward)",
         path=ring_path, launches=ring["launches"]["flash_stats_fwd"],
         launches_per_step=ring["per_step"]["flash_stats_fwd"], passed=True,
+        launches_per_path=_mplm_launches(mplm, "flash_stats_fwd"),
         **{k: diag[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms")},
         library="one scaled_dot_product_attention (normalized output) on "
@@ -5408,7 +5851,8 @@ def main(argv) -> int:
                                "ring_train_step": ring["per_step"][kname],
                                "ring_train_run": ring["launches"][kname],
                                "pipe_train_step": pipe["per_step"][kname],
-                               "pipe_train_run": pipe["launches"][kname]},
+                               "pipe_train_run": pipe["launches"][kname],
+                               **_mplm_launches(mplm, kname)},
             pipe_h4={k: pipe["kernels"]["bwd"].get(k) for k in (
                 "sq", "h", "d", "dtype", "causal", f"{key}_ms", "plain_ms",
                 "library_ms", f"{key}_bound_ms", f"{key}_bound_by",
@@ -5514,6 +5958,13 @@ def main(argv) -> int:
         f"{', '.join(f'{e_s:.3f}' for e_s in (e['seconds'] / v for e, v in zip(mp['exchange'], mp['fit_s'])))}; "
         f"peak {', '.join(f'{v / 2**20:.1f}' for v in mp['peak'])} MiB; "
         f"death by lease in {mp['detect_s']:.2f} s")
+    log("[multiprocess lm] " + "; ".join(
+        f"({n}) s/step per rank {', '.join(f'{x:.4f}' for x in r['s_step'])}"
+        f" against one process's {r['one_s_step']:.4f}, exchange share "
+        f"{', '.join(f'{x:.3f}' for x in r['exchange_share'])}, "
+        f"lm_train_mfu {', '.join(f'{x:.4f}' for x in r['mfu'])}, peak "
+        f"{', '.join(f'{x / 2**30:.2f}' for x in r['peak'])} GiB"
+        for n, r in mplm.items()))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; phases "
         + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     print(json.dumps({"kernels": kernels}))

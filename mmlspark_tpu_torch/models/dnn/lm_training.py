@@ -28,20 +28,33 @@ them back into its blocks on restore.
 copied to the card by `data.DevicePrefetcher` while the one before trains;
 with `checkpoint_dir` it runs under `reliability.TrainingSupervisor`
 (restart, resume and preemption), its snapshots in the same payload.
+
+Over a mesh that spans processes `ShardedLMTrainer` trains as
+`PipelinedLMTrainer` does (`pp_training`'s module docstring): each
+process holds its positions' masters, Megatron's f and g cross processes
+as messages, replicated masters' gradients and the loss are summed in
+rank order. A checkpoint is gathered to every process and written by the
+first one, then every process meets at a barrier (the reference's
+`save_lm_checkpoint`); a restore reads the file on every process, each
+taking its own blocks. A supervised `run_stream` over processes is
+refused, as in the reference.
 """
 from __future__ import annotations
 
+import functools
 import operator
 
 import numpy as np
 import torch
 
 from ...device import resolve_device
+from ...parallel import cluster
 from ...parallel.mesh import DATA_AXIS, MODEL_AXIS
 from ...utils.checkpoint import CheckpointManager
 from .payload import tree_from_payload, tree_to_payload
-from .pp_training import (_Blocks, _block, _check_device, _copies_per_step,
-                          _gather, _megatron_index, _mesh_sizes)
+from .pp_training import (_Blocks, _Span, _Where, _block, _check_device,
+                          _copies_per_step, _gather, _local_or_none,
+                          _megatron_index, _mesh_sizes, _nest, _update)
 from .transformer import _flatten, _layer_norm, init_transformer
 
 class ShardedLMTrainer:
@@ -60,12 +73,12 @@ class ShardedLMTrainer:
         if d_model % n_heads:
             raise ValueError(
                 f"d_model ({d_model}) must divide by n_heads ({n_heads})")
+        self._span = None
         if mesh is None:
             self.device = resolve_device(device)
             self.dp = self.tp = 1
-            self._devs = [[self.device]]
+            self._devs = self._owners = [[self.device]]
         else:
-            mesh.single_process("ShardedLMTrainer")
             for axis in (DATA_AXIS, MODEL_AXIS):
                 if axis not in mesh.shape:
                     raise ValueError(f"ShardedLMTrainer's mesh needs the "
@@ -73,25 +86,41 @@ class ShardedLMTrainer:
                                      f"axes; got axes {mesh.axis_names}")
             _, self.tp, _ = _mesh_sizes(mesh, n_heads, d_ff)
             self.dp = mesh.shape[DATA_AXIS]
-            self.device = mesh.device_at()
+            self.device = mesh.devices.flat[0]
             _check_device(device, self.device)
-            # _devs[d][j]: the device of (data d, model j)
-            self._devs = [[mesh.device_at(data=d, model=j)
-                           for j in range(self.tp)] for d in range(self.dp)]
+            grid = [[dict(data=d, model=j) for j in range(self.tp)]
+                    for d in range(self.dp)]
+            # _devs[d][j]: the device of (data d, model j), None where
+            # another process's; _owners[d][j] its process
+            self._devs = _nest(lambda p: _local_or_none(mesh, **p), grid)
+            self._owners = _nest(lambda p: mesh.process_of(**p), grid)
+            if mesh.process_count > 1:
+                self._span = _Span(mesh, {
+                    "shared": [dict(data=d) for d in range(self.dp)],
+                    **{j: [dict(data=d, model=j) for d in range(self.dp)]
+                       for j in range(self.tp)}})
         self.mesh = mesh
+        self._n_layers = n_layers
         raw = init_transformer(vocab_size, d_model, n_heads, n_layers, d_ff,
                                max_len, seed)
         self.meta = raw.pop("meta")
 
+        def home_of(key):
+            # a key's masters live on the device of the first of its
+            # positions this process owns
+            j = 0 if key == "shared" else key
+            return next((row[j] for row in self._devs
+                         if row[j] is not None), None)
+
         def placement(path, shape):
             if path[0] != "layers":
-                yield "shared", self.device, ()
+                yield "shared", home_of("shared"), ()
                 return
             for j in range(self.tp):
                 index = _megatron_index(path[2], shape, j, self.tp)
                 if index is not None:
-                    yield j, self._devs[0][j], index
-        self._blocks = _Blocks(raw, placement)
+                    yield j, home_of(j), index
+        self._blocks = _Blocks(raw, placement, self._span)
         self._opt = torch.optim.Adam(self._blocks.masters(), lr=lr,
                                      betas=(0.9, 0.999), eps=1e-8)
 
@@ -99,19 +128,29 @@ class ShardedLMTrainer:
     def params(self) -> dict:
         """The parameters in the reference's layout (a list of per-layer
         dicts): a leaf held whole is its master, a cut one a detached
-        tensor on the first device assembled from its blocks."""
+        tensor on the first device assembled from its blocks. Over
+        processes a collective (every process must read it)."""
         return self._blocks.tree(self.device)
 
     def position_params(self, model: int = 0) -> list:
         """The per-layer masters that model position `model` holds, e.g.
-        wq of shape (d, d / model); ln1, ln2 and b2 at model 0."""
-        layers = self._blocks.trees[model]["layers"]
+        wq of shape (d, d / model); ln1, ln2 and b2 at model 0. Over
+        processes a collective."""
+        layers = self._blocks.key_tree(model, self.device)["layers"]
         return [layers[i] for i in sorted(layers)]
 
-    def _loss(self, tokens):
+    def _tags(self, tokens) -> cluster.MessageTags:
+        """The message tags of one step over processes."""
+        return cluster.MessageTags(kind=6, data=self.dp,
+                                   layer=self._n_layers,
+                                   model=self.tp)
+
+    def _loss(self, tokens, link=None):
         """The reference's `_lm_loss`, the mean next-token cross-entropy
         of the causal dense forward over the whole batch: per data shard
-        the sum of its NLL, then the sum over shards over the count."""
+        the sum of its NLL, then the sum over shards; returns (that sum,
+        its divisors). Over processes (`link`) this process's shards
+        only."""
         on = _copies_per_step(self._blocks.trees, torch.float32)
         n_heads, d = self.meta["n_heads"], self.meta["d_model"]
         dh, h_loc = d // n_heads, n_heads // self.tp
@@ -119,24 +158,33 @@ class ShardedLMTrainer:
         b_loc = b // self.dp
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for di, devs in enumerate(self._devs):
-            pc = on("shared", devs[0])
-            layers = [on(j, dev)["layers"] for j, dev in enumerate(devs)]
-            rows = tokens[di * b_loc:(di + 1) * b_loc].to(devs[0])
-            x = pc["embed"][rows] + pc["pos"][:seq]
-            for i in range(len(layers[0])):
-                x, = _block([x], [[lp[i] for lp in layers]], h_loc, dh)
+            if all(dev is None for dev in devs):
+                continue
+            pc = None if devs[0] is None else on("shared", devs[0])
+            layers = [None if dev is None else on(j, dev)["layers"]
+                      for j, dev in enumerate(devs)]
+            x = rows = None
+            if pc is not None:
+                rows = tokens[di * b_loc:(di + 1) * b_loc].to(devs[0])
+                x = pc["embed"][rows] + pc["pos"][:seq]
+            for i in range(self._n_layers):
+                where = None if link is None else _Where(
+                    [list(devs)], [list(self._owners[di])], self._span.rank,
+                    link, functools.partial(link.tags, data=di, layer=i),
+                    ((b_loc, seq, d), torch.float32))
+                x, = _block([x], [[None if lp is None else lp[i]
+                                   for lp in layers]], h_loc, dh,
+                            where=where)
+            if x is None:
+                continue
             logits = _layer_norm(x, pc["final_ln"]) @ pc["embed"].T
             logp = torch.log_softmax(logits[:, :-1], dim=-1)
             nll = -logp.gather(-1, rows[:, 1:, None])[..., 0]
             total = total + nll.sum().to(self.device)
-        return total / (b * (seq - 1))
+        return total, (b * (seq - 1), 1)
 
     def _update(self, tokens):
-        self._opt.zero_grad(set_to_none=True)
-        loss = self._loss(tokens)
-        loss.backward()
-        self._opt.step()
-        return loss.detach()
+        return _update(self, tokens)
 
     def _check_batch(self, tokens) -> None:
         if tokens.shape[0] % self.dp:
@@ -219,6 +267,14 @@ class ShardedLMTrainer:
             with prefetcher(batches) as pf:
                 return [one_batch(tok_dev) for tok_dev in pf]
 
+        if self._span is not None:
+            # every process would race the same step directory (the
+            # supervisor's background writer has no rendezvous), as the
+            # reference refuses
+            raise NotImplementedError(
+                "run_stream(checkpoint_dir=...) is single-process for now; "
+                "multi-process jobs should checkpoint via save_checkpoint "
+                "(leader-only write + barrier)")
         from ...reliability.supervisor import TrainingSupervisor
         from ...telemetry.goodput import StepClock
         if clock is None:
@@ -256,14 +312,16 @@ class ShardedLMTrainer:
 
     def save_checkpoint(self, directory: str, step: int) -> None:
         """Params and optimizer state, gathered into the reference's
-        leaves, as checkpoint `step` of `directory`."""
+        leaves, as checkpoint `step` of `directory` (over processes a
+        collective: the first process writes, then a barrier)."""
         save_lm_checkpoint(directory, step, self.params, self._opt,
                            self.meta, self._blocks)
 
     def restore_checkpoint(self, directory: str, step: int = None) -> int:
         """Load params and optimizer state from the latest (or the given)
         step into this trainer's blocks, in place; returns the step
-        loaded."""
+        loaded. Over processes every process reads the file and takes its
+        own blocks (a collective)."""
         return restore_lm_checkpoint(directory, step, self.params,
                                      self._opt, self.meta, self._blocks)
 
@@ -279,21 +337,28 @@ def _pieces(params, blocks) -> list:
 def _adam_leaves(params, opt, blocks=None) -> list:
     """The optimizer's state as `optax.adam`'s flattened state: [count,
     mu leaves..., nu leaves...] in the params' flatten order (zeros before
-    the first step), each leaf gathered from its pieces (`_pieces`); []
-    for SGD, which keeps none."""
+    the first step), each leaf gathered from its pieces (`_pieces`; over
+    processes `_Blocks.leaves`, a collective); [] for SGD, which keeps
+    none."""
     if not isinstance(opt, torch.optim.Adam):
         return []
     pieces, like = _pieces(params, blocks), _flatten(params)
-    first = opt.state.get(pieces[0][0][0], {})
+    masters = [m for p in pieces for m, _ in p]
+    first = opt.state.get(masters[0], {}) if masters else {}
     count = int(first["step"]) if first else 0
 
     def state(key):
         return lambda m: (opt.state[m][key] if m in opt.state
                           else torch.zeros_like(m))
-    mu = [_gather(p, t.shape, t.device, state("exp_avg"))
-          for p, t in zip(pieces, like)]
-    nu = [_gather(p, t.shape, t.device, state("exp_avg_sq"))
-          for p, t in zip(pieces, like)]
+    if blocks is not None and blocks.span is not None:
+        dev = like[0].device
+        mu = blocks.leaves(dev, state("exp_avg"))
+        nu = blocks.leaves(dev, state("exp_avg_sq"))
+    else:
+        mu = [_gather(p, t.shape, t.device, state("exp_avg"))
+              for p, t in zip(pieces, like)]
+        nu = [_gather(p, t.shape, t.device, state("exp_avg_sq"))
+              for p, t in zip(pieces, like)]
     return [np.asarray(count, np.int32)] + mu + nu
 
 
@@ -313,9 +378,17 @@ def lm_state_payload(params, opt, meta, blocks=None) -> dict:
 def save_lm_checkpoint(directory: str, step: int, params, opt, meta,
                        blocks=None) -> None:
     """Write the trainer's state as step `step` (shared by both
-    trainers: one implementation, one on-disk format)."""
-    CheckpointManager(directory).save(step, lm_state_payload(
-        params, opt, meta, blocks))
+    trainers: one implementation, one on-disk format). Over processes
+    (`blocks.span`) every process gathers the payload, the first one
+    writes it and all meet at a barrier, as the reference's leader-only
+    write."""
+    payload = lm_state_payload(params, opt, meta, blocks)
+    if blocks is None or blocks.span is None:
+        CheckpointManager(directory).save(step, payload)
+        return
+    if blocks.span.rank == 0:
+        CheckpointManager(directory).save(step, payload)
+    cluster.barrier(f"lm_ckpt_{step}")
 
 
 def restore_lm_checkpoint(directory: str, step, params, opt, meta,

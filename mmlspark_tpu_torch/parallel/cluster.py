@@ -21,22 +21,38 @@ ranks sharing one card (NCCL refuses two ranks on one GPU) and CPU jobs.
 Gloo takes no CUDA tensor for an all-gather, so under gloo an exchange
 of CUDA tensors goes through one pinned host buffer: a device-to-host
 copy, the all-gather on the host, and one host-to-device copy. The route
-is chosen by backend, never by catching an error.
+is chosen by backend, never by catching an error. Point-to-point messages
+always go over gloo (`Exchange`), under NCCL on a gloo group of their
+own.
+
+The LM trainers and ring attention move tensors between processes inside
+autograd (`Link`): tagged point-to-point messages only (`MessageTags`),
+the sends non-blocking and held until the step ends, each message node
+threaded on one token chain, so that the backward runs every rank's
+message nodes in the reverse of its forward order and the ranks never
+wait on each other in a cycle. Sums that every rank must hold bit for bit
+(gradients of replicated weights, the loss) are `Exchange.ordered_sum`:
+every part gathered and added in rank order, never gloo's all_reduce,
+whose order may differ between ranks.
 
 Heartbeats, the epoch fence and `FencedOut` are file-based and need no
 process group; `reliability.elastic.HostLeases` reads them.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import json
+import math
 import os
+import threading
 import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils.checkpoint import set_checkpoint_early_stop
 
 from ..reliability import names as tnames
 from ..reliability.faults import FaultInjector
@@ -170,8 +186,24 @@ def initialize_cluster(coordinator_address: Optional[str] = None,
 
 def shutdown() -> None:
     """Leave the process group (a no-op without one)."""
+    global _GLOO_GROUP
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
+    _GLOO_GROUP = None
+
+
+# the gloo group of every process that carries the messages of a job
+# whose own group is NCCL's (`Exchange`)
+_GLOO_GROUP = None
+
+
+def _gloo_group():
+    """The job's gloo group for messages, formed on first use (a
+    collective: every process's first Exchange forms it)."""
+    global _GLOO_GROUP
+    if _GLOO_GROUP is None:
+        _GLOO_GROUP = dist.new_group(backend="gloo")
+    return _GLOO_GROUP
 
 
 def process_row_range(n_rows: int, process_id: Optional[int] = None,
@@ -252,21 +284,38 @@ def all_gather_object(value) -> list:
 
 
 class Exchange:
-    """The all-gather of a data axis that spans processes: each process
-    hands in its positions' tensors stacked, (L, ...), and every process
-    gets all positions', (P * L, ...), in global position order, on the
-    device it handed in. Under NCCL the gather runs on the card; under
-    gloo a CPU tensor is gathered as it is and a CUDA one through pinned
-    host buffers kept per shape (`choose_backend`; the module
-    docstring).
+    """Tensors between the processes of a job: the all-gather of a data
+    axis that spans processes (`gather`), tagged point-to-point messages
+    (`send`, `recv`, `wait_sends`) and the ordered sum (`ordered_sum`).
 
-    `stats()` reads what the exchanges cost: calls, bytes received, the
-    wall inside the exchange (`seconds`) and, for CUDA tensors, the wait
-    for the card to finish the work that produced the tensor
-    (`wait_seconds`, spent before the exchange starts, outside
-    `seconds`; the host-staged route splits `seconds` into its copies and
-    the collective). Each call is counted under `cluster.exchanges` and
-    timed under `cluster.exchange`."""
+    `gather`: each process hands in its positions' tensors stacked,
+    (L, ...), and every process gets all positions', (P * L, ...), in
+    global position order, on the device it handed in. Under NCCL the
+    gather runs on the card; under gloo a CPU tensor goes as it is and a
+    CUDA one through pinned host buffers kept per shape (`choose_backend`;
+    the module docstring).
+
+    The messages (and so the ordered sums) always go over gloo, a CUDA
+    tensor through pinned host buffers; under NCCL on a gloo group of the
+    same processes that the job's first Exchange forms (a collective, as
+    building a mesh is). NCCL runs both directions between two processes
+    on one stream, so two processes that each post a send before their
+    receive, as the ordered sum, the ring and the gather do, would wait
+    on each other once a message outgrows NCCL's buffer.
+
+    `stats()` reads what the exchanges cost: under `primitives`, for each
+    of gather, send, recv and sum, its calls, bytes (received for the
+    gather), seconds, `copy_seconds` (to and from the card),
+    `wire_seconds` (the transfer, the wait for the peer included) and,
+    for CUDA tensors, `wait_seconds`, the wait for the card to finish the
+    work that produced the tensor (spent before the exchange starts,
+    outside `seconds`); the all-gather's also at the top level (`calls`,
+    `bytes`, `seconds`, `wait_seconds`, `copy_seconds`, and
+    `gather_seconds` its wire seconds). Each call is counted under
+    `cluster.exchanges` and `cluster.exchange_bytes` and timed under
+    `cluster.exchange`."""
+
+    PRIMITIVES = ("gather", "send", "recv", "sum")
 
     def __init__(self):
         if not _multi():
@@ -275,25 +324,50 @@ class Exchange:
         self.world = dist.get_world_size()
         self.rank = dist.get_rank()
         self.host_staged = dist.get_backend() != "nccl"
+        self._messages_group = None if self.host_staged else _gloo_group()
         self._buffers: dict = {}
+        self._send_pool: dict = {}     # (shape, dtype) -> free pinned buffers
+        self._pending: list = []  # (work, pinned buffer, primitive, payload)
+        self._recv_lock = threading.Lock()
         self.reset_stats()
 
     def reset_stats(self) -> None:
-        self.calls = 0
-        self.bytes = 0
-        self.seconds = 0.0
-        self.wait_seconds = 0.0
-        self.copy_seconds = 0.0
-        self.gather_seconds = 0.0
+        self.primitive_stats = {
+            p: dict(calls=0, bytes=0, seconds=0.0, copy_seconds=0.0,
+                    wire_seconds=0.0, wait_seconds=0.0)
+            for p in self.PRIMITIVES}
 
     def stats(self) -> dict:
-        """`seconds` = `copy_seconds` (the host-staged route's copies to
-        and from the card) + `gather_seconds` (the collective, the wait
-        for the slowest process included)."""
-        return dict(calls=self.calls, bytes=self.bytes,
-                    seconds=self.seconds, wait_seconds=self.wait_seconds,
-                    copy_seconds=self.copy_seconds,
-                    gather_seconds=self.gather_seconds)
+        """Every primitive's costs under `primitives`, the all-gather's
+        also at the top level (class docstring): there `seconds` =
+        `copy_seconds` (the host-staged route's copies to and from the
+        card) + `gather_seconds` (the collective, the wait for the
+        slowest process included)."""
+        g = self.primitive_stats["gather"]
+        return dict(calls=g["calls"], bytes=g["bytes"],
+                    seconds=g["seconds"], wait_seconds=g["wait_seconds"],
+                    copy_seconds=g["copy_seconds"],
+                    gather_seconds=g["wire_seconds"],
+                    primitives={p: dict(v) for p, v in
+                                self.primitive_stats.items()})
+
+    def _book(self, primitive, nbytes, seconds, copy_s=0.0, wait_s=0.0,
+              call=True) -> None:
+        rec = self.primitive_stats[primitive]
+        rec["calls"] += int(call)
+        rec["bytes"] += int(nbytes)
+        rec["seconds"] += seconds
+        rec["copy_seconds"] += copy_s
+        rec["wire_seconds"] += seconds - copy_s
+        rec["wait_seconds"] += wait_s
+        if call:
+            reliability_metrics.inc(tnames.CLUSTER_EXCHANGES)
+        if nbytes:
+            reliability_metrics.inc(tnames.CLUSTER_EXCHANGE_BYTES,
+                                    int(nbytes))
+        if seconds:
+            reliability_metrics.observe_ms(tnames.CLUSTER_EXCHANGE,
+                                           seconds * 1e3)
 
     def _host_pair(self, shape, dtype):
         """(send, receive) pinned host buffers for one shape, kept for the
@@ -308,15 +382,21 @@ class Exchange:
             pair = self._buffers[key] = (send, recv)
         return pair
 
+    def _card_wait(self, t) -> float:
+        """Wait for the card to finish the work that produced `t` (the
+        copies out of it must come after): the seconds waited."""
+        if t.device.type != "cuda":
+            return 0.0
+        t0 = time.perf_counter()
+        torch.cuda.synchronize(t.device)
+        return time.perf_counter() - t0
+
     def gather(self, local: torch.Tensor) -> torch.Tensor:
         """(L, ...) local -> (world * L, ...) in process order."""
         local = local.contiguous()
         dev = local.device
         on_card = dev.type == "cuda"
-        if on_card:
-            t0 = time.perf_counter()
-            torch.cuda.synchronize(dev)
-            self.wait_seconds += time.perf_counter() - t0
+        wait_s = self._card_wait(local)
         t0 = time.perf_counter()
         copy_s = 0.0
         if on_card and not self.host_staged:
@@ -337,16 +417,8 @@ class Exchange:
             out = torch.empty((self.world,) + tuple(local.shape),
                               dtype=local.dtype)
             dist.all_gather(list(out.unbind(0)), local)
-        dt = time.perf_counter() - t0
-        self.calls += 1
-        self.bytes += out.numel() * out.element_size()
-        self.seconds += dt
-        self.copy_seconds += copy_s
-        self.gather_seconds += dt - copy_s
-        reliability_metrics.inc(tnames.CLUSTER_EXCHANGES)
-        reliability_metrics.inc(tnames.CLUSTER_EXCHANGE_BYTES,
-                                out.numel() * out.element_size())
-        reliability_metrics.observe_ms(tnames.CLUSTER_EXCHANGE, dt * 1e3)
+        self._book("gather", out.numel() * out.element_size(),
+                   time.perf_counter() - t0, copy_s, wait_s)
         return out.reshape((-1,) + tuple(local.shape[1:]))
 
     def gather_rows(self, local: torch.Tensor) -> torch.Tensor:
@@ -359,6 +431,406 @@ class Exchange:
         pad = local.new_zeros((width - local.shape[0],) + local.shape[1:])
         full = self.gather(torch.cat([local, pad])[None])
         return torch.cat([full[i, :s] for i, s in enumerate(sizes)])
+
+    def send(self, tensor: torch.Tensor, dst: int, tag: int,
+             primitive: str = "send", call: bool = True) -> None:
+        """Post `tensor` to process `dst` under `tag` and return at once:
+        the message is held (and, from the card, its pinned staging copy,
+        taken after the card finished the tensor) until `wait_sends`. A
+        recv of the same tag on `dst` takes it, in whatever order the
+        tags arrive (gloo matches tags)."""
+        t = tensor.detach().contiguous()
+        wait_s = self._card_wait(t)
+        t0 = time.perf_counter()
+        copy_s, buf = 0.0, None
+        if t.device.type == "cuda":
+            free = self._send_pool.get((tuple(t.shape), t.dtype))
+            buf = free.pop() if free else torch.empty(
+                t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t)
+            copy_s = time.perf_counter() - t0
+            payload = buf
+        else:
+            # a private copy: the caller may write into its tensor (an
+            # accumulated gradient) before the message has left
+            payload = t.clone() if t.data_ptr() == tensor.data_ptr() else t
+        work = dist.isend(payload, int(dst), tag=int(tag),
+                          group=self._messages_group)
+        self._pending.append((work, buf, primitive, payload))
+        self._book(primitive, t.numel() * t.element_size(),
+                   time.perf_counter() - t0, copy_s, wait_s, call)
+
+    def recv(self, shape, dtype, device, src: int, tag: int,
+             primitive: str = "recv", call: bool = True) -> torch.Tensor:
+        """The message `src` sent under `tag`, a new tensor of `shape` and
+        `dtype` on `device`; blocks until it arrived (and, to the card,
+        until its copy from the pinned buffer is done)."""
+        dev = torch.device(device)
+        t0 = time.perf_counter()
+        copy_s = 0.0
+        if dev.type == "cuda":
+            with self._recv_lock:
+                key = ("recv", tuple(shape), dtype)
+                buf = self._buffers.get(key)
+                if buf is None:
+                    buf = self._buffers[key] = torch.empty(
+                        shape, dtype=dtype, pin_memory=True)
+                dist.recv(buf, int(src), tag=int(tag),
+                          group=self._messages_group)
+                t1 = time.perf_counter()
+                out = buf.to(dev)
+                torch.cuda.synchronize(dev)
+                copy_s = time.perf_counter() - t1
+        else:
+            out = torch.empty(shape, dtype=dtype, device=dev)
+            dist.recv(out, int(src), tag=int(tag),
+                      group=self._messages_group)
+        self._book(primitive, out.numel() * out.element_size(),
+                   time.perf_counter() - t0, copy_s, call=call)
+        return out
+
+    def wait_sends(self) -> None:
+        """Wait for every posted send; their pinned buffers go back to
+        the pool. The wait is booked as the sends' wire time."""
+        pending, self._pending = self._pending, []
+        for work, buf, primitive, _ in pending:
+            t0 = time.perf_counter()
+            work.wait()
+            self._book(primitive, 0, time.perf_counter() - t0, call=False)
+            if buf is not None:
+                self._send_pool.setdefault(
+                    (tuple(buf.shape), buf.dtype), []).append(buf)
+
+    def ordered_sum(self, tensor: torch.Tensor, ranks, tag: int):
+        """`tensor` added over the processes `ranks` (this one among them)
+        in rank order, on every one of them: each sends its part to the
+        others and adds every part in the same order, so all hold the
+        same bits (gloo's all_reduce may add in another order on each
+        rank). One rank: `tensor` itself."""
+        ranks = sorted(int(r) for r in ranks)
+        if len(ranks) == 1:
+            return tensor
+        for r in ranks:
+            if r != self.rank:
+                self.send(tensor, r, tag, primitive="sum", call=False)
+        parts = [tensor if r == self.rank else
+                 self.recv(tensor.shape, tensor.dtype, tensor.device, r,
+                           tag, primitive="sum", call=False)
+                 for r in ranks]
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p
+        self.wait_sends()
+        self._book("sum", 0, 0.0)          # one call
+        return total
+
+
+class MessageTags:
+    """Tags of the point-to-point messages of one program over processes:
+    a mixed-radix code of named coordinates, each below its size (one
+    left out at 0, and one the tags lack must be 0), times two, so that
+    a forward message's tag is even and its backward twin's (the
+    cotangent going back) the next odd number. Sizes whose code does not
+    fit below `SUM_TAGS` raise; ordered sums outside autograd take tags
+    from `SUM_TAGS` up."""
+
+    SUM_TAGS = 1 << 30
+
+    def __init__(self, **sizes):
+        self.fields = tuple(sizes)
+        self.sizes = tuple(max(int(v), 1) for v in sizes.values())
+        if 2 * math.prod(self.sizes) > self.SUM_TAGS:
+            raise ValueError(
+                f"{dict(zip(self.fields, self.sizes))} need "
+                f"{2 * math.prod(self.sizes)} message tags, more than "
+                f"{self.SUM_TAGS}")
+
+    def __call__(self, **coords) -> int:
+        code = 0
+        for field, size in zip(self.fields, self.sizes):
+            v = int(coords.pop(field, 0))
+            if not 0 <= v < size:
+                raise ValueError(f"tag coordinate {field}={v} outside "
+                                 f"[0, {size})")
+            code = code * size + v
+        extra = {f: v for f, v in coords.items() if v != 0}
+        if extra:   # a coordinate the tags lack must be 0 (a size-1 axis)
+            raise ValueError(f"no tag coordinates {sorted(extra)}")
+        return 2 * code
+
+
+class Link:
+    """The messages of one differentiable program over processes (a
+    training step, one ring attention call): every send, receive and
+    Megatron copy or sum across processes is an autograd node that takes
+    the chain's token and hands on a new one, so a backward from `join`
+    runs this process's message nodes in the reverse of their forward
+    order. That backward is the transposed program: each forward send is
+    a blocking receive of its cotangent and each forward receive a
+    non-blocking send, and since the forward (non-blocking sends,
+    blocking receives, every rank in its program order) cannot wait in a
+    cycle, neither can its reverse. Messages carry `tags`' codes.
+
+    The message nodes keep the exchange, never the link: the link holds
+    the chain's last token, whose graph holds those nodes, and a cycle
+    through autograd's graph would keep the step's graph (and the masters
+    its leaves hold) alive after the step.
+
+    A message sent again under a tag this link already used is a
+    recompute (`torch.utils.checkpoint`): nothing is sent and the tensor
+    received the first time comes back. Only the messages received inside
+    `recomputable()`, the checkpointed regions, are kept for that, each
+    until its recompute takes it, so a tensor that remat frees is not
+    held here. `differentiable=False` (inputs that need no gradient)
+    keeps the chain out of the outputs' graph."""
+
+    def __init__(self, exchange: Exchange, tags: MessageTags, device,
+                 differentiable: bool = True):
+        self.exchange = exchange
+        self.tags = tags
+        self.token = torch.zeros((), device=device,
+                                 requires_grad=bool(differentiable))
+        self._seen: set = set()
+        self._kept: dict = {}
+        self._recording = False
+
+    @contextlib.contextmanager
+    def recomputable(self):
+        """Messages received inside are a checkpointed region's: kept
+        until its recompute replays them. The recompute runs the whole
+        region (checkpoint's early stop off), so that it replays, and
+        frees, every one: a message after the region's last saved tensor
+        (Megatron's `g` at a sublayer's end) included."""
+        outer, self._recording = self._recording, True
+        try:
+            with set_checkpoint_early_stop(False):
+                yield
+        finally:
+            self._recording = outer
+
+    def _keep(self, tag, tensor) -> None:
+        if self._recording:
+            self._kept[tag] = tensor
+
+    def _replay(self, tags) -> bool:
+        seen = [t in self._seen for t in tags]
+        if any(seen) and not all(seen):
+            raise RuntimeError(f"message tags {tags} half seen before")
+        self._seen.update(tags)
+        return bool(seen) and all(seen)
+
+    def _cached(self, tag):
+        if tag not in self._kept:
+            raise RuntimeError(
+                f"message {tag} replayed, but it was not received inside "
+                f"Link.recomputable() (or was replayed before)")
+        return self._kept.pop(tag).detach().requires_grad_(True)
+
+    def _advance(self, out):
+        *got, self.token = out
+        return got
+
+    def messages(self, sends=(), recvs=()) -> list:
+        """Post `sends` [(tensor, dst, tag)] and take `recvs` [(shape,
+        dtype, device, src, tag)]; returns the received tensors. In the
+        backward the received tensors' cotangents go back to their
+        senders and the sent tensors' cotangents come back."""
+        tags = [t for *_, t in sends] + [t for *_, t in recvs]
+        if self._replay(tags):
+            return [self._cached(r[-1]) for r in recvs]
+        return self._advance(_Messages.apply(
+            self, tuple((int(d), int(t)) for _, d, t in sends),
+            tuple(recvs), self.token, *[s[0] for s in sends]))
+
+    def copy_out(self, y, local_devices, remote) -> list:
+        """Megatron's `f` from the home position across processes: y's
+        copies on `local_devices` [(j, device)] and y sent to each of
+        `remote` [(j, dst, tag)]; backward the copies' cotangents and the
+        remote positions' (received) are added in model-position order."""
+        if self._replay([t for _, _, t in remote]):
+            return [y.to(d, copy=True) for _, d in local_devices]
+        return self._advance(_CopyOut.apply(
+            self, tuple(local_devices), tuple(remote), self.token, y))
+
+    def sum_in(self, parts, device) -> torch.Tensor:
+        """Megatron's `g` on the home position across processes: `parts`
+        in model-position order, each a local tensor or (src, tag, shape,
+        dtype) of a remote position's part, added in that order on
+        `device`; backward each part gets the sum's cotangent (the remote
+        ones sent back)."""
+        remote = [p for p in parts if not torch.is_tensor(p)]
+        tags = [p[1] for p in remote]
+        if self._replay(tags):
+            got = [p if torch.is_tensor(p) else self._cached(p[1])
+                   for p in parts]
+            out = got[0].to(device)
+            for p in got[1:]:
+                out = out + p.to(device)
+            return out
+        order = tuple(None if torch.is_tensor(p) else tuple(p)
+                      for p in parts)
+        local = [p for p in parts if torch.is_tensor(p)]
+        out, = self._advance(_SumIn.apply(self, order, torch.device(device),
+                                          self.token, *local))
+        return out
+
+    def gather(self, pieces, owners, dim: int, device, tag,
+               meta) -> torch.Tensor:
+        """Every position's piece on every process, concatenated along
+        `dim` in position order on `device`: pieces[i] is this process's
+        tensor where it owns position i (owners[i]) and None elsewhere,
+        each of (shape, dtype) `meta`; `tag(i)` is position i's message
+        tag. Backward each local piece takes its rows of the cotangent
+        (every process computed the same function of the whole, as a
+        global array's holders do)."""
+        out, self.token = _Gather.apply(
+            self, tuple(owners), int(dim), torch.device(device), tag,
+            tuple(meta), self.token, *pieces)
+        return out
+
+    def join(self, out: torch.Tensor) -> torch.Tensor:
+        """`out` tied to the chain's last token, so that a backward from
+        it runs every message node."""
+        return _Join.apply(out, self.token)
+
+    def finish(self) -> None:
+        """The step's end: wait for every send (and drop what no
+        recompute took)."""
+        self.exchange.wait_sends()
+        self._kept.clear()
+
+
+def _zero_token(t):
+    return torch.zeros((), device=t.device)
+
+
+class _Messages(torch.autograd.Function):
+    """Sends and receives as one node (`Link.messages`)."""
+
+    @staticmethod
+    def forward(ctx, link, sends, recvs, token, *sent):
+        ex = link.exchange
+        for t, (dst, tag) in zip(sent, sends):
+            ex.send(t, dst, tag)
+        got = [ex.recv(shape, dtype, dev, src, tag)
+               for shape, dtype, dev, src, tag in recvs]
+        for (*_, tag), g in zip(recvs, got):
+            link._keep(tag, g)
+        ctx.exchange, ctx.sends, ctx.recvs = ex, sends, recvs
+        ctx.sent_meta = [(t.shape, t.dtype, t.device) for t in sent]
+        return (*got, _zero_token(token))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ex = ctx.exchange
+        for g, (_, _, _, src, tag) in zip(grads[:-1], ctx.recvs):
+            ex.send(g, src, tag + 1)
+        back = [ex.recv(shape, dtype, dev, dst, tag + 1)
+                for (dst, tag), (shape, dtype, dev) in zip(ctx.sends,
+                                                           ctx.sent_meta)]
+        return (None, None, None, _zero_token(grads[-1]), *back)
+
+
+class _CopyOut(torch.autograd.Function):
+    """The home side of Megatron's `f` across processes (`Link.copy_out`)."""
+
+    @staticmethod
+    def forward(ctx, link, local_devices, remote, token, y):
+        for _, dst, tag in remote:
+            link.exchange.send(y, dst, tag)
+        ctx.exchange = link.exchange
+        ctx.local_devices, ctx.remote = local_devices, remote
+        ctx.meta = (y.shape, y.dtype, y.device)
+        return (*[y.to(d, copy=True) for _, d in local_devices],
+                _zero_token(token))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        shape, dtype, dev = ctx.meta
+        parts = {j: g for (j, _), g in zip(ctx.local_devices, grads[:-1])}
+        for j, dst, tag in ctx.remote:
+            parts[j] = ctx.exchange.recv(shape, dtype, dev, dst, tag + 1)
+        total = None
+        for j in sorted(parts):
+            g = parts[j].to(dev)
+            total = g if total is None else total + g
+        return (None, None, None, _zero_token(grads[-1]), total)
+
+
+class _SumIn(torch.autograd.Function):
+    """The home side of Megatron's `g` across processes (`Link.sum_in`)."""
+
+    @staticmethod
+    def forward(ctx, link, order, device, token, *local):
+        ex, it, parts = link.exchange, iter(local), []
+        for item in order:
+            if item is None:
+                parts.append(next(it).to(device))
+            else:
+                src, tag, shape, dtype = item
+                got = ex.recv(shape, dtype, device, src, tag)
+                link._keep(tag, got)
+                parts.append(got)
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p
+        ctx.exchange, ctx.order = ex, order
+        ctx.local_devices = [t.device for t in local]
+        return out, _zero_token(token)
+
+    @staticmethod
+    def backward(ctx, g, g_token):
+        for item in ctx.order:
+            if item is not None:
+                ctx.exchange.send(g, item[0], item[1] + 1)
+        return (None, None, None, _zero_token(g_token),
+                *[g.to(d) for d in ctx.local_devices])
+
+
+class _Gather(torch.autograd.Function):
+    """Every position's piece on every process (`Link.gather`)."""
+
+    @staticmethod
+    def forward(ctx, link, owners, dim, device, tag, meta, token, *pieces):
+        ex = link.exchange
+        mine = [i for i, o in enumerate(owners) if o == ex.rank]
+        for i in mine:
+            for r in range(ex.world):
+                if r != ex.rank:
+                    ex.send(pieces[i], r, tag(i))
+        full = []
+        for i, o in enumerate(owners):
+            if o == ex.rank:
+                full.append(pieces[i].to(device))
+            else:
+                full.append(ex.recv(meta[0], meta[1], device, o, tag(i)))
+        ctx.mine, ctx.dim = mine, dim
+        ctx.sizes = [t.shape[dim] for t in full]
+        ctx.devices = {i: pieces[i].device for i in mine}
+        ctx.n = len(pieces)
+        return torch.cat(full, dim), _zero_token(token)
+
+    @staticmethod
+    def backward(ctx, g, g_token):
+        grads = [None] * ctx.n
+        parts = g.split(ctx.sizes, ctx.dim)
+        for i in ctx.mine:
+            grads[i] = parts[i].to(ctx.devices[i])
+        return (None, None, None, None, None, None, _zero_token(g_token),
+                *grads)
+
+
+class _Join(torch.autograd.Function):
+    """`out` as it is, with the token chain as a second input
+    (`Link.join`)."""
+
+    @staticmethod
+    def forward(ctx, out, token):
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, torch.zeros((), device=g.device)
 
 
 class FencedOut(RuntimeError):

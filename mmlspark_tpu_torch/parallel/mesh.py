@@ -17,15 +17,19 @@ reference's tests run theirs on 8 virtual CPU devices. Moving a tensor
 between two positions of one device costs nothing. The constructors
 never repeat a device on their own.
 
-The data axis may span processes (`data_mesh` in a job that
-`parallel.cluster.initialize_cluster` formed): with P processes of L
-local positions each, global position q belongs to process q // L. Each
-process holds tensors only for its own positions: `devices` and
-`axis_devices` list the local ones, `mesh.shape["data"]` is the global
-size, and `mesh.exchange` (a `cluster.Exchange`) gathers the positions'
-tensors across processes. The GBDT fit runs over such a mesh; the LM
-trainers and ring attention take one process's mesh only (ROADMAP item
-15(g)). A mesh of one process behaves as a single-controller mesh.
+A mesh may span processes (`data_mesh`, `grid_mesh` and `full_mesh` in a
+job that `parallel.cluster.initialize_cluster` formed). Its positions are
+laid out process-major, as the reference's `jax.devices()` orders them:
+with P processes, process p owns the p-th of P contiguous blocks of the
+flattened (C-order) grid, so that for (data, pipe, model) = (1, 2, 2) on
+two processes the pipe axis spans them and for (data, model) = (2, 2)
+the data axis does. Each process holds tensors for its own positions
+only: `mesh.shape` is the global shape, `devices` the local block,
+`grid` the global one with None at other processes' positions,
+`process_of(...)` the owner of a position, and `mesh.exchange` (a
+`cluster.Exchange`) moves tensors between processes. The GBDT fit, both
+LM trainers and ring and Ulysses attention run over such a mesh. A mesh
+of one process behaves as a single-controller mesh.
 
 Axis conventions, as in the reference:
     "data"  -- batch/row sharding (dp)
@@ -53,36 +57,48 @@ PIPE_AXIS = "pipe"   # pipeline stages (GPipe microbatch schedule)
 class Mesh:
     """An ndarray of `torch.device`s with one name per axis.
     `mesh.shape[axis]` is the axis' size, as in JAX. With
-    `process_count` > 1 the data axis spans that many processes: `devices`
-    holds this process's positions (`process_index`'s block of the data
-    axis) and `exchange` gathers across processes (module docstring)."""
+    `process_count` > 1, `devices` is the global grid with None at every
+    position another process owns (process p owns the p-th contiguous
+    block of the flattened grid; module docstring) and `exchange` moves
+    tensors between processes."""
 
     def __init__(self, devices, axis_names: Sequence[str],
                  process_count: int = 1, process_index: int = 0,
                  exchange=None):
-        devices = np.asarray(devices, dtype=object)
+        grid = np.asarray(devices, dtype=object)
         axis_names = tuple(axis_names)
-        if devices.ndim != len(axis_names):
-            raise ValueError(f"a mesh of shape {devices.shape} needs "
-                             f"{devices.ndim} axis names, got {axis_names}")
+        if grid.ndim != len(axis_names):
+            raise ValueError(f"a mesh of shape {grid.shape} needs "
+                             f"{grid.ndim} axis names, got {axis_names}")
         if len(set(axis_names)) != len(axis_names):
             raise ValueError(f"axis names must differ: {axis_names}")
-        if process_count > 1 and (DATA_AXIS not in axis_names
-                                  or exchange is None):
-            raise ValueError("only a data axis spans processes, with an "
-                             "exchange (data_mesh)")
-        self.devices = devices
-        self.axis_names = axis_names
         self.process_count = int(process_count)
         self.process_index = int(process_index)
+        if grid.size % self.process_count:
+            raise ValueError(
+                f"a grid of {grid.size} positions {grid.shape} does not "
+                f"split evenly over {self.process_count} processes")
+        self._per = grid.size // self.process_count
+        lo = self.process_index * self._per
+        flat = grid.reshape(-1)
+        for q, dev in enumerate(flat):
+            if (dev is None) == (lo <= q < lo + self._per):
+                raise ValueError(
+                    f"position {q} of the flattened grid is "
+                    f"{'missing its device' if dev is None else 'given a device'}"
+                    f" on process {self.process_index}, which owns positions "
+                    f"[{lo}, {lo + self._per})")
+        if self.process_count > 1 and exchange is None:
+            raise ValueError("a mesh over processes needs an exchange "
+                             "(cluster.Exchange)")
+        self.grid = grid
+        self.axis_names = axis_names
         self.exchange = exchange
+        self.devices = _local_block(grid, lo, self._per)
 
     @property
     def shape(self) -> dict:
-        shape = dict(zip(self.axis_names, self.devices.shape))
-        if self.process_count > 1:
-            shape[DATA_AXIS] *= self.process_count
-        return shape
+        return dict(zip(self.axis_names, self.grid.shape))
 
     @property
     def local_positions(self) -> int:
@@ -92,43 +108,76 @@ class Mesh:
 
     @property
     def position_offset(self) -> int:
-        """The global index of this process's first data position."""
-        return self.process_index * self.local_positions
+        """The data coordinate of this process's first position."""
+        first = np.unravel_index(self.process_index * self._per,
+                                 self.grid.shape)
+        return int(first[self.axis_names.index(DATA_AXIS)])
 
-    def single_process(self, what: str) -> None:
-        """Raise where `what` runs over one process's mesh only."""
-        if self.process_count > 1:
-            raise NotImplementedError(
-                f"{what} over a mesh that spans {self.process_count} "
-                f"processes is not ported yet (ROADMAP Queue 1 item "
-                f"15(g)); the GBDT fit is")
-
-    def axis_devices(self, axis: str) -> list:
-        """The devices along `axis` with every other axis at position 0:
-        where a program sharded over `axis` alone runs (the others hold
-        replicas). On a data axis that spans processes, this process's
-        positions only."""
-        i = self.axis_names.index(axis)
-        index = tuple(slice(None) if j == i else 0
-                      for j in range(self.devices.ndim))
-        return list(self.devices[index])
-
-    def device_at(self, **coords) -> torch.device:
-        """The device of the position at named coordinates, an axis left
-        out at 0: `mesh.device_at(pipe=s, model=j)`. A coordinate of an
-        axis the mesh lacks must be 0 (a size-1 axis)."""
+    def _index(self, coords) -> tuple:
         for axis, i in coords.items():
             if axis not in self.axis_names and i != 0:
                 raise ValueError(f"mesh axes {self.axis_names} have no "
                                  f"{axis!r} axis for coordinate {i}")
-        return self.devices[tuple(coords.get(a, 0)
-                                  for a in self.axis_names)]
+        return tuple(int(coords.get(a, 0)) for a in self.axis_names)
+
+    def process_of(self, **coords) -> int:
+        """The process that owns the position at named coordinates (an
+        axis left out at 0)."""
+        flat = np.ravel_multi_index(self._index(coords), self.grid.shape)
+        return int(flat) // self._per
+
+    def is_local(self, **coords) -> bool:
+        """Whether this process owns the position at named coordinates."""
+        return self.process_of(**coords) == self.process_index
+
+    def axis_devices(self, axis: str) -> list:
+        """The devices along `axis` through this process's first
+        position (with one process: every other axis at 0), this
+        process's only: where a program sharded over `axis` alone runs
+        (the other axes hold replicas)."""
+        i = self.axis_names.index(axis)
+        first = np.unravel_index(self.process_index * self._per,
+                                 self.grid.shape)
+        index = tuple(slice(None) if j == i else first[j]
+                      for j in range(self.grid.ndim))
+        return [d for d in self.grid[index] if d is not None]
+
+    def device_at(self, **coords) -> torch.device:
+        """The device of the position at named coordinates, an axis left
+        out at 0: `mesh.device_at(pipe=s, model=j)`. A coordinate of an
+        axis the mesh lacks must be 0 (a size-1 axis). A position of
+        another process raises: its tensors live there."""
+        index = self._index(coords)
+        dev = self.grid[index]
+        if dev is None:
+            raise ValueError(
+                f"position {dict(zip(self.axis_names, index))} belongs to "
+                f"process {self.process_of(**coords)}, not to this process "
+                f"({self.process_index} of {self.process_count}): its "
+                f"tensors live there (mesh.is_local, mesh.process_of)")
+        return dev
 
     def __repr__(self):
         procs = (f", process {self.process_index} of {self.process_count}"
                  if self.process_count > 1 else "")
         return (f"Mesh({dict(self.shape)}, "
                 f"devices={[str(d) for d in self.devices.flat]}{procs})")
+
+
+def _local_block(grid: np.ndarray, lo: int, per: int) -> np.ndarray:
+    """Positions [lo, lo + per) of the flattened grid, shaped as the box
+    they fill where they fill one ((1, ..., 1, m, trailing axes...)),
+    else flat."""
+    flat = grid.reshape(-1)[lo:lo + per]
+    trailing = 1
+    for k in range(grid.ndim - 1, -1, -1):
+        if per <= trailing * grid.shape[k]:
+            m, rem = divmod(per, trailing)
+            if rem == 0 and grid.shape[k] % m == 0:
+                return flat.reshape((1,) * k + (m,) + grid.shape[k + 1:])
+            break
+        trailing *= grid.shape[k]
+    return flat
 
 
 def _devices(n: int, devices) -> list:
@@ -170,6 +219,30 @@ def device_count() -> int:
     return torch.cuda.device_count()
 
 
+def _spanning(shape, axis_names, devices, what: str) -> Mesh:
+    """A mesh of global `shape` over this job's processes, process-major:
+    `devices` (default: this process's card when it owns one position)
+    are this process's positions."""
+    procs, rank = cluster.process_count(), cluster.process_index()
+    n = math.prod(shape)
+    if n % procs:
+        raise ValueError(f"a grid of {n} positions {tuple(shape)} does not "
+                         f"split evenly over {procs} processes")
+    per = n // procs
+    if devices is None:
+        if per != 1:
+            raise ValueError(
+                f"{what}: {per} positions a process need devices=: a "
+                f"process takes its own card (cluster.local_device())")
+        devs = [cluster.local_device()]
+    else:
+        devs = _devices(per, devices)
+    grid = np.empty(n, dtype=object)
+    grid[rank * per:(rank + 1) * per] = devs
+    return Mesh(grid.reshape(tuple(shape)), axis_names, process_count=procs,
+                process_index=rank, exchange=cluster.Exchange())
+
+
 def data_mesh(n_devices: Optional[int] = None, devices=None,
               span_processes: Optional[bool] = None) -> Mesh:
     """1-D mesh over the `data` axis: the visible CUDA devices (or the
@@ -185,19 +258,9 @@ def data_mesh(n_devices: Optional[int] = None, devices=None,
         if n_devices is not None and n_devices % procs:
             raise ValueError(f"{n_devices} positions do not split over "
                              f"{procs} processes")
-        local = None if n_devices is None else n_devices // procs
-        if devices is None:
-            if local not in (None, 1):
-                raise ValueError(
-                    f"{local} positions a process need devices=: a process "
-                    f"takes its own card (cluster.local_device())")
-            devs = [cluster.local_device()]
-        else:
-            devs = _devices(local or len(devices), devices)
-        return Mesh(_array(devs, (len(devs),)), (DATA_AXIS,),
-                    process_count=procs,
-                    process_index=cluster.process_index(),
-                    exchange=cluster.Exchange())
+        n = n_devices if n_devices is not None else procs * (
+            1 if devices is None else len(devices))
+        return _spanning((n,), (DATA_AXIS,), devices, "data_mesh")
     if n_devices is None:
         n_devices = (torch.cuda.device_count() if devices is None
                      else len(devices))
@@ -211,7 +274,15 @@ def grid_mesh(shape: Sequence[int],
               axis_names: Sequence[str] = (DATA_AXIS, MODEL_AXIS),
               devices=None) -> Mesh:
     """N-D mesh, e.g. (dp, pp, tp, cp) = (1, 1, 1, 4) with
-    devices=[cuda:0] * 4: the four-card layout on one card."""
+    devices=[cuda:0] * 4: the four-card layout on one card.
+
+    In a multi-process job the grid spans the processes: its positions
+    are laid out process-major (the module docstring), `devices`
+    (default: the process's card, where it owns one position) are this
+    process's, and a grid whose size does not split evenly over the
+    processes raises ValueError."""
+    if cluster.process_count() > 1:
+        return _spanning(tuple(shape), axis_names, devices, "grid_mesh")
     n = math.prod(shape)
     return Mesh(_array(_devices(n, devices), shape), axis_names)
 
@@ -219,12 +290,17 @@ def grid_mesh(shape: Sequence[int],
 def full_mesh(axis_names: Sequence[str], shape: Optional[Sequence[int]] = None,
               devices=None) -> Mesh:
     """A mesh over every device: by default all of them on the last axis
-    and 1 on the others, as the reference's."""
+    and 1 on the others, as the reference's (in a multi-process job,
+    every process's positions)."""
     if shape is None:
-        n = (torch.cuda.device_count() if devices is None
-             else len(devices))
-        if n == 0:
-            _devices(1, devices)       # raises: no card is visible
+        procs = cluster.process_count()
+        if procs > 1:
+            n = procs * (1 if devices is None else len(devices))
+        else:
+            n = (torch.cuda.device_count() if devices is None
+                 else len(devices))
+            if n == 0:
+                _devices(1, devices)   # raises: no card is visible
         shape = (len(axis_names) - 1) * (1,) + (n,)
     return grid_mesh(shape, axis_names, devices=devices)
 
