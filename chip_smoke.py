@@ -265,6 +265,27 @@ Phases (any failure exits non-zero before the last line is printed):
      `_MPLM_ADAM_F32_TOL`; s/step per rank beside this process's, the
      exchange's seconds, bytes and share of the step by primitive (copies
      and wire), `lm_train_mfu` and peak memory per rank.
+  20. dnn (slice 18; no kernel of its own: convolutions, pooling and
+     norms are torch ops on cuDNN), with PyTorch's default cuDNN TF32
+     flag ON so the port must scope TF32 off itself: (a)
+     `ImageFeaturizer(model_name="resnet50")` at 224 x 224 on 1,024
+     seeded 256 x 256 uint8 images (the antialiased resize on the card),
+     batch 32, bf16 and f32: images/s after one warm-up pass, s per
+     batch, peak memory, the conv work (4.1 GMAC an image) as TFLOP/s
+     against the dense peak; f32 features of 8 images within
+     `_DNN_F32_TOL` of the port's CPU path (the same forward with the
+     port's TF32 scope taken out must fail it), bf16 within
+     `_DNN_BF16_TOL` of f32, the card's resize equal to the CPU's bit for
+     bit; (b) tests/data/torch_resnet.py's seeded ResNet-18 exported as
+     ONNX at 224: `load_onnx` on the card within `_ONNX_TOL` of torch's
+     forward of the module (TF32 off), then `ImageFeaturizer(onnx_model=)`
+     512-d features, images/s; (c) `DeepTransferClassifier` head mode on
+     ResNet-50 at 224 (512 colour-coded images of 10 classes, 5 epochs)
+     and full mode on ResNet-18 at 32 (1,024 images, 3 epochs): fit s,
+     falling per-epoch losses, train accuracy above chance by
+     `_TRANSFER_MARGIN`, transform images/s, equal probabilities after a
+     save and load; (d) a `DNNModel` of ResNet-18 bf16 at 224 saved as a
+     torch.export program on the card and loaded: equal outputs.
 The headline fit (4) is timed 3 times (min and median), and every
 phase's seconds are printed.
 The kernel phase (3) also holds the flash backward kernels, dq and dk/dv,
@@ -5559,6 +5580,360 @@ def multiprocess_lm_phase(dev):
     return summary
 
 
+# -- [dnn] (slice 18): the deep-net image path ------------------------------
+# ResNet-50 at 224 x 224 through ImageFeaturizer, from 256 x 256 images so
+# the antialiased downsampling runs on the card; weights seeded-random, as
+# the reference's offline zoo (models/dnn/resnet.py:125)
+DNN_IMAGES, DNN_SRC, DNN_SIZE, DNN_BATCH = 1024, 256, 224, 32
+DNN_CHECK = 8                   # images held against the CPU path
+# ResNet-50's convolution work at 224 x 224 (He et al. 2015, Table 1):
+# 4.1e9 multiply-adds an image
+RESNET50_MACS = 4.1e9
+# f32 features on the card against the port's plain CPU path, relative to
+# the largest |feature|: the same f32 math in other summation orders. The
+# card keeps PyTorch's process-wide cuDNN TF32 flag ON through the phase,
+# so the bound holds only because the port scopes TF32 off; the phase
+# shows that the same forward without that scope fails it.
+_DNN_F32_TOL = 1e-4
+# bf16 features against f32 on the card, relative to the largest |f32
+# feature|: every convolution output and BN rounded to bf16 over 50
+# layers (tests/test_torch_dnn_resnet.py's bound; 0.6-1.1% measured at
+# 32 x 32 against the reference on the CPU)
+_DNN_BF16_TOL = 3e-2
+# the ONNX graph's logits against torch's forward of the same module on
+# the card, relative to the largest |logit| (tests/test_onnx_import.py:
+# 162-165)
+_ONNX_TOL = 1e-4
+# transfer learning: 10 classes, each a colour of `_PALETTE` under noise;
+# train accuracy must beat chance (0.1) by this much
+TRANSFER_CLASSES = 10
+_TRANSFER_MARGIN = 0.3
+TRANSFER_HEAD = dict(model_name="resnet50", mode="head", images=512,
+                     size=224, src=256, epochs=5)
+TRANSFER_FULL = dict(model_name="resnet18", mode="full", images=1024,
+                     size=32, src=32, epochs=3)
+DNN_EXPORT_ROWS = 64
+
+
+def _colour_images(n, size, seed):
+    """n uint8 images of `size`, class i % 10 a colour of a fixed palette
+    (RGB corners and mid-greys) under per-pixel noise."""
+    rng = np.random.default_rng(seed)
+    palette = np.array([[0, 0, 0], [255, 0, 0], [0, 255, 0], [0, 0, 255],
+                        [255, 255, 0], [255, 0, 255], [0, 255, 255],
+                        [255, 255, 255], [128, 64, 0], [64, 128, 192]],
+                       np.float64)
+    y = np.arange(n) % TRANSFER_CLASSES
+    noise = rng.normal(0, 40, size=(n, size, size, 3))
+    imgs = np.clip(palette[y][:, None, None, :] * 0.6 + 50 + noise, 0, 255)
+    return imgs.astype(np.uint8), y.astype(np.float32)
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _onnx_resnet18(path):
+    """Export the seeded ResNet-18 of tests/data/torch_resnet.py at 224 with
+    torch's own exporter; returns (module, example input)."""
+    sys.path.insert(0, os.path.join(HERE, "tests", "data"))
+    try:
+        from torch_resnet import export_resnet18_onnx
+    finally:
+        sys.path.pop(0)
+    model, x, _ = export_resnet18_onnx(path, seed=0, spatial=DNN_SIZE)
+    return model, x
+
+
+def _featurize_timed(fz, imgs):
+    """(features, seconds, peak bytes) of `fz` over `imgs` after one
+    warm-up pass over the same images."""
+    import torch
+    from mmlspark_tpu_torch import Table
+    t = Table({"image": imgs})
+    fz.transform(t)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    feats = fz.transform(t)["features"]
+    torch.cuda.synchronize()
+    return feats, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def _unscoped_f32(kw, check):
+    """The f32 featurizer on the card with the port's TF32 scope taken
+    out (`device.exact_f32` made a no-op where the path enters it)."""
+    import contextlib
+    from mmlspark_tpu_torch.models.dnn import ImageFeaturizer
+    from mmlspark_tpu_torch.models.dnn import model as dnn_model
+    from mmlspark_tpu_torch.models.dnn import resnet as rn
+    with contextlib.ExitStack() as undo:
+        for mod in (rn, dnn_model):
+            undo.callback(setattr, mod, "exact_f32", mod.exact_f32)
+            mod.exact_f32 = contextlib.nullcontext
+        return ImageFeaturizer(dtype="float32", **kw).transform(
+            check)["features"]
+
+
+def _profile_featurizer(fz, imgs, dtype):
+    """torch.profiler of one pass of `fz` over `imgs`: kernel time against
+    wall time (the card's idle share) and the operators with the most
+    device time of their own."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprof
+    from mmlspark_tpu_torch import Table
+    t = Table({"image": imgs})
+    with tprof(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fz.transform(t)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    own = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            own[e.key] = own.get(e.key, 0.0) + _device_us(e, own=True)
+    total = sum(own.values())
+    top = sorted(own.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[dnn] profile, {dtype} featurizer, {len(imgs)} images: "
+        f"{total / 1e3:.2f} ms of kernel time in {wall * 1e3:.1f} ms of "
+        f"wall (idle {100 * (1 - total / 1e3 / (wall * 1e3)):.1f}%); "
+        + ", ".join(f"{k} {v / 1e3:.2f} ms ({100 * v / max(total, 1):.1f}%)"
+                    for k, v in top))
+    return dict(kernel_ms=total / 1e3, wall_ms=wall * 1e3,
+                top={k: v / 1e3 for k, v in top})
+
+
+def _dnn_featurizer(dev, imgs, out):
+    """(a) ResNet-50 features at 224 in bf16 and f32, timed; f32 against
+    the CPU path; bf16 against f32; the card's resize against the CPU's."""
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.image import ops as image_ops
+    from mmlspark_tpu_torch.models.dnn import ImageFeaturizer
+    from mmlspark_tpu_torch.models.dnn import resnet as rn
+
+    sub = torch.from_numpy(imgs[:DNN_CHECK])
+    for fn in (image_ops.resize_float, image_ops.resize_images):
+        if not torch.equal(fn(sub.to(dev), DNN_SIZE, DNN_SIZE).cpu(),
+                           fn(sub, DNN_SIZE, DNN_SIZE)):
+            raise AssertionError(f"[dnn] the card's {fn.__name__} differs "
+                                 f"from the CPU's")
+    variables = rn.init_resnet(rn.resnet50(), seed=0)
+    kw = dict(model_name="resnet50", variables=variables,
+              image_height=DNN_SIZE, image_width=DNN_SIZE,
+              batch_size=DNN_BATCH)
+    feats = {}
+    for dtype in ("bfloat16", "float32"):
+        fz = ImageFeaturizer(dtype=dtype, **kw)
+        f, s, peak = _featurize_timed(fz, imgs)
+        if f.shape != (DNN_IMAGES, 2048) or not np.isfinite(f).all():
+            raise AssertionError(f"[dnn] {dtype} features {f.shape}, "
+                                 f"finite {np.isfinite(f).all()}")
+        peak_flops = PEAK_BF16_FLOP_PER_S if dtype == "bfloat16" \
+            else PEAK_F32_FLOP_PER_S
+        tflops = 2 * RESNET50_MACS * DNN_IMAGES / s / 1e12
+        out[f"resnet50_{dtype}"] = dict(
+            images_per_s=DNN_IMAGES / s, s=s,
+            s_per_batch=s / -(-DNN_IMAGES // DNN_BATCH), peak=peak,
+            tflops=tflops, peak_share=tflops * 1e12 / peak_flops)
+        feats[dtype] = f
+        out[f"resnet50_{dtype}"]["profile"] = _profile_featurizer(
+            fz, imgs[:4 * DNN_BATCH], dtype)
+        log(f"[dnn] (a) ResNet-50 ImageFeaturizer {dtype}, {DNN_IMAGES} "
+            f"images {DNN_SRC}x{DNN_SRC} -> {DNN_SIZE}, batch {DNN_BATCH}: "
+            f"{DNN_IMAGES / s:.1f} images/s, {s / -(-DNN_IMAGES // DNN_BATCH):.4f} "
+            f"s/batch, peak {peak / 2**30:.2f} GiB, conv work "
+            f"{tflops:.1f} TFLOP/s = {100 * tflops * 1e12 / peak_flops:.2f}% "
+            f"of the {peak_flops / 1e12:.0f} TFLOP/s dense "
+            f"{'bf16' if dtype == 'bfloat16' else 'f32'} peak")
+    # f32 against the port's plain CPU path on the same weights
+    check = Table({"image": imgs[:DNN_CHECK]})
+    cpu = ImageFeaturizer(dtype="float32", device="cpu", **kw).transform(
+        check)["features"]
+    err = _rel(feats["float32"][:DNN_CHECK], cpu)
+    tf32_err = _rel(_unscoped_f32(kw, check), cpu)
+    if err > _DNN_F32_TOL or tf32_err <= _DNN_F32_TOL:
+        raise AssertionError(f"[dnn] f32 card vs CPU {err:.3g} (limit "
+                             f"{_DNN_F32_TOL}); without the TF32 scope "
+                             f"{tf32_err:.3g} (must exceed it)")
+    bf_err = _rel(feats["bfloat16"], feats["float32"])
+    if bf_err > _DNN_BF16_TOL:
+        raise AssertionError(f"[dnn] bf16 vs f32 features {bf_err:.3g} > "
+                             f"{_DNN_BF16_TOL}")
+    out["checks"] = dict(f32_vs_cpu=err, tf32_vs_cpu=tf32_err,
+                         bf16_vs_f32=bf_err)
+    log(f"[dnn] (a) f32 card vs CPU on {DNN_CHECK} images {err:.3g} of max "
+        f"|feature| (limit {_DNN_F32_TOL}; with TF32 unscoped {tf32_err:.3g}"
+        f"); bf16 vs f32 {bf_err:.3g} (limit {_DNN_BF16_TOL}); the card's "
+        f"resize equal to the CPU's bit for bit")
+
+
+def _dnn_onnx(dev, imgs, tmp, out):
+    """(b) ResNet-18 exported by torch as ONNX: the port's importer on the
+    card against torch's forward of the module; then ImageFeaturizer."""
+    import torch
+    from mmlspark_tpu_torch.models.dnn import ImageFeaturizer, load_onnx
+    from mmlspark_tpu_torch.models.dnn.model import params_to_device
+
+    path = os.path.join(tmp, "resnet18.onnx")
+    t0 = time.perf_counter()
+    model, x = _onnx_resnet18(path)
+    export_s = time.perf_counter() - t0
+    with open(path, "rb") as f:
+        data = f.read()
+    apply_fn, params = load_onnx(data)
+    xd = torch.from_numpy(x).to(dev)
+    model = model.to(dev)
+    cudnn = torch.backends.cudnn
+    with torch.no_grad(), cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=False, allow_tf32=False):
+        want = model(xd).cpu().numpy()
+    got = apply_fn(params_to_device(params, dev), xd).cpu().numpy()
+    err = _rel(got, want)
+    if got.shape != want.shape or err > _ONNX_TOL:
+        raise AssertionError(f"[dnn] ONNX ResNet-18 {got.shape} vs torch "
+                             f"{want.shape}: {err:.3g} > {_ONNX_TOL}")
+    fz = ImageFeaturizer(onnx_model=data, image_height=DNN_SIZE,
+                         image_width=DNN_SIZE, batch_size=DNN_BATCH)
+    f, s, peak = _featurize_timed(fz, imgs)
+    if f.shape != (DNN_IMAGES, 512) or not np.isfinite(f).all():
+        raise AssertionError(f"[dnn] ONNX features {f.shape}")
+    out["onnx_resnet18"] = dict(err=err, images_per_s=DNN_IMAGES / s, s=s,
+                                peak=peak, export_s=export_s,
+                                bytes=len(data))
+    log(f"[dnn] (b) ResNet-18 as ONNX ({len(data)} B, exported in "
+        f"{export_s:.1f} s): logits vs torch's forward on the card "
+        f"{err:.3g} of max |logit| (limit {_ONNX_TOL}); ImageFeaturizer "
+        f"bf16 512-d features {DNN_IMAGES / s:.1f} images/s, peak "
+        f"{peak / 2**30:.2f} GiB")
+
+
+def _dnn_transfer(dev, tmp, out):
+    """(c) head mode on ResNet-50 at 224 and full mode on ResNet-18 at 32:
+    fit seconds, falling losses, train accuracy, transform images/s, and
+    equal probabilities after a save and a load."""
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.core import serialize
+    from mmlspark_tpu_torch.models.dnn import DeepTransferClassifier
+    from mmlspark_tpu_torch.models.dnn import resnet as rn
+
+    for cfg in (TRANSFER_HEAD, TRANSFER_FULL):
+        imgs, y = _colour_images(cfg["images"], cfg["src"],
+                                 seed=cfg["images"])
+        t = Table({"image": imgs, "label": y})
+        t0 = time.perf_counter()
+        variables = rn.init_resnet(getattr(rn, cfg["model_name"])(
+            num_classes=TRANSFER_CLASSES), seed=0)
+        init_s = time.perf_counter() - t0
+        est = DeepTransferClassifier(
+            variables=variables, model_name=cfg["model_name"],
+            mode=cfg["mode"],
+            num_classes=TRANSFER_CLASSES, epochs=cfg["epochs"],
+            image_height=cfg["size"], image_width=cfg["size"], seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = est.fit(t)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        scored = m.transform(t)
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+        acc = float((scored["prediction"] == y).mean())
+        losses = m.training_losses
+        path = os.path.join(tmp, f"transfer_{cfg['mode']}")
+        m.save(path)
+        back = serialize.load_stage(path).transform(t)
+        same = np.array_equal(back["probabilities"], scored["probabilities"])
+        tag = (f"[dnn] (c) {cfg['mode']} mode, {cfg['model_name']} at "
+               f"{cfg['size']}, {cfg['images']} images of "
+               f"{TRANSFER_CLASSES} colours")
+        if not (losses[-1] < losses[0] and acc > 1 / TRANSFER_CLASSES
+                + _TRANSFER_MARGIN and same
+                and np.isfinite(scored["probabilities"]).all()):
+            raise AssertionError(f"{tag}: losses {losses}, accuracy {acc}, "
+                                 f"equal after a reload {same}")
+        out[f"transfer_{cfg['mode']}"] = dict(
+            fit_s=fit_s, init_s=init_s, losses=losses, accuracy=acc,
+            peak=peak, transform_images_per_s=cfg["images"] / score_s)
+        log(f"{tag}, {cfg['epochs']} epochs: seeded backbone drawn on the "
+            f"host in {init_s:.2f} s, then fit {fit_s:.2f} s, losses "
+            f"{', '.join(f'{v:.4f}' for v in losses)}, train accuracy "
+            f"{acc:.4f} (chance {1 / TRANSFER_CLASSES}, margin "
+            f"{_TRANSFER_MARGIN}), transform "
+            f"{cfg['images'] / score_s:.1f} images/s, peak "
+            f"{peak / 2**30:.2f} GiB; probabilities equal after a reload")
+
+
+def _dnn_export(dev, tmp, out):
+    """(d) a DNNModel of ResNet-18 at 224 saved as a torch.export program
+    on the card and loaded: equal outputs."""
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.core import serialize
+    from mmlspark_tpu_torch.models.dnn import DNNModel
+    from mmlspark_tpu_torch.models.dnn import resnet as rn
+
+    model = rn.resnet18(dtype="bfloat16")
+    state = rn.resnet_params_from_numpy(rn.init_resnet(model, seed=1), dev)
+    x = np.random.default_rng(5).random(
+        (DNN_EXPORT_ROWS, 3, DNN_SIZE, DNN_SIZE)).astype(np.float32)
+    m = DNNModel(apply_fn=model, params=state, batch_size=DNN_BATCH)
+    want = m.transform(Table({"features": x}))["scores"]
+    path = os.path.join(tmp, "dnn")
+    t0 = time.perf_counter()
+    m.save(path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = serialize.load_stage(path)
+    got = back.transform(Table({"features": x}))["scores"]
+    load_s = time.perf_counter() - t0
+    if back._apply_fn is not None or not np.array_equal(got, want) or \
+            not np.isfinite(got).all():
+        raise AssertionError("[dnn] (d) the torch.export round trip "
+                             "changed the outputs")
+    out["export"] = dict(save_s=save_s, load_s=load_s,
+                         bytes=os.path.getsize(os.path.join(
+                             path, "arrays.npz")))
+    log(f"[dnn] (d) DNNModel ResNet-18 bf16 at {DNN_SIZE}: saved as a "
+        f"torch.export program in {save_s:.2f} s "
+        f"({out['export']['bytes']} B of arrays), loaded and scored "
+        f"{DNN_EXPORT_ROWS} rows in {load_s:.2f} s, equal outputs")
+
+
+def dnn_phase(dev):
+    """[dnn]: ImageFeaturizer (ResNet-50, bf16 and f32), ONNX ResNet-18,
+    transfer learning in both modes and DNNModel's torch.export round
+    trip, with PyTorch's default cuDNN TF32 flag on."""
+    import tempfile
+    import torch
+    t_phase = time.perf_counter()
+    imgs = np.random.default_rng(18).integers(
+        0, 256, size=(DNN_IMAGES, DNN_SRC, DNN_SRC, 3), dtype=np.uint8)
+    out = {}
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            _dnn_featurizer(dev, imgs, out)
+            torch.cuda.empty_cache()
+            _dnn_onnx(dev, imgs, tmp, out)
+            torch.cuda.empty_cache()
+            _dnn_transfer(dev, tmp, out)
+            _dnn_export(dev, tmp, out)
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+        torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[dnn] the phase {out['s']:.1f} s")
+    return out
+
+
 def only_phase(name, dev, phase, t_start) -> int:
     """`--only NAME`: one phase after card and build (with the headline
     data where it needs them), for runs that iterate on that phase; the
@@ -5575,7 +5950,7 @@ def only_phase(name, dev, phase, t_start) -> int:
              "stats kernel": stats_kernel_phase,
              "stats backward": stats_bwd_kernel_phase,
              "ranker": ranker_phase, "stream train": stream_train_phase,
-             "multiprocess_lm": multiprocess_lm_phase}
+             "multiprocess_lm": multiprocess_lm_phase, "dnn": dnn_phase}
     if name in needs_data:
         data = phase("headline data", headline_data, dev)
         phase(name, needs_data[name], dev, data)
@@ -5653,6 +6028,8 @@ def main(argv) -> int:
     pipe = phase("pipe training", pipe_train_phase, dev, train)
     stream = phase("stream train", stream_train_phase, dev)
     mplm = phase("multiprocess lm", multiprocess_lm_phase, dev)
+    torch.cuda.empty_cache()
+    dnn = phase("dnn", dnn_phase, dev)
     if "--versus" in argv:
         phase("versus", versus_phase, parent)
 
@@ -5965,6 +6342,12 @@ def main(argv) -> int:
         f"lm_train_mfu {', '.join(f'{x:.4f}' for x in r['mfu'])}, peak "
         f"{', '.join(f'{x / 2**30:.2f}' for x in r['peak'])} GiB"
         for n, r in mplm.items()))
+    log(f"[dnn] ResNet-50 features "
+        f"{dnn['resnet50_bfloat16']['images_per_s']:.1f} images/s bf16, "
+        f"{dnn['resnet50_float32']['images_per_s']:.1f} f32; ONNX ResNet-18 "
+        f"{dnn['onnx_resnet18']['images_per_s']:.1f} images/s; transfer fit "
+        f"head {dnn['transfer_head']['fit_s']:.2f} s, full "
+        f"{dnn['transfer_full']['fit_s']:.2f} s; the phase {dnn['s']:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; phases "
         + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     print(json.dumps({"kernels": kernels}))

@@ -40,6 +40,13 @@ def test_import_loads_no_jax():
             "import mmlspark_tpu_torch.parallel.cluster\n"
             "import mmlspark_tpu_torch.reliability.elastic\n"
             "import mmlspark_tpu_torch.telemetry.quality\n"
+            "import mmlspark_tpu_torch.image\n"
+            "import mmlspark_tpu_torch.downloader\n"
+            "import mmlspark_tpu_torch.models.dnn.model\n"
+            "import mmlspark_tpu_torch.models.dnn.resnet\n"
+            "import mmlspark_tpu_torch.models.dnn.onnx_import\n"
+            "import mmlspark_tpu_torch.models.dnn.image_featurizer\n"
+            "import mmlspark_tpu_torch.models.dnn.transfer\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'mmlspark_tpu.')) "
             "or m == 'mmlspark_tpu')\n"
@@ -86,6 +93,13 @@ def test_sources_import_no_jax_or_reference():
                   "process_row_range", "cluster"]),
     ("reliability", ["Attempt", "ElasticPlan", "FleetCheckpoint",
                      "HostLeases", "leader"]),
+    ("models.dnn", ["DNNModel", "ResNet", "resnet18", "resnet50",
+                    "ImageFeaturizer", "TransformerSentenceEncoder",
+                    "init_transformer", "transformer_apply",
+                    "ShardedLMTrainer", "DeepTransferClassifier",
+                    "DeepTransferModel", "load_onnx"]),
+    ("image", ["ImageSetAugmenter", "ImageTransformer",
+               "ResizeImageTransformer", "UnrollImage"]),
 ])
 def test_reference_exports_are_the_port_s(module, names):
     """ROADMAP Queue 3 (v): the names the reference's packages export
