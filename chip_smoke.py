@@ -286,6 +286,26 @@ Phases (any failure exits non-zero before the last line is printed):
      `_TRANSFER_MARGIN`, transform images/s, equal probabilities after a
      save and load; (d) a `DNNModel` of ResNet-18 bf16 at 224 saved as a
      torch.export program on the card and loaded: equal outputs.
+  21. serving (slice 19; no kernel of its own: GBDT scores on the host
+     plan, the encoder's dense attention and the ResNet on cuBLAS/cuDNN):
+     `serve_pipeline` over localhost HTTP, driven by the port's
+     `io.loadgen.run_load`. (a) bench.py's serving model,
+     `GBDTClassifier(num_iterations=20, max_depth=5)` fit on the card on
+     20,000 x 16 seeded rows (`hist_tiled` counted over the fit):
+     microbatch, max_batch 256, linger 0, 16 clients x 125 requests;
+     continuous, 4 x 250; 100 serial requests: req/s, p50/p99, the
+     `serving.request.{queue,transform,reply,e2e}` percentiles, plan hits
+     and misses (misses equal the distinct buckets), peak memory. 512
+     distinct rows each served equal the card's offline `transform`
+     (labels equal, probabilities within `_SERVE_PROBA_TOL`); a hot-swap
+     to a second fit during load and one `inject_fault` mid-load drop no
+     request. (b) `TransformerSentenceEncoder` at its default Params on
+     the card, 256 documents of 16-512 words from 8 clients: each reply
+     within `_SERVE_EMB_TOL` of the offline transform. (c) a ResNet-18
+     f32 `DNNModel` served on 2 partitions with the TF32 flag ON: every
+     reply within `_SERVE_DNN_TOL` (relative) of the single-threaded
+     output, which the forward with the TF32 scope taken out misses.
+     Any reply that is not 200 and was not asked for fails the run.
 The headline fit (4) is timed 3 times (min and median), and every
 phase's seconds are printed.
 The kernel phase (3) also holds the flash backward kernels, dq and dk/dv,
@@ -5934,6 +5954,460 @@ def dnn_phase(dev):
     return out
 
 
+SERVE_ROWS, SERVE_FEAT = 20_000, 16          # bench.py:897-903
+SERVE_CHECK_ROWS = 512
+SERVE_DOCS = 256
+SERVE_DOC_WORDS = (16, 512)
+SERVE_DNN = dict(size=64, images=16, batch=4, classes=10)
+_SERVE_PROBA_TOL = 1e-6
+_SERVE_EMB_TOL = 1e-5
+_SERVE_DNN_TOL = 1e-6
+
+
+def _serve_post_all(address, bodies, timeout=30):
+    """Each body POSTed in turn on one keep-alive connection:
+    [(status, headers, payload)]."""
+    import http.client
+    host, port = address[len("http://"):].rsplit(":", 1)
+    conn = http.client.HTTPConnection(host, int(port), timeout=timeout)
+    out = []
+    try:
+        for b in bodies:
+            conn.request("POST", "/", body=b)
+            resp = conn.getresponse()
+            out.append((resp.status, dict(resp.getheaders()), resp.read()))
+    finally:
+        conn.close()
+    return out
+
+
+def _serve_statuses_ok(out, what):
+    bad = [s for s, _, _ in out if s != 200]
+    if bad:
+        raise AssertionError(f"[serving] {what}: {len(bad)} replies not "
+                             f"200 ({sorted(set(bad))})")
+
+
+def _serve_load(server, body, clients, per_client, post=None):
+    """run_load against `server`; fails on any error, dropped request or
+    non-200 reply."""
+    from mmlspark_tpu_torch.io.loadgen import run_load
+    host, port = server._httpd.server_address[:2]
+    res = run_load(host, port, body, n_clients=clients,
+                   per_client=per_client, timeout=60, post=post)
+    if res.errors or res.n_dropped or set(res.n_by_status or {}) != {200}:
+        raise AssertionError(
+            f"[serving] load: {len(res.errors)} errors "
+            f"({res.errors[:2]}), {res.n_dropped} dropped, statuses "
+            f"{res.n_by_status}")
+    return res
+
+
+def _serve_section(res, transform):
+    """req/s, latency and the serving.request.* stage percentiles of one
+    run, with the plan cache's counts (misses == distinct buckets)."""
+    from mmlspark_tpu_torch.reliability.metrics import reliability_metrics
+    snap = reliability_metrics.snapshot()
+    stats = transform.stats()
+    if stats["misses"] != stats["buckets"] or stats["evictions"]:
+        raise AssertionError(f"[serving] plan misses {stats['misses']} != "
+                             f"distinct buckets {stats['buckets']}")
+    out = dict(req_per_s=res.req_per_sec, p50_ms=res.p50_ms,
+               p99_ms=res.p99_ms, requests=res.n_ok,
+               plan_hits=stats["hits"], plan_misses=stats["misses"])
+    for stage in ("queue", "transform", "reply", "e2e"):
+        for q in ("p50", "p99"):
+            key = f"serving.request.{stage}.{q}"
+            if key not in snap:
+                raise AssertionError(f"[serving] {key} was not recorded")
+            out[f"{stage}_{q}_ms"] = snap[key]
+    return out
+
+
+def _serve_log(tag, sect):
+    log(f"[serving] {tag}: {sect['req_per_s']:.1f} req/s, p50 "
+        f"{sect['p50_ms']:.3f} ms, p99 {sect['p99_ms']:.3f} ms; queue/"
+        f"transform/reply/e2e p50 " + "/".join(
+            f"{sect[f'{s}_p50_ms']:.3f}" for s in (
+                "queue", "transform", "reply", "e2e"))
+        + " ms, p99 " + "/".join(
+            f"{sect[f'{s}_p99_ms']:.3f}" for s in (
+                "queue", "transform", "reply", "e2e"))
+        + f" ms; plan hits {sect['plan_hits']}, misses "
+        f"{sect['plan_misses']} (= distinct buckets); peak "
+        f"{sect.get('peak', 0) / 2**20:.1f} MiB")
+
+
+def _serving_gbdt(dev, out):
+    """(a) bench.py's serving model, fit on the card, served from the
+    host plan."""
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.io import serve_pipeline
+    from mmlspark_tpu_torch.models.gbdt.estimators import GBDTClassifier
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+    from mmlspark_tpu_torch.reliability.metrics import reliability_metrics
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(SERVE_ROWS, SERVE_FEAT)).astype(np.float32)
+    y = (x[:, 0] + x[:, 1] > 0).astype(np.float32)
+    torch.cuda.synchronize()
+    hc.reset_launches()
+    t0 = time.perf_counter()
+    model = GBDTClassifier(num_iterations=20, max_depth=5).fit(
+        Table({"features": x, "label": y}))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {k: v for k, v in hc.launches.items() if v}
+    if launches.get("hist_tiled", 0) < 1:
+        raise AssertionError(f"[serving] the fit launched {launches}")
+    out["fit"] = dict(s=fit_s, launches=launches)
+    body = json.dumps({"features": [0.1] * SERVE_FEAT})
+    for tag, mode, clients, per in (("microbatch", "microbatch", 16, 125),
+                                    ("continuous", "continuous", 4, 250)):
+        reliability_metrics.reset("serving.")
+        torch.cuda.reset_peak_memory_stats()
+        server, q = serve_pipeline(model, ["features"], mode=mode,
+                                   max_batch=256, batch_linger_ms=0.0)
+        try:
+            res = _serve_load(server, body, clients, per)
+            sect = _serve_section(res, q.transform_fn)
+        finally:
+            q.stop()
+            server.stop()
+        sect["peak"] = torch.cuda.max_memory_allocated()
+        out[tag] = sect
+        _serve_log(f"(a) GBDT {tag}, {clients} x {per}", sect)
+    server, q = serve_pipeline(model, ["features"], mode="continuous")
+    try:
+        _serve_statuses_ok(_serve_post_all(server.address, [body]), "warm")
+        lat = []
+        for _ in range(100):
+            t0 = time.perf_counter()
+            got = _serve_post_all(server.address, [body])
+            lat.append(time.perf_counter() - t0)
+            _serve_statuses_ok(got, "serial")
+        lat.sort()
+        out["serial"] = dict(p50_ms=lat[50] * 1e3, p99_ms=lat[99] * 1e3)
+        log(f"[serving] (a) GBDT serial: p50 {lat[50] * 1e3:.3f} ms, p99 "
+            f"{lat[99] * 1e3:.3f} ms (100 requests, new connection each)")
+    finally:
+        q.stop()
+        server.stop()
+    out["breakdown"] = _serving_breakdown(model)
+    # 512 distinct rows, each served, against the card's offline transform
+    rows = np.random.default_rng(1).normal(
+        size=(SERVE_CHECK_ROWS, SERVE_FEAT)).astype(np.float32)
+    offline = model.transform(Table({"features": rows}))
+    bodies = [json.dumps({"features": r.tolist()}).encode() for r in rows]
+    for col in ("prediction", "probabilities"):
+        server, q = serve_pipeline(model, ["features"], output_col=col,
+                                   max_batch=256)
+        try:
+            got = _serve_post_all(server.address, bodies)
+        finally:
+            q.stop()
+            server.stop()
+        _serve_statuses_ok(got, f"{col} check")
+        served = np.asarray([json.loads(p)[col] for _, _, p in got])
+        want = np.asarray(offline[col], np.float64).reshape(served.shape)
+        err = float(np.abs(served - want).max())
+        if (col == "prediction" and not np.array_equal(served, want)) or \
+                err > _SERVE_PROBA_TOL:
+            raise AssertionError(f"[serving] {col}: served rows differ "
+                                 f"from the offline transform by {err}")
+        out[f"{col}_err"] = err
+    log(f"[serving] (a) {SERVE_CHECK_ROWS} distinct rows served: labels "
+        f"equal to the card's transform, probabilities within "
+        f"{out['probabilities_err']:.3g}; fit {fit_s:.3f} s, launches "
+        f"{launches}")
+    _serving_swap_and_fault(model, x, y, body, out)
+
+
+def _serving_breakdown(model, n=16, reps=200):
+    """Host ms of one served batch of `n` rows, outside HTTP: the GBDT
+    host plan alone, the compiled transform (decode, plan, encode, the
+    version split) without the quality tap, and with it (every row folded
+    into the live sketches, the reference's default sample of 1.0)."""
+    from mmlspark_tpu_torch.io.plan import compile_serving_transform
+    from mmlspark_tpu_torch.telemetry import quality
+    rows = np.random.default_rng(3).normal(
+        size=(n, SERVE_FEAT)).astype(np.float32)
+    bodies = [json.dumps({"features": r.tolist()}).encode() for r in rows]
+    kernel = model._serving_kernel("prediction")
+
+    def ms(fn):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    out = {"plan_ms": ms(lambda: kernel(rows))}
+    quality.reset_monitor()            # no reference: the tap is off
+    tf = compile_serving_transform(model, ["features"])
+    quality.reset_monitor()
+    out["transform_ms"] = ms(lambda: tf(bodies))
+    tf = compile_serving_transform(model, ["features"])   # installs it
+    out["with_quality_ms"] = ms(lambda: tf(bodies))
+    log(f"[serving] (a) a batch of {n} rows outside HTTP: host plan "
+        f"{out['plan_ms']:.3f} ms, transform without the quality tap "
+        f"{out['transform_ms']:.3f} ms, with it "
+        f"{out['with_quality_ms']:.3f} ms")
+    return out
+
+
+def _serving_swap_and_fault(model, x, y, body, out):
+    """A hot-swap to a second fit during load, then one injected worker
+    death mid-load: no request dropped, every reply 200."""
+    import threading
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.io import serve_pipeline
+    from mmlspark_tpu_torch.models.gbdt.estimators import GBDTClassifier
+    from mmlspark_tpu_torch.reliability.metrics import reliability_metrics
+    from mmlspark_tpu_torch.telemetry import lineage
+    from mmlspark_tpu_torch.telemetry import names as tnames
+    flip = np.random.default_rng(2).permutation(SERVE_ROWS)
+    model_b = GBDTClassifier(num_iterations=20, max_depth=5).fit(
+        Table({"features": x[flip], "label": y[flip]}))
+    reliability_metrics.reset()
+    lineage.reset_version_registry()
+    server, q = serve_pipeline(model, ["features"], max_batch=256)
+    try:
+        transform = q.transform_fn
+        incumbent = transform.version
+        results = []
+        load = threading.Thread(target=lambda: results.append(
+            _serve_load(server, body, 8, 100)), daemon=True)
+        load.start()
+        deadline = time.monotonic() + 30
+        while (reliability_metrics.get(tnames.SERVING_REQUEST_TOTAL) < 100
+               and time.monotonic() < deadline):
+            time.sleep(0.001)
+        swap = transform.install_model(model_b)
+        load.join(timeout=120)
+        if not results:
+            raise AssertionError("[serving] the load across the swap "
+                                 "failed")
+        with_headers = _serve_post_all(server.address, [body])
+        _serve_statuses_ok(with_headers, "after the swap")
+        if with_headers[0][1].get("X-Model-Version") != swap["new"] or \
+                swap["old"] != incumbent:
+            raise AssertionError(f"[serving] swap {swap}, reply stamped "
+                                 f"{with_headers[0][1]}")
+        exp = json.loads(_urllib_get(server.address + "/versions"))
+        counts = {v: e["metrics"]["counters"][tnames.SERVING_REQUEST_TOTAL]
+                  for v, e in exp["versions"].items()}
+        if sum(counts.values()) != 8 * 100 + 1 or \
+                not counts.get(incumbent):
+            raise AssertionError(f"[serving] /versions splits {counts}")
+        out["swap"] = dict(requests=counts, **swap)
+        # one injected worker death mid-load: replay answers every request
+        results = []
+        load = threading.Thread(target=lambda: results.append(
+            _serve_load(server, body, 8, 100)), daemon=True)
+        load.start()
+        deadline = time.monotonic() + 30
+        while (reliability_metrics.get(tnames.SERVING_REQUEST_TOTAL) < 1000
+               and time.monotonic() < deadline):
+            time.sleep(0.001)
+        q.inject_fault(0)
+        load.join(timeout=120)
+        replayed = reliability_metrics.get(tnames.SERVING_REPLAYED_EPOCHS)
+        if not results or q._recoveries < 1 or replayed < 1:
+            raise AssertionError(f"[serving] injected fault: recoveries "
+                                 f"{q._recoveries}, replayed {replayed}")
+        out["fault"] = dict(recoveries=q._recoveries, replayed=replayed)
+    finally:
+        q.stop()
+        server.stop()
+    log(f"[serving] (a) hot-swap {swap['old']} -> {swap['new']} under 8 x "
+        f"100 requests: none dropped, splits {counts}; one injected worker "
+        f"death mid-load: {out['fault']['replayed']} epoch replayed, every "
+        f"request answered 200")
+
+
+def _urllib_get(url, timeout=30):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read()
+
+
+def _serving_documents(n, seed=19):
+    """`n` seeded documents of SERVE_DOC_WORDS words."""
+    lo, hi = SERVE_DOC_WORDS
+    docs = [d for d in _documents(4 * n, hi, seed=seed)
+            if len(d.split()) >= lo]
+    if len(docs) < n:
+        raise AssertionError("[serving] too few documents")
+    return docs[:n]
+
+
+def _serving_encoder(dev, out):
+    """(b) the encoder at its default Params on the card."""
+    import threading
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.io import serve_pipeline
+    from mmlspark_tpu_torch.models.dnn.transformer import \
+        TransformerSentenceEncoder
+    from mmlspark_tpu_torch.reliability.metrics import reliability_metrics
+    enc = TransformerSentenceEncoder(input_col="text", output_col="emb")
+    docs = _serving_documents(SERVE_DOCS)
+    want = np.concatenate([
+        enc.transform(Table({"text": np.array(docs[i:i + 32])}))["emb"]
+        for i in range(0, len(docs), 32)])
+    bodies = [json.dumps({"text": d}).encode() for d in docs]
+    reliability_metrics.reset("serving.")
+    torch.cuda.reset_peak_memory_stats()
+    server, q = serve_pipeline(enc, ["text"], output_col="emb",
+                               max_batch=64)
+    served = {}
+    lock = threading.Lock()
+    nxt = itertools.count()
+    local = threading.local()
+
+    def post(_body):
+        import http.client
+        i = next(nxt)
+        conn = getattr(local, "conn", None)
+        if conn is None:
+            host, port = server._httpd.server_address[:2]
+            conn = local.conn = http.client.HTTPConnection(host, port,
+                                                           timeout=60)
+        conn.request("POST", "/", body=bodies[i])
+        resp = conn.getresponse()
+        payload = resp.read()
+        if resp.status == 200:
+            with lock:
+                served[i] = json.loads(payload)["emb"]
+        return resp.status, payload
+
+    try:
+        res = _serve_load(server, None, 8, SERVE_DOCS // 8, post=post)
+        sect = _serve_section(res, q.transform_fn)
+    finally:
+        q.stop()
+        server.stop()
+    sect["peak"] = torch.cuda.max_memory_allocated()
+    got = np.asarray([served[i] for i in range(SERVE_DOCS)])
+    err = float(np.abs(got - want).max())
+    if got.shape != want.shape or not np.isfinite(got).all() or \
+            err > _SERVE_EMB_TOL:
+        raise AssertionError(f"[serving] encoder: served embeddings "
+                             f"{got.shape} differ from the transform by "
+                             f"{err}")
+    sect["emb_err"] = err
+    words = [len(d.split()) for d in docs]
+    sect["words"] = (min(words), max(words), sum(words))
+    sect["tokens_per_s"] = sum(words) * res.req_per_sec / len(docs)
+    out["encoder"] = sect
+    _serve_log(f"(b) encoder d_model {enc.d_model}, 8 clients, "
+               f"{SERVE_DOCS} documents of {min(words)}-{max(words)} words",
+               sect)
+    log(f"[serving] (b) embeddings within {err:.3g} of the card's "
+        f"transform; {sect['tokens_per_s']:.4g} tokens/s served")
+
+
+def _serve_unscoped(net, state, x, batch):
+    """The DNNModel's output with the port's TF32 scope taken out
+    (`device.exact_f32` made a no-op where the path enters it)."""
+    import contextlib
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.models.dnn import model as dnn_model
+    from mmlspark_tpu_torch.models.dnn import resnet as rn
+    with contextlib.ExitStack() as undo:
+        for mod in (rn, dnn_model):
+            undo.callback(setattr, mod, "exact_f32", mod.exact_f32)
+            mod.exact_f32 = contextlib.nullcontext
+        return dnn_model.DNNModel(apply_fn=net, params=state,
+                                  batch_size=batch).transform(
+                                      Table({"features": x}))["scores"]
+
+
+def _serving_dnn(dev, out):
+    """(c) a ResNet-18 f32 DNNModel on two partitions, TF32 flag ON."""
+    import threading
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.io import serve_pipeline
+    from mmlspark_tpu_torch.models.dnn import model as dnn_model
+    from mmlspark_tpu_torch.models.dnn import resnet as rn
+    cfg = SERVE_DNN
+    net = rn.resnet18(num_classes=cfg["classes"])
+    state = rn.resnet_params_from_numpy(rn.init_resnet(net, seed=1), dev)
+    m = dnn_model.DNNModel(apply_fn=net, params=state,
+                           batch_size=cfg["batch"])
+    x = np.random.default_rng(6).random(
+        (cfg["images"], 3, cfg["size"], cfg["size"])).astype(np.float32)
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        # the single-threaded output, from a twin of the served model (a
+        # model that has transformed exports its graph when installed)
+        want = dnn_model.DNNModel(apply_fn=net, params=state,
+                                  batch_size=cfg["batch"]).transform(
+                                      Table({"features": x}))["scores"]
+        unscoped = _serve_unscoped(net, state, x, cfg["batch"])
+        server, q = serve_pipeline(m, ["features"], output_col="scores",
+                                   num_partitions=2, max_batch=cfg["batch"])
+        got = {}
+
+        def client(lo):
+            bodies = [json.dumps({"features": x[i].tolist()}).encode()
+                      for i in range(lo, cfg["images"], 4)]
+            replies = _serve_post_all(server.address, bodies)
+            _serve_statuses_ok(replies, "dnn")
+            for k, (_, _, p) in enumerate(replies):
+                got[lo + 4 * k] = json.loads(p)["scores"]
+
+        try:
+            threads = [threading.Thread(target=client, args=(lo,),
+                                        daemon=True) for lo in range(4)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=120)
+        finally:
+            q.stop()
+            server.stop()
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    if sorted(got) != list(range(cfg["images"])):
+        raise AssertionError(f"[serving] dnn: replies {sorted(got)}")
+    served = np.asarray([got[i] for i in range(cfg["images"])])
+    scale = float(np.abs(want).max())
+    err = float(np.abs(served - want).max()) / scale
+    unscoped_err = float(np.abs(unscoped - want).max()) / scale
+    if err > _SERVE_DNN_TOL or unscoped_err <= _SERVE_DNN_TOL:
+        raise AssertionError(f"[serving] dnn: two partitions {err:.3g}, "
+                             f"unscoped TF32 {unscoped_err:.3g} against "
+                             f"{_SERVE_DNN_TOL}")
+    out["dnn"] = dict(err=err, unscoped_err=unscoped_err)
+    log(f"[serving] (c) ResNet-18 f32 DNNModel on 2 partitions, TF32 flag "
+        f"on: {cfg['images']} replies within {err:.3g} (relative) of the "
+        f"single-threaded output; with the TF32 scope taken out "
+        f"{unscoped_err:.3g}")
+
+
+def serving_phase(dev):
+    """[serving]: the HTTP serving path on the card."""
+    import torch
+    from mmlspark_tpu_torch.telemetry import lineage, quality
+    t_phase = time.perf_counter()
+    out = {}
+    quality.reset_monitor()
+    lineage.reset_version_registry()
+    _serving_gbdt(dev, out)
+    torch.cuda.empty_cache()
+    _serving_encoder(dev, out)
+    torch.cuda.empty_cache()
+    _serving_dnn(dev, out)
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[serving] the phase {out['s']:.1f} s")
+    return out
+
+
 def only_phase(name, dev, phase, t_start) -> int:
     """`--only NAME`: one phase after card and build (with the headline
     data where it needs them), for runs that iterate on that phase; the
@@ -5950,7 +6424,8 @@ def only_phase(name, dev, phase, t_start) -> int:
              "stats kernel": stats_kernel_phase,
              "stats backward": stats_bwd_kernel_phase,
              "ranker": ranker_phase, "stream train": stream_train_phase,
-             "multiprocess_lm": multiprocess_lm_phase, "dnn": dnn_phase}
+             "multiprocess_lm": multiprocess_lm_phase, "dnn": dnn_phase,
+             "serving": serving_phase}
     if name in needs_data:
         data = phase("headline data", headline_data, dev)
         phase(name, needs_data[name], dev, data)
@@ -6030,6 +6505,8 @@ def main(argv) -> int:
     mplm = phase("multiprocess lm", multiprocess_lm_phase, dev)
     torch.cuda.empty_cache()
     dnn = phase("dnn", dnn_phase, dev)
+    torch.cuda.empty_cache()
+    serve = phase("serving", serving_phase, dev)
     if "--versus" in argv:
         phase("versus", versus_phase, parent)
 
@@ -6070,7 +6547,9 @@ def main(argv) -> int:
                  "ingest fit": ingest["launches"]["hist_tiled"],
                  "out-of-core fit": ingest["oofit_launches"]["hist_tiled"],
                  "multiprocess fit (per rank, 2 ranks on one card)": mp[
-                     "launches"]["hist_tiled"]},
+                     "launches"]["hist_tiled"],
+                 "serving model fit (20k x 16, 20 iterations)": serve[
+                     "fit"]["launches"].get("hist_tiled", 0)},
              passed=True,
              **{k: hist8[k] for k in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by",
@@ -6348,6 +6827,11 @@ def main(argv) -> int:
         f"{dnn['onnx_resnet18']['images_per_s']:.1f} images/s; transfer fit "
         f"head {dnn['transfer_head']['fit_s']:.2f} s, full "
         f"{dnn['transfer_full']['fit_s']:.2f} s; the phase {dnn['s']:.1f} s")
+    log(f"[serving] GBDT {serve['microbatch']['req_per_s']:.1f} req/s "
+        f"microbatch, {serve['continuous']['req_per_s']:.1f} continuous, "
+        f"serial p50 {serve['serial']['p50_ms']:.3f} ms; encoder "
+        f"{serve['encoder']['req_per_s']:.1f} req/s; the phase "
+        f"{serve['s']:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; phases "
         + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     print(json.dumps({"kernels": kernels}))

@@ -23,7 +23,13 @@ neither `jax` nor anything of `mmlspark_tpu`. Ported so far:
 - GBDT over several processes (`parallel.cluster` on `torch.distributed`,
   a data axis that spans processes), with heartbeats, leases, straggler
   detection and elastic shrink (`reliability.elastic`), and the fit-time
-  quality profile (`telemetry.quality`).
+  quality profile (`telemetry.quality`);
+- LM training over several processes, and the deep-net image path
+  (`models.dnn`: `DNNModel`, ResNets, ONNX import, transfer learning;
+  `image`);
+- HTTP model serving (`io`: `serve_pipeline`, the plan cache, epoch
+  replay, hot-swap) with the serving half of `telemetry` (spans, windowed
+  metrics, Prometheus exposition, model versions, the quality tap).
 
 Entry points run on the card unless the caller passes `device="cpu"`; with
 no card they raise (see `device.resolve_device`).

@@ -7,6 +7,7 @@ used only when the caller asks for it (`device="cpu"`), as the tests do.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -23,6 +24,15 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+# exact_f32's process-wide state: cuDNN's TF32 flag is one setting for
+# the whole process, so concurrent scopes (serving's partition workers)
+# share it: the first to enter saves it and clears TF32, the last to leave
+# restores it
+_F32_LOCK = threading.Lock()
+_f32_depth = 0
+_f32_saved = None
+
+
 @contextlib.contextmanager
 def exact_f32():
     """Within the block, cuDNN runs f32 convolutions as f32, not TF32.
@@ -30,10 +40,23 @@ def exact_f32():
     PyTorch lets cuDNN use TF32 for f32 convolutions by default; the port
     computes f32 as f32 (the reference's f32 convolutions are exact f32
     on the CPU). The flag is scoped here, never set for the process, and
-    every other cuDNN setting is passed through unchanged (`flags()`
-    otherwise resets them, `enabled` included). bf16 convolutions do not
-    read it."""
+    every other cuDNN setting is left as it is. The flag is global, so the
+    scope is counted across threads: while any thread is inside,
+    `torch.backends.cudnn.allow_tf32` is False, and the last thread out
+    restores the value the first one found. bf16 convolutions do not read
+    it."""
+    global _f32_depth, _f32_saved
     cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=False):
+    with _F32_LOCK:
+        if _f32_depth == 0:
+            _f32_saved = cudnn.allow_tf32
+            cudnn.allow_tf32 = False
+        _f32_depth += 1
+    try:
         yield
+    finally:
+        with _F32_LOCK:
+            _f32_depth -= 1
+            if _f32_depth == 0:
+                cudnn.allow_tf32 = _f32_saved
+                _f32_saved = None

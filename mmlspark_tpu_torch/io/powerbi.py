@@ -1,0 +1,5 @@
+"""The reference's `io/powerbi.py` is not ported yet (ROADMAP Queue 1 item
+27): importing this module raises NotImplementedError naming it."""
+raise NotImplementedError(
+    "mmlspark_tpu_torch.io.powerbi is not ported yet (ROADMAP Queue 1 item "
+    "27)")

@@ -23,6 +23,7 @@ cntk/CNTKModel.scala:87-543):
 from __future__ import annotations
 
 import io
+import threading
 from typing import Callable, Optional
 
 import numpy as np
@@ -99,6 +100,7 @@ class DNNModel(Model):
         self._apply_fn = apply_fn
         self._params = params
         self._bound = None          # (device, callable)
+        self._bound_lock = threading.Lock()
         self._export_bytes: Optional[bytes] = None
 
     # -- persistence --------------------------------------------------------
@@ -166,6 +168,16 @@ class DNNModel(Model):
         return self._row_shape
 
     def _compiled(self, dev: torch.device):
+        """The graph bound to its params on `dev`, built on first use and
+        kept. Serving calls it from several worker threads: the build is
+        serialized, so two first batches share one copy of the weights."""
+        bound = self._bound
+        if bound is not None and bound[0] == dev:
+            return bound[1]
+        with self._bound_lock:
+            return self._bind(dev)
+
+    def _bind(self, dev: torch.device):
         if self._bound is not None and self._bound[0] == dev:
             return self._bound[1]
         if self._apply_fn is not None:

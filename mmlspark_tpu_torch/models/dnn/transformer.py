@@ -14,6 +14,8 @@ either package loads into the other.
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -238,18 +240,28 @@ class TransformerSentenceEncoder(Model, HasInputCol, HasOutputCol):
         super().__init__(**kw)
         self._params = None
         self._loaded = None     # a loaded state's tree, moved on first use
+        self._params_lock = threading.Lock()
 
     # -- weights ------------------------------------------------------------
     def _ensure_params(self) -> dict:
-        if self._params is None:
-            tree = self._loaded
-            if tree is None:
-                tree = init_transformer(
-                    1 << self.vocab_bits, self.d_model, self.n_heads,
-                    self.n_layers, self.d_ff, self.max_len, self.seed)
-            self._params = params_from_numpy(tree, self.device)
-            self._loaded = None
-        return self._params
+        """The weights on the stage's device, built or moved on first use.
+        Serving scores one stage from several worker threads, so the first
+        use is serialized: a second thread waits for the first one's
+        tensors instead of building from the seed after the first has
+        taken a loaded tree."""
+        params = self._params
+        if params is not None:
+            return params
+        with self._params_lock:
+            if self._params is None:
+                tree = self._loaded
+                if tree is None:
+                    tree = init_transformer(
+                        1 << self.vocab_bits, self.d_model, self.n_heads,
+                        self.n_layers, self.d_ff, self.max_len, self.seed)
+                self._params = params_from_numpy(tree, self.device)
+                self._loaded = None
+            return self._params
 
     def _architecture(self):
         """(params structure without `meta`, `meta`) that this stage's

@@ -206,6 +206,47 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
             pass
         return model
 
+    def _attach_lineage(self, model):
+        """Stamp the fit's provenance on the fitted model, as the reference
+        does (`estimators.py:425`): the estimator class and uid, its
+        non-transient Params, a digest of the frozen quality profile and,
+        for a checkpointed fit, the checkpoint step. `telemetry.lineage.
+        model_version` freezes it into the ModelVersion `/versions`
+        reports; a configured `RunLedger` gets one line per fit. Lineage
+        never fails a fit."""
+        try:
+            import hashlib
+            params = {}
+            for pname, p in type(self).params().items():
+                if p.transient:
+                    continue
+                v = self.get_or_default(pname)
+                try:
+                    json.dumps(v)
+                    params[pname] = v
+                except (TypeError, ValueError):
+                    params[pname] = repr(v)
+            lineage = {"estimator": type(self).__name__, "uid": self.uid,
+                       "params": params}
+            prof = getattr(model, "quality_profile", None)
+            if prof is not None:
+                canon = json.dumps(prof, sort_keys=True, default=str)
+                lineage["reference_profile"] = hashlib.sha256(
+                    canon.encode()).hexdigest()[:12]
+            if self.checkpoint_dir:
+                step = CheckpointManager(self.checkpoint_dir).latest_step()
+                if step is not None:
+                    lineage["checkpoint_step"] = int(step)
+            model.lineage = lineage
+            from ...telemetry import lineage as tlineage
+            ledger = tlineage.get_run_ledger()
+            if ledger is not None:
+                ledger.append(
+                    tlineage.model_version(model, content=True).export())
+        except Exception:  # noqa: BLE001 - observability never fails a fit
+            pass
+        return model
+
     def _use_mesh(self) -> bool:
         """The reference's rule: shard over num_tasks positions, or over
         every card when num_tasks is 0 and more than one is visible."""
@@ -470,6 +511,21 @@ class _GBDTModelBase(Model, HasFeaturesCol, HasPredictionCol):
         return self._booster.raw_score(x, self._init_score,
                                        device=self.device)
 
+    def _serving_kernel(self, output_col: str):
+        """Vectorized `(n, F) -> values` closure for the serving fast path
+        (`io/plan.py`), on the booster's prebuilt host plan
+        (`Booster.scoring_plan`): tree scoring with no Table and no
+        per-request device dispatch, as in the reference. None when
+        `output_col` is not one this model computes alone; the caller
+        then takes the bucketed `transform` plan."""
+        return None
+
+    def _stamp_kernel(self, fn):
+        """Annotate a kernel with the feature width the serving decode
+        checks (a wrong-width request answers 400 at assembly)."""
+        fn.expected_features = self._booster.n_features
+        return fn
+
     def _maybe_extra_cols(self, t: Table, x: np.ndarray) -> Table:
         """The leaf-index and SHAP columns, where their params are set.
         The init score belongs to the model's expected value, so it is
@@ -501,14 +557,16 @@ class GBDTClassifier(Estimator, _GBDTParams, HasProbabilitiesCol):
         n_classes = max(int(y.max()) + 1, self.num_class) if multiclass else 2
         booster, base, _ = self._train(
             table, self.objective, num_class=n_classes if multiclass else 1)
-        return self._attach_quality_profile(table, GBDTClassificationModel(
-            booster=booster, init_score=base, n_classes=n_classes,
-            features_col=self.features_col, prediction_col=self.prediction_col,
-            probabilities_col=self.probabilities_col,
-            raw_prediction_col=self.raw_prediction_col,
-            sigmoid=self.sigmoid, device=self.device,
-            leaf_prediction_col=self.leaf_prediction_col,
-            features_shap_col=self.features_shap_col))
+        return self._attach_lineage(self._attach_quality_profile(
+            table, GBDTClassificationModel(
+                booster=booster, init_score=base, n_classes=n_classes,
+                features_col=self.features_col,
+                prediction_col=self.prediction_col,
+                probabilities_col=self.probabilities_col,
+                raw_prediction_col=self.raw_prediction_col,
+                sigmoid=self.sigmoid, device=self.device,
+                leaf_prediction_col=self.leaf_prediction_col,
+                features_shap_col=self.features_shap_col)))
 
 
 class GBDTClassificationModel(_GBDTModelBase, HasProbabilitiesCol):
@@ -534,6 +592,27 @@ class GBDTClassificationModel(_GBDTModelBase, HasProbabilitiesCol):
              .with_column(self.probabilities_col, proba)
              .with_column(self.prediction_col, pred), x)
 
+    def _serving_kernel(self, output_col: str):
+        multiclass = self._booster.objective == "multiclass"
+        if output_col == self.prediction_col:
+            plan = self._booster.scoring_plan(self._init_score)
+            if multiclass:
+                # softmax is monotonic: argmax(proba) == argmax(raw),
+                # ties included (both take the first maximum)
+                kern = lambda x: plan(x).argmax(axis=1).astype(np.float64)
+            else:
+                # argmax([1 - p1, p1]) == 1 iff p1 > 0.5 iff raw > 0
+                kern = lambda x: (plan(x)[:, 0] > 0).astype(np.float64)
+            return self._stamp_kernel(kern)
+        if output_col == self.raw_prediction_col:
+            return self._stamp_kernel(
+                self._booster.scoring_plan(self._init_score))
+        if output_col == self.probabilities_col:
+            plan = self._booster.scoring_plan(self._init_score)
+            return self._stamp_kernel(
+                lambda x: self._proba_from_raw(plan(x)))
+        return None
+
 
 class GBDTRegressor(Estimator, _GBDTParams):
     """GBDT regressor; regression_l1/huber/quantile refit each leaf to a
@@ -548,11 +627,13 @@ class GBDTRegressor(Estimator, _GBDTParams):
 
     def _fit(self, table: Table) -> "GBDTRegressionModel":
         booster, base, _ = self._train(table, self.objective)
-        return self._attach_quality_profile(table, GBDTRegressionModel(
-            booster=booster, init_score=base, features_col=self.features_col,
-            prediction_col=self.prediction_col, device=self.device,
-            leaf_prediction_col=self.leaf_prediction_col,
-            features_shap_col=self.features_shap_col))
+        return self._attach_lineage(self._attach_quality_profile(
+            table, GBDTRegressionModel(
+                booster=booster, init_score=base,
+                features_col=self.features_col,
+                prediction_col=self.prediction_col, device=self.device,
+                leaf_prediction_col=self.leaf_prediction_col,
+                features_shap_col=self.features_shap_col)))
 
 
 class GBDTRegressionModel(_GBDTModelBase):
@@ -567,6 +648,12 @@ class GBDTRegressionModel(_GBDTModelBase):
             t.with_column(self.prediction_col, self._link(self._raw(x)[:, 0])),
             x)
 
+    def _serving_kernel(self, output_col: str):
+        if output_col != self.prediction_col:
+            return None
+        plan = self._booster.scoring_plan(self._init_score)
+        return self._stamp_kernel(lambda x: self._link(plan(x)[:, 0]))
+
 
 class GBDTRanker(Estimator, _GBDTParams):
     """LambdaRank ranker with a group column (reference: LightGBMRanker)."""
@@ -578,11 +665,13 @@ class GBDTRanker(Estimator, _GBDTParams):
                                  return_inverse=True)
         booster, base, _ = self._train(table, "lambdarank",
                                        group=group_ids.astype(np.int32))
-        return self._attach_quality_profile(table, GBDTRankerModel(
-            booster=booster, init_score=base, features_col=self.features_col,
-            prediction_col=self.prediction_col, device=self.device,
-            leaf_prediction_col=self.leaf_prediction_col,
-            features_shap_col=self.features_shap_col))
+        return self._attach_lineage(self._attach_quality_profile(
+            table, GBDTRankerModel(
+                booster=booster, init_score=base,
+                features_col=self.features_col,
+                prediction_col=self.prediction_col, device=self.device,
+                leaf_prediction_col=self.leaf_prediction_col,
+                features_shap_col=self.features_shap_col)))
 
 
 class GBDTRankerModel(_GBDTModelBase):
@@ -591,6 +680,13 @@ class GBDTRankerModel(_GBDTModelBase):
         return self._maybe_extra_cols(
             t.with_column(self.prediction_col,
                           self._raw(x)[:, 0].astype(np.float64)), x)
+
+    def _serving_kernel(self, output_col: str):
+        if output_col != self.prediction_col:
+            return None
+        plan = self._booster.scoring_plan(self._init_score)
+        return self._stamp_kernel(
+            lambda x: plan(x)[:, 0].astype(np.float64))
 
 
 def load_native_model(path: str, model_cls=GBDTRegressionModel):

@@ -21,20 +21,25 @@ that replays the identical fault sequence. The port's checkpoint writer
 
 Activation: pass an injector to the code under test, e.g.
 `AsyncCheckpointWriter(manager, faults=FaultInjector(seed=7, rules=[{"site":
-"train.ckpt.write", "kind": "error", "at": [1]}]))`. The port reads no
-environment variable for it: only tests inject faults. The reference also
-logs each fired fault as a telemetry event; the port's telemetry is
-ROADMAP Queue 1 item 23.
+"train.ckpt.write", "kind": "error", "at": [1]}]))`. The serving server
+(`io.serving.ServingServer`), as the reference's, also reads
+`MMLSPARK_TPU_FAULTS='{"seed": 7, "rules": [{"site": "serving.worker",
+"kind": "crash", "at": [1]}]}'` through `FaultInjector.from_env()` when it
+is given none. Each fired fault is also a `fault.injected` event on the
+telemetry tracer.
 """
 from __future__ import annotations
 
 import fnmatch
+import json
 import os
 import random
 import threading
 import time
 import zlib
 from typing import Callable, NamedTuple, Optional
+
+FAULTS_ENV = "MMLSPARK_TPU_FAULTS"
 
 # Hard cap on injected delays: fault tests must stay fast.
 MAX_INJECTED_DELAY = 0.2
@@ -74,6 +79,16 @@ class FaultInjector:
         self._rngs: dict = {}
         self.history: list = []   # list[Fault], in fire order
 
+    @classmethod
+    def from_env(cls, var: str = FAULTS_ENV) -> Optional["FaultInjector"]:
+        """Build from the env var's JSON spec; None when unset (the
+        zero-overhead disabled state)."""
+        spec = os.environ.get(var)
+        if not spec:
+            return None
+        cfg = json.loads(spec)
+        return cls(seed=cfg.get("seed", 0), rules=cfg.get("rules", []))
+
     # -- deterministic per-site randomness ------------------------------------
     def _site_rng(self, site: str) -> random.Random:
         rng = self._rngs.get(site)
@@ -82,6 +97,18 @@ class FaultInjector:
             rng = random.Random(zlib.crc32(site.encode()) ^ self.seed)
             self._rngs[site] = rng
         return rng
+
+    def _emit(self, fault: Fault) -> None:
+        """A `fault.injected` event per fired fault, so a chaos run's event
+        log interleaves injections with the recovery they provoked.
+        Guarded: observability never changes a fault schedule."""
+        try:
+            from ..telemetry.names import FAULT_INJECTED_EVENT
+            from ..telemetry.spans import get_tracer
+            get_tracer().event(FAULT_INJECTED_EVENT, site=fault.site,
+                               index=fault.index, kind=fault.kind)
+        except Exception:  # noqa: BLE001
+            pass
 
     # -- core ------------------------------------------------------------------
     def fire(self, site: str) -> Optional[Fault]:
@@ -103,6 +130,8 @@ class FaultInjector:
                 fault = Fault(site, index, rule["kind"], rule.get("param"))
                 self.history.append(fault)
                 break
+        if fault is not None:
+            self._emit(fault)
         return fault
 
     def perturb(self, site: str) -> Optional[Fault]:

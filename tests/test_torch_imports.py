@@ -47,6 +47,19 @@ def test_import_loads_no_jax():
             "import mmlspark_tpu_torch.models.dnn.onnx_import\n"
             "import mmlspark_tpu_torch.models.dnn.image_featurizer\n"
             "import mmlspark_tpu_torch.models.dnn.transfer\n"
+            "import mmlspark_tpu_torch.io\n"
+            "import mmlspark_tpu_torch.io.serving\n"
+            "import mmlspark_tpu_torch.io.plan\n"
+            "import mmlspark_tpu_torch.io.loadgen\n"
+            "import mmlspark_tpu_torch.stages.batching\n"
+            "import mmlspark_tpu_torch.train.metrics\n"
+            "import mmlspark_tpu_torch.utils.stats\n"
+            "import mmlspark_tpu_torch.telemetry.names\n"
+            "import mmlspark_tpu_torch.telemetry.spans\n"
+            "import mmlspark_tpu_torch.telemetry.window\n"
+            "import mmlspark_tpu_torch.telemetry.exposition\n"
+            "import mmlspark_tpu_torch.telemetry.lineage\n"
+            "import mmlspark_tpu_torch.telemetry.perf\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'mmlspark_tpu.')) "
             "or m == 'mmlspark_tpu')\n"
@@ -100,6 +113,21 @@ def test_sources_import_no_jax_or_reference():
                     "DeepTransferModel", "load_onnx"]),
     ("image", ["ImageSetAugmenter", "ImageTransformer",
                "ResizeImageTransformer", "UnrollImage"]),
+    ("io", ["Reply", "ServingServer", "ServingQuery", "serve_pipeline",
+            "ServingTransform", "compile_serving_transform"]),
+    ("stages", ["FixedMiniBatchTransformer", "DynamicMiniBatchTransformer",
+                "TimeIntervalMiniBatchTransformer", "FlattenBatch"]),
+    ("telemetry", ["Tracer", "Span", "SpanContext", "get_tracer",
+                   "configure", "head_sampled", "parse_trace_header",
+                   "read_jsonl", "wall_now", "TRACE_HEADER",
+                   "render_prometheus", "metrics_http_response",
+                   "merge_states", "state_snapshot", "WindowedHistogram",
+                   "WindowedCounter", "ModelVersion", "RunLedger",
+                   "model_version", "configure_run_ledger",
+                   "get_version_registry", "export_versions",
+                   "QualityMonitor", "StreamingEvaluator", "get_monitor",
+                   "record_label", "export_quality", "CompileLog",
+                   "record_plan_compile", "compile_stats", "StepClock"]),
 ])
 def test_reference_exports_are_the_port_s(module, names):
     """ROADMAP Queue 3 (v): the names the reference's packages export
@@ -115,3 +143,91 @@ def test_reference_exports_are_the_port_s(module, names):
         assert name in port.__all__, name
     if not module:
         assert port.__version__ == ref.__version__
+
+
+@pytest.mark.parametrize("module, names", [
+    ("io", ["ServingServer", "ServingQuery", "serve_pipeline", "Reply",
+            "ServingTransform", "compile_serving_transform"]),
+    ("io.serving", ["Reply", "CachedRequest", "ServingServer",
+                    "ServingQuery", "serve_pipeline", "drain_on_signal",
+                    "EXPOSITION_PATHS", "MAX_BODY_BYTES"]),
+    ("io.plan", ["pipeline_fingerprint", "ServingTransform",
+                 "compile_serving_transform"]),
+    ("io.loadgen", ["LoadResult", "run_load"]),
+    ("stages.batching", ["shape_bucket", "pad_rows_to_bucket",
+                         "FixedMiniBatchTransformer", "FlattenBatch"]),
+    ("train.metrics", ["ConfusionState", "RegressionState",
+                       "binary_metrics", "multiclass_metrics",
+                       "regression_metrics", "auc", "pr_auc",
+                       "ndcg_at_k"]),
+    ("utils.stats", ["merge_moments"]),
+    ("utils.tracing", ["trace", "annotate", "wall_clock"]),
+    ("telemetry.spans", ["Tracer", "get_tracer", "configure", "TRACE_HEADER",
+                         "head_sampled", "parse_trace_header", "wall_now",
+                         "read_jsonl"]),
+    ("telemetry.window", ["WindowedHistogram", "WindowedCounter",
+                          "set_clock"]),
+    ("telemetry.quality", ["StreamingEvaluator", "QualityMonitor",
+                           "get_monitor", "reset_monitor",
+                           "configure_quality", "observe_serving",
+                           "record_label", "export_quality",
+                           "refresh_quality_gauges",
+                           "quality_http_response",
+                           "merge_quality_exports"]),
+    ("telemetry.lineage", ["ModelVersion", "model_version", "RunLedger",
+                           "configure_run_ledger", "VersionRegistry",
+                           "export_versions", "refresh_canary_gauges",
+                           "versions_http_response"]),
+    ("telemetry.perf", ["CompileLog", "record_plan_compile",
+                        "compile_stats"]),
+    ("telemetry.exposition", ["prom_name", "render_prometheus",
+                              "metrics_http_response", "merge_states",
+                              "state_snapshot"]),
+    ("reliability.metrics", ["histogram_bounds_ms", "MetricsRegistry",
+                             "Histogram"]),
+])
+def test_serving_slice_names_are_the_reference_s(module, names):
+    """Each name of the serving slice exists in both packages' module of
+    that path."""
+    import importlib
+    port = importlib.import_module("mmlspark_tpu_torch." + module)
+    ref = importlib.import_module("mmlspark_tpu." + module)
+    for name in names:
+        assert hasattr(ref, name), name
+        assert hasattr(port, name), name
+
+
+@pytest.mark.parametrize("module, name, item", [
+    ("io", "HTTPTransformer", "27"), ("io", "FileStreamSource", "27"),
+    ("io", "SharedVariable", "27"), ("io", "ServiceRegistry", "15(h)"),
+    ("io", "start_distributed_serving", "15(h)"),
+    ("io.plan", "serving_plan_contract", "24"),
+    ("telemetry", "SLOEngine", "27"), ("telemetry", "TelemetryPoller", "27"),
+    ("telemetry", "FlightRecorder", "23"), ("telemetry", "AotCache", "23"),
+    ("telemetry", "ProfileSession", "23"),
+    ("telemetry", "scrape_cluster", "15(h)"),
+    ("telemetry.perf", "FlightRecorder", "23"),
+    ("telemetry.perf", "executable_analysis", "23"),
+    ("telemetry.exposition", "ExpositionServer", "27"),
+    ("telemetry.exposition", "scrape_cluster", "15(h)"),
+    ("telemetry.lineage", "merge_version_exports", "15(h)"),
+])
+def test_left_out_names_raise_naming_their_item(module, name, item):
+    import importlib
+    mod = importlib.import_module("mmlspark_tpu_torch." + module)
+    with pytest.raises(NotImplementedError) as err:
+        getattr(mod, name)
+    assert f"item {item}" in str(err.value)
+
+
+@pytest.mark.parametrize("module, item", [
+    ("http", "27"), ("powerbi", "27"), ("streaming", "27"), ("sources", "27"),
+    ("shared", "27"), ("registry", "15(h)")])
+def test_left_out_io_modules_raise_naming_their_item(module, item):
+    import importlib
+    import sys
+    name = "mmlspark_tpu_torch.io." + module
+    sys.modules.pop(name, None)
+    with pytest.raises(NotImplementedError) as err:
+        importlib.import_module(name)
+    assert f"item {item}" in str(err.value)
