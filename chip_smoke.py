@@ -166,7 +166,8 @@ Phases (any failure exits non-zero before the last line is printed):
      data: two uninterrupted checkpointed `GBDTClassifier` fits, a 6 -> 10
      resume, and a subprocess SIGTERMed after its second checkpoint and
      resumed in a fresh process, margins, split_feature, threshold and
-     leaf_value all equal bit for bit. The flagship bf16 LM: two steps,
+     leaf_value all equal bit for bit. The flagship-width bf16 LM at 4 of
+     its 12 layers (cut to pay for [fleet]): two steps,
      `save_checkpoint`, a trainer of another seed restores: parameters
      equal, the next loss within rtol 1e-6; save and restore seconds and
      bytes. Checkpoints go to a temporary directory, deleted after.
@@ -221,8 +222,9 @@ Phases (any failure exits non-zero before the last line is printed):
      the same file is SIGTERMed mid-staging and a fresh process resumes
      from the spill cache's cursor: booster equal field for field, 60
      `hist_tiled_fixed` launches as [resume]'s.
-  17. stream train (slice 15): `ShardedLMTrainer` at the flagship width,
-     f32, dense, on 12 seeded (4, 2048) batches: `run_stream(prefetch=2)`
+  17. stream train (slice 15): `ShardedLMTrainer` at the flagship width
+     and 4 of its 12 layers (cut to pay for [fleet]), f32,
+     dense, on 12 seeded (4, 2048) batches: `run_stream(prefetch=2)`
      losses equal a `step()` loop's; supervised with a checkpoint every 6
      batches, uninterrupted and with an injected train.step7 crash absorbed
      in-run (losses and parameters bit-identical); a child SIGTERMed after
@@ -306,6 +308,28 @@ Phases (any failure exits non-zero before the last line is printed):
      reply within `_SERVE_DNN_TOL` (relative) of the single-threaded
      output, which the forward with the TF32 scope taken out misses.
      Any reply that is not 200 and was not asked for fails the run.
+  22. fleet (slice 20; no kernel of its own: gathers, cuBLAS products
+     and torch top-k; every kernel's launch count must stand still across
+     the phase): (a) `IsolationForestScorer` with the reference's defaults
+     (100 trees of 256 samples) on 1,000,000 x 16 seeded rows with 1%
+     shifted outliers, supervised with a checkpoint every 25 trees: every
+     row scored on the card, 65,536 within rtol 1e-6 of the CPU path, the
+     outliers' AUC above 0.9, served replies equal to `transform`; (b)
+     `SARServing` (jaccard, support 2, 30-day decay) on MovieLens-1M-shaped
+     events (6,040 users, 3,706 items, 1,000,209 ratings, Zipf popularity,
+     three years): two fits on the card bit-identical, top-10 for every
+     user on a 1- and a 4-position mesh equal, 512 users against float64
+     numpy up to ties; (c) `KNN` and `ConditionalKNN` (100,000 x 128, 8,192
+     queries, k = 10, 16 labels) with cuBLAS's TF32 flag ON outside the
+     port's scope: 512 queries within rtol 1e-5 of the CPU path, indices
+     equal up to ties; (d) `start_distributed_serving` on two gloo ranks
+     of the card serving the SAR model's id-keyed plan: 2,000 requests
+     from a `RegistryClient` (every reply 200 and equal to the card's
+     plan, both ranks serving), a worker death on rank 1 healed by replay,
+     `scrape_cluster(versions=True)`'s merged count equal to the
+     client's, `rollout_skew` after a swap on rank 1 alone, and rank 1
+     SIGTERMed under `drain_on_signal`: out of the registry, the client's
+     later requests failing over and answered. req/s, p50, p99.
 The headline fit (4) is timed 3 times (min and median), and every
 phase's seconds are printed.
 The kernel phase (3) also holds the flash backward kernels, dq and dk/dv,
@@ -3641,9 +3665,16 @@ def _checkpointed_fit_cost(dev, data, tmp, default_times):
                 launches=launches, logloss=(ll, ref_ll), auc=(auc, ref_auc))
 
 
+# the LM [resume] saves and restores: the flagship's width at a third of
+# its depth (4 of 12 layers; a 1.2 GB checkpoint, not 2.4), cut to pay
+# for [fleet] inside the run's time limit
+RESUME_LM = dict(LM, n_layers=4)
+
+
 def _lm_resume(dev, tmp):
-    """The flagship bf16 LM (`PipelinedLMTrainer`, flash, remat=
-    "save_attn", Adam): two steps, `save_checkpoint`, a third and a
+    """The flagship-width bf16 LM at `RESUME_LM`'s depth
+    (`PipelinedLMTrainer`, flash, remat="save_attn", Adam): two steps,
+    `save_checkpoint`, a third and a
     fourth step; a trainer of another seed restores: its parameters and
     Adam's state (step count, exp_avg, exp_avg_sq) equal the saved ones
     bit for bit, its third-step loss equals the original's within rtol
@@ -3663,9 +3694,10 @@ def _lm_resume(dev, tmp):
     def trainer(seed):
         return PipelinedLMTrainer(
             n_microbatches=1, attention="flash", optimizer="adam", seed=seed,
-            compute_dtype="bfloat16", remat="save_attn", device=dev, **LM)
+            compute_dtype="bfloat16", remat="save_attn", device=dev,
+            **RESUME_LM)
     toks = np.random.default_rng(0).integers(
-        0, LM["vocab_size"], size=(1, LM_SEQ)).astype(np.int32)
+        0, RESUME_LM["vocab_size"], size=(1, LM_SEQ)).astype(np.int32)
     ckdir = os.path.join(tmp, "lm")
     a = trainer(0)
     a.step(toks)
@@ -3696,7 +3728,8 @@ def _lm_resume(dev, tmp):
     del b
     torch.cuda.empty_cache()
     rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
-    log(f"[resume] flagship LM bf16 ({LM_SEQ} tokens): save_checkpoint "
+    log(f"[resume] flagship-width LM bf16, {RESUME_LM['n_layers']} layers "
+        f"({LM_SEQ} tokens): save_checkpoint "
         f"{save_s:.2f} s, {nbytes} bytes; restore into a trainer of seed 1 "
         f"{restore_s:.2f} s (step {step}), parameters equal to the saved "
         f"ones: {same}, Adam's state: {same_opt}; step 3 loss {got[0]:.7f} against {want[0]:.7f} "
@@ -4590,12 +4623,16 @@ def ingest_phase(dev, data, paths, resume):
 
 
 # ------------------------------------------------------- [stream train]
-# slice 15: `ShardedLMTrainer.run_stream` at the flagship width, f32,
-# dense attention, on STREAM_BATCHES seeded (4, 2048) batches of Zipf
-# token ids: against a
+# slice 15: `ShardedLMTrainer.run_stream` at the flagship width and a
+# third of its depth (STREAM_LM: 4 layers, 100.7M parameters, so each
+# checkpoint is 1.2 GB, not 2.4, and a process builds the model in about
+# half the time; cut to pay for [fleet] inside the run's time limit), f32,
+# dense attention, on
+# STREAM_BATCHES seeded (4, 2048) batches of Zipf token ids: against a
 # `step()` loop, then supervised (a checkpoint every STREAM_EVERY batches)
 # with and without an injected crash, and a child preempted by SIGTERM
 # and resumed in a fresh process
+STREAM_LM = dict(LM, n_layers=4)
 STREAM_BATCHES = 12
 STREAM_SHAPE = (4, 2048)
 STREAM_EVERY = 6
@@ -4659,7 +4696,7 @@ def _param_digests(trainer):
 
 
 def _stream_child(script, phase, ck, dev, out):
-    cfg = json.dumps(dict(lm=LM, shape=STREAM_SHAPE, n=STREAM_BATCHES,
+    cfg = json.dumps(dict(lm=STREAM_LM, shape=STREAM_SHAPE, n=STREAM_BATCHES,
                           every=STREAM_EVERY, kill_after=STREAM_KILL_AFTER))
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, script, phase, ck, cfg, str(dev),
@@ -4697,9 +4734,9 @@ def stream_train_phase(dev):
     from mmlspark_tpu_torch.telemetry import StepClock
     from mmlspark_tpu_torch.utils.checkpoint import CheckpointManager
 
-    batches = _stream_batches(LM, STREAM_SHAPE, STREAM_BATCHES)
+    batches = _stream_batches(STREAM_LM, STREAM_SHAPE, STREAM_BATCHES)
     tokens = STREAM_SHAPE[0] * STREAM_SHAPE[1]
-    t = ShardedLMTrainer(seed=0, device=dev, **LM)
+    t = ShardedLMTrainer(seed=0, device=dev, **STREAM_LM)
     init = lm_state_payload(t.params, t._opt, t.meta, t._blocks)
 
     def from_init():
@@ -4730,8 +4767,9 @@ def stream_train_phase(dev):
         acct = clock.snapshot()
         stream_s = (acct["wall_s"] - acct["phases"]["checkpoint_s"]) \
             / acct["steps"]
-        log(f"[stream train] ShardedLMTrainer flagship f32, "
-            f"{STREAM_BATCHES} batches {STREAM_SHAPE}: step() loop "
+        log(f"[stream train] ShardedLMTrainer flagship width f32, "
+            f"{STREAM_LM['n_layers']} layers, {STREAM_BATCHES} batches "
+            f"{STREAM_SHAPE}: step() loop "
             f"{step_s:.4f} s/step; run_stream(prefetch=2), a checkpoint "
             f"every {STREAM_EVERY} batches: {stream_s:.4f} s a step = "
             f"{tokens / stream_s:.4g} tokens/s ({sup_s:.4f} s/step with "
@@ -6408,6 +6446,545 @@ def serving_phase(dev):
     return out
 
 
+# ------------------------------------------------------------- [fleet]
+# (a) the isolation forest: 1M x 16 seeded rows, 1% shifted by +4 in
+# every feature; the reference's defaults (models/isolation_forest.py:
+# 61-65), a supervisor checkpoint every 25 trees
+FLEET_IF = dict(rows=1_000_000, features=16, outliers=0.01, shift=4.0,
+                trees=100, max_samples=256, checkpoint_every=25)
+FLEET_IF_CHECK = 65536        # rows held against the port's CPU path
+FLEET_IF_SERVE = 256          # rows served and held against transform
+_FLEET_IF_RTOL = 1e-6
+_FLEET_AUC_MIN = 0.9
+# (b) SAR at the shape of MovieLens-1M (6,040 users, 3,706 items,
+# 1,000,209 ratings), synthetic: Zipf item popularity (a = 1), each
+# (user, item) pair rated once, ratings 1-5, timestamps over three years
+FLEET_SAR = dict(users=6040, items=3706, events=1_000_209, years=3, k=10,
+                 support=2, decay_days=30, positions=4)
+FLEET_SAR_CHECK = 512         # users held against float64 numpy
+# (b) also an implicit-feedback log at the same users, items and event
+# count: (user, item) pairs Zipf-popular (a = 1.2), so pairs repeat (the
+# most-used one ~1e5 times), no ratings; its affinity against float64
+FLEET_SAR_ZIPF = 1.2
+_FLEET_SAR_RTOL = 1e-6
+# (c) KNN: 100,000 x 128 index vectors, 8,192 queries, 16 labels
+FLEET_KNN = dict(index=100_000, dim=128, queries=8192, k=10, labels=16)
+FLEET_KNN_CHECK = 512         # queries held against the port's CPU path
+_FLEET_TIE_RTOL = 1e-5        # two scores this close are a tie
+_FLEET_DIST_RTOL = 1e-5
+# (d) two gloo ranks on the card behind the registry
+FLEET_REQUESTS = 2000
+FLEET_AFTER_DRAIN = 50
+_FLEET_PROC = """
+import json, os, signal, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, {here!r})
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from mmlspark_tpu_torch.core import PipelineStage
+from mmlspark_tpu_torch.io import (RegistryClient, compile_serving_transform,
+                                   list_services, start_distributed_serving)
+from mmlspark_tpu_torch.io.serving import drain_on_signal
+from mmlspark_tpu_torch.ops import flash_attention as fa
+from mmlspark_tpu_torch.ops import histogram_cuda as hc
+from mmlspark_tpu_torch.parallel import cluster
+from mmlspark_tpu_torch.reliability.metrics import reliability_metrics
+from mmlspark_tpu_torch.telemetry import names as tnames
+from mmlspark_tpu_torch.telemetry.exposition import scrape_cluster
+from mmlspark_tpu_torch.telemetry.lineage import rollout_skew
+
+rank, tmp, cfg = int(sys.argv[1]), sys.argv[2], json.loads(sys.argv[3])
+cluster.initialize_cluster(init_method="file://" + os.path.join(tmp, "rdv"),
+                           num_processes=2, process_id=rank, timeout_s=300)
+assert cluster.backend_name() == "gloo", cluster.backend_name()
+torch.cuda.set_device(cluster.local_device())
+model = PipelineStage.load(cfg["model"])
+transform = compile_serving_transform(model, ["user"],
+                                      output_col="recommendations")
+registry, server, query, addr = start_distributed_serving(
+    transform, name="sar", num_partitions=1, mode="continuous")
+pids = cluster.all_gather_object(os.getpid())
+if rank == 1:
+    query.inject_fault(0)     # the next batch read dies before its commit
+cluster.barrier("armed")
+res = dict()
+if rank == 0:
+    want = np.load(cfg["want"])
+    users = np.random.default_rng(23).integers(0, want.shape[0],
+                                               cfg["requests"])
+    client = RegistryClient(addr, "sar")
+    lat, bad, wrong = [], [], 0
+    t0 = time.perf_counter()
+    for u in users:
+        t1 = time.perf_counter()
+        status, body = client.post(json.dumps(dict(user=int(u))).encode())
+        lat.append(time.perf_counter() - t1)
+        if status != 200:
+            bad.append(status)
+            continue
+        items = json.loads(body)["recommendations"][0]
+        wrong += items != want[u, 0].tolist()
+    wall = time.perf_counter() - t0
+    res.update(req_per_s=len(users) / wall, wall_s=wall, bad=bad,
+               wrong=wrong, p50_ms=float(np.percentile(lat, 50)) * 1e3,
+               p99_ms=float(np.percentile(lat, 99)) * 1e3,
+               client_total=len(users))
+    snap = scrape_cluster(addr, "sar", versions=True)
+    res["merged_total"] = snap.merged.get(tnames.SERVING_REQUEST_TOTAL)
+    res["per_worker"] = [st["counters"].get(tnames.SERVING_REQUEST_TOTAL, 0)
+                         for _, st in snap.workers]
+cluster.barrier("traffic")
+res["recoveries"] = query._recoveries
+if rank == 1:
+    swap = transform.install_model(model.copy(dict(remove_seen=True)))
+    res["swap"] = [swap["old"], swap["new"]]
+cluster.barrier("swapped")
+if rank == 0:
+    snap = scrape_cluster(addr, "sar", versions=True)
+    res["skew"] = rollout_skew(snap.versions["current_by_worker"])
+cluster.barrier("scraped")
+if rank == 1:
+    # the port's drain: the stopping server unregisters itself, answers
+    # what is in flight, then the query stops
+    drain_on_signal(servers=[server], queries=[query], exit_code=None)
+cluster.barrier("handler_set")
+if rank == 0:
+    t0 = time.perf_counter()
+    os.kill(pids[1], signal.SIGTERM)
+    while time.perf_counter() - t0 < 30 and len(
+            list_services(addr, "sar")) != 1:
+        time.sleep(0.02)
+    res["left_s"] = time.perf_counter() - t0
+    res["left"] = [s.process_id for s in list_services(addr, "sar")]
+    # rank 1's server is down now, not mid-drain (where it answers 503)
+    cluster.barrier("drained")
+    res["after_drain"] = [
+        client.post(json.dumps(dict(user=int(u))).encode())[0]
+        for u in range(cfg["after"])]
+else:
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 60 and reliability_metrics.get(
+            tnames.SERVING_SIGNAL_DRAINS) < 1:
+        time.sleep(0.02)
+    # the handler runs whole on this thread before the loop reads on
+    res["drained"] = not server._thread.is_alive()
+    res["signal_drains"] = reliability_metrics.get(
+        tnames.SERVING_SIGNAL_DRAINS)
+    cluster.barrier("drained")
+cluster.barrier("down")
+res["launches"] = dict(**hc.launches, **fa.launches)
+with open(os.path.join(tmp, "fleet_%d.json" % rank), "w") as f:
+    json.dump(res, f)
+if rank == 0:
+    query.stop()
+    server.stop()
+    registry.stop()
+cluster.barrier("stopped")
+cluster.shutdown()
+"""
+
+
+def _fleet_topk_check(idx, exact, k, what):
+    """Each row of `idx` (n, k) against the float64 scores `exact`
+    (n, m): its entries' exact scores are the k largest, in order, up to
+    ties (scores within `_FLEET_TIE_RTOL` of each other). Returns the
+    rows whose list differs from the stable float64 order (at ties)."""
+    order = np.argsort(-exact, axis=1, kind="stable")[:, :k]
+    top = np.take_along_axis(exact, order, axis=1)
+    got = np.take_along_axis(exact, idx.astype(np.int64), axis=1)
+    tol = _FLEET_TIE_RTOL * np.maximum(np.abs(top), 1e-30)
+    finite = np.isfinite(top)
+    off = np.where(finite, np.abs(got - top) > tol, got != top)
+    if off.any():
+        r = int(np.argwhere(off)[0][0])
+        raise AssertionError(f"[fleet] {what}: row {r} is not a top-{k} "
+                             f"list: {idx[r].tolist()} scores "
+                             f"{got[r].tolist()} against {top[r].tolist()}")
+    return int((idx != order).any(axis=1).sum())
+
+
+def _fleet_iforest(dev, tmp, out):
+    """(a) the isolation forest: the supervised fit, every row scored on
+    the card, 65,536 rows against the CPU path, the outliers' AUC, and
+    the serving plan's replies against `transform`."""
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.io.serving import serve_pipeline
+    from mmlspark_tpu_torch.train.metrics import auc
+    from mmlspark_tpu_torch.workloads import IsolationForestScorer
+    cfg = FLEET_IF
+    rng = np.random.default_rng(20)
+    n = cfg["rows"]
+    x = rng.standard_normal((n, cfg["features"]), dtype=np.float32)
+    y = np.zeros(n, np.int64)
+    y[rng.choice(n, int(n * cfg["outliers"]), replace=False)] = 1
+    x[y == 1] += np.float32(cfg["shift"])
+    table = Table({"features": x})
+    t0 = time.perf_counter()
+    model = IsolationForestScorer(
+        num_estimators=cfg["trees"], max_samples=cfg["max_samples"], seed=0,
+        checkpoint_dir=os.path.join(tmp, "iforest"),
+        checkpoint_every=cfg["checkpoint_every"]).fit(table)
+    fit_s = time.perf_counter() - t0
+    head = Table({"features": x[:FLEET_IF_CHECK]})
+    model.transform(head)                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = model.transform(table)["outlierScore"]
+    score_s = time.perf_counter() - t0
+    cpu = model.copy({"device": "cpu"})
+    want = cpu.transform(head)["outlierScore"]
+    err = float(np.max(np.abs(scores[:FLEET_IF_CHECK] - want)
+                       / np.abs(want)))
+    area = auc(y, scores)
+    server, q = serve_pipeline(model, ["features"], output_col="outlierScore")
+    try:
+        replies = _serve_post_all(server.address, [json.dumps(
+            {"features": x[i].tolist()}).encode()
+            for i in range(FLEET_IF_SERVE)])
+    finally:
+        q.stop()
+        server.stop()
+    _serve_statuses_ok(replies, "isolation forest")
+    served = np.array([json.loads(p)["outlierScore"] for _, _, p in replies])
+    served_equal = bool(np.array_equal(served, scores[:FLEET_IF_SERVE]))
+    out["iforest"] = dict(fit_s=fit_s, score_s=score_s,
+                          rows_per_s=n / score_s, max_rel_err=err, auc=area,
+                          served_equal=served_equal)
+    log(f"[fleet] (a) IsolationForestScorer, {cfg['trees']} trees of "
+        f"{cfg['max_samples']} on {n} x {cfg['features']} rows "
+        f"({int(y.sum())} outliers), a checkpoint every "
+        f"{cfg['checkpoint_every']} trees: fit {fit_s:.3f} s; scored on the "
+        f"card in {score_s:.4f} s = {n / score_s:.4g} rows/s; "
+        f"{FLEET_IF_CHECK} rows {err:.3g} from the CPU path (rtol "
+        f"{_FLEET_IF_RTOL}); AUC {area:.6f} (> {_FLEET_AUC_MIN}); "
+        f"{FLEET_IF_SERVE} served replies equal transform: {served_equal}")
+    if err > _FLEET_IF_RTOL or area <= _FLEET_AUC_MIN or not served_equal:
+        raise AssertionError("[fleet] (a) the isolation forest failed its "
+                             "checks")
+
+
+def _ml1m_events(cfg):
+    """MovieLens-1M-shaped events from the seed: every (user, item) pair
+    once, items drawn with Zipf popularity (a = 1) over a shuffled id
+    space, ratings 1-5, timestamps uniform over `years` years."""
+    rng = np.random.default_rng(21)
+    users, items, n = cfg["users"], cfg["items"], cfg["events"]
+    pop = 1.0 / np.arange(1, items + 1)
+    ids = rng.permutation(items)
+    keys = np.zeros(0, np.int64)
+    while True:
+        u = rng.integers(0, users, 2 * n)
+        it = ids[rng.choice(items, 2 * n, p=pop / pop.sum())]
+        keys = np.concatenate([keys, u * items + it])
+        _, first = np.unique(keys, return_index=True)
+        if len(first) >= n:
+            break
+    keys = keys[np.sort(first)[:n]]
+    t0 = 1.0e9
+    ev = {"user": keys // items, "item": keys % items,
+          "rating": rng.integers(1, 6, n).astype(np.float64),
+          "timestamp": rng.uniform(t0, t0 + cfg["years"] * 365 * 86400.0, n)}
+    if ev["user"].max() + 1 != users or ev["item"].max() + 1 != items:
+        raise AssertionError("[fleet] the MovieLens-1M shape was not drawn")
+    return ev
+
+
+def _implicit_events(cfg):
+    """An implicit-feedback log from the seed: `events` (user, item)
+    pairs drawn with Zipf popularity over the pair space (a bijective
+    hash spreads the ranks), no ratings, timestamps over `years` years."""
+    rng = np.random.default_rng(22)
+    users, items, n = cfg["users"], cfg["items"], cfg["events"]
+    pairs = users * items
+    keys = (rng.zipf(FLEET_SAR_ZIPF, n) % pairs) * 2_654_435_761 % pairs
+    t0 = 1.0e9
+    return {"user": keys // items, "item": keys % items,
+            "timestamp": rng.uniform(t0, t0 + cfg["years"] * 365 * 86400.0,
+                                     n)}
+
+
+def _fleet_sar_implicit(est, cfg):
+    """Two card fits of the implicit log (equal bit for bit; the last
+    one timed) and the affinity against float64 numpy's sums."""
+    import torch
+    from mmlspark_tpu_torch import Table
+    ev = _implicit_events(cfg)
+    fits = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fits.append((est.fit(Table(ev)), time.perf_counter() - t0))
+    (model, _), (again, fit_s) = fits
+    same = bool(np.array_equal(model._affinity, again._affinity)
+                and np.array_equal(model._similarity, again._similarity))
+    ts = ev["timestamp"]
+    w = np.power(2.0, -(ts.max() - ts) / (cfg["decay_days"] * 86400.0))
+    n_u, n_i = model._affinity.shape
+    want = np.zeros((n_u, n_i))
+    np.add.at(want, (ev["user"], ev["item"]), w)
+    want = want.astype(np.float32)
+    nz = want != 0
+    rel = float(np.max(np.abs(model._affinity[nz] - want[nz]) / want[nz]))
+    reps = np.unique(ev["user"] * n_i + ev["item"], return_counts=True)[1]
+    return dict(fit_s=fit_s, first_fit_s=fits[0][1], same_fit=same,
+                rel_f64=rel, zero_equal=bool(
+                    np.array_equal(model._affinity[~nz], want[~nz])),
+                pairs=int(len(reps)), max_repeat=int(reps.max()))
+
+
+def _fleet_sar(dev, tmp, out):
+    """(b) SAR at the shape of MovieLens-1M: two fits on the card (equal
+    bit for bit), top-10 for every user on a 1- and a 4-position mesh
+    (equal), 512 users against float64 numpy. Returns the model and the
+    1-position answer."""
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.parallel import data_mesh
+    from mmlspark_tpu_torch.workloads import SARServing
+    cfg = FLEET_SAR
+    ev = _ml1m_events(cfg)
+    est = SARServing(similarity_function="jaccard",
+                     support_threshold=cfg["support"],
+                     time_decay_coeff=cfg["decay_days"],
+                     num_recommendations=cfg["k"])
+    fits = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fits.append((est.fit(Table(ev)), time.perf_counter() - t0))
+    (model, _), (again, fit_s) = fits
+    same = bool(np.array_equal(model._affinity, again._affinity)
+                and np.array_equal(model._similarity, again._similarity))
+    ids = np.arange(cfg["users"])
+    answers, times = {}, {}
+    for p in (1, cfg["positions"]):
+        plan = model.recommend_plan(mesh=data_mesh(
+            devices=[dev] * p, span_processes=False))
+        plan(ids[:64])                          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answers[p] = plan(ids)
+        times[p] = time.perf_counter() - t0
+    meshes_equal = bool(np.array_equal(answers[1], answers[cfg["positions"]]))
+    chk = FLEET_SAR_CHECK
+    exact = (model._affinity[:chk].astype(np.float64)
+             @ model._similarity.astype(np.float64))
+    tied_rows = _fleet_topk_check(answers[1][:chk, 0], exact, cfg["k"],
+                                  "SAR top-10")
+    # users outside the fitted range answer -1 / NaN on the card, and
+    # the card keeps answering (no device-side assert)
+    probe = np.array([-1, cfg["users"], 10**6, 0])
+    rec = model.recommend_for_user_subset(probe, cfg["k"])
+    unknown_ok = bool(
+        (rec["recommendations"][:3] == -1).all()
+        and np.isnan(rec["ratings"][:3]).all()
+        and np.array_equal(rec["recommendations"][3], answers[1][0, 0])
+        and np.array_equal(model.recommend_plan()(ids[:64]),
+                           answers[1][:64]))
+    implicit = _fleet_sar_implicit(est, cfg)
+    out["sar"] = dict(fit_s=fit_s, first_fit_s=fits[0][1],
+                      unknown_ok=unknown_ok, implicit=implicit,
+                      users_per_s=cfg["users"] / times[1],
+                      users_per_s_mesh=cfg["users"] / times[cfg["positions"]],
+                      same_fit=same, meshes_equal=meshes_equal,
+                      tied_rows=tied_rows,
+                      nonzero_affinity=int((model._affinity > 0).sum()))
+    log(f"[fleet] (b) SARServing jaccard, support {cfg['support']}, decay "
+        f"{cfg['decay_days']} days on {cfg['users']} users x {cfg['items']} "
+        f"items, {cfg['events']} events: fit {fit_s:.3f} s on the card "
+        f"(first {fits[0][1]:.3f} s), two fits bit-identical: {same}; "
+        f"top-{cfg['k']} for every user {cfg['users'] / times[1]:.4g} "
+        f"users/s on 1 position, {cfg['users'] / times[cfg['positions']]:.4g}"
+        f" on {cfg['positions']}, equal: {meshes_equal}; {chk} users match "
+        f"float64 numpy ({tied_rows} rows differ only at ties); unknown "
+        f"users -1/NaN with the card still answering: {unknown_ok}")
+    log(f"[fleet] (b) implicit log, {cfg['events']} events on "
+        f"{implicit['pairs']} pairs (one repeated {implicit['max_repeat']} "
+        f"times): fit {implicit['fit_s']:.3f} s on the card (first "
+        f"{implicit['first_fit_s']:.3f} s), two fits bit-identical: "
+        f"{implicit['same_fit']}; affinity {implicit['rel_f64']:.3g} from "
+        f"float64 numpy (rtol {_FLEET_SAR_RTOL})")
+    if not (same and meshes_equal and unknown_ok and implicit["same_fit"]
+            and implicit["zero_equal"]
+            and implicit["rel_f64"] <= _FLEET_SAR_RTOL):
+        raise AssertionError("[fleet] (b) SAR failed its checks")
+    return model, answers[1]
+
+
+def _fleet_knn(dev, out):
+    """(c) KNN and ConditionalKNN on the card with the caller's cuBLAS
+    TF32 flag ON: 8,192 queries timed, 512 held against the CPU path and
+    float64 numpy."""
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.nn import KNN, ConditionalKNN
+    cfg = FLEET_KNN
+    rng = np.random.default_rng(22)
+    x = rng.standard_normal((cfg["index"], cfg["dim"]), dtype=np.float32)
+    labels = rng.integers(0, cfg["labels"], cfg["index"])
+    q = rng.standard_normal((cfg["queries"], cfg["dim"]), dtype=np.float32)
+    conds = np.empty(cfg["queries"], dtype=object)
+    for i in range(cfg["queries"]):
+        conds[i] = rng.choice(cfg["labels"], size=rng.integers(1, 5),
+                              replace=False).tolist()
+    index = Table({"features": x, "values": np.arange(cfg["index"]),
+                   "labels": labels})
+    queries = Table({"features": q, "conditioner": conds})
+    chk = FLEET_KNN_CHECK
+    head = Table({"features": q[:chk], "conditioner": conds[:chk]})
+    exact = q[:chk].astype(np.float64) @ x.astype(np.float64).T
+    allowed = np.stack([np.isin(labels, c) for c in conds[:chk]])
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_tf32 = True
+    try:
+        xd = torch.as_tensor(x, device=dev)
+        tf32 = (torch.as_tensor(q[:chk], device=dev) @ xd.t()).cpu().numpy()
+        tf32_err = float(np.max(np.abs(tf32 - exact) / np.abs(exact).max()))
+        del xd
+        for name, est in (("knn", KNN(k=cfg["k"])),
+                          ("conditional", ConditionalKNN(k=cfg["k"]))):
+            model = est.fit(index)
+            model.transform(head)               # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = model.transform(queries)
+            s = time.perf_counter() - t0
+            want = model.copy({"device": "cpu"}).transform(head)
+            dist_err = float(np.max(np.abs(
+                got["output.distance"][:chk] - want["output.distance"])
+                / np.abs(want["output.distance"])))
+            ex = exact if name == "knn" else np.where(allowed, exact, -np.inf)
+            tied = _fleet_topk_check(got["output.value"][:chk], ex,
+                                     cfg["k"], f"{name} on the card")
+            _fleet_topk_check(want["output.value"], ex, cfg["k"],
+                              f"{name} on the CPU")
+            swapped = int((got["output.value"][:chk]
+                           != want["output.value"]).any(axis=1).sum())
+            out[name] = dict(queries_per_s=cfg["queries"] / s, s=s,
+                             dist_err=dist_err, tied_rows=tied,
+                             rows_unlike_cpu=swapped)
+            log(f"[fleet] (c) {name}: {cfg['queries']} queries x "
+                f"{cfg['index']} x {cfg['dim']}, k={cfg['k']} in {s:.4f} s "
+                f"= {cfg['queries'] / s:.4g} queries/s; {chk} queries: "
+                f"distances {dist_err:.3g} from the CPU path (rtol "
+                f"{_FLEET_DIST_RTOL}), {swapped} rows ordered unlike it, all "
+                f"at ties; top-{cfg['k']} of float64 numpy up to ties")
+            if dist_err > _FLEET_DIST_RTOL:
+                raise AssertionError(f"[fleet] (c) {name} disagrees")
+        flag = matmul.allow_tf32
+    finally:
+        matmul.allow_tf32 = False
+    out["tf32_unscoped_err"] = tf32_err
+    log(f"[fleet] (c) cuBLAS's TF32 flag was ON around the searches and is "
+        f"still ON after them: {flag}; the same product unscoped is "
+        f"{tf32_err:.3g} (of the largest |score|) from float64")
+    if flag is not True:
+        raise AssertionError("[fleet] the port's f32 scope leaked")
+
+
+def _fleet_distributed(dev, tmp, model, want, out):
+    """(d) two gloo ranks on the card serving SAR's id-keyed plan behind
+    the leader's registry (the child script `_FLEET_PROC`)."""
+    path = os.path.join(tmp, "sar_model")
+    model.save(path)
+    np.save(os.path.join(tmp, "want.npy"), want)
+    script = os.path.join(tmp, "fleet.py")
+    with open(script, "w") as fh:
+        fh.write(_FLEET_PROC.format(here=HERE))
+    cfg = dict(model=path, want=os.path.join(tmp, "want.npy"),
+               requests=FLEET_REQUESTS, after=FLEET_AFTER_DRAIN)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, script, str(r), tmp, json.dumps(cfg)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for pr in procs:
+            outs.append(pr.communicate(timeout=300)[0])
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    for r, (pr, o) in enumerate(zip(procs, outs)):
+        if pr.returncode != 0:
+            raise AssertionError(f"[fleet] rank {r} exited "
+                                 f"{pr.returncode}:\n{o[-3000:]}")
+    r0, r1 = (json.load(open(os.path.join(tmp, f"fleet_{r}.json")))
+              for r in range(2))
+    wall = time.perf_counter() - t0
+    old, new = r1["swap"]
+    checks = {
+        "every reply 200": not r0["bad"],
+        "replies equal the card's plan": r0["wrong"] == 0,
+        "both ranks served": min(r0["per_worker"]) > 0
+        and len(r0["per_worker"]) == 2,
+        "worker death healed by replay": r1["recoveries"] >= 1,
+        "merged count equals the client's":
+            r0["merged_total"] == r0["client_total"],
+        "rollout skew one worker each": r0["skew"] == {old: 1, new: 1},
+        "rank 1 drained on SIGTERM": r1["drained"]
+        and r1["signal_drains"] == 1,
+        "its entry left the registry": r0["left"] == [0],
+        "later requests fail over": r0["after_drain"]
+        == [200] * FLEET_AFTER_DRAIN,
+        "no kernel launched": not any(r0["launches"].values())
+        and not any(r1["launches"].values())}
+    out["distributed"] = dict(
+        req_per_s=r0["req_per_s"], p50_ms=r0["p50_ms"], p99_ms=r0["p99_ms"],
+        requests=r0["client_total"], per_worker=r0["per_worker"],
+        recoveries=r1["recoveries"], left_s=r0["left_s"], s=wall)
+    log(f"[fleet] (d) 2 gloo ranks on the card, SAR's id-keyed plan behind "
+        f"the registry: {r0['client_total']} requests from a RegistryClient "
+        f"{r0['req_per_s']:.1f} req/s, p50 {r0['p50_ms']:.3f} ms, p99 "
+        f"{r0['p99_ms']:.3f} ms; per rank {r0['per_worker']}; rank 1 "
+        f"recoveries {r1['recoveries']}; merged scrape "
+        f"{r0['merged_total']}; skew after rank 1's swap {r0['skew']}; "
+        f"SIGTERM to rank 1 out of the registry in {r0['left_s']:.3f} s, "
+        f"{FLEET_AFTER_DRAIN} later requests {sorted(set(r0['after_drain']))}"
+        f"; {wall:.1f} s with start-up; " + ", ".join(
+            f"{k}: {v}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"[fleet] (d) failed: " + ", ".join(
+            k for k, v in checks.items() if not v))
+
+
+def fleet_phase(dev):
+    """[fleet]: the fleet workloads and distributed serving on the card
+    (no kernel of their own: gathers, cuBLAS products and torch top-k).
+    Every kernel wrapper's launch count must stand still across it."""
+    import tempfile
+
+    import torch
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+    from mmlspark_tpu_torch.telemetry import lineage, quality
+    t_phase = time.perf_counter()
+    before = dict(**hc.launches, **fa.launches)
+    quality.reset_monitor()
+    lineage.reset_version_registry()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        _fleet_iforest(dev, tmp, out)
+        torch.cuda.empty_cache()
+        model, answer = _fleet_sar(dev, tmp, out)
+        torch.cuda.empty_cache()
+        _fleet_knn(dev, out)
+        torch.cuda.empty_cache()
+        _fleet_distributed(dev, tmp, model, answer, out)
+    after = dict(**hc.launches, **fa.launches)
+    if after != before:
+        raise AssertionError(f"[fleet] a kernel launched: {before} -> "
+                             f"{after}")
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[fleet] kernel launches unchanged across the phase: {after}; the "
+        f"phase {out['s']:.1f} s")
+    return out
+
+
 def only_phase(name, dev, phase, t_start) -> int:
     """`--only NAME`: one phase after card and build (with the headline
     data where it needs them), for runs that iterate on that phase; the
@@ -6425,7 +7002,7 @@ def only_phase(name, dev, phase, t_start) -> int:
              "stats backward": stats_bwd_kernel_phase,
              "ranker": ranker_phase, "stream train": stream_train_phase,
              "multiprocess_lm": multiprocess_lm_phase, "dnn": dnn_phase,
-             "serving": serving_phase}
+             "serving": serving_phase, "fleet": fleet_phase}
     if name in needs_data:
         data = phase("headline data", headline_data, dev)
         phase(name, needs_data[name], dev, data)
@@ -6507,6 +7084,8 @@ def main(argv) -> int:
     dnn = phase("dnn", dnn_phase, dev)
     torch.cuda.empty_cache()
     serve = phase("serving", serving_phase, dev)
+    torch.cuda.empty_cache()
+    fleet = phase("fleet", fleet_phase, dev)
     if "--versus" in argv:
         phase("versus", versus_phase, parent)
 
@@ -6832,6 +7411,16 @@ def main(argv) -> int:
         f"serial p50 {serve['serial']['p50_ms']:.3f} ms; encoder "
         f"{serve['encoder']['req_per_s']:.1f} req/s; the phase "
         f"{serve['s']:.1f} s")
+    log(f"[fleet] isolation forest fit {fleet['iforest']['fit_s']:.3f} s, "
+        f"{fleet['iforest']['rows_per_s']:.4g} rows/s; SAR fit "
+        f"{fleet['sar']['fit_s']:.3f} s (implicit log "
+        f"{fleet['sar']['implicit']['fit_s']:.3f} s), "
+        f"{fleet['sar']['users_per_s']:.4g} users/s; KNN {fleet['knn']['queries_per_s']:.4g} queries/s, "
+        f"conditional {fleet['conditional']['queries_per_s']:.4g}; two "
+        f"ranks {fleet['distributed']['req_per_s']:.1f} req/s, p50 "
+        f"{fleet['distributed']['p50_ms']:.3f} ms, p99 "
+        f"{fleet['distributed']['p99_ms']:.3f} ms; the phase "
+        f"{fleet['s']:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; phases "
         + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     print(json.dumps({"kernels": kernels}))

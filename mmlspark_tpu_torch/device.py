@@ -24,10 +24,10 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-# exact_f32's process-wide state: cuDNN's TF32 flag is one setting for
+# exact_f32's process-wide state: the TF32 flags are one setting each for
 # the whole process, so concurrent scopes (serving's partition workers)
-# share it: the first to enter saves it and clears TF32, the last to leave
-# restores it
+# share them: the first to enter saves them and clears TF32, the last to
+# leave restores them
 _F32_LOCK = threading.Lock()
 _f32_depth = 0
 _f32_saved = None
@@ -35,22 +35,27 @@ _f32_saved = None
 
 @contextlib.contextmanager
 def exact_f32():
-    """Within the block, cuDNN runs f32 convolutions as f32, not TF32.
+    """Within the block, f32 convolutions (cuDNN) and f32 matrix products
+    (cuBLAS) run as f32, not TF32.
 
-    PyTorch lets cuDNN use TF32 for f32 convolutions by default; the port
-    computes f32 as f32 (the reference's f32 convolutions are exact f32
-    on the CPU). The flag is scoped here, never set for the process, and
-    every other cuDNN setting is left as it is. The flag is global, so the
-    scope is counted across threads: while any thread is inside,
-    `torch.backends.cudnn.allow_tf32` is False, and the last thread out
-    restores the value the first one found. bf16 convolutions do not read
-    it."""
+    PyTorch lets cuDNN use TF32 for f32 convolutions by default, and a
+    caller may let cuBLAS do so for products; the port computes f32 as
+    f32 (the reference's f32 convolutions and products are exact f32 on
+    the CPU; a TF32 product reorders SAR's and KNN's neighbours). The
+    flags (`torch.backends.cudnn.allow_tf32`,
+    `torch.backends.cuda.matmul.allow_tf32`) are scoped here, never set
+    for the process, and every other setting is left as it is. The flags
+    are global, so the scope is counted across threads: while any thread
+    is inside, both are False, and the last thread out restores the
+    values the first one found. bf16 work does not read them."""
     global _f32_depth, _f32_saved
     cudnn = torch.backends.cudnn
+    matmul = torch.backends.cuda.matmul
     with _F32_LOCK:
         if _f32_depth == 0:
-            _f32_saved = cudnn.allow_tf32
+            _f32_saved = (cudnn.allow_tf32, matmul.allow_tf32)
             cudnn.allow_tf32 = False
+            matmul.allow_tf32 = False
         _f32_depth += 1
     try:
         yield
@@ -58,5 +63,5 @@ def exact_f32():
         with _F32_LOCK:
             _f32_depth -= 1
             if _f32_depth == 0:
-                cudnn.allow_tf32 = _f32_saved
+                cudnn.allow_tf32, matmul.allow_tf32 = _f32_saved
                 _f32_saved = None

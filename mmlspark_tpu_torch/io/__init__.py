@@ -5,12 +5,15 @@ Ports of the reference's `io/serving.py` (`ServingServer`,
 (`ServingTransform`, `compile_serving_transform`) and `io/loadgen.py`
 (`run_load`). The reference's HTTP client transformers, Power BI writer,
 file streams and shared variables (`http.py`, `powerbi.py`,
-`streaming.py`, `sources.py`, `shared.py`) are ROADMAP Queue 1 item 27,
-its service registry and distributed serving (`registry.py`) item 15(h):
+`streaming.py`, `sources.py`, `shared.py`) are ROADMAP Queue 1 item 27:
 importing one of their names or modules raises NotImplementedError
-naming the item.
+naming the item. The service registry and distributed serving
+(`registry.py`) are ported.
 """
 from .plan import ServingTransform, compile_serving_transform
+from .registry import (RegistryClient, ServiceInfo, ServiceRegistry,
+                       list_services, report_server_to_registry,
+                       start_distributed_serving)
 from .serving import Reply, ServingQuery, ServingServer, serve_pipeline
 
 _NOT_PORTED = {
@@ -21,9 +24,6 @@ _NOT_PORTED = {
         "HTTPResponse", "FileStreamQuery", "FileStreamSource",
         "SharedVariable", "shared_singleton", "ForwardedPort",
         "forward_port_to_remote")},
-    **{n: "15(h)" for n in (
-        "RegistryClient", "ServiceInfo", "ServiceRegistry", "list_services",
-        "report_server_to_registry", "start_distributed_serving")},
 }
 
 
@@ -36,4 +36,7 @@ def __getattr__(name: str):
 
 
 __all__ = ["Reply", "ServingServer", "ServingQuery", "serve_pipeline",
-           "ServingTransform", "compile_serving_transform"]
+           "ServingTransform", "compile_serving_transform",
+           "RegistryClient", "ServiceInfo", "ServiceRegistry",
+           "list_services", "report_server_to_registry",
+           "start_distributed_serving"]

@@ -24,7 +24,8 @@ Serving's HTTPSourceV2.scala):
   coalesces arrivals in microbatch mode.
 - `serve_pipeline(model, input_cols)` mounts the compiled transform of
   `io/plan.py` (the plan cache; GBDT on its host plan, card stages at
-  power-of-two buckets) on a server and a query.
+  power-of-two buckets) on a server and a query; `fast_path=False`
+  mounts the uncached Table-per-batch transform instead.
 - The exposition GETs (`EXPOSITION_PATHS`) are answered at ingress on
   both transports by `telemetry.exposition.metrics_http_response`.
 
@@ -690,6 +691,9 @@ class ServingServer:
         # falls back to the MMLSPARK_TPU_FAULTS env spec
         self._faults = faults if faults is not None else FaultInjector.from_env()
         self._draining = False
+        # set by io.registry.start_distributed_serving: takes this
+        # server's entry out of the registry; stop() calls it first
+        self._leave_registry = None
         self._queues = [_PartitionQueue() for _ in range(num_partitions)]
         self._rr = itertools.count()
         # (partition, epoch) -> list[CachedRequest]; GC'd on commit
@@ -714,7 +718,11 @@ class ServingServer:
         """Graceful drain then shutdown: new connections are refused and
         new requests answered 503, in-flight exchanges are answered and
         flushed (bounded by `drain_timeout`), THEN the transport dies.
-        `drain=False` is the old hard stop."""
+        `drain=False` is the old hard stop. A server that a registry
+        lists leaves it first, so clients stop routing to it."""
+        leave, self._leave_registry = self._leave_registry, None
+        if leave is not None:
+            leave()
         self._draining = True
         if drain:
             stop_accepting = getattr(self._httpd, "stop_accepting", None)
@@ -1108,7 +1116,7 @@ def serve_pipeline(model, input_cols, output_col: str = "prediction",
                    host: str = "127.0.0.1", port: int = 0,
                    num_partitions: int = 1, mode: str = "microbatch",
                    max_batch: int = 64, batch_linger_ms: float = 0.0,
-                   faults=None, admission=None):
+                   fast_path: bool = True, faults=None, admission=None):
     """One-call serving of a fitted PipelineModel: JSON rows in, scored
     column out (reference: the readStream.server().load() ->
     pipeline -> writeStream.server() composition, IOImplicits.scala).
@@ -1117,49 +1125,90 @@ def serve_pipeline(model, input_cols, output_col: str = "prediction",
     {output_col: value}. Returns (server, query); stop with query.stop() +
     server.stop().
 
-    The query runs the compiled transform (io/plan.py): per-(fingerprint,
-    shape-bucket) cached plans, GBDT on its prebuilt host plan, card
-    stages through their `transform` at power-of-two buckets, one
-    columnar decode per batch, per-row 400s for malformed rows,
-    preserialized reply framing. `batch_linger_ms` is the microbatch
-    coalescing budget. `faults` arms the transform's `serving.swap` chaos
-    site (a mid-`install_model` fault rolls back to the incumbent);
-    hot-swap a retrained model with
+    `fast_path=True` (default) runs the compiled transform (io/plan.py):
+    per-(fingerprint, shape-bucket) cached plans, GBDT on its prebuilt
+    host plan, card stages through their `transform` at power-of-two
+    buckets, one columnar decode per batch, per-row 400s for malformed
+    rows, preserialized reply framing. `fast_path=False` keeps the
+    uncached Table-per-batch path: every batch decodes its bodies, builds
+    a `Table` of `input_cols` and calls `model.transform` (the baseline
+    the fast path is measured against), with the fast path's per-row 400s
+    for malformed bodies and for values the model refuses. `batch_linger_ms` is the
+    microbatch coalescing budget. `faults` arms the transform's
+    `serving.swap` chaos site (a mid-`install_model` fault rolls back to
+    the incumbent); hot-swap a retrained model with
     `query.transform_fn.install_model(new_model)`, with zero dropped
     requests. `admission` is ROADMAP Queue 1 item 27 and must be None."""
     _no_admission(admission)
-    from .plan import compile_serving_transform
-    transform = compile_serving_transform(model, input_cols, output_col,
-                                          faults=faults)
+    if fast_path:
+        from .plan import compile_serving_transform
+        transform = compile_serving_transform(model, input_cols, output_col,
+                                              faults=faults)
+    else:
+        import torch
+
+        from ..core import Table
+        from .plan import _decode_rows, _host_values
+
+        def score(rows: list) -> list:
+            cols = {c: np.asarray([row[c] for row in rows])
+                    for c in input_cols}
+            # grad mode is per thread: the worker's forward enters no_grad
+            with torch.no_grad():
+                out = model.transform(Table(cols))
+            return [{output_col: _jsonable(v)}
+                    for v in _host_values(out[output_col])]
+
+        def transform(bodies: list) -> list:
+            # the fast path's client rules: a malformed body, or a value
+            # the model refuses on its own row, answers 400 alone
+            rows, replies = _decode_rows(bodies, input_cols)
+            good = [i for i, r in enumerate(rows) if r is not None]
+            if not good:
+                return replies
+            try:
+                for i, rep in zip(good, score([rows[i] for i in good])):
+                    replies[i] = rep
+            except (ValueError, TypeError):
+                for i in good:
+                    try:
+                        replies[i] = score([rows[i]])[0]
+                    except (ValueError, TypeError) as e:
+                        replies[i] = Reply({"error": f"bad request: {e}"},
+                                           status=400)
+            return replies
+
     server = ServingServer(host, port, num_partitions).start()
     q = ServingQuery(server, transform, mode=mode, max_batch=max_batch,
                      batch_linger_ms=batch_linger_ms).start()
     return server, q
 
 
-def drain_on_signal(servers=(), queries=(), signals=None, exit_code: int = 0,
-                    drain_timeout: float = 5.0):
+def drain_on_signal(servers=(), queries=(), registries=(), signals=None,
+                    exit_code: int = 0, drain_timeout: float = 5.0):
     """Route SIGTERM (host preemption) through the graceful drain path.
 
-    Previously only an explicit `stop()` drained; a preempted serving host
-    died with in-flight requests unanswered. This installs a handler that,
-    on SIGTERM/SIGINT: refuses new connections and 503s new requests on
-    every server while in-flight exchanges are ANSWERED and flushed
-    (`ServingServer.stop(drain=True)`), then stops the queries, and
-    finally exits with `exit_code` (SystemExit; pass
-    `exit_code=None` to keep the process alive). Counted under
-    `serving.signal_drains`. Must be called from the main thread; returns
-    the handler so tests can invoke it directly.
+    A preempted serving host must not die with in-flight requests
+    unanswered. This installs a handler that, on SIGTERM/SIGINT: refuses
+    new connections and 503s new requests on every server while
+    in-flight exchanges are ANSWERED and flushed
+    (`ServingServer.stop(drain=True)`), then stops the queries, then the
+    registries (`io.registry.ServiceRegistry`, the leader's), and finally
+    exits with `exit_code` (SystemExit; pass `exit_code=None` to keep the
+    process alive). Counted under `serving.signal_drains`. Must be called
+    from the main thread; returns the handler so tests can invoke it
+    directly.
     """
     import signal as _signal
     servers, queries = tuple(servers), tuple(queries)
+    registries = tuple(registries)
     if signals is None:
         signals = (_signal.SIGTERM, _signal.SIGINT)
 
     def _handler(signum=_signal.SIGTERM, frame=None):
         reliability_metrics.inc(tnames.SERVING_SIGNAL_DRAINS)
         # order matters: servers drain FIRST (workers must still be alive
-        # to answer the in-flight requests), then queries
+        # to answer the in-flight requests), then queries, then registries
         for s in servers:
             try:
                 s.stop(drain=True, drain_timeout=drain_timeout)
@@ -1168,6 +1217,11 @@ def drain_on_signal(servers=(), queries=(), signals=None, exit_code: int = 0,
         for q in queries:
             try:
                 q.stop()
+            except Exception:  # noqa: BLE001
+                pass
+        for r in registries:
+            try:
+                r.stop()
             except Exception:  # noqa: BLE001
                 pass
         if exit_code is not None:

@@ -1,7 +1,8 @@
 """Telemetry of the port: request spans (`spans`), windowed metric views
-(`window`), Prometheus/JSON exposition (`exposition`), the plan-build log
-(`perf`), model versions and canary comparisons (`lineage`), the model
-quality tap (`quality`: the fit-time profile and its serving half), and
+(`window`), Prometheus/JSON exposition and the fleet scrape
+(`exposition`), the plan-build log (`perf`), model versions, canary
+comparisons and the fleet's rollout skew (`lineage`), the model quality
+tap (`quality`: the fit-time profile and its serving half), and
 the training side's goodput clock and straggler detector (`goodput`).
 
 Ports of the reference's `telemetry/` modules, which import no JAX. The
@@ -22,12 +23,14 @@ _LAZY_NAMES = {
     "PROM_CONTENT_TYPE": "exposition", "merge_states": "exposition",
     "metrics_http_response": "exposition",
     "render_prometheus": "exposition", "state_snapshot": "exposition",
+    "scrape_cluster": "exposition", "ClusterSnapshot": "exposition",
     "WindowedCounter": "window", "WindowedHistogram": "window",
     "ModelVersion": "lineage", "RunLedger": "lineage",
     "model_version": "lineage", "configure_run_ledger": "lineage",
     "get_run_ledger": "lineage", "get_version_registry": "lineage",
     "reset_version_registry": "lineage", "export_versions": "lineage",
     "refresh_canary_gauges": "lineage",
+    "merge_version_exports": "lineage", "rollout_skew": "lineage",
     "QualityMonitor": "quality", "DatasetProfile": "quality",
     "FeatureSketch": "quality", "StreamingEvaluator": "quality",
     "get_monitor": "quality", "reset_monitor": "quality",
@@ -57,8 +60,6 @@ _NOT_PORTED = {
         "get_profile_session", "configure_profile_session",
         "capture_profile", "parse_trace", "get_roofline", "resolve_peaks",
         "flops_from_compile_log")},
-    **{n: "15(h)" for n in ("scrape_cluster", "ClusterSnapshot",
-                            "merge_version_exports", "rollout_skew")},
 }
 
 

@@ -19,17 +19,23 @@ Port of the serving half of the reference's `telemetry/exposition.py`
   counters and timings sum, histogram buckets sum elementwise and
   percentiles are recomputed from the merged buckets, never averaged.
 
+- `scrape_cluster` / `ClusterSnapshot` — the fleet scrape over the
+  service registry (`io.registry`): every worker's `/metrics.json`
+  merged exactly, and on request its `/quality` and `/versions`.
+  `slo=True` needs the SLO engine (item 27) and raises
+  NotImplementedError naming it.
+
 The trainer scrape surface (`ExpositionServer`, `expose_trainer`, which
-mount the SLO engine: item 27) and the fleet scrape (`scrape_cluster`,
-`ClusterSnapshot`, over the service registry: item 15(h)) raise
-NotImplementedError naming their items.
+mount the SLO engine) is item 27 and raises NotImplementedError naming
+it.
 """
 from __future__ import annotations
 
 import json
 import re
 import urllib.parse
-from typing import Optional
+import urllib.request
+from typing import NamedTuple, Optional
 
 from ..reliability.metrics import (Histogram, histogram_bounds_ms,
                                    reliability_metrics)
@@ -39,8 +45,7 @@ _NOT_PORTED = {"/slo": ("27", "telemetry/slo.py (the SLO engine)"),
                "/debug/bundle": ("23", "the flight recorder"),
                "/debug/profile": ("23", "the profile session")}
 
-_LEFT_OUT = {"ExpositionServer": "27", "expose_trainer": "27",
-             "scrape_cluster": "15(h)", "ClusterSnapshot": "15(h)"}
+_LEFT_OUT = {"ExpositionServer": "27", "expose_trainer": "27"}
 
 
 def __getattr__(name: str):
@@ -332,3 +337,128 @@ def state_snapshot(state: dict) -> dict:
         for k, v in Histogram.from_state(name, h).snapshot().items():
             out[f"{name}.{k}"] = v
     return out
+
+
+class ClusterSnapshot(NamedTuple):
+    """`scrape_cluster` result: the exactly-merged flat snapshot plus each
+    worker's raw state for per-host drill-down. `slo` is the fleet-merged
+    `/slo` verdict in the reference; here it is always None (the SLO
+    engine is ROADMAP Queue 1 item 27). `quality` is the fleet-merged `/quality` export (sketch counts
+    summed, drift recomputed from the merged counts) when
+    ``quality=True`` was passed; `versions` is the fleet-merged
+    `/versions` export (per-version splits summed, `current_by_worker`
+    naming which worker serves which ModelVersion — the rollout-skew
+    record) when ``versions=True`` was passed."""
+    merged: dict
+    workers: list   # [(ServiceInfo, raw state dict), ...]
+    slo: Optional[dict] = None
+    quality: Optional[dict] = None
+    versions: Optional[dict] = None
+
+
+def scrape_cluster(registry_address: str, name: Optional[str] = None,
+                   timeout: float = 10.0,
+                   skip_unreachable: bool = True,
+                   window: Optional[float] = None,
+                   slo: bool = False,
+                   kind: Optional[str] = None,
+                   quality: bool = False,
+                   versions: bool = False) -> ClusterSnapshot:
+    """Pull `/metrics.json` from every worker the `ServiceRegistry` at
+    `registry_address` knows (optionally one service `name`) and merge.
+    A worker that died between registering and the scrape is skipped (its
+    numbers are gone either way); pass `skip_unreachable=False` to raise
+    instead.
+
+    `window` scrapes `/metrics.json?window=N` — the merged snapshot then
+    covers only each worker's last N seconds (bucket counts still sum
+    elementwise; percentiles recompute from the merged windowed buckets).
+    `slo=True` needs the SLO engine (`telemetry/slo.py`, ROADMAP Queue 1
+    item 27) and raises NotImplementedError naming it. `quality=True` also pulls each worker's `/quality` export and merges
+    them with `telemetry.quality.merge_quality_exports` — live sketch
+    counts sum exactly, fleet drift recomputes from the merged counts
+    (never averaged from per-worker scores). `versions=True` also pulls
+    each worker's `/versions` export and merges it with
+    `telemetry.lineage.merge_version_exports` — per-version metric
+    splits sum exactly, and the result's `current_by_worker` map records
+    which worker serves which ModelVersion (the rollout-skew signal,
+    `lineage.rollout_skew`). `kind` scrapes only services of that
+    registry kind (``"serving"`` / ``"trainer"``) — no probing; the
+    default merges
+    both, which is well-defined because trainer gauges (goodput) keep
+    max and step histograms bucket-sum exactly like every other
+    metric."""
+    if slo:
+        raise NotImplementedError(
+            "scrape_cluster(slo=True) merges the workers' /slo verdicts with "
+            "telemetry/slo.py, not ported yet (ROADMAP Queue 1 item 27)")
+    from ..io.registry import ServiceInfo, list_services
+    if name is not None:
+        infos = list_services(registry_address, name, timeout=timeout)
+    else:
+        with urllib.request.urlopen(registry_address + "/services",
+                                    timeout=timeout) as resp:
+            infos = [ServiceInfo(**d) for d in json.loads(resp.read())]
+    if kind is not None:
+        infos = [i for i in infos
+                 if getattr(i, "kind", "serving") == kind]
+    metrics_path = "/metrics.json"
+    if window is not None:
+        metrics_path += f"?window={float(window):g}"
+    workers = []
+    quality_exports = []
+    version_exports = []
+    for info in infos:
+        try:
+            with urllib.request.urlopen(info.address + metrics_path,
+                                        timeout=timeout) as resp:
+                state = json.loads(resp.read())
+            if quality:
+                # isolated: a worker without /quality (a pre-quality
+                # version mid-rollout) keeps its metrics in the merge —
+                # it just contributes no quality export
+                try:
+                    with urllib.request.urlopen(info.address + "/quality",
+                                                timeout=timeout) as resp:
+                        quality_exports.append(json.loads(resp.read()))
+                except (OSError, ValueError):
+                    pass
+            if versions:
+                # same isolation as /quality: a pre-versions worker
+                # still merges its metrics
+                try:
+                    with urllib.request.urlopen(info.address + "/versions",
+                                                timeout=timeout) as resp:
+                        # keyed by address: unique per worker even when
+                        # every partition registers the same service name
+                        version_exports.append(
+                            (info.address, json.loads(resp.read())))
+                except (OSError, ValueError):
+                    pass
+            workers.append((info, state))
+        except (OSError, ValueError) as e:
+            if not skip_unreachable:
+                raise RuntimeError(
+                    f"scrape of {info.address} failed: {e}") from e
+    merged_state = merge_states([st for _, st in workers])
+    merged = state_snapshot(merged_state)
+    merged["telemetry.scrape.workers"] = len(workers)
+    if "window_s" in merged_state:
+        merged["telemetry.scrape.window_s"] = merged_state["window_s"]
+    merged_quality = None
+    if quality:
+        from .quality import merge_quality_exports
+        try:
+            merged_quality = merge_quality_exports(quality_exports)
+        except Exception:  # noqa: BLE001 - the metrics merge stands
+            merged_quality = None
+    merged_versions = None
+    if versions:
+        from .lineage import merge_version_exports
+        try:
+            merged_versions = merge_version_exports(version_exports)
+        except Exception:  # noqa: BLE001 - the metrics merge stands
+            merged_versions = None
+    return ClusterSnapshot(merged=merged, workers=workers, slo=None,
+                           quality=merged_quality,
+                           versions=merged_versions)

@@ -16,6 +16,9 @@ Port of the reference's `telemetry/lineage.py` (which imports no JAX):
   `ServingTransform.install_model` feeds, bounded to two slots
   (incumbent and candidate), each with its own `MetricsRegistry`, so
   `/versions` answers per-version splits.
+- **Fleet merge** — `merge_version_exports` merges the workers'
+  `/versions` exports (per-version splits summed exactly, which worker
+  serves which version) and `rollout_skew` counts workers per version.
 - **Canary gauges** — `refresh_canary_gauges` publishes
   `canary.p99.ratio` / `canary.error_burn` / `canary.drift.delta`,
   comparing the candidate's live telemetry with the incumbent's frozen
@@ -35,14 +38,6 @@ from typing import NamedTuple, Optional
 from ..reliability.metrics import MetricsRegistry, reliability_metrics
 from . import names as tnames
 from .spans import wall_now
-
-def __getattr__(name: str):
-    if name in ("merge_version_exports", "rollout_skew"):
-        raise NotImplementedError(
-            f"telemetry.lineage.{name} merges a fleet's /versions, not "
-            f"ported yet (ROADMAP Queue 1 item 15(h))")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
 
 # keep bounded: incumbent + candidate only; a
 # longer history is the RunLedger's job, not the live registry's
@@ -357,6 +352,50 @@ def versions_http_response(window_s: Optional[float] = None):
     """(status, body, content_type) for GET /versions."""
     return 200, json.dumps(export_versions(window_s=window_s),
                            default=str).encode(), "application/json"
+
+
+def merge_version_exports(exports: list) -> dict:
+    """Merge per-worker `/versions` payloads fleet-wide: version ids
+    union (lineage from any worker — content addressing makes them
+    identical), per-version metric splits merge EXACTLY via the same
+    `merge_states` discipline the cluster scrape uses (counts sum,
+    histogram buckets add), and each version remembers which workers
+    currently serve it — the rollout-skew record the poller tracks."""
+    from .exposition import merge_states
+    merged: dict = {"versions": {}, "current_by_worker": {}}
+    states: dict = {}
+    workers: dict = {}
+    for name, exp in exports:
+        if not isinstance(exp, dict):
+            continue
+        merged["current_by_worker"][name] = exp.get("current")
+        for vid, entry in (exp.get("versions") or {}).items():
+            tgt = merged["versions"].setdefault(
+                vid, {k: v for k, v in entry.items() if k != "metrics"})
+            states.setdefault(vid, []).append(entry.get("metrics") or {})
+            workers.setdefault(vid, []).append(name)
+            # a version incumbent on one worker and candidate on another
+            # is MID-ROLLOUT; candidate (the newer role) wins the merge
+            if entry.get("role") == "candidate":
+                tgt["role"] = "candidate"
+    for vid, sts in states.items():
+        try:
+            merged["versions"][vid]["metrics"] = merge_states(sts)
+        except Exception:  # noqa: BLE001 - a torn worker export can't
+            merged["versions"][vid]["metrics"] = {}      # kill the merge
+        merged["versions"][vid]["workers"] = sorted(workers[vid])
+    return merged
+
+
+def rollout_skew(current_by_worker: dict) -> dict:
+    """Per-version worker counts from a merged export's
+    `current_by_worker` map — `{version_id: n_workers}`; more than one
+    key means the fleet is mid-rollout (the poller's skew series)."""
+    skew: dict = {}
+    for ver in current_by_worker.values():
+        if ver is not None:
+            skew[ver] = skew.get(ver, 0) + 1
+    return skew
 
 
 def canary_watch_rules(p99_ratio_max: float = 2.0,

@@ -4,8 +4,9 @@ place.
 The strings are the reference's (`mmlspark_tpu/telemetry/names.py`), so a
 dashboard, a scrape merge or an alert reads either package: the
 checkpoint path, the training supervisor and its goodput clock, the
-multi-process layer, the data plane, and the serving stack (ingress,
-partition workers, the plan cache, hot-swap), its compile log, the
+multi-process layer, the data plane, the serving stack (ingress,
+partition workers, the plan cache, hot-swap, the service registry), the
+fleet workloads (isolation forest, SAR), its compile log, the
 model-quality tap, the version registry's canary gauges and the tracer's
 spans and events. `reliability/names.py` re-exports this module, so the
 names its callers import there are these.
@@ -94,6 +95,13 @@ CLUSTER_HOSTS_LIVE = "cluster.hosts.live"
 CLUSTER_HOSTS_DEAD = "cluster.hosts.dead"
 DATA_OOCORE_RESIDENT_BYTES = "data.oocore.resident_bytes"
 DATA_OOCORE_CURSOR = "data.oocore.cursor"
+REGISTRY_REPORT_RETRIES = "registry.report_retries"
+REGISTRY_EVICTIONS = "registry.evictions"
+WORKLOADS_IFOREST_TREES = "workloads.iforest.trees"
+WORKLOADS_SAR_RECOMMEND_ROWS = "workloads.sar.recommend.rows"
+WORKLOADS_SAR_UNKNOWN_USERS = "workloads.sar.unknown_users"
+WORKLOADS_IFOREST_THRESHOLD = "workloads.iforest.threshold"
+WORKLOADS_SAR_CATALOG_ITEMS = "workloads.sar.catalog.items"
 
 # ------------------------------------------------------------ histograms (ms)
 SERVING_REQUEST_QUEUE = "serving.request.queue"

@@ -60,6 +60,12 @@ def test_import_loads_no_jax():
             "import mmlspark_tpu_torch.telemetry.exposition\n"
             "import mmlspark_tpu_torch.telemetry.lineage\n"
             "import mmlspark_tpu_torch.telemetry.perf\n"
+            "import mmlspark_tpu_torch.io.registry\n"
+            "import mmlspark_tpu_torch.models.isolation_forest\n"
+            "import mmlspark_tpu_torch.recommendation\n"
+            "import mmlspark_tpu_torch.nn\n"
+            "import mmlspark_tpu_torch.workloads\n"
+            "import mmlspark_tpu_torch.ops.topk\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'mmlspark_tpu.')) "
             "or m == 'mmlspark_tpu')\n"
@@ -114,7 +120,20 @@ def test_sources_import_no_jax_or_reference():
     ("image", ["ImageSetAugmenter", "ImageTransformer",
                "ResizeImageTransformer", "UnrollImage"]),
     ("io", ["Reply", "ServingServer", "ServingQuery", "serve_pipeline",
-            "ServingTransform", "compile_serving_transform"]),
+            "ServingTransform", "compile_serving_transform",
+            "RegistryClient", "ServiceInfo", "ServiceRegistry",
+            "list_services", "report_server_to_registry",
+            "start_distributed_serving"]),
+    ("recommendation", ["SAR", "SARModel", "RankingAdapter",
+                        "RankingAdapterModel", "RankingEvaluator",
+                        "RankingTrainValidationSplit",
+                        "RankingTrainValidationSplitModel",
+                        "RecommendationIndexer",
+                        "RecommendationIndexerModel", "ranking_metrics"]),
+    ("nn", ["KNN", "KNNModel", "ConditionalKNN", "ConditionalKNNModel"]),
+    ("workloads", ["attach_workload_observability", "IsolationForestScorer",
+                   "IsolationForestScorerModel", "SARServing",
+                   "SARServingModel"]),
     ("stages", ["FixedMiniBatchTransformer", "DynamicMiniBatchTransformer",
                 "TimeIntervalMiniBatchTransformer", "FlattenBatch"]),
     ("telemetry", ["Tracer", "Span", "SpanContext", "get_tracer",
@@ -127,7 +146,9 @@ def test_sources_import_no_jax_or_reference():
                    "get_version_registry", "export_versions",
                    "QualityMonitor", "StreamingEvaluator", "get_monitor",
                    "record_label", "export_quality", "CompileLog",
-                   "record_plan_compile", "compile_stats", "StepClock"]),
+                   "record_plan_compile", "compile_stats", "StepClock",
+                   "scrape_cluster", "ClusterSnapshot",
+                   "merge_version_exports", "rollout_skew"]),
 ])
 def test_reference_exports_are_the_port_s(module, names):
     """ROADMAP Queue 3 (v): the names the reference's packages export
@@ -148,6 +169,25 @@ def test_reference_exports_are_the_port_s(module, names):
 @pytest.mark.parametrize("module, names", [
     ("io", ["ServingServer", "ServingQuery", "serve_pipeline", "Reply",
             "ServingTransform", "compile_serving_transform"]),
+    ("io.registry", ["ServiceInfo", "ServiceRegistry", "RegistryClient",
+                     "report_server_to_registry", "list_services",
+                     "start_distributed_serving", "_advertised_host"]),
+    ("models.isolation_forest", ["IsolationForest", "IsolationForestModel",
+                                 "_avg_path_length", "_score_forest"]),
+    ("recommendation.sar", ["SAR", "SARModel"]),
+    ("recommendation.ranking", ["ranking_metrics", "RankingEvaluator",
+                                "RecommendationIndexer",
+                                "RecommendationIndexerModel",
+                                "RankingAdapter", "RankingAdapterModel",
+                                "RankingTrainValidationSplit",
+                                "RankingTrainValidationSplitModel"]),
+    ("nn.knn", ["KNN", "KNNModel", "ConditionalKNN", "ConditionalKNNModel",
+                "_QUERY_TILE", "_top_k_inner_products"]),
+    ("workloads.base", ["attach_workload_observability"]),
+    ("workloads.iforest", ["IsolationForestScorer",
+                           "IsolationForestScorerModel", "_grow_tree",
+                           "_gather_subsamples"]),
+    ("workloads.sar_serving", ["SARServing", "SARServingModel", "_NEG"]),
     ("io.serving", ["Reply", "CachedRequest", "ServingServer",
                     "ServingQuery", "serve_pipeline", "drain_on_signal",
                     "EXPOSITION_PATHS", "MAX_BODY_BYTES"]),
@@ -177,12 +217,14 @@ def test_reference_exports_are_the_port_s(module, names):
     ("telemetry.lineage", ["ModelVersion", "model_version", "RunLedger",
                            "configure_run_ledger", "VersionRegistry",
                            "export_versions", "refresh_canary_gauges",
-                           "versions_http_response"]),
+                           "versions_http_response",
+                           "merge_version_exports", "rollout_skew"]),
     ("telemetry.perf", ["CompileLog", "record_plan_compile",
                         "compile_stats"]),
     ("telemetry.exposition", ["prom_name", "render_prometheus",
                               "metrics_http_response", "merge_states",
-                              "state_snapshot"]),
+                              "state_snapshot", "scrape_cluster",
+                              "ClusterSnapshot"]),
     ("reliability.metrics", ["histogram_bounds_ms", "MetricsRegistry",
                              "Histogram"]),
 ])
@@ -199,18 +241,16 @@ def test_serving_slice_names_are_the_reference_s(module, names):
 
 @pytest.mark.parametrize("module, name, item", [
     ("io", "HTTPTransformer", "27"), ("io", "FileStreamSource", "27"),
-    ("io", "SharedVariable", "27"), ("io", "ServiceRegistry", "15(h)"),
-    ("io", "start_distributed_serving", "15(h)"),
+    ("io", "SharedVariable", "27"),
     ("io.plan", "serving_plan_contract", "24"),
+    ("workloads.iforest", "iforest_score_contract", "24"),
+    ("workloads.sar_serving", "sar_score_sharded_contract", "24"),
     ("telemetry", "SLOEngine", "27"), ("telemetry", "TelemetryPoller", "27"),
     ("telemetry", "FlightRecorder", "23"), ("telemetry", "AotCache", "23"),
     ("telemetry", "ProfileSession", "23"),
-    ("telemetry", "scrape_cluster", "15(h)"),
     ("telemetry.perf", "FlightRecorder", "23"),
     ("telemetry.perf", "executable_analysis", "23"),
     ("telemetry.exposition", "ExpositionServer", "27"),
-    ("telemetry.exposition", "scrape_cluster", "15(h)"),
-    ("telemetry.lineage", "merge_version_exports", "15(h)"),
 ])
 def test_left_out_names_raise_naming_their_item(module, name, item):
     import importlib
@@ -222,7 +262,7 @@ def test_left_out_names_raise_naming_their_item(module, name, item):
 
 @pytest.mark.parametrize("module, item", [
     ("http", "27"), ("powerbi", "27"), ("streaming", "27"), ("sources", "27"),
-    ("shared", "27"), ("registry", "15(h)")])
+    ("shared", "27")])
 def test_left_out_io_modules_raise_naming_their_item(module, item):
     import importlib
     import sys

@@ -577,15 +577,12 @@ def test_left_out_telemetry_names_their_item():
     import mmlspark_tpu_torch.telemetry as tel
     for name, item in (("SLOEngine", "item 27"), ("FlightRecorder",
                                                   "item 23"),
-                       ("scrape_cluster", "item 15(h)"),
                        ("TelemetryWatcher", "item 27")):
         with pytest.raises(NotImplementedError, match=item.replace(
                 "(", r"\(").replace(")", r"\)")):
             getattr(tel, name)
     with pytest.raises(NotImplementedError, match="item 23"):
         perf.AotCache   # noqa: B018
-    with pytest.raises(NotImplementedError, match=r"item 15\(h\)"):
-        exposition.scrape_cluster   # noqa: B018
     with pytest.raises(NotImplementedError, match="item 24"):
         plan.serving_plan_contract   # noqa: B018
     assert tel.render_prometheus is exposition.render_prometheus
