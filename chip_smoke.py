@@ -246,8 +246,9 @@ Phases (any failure exits non-zero before the last line is printed):
      one-process 2-position fit, the exchange's seconds and share, peak
      memory. A second pair: rank 1 SIGKILLed mid-fit, rank 0's
      `HostLeases` must declare it dead within the lease budget.
-  19. multiprocess lm (slice 17): the flagship LM over 2 gloo ranks on
-     the card, each configuration of `MPLM` first in this process on a
+  19. multiprocess lm (slice 17): the flagship LM (the pipelined
+     configurations at 4 of its 12 layers) over 2 gloo ranks on the card,
+     each configuration of `MPLM` first in this process on a
      mesh of the same shape (`devices=[dev] * n`), then in the ranks: (a)
      `PipelinedLMTrainer` bf16, Adam, flash, remat="save_attn" on
      (data, pipe, model, seq) = (1, 2, 2, 1), two (1, 16384) sequences in
@@ -330,6 +331,30 @@ Phases (any failure exits non-zero before the last line is printed):
      client's, `rollout_skew` after a swap on rank 1 alone, and rank 1
      SIGTERMed under `drain_on_signal`: out of the registry, the client's
      later requests failing over and answered. req/s, p50, p99.
+  23. online (slice 21; no kernel of its own: gathers, sorts and
+     segmented sums; every kernel's launch count must stand still across
+     the phase): (a) VW on the Criteo display-ads layout (13 integer and
+     26 categorical features, 1,000,000 seeded rows of 39 pairs at 18
+     bits, a 100,000-row holdout): the adaptive classifier twice (bit for
+     bit, within 1e-5 of max |w| of the CPU fit on 50,000 rows, the
+     launches of one batch and the card's busy time counted in a process
+     of its own, the batch loop timed alone), over 4 positions of the
+     card, an sgd + l1 regressor (each within 1e-4 of the CPU fit on
+     50,000 rows), BFGS at 25 iterations (at 6, within 1e-4 of the CPU
+     fit), each holdout AUC over 0.7, a contextual bandit's
+     `parallel_fit` of 4 policies at 200,000 rows (each policy's holdout
+     AUC over 0.55), fit s, rows/s, holdout logloss and AUC, peak memory;
+     a `Pipeline` of the featurizer (its pairs equal to the hashed rows)
+     and a classifier on 20,000 string rows, saved, loaded, equal; (b)
+     bench.py::_bench_online's 4-pass incumbent served with
+     fast_path=True (the sparse-pair kernel) and False, 16 x 125,
+     max_batch 128: req/s, p50/p99, plan misses equal to the buckets, 512
+     replies on rows whose slots vary equal to `transform`, the kernel's
+     margins within 1e-5 of max |m| of `predict_vw` on the CPU; (c) 64
+     chunks of 256 through two `OnlineLearner`s, bit-identical; (d) 72
+     requests with a 5-sigma shift, one `ContinuousLearner.run_once` to a
+     promotion with 0 dropped, a crash-retried refit equal to the clean
+     run, a poisoned candidate rolled back.
 The headline fit (4) is timed 3 times (min and median), and every
 phase's seconds are printed.
 The kernel phase (3) also holds the flash backward kernels, dq and dk/dv,
@@ -5228,15 +5253,23 @@ def multiprocess_phase(dev, data):
 # positions a rank; (b) the data axis across the ranks; (c) the ring's
 # seq axis across the ranks; (d) the model axis across the ranks, where
 # no master has a replica on another rank (`replicas` False)
+# the pipelined configurations' LM: the flagship's width at a third of
+# its depth (4 of 12 layers), as RESUME_LM and STREAM_LM, cut to keep the
+# run inside its time limit with [online]. (b) keeps the 12 layers: its
+# check that the loss falls from the first stream batch to the last holds
+# at that depth (4 layers: 10.58, 8.69, 11.69)
+MPLM_LM = dict(LM, n_layers=4)
 MPLM = {
     "a": dict(kind="pipelined", mesh=(1, 2, 2, 1), steps=3,
-              batch=(PIPE_BATCH, LM_SEQ), microbatches=PIPE_MICROBATCHES),
+              batch=(PIPE_BATCH, LM_SEQ), microbatches=PIPE_MICROBATCHES,
+              lm=MPLM_LM),
     "b": dict(kind="sharded", mesh=SHARDED_MESH, steps=3,
-              batch=STREAM_SHAPE),
+              batch=STREAM_SHAPE, lm=LM),
     "c": dict(kind="pipelined", mesh=(1, 1, 1, 2), steps=2,
-              batch=(1, LM_SEQ), microbatches=1),
+              batch=(1, LM_SEQ), microbatches=1, lm=MPLM_LM),
     "d": dict(kind="pipelined", mesh=(1, 1, 2, 1), steps=2,
-              batch=(1, LM_SEQ), microbatches=1, replicas=False),
+              batch=(1, LM_SEQ), microbatches=1, replicas=False,
+              lm=MPLM_LM),
 }
 # the ranks' losses against this process's: bf16 as `_PIPE_LOSS_TOL`,
 # f32 as tests/test_torch_lm_training_pp.py's Adam trajectories
@@ -5278,9 +5311,9 @@ cluster.shutdown()
 def _mplm_tokens(name):
     cfg = MPLM[name]
     if cfg["kind"] == "sharded":
-        return _stream_batches(LM, cfg["batch"], cfg["steps"])
+        return _stream_batches(cfg["lm"], cfg["batch"], cfg["steps"])
     toks = np.random.default_rng(0).integers(
-        0, LM["vocab_size"], size=cfg["batch"]).astype(np.int32)
+        0, cfg["lm"]["vocab_size"], size=cfg["batch"]).astype(np.int32)
     return [toks] * cfg["steps"]
 
 
@@ -5296,11 +5329,12 @@ def _mplm_trainer(name, dev, span, **kw):
     devs = [dev] * (n // MP_RANKS if span else n)
     if cfg["kind"] == "sharded":
         return ShardedLMTrainer(mesh=grid_mesh(cfg["mesh"], devices=devs),
-                                seed=0, **LM)
+                                seed=0, **cfg["lm"])
     return PipelinedLMTrainer(
         mesh=grid_mesh(cfg["mesh"], _PIPE_AXES, devices=devs),
         n_microbatches=cfg["microbatches"], attention="flash",
-        remat="save_attn", compute_dtype="bfloat16", seed=0, **kw, **LM)
+        remat="save_attn", compute_dtype="bfloat16", seed=0, **kw,
+        **cfg["lm"])
 
 
 def _mplm_replicas(trainer):
@@ -5383,7 +5417,7 @@ def _mplm_probe(name, dev, span, tmp):
     cfg = MPLM[name]
     trainer = _mplm_trainer(name, dev, span, optimizer="sgd", lr=1.0)
     toks = np.random.default_rng(1).integers(
-        0, LM["vocab_size"], size=(cfg["batch"][0], _TRAIN_CHECK_SEQ)
+        0, cfg["lm"]["vocab_size"], size=(cfg["batch"][0], _TRAIN_CHECK_SEQ)
     ).astype(np.int32)
     start = None if span else _mplm_flat(trainer)[1]
     torch.cuda.synchronize()
@@ -5452,9 +5486,10 @@ def _mplm_flops(name):
     """bench.py's model FLOPs of one step of configuration `name`
     (`_lm_flops_per_step` at its sequence length, times its sequences)."""
     b, s = MPLM[name]["batch"]
-    n, d = LM["n_layers"], LM["d_model"]
-    fwd = (2 * s * n * (4 * d * d + 2 * d * LM["d_ff"])
-           + 2 * s * d * LM["vocab_size"] + n * 2 * s * s * d)
+    lm = MPLM[name]["lm"]
+    n, d = lm["n_layers"], lm["d_model"]
+    fwd = (2 * s * n * (4 * d * d + 2 * d * lm["d_ff"])
+           + 2 * s * d * lm["vocab_size"] + n * 2 * s * s * d)
     return 3 * fwd * b
 
 
@@ -5468,9 +5503,10 @@ def _mplm_launches(mplm, kernel):
 
 
 def multiprocess_lm_phase(dev):
-    """[multiprocess lm]: the flagship LM over MP_RANKS gloo ranks on the
-    card (`MPLM`): each configuration first in this process on a mesh of
-    the same shape (`devices=[dev] * n`), then in the ranks. Per
+    """[multiprocess lm]: the flagship LM (each configuration's `lm`)
+    over MP_RANKS gloo ranks on the card (`MPLM`): each configuration
+    first in this process on a mesh of the same shape
+    (`devices=[dev] * n`), then in the ranks. Per
     configuration: both ranks' losses equal and within `_MPLM_LOSS_TOL`
     of this process's, every replicated master bit-identical across the
     ranks, the ranks' flash launches of one step summing to this
@@ -6985,6 +7021,742 @@ def fleet_phase(dev):
     return out
 
 
+# ---------------------------------------------------------------- [online]
+# (a) the Criteo display-ads layout (Kaggle Display Advertising Challenge:
+# 13 integer features I1-I13, 26 categorical C1-C26) at VW's default 18
+# bits; the categorical namespaces' cardinalities are the challenge's
+# training set's, capped at ONLINE_VOCAB_CAP (values drawn Zipf: the tail
+# past the cap is rarely drawn, and the hash space holds 2^18)
+CRITEO_VOCAB = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145,
+                5683, 8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4,
+                7046547, 18, 15, 286181, 105, 142572)
+ONLINE_ROWS = 1_000_000
+ONLINE_HOLDOUT = 100_000
+ONLINE_BITS = 18
+ONLINE_BATCH = 256
+ONLINE_VOCAB_CAP = 20_000
+ONLINE_DP_POSITIONS = 4
+ONLINE_CPU_ROWS = 50_000    # rows of the card-against-CPU fit
+ONLINE_BFGS_ITERS = 25
+ONLINE_BANDIT_ROWS = 200_000
+ONLINE_BANDIT_SWEEP = ({"learning_rate": 0.1}, {"learning_rate": 0.5},
+                       {"l2": 1e-6}, {"power_t": 0.3})
+ONLINE_PIPE_ROWS = 20_000
+# (b)-(d): bench.py::_bench_online's configuration
+ONLINE_SERVE = dict(rows=20_000, k=16, bits=16, passes=4, clients=16,
+                    per_client=125, max_batch=128)
+ONLINE_CHECK_ROWS = 512
+ONLINE_CHUNKS = 64
+ONLINE_CHUNK_ROWS = 256
+ONLINE_SHIFT_REQUESTS = 72
+_ONLINE_CARD_TOL = 1e-5     # card weights against the CPU fit, of max |w|
+# the other fits: AdaGrad divides a slot's first gradient by
+# sqrt(g^2 + 1e-8), so the rounding of a sum that nearly cancels moves a
+# rare slot's step by up to lr * 1e-4 of its size; on the CPU alone, these
+# fits move by 1.1e-5 (4 positions) to 7.9e-3 (a bandit policy at lr 0.5)
+# of max |w| when their segment sums are rounded from float64. The card
+# against the CPU: 1.31e-5 (4 positions), 2.33e-5 (the bandit at lr 0.1);
+# the bandit's lr 0.5 policies (6.68e-3) are held by an AUC floor instead
+_ONLINE_FIT_TOL = 1e-4
+# BFGS against the CPU at the gpu test's 6 iterations: L-BFGS amplifies
+# the f32 summation differences of its gradient (1.55e-4 of max |w| at
+# 12 iterations, 2.76e-3 at 25, on the card); the 25-iteration fit clears
+# ONLINE_AUC_FLOOR
+_ONLINE_BFGS_TOL = 1e-4
+ONLINE_BFGS_CHECK_ITERS = 6
+_ONLINE_MARGIN_TOL = 1e-5   # served margins against predict_vw, of max |m|
+ONLINE_AUC_FLOOR = 0.7      # every holdout fit; a diverged fit is near 0.5
+# a bandit policy's mean predicted cost against the click: IPS weights up
+# to 10 at lr 0.5 reach 0.61 on the CPU, lr 0.1 0.745
+ONLINE_BANDIT_AUC_FLOOR = 0.55
+
+
+def _zipf_ranks(rng, n, vocab):
+    """n draws of ranks 0..vocab-1, Zipf with exponent 1 (P(r) near
+    1/(r+1)) by the inverse of its continuous CDF, (vocab+1)^u - 1."""
+    r = np.floor(np.exp(rng.random(n) * np.log(vocab + 1.0))) - 1.0
+    return np.clip(r, 0, vocab - 1).astype(np.int64)
+
+
+def _criteo_rows(n, seed, bits=ONLINE_BITS, strings=False):
+    """Seeded Criteo-shaped rows: the hashed (idx, val) pairs the
+    featurizer makes of I1-I13 (log1p of lognormal counts) and C1-C26
+    (hex tokens drawn Zipf), labels from a hidden logistic model over the
+    hashed slots (about a quarter positive, Criteo's click rate). With
+    `strings`, also the raw table the featurizer reads."""
+    from mmlspark_tpu_torch.models.vw.featurizer import namespace_seed
+    from mmlspark_tpu_torch.ops.hashing import murmur3_32
+    rng = np.random.default_rng(seed)
+    mask = (1 << bits) - 1
+    counts = np.floor(rng.lognormal(1.0, 1.5, size=(n, 13)))
+    num = np.log1p(counts).astype(np.float32)
+    idx = np.empty((n, 39), np.int32)
+    val = np.ones((n, 39), np.float32)
+    val[:, :13] = num
+    raw = {}
+    for j in range(13):
+        name = f"I{j + 1}"
+        idx[:, j] = murmur3_32(name.encode(), namespace_seed(name)) & mask
+        raw[name] = num[:, j]
+    for j, card in enumerate(CRITEO_VOCAB):
+        name = f"C{j + 1}"
+        vocab = min(card, ONLINE_VOCAB_CAP)
+        ranks = _zipf_ranks(rng, n, vocab)
+        # each value's token is a fixed hex string of its rank; only the
+        # ranks drawn are hashed
+        seen, inverse = np.unique(ranks, return_inverse=True)
+        seed_j = namespace_seed(name)
+        codes = np.fromiter(
+            (murmur3_32(f"{name}={(r * 2654435761) & 0xFFFFFFFF:08x}"
+                        .encode(), seed_j) & mask for r in seen),
+            np.int64, count=len(seen))
+        idx[:, 13 + j] = codes[inverse]
+        if strings:
+            raw[name] = np.array([f"{(r * 2654435761) & 0xFFFFFFFF:08x}"
+                                  for r in ranks], dtype=object)
+    truth = np.random.default_rng(1234).normal(
+        0.0, 0.25, size=1 << bits).astype(np.float32)
+    margin = (truth[idx] * val).sum(1) - 2.1
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-margin))).astype(np.float32)
+    return idx, val, y, raw
+
+
+def _online_metrics(p, y):
+    """Holdout logloss (scores clipped to [1e-15, 1 - 1e-15]) and AUC (of
+    the unclipped scores, so a regressor's scores outside [0, 1] keep
+    their order)."""
+    from mmlspark_tpu_torch.train.metrics import auc
+    p = np.asarray(p, np.float64)
+    q = np.clip(p, 1e-15, 1 - 1e-15)
+    logloss = float(-np.mean(y * np.log(q) + (1 - y) * np.log1p(-q)))
+    return logloss, float(auc(y, p))
+
+
+def _online_fit(tag, est, table, hold, out):
+    """One timed fit on the card and its holdout metrics."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = est.fit(table)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    scored = model.transform(hold)
+    p = (np.asarray(scored["probabilities"])[:, 1]
+         if "probabilities" in scored.columns
+         else np.asarray(scored["prediction"]))
+    yh = np.asarray(hold["label"])
+    logloss, auc_v = _online_metrics(p, yh)
+    n = len(table)
+    res = dict(fit_s=fit_s, rows_per_s=n / fit_s, logloss=logloss,
+               auc=auc_v, rmse=float(np.sqrt(np.mean((p - yh) ** 2))),
+               peak=torch.cuda.max_memory_allocated(),
+               final_loss=model._stats.get("final_loss"))
+    out[tag] = res
+    log(f"[online] (a) {tag}: fit {fit_s:.3f} s, {res['rows_per_s']:.4g} "
+        f"rows/s, holdout logloss {logloss:.6f}, AUC {auc_v:.6f}, RMSE "
+        f"{res['rmse']:.6f}, peak "
+        f"{res['peak'] / 2**20:.1f} MiB")
+    if not auc_v >= ONLINE_AUC_FLOOR:
+        raise AssertionError(f"[online] {tag}: holdout AUC {auc_v} under "
+                             f"{ONLINE_AUC_FLOOR}")
+    return model
+
+
+def _online_card_vs_cpu(tag, make, cut, tol, out):
+    """`make(device=...)`'s fit on the card against its fit on the CPU
+    (the port's plain path) on the slice `cut`: the largest difference of
+    the weights and bias, over the CPU fit's largest |w| or |b|, within
+    `tol`."""
+    card, cpu = make(None).fit(cut), make("cpu").fit(cut)
+    scale = max(float(np.abs(cpu._weights).max()), abs(cpu._bias))
+    err = max(float(np.abs(card._weights - cpu._weights).max()),
+              abs(card._bias - cpu._bias)) / scale
+    if not err <= tol:
+        raise AssertionError(f"[online] {tag}: the card fit is {err} of "
+                             f"max |w| from the CPU fit")
+    out.setdefault("card_vs_cpu", {})[tag] = err
+
+
+def _time_sgd_loop(dev, idx, val, y, kw):
+    """Wall ms per batch of one adaptive pass's batch loop alone
+    (`learner._run_pass` over batches already on the card, a synchronize
+    at each end): no host padding, copy or observability in it."""
+    import torch
+    from mmlspark_tpu_torch.models.vw import learner
+    p = learner.VWParams(num_bits=kw["num_bits"], loss_function="logistic",
+                         batch_size=kw["batch_size"])
+    w = np.ones(len(y), np.float32)
+    bi, bv, by, bw, nb = learner._pad_batches(idx, val, y, w, p.batch_size)
+    batches = learner._to_device((bi, bv, by, bw), dev)
+    state = learner._init_state(p, None, None, dev)
+    losses = torch.zeros(nb, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    learner._run_pass(state, batches, p, losses)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / nb
+
+
+def _sgd_batch_launches(dev):
+    """(device launches, launches by kernel name, the device's busy
+    microseconds: the sum of those kernels' durations) of one adaptive
+    minibatch step (`_sgd_batch`) at [online] (a)'s shape, from
+    torch.profiler's device events."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mmlspark_tpu_torch.models.vw import learner
+    idx, val, y, _ = _criteo_rows(ONLINE_BATCH, 25)
+    p = learner.VWParams(num_bits=ONLINE_BITS, loss_function="logistic")
+    state = learner._init_state(p, None, None, dev)
+    c = torch.ones((), dtype=torch.float32, device=dev)
+    args = [torch.as_tensor(a).to(dev)
+            for a in (idx, val, y, np.ones(len(y), np.float32))]
+    learner._sgd_batch(*state, *args, p, c)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        learner._sgd_batch(*state, *args, p, c)
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = collections.Counter(e.name[:60] for e in dev_events)
+    busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
+    return sum(names.values()), dict(names), busy_us
+
+
+_LAUNCH_PROC = """
+import json, sys
+import torch
+sys.path.insert(0, {here!r})
+import chip_smoke
+n, names, busy = chip_smoke._sgd_batch_launches(torch.device("cuda"))
+print(json.dumps({{"n": n, "names": names, "busy_us": busy}}))
+"""
+
+
+def _fresh_sgd_batch_launches():
+    """`_sgd_batch_launches` in a process of its own: a profiler session
+    after others in one process (the [ingest] and [dnn] phases') has
+    recorded a fraction of the device events (14 of 63)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _LAUNCH_PROC.format(here=HERE)],
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode:
+        raise AssertionError(f"[online] the launch count failed: "
+                             f"{proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    if not got["n"]:
+        raise AssertionError("[online] torch.profiler recorded no device "
+                             "event of an SGD batch")
+    return got["n"], got["names"], got["busy_us"]
+
+
+def _online_batch(dev, out):
+    """(a) VW on the Criteo layout: adaptive classifier (two fits, bit
+    for bit), the same over 4 positions of the card, sgd regressor with
+    l1, BFGS, and the contextual bandit's parallel_fit; each held against
+    the CPU fit on a slice but the bandit, each holdout AUC over its
+    floor."""
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.models.vw import (VowpalWabbitClassifier,
+                                              VowpalWabbitContextualBandit,
+                                              VowpalWabbitRegressor)
+    from mmlspark_tpu_torch.parallel import data_mesh
+    from mmlspark_tpu_torch.train.metrics import auc
+    t0 = time.perf_counter()
+    idx, val, y, _ = _criteo_rows(ONLINE_ROWS + ONLINE_HOLDOUT, 21)
+    out["data_s"] = time.perf_counter() - t0
+    n = ONLINE_ROWS
+    train = Table({"features_idx": idx[:n], "features_val": val[:n],
+                   "label": y[:n]})
+    hold = Table({"features_idx": idx[n:], "features_val": val[n:],
+                  "label": y[n:]})
+    log(f"[online] (a) {n} Criteo-shaped rows x 39 pairs at {ONLINE_BITS} "
+        f"bits, positive rate {float(y[:n].mean()):.4f}, made in "
+        f"{out['data_s']:.2f} s")
+    kw = dict(features_col="features", label_col="label",
+              num_bits=ONLINE_BITS, batch_size=ONLINE_BATCH)
+    est = VowpalWabbitClassifier(**kw)
+    first = _online_fit("adaptive", est, train, hold, out)
+    if first.quality_profile is None or first.lineage is None or \
+            first.lineage.get("estimator") != "VowpalWabbitClassifier":
+        raise AssertionError("[online] the card fit left no quality "
+                             "profile or lineage")
+    again = _online_fit("adaptive_again", est, train, hold, out)
+    if not (np.array_equal(first._weights, again._weights)
+            and first._bias == again._bias):
+        raise AssertionError("[online] two adaptive fits on the card "
+                             "differ")
+    # every card fit against the port's plain CPU path on one slice
+    cut = Table({c: train[c][:ONLINE_CPU_ROWS] for c in train.columns})
+    _online_card_vs_cpu("adaptive", lambda d: VowpalWabbitClassifier(
+        device=d, **kw), cut, _ONLINE_CARD_TOL, out)
+    nb = -(-n // ONLINE_BATCH)
+    out["batches"] = nb
+    out["ms_per_batch_fit_wall"] = 1e3 * out["adaptive"]["fit_s"] / nb
+    out["ms_per_batch"] = _time_sgd_loop(dev, idx[:n], val[:n], y[:n], kw)
+    out["launches_per_batch"], names, busy_us = _fresh_sgd_batch_launches()
+    out["busy_ms_per_batch"] = busy_us / 1e3
+    log(f"[online] (a) the device launches of one SGD batch by kernel: "
+        f"{names}")
+    log(f"[online] (a) two adaptive fits bit-identical; "
+        f"{out['launches_per_batch']} device launches per SGD batch, "
+        f"the card busy {out['busy_ms_per_batch']:.4f} ms of it "
+        f"(profiled); the batch loop alone {out['ms_per_batch']:.4f} ms "
+        f"per batch over {nb} batches (busy share "
+        f"{out['busy_ms_per_batch'] / out['ms_per_batch']:.3f}); fit wall "
+        f"over batches {out['ms_per_batch_fit_wall']:.4f} ms")
+    mesh = data_mesh(devices=[dev] * ONLINE_DP_POSITIONS)
+    dp = _online_fit("adaptive_4_positions", VowpalWabbitClassifier(
+        num_tasks=ONLINE_DP_POSITIONS, mesh=mesh, **kw), train, hold, out)
+    if np.array_equal(dp._weights, first._weights):
+        raise AssertionError("[online] the 4-position fit equals one "
+                             "position's: no averaging happened")
+    cpu_mesh = data_mesh(devices=[torch.device("cpu")] * ONLINE_DP_POSITIONS)
+    _online_card_vs_cpu(
+        "adaptive_4_positions", lambda d: VowpalWabbitClassifier(
+            num_tasks=ONLINE_DP_POSITIONS, device=d,
+            mesh=mesh if d is None else cpu_mesh, **kw),
+        cut, _ONLINE_FIT_TOL, out)
+    # plain SGD diverges at VW's default rate on these unnormalized
+    # counts (lr 0.5: RMSE 8.2e11 on the card); 0.05 converges
+    sgd_kw = dict(mode="sgd", l1=1e-7, learning_rate=0.05, **kw)
+    reg = _online_fit("sgd_l1_regressor", VowpalWabbitRegressor(**sgd_kw),
+                      train, hold, out)
+    out["sgd_l1_regressor"]["nonzero"] = int((reg._weights != 0).sum())
+    _online_card_vs_cpu("sgd_l1_regressor", lambda d: VowpalWabbitRegressor(
+        device=d, **sgd_kw), cut, _ONLINE_FIT_TOL, out)
+    bfgs_kw = dict(mode="bfgs", bfgs_iters=ONLINE_BFGS_ITERS, **kw)
+    _online_fit("bfgs", VowpalWabbitClassifier(**bfgs_kw), train, hold, out)
+    _online_card_vs_cpu("bfgs", lambda d: VowpalWabbitClassifier(
+        device=d, **dict(bfgs_kw, bfgs_iters=ONLINE_BFGS_CHECK_ITERS)),
+        cut, _ONLINE_BFGS_TOL, out)
+    log(f"[online] (a) each fit within its tolerance of the CPU fit on "
+        f"{len(cut)} rows (of max |w|): {out['card_vs_cpu']}")
+    # the contextual bandit: 4 policies over one featurization
+    rng = np.random.default_rng(22)
+    m = ONLINE_BANDIT_ROWS
+    actions = rng.integers(1, 5, m)
+    prob = rng.uniform(0.1, 1.0, m).astype(np.float32)
+    cost = (1.0 - y[:m] - 0.1 * (actions == 2)).astype(np.float32)
+    bt = Table({"features_idx": idx[:m], "features_val": val[:m],
+                "chosen_action": actions, "cost": cost, "probability": prob})
+    cb_kw = dict(features_col="features", num_bits=ONLINE_BITS,
+                 num_actions=4, batch_size=ONLINE_BATCH)
+    cb = VowpalWabbitContextualBandit(**cb_kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    swept = cb.parallel_fit(bt, list(ONLINE_BANDIT_SWEEP))
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    aucs = []
+    for pm, policy in zip(ONLINE_BANDIT_SWEEP, swept):
+        scores = np.asarray(policy.transform(hold)["action_scores"])
+        aucs.append(float(auc(np.asarray(hold["label"]),
+                              -scores.mean(1))))
+        if not (np.isfinite(scores).all()
+                and aucs[-1] >= ONLINE_BANDIT_AUC_FLOOR):
+            raise AssertionError(f"[online] bandit policy {pm}: holdout "
+                                 f"AUC {aucs[-1]} under "
+                                 f"{ONLINE_BANDIT_AUC_FLOOR}")
+    out["bandit"] = dict(sweep_s=sweep_s,
+                         rows_per_s=len(ONLINE_BANDIT_SWEEP) * m / sweep_s,
+                         ips=[s._stats["ips_estimate"] for s in swept],
+                         auc=aucs)
+    log(f"[online] (a) bandit parallel_fit: {len(ONLINE_BANDIT_SWEEP)} "
+        f"policies x {m} rows in {sweep_s:.3f} s "
+        f"({out['bandit']['rows_per_s']:.4g} rows/s); holdout AUC of the "
+        f"mean predicted cost {', '.join(f'{a:.6f}' for a in aucs)}")
+
+
+def _online_pipeline(dev, tmp, out):
+    """(a) the featurizer and a classifier as one Pipeline over the
+    Criteo-shaped string table: fit on the card, saved, loaded, equal."""
+    from mmlspark_tpu_torch import Pipeline, PipelineModel, Table
+    from mmlspark_tpu_torch.models.vw import (VowpalWabbitClassifier,
+                                              VowpalWabbitFeaturizer)
+    idx, val, y, raw = _criteo_rows(ONLINE_PIPE_ROWS, 23, strings=True)
+    cols = [f"I{j + 1}" for j in range(13)] + \
+        [f"C{j + 1}" for j in range(26)]
+    table = Table({**raw, "label": y})
+    feat = VowpalWabbitFeaturizer(input_cols=cols, output_col="features",
+                                  num_bits=ONLINE_BITS)
+    made = feat.transform(table)
+    if not (np.array_equal(made["features_idx"], idx)
+            and np.array_equal(made["features_val"], val)):
+        raise AssertionError("[online] the featurizer's pairs differ from "
+                             "the hashed rows")
+    t0 = time.perf_counter()
+    model = Pipeline([feat, VowpalWabbitClassifier(
+        features_col="features", label_col="label", num_bits=ONLINE_BITS,
+        batch_size=ONLINE_BATCH)]).fit(table)
+    fit_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "vw_pipeline")
+    t0 = time.perf_counter()
+    model.save(path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = PipelineModel.load(path)
+    load_s = time.perf_counter() - t0
+    rows = Table(raw)
+    a = model.transform(rows)["probabilities"]
+    b = loaded.transform(rows)["probabilities"]
+    if not np.array_equal(a, b):
+        raise AssertionError("[online] the loaded pipeline scores "
+                             "differently")
+    out["pipeline"] = dict(fit_s=fit_s, save_s=save_s, load_s=load_s)
+    log(f"[online] (a) Pipeline(featurizer, classifier) on "
+        f"{ONLINE_PIPE_ROWS} string rows: featurizer pairs equal the "
+        f"hashed rows, fit {fit_s:.3f} s, save {save_s:.3f} s, load "
+        f"{load_s:.3f} s, probabilities equal after the load")
+
+
+def _online_incumbent():
+    """bench.py::_bench_online's serving data and 4-pass incumbent."""
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.models.vw import VowpalWabbitClassifier
+    cfg = ONLINE_SERVE
+    rng = np.random.default_rng(0)
+    n, k, bits = cfg["rows"], cfg["k"], cfg["bits"]
+    slots = rng.integers(0, 1 << bits, size=k).astype(np.int32)
+    idx = np.tile(slots, (n, 1))
+    val = rng.normal(size=(n, k)).astype(np.float32)
+    beta = rng.normal(size=k).astype(np.float32)
+    y = (val @ beta > 0).astype(np.float32)
+    model = VowpalWabbitClassifier(
+        features_col="features", label_col="label", num_bits=bits,
+        num_passes=cfg["passes"]).fit(
+            Table({"features_idx": idx, "features_val": val, "label": y}))
+    return model, dict(idx=idx, val=val, y=y, beta=beta, slots=slots)
+
+
+def _online_serving(dev, model, data, out):
+    """(b) the incumbent behind serve_pipeline: the sparse-kernel plan
+    (fast_path=True) against the Table path, req/s and latency, plan
+    misses equal to the distinct buckets, replies equal to transform on
+    rows whose slots vary, and the kernel's margins equal to predict_vw's
+    on the CPU."""
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.io import serve_pipeline
+    from mmlspark_tpu_torch.models.vw import VowpalWabbitRegressionModel
+    from mmlspark_tpu_torch.models.vw.learner import predict_vw
+    from mmlspark_tpu_torch.reliability.metrics import reliability_metrics
+    from mmlspark_tpu_torch.telemetry import lineage, quality
+    cfg = ONLINE_SERVE
+    cols = ["features_idx", "features_val"]
+    body = json.dumps({"features_idx": data["slots"].tolist(),
+                       "features_val": [0.1] * cfg["k"]})
+    # check rows: each draws its k slots from the incumbent's (with
+    # repeats, in any order) and a quarter from the whole table, so every
+    # row gathers its own weights
+    rng = np.random.default_rng(24)
+    shape = (ONLINE_CHECK_ROWS, cfg["k"])
+    idx = rng.choice(data["slots"], size=shape).astype(np.int32)
+    wide = rng.random(shape) < 0.25
+    idx[wide] = rng.integers(0, 1 << cfg["bits"], int(wide.sum()))
+    rows = rng.normal(size=shape).astype(np.float32)
+    offline = model.transform(Table({
+        "features_idx": idx, "features_val": rows}))["prediction"]
+    bodies = [json.dumps({"features_idx": i.tolist(),
+                          "features_val": r.tolist()}).encode()
+              for i, r in zip(idx, rows)]
+    # the serving kernel's margins (a regression model over the same
+    # weights: the same kernel, no link) against predict_vw on the CPU
+    margins = VowpalWabbitRegressionModel(
+        weights=model._weights, bias=model._bias, num_bits=cfg["bits"],
+        features_col="features")._serving_kernel("prediction")(idx, rows)
+    want = predict_vw(model._weights, model._bias, idx, rows, device="cpu")
+    m_err = float(np.abs(margins - want).max())
+    m_scale = float(np.abs(want).max())
+    if not m_err <= _ONLINE_MARGIN_TOL * m_scale:
+        raise AssertionError(f"[online] the serving kernel's margins are "
+                             f"{m_err} from predict_vw's (max |m| "
+                             f"{m_scale})")
+    out["kernel_margin_err"] = m_err / m_scale
+    log(f"[online] (b) the serving kernel's margins on "
+        f"{ONLINE_CHECK_ROWS} rows within {m_err / m_scale:.3g} of max "
+        f"|m| = {m_scale:.4g} of predict_vw's on the CPU")
+    for fast in (True, False):
+        tag = "sparse_kernel" if fast else "table"
+        reliability_metrics.reset()
+        quality.reset_monitor()
+        lineage.reset_version_registry()
+        torch.cuda.reset_peak_memory_stats()
+        server, q = serve_pipeline(model, cols, mode="microbatch",
+                                   max_batch=cfg["max_batch"],
+                                   fast_path=fast)
+        try:
+            if fast and not getattr(q.transform_fn._handle.kernel,
+                                    "sparse_pairs", False):
+                raise AssertionError("[online] the served plan is not the "
+                                     "sparse-pair kernel")
+            res = _serve_load(server, body, cfg["clients"],
+                              cfg["per_client"])
+            sect = dict(req_per_s=res.req_per_sec, p50_ms=res.p50_ms,
+                        p99_ms=res.p99_ms)
+            if fast:
+                stats = q.transform_fn.stats()
+                if stats["misses"] != stats["buckets"] \
+                        or stats["evictions"]:
+                    raise AssertionError(
+                        f"[online] plan misses {stats['misses']} != "
+                        f"distinct buckets {stats['buckets']}")
+                sect.update(plan_hits=stats["hits"],
+                            plan_misses=stats["misses"],
+                            recompiles=reliability_metrics.get(
+                                "plan.recompiles"))
+            got = _serve_post_all(server.address, bodies)
+        finally:
+            q.stop()
+            server.stop()
+        _serve_statuses_ok(got, f"online {tag} check")
+        served = np.asarray([json.loads(p)["prediction"]
+                             for _, _, p in got])
+        if not np.array_equal(served, np.asarray(offline, np.float64)):
+            raise AssertionError(f"[online] {tag}: replies differ from "
+                                 f"transform")
+        sect["peak"] = torch.cuda.max_memory_allocated()
+        out[tag] = sect
+        log(f"[online] (b) {tag} (fast_path={fast}), {cfg['clients']} x "
+            f"{cfg['per_client']}, max_batch {cfg['max_batch']}: "
+            f"{sect['req_per_s']:.1f} req/s, p50 {sect['p50_ms']:.3f} ms, "
+            f"p99 {sect['p99_ms']:.3f} ms"
+            + (f", plan hits {sect['plan_hits']}, misses "
+               f"{sect['plan_misses']} (= distinct buckets), recompiles "
+               f"{sect['recompiles']}" if fast else "")
+            + f"; {ONLINE_CHECK_ROWS} replies equal to transform")
+
+
+def _online_updates(dev, model, data, out):
+    """(c) OnlineLearner.partial_fit at the fixed (256, 16) bucket; two
+    learners fed the same chunks end bit-identical."""
+    import torch
+    from mmlspark_tpu_torch.models.vw.learner import VWParams
+    from mmlspark_tpu_torch.online import OnlineLearner
+    cfg = ONLINE_SERVE
+    idx, val, y = data["idx"], data["val"], data["y"]
+    n, r = cfg["rows"], ONLINE_CHUNK_ROWS
+    snaps = []
+    for run in range(2):
+        lrn = OnlineLearner(VWParams(loss_function="logistic",
+                                     num_bits=cfg["bits"]),
+                            warm_start=model, rows=r, k=cfg["k"])
+        lrn.partial_fit(idx[:r], val[:r], y[:r])       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in range(ONLINE_CHUNKS):
+            lo = (c * r) % (n - r)
+            lrn.partial_fit(idx[lo:lo + r], val[lo:lo + r], y[lo:lo + r])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        snaps.append(lrn.snapshot())
+        out.setdefault("updates_per_s", []).append(ONLINE_CHUNKS * r / wall)
+    a, b = snaps
+    if not (np.array_equal(a["weights"], b["weights"])
+            and np.array_equal(a["acc"], b["acc"])
+            and a["bias"] == b["bias"]):
+        raise AssertionError("[online] two learners fed the same chunks "
+                             "differ")
+    log(f"[online] (c) {ONLINE_CHUNKS} chunks of {r} at k = {cfg['k']}: "
+        f"{', '.join(f'{u:.4g}' for u in out['updates_per_s'])} "
+        f"examples/s; the two learners bit-identical")
+
+
+def _online_adapt(dev, model, data, out):
+    """(d) a 5-sigma shift on a continuous server: one run_once goes
+    drift trip -> refit -> RolloutDriver -> promoted, with no request
+    dropped; a crash-retried refit equals the clean run; a poisoned
+    candidate is rolled back."""
+    import urllib.request
+
+    from mmlspark_tpu_torch.control import (Observation, RolloutConfig,
+                                            RolloutDriver)
+    from mmlspark_tpu_torch.control import rollout as ctl
+    from mmlspark_tpu_torch.io import serve_pipeline
+    from mmlspark_tpu_torch.io.plan import compile_serving_transform
+    from mmlspark_tpu_torch.models.vw.learner import VWParams
+    from mmlspark_tpu_torch.online import (ContinuousLearner, LabelFeed,
+                                           OnlineConfig, OnlineLearner,
+                                           OnlineObservation)
+    from mmlspark_tpu_torch.reliability.faults import FaultInjector
+    from mmlspark_tpu_torch.reliability.metrics import reliability_metrics
+    from mmlspark_tpu_torch.telemetry import lineage, quality
+    cfg = ONLINE_SERVE
+    idx, val, beta = data["idx"], data["val"], data["beta"]
+    params = VWParams(loss_function="logistic", num_bits=cfg["bits"])
+    reliability_metrics.reset()
+    quality.reset_monitor()
+    lineage.reset_version_registry()
+    shift = (5.0 * beta / np.linalg.norm(beta)).astype(np.float32)
+    server, q = serve_pipeline(model, ["features_idx", "features_val"],
+                               mode="continuous")
+    statuses = []
+    try:
+        mon = quality.get_monitor()
+        if not mon.active:
+            raise AssertionError("[online] the incumbent installed no "
+                                 "quality profile")
+        mon.configure(sample=1.0, min_live=24)
+        feed = LabelFeed(evaluator=mon.evaluator)
+        lrn = OnlineLearner(params, warm_start=model, rows=64, k=cfg["k"])
+
+        def post(row_idx, row_val, label):
+            req = urllib.request.Request(
+                server.address, data=json.dumps({
+                    "features_idx": row_idx.tolist(),
+                    "features_val": row_val.tolist()}).encode(),
+                headers={"Content-Type": "application/json"})
+            resp = urllib.request.urlopen(req, timeout=30)
+            resp.read()
+            statuses.append(resp.status)
+            rid = resp.headers["X-Request-Id"]
+            feed.record_features([rid], row_idx[None, :], row_val[None, :])
+            quality.record_label(rid, float(label))
+
+        def deploy(candidate):
+            sched = iter([Observation()] * 10)
+            drv = RolloutDriver(
+                {"w0": q.transform_fn}, model, lambda: candidate,
+                observe=lambda: next(sched),
+                config=RolloutConfig(traffic_steps=(1.0,), step_polls=1,
+                                     soak_polls=1, poll_interval_s=0.0),
+                sleep=lambda s: None)
+            return drv.run()["state"] == ctl.PROMOTED
+
+        loop = ContinuousLearner(
+            lrn, feed, deploy=deploy,
+            config=OnlineConfig(min_pairs=32, max_drift=0.5,
+                                poll_interval_s=0.0),
+            sleep=lambda s: None)
+        shifted = val + shift
+        y_shift = (shifted @ beta > 0).astype(np.float32)
+        t0 = time.perf_counter()
+        for i in range(ONLINE_SHIFT_REQUESTS):
+            post(idx[i], shifted[i], y_shift[i])
+        status = loop.run_once()
+        adapt_s = time.perf_counter() - t0
+        served_version = q.transform_fn.version
+    finally:
+        q.stop()
+        server.stop()
+    dropped = sum(1 for s in statuses if s != 200)
+    if status.get("outcome") != "promoted" or dropped:
+        raise AssertionError(f"[online] adaptation: {status}, {dropped} "
+                             f"requests dropped")
+    if served_version != status["version"]:
+        raise AssertionError("[online] the promoted candidate is not the "
+                             "one serving")
+    out["adapt"] = dict(s=adapt_s, dropped=dropped,
+                        requests=len(statuses))
+    log(f"[online] (d) {ONLINE_SHIFT_REQUESTS} requests with a 5-sigma "
+        f"shift, then one run_once: drift trip -> refit -> rollout -> "
+        f"promoted in {adapt_s:.3f} s, {dropped} requests dropped")
+
+    # the chaos site on the card: a crash mid-refit retried from the
+    # snapshot reaches the clean run's weights exactly
+    def learner_and_feed():
+        lrn = OnlineLearner(params, warm_start=model, rows=64, k=cfg["k"])
+        feed = LabelFeed()
+        rids = [f"r{i}" for i in range(128)]
+        feed.record_features(rids, idx[:128], shifted[:128])
+        for i, rid in enumerate(rids):
+            feed.on_join(rid, 1.0, float(y_shift[i]))
+        return lrn, feed
+
+    def once():
+        fired = {"n": 0}
+
+        def observe():
+            fired["n"] += 1
+            return OnlineObservation(drift_tripped=fired["n"] == 1,
+                                     pairs=999)
+        return observe
+
+    runs = []
+    for faults in (None, FaultInjector(seed=5, rules=[
+            {"site": "online.refit", "kind": "crash", "at": [0]}])):
+        lrn, feed = learner_and_feed()
+        cl = ContinuousLearner(lrn, feed, deploy=lambda m: True,
+                               observe=once(), faults=faults,
+                               config=OnlineConfig(min_pairs=8),
+                               sleep=lambda s: None)
+        if cl.run_once().get("outcome") != "promoted":
+            raise AssertionError("[online] a chaos refit did not promote")
+        runs.append(lrn.snapshot())
+    if not (np.array_equal(runs[0]["weights"], runs[1]["weights"])
+            and np.array_equal(runs[0]["acc"], runs[1]["acc"])):
+        raise AssertionError("[online] the crash-retried refit differs "
+                             "from the clean run")
+    # a poisoned candidate burns its canary and is rolled back
+    lrn, feed = learner_and_feed()
+    worker = compile_serving_transform(model, ["features_idx",
+                                               "features_val"])
+    inc_version = worker.version
+    snap = lrn.snapshot()
+
+    def burning_gate(candidate):
+        sched = iter([Observation(burning=True), Observation(),
+                      Observation(), Observation()])
+        drv = RolloutDriver(
+            {"w0": worker}, model, candidate, observe=lambda: next(sched),
+            config=RolloutConfig(traffic_steps=(1.0,), step_polls=2,
+                                 poll_interval_s=0.0, recover_polls=1),
+            sleep=lambda s: None)
+        return drv.run()["state"] == ctl.PROMOTED
+
+    cl = ContinuousLearner(lrn, feed, deploy=burning_gate, observe=once(),
+                           config=OnlineConfig(min_pairs=8),
+                           sleep=lambda s: None)
+    st = cl.run_once()
+    if st.get("outcome") != "rolled-back" or worker.version != inc_version \
+            or not np.array_equal(lrn.snapshot()["weights"],
+                                  snap["weights"]):
+        raise AssertionError(f"[online] the poisoned candidate was not "
+                             f"rolled back: {st}")
+    out["rollback"] = st["outcome"]
+    log("[online] (d) a crash-retried refit equals the clean run bit for "
+        "bit; a poisoned candidate rolled back, the incumbent serving and "
+        "the learner rewound")
+
+
+def online_phase(dev):
+    """[online]: VW and the online loop on the card (no kernel of their
+    own: gathers, sorts and segmented sums; every kernel wrapper's launch
+    count must stand still across the phase)."""
+    import tempfile
+
+    import torch
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+    from mmlspark_tpu_torch.telemetry import lineage, quality
+    t_phase = time.perf_counter()
+    before = dict(**hc.launches, **fa.launches)
+    quality.reset_monitor()
+    lineage.reset_version_registry()
+    out = {}
+    _online_batch(dev, out)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_online_") as tmp:
+        _online_pipeline(dev, tmp, out)
+    model, data = _online_incumbent()
+    _online_serving(dev, model, data, out)
+    _online_updates(dev, model, data, out)
+    _online_adapt(dev, model, data, out)
+    after = dict(**hc.launches, **fa.launches)
+    if after != before:
+        raise AssertionError(f"[online] a kernel launched: {before} -> "
+                             f"{after}")
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[online] kernel launches unchanged across the phase: {after}; "
+        f"the phase {out['s']:.1f} s")
+    return out
+
+
 def only_phase(name, dev, phase, t_start) -> int:
     """`--only NAME`: one phase after card and build (with the headline
     data where it needs them), for runs that iterate on that phase; the
@@ -7002,7 +7774,8 @@ def only_phase(name, dev, phase, t_start) -> int:
              "stats backward": stats_bwd_kernel_phase,
              "ranker": ranker_phase, "stream train": stream_train_phase,
              "multiprocess_lm": multiprocess_lm_phase, "dnn": dnn_phase,
-             "serving": serving_phase, "fleet": fleet_phase}
+             "serving": serving_phase, "fleet": fleet_phase,
+             "online": online_phase}
     if name in needs_data:
         data = phase("headline data", headline_data, dev)
         phase(name, needs_data[name], dev, data)
@@ -7086,6 +7859,8 @@ def main(argv) -> int:
     serve = phase("serving", serving_phase, dev)
     torch.cuda.empty_cache()
     fleet = phase("fleet", fleet_phase, dev)
+    torch.cuda.empty_cache()
+    online = phase("online", online_phase, dev)
     if "--versus" in argv:
         phase("versus", versus_phase, parent)
 
@@ -7421,6 +8196,16 @@ def main(argv) -> int:
         f"{fleet['distributed']['p50_ms']:.3f} ms, p99 "
         f"{fleet['distributed']['p99_ms']:.3f} ms; the phase "
         f"{fleet['s']:.1f} s")
+    log(f"[online] VW adaptive fit {online['adaptive']['fit_s']:.3f} s "
+        f"({online['adaptive']['rows_per_s']:.4g} rows/s, AUC "
+        f"{online['adaptive']['auc']:.6f}), 4 positions "
+        f"{online['adaptive_4_positions']['fit_s']:.3f} s, sgd+l1 "
+        f"{online['sgd_l1_regressor']['fit_s']:.3f} s, BFGS "
+        f"{online['bfgs']['fit_s']:.3f} s; serving "
+        f"{online['sparse_kernel']['req_per_s']:.1f} req/s sparse kernel "
+        f"against {online['table']['req_per_s']:.1f} table; "
+        f"{max(online['updates_per_s']):.4g} online examples/s; adapted in "
+        f"{online['adapt']['s']:.3f} s; the phase {online['s']:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; phases "
         + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     print(json.dumps({"kernels": kernels}))

@@ -29,7 +29,12 @@ neither `jax` nor anything of `mmlspark_tpu`. Ported so far:
   `image`);
 - HTTP model serving (`io`: `serve_pipeline`, the plan cache, epoch
   replay, hot-swap) with the serving half of `telemetry` (spans, windowed
-  metrics, Prometheus exposition, model versions, the quality tap).
+  metrics, Prometheus exposition, model versions, the quality tap), the
+  service registry and the fleet workloads (isolation forest, SAR, KNN);
+- Vowpal Wabbit (`models.vw`) and continuous learning on the serving
+  stream (`online`), with the control plane that closes its loop
+  (`control`: rollout, admission, routing, scaling; `telemetry.slo`,
+  `telemetry.watch`).
 
 Entry points run on the card unless the caller passes `device="cpu"`; with
 no card they raise (see `device.resolve_device`).

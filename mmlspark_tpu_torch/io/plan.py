@@ -319,7 +319,7 @@ class ServingTransform:
             except Exception:  # noqa: BLE001
                 pass
 
-    def install_model(self, model) -> dict:
+    def install_model(self, model, if_changed: bool = False) -> dict:
         """Zero-downtime hot-swap: build the new version's handle fully
         OFF the request path, then commit it with one atomic assignment.
         Workers mid-batch finish on the handle they already read (old
@@ -328,7 +328,20 @@ class ServingTransform:
         reads the new handle. A failure anywhere before the commit —
         including the seeded `serving.swap` chaos site — leaves the
         incumbent serving untouched (`serving.model.swap_errors`) and
-        re-raises to the caller. Returns {"old": id|None, "new": id}."""
+        re-raises to the caller. Returns {"old": id|None, "new": id}.
+
+        `if_changed=True` makes the swap IDEMPOTENT on version identity:
+        when `model`'s version already names the serving handle, nothing
+        is rebuilt, no swap is counted and the chaos site does not fire
+        — the contract a retried or double rollback needs (the control
+        plane re-installs the incumbent without inflating
+        `serving.model.swaps` or re-rolling the fault schedule). The
+        no-op returns {"old": v, "new": v, "unchanged": True}."""
+        if if_changed:
+            from ..telemetry import lineage as tlineage
+            if tlineage.model_version(model).version == self.version:
+                return {"old": self.version, "new": self.version,
+                        "unchanged": True}
         try:
             new = self._make_handle(model)
             if self._faults is not None:

@@ -31,9 +31,10 @@ Serving's HTTPSourceV2.scala):
 
 Every transform runs on a partition's worker thread; a stage on the card
 scores there and its results come back to the host before the reply is
-encoded. `admission=` (the reference's burn-aware admission controller,
-`control/actuators.py`) is ROADMAP Queue 1 item 27: anything but None
-raises NotImplementedError.
+encoded. `admission=` mounts a burn-aware admission controller
+(`control.actuators.BurnAwareAdmission`): while the SLO error budget
+burns, requests past its queue allowance answer 503 with `Retry-After`
+before they queue.
 """
 from __future__ import annotations
 
@@ -81,7 +82,8 @@ class CachedRequest:
     """One held HTTP exchange (reference: CachedRequest, HTTPSourceV2.scala:519)."""
 
     __slots__ = ("id", "body", "headers", "path", "_event", "_response",
-                 "_on_respond", "t_enqueue", "span", "slo", "version")
+                 "_on_respond", "t_enqueue", "span", "slo", "version",
+                 "retry_after")
 
     def __init__(self, body: bytes, headers: dict, path: str,
                  on_respond=None):
@@ -97,6 +99,7 @@ class CachedRequest:
         self.slo = False                # counted in serving.request.*
         #                                 (exposition self-scrapes are not)
         self.version = None             # X-Model-Version response stamp
+        self.retry_after = None         # Retry-After seconds on a shed 503
 
     def respond(self, status: int, body: bytes,
                 content_type: str = "application/json"):
@@ -181,6 +184,10 @@ class _Handler(BaseHTTPRequestHandler):
         if cached.version is not None:
             # which ModelVersion answered (hot-swap attribution)
             self.send_header("X-Model-Version", cached.version)
+        if cached.retry_after is not None:
+            # burn-aware shed: tell the client WHEN to come back instead
+            # of letting it hammer a burning budget (RFC 9110 §10.2.3)
+            self.send_header("Retry-After", str(int(cached.retry_after)))
         self.end_headers()
         self.wfile.write(payload)
 
@@ -522,15 +529,20 @@ class _SelectorServer:
             out.append(_response_head(status, ctype))
             # X-Request-Id echoes the server-side correlation id (== the
             # root span id) so the client can quote it against traces;
-            # X-Model-Version names the ModelVersion that answered
-            if req.version is None:
+            # X-Model-Version names the ModelVersion that answered;
+            # Retry-After rides burn-aware shed 503s
+            if req.version is None and req.retry_after is None:
                 out.append(b"%d\r\nX-Request-Id: %b\r\n\r\n"
                            % (len(payload), req.id.encode("latin-1")))
             else:
-                out.append(b"%d\r\nX-Request-Id: %b\r\nX-Model-Version: "
-                           b"%b\r\n\r\n" % (len(payload),
-                                              req.id.encode("latin-1"),
-                                              req.version.encode("latin-1")))
+                head = b"%d\r\nX-Request-Id: %b" % (
+                    len(payload), req.id.encode("latin-1"))
+                if req.version is not None:
+                    head += (b"\r\nX-Model-Version: %b"
+                             % req.version.encode("latin-1"))
+                if req.retry_after is not None:
+                    head += b"\r\nRetry-After: %d" % int(req.retry_after)
+                out.append(head + b"\r\n\r\n")
             out.append(payload)
         if out:
             conn.wbuf += b"".join(out)
@@ -662,13 +674,6 @@ class _PartitionQueue:
         return batch
 
 
-def _no_admission(admission) -> None:
-    if admission is not None:
-        raise NotImplementedError(
-            "serving admission control (the reference's control/actuators."
-            "BurnAwareAdmission) is not ported yet (ROADMAP Queue 1 item 27)")
-
-
 class ServingServer:
     """Per-host HTTP ingress with N logical partitions and epoch replay
     (reference: WorkerServer + HTTPSourceStateHolder, HTTPSourceV2.scala)."""
@@ -680,13 +685,16 @@ class ServingServer:
                  admission=None):
         if transport not in ("selector", "threading"):
             raise ValueError("transport must be selector|threading")
-        _no_admission(admission)
         self.num_partitions = num_partitions
         self.reply_timeout = reply_timeout
         # load shedding bound: a partition queue beyond this answers 503
         # immediately instead of growing without bound (heavy-traffic
         # ingress must fail fast, not queue into certain 504s)
         self.max_queue = max_queue
+        # burn-aware admission controller (control/actuators.py): when the
+        # error budget is burning, shed-before-queue with Retry-After
+        # (None = admit everything up to max_queue)
+        self.admission = admission
         # deterministic fault injection (None = zero-overhead disabled);
         # falls back to the MMLSPARK_TPU_FAULTS env spec
         self._faults = faults if faults is not None else FaultInjector.from_env()
@@ -807,6 +815,19 @@ class ServingServer:
             req.respond(503, b'{"error": "server draining"}')
             return
         pid = next(self._rr) % self.num_partitions
+        admission = self.admission
+        if admission is not None \
+                and admission.should_shed(self._queues[pid].qsize()):
+            # burn-aware shed-BEFORE-queue: while the error budget burns,
+            # a request that would have to wait behind queued work is
+            # refused immediately with Retry-After — queueing it would
+            # spend budget on a reply that arrives late anyway, and the
+            # explicit back-off is what lets the fleet recover
+            reliability_metrics.inc(tnames.SERVING_SHED_REQUESTS)
+            reliability_metrics.inc(tnames.CONTROL_ADMISSION_SHED)
+            req.retry_after = admission.retry_after_s
+            req.respond(503, b'{"error": "error budget burning"}')
+            return
         if self.max_queue and self._queues[pid].qsize() >= self.max_queue:
             # load shedding: a queue past the bound means every enqueued
             # request is already doomed to time out — shed NOW with 503 so
@@ -1138,8 +1159,9 @@ def serve_pipeline(model, input_cols, output_col: str = "prediction",
     `serving.swap` chaos site (a mid-`install_model` fault rolls back to
     the incumbent); hot-swap a retrained model with
     `query.transform_fn.install_model(new_model)`, with zero dropped
-    requests. `admission` is ROADMAP Queue 1 item 27 and must be None."""
-    _no_admission(admission)
+    requests. `admission` mounts a burn-aware admission controller
+    (`control.actuators.BurnAwareAdmission`) on the server: while the
+    error budget burns, excess load is shed with 503 + Retry-After."""
     if fast_path:
         from .plan import compile_serving_transform
         transform = compile_serving_transform(model, input_cols, output_col,
@@ -1178,7 +1200,8 @@ def serve_pipeline(model, input_cols, output_col: str = "prediction",
                                            status=400)
             return replies
 
-    server = ServingServer(host, port, num_partitions).start()
+    server = ServingServer(host, port, num_partitions,
+                           admission=admission).start()
     q = ServingQuery(server, transform, mode=mode, max_batch=max_batch,
                      batch_linger_ms=batch_linger_ms).start()
     return server, q

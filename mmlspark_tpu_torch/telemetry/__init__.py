@@ -2,14 +2,17 @@
 (`window`), Prometheus/JSON exposition and the fleet scrape
 (`exposition`), the plan-build log (`perf`), model versions, canary
 comparisons and the fleet's rollout skew (`lineage`), the model quality
-tap (`quality`: the fit-time profile and its serving half), and
-the training side's goodput clock and straggler detector (`goodput`).
+tap (`quality`: the fit-time profile and its serving half),
+the SLO engine (`slo`: objectives, burn-rate verdicts and their fleet
+merge), the live regression watcher (`watch`), and the training side's
+goodput clock and straggler detector (`goodput`).
 
 Ports of the reference's `telemetry/` modules, which import no JAX. The
-reference's SLO engine, poller and watcher (`slo.py`, `poller.py`,
-`watch.py`) are ROADMAP Queue 1 item 27; its profile sessions, flight
-recorder and XLA analysis (`profiler.py`, the rest of `perf.py`) item 23.
-Those names raise NotImplementedError naming their item.
+reference's poller and trainer scrape surface (`poller.py`,
+`ExpositionServer`, `expose_trainer`) are ROADMAP Queue 1 item 27; its
+profile sessions, flight recorder and XLA analysis (`profiler.py`, the
+rest of `perf.py`) item 23. Those names raise NotImplementedError naming
+their item.
 """
 from .goodput import PHASES, StepClock, StragglerDetector, peak_flops_from_env
 from .spans import (CAPACITY_ENV, REQUEST_ID_HEADER, SAMPLE_ENV, Span,
@@ -41,16 +44,19 @@ _LAZY_NAMES = {
     "record_label": "quality",
     "CompileLog": "perf", "record_plan_compile": "perf",
     "get_compile_log": "perf", "compile_stats": "perf",
+    "Objective": "slo", "SLOEngine": "slo", "default_objectives": "slo",
+    "merge_verdicts": "slo", "trainer_objectives": "slo",
+    "quality_objectives": "slo", "canary_objectives": "slo",
+    "verdict_burning": "slo",
+    "WatchRule": "watch", "TelemetryWatcher": "watch",
+    "evaluate_rule": "watch",
+    "quality_watch_rules": "quality", "canary_watch_rules": "lineage",
 }
 
 # the reference's names not ported yet -> their ROADMAP Queue 1 item
 _NOT_PORTED = {
     **{n: "27" for n in (
-        "Objective", "SLOEngine", "default_objectives", "merge_verdicts",
-        "trainer_objectives", "quality_objectives", "canary_objectives",
-        "TelemetryPoller", "WatchRule", "TelemetryWatcher",
-        "ExpositionServer", "expose_trainer", "quality_watch_rules",
-        "canary_watch_rules")},
+        "TelemetryPoller", "ExpositionServer", "expose_trainer")},
     **{n: "23" for n in (
         "FlightRecorder", "AotCache", "collective_traffic",
         "compile_with_analysis", "executable_analysis", "hbm_utilization",

@@ -10,20 +10,18 @@ Port of the serving half of the reference's `telemetry/exposition.py`
   OpenMetrics exemplars on request. The same observations render the
   same text in either package.
 - `metrics_http_response(path)` — the handler body of `ServingServer`'s
-  exposition GETs (`/metrics`, `/metrics.json[?window=N]`, `/quality`,
-  `/versions`). `/slo` needs `telemetry/slo.py` (ROADMAP Queue 1 item
-  27), `/debug/bundle` and `/debug/profile` the flight recorder and the
-  profile session (item 23): these answer 501 with a JSON error naming
-  the item.
+  exposition GETs (`/metrics`, `/metrics.json[?window=N]`, `/slo`,
+  `/quality`, `/versions`). `/debug/bundle` and `/debug/profile` need
+  the flight recorder and the profile session (ROADMAP Queue 1 item 23):
+  they answer 501 with a JSON error naming the item.
 - `merge_states` / `state_snapshot` — the exact cross-process merge:
   counters and timings sum, histogram buckets sum elementwise and
   percentiles are recomputed from the merged buckets, never averaged.
 
 - `scrape_cluster` / `ClusterSnapshot` — the fleet scrape over the
   service registry (`io.registry`): every worker's `/metrics.json`
-  merged exactly, and on request its `/quality` and `/versions`.
-  `slo=True` needs the SLO engine (item 27) and raises
-  NotImplementedError naming it.
+  merged exactly, and on request its `/slo` verdict (merged with
+  `telemetry.slo.merge_verdicts`), `/quality` and `/versions`.
 
 The trainer scrape surface (`ExpositionServer`, `expose_trainer`, which
 mount the SLO engine) is item 27 and raises NotImplementedError naming
@@ -41,8 +39,7 @@ from ..reliability.metrics import (Histogram, histogram_bounds_ms,
                                    reliability_metrics)
 
 # the exposition paths this port does not answer yet: path -> (item, what)
-_NOT_PORTED = {"/slo": ("27", "telemetry/slo.py (the SLO engine)"),
-               "/debug/bundle": ("23", "the flight recorder"),
+_NOT_PORTED = {"/debug/bundle": ("23", "the flight recorder"),
                "/debug/profile": ("23", "the profile session")}
 
 _LEFT_OUT = {"ExpositionServer": "27", "expose_trainer": "27"}
@@ -217,10 +214,10 @@ def _parse_window(path: str):
 
 def metrics_http_response(path: str, registry=None) -> tuple:
     """(status, payload_bytes, content_type) for the exposition GETs —
-    `/metrics`, `/metrics.json[?window=N]`, `/quality`, `/versions` —
-    the handler body `ServingServer` mounts on both transports. `/slo`,
-    `/debug/bundle` and `/debug/profile` answer 501 with a JSON error
-    naming the ROADMAP item that ports them."""
+    `/metrics`, `/metrics.json[?window=N]`, `/slo`, `/quality`,
+    `/versions` — the handler body `ServingServer` mounts on both
+    transports. `/debug/bundle` and `/debug/profile` answer 501 with a
+    JSON error naming the ROADMAP item that ports them."""
     reg = registry if registry is not None else reliability_metrics
     try:
         base, window_s = _parse_window(path)
@@ -232,10 +229,11 @@ def metrics_http_response(path: str, registry=None) -> tuple:
         return 501, json.dumps(
             {"error": f"{base} needs {what}, not ported yet (ROADMAP "
                       f"Queue 1 item {item})"}).encode(), "application/json"
-    if base in ("/metrics", "/metrics.json"):
+    if base in ("/slo", "/metrics", "/metrics.json"):
         # model-quality gauges refresh right before any read that could
-        # consume them: the drift gauges a /metrics scrape ships must
-        # reflect the live sketches, not the last scrape. Guarded — a broken sketch loses drift
+        # consume them: the drift gauges a /slo quality objective reads
+        # and a /metrics scrape ships must reflect the live sketches, not
+        # the last scrape. Guarded — a broken sketch loses drift
         # gauges, never the scrape; a process with no quality monitor
         # pays one None check.
         try:
@@ -257,6 +255,10 @@ def metrics_http_response(path: str, registry=None) -> tuple:
     if base == "/versions":
         from .lineage import versions_http_response
         return versions_http_response(window_s=window_s)
+    if base == "/slo":
+        from .slo import get_engine
+        return 200, json.dumps(get_engine().verdict()).encode(), \
+            "application/json"
     if base == "/metrics.json":
         return 200, \
             json.dumps(reg.export_state(window_s=window_s)).encode(), \
@@ -342,8 +344,7 @@ def state_snapshot(state: dict) -> dict:
 class ClusterSnapshot(NamedTuple):
     """`scrape_cluster` result: the exactly-merged flat snapshot plus each
     worker's raw state for per-host drill-down. `slo` is the fleet-merged
-    `/slo` verdict in the reference; here it is always None (the SLO
-    engine is ROADMAP Queue 1 item 27). `quality` is the fleet-merged `/quality` export (sketch counts
+    `/slo` verdict when ``slo=True`` was passed. `quality` is the fleet-merged `/quality` export (sketch counts
     summed, drift recomputed from the merged counts) when
     ``quality=True`` was passed; `versions` is the fleet-merged
     `/versions` export (per-version splits summed, `current_by_worker`
@@ -373,8 +374,11 @@ def scrape_cluster(registry_address: str, name: Optional[str] = None,
     `window` scrapes `/metrics.json?window=N` — the merged snapshot then
     covers only each worker's last N seconds (bucket counts still sum
     elementwise; percentiles recompute from the merged windowed buckets).
-    `slo=True` needs the SLO engine (`telemetry/slo.py`, ROADMAP Queue 1
-    item 27) and raises NotImplementedError naming it. `quality=True` also pulls each worker's `/quality` export and merges
+    `slo=True` also pulls each worker's `/slo` verdict and merges them
+    with `telemetry.slo.merge_verdicts` (counts sum, burns recompute);
+    with `versions=True` too, the verdicts also group into
+    `versions["slo_by_version"]` by each worker's registered version,
+    merged the same way. `quality=True` also pulls each worker's `/quality` export and merges
     them with `telemetry.quality.merge_quality_exports` — live sketch
     counts sum exactly, fleet drift recomputes from the merged counts
     (never averaged from per-worker scores). `versions=True` also pulls
@@ -388,10 +392,6 @@ def scrape_cluster(registry_address: str, name: Optional[str] = None,
     both, which is well-defined because trainer gauges (goodput) keep
     max and step histograms bucket-sum exactly like every other
     metric."""
-    if slo:
-        raise NotImplementedError(
-            "scrape_cluster(slo=True) merges the workers' /slo verdicts with "
-            "telemetry/slo.py, not ported yet (ROADMAP Queue 1 item 27)")
     from ..io.registry import ServiceInfo, list_services
     if name is not None:
         infos = list_services(registry_address, name, timeout=timeout)
@@ -406,6 +406,7 @@ def scrape_cluster(registry_address: str, name: Optional[str] = None,
     if window is not None:
         metrics_path += f"?window={float(window):g}"
     workers = []
+    slo_verdicts = []
     quality_exports = []
     version_exports = []
     for info in infos:
@@ -413,6 +414,10 @@ def scrape_cluster(registry_address: str, name: Optional[str] = None,
             with urllib.request.urlopen(info.address + metrics_path,
                                         timeout=timeout) as resp:
                 state = json.loads(resp.read())
+            if slo:
+                with urllib.request.urlopen(info.address + "/slo",
+                                            timeout=timeout) as resp:
+                    slo_verdicts.append((info, json.loads(resp.read())))
             if quality:
                 # isolated: a worker without /quality (a pre-quality
                 # version mid-rollout) keeps its metrics in the merge —
@@ -445,6 +450,10 @@ def scrape_cluster(registry_address: str, name: Optional[str] = None,
     merged["telemetry.scrape.workers"] = len(workers)
     if "window_s" in merged_state:
         merged["telemetry.scrape.window_s"] = merged_state["window_s"]
+    merged_slo = None
+    if slo:
+        from .slo import merge_verdicts
+        merged_slo = merge_verdicts([v for _, v in slo_verdicts])
     merged_quality = None
     if quality:
         from .quality import merge_quality_exports
@@ -459,6 +468,20 @@ def scrape_cluster(registry_address: str, name: Optional[str] = None,
             merged_versions = merge_version_exports(version_exports)
         except Exception:  # noqa: BLE001 - the metrics merge stands
             merged_versions = None
-    return ClusterSnapshot(merged=merged, workers=workers, slo=None,
+        if merged_versions is not None and slo:
+            # the fleet SLO split by version: per-worker verdicts grouped
+            # by each worker's REGISTERED version, each group merged
+            # exactly, so a canary worker's burn does not hide inside the
+            # fleet-wide verdict
+            from .slo import merge_verdicts as _mv
+            groups: dict = {}
+            for info, verdict in slo_verdicts:
+                ver = getattr(info, "version", None)
+                if ver is not None:
+                    groups.setdefault(ver, []).append(verdict)
+            if groups:
+                merged_versions["slo_by_version"] = {
+                    ver: _mv(vs) for ver, vs in groups.items()}
+    return ClusterSnapshot(merged=merged, workers=workers, slo=merged_slo,
                            quality=merged_quality,
                            versions=merged_versions)

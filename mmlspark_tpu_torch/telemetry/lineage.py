@@ -22,8 +22,8 @@ Port of the reference's `telemetry/lineage.py` (which imports no JAX):
 - **Canary gauges** — `refresh_canary_gauges` publishes
   `canary.p99.ratio` / `canary.error_burn` / `canary.drift.delta`,
   comparing the candidate's live telemetry with the incumbent's frozen
-  baseline. The watch rules over them need `telemetry/watch.py` (ROADMAP
-  Queue 1 item 27).
+  baseline; `canary_watch_rules` watches them (`telemetry/watch.py`),
+  as the rollout driver does.
 
 Everything here is guarded the same way the quality tier is: lineage
 must never fail a fit, and version accounting must never fail a request.
@@ -405,6 +405,10 @@ def canary_watch_rules(p99_ratio_max: float = 2.0,
     the incumbent's frozen p99, burning its error budget, or drifting
     past the PSI delta trips the watcher (flight bundle + event) —
     min_samples=1 because each sample is already a full fleet scrape."""
-    raise NotImplementedError(
-        "telemetry.lineage.canary_watch_rules needs telemetry/watch.py, "
-        "not ported yet (ROADMAP Queue 1 item 27)")
+    from .watch import WatchRule
+    return [WatchRule(key=tnames.CANARY_P99_RATIO,
+                      max_value=p99_ratio_max, min_samples=1),
+            WatchRule(key=tnames.CANARY_ERROR_BURN,
+                      max_value=error_burn_max, min_samples=1),
+            WatchRule(key=tnames.CANARY_DRIFT_DELTA,
+                      max_value=drift_delta_max, min_samples=1)]

@@ -7,14 +7,16 @@ checkpoint path, the training supervisor and its goodput clock, the
 multi-process layer, the data plane, the serving stack (ingress,
 partition workers, the plan cache, hot-swap, the service registry), the
 fleet workloads (isolation forest, SAR), its compile log, the
-model-quality tap, the version registry's canary gauges and the tracer's
-spans and events. `reliability/names.py` re-exports this module, so the
+model-quality tap, the version registry's canary gauges, the online
+learning loop, the control plane (rollout, admission, routing, scaling),
+the telemetry watcher and the tracer's spans and events. `reliability/names.py` re-exports this module, so the
 names its callers import there are these.
 
 Dotted `subsystem.signal[.detail]`, lowercase; a patterned name carries a
 `{placeholder}` that a helper below renders. A fault site keeps its
 literal at its `fire`/`perturb` call ("serving.worker", "serving.ingress",
-"serving.swap", "quality.label", "train.ckpt.write").
+"serving.swap", "quality.label", "train.ckpt.write", "online.refit",
+"control.rollout.poll").
 """
 
 # ------------------------------------------------------------------ counters
@@ -76,6 +78,28 @@ DATA_PREFETCH_ITEMS = "data.prefetch.items"
 DATA_PREFETCH_STALLS = "data.prefetch.stalls"
 DATA_PREFETCH_FULL = "data.prefetch.full"
 
+# online learning: the label feed, the learner, the continuous loop
+ONLINE_FEED_PAIRS = "online.feed.pairs"
+ONLINE_FEED_DROPPED = "online.feed.dropped"
+ONLINE_LEARNER_UPDATES = "online.learner.updates"
+ONLINE_TRIPS = "online.trips"
+ONLINE_REFITS = "online.refits"
+ONLINE_REFIT_RETRIES = "online.refit_retries"
+ONLINE_PROMOTIONS = "online.promotions"
+ONLINE_ROLLBACKS = "online.rollbacks"
+
+# the control plane and the telemetry watcher
+CONTROL_ROLLOUT_STEPS = "control.rollout.steps"
+CONTROL_ROLLOUT_PROMOTIONS = "control.rollout.promotions"
+CONTROL_ROLLOUT_ROLLBACKS = "control.rollout.rollbacks"
+CONTROL_ROLLOUT_ROLLBACK_RETRIES = "control.rollout.rollback_retries"
+CONTROL_ROLLOUT_POLL_ERRORS = "control.rollout.poll_errors"
+CONTROL_ADMISSION_SHED = "control.admission.shed"
+CONTROL_ROUTER_UPDATES = "control.router.updates"
+CONTROL_SCALER_SPAWNS = "control.scaler.spawns"
+CONTROL_SCALER_DRAINS = "control.scaler.drains"
+TELEMETRY_WATCH_TRIPS = "telemetry.watch.trips"
+
 # -------------------------------------------------------------------- gauges
 SERVING_QUEUE_DEPTH = "serving.queue_depth"
 SERVING_BATCH_OCCUPANCY = "serving.batch.occupancy"
@@ -102,6 +126,9 @@ WORKLOADS_SAR_RECOMMEND_ROWS = "workloads.sar.recommend.rows"
 WORKLOADS_SAR_UNKNOWN_USERS = "workloads.sar.unknown_users"
 WORKLOADS_IFOREST_THRESHOLD = "workloads.iforest.threshold"
 WORKLOADS_SAR_CATALOG_ITEMS = "workloads.sar.catalog.items"
+ONLINE_BUFFER_PAIRS = "online.buffer.pairs"
+CONTROL_ROLLOUT_FRACTION = "control.rollout.fraction"
+TELEMETRY_WATCH_TRIPPED = "telemetry.watch.tripped"
 
 # ------------------------------------------------------------ histograms (ms)
 SERVING_REQUEST_QUEUE = "serving.request.queue"
@@ -139,6 +166,18 @@ TRAIN_CHUNK_REASSIGN_EVENT = "train.chunk.reassign"
 TRAIN_HOST_DEAD_EVENT = "train.host.dead"
 ELASTIC_PLAN_EVENT = "elastic.plan"
 ELASTIC_RESUME_EVENT = "elastic.resume"
+TELEMETRY_WATCH_TRIP_EVENT = "telemetry.watch.trip"
+CONTROL_ROLLOUT_DEPLOY_EVENT = "control.rollout.deploy"
+CONTROL_ROLLOUT_STEP_EVENT = "control.rollout.step"
+CONTROL_ROLLOUT_BURN_EVENT = "control.rollout.burn"
+CONTROL_ROLLOUT_PROMOTE_EVENT = "control.rollout.promote"
+CONTROL_ROLLOUT_ROLLBACK_EVENT = "control.rollout.rollback"
+CONTROL_ROLLOUT_RECOVERED_EVENT = "control.rollout.recovered"
+ONLINE_TRIP_EVENT = "online.trip"
+ONLINE_REFIT_EVENT = "online.refit"
+ONLINE_DEPLOY_EVENT = "online.deploy"
+ONLINE_PROMOTE_EVENT = "online.promote"
+ONLINE_ROLLBACK_EVENT = "online.rollback"
 
 
 # ------------------------------------------------------ patterned names
@@ -165,3 +204,8 @@ def quality_drift(col: str) -> str:
 def quality_eval(metric: str) -> str:
     """quality.eval.{metric} — streaming-evaluation metric gauge."""
     return f"quality.eval.{metric}"
+
+
+def control_router_weight(target: str) -> str:
+    """control.router.weight.{target} — per-target router weight gauge."""
+    return f"control.router.weight.{target}"

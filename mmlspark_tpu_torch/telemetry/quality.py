@@ -19,8 +19,8 @@ evaluator, fed per served batch by `io/plan.py` through
 `observe_serving`), the process-wide monitor (`get_monitor`,
 `reset_monitor`, `configure_quality`), `record_label`, `export_quality`,
 `refresh_quality_gauges`, `quality_http_response` (GET /quality) and
-`merge_quality_exports`. `quality_watch_rules` needs
-`telemetry/watch.py` (ROADMAP Queue 1 item 27) and raises.
+`merge_quality_exports`, and `quality_watch_rules` (the watcher's rules
+over the quality series, `telemetry/watch.py`).
 """
 from __future__ import annotations
 
@@ -1038,8 +1038,13 @@ def quality_http_response() -> tuple:
 def quality_watch_rules(max_drift: float = 0.25,
                         min_metric: Optional[float] = None,
                         metric: str = "quality.eval.accuracy") -> list:
-    """Watcher rules over the quality series (the reference's
-    `TelemetryWatcher` input)."""
-    raise NotImplementedError(
-        "telemetry.quality.quality_watch_rules needs telemetry/watch.py, "
-        "not ported yet (ROADMAP Queue 1 item 27)")
+    """Watcher rules over the quality series: trip when the fleet's worst
+    per-column PSI exceeds `max_drift`, and (optionally) when the online
+    metric sinks under `min_metric`; feed to `TelemetryWatcher(rules=)`."""
+    from .watch import WatchRule
+    rules = [WatchRule(key=tnames.QUALITY_DRIFT_MAX, max_value=max_drift,
+                       min_samples=1)]
+    if min_metric is not None:
+        rules.append(WatchRule(key=metric, min_value=min_metric,
+                               min_samples=1))
+    return rules

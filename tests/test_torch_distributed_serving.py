@@ -357,9 +357,15 @@ def test_scrape_cluster_versions_equal_reference(fresh_state):
 
 
 def test_left_out_options_name_their_item(fresh_state):
-    """The SLO merge of the fleet scrape waits for item 27."""
+    """The SLO merge of the fleet scrape is ported (`telemetry/slo.py`):
+    `slo=True` reaches the registry, which is not there (a connection
+    error, not NotImplementedError); the trainer's scrape surface beside
+    it still names its item."""
+    with pytest.raises(OSError):
+        exposition.scrape_cluster("http://127.0.0.1:9", slo=True,
+                                  timeout=2.0)
     with pytest.raises(NotImplementedError, match="item 27"):
-        exposition.scrape_cluster("http://127.0.0.1:9", slo=True)
+        exposition.expose_trainer   # noqa: B018
 
 
 def test_scrape_cluster_skips_dead_workers(fresh_state):

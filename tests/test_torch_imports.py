@@ -66,6 +66,11 @@ def test_import_loads_no_jax():
             "import mmlspark_tpu_torch.nn\n"
             "import mmlspark_tpu_torch.workloads\n"
             "import mmlspark_tpu_torch.ops.topk\n"
+            "import mmlspark_tpu_torch.models.vw\n"
+            "import mmlspark_tpu_torch.online\n"
+            "import mmlspark_tpu_torch.control\n"
+            "import mmlspark_tpu_torch.telemetry.slo\n"
+            "import mmlspark_tpu_torch.telemetry.watch\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'mmlspark_tpu.')) "
             "or m == 'mmlspark_tpu')\n"
@@ -148,7 +153,23 @@ def test_sources_import_no_jax_or_reference():
                    "record_label", "export_quality", "CompileLog",
                    "record_plan_compile", "compile_stats", "StepClock",
                    "scrape_cluster", "ClusterSnapshot",
-                   "merge_version_exports", "rollout_skew"]),
+                   "merge_version_exports", "rollout_skew", "Objective",
+                   "SLOEngine", "default_objectives", "merge_verdicts",
+                   "trainer_objectives", "quality_objectives",
+                   "canary_objectives", "WatchRule", "TelemetryWatcher",
+                   "quality_watch_rules", "canary_watch_rules"]),
+    ("models.vw", ["VowpalWabbitFeaturizer", "VowpalWabbitInteractions",
+                   "VowpalWabbitClassifier", "VowpalWabbitRegressor",
+                   "VowpalWabbitContextualBandit",
+                   "VowpalWabbitClassificationModel",
+                   "VowpalWabbitRegressionModel",
+                   "VowpalWabbitContextualBanditModel"]),
+    ("online", ["OnlineLearner", "LabelFeed", "ContinuousLearner",
+                "ContinuousLearnerMachine", "OnlineAction", "OnlineConfig",
+                "OnlineObservation"]),
+    ("control", ["Action", "BurnAwareAdmission", "FleetScaler",
+                 "Observation", "RolloutConfig", "RolloutDriver",
+                 "RolloutStateMachine", "WeightedRouter"]),
 ])
 def test_reference_exports_are_the_port_s(module, names):
     """ROADMAP Queue 3 (v): the names the reference's packages export
@@ -245,7 +266,8 @@ def test_serving_slice_names_are_the_reference_s(module, names):
     ("io.plan", "serving_plan_contract", "24"),
     ("workloads.iforest", "iforest_score_contract", "24"),
     ("workloads.sar_serving", "sar_score_sharded_contract", "24"),
-    ("telemetry", "SLOEngine", "27"), ("telemetry", "TelemetryPoller", "27"),
+    ("online.learner", "online_update_contract", "24"),
+    ("telemetry", "TelemetryPoller", "27"),
     ("telemetry", "FlightRecorder", "23"), ("telemetry", "AotCache", "23"),
     ("telemetry", "ProfileSession", "23"),
     ("telemetry.perf", "FlightRecorder", "23"),

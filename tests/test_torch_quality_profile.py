@@ -95,12 +95,13 @@ def test_grid_histogram_state_equals_the_reference():
 
 
 def test_serving_half_names_its_item():
-    """The serving half is ported; its one left-out name, the watch rules
-    over `telemetry/watch.py`, names its ROADMAP item."""
+    """The serving half is ported, and with `telemetry/watch.py` its last
+    name: the watch rules over the quality series, as the reference's."""
+    from mmlspark_tpu.telemetry import quality as ref_q
     from mmlspark_tpu_torch.telemetry.quality import StreamingEvaluator
     assert q.QualityMonitor().evaluator.__class__ is StreamingEvaluator
-    with pytest.raises(NotImplementedError, match="item 27"):
-        q.quality_watch_rules()
+    assert [tuple(r) for r in q.quality_watch_rules(0.3, min_metric=0.8)] \
+        == [tuple(r) for r in ref_q.quality_watch_rules(0.3, min_metric=0.8)]
 
 
 def test_default_fit_attaches_the_reference_s_profile():

@@ -785,10 +785,14 @@ def test_continuous_rejects_linger(running):
 
 
 def test_admission_names_its_item():
-    with pytest.raises(NotImplementedError, match="item 27"):
-        serving.ServingServer(admission=object())
-    with pytest.raises(NotImplementedError, match="item 27"):
-        serving.serve_pipeline(None, ["x"], admission=object())
+    """`admission=` is ported (`control.actuators.BurnAwareAdmission`):
+    both entry points mount the controller; the shedding itself is held
+    in tests/test_torch_control.py."""
+    from mmlspark_tpu_torch.control import BurnAwareAdmission
+    adm = BurnAwareAdmission(verdict_fn=lambda: None)
+    server = serving.ServingServer(admission=adm)
+    assert server.admission is adm
+    assert serving.ServingServer().admission is None
 
 
 def test_serving_request_metrics_present_and_monotonic(port_gbdt, running):

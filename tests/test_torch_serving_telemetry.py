@@ -380,10 +380,14 @@ def test_gbdt_fit_stamps_lineage_and_journals_ledger(tmp_path):
 
 
 def test_left_out_watch_rules_name_their_item():
-    with pytest.raises(NotImplementedError, match="item 27"):
-        lineage.canary_watch_rules()
-    with pytest.raises(NotImplementedError, match="item 27"):
-        quality.quality_watch_rules()
+    """The watch rules are ported with `telemetry/watch.py`: the same
+    rules as the reference's."""
+    from mmlspark_tpu.telemetry import lineage as ref_lineage
+    from mmlspark_tpu.telemetry import quality as ref_quality
+    assert [tuple(r) for r in lineage.canary_watch_rules()] == \
+        [tuple(r) for r in ref_lineage.canary_watch_rules()]
+    assert [tuple(r) for r in quality.quality_watch_rules()] == \
+        [tuple(r) for r in ref_quality.quality_watch_rules()]
 
 
 # ------------------------------------------------------------- hot-swap
@@ -559,7 +563,9 @@ def test_exposition_paths_answer(running, transport):
     assert json.loads(body)["current"] == transform.version
     status, _, body = _get(server.address + "/metrics.json?window=-1")
     assert status == 400
-    for path, item in (("/slo", "item 27"), ("/debug/bundle", "item 23"),
+    status, headers, body = _get(server.address + "/slo")
+    assert status == 200 and "objectives" in json.loads(body)
+    for path, item in (("/debug/bundle", "item 23"),
                        ("/debug/profile?ms=5", "item 23")):
         status, headers, body = _get(server.address + path)
         assert status == 501, path
@@ -575,9 +581,9 @@ def test_exposition_paths_answer(running, transport):
 
 def test_left_out_telemetry_names_their_item():
     import mmlspark_tpu_torch.telemetry as tel
-    for name, item in (("SLOEngine", "item 27"), ("FlightRecorder",
-                                                  "item 23"),
-                       ("TelemetryWatcher", "item 27")):
+    for name, item in (("TelemetryPoller", "item 27"), ("FlightRecorder",
+                                                       "item 23"),
+                       ("ExpositionServer", "item 27")):
         with pytest.raises(NotImplementedError, match=item.replace(
                 "(", r"\(").replace(")", r"\)")):
             getattr(tel, name)
