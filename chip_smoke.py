@@ -7,7 +7,10 @@
                                      # and categorical), of one flash
                                      # encode_long and of one LM
                                      # training step (bf16 and f32)
-                                     # without and with the ring
+                                     # without and with the ring, and
+                                     # counts one LR fit's launches
+                                     # ([automl], in a process of its
+                                     # own)
     python3 chip_smoke.py --sweep    # also times the tiled histogram
                                      # kernel over its planner's knobs
     python3 chip_smoke.py --versus DIR
@@ -163,10 +166,11 @@ Phases (any failure exits non-zero before the last line is printed):
      no other, logloss/AUC within `_METRIC_TOL`, save seconds and bytes.
      On the default route, under MMLSPARK_TPU_HIST=planes (40
      `hist_planes_fixed` + 20 `hist_tiled_fixed`) and on the categorical
-     data: two uninterrupted checkpointed `GBDTClassifier` fits, a 6 -> 10
-     resume, and a subprocess SIGTERMed after its second checkpoint and
-     resumed in a fresh process, margins, split_feature, threshold and
-     leaf_value all equal bit for bit. The flagship-width bf16 LM at 4 of
+     data, each on the first `RESUME_ROUTE_ROWS` rows: two uninterrupted
+     checkpointed `GBDTClassifier` fits, a 6 -> 10 resume, and a
+     subprocess SIGTERMed after its second checkpoint and resumed in a
+     fresh process (the three routes' processes at once), margins,
+     split_feature, threshold and leaf_value all equal bit for bit. The flagship-width bf16 LM at 4 of
      its 12 layers (cut to pay for [fleet]): two steps,
      `save_checkpoint`, a trainer of another seed restores: parameters
      equal, the next loss within rtol 1e-6; save and restore seconds and
@@ -198,16 +202,17 @@ Phases (any failure exits non-zero before the last line is printed):
   15. pipe train (slice 14): `flash_fwd`, `flash_bwd_dq` and
      `flash_bwd_dkv` at a model position's shape (16384, 4, 128), bf16,
      causal, against their plain versions (timed); the flagship LM
-     (bf16, Adam, remat="save_attn", flash) on a (data, pipe, model,
-     seq) = (1, 4, 2, 1) mesh of one card, tokens (2, 16384) in two
-     microbatches: one step with exactly 48 `flash_fwd`, 48
-     `flash_bwd_dq` and 48 `flash_bwd_dkv` launches, then `run` of 3
+     at 4 of its 12 layers (bf16, Adam, remat="save_attn", flash) on a
+     (data, pipe, model, seq) = (1, 4, 2, 1) mesh of one card, tokens
+     (2, 16384) in two microbatches: one step with exactly 16
+     `flash_fwd`, 16 `flash_bwd_dq` and 16 `flash_bwd_dkv` launches
+     (layers x model positions x sequences), then `run` of 3
      timed steps (s/step, tokens/s, `lm_train_mfu`, peak memory, a
      falling loss) beside the one-position [train] step; one SGD step at
      S=2048 on (1, 4, 2, 1) and (1, 2, 2, 2) against (1, 1, 1, 1), f32
      and bf16, updated weights within `_TRAIN_TOL`, losses within
-     `_PIPE_LOSS_TOL`, launches exact; `ShardedLMTrainer` at the flagship
-     width on a (2, 2) data x model mesh, f32, 3 Adam steps within rtol
+     `_PIPE_LOSS_TOL`, launches exact; `ShardedLMTrainer` at the same
+     width and depth on a (2, 2) data x model mesh, f32, 3 Adam steps within rtol
      2e-4 of mesh=None.
   16. ingest (slice 15), on the headline's rows: `stage_binned` with 8
      thread workers and prefetch 2 (bins `torch.equal` to
@@ -223,7 +228,7 @@ Phases (any failure exits non-zero before the last line is printed):
      from the spill cache's cursor: booster equal field for field, 60
      `hist_tiled_fixed` launches as [resume]'s.
   17. stream train (slice 15): `ShardedLMTrainer` at the flagship width
-     and 4 of its 12 layers (cut to pay for [fleet]), f32,
+     and 2 of its 12 layers (cut to pay for [fleet] and [automl]), f32,
      dense, on 12 seeded (4, 2048) batches: `run_stream(prefetch=2)`
      losses equal a `step()` loop's; supervised with a checkpoint every 6
      batches, uninterrupted and with an injected train.step7 crash absorbed
@@ -355,6 +360,36 @@ Phases (any failure exits non-zero before the last line is printed):
      requests with a 5-sigma shift, one `ContinuousLearner.run_once` to a
      promotion with 0 dropped, a crash-retried refit equal to the clean
      run, a poisoned candidate rolled back.
+  24. automl (slice 22; no kernel of its own but the GBDT learner's
+     `hist_tiled`: the linear fits, the lasso and `to_dense` are torch
+     ops, and the flash counts must stand still): a seeded table shaped
+     like Adult Census Income, 1,000,000 rows (six numeric columns with
+     NaNs, eight string categoricals at Adult's cardinalities, a string
+     label about 24% ">50K"), split 80/20. (a) `TrainClassifier` with the
+     default `LogisticRegression` and with `GBDTClassifier` (100
+     iterations, 31 leaves; its `hist_tiled` launches counted, none for
+     LR): fit s, rows/s, peak memory, `ComputeModelStatistics` holdout AUC
+     over `AUTOML_AUC_FLOOR`; the card LR held to the port's CPU fit on
+     50,000 rows within `_AUTOML_FIT_TOL`; the GBDT composite refit with
+     the plain histograms (no kernel launched), its holdout logloss and
+     AUC within `_METRIC_TOL` of the kernel fit's; with --profile, one LR
+     fit's launches and the card's busy share from torch.profiler in a
+     process of its own. (b)
+     `TuneHyperparameters` over both learners on 200,000 rows (4 random
+     draws each, 3 folds), `FindBestModel` on the holdout; the same
+     tuning with 2 draws each on 50,000 of those rows at parallelism 1
+     and 4: times, LR scores equal, GBDT's within 1e-4. (c)
+     `TextFeaturizer` at 2^18 slots on 100,000 seeded documents of 40
+     Zipf tokens (vocabulary 50,000), `LogisticRegression` on the sparse
+     pairs twice (bit for bit), held to the CPU fit on 10,000 documents
+     within `_AUTOML_TEXT_TOL`.
+     (d) `TabularLIME` on (a)'s LR model, 256 rows x 1,000 samples x 108
+     features at lambda 0 and `AUTOML_LIME['lam']`, each within
+     `_AUTOML_LASSO_TOL` of the CPU path; the logit of the same weights
+     explained recovers them within `_AUTOML_RECOVER_TOL`. (e)
+     `ImageLIME` on 2 images of 224 x 224, 900 masks each, through the
+     port's ResNet-18 `ImageFeaturizer` (random weights from seed 0): the
+     card lasso against the CPU's on the same masks and scores.
 The headline fit (4) is timed 3 times (min and median), and every
 phase's seconds are printed.
 The kernel phase (3) also holds the flash backward kernels, dq and dk/dv,
@@ -2782,14 +2817,15 @@ _TRAIN_TOL = {"float32": 3e-4, "bfloat16": 5e-2}
 _TRAIN_CHECK_SEQ = 2048
 
 
-def _lm_flops_per_step():
-    """bench.py's model FLOPs (:2025-2027): forward matmuls 2 * S * L *
-    (4 d^2 + 2 d d_ff) + the logits 2 * S * d * V + causal attention
-    L * 2 * S^2 * d; a training step is 3x the forward (remat's recompute
-    is not credited)."""
-    s, n, d = LM_SEQ, LM["n_layers"], LM["d_model"]
-    fwd = (2 * s * n * (4 * d * d + 2 * d * LM["d_ff"])
-           + 2 * s * d * LM["vocab_size"] + n * 2 * s * s * d)
+def _lm_flops_per_step(lm=None):
+    """bench.py's model FLOPs (:2025-2027) of the LM `lm` (the flagship
+    by default): forward matmuls 2 * S * L * (4 d^2 + 2 d d_ff) + the
+    logits 2 * S * d * V + causal attention L * 2 * S^2 * d; a training
+    step is 3x the forward (remat's recompute is not credited)."""
+    lm = lm or LM
+    s, n, d = LM_SEQ, lm["n_layers"], lm["d_model"]
+    fwd = (2 * s * n * (4 * d * d + 2 * d * lm["d_ff"])
+           + 2 * s * d * lm["vocab_size"] + n * 2 * s * s * d)
     return 3 * fwd
 
 
@@ -3106,12 +3142,14 @@ def ring_train_phase(dev, cp1_first_loss: float, profile: bool):
 
 
 # ------------------------------------------------------------ [pipe train]
-# slice 14: pipeline and tensor parallelism. The flagship LM on the
+# slice 14: pipeline and tensor parallelism. The flagship LM's width on the
 # four-stage, two-way Megatron layout of eight positions, run on one card:
-# (data, pipe, model, seq) = (1, 4, 2, 1), 3 layers a stage, 4 heads and
-# d_ff 2048 a model position; two 16,384-token sequences a step in two
-# microbatches
+# (data, pipe, model, seq) = (1, 4, 2, 1), 4 heads and d_ff 2048 a model
+# position; two 16,384-token sequences a step in two microbatches. Its
+# depth is cut to 4 of 12 layers (one a stage; PIPE_LM), as RESUME_LM and
+# MPLM_LM, to keep the script inside its time limit; every check is kept
 PIPE_MESH = (1, 4, 2, 1)
+PIPE_LM = dict(LM, n_layers=4)
 # the reference's 4D composition for the S=2048 update checks: a ring over
 # two 1,024-token shards inside each of two model positions of 4 heads
 PIPE_4D_MESH = (1, 2, 2, 2)
@@ -3127,11 +3165,11 @@ _PIPE_AXES = ("data", "pipe", "model", "seq")
 
 
 def _pipe_launches(shape, seq, n_seqs):
-    """The flash launches of one step of the flagship LM on `shape`: each
-    layer runs at every model position for every sequence, normalized
-    without a seq axis, stats blocks over cp^2 shard pairs with one."""
+    """The flash launches of one step of PIPE_LM on `shape`: each layer
+    runs at every model position for every sequence, normalized without a
+    seq axis, stats blocks over cp^2 shard pairs with one."""
     _, _, tp, cp = shape
-    per = LM["n_layers"] * tp * n_seqs
+    per = PIPE_LM["n_layers"] * tp * n_seqs
     if cp == 1:
         return {"flash_fwd": per, "flash_stats_fwd": 0,
                 "flash_bwd_dq": per, "flash_bwd_dkv": per}
@@ -3145,7 +3183,7 @@ def _pipe_trainer(dev, shape, **kw):
     mesh = grid_mesh(shape, _PIPE_AXES, devices=[dev] * int(np.prod(shape)))
     return PipelinedLMTrainer(mesh=mesh, n_microbatches=PIPE_MICROBATCHES,
                               attention="flash", remat="save_attn", seed=0,
-                              **kw, **LM)
+                              **kw, **PIPE_LM)
 
 
 def _pipe_update_check(dev, compute_dtype):
@@ -3183,8 +3221,8 @@ def _pipe_update_check(dev, compute_dtype):
 
 
 def _sharded_check(dev):
-    """ShardedLMTrainer at the flagship width, f32, on a (2, 2) data x
-    model mesh of one card and with mesh=None from the same seed:
+    """ShardedLMTrainer at PIPE_LM (the flagship width), f32, on a (2, 2)
+    data x model mesh of one card and with mesh=None from the same seed:
     SHARDED_STEPS Adam steps on tokens (2, 2048). Dense attention: no
     kernel launches."""
     import torch
@@ -3198,7 +3236,7 @@ def _sharded_check(dev):
                                           devices=[dev] * 4)),
                        ("none", None)):
         t = ShardedLMTrainer(mesh=mesh, seed=0,
-                             device=None if mesh else dev, **LM)
+                             device=None if mesh else dev, **PIPE_LM)
         torch.cuda.synchronize()
         fa.reset_launches()
         t0 = time.perf_counter()
@@ -3212,7 +3250,8 @@ def _sharded_check(dev):
 
 
 def pipe_train_phase(dev, train):
-    """The LM training path on pipe and model axes at the flagship width:
+    """The LM training path on pipe and model axes at the flagship width
+    (PIPE_LM's depth):
     the flash kernels at the model position's 4 heads against their plain
     versions; one step of the flagship LM on PIPE_MESH with the launch
     counts set to 0 just before and read just after, then `run` of
@@ -3233,9 +3272,9 @@ def pipe_train_phase(dev, train):
 
     trainer = _pipe_trainer(dev, PIPE_MESH, optimizer="adam",
                             compute_dtype="bfloat16")
-    log(f"[pipe train] {LM} on {trainer.mesh}: {PIPE_MICROBATCHES} "
+    log(f"[pipe train] {PIPE_LM} on {trainer.mesh}: {PIPE_MICROBATCHES} "
         f"microbatches of {PIPE_BATCH // PIPE_MICROBATCHES} x {LM_SEQ} "
-        f"tokens, {LM['n_layers'] // PIPE_MESH[1]} layers a stage, "
+        f"tokens, {PIPE_LM['n_layers'] // PIPE_MESH[1]} layers a stage, "
         f"{h_loc} heads a model position; bf16 compute, f32 master + "
         f"Adam, remat=save_attn, flash")
     toks = np.random.default_rng(0).integers(
@@ -3264,14 +3303,14 @@ def pipe_train_phase(dev, train):
         raise AssertionError(f"run({LM_STEPS}) launched {launches}")
     s_step = run_s / LM_STEPS
     tokens = PIPE_BATCH * LM_SEQ
-    flops = PIPE_BATCH * _lm_flops_per_step()
+    flops = PIPE_BATCH * _lm_flops_per_step(PIPE_LM)
     mfu = flops / s_step / PEAK_BF16_FLOP_PER_S
     log(f"[pipe train] run({LM_STEPS}): {s_step:.4f} s/step = "
         f"{tokens / s_step:.4g} tokens/s; lm_train_mfu {mfu:.4f} (model "
         f"FLOPs {flops:.4g}/step); peak memory {peak / 2**30:.2f} GiB; "
         f"launches {launches}; losses {loss1:.4f} -> {loss_last:.4f}; "
-        f"[train] one position, {LM_SEQ} tokens: {train['s_step']:.4f} "
-        f"s/step, {train['tokens_per_s']:.4g} tokens/s, peak "
+        f"[train] one position, {LM['n_layers']} layers, {LM_SEQ} tokens: "
+        f"{train['s_step']:.4f} s/step, {train['tokens_per_s']:.4g} tokens/s, peak "
         f"{train['peak'] / 2**30:.2f} GiB")
     if not (np.isfinite([loss1, loss_last]).all() and loss_last < loss1):
         raise AssertionError(f"losses {loss1}, {loss_last}: not finite and "
@@ -3347,6 +3386,11 @@ FIXED_CASES = ([("tiled", N_ROWS, N_FEAT, 64, m) for m in (1, 2, 4, 8)]
 # feature_fraction 0.8 (so the draws must line up across a resume) and a
 # checkpoint every 3 iterations
 RESUME_INTERVAL = 3
+# the resume contract's three routes run on the headline's first
+# RESUME_ROUTE_ROWS rows (a quarter: each route bins them in two fits of
+# its own and in two fresh processes), cut to pay for [automl] inside the
+# run's time limit; the checkpointed fit's cost stays at the headline's
+RESUME_ROUTE_ROWS = 2_000_000
 RESUME_PARAMS = dict(num_iterations=N_ITERS, max_depth=DEPTH, num_leaves=31,
                      max_bin=MAX_BIN, min_data_in_leaf=20,
                      bagging_fraction=0.8, bagging_freq=1,
@@ -3525,17 +3569,15 @@ _RESUME_LAUNCHES = {
     "categorical": dict(hist_tiled_fixed=N_ITERS * (DEPTH + 1))}
 
 
-def _resume_route(dev, tmp, route, x, y, xfile, yfile, **kw):
-    """The resume contract on one route (`route`: a key of
-    `_RESUME_LAUNCHES`; MMLSPARK_TPU_HIST is set by the caller): two
-    uninterrupted checkpointed fits (the first with the launch counts set
-    to 0 just before and read just after), a fit of 6 iterations resumed
-    to 10, and a subprocess SIGTERMed after its second periodic checkpoint
-    and resumed in a fresh process, all equal bit for bit. Returns the
-    seconds and the launches."""
-    from mmlspark_tpu_torch.models.gbdt import Booster
+def _resume_route(dev, tmp, route, x, y, **kw):
+    """The in-process half of the resume contract on one route (`route`:
+    a key of `_RESUME_LAUNCHES`; MMLSPARK_TPU_HIST is set by the caller):
+    two uninterrupted checkpointed fits (the first with the launch counts
+    set to 0 just before and read just after) and a fit of 6 iterations
+    resumed to 10, all equal bit for bit. Returns the seconds, the
+    launches and the first fit's margins and booster, which
+    `_resume_in_processes` holds the fresh processes to."""
     from mmlspark_tpu_torch.ops import histogram_cuda as hc
-    from mmlspark_tpu_torch.utils.checkpoint import CheckpointManager
     d = os.path.join(tmp, route)
     hc.reset_launches()
     fits = [_ckpt_fit(x, y, os.path.join(d, "full0"), dev, **kw)]
@@ -3558,46 +3600,78 @@ def _resume_route(dev, tmp, route, x, y, xfile, yfile, **kw):
     _same_fit(raws[0], fits[0][0].booster,
               resumed.booster.raw_score(x, resumed._init_score, device=dev),
               resumed.booster, f"{route}: 6 -> {N_ITERS} resume")
+    return dict(fit_s=[s for _, s in fits], resume_s=resume_s,
+                launches=launches, raw=raws[0], booster=fits[0][0].booster)
 
-    script = os.path.join(d, "fit.py")
+
+def _resume_in_processes(dev, tmp, routes, kws):
+    """The fresh-process half of the resume contract, every route's
+    processes at once (each process's start-up is most of its time): a
+    subprocess per route SIGTERMed after its second periodic checkpoint,
+    then a fresh one per route resumed from it, equal bit for bit to the
+    route's uninterrupted fit (`routes[route]`, from `_resume_route`; the
+    data in `<route>_x.npy` / `<route>_y.npy`). Logs each route's line."""
+    from mmlspark_tpu_torch.models.gbdt import Booster
+    from mmlspark_tpu_torch.utils.checkpoint import CheckpointManager
+    script = os.path.join(tmp, "fit.py")
     with open(script, "w") as fh:
         fh.write(_RESUME_PROC.format(here=HERE, interval=RESUME_INTERVAL))
-    params = json.dumps({k: list(v) if isinstance(v, tuple) else v
-                         for k, v in {**RESUME_PARAMS, **kw}.items()})
-    ck = os.path.join(d, "killed")
-    procs = {}
+    procs = {route: {} for route in routes}
     for phase in ("kill", "resume"):
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, script, phase, xfile, yfile, ck, params,
-             str(dev), os.path.join(d, f"{phase}.npz")],
-            capture_output=True, text=True, timeout=600)
-        procs[phase] = (proc.returncode, time.perf_counter() - t0)
-        if phase == "kill":
-            steps = CheckpointManager(ck).all_steps()
-            if proc.returncode != -signal.SIGTERM or \
-                    steps != [RESUME_INTERVAL, 2 * RESUME_INTERVAL]:
-                raise AssertionError(
-                    f"{route}: the killed fit exited {proc.returncode} with "
-                    f"steps {steps}: {proc.stderr[-2000:]}")
-        elif proc.returncode != 0:
-            raise AssertionError(f"{route}: the resumed process failed: "
-                                 f"{proc.stderr[-2000:]}")
-    out = np.load(os.path.join(d, "resume.npz"))
-    _same_fit(raws[0], fits[0][0].booster, out["raw"],
-              Booster.load_model_string(str(out["booster"])),
-              f"{route}: SIGTERM kill and resume in a fresh process")
-    fit_s = [s for _, s in fits]
-    log(f"[resume] {route}: two uninterrupted checkpointed GBDTClassifier "
-        f"fits ({', '.join(f'{t:.3f}' for t in fit_s)} s, binning "
-        f"included), the 6 -> {N_ITERS} resume ({resume_s:.3f} s) and the "
-        f"SIGTERM kill (exit {procs['kill'][0]}, {procs['kill'][1]:.1f} s, "
-        f"steps {RESUME_INTERVAL} and {2 * RESUME_INTERVAL} on disk) and "
-        f"resume in a fresh process ({procs['resume'][1]:.1f} s): margins, "
-        f"split_feature, threshold and leaf_value equal bit for bit; "
-        f"launches {launches} a fit")
-    return dict(fit_s=fit_s, resume_s=resume_s, launches=launches,
-                proc_s={k: v[1] for k, v in procs.items()})
+        running = {}
+        for route in routes:
+            d = os.path.join(tmp, route)
+            params = json.dumps({k: list(v) if isinstance(v, tuple) else v
+                                 for k, v in {**RESUME_PARAMS,
+                                              **kws[route]}.items()})
+            env = {k: v for k, v in os.environ.items()
+                   if k != "MMLSPARK_TPU_HIST"}
+            if route == "planes":
+                env["MMLSPARK_TPU_HIST"] = "planes"
+            err = open(os.path.join(d, f"{phase}.err"), "w")
+            running[route] = (subprocess.Popen(
+                [sys.executable, script, phase,
+                 os.path.join(tmp, f"{route}_x.npy"),
+                 os.path.join(tmp, f"{route}_y.npy"),
+                 os.path.join(d, "killed"), params, str(dev),
+                 os.path.join(d, f"{phase}.npz")],
+                stdout=subprocess.DEVNULL, stderr=err, env=env), err,
+                time.perf_counter())
+        for route, (proc, err, t0) in running.items():
+            rc = proc.wait(timeout=600)
+            procs[route][phase] = (rc, time.perf_counter() - t0)
+            err.close()
+            with open(err.name) as fh:
+                stderr = fh.read()[-2000:]
+            if phase == "kill":
+                steps = CheckpointManager(os.path.join(
+                    tmp, route, "killed")).all_steps()
+                if rc != -signal.SIGTERM or \
+                        steps != [RESUME_INTERVAL, 2 * RESUME_INTERVAL]:
+                    raise AssertionError(
+                        f"{route}: the killed fit exited {rc} with steps "
+                        f"{steps}: {stderr}")
+            elif rc != 0:
+                raise AssertionError(f"{route}: the resumed process "
+                                     f"failed: {stderr}")
+    for route, res in routes.items():
+        out = np.load(os.path.join(tmp, route, "resume.npz"))
+        _same_fit(res["raw"], res["booster"], out["raw"],
+                  Booster.load_model_string(str(out["booster"])),
+                  f"{route}: SIGTERM kill and resume in a fresh process")
+        kill, resume = procs[route]["kill"], procs[route]["resume"]
+        log(f"[resume] {route}: two uninterrupted checkpointed "
+            f"GBDTClassifier fits ("
+            f"{', '.join(f'{t:.3f}' for t in res['fit_s'])} s, binning "
+            f"included), the 6 -> {N_ITERS} resume ({res['resume_s']:.3f} "
+            f"s) and the SIGTERM kill (exit {kill[0]}, {kill[1]:.1f} s, "
+            f"steps {RESUME_INTERVAL} and {2 * RESUME_INTERVAL} on disk) "
+            f"and resume in a fresh process ({resume[1]:.1f} s; the three "
+            f"routes' processes run at once): margins, split_feature, "
+            f"threshold and leaf_value equal bit for bit; launches "
+            f"{res['launches']} a fit")
+        res["proc_s"] = {k: v[1] for k, v in procs[route].items()}
+        del res["raw"], res["booster"]
 
 
 def _checkpointed_fit_cost(dev, data, tmp, default_times):
@@ -3788,24 +3862,23 @@ def resume_phase(dev, data, default_times):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp:
         cost = _checkpointed_fit_cost(dev, data, tmp, default_times)
         routes = {}
-        cat = categorical_data(dev, data)
-        for route, dset, kw in (("default", data, {}),
-                                ("planes", data, {}),
-                                ("categorical", cat, dict(
-                                    categorical_slot_indexes=CAT_COLS))):
-            xfile = os.path.join(tmp, f"{route}_x.npy")
-            yfile = os.path.join(tmp, f"{route}_y.npy")
-            np.save(xfile, dset["x"])
-            np.save(yfile, dset["y"])
+        head = {k: data[k][:RESUME_ROUTE_ROWS] for k in ("x", "y")}
+        cat = categorical_data(dev, head)
+        kws = {"default": {}, "planes": {},
+               "categorical": dict(categorical_slot_indexes=CAT_COLS)}
+        for route, dset in (("default", head), ("planes", head),
+                            ("categorical", cat)):
+            np.save(os.path.join(tmp, f"{route}_x.npy"), dset["x"])
+            np.save(os.path.join(tmp, f"{route}_y.npy"), dset["y"])
             ctx = (env("MMLSPARK_TPU_HIST", "planes") if route == "planes"
                    else contextlib.nullcontext())
             with ctx:
                 routes[route] = _resume_route(dev, tmp, route, dset["x"],
-                                              dset["y"], xfile, yfile, **kw)
-            os.remove(xfile)
+                                              dset["y"], **kws[route])
             torch.cuda.empty_cache()
         del cat
         torch.cuda.empty_cache()
+        _resume_in_processes(dev, tmp, routes, kws)
         lm = _lm_resume(dev, tmp)
     return dict(kernels=kernels, cumsum_differ=differ, cost=cost,
                 routes=routes, lm=lm)
@@ -4649,15 +4722,16 @@ def ingest_phase(dev, data, paths, resume):
 
 # ------------------------------------------------------- [stream train]
 # slice 15: `ShardedLMTrainer.run_stream` at the flagship width and a
-# third of its depth (STREAM_LM: 4 layers, 100.7M parameters, so each
-# checkpoint is 1.2 GB, not 2.4, and a process builds the model in about
-# half the time; cut to pay for [fleet] inside the run's time limit), f32,
+# sixth of its depth (STREAM_LM: 2 layers, so each checkpoint is ~0.6 GB,
+# not 2.4, and a process builds the model in a fraction of the time; cut
+# to 4 layers to pay for [fleet], then to 2 for [automl], inside the
+# run's time limit), f32,
 # dense attention, on
 # STREAM_BATCHES seeded (4, 2048) batches of Zipf token ids: against a
 # `step()` loop, then supervised (a checkpoint every STREAM_EVERY batches)
 # with and without an injected crash, and a child preempted by SIGTERM
 # and resumed in a fresh process
-STREAM_LM = dict(LM, n_layers=4)
+STREAM_LM = dict(LM, n_layers=2)
 STREAM_BATCHES = 12
 STREAM_SHAPE = (4, 2048)
 STREAM_EVERY = 6
@@ -7757,7 +7831,578 @@ def online_phase(dev):
     return out
 
 
-def only_phase(name, dev, phase, t_start) -> int:
+AUTOML_ROWS = 1_000_000
+AUTOML_TRAIN = 800_000          # the 80/20 split: train rows first
+# Adult Census Income's columns (UCI adult.names): six numeric, eight
+# categorical at Adult's cardinalities; the numeric columns are drawn as
+# z-scores (the reference's learners do not standardise)
+AUTOML_NUMERIC = ("age", "fnlwgt", "education_num", "capital_gain",
+                  "capital_loss", "hours_per_week")
+AUTOML_CATEGORICAL = (("workclass", 9), ("education", 16),
+                      ("marital_status", 7), ("occupation", 15),
+                      ("relationship", 6), ("race", 5), ("sex", 2),
+                      ("native_country", 42))
+AUTOML_FEATURES = 6 + 102       # Featurize: 6 numeric + 102 one-hot
+AUTOML_NAN_RATE = 0.05
+AUTOML_POSITIVE = 0.24
+AUTOML_GBDT = dict(num_iterations=100, num_leaves=31)
+AUTOML_CPU_ROWS = 50_000        # rows of the LR card-against-CPU fit
+# holdout AUC floors, set before the first card run: the generating
+# logit's own holdout AUC is 0.9157 (host numpy), and a learner that
+# recovers it loses a little to the imputed NaNs
+AUTOML_AUC_FLOOR = {"lr": 0.88, "gbdt": 0.88}
+_AUTOML_FIT_TOL = 1e-5          # card LR against the CPU fit, of max |w|
+# the sparse text fit against the CPU fit, of max |w|: a slot whose
+# contributions nearly cancel takes Adam's first steps by the sign of its
+# rounding (ROADMAP Queue 3 (ag); on the CPU, hashed Zipf tokens' f32 and
+# float64 fits part by 7.5e-4, tests/test_torch_linear.py::
+# test_adam_sign_steps_amplify_rounding)
+_AUTOML_TEXT_TOL = 1e-4
+AUTOML_TUNE_ROWS = 200_000
+AUTOML_TUNE = dict(number_of_iterations=4, number_of_folds=3, seed=3)
+# the parallelism 1 against 4 comparison: the same tuning with 2 draws of
+# each learner on 50,000 of its rows, cut to pay for its two runs (only
+# their scores are compared; 4 threads cost about as much on 50,000 rows
+# as on 200,000)
+AUTOML_PAR_ROWS = 50_000
+AUTOML_PAR_TUNE = dict(AUTOML_TUNE, number_of_iterations=2)
+AUTOML_TUNE_GBDT = dict(num_iterations=20)
+AUTOML_TEXT = dict(docs=100_000, tokens=40, vocab=50_000, bits=18,
+                   cpu_docs=10_000)
+AUTOML_LIME = dict(rows=256, samples=1000, lam=1e-3)
+# card lasso against the CPU path, of the largest row norm of the CPU
+# coefficients: f32 solves whose inputs (the inner model's scores)
+# differ in the last bits between the card and the CPU; the `gpu` test's
+# limit (tests/test_torch_automl_cuda.py::_LASSO_RTOL)
+_AUTOML_LASSO_TOL = 1e-4
+# the explanation of the logit (a linear model) against its weights, of
+# max |w|: the 1e-6 ridge jitter over the smallest perturbed variance;
+# tests/test_torch_lime.py's limit
+_AUTOML_RECOVER_TOL = 1e-3
+AUTOML_IMAGE = dict(images=2, size=224, samples=900)
+
+
+def _sigmoid(z):
+    return 1.0 / (1.0 + np.exp(-z))
+
+
+def _adult_rows(n=AUTOML_ROWS, seed=22):
+    """(columns, true logit) of a seeded Adult-shaped table: six numeric
+    columns with NaNs, eight string categoricals drawn Zipf at Adult's
+    cardinalities, and the string label `income` (">50K" / "<=50K",
+    AUTOML_POSITIVE positive) from a logistic function of the columns."""
+    rng = np.random.default_rng(seed)
+    cols, z = {}, np.zeros(n)
+    for name in AUTOML_NUMERIC:
+        v = rng.normal(size=n)
+        z += rng.normal(0.0, 0.6) * v
+        v[rng.random(n) < AUTOML_NAN_RATE] = np.nan
+        cols[name] = v
+    for name, card in AUTOML_CATEGORICAL:
+        p = 1.0 / np.arange(1, card + 1)
+        codes = rng.choice(card, size=n, p=p / p.sum())
+        z += rng.normal(0.0, 0.5, card)[codes]
+        levels = np.array([f"{name}_{i}" for i in range(card)])
+        cols[name] = levels[codes]
+    lo, hi = -10.0, 10.0
+    for _ in range(60):   # the intercept that makes AUTOML_POSITIVE
+        mid = 0.5 * (lo + hi)
+        lo, hi = ((lo, mid) if _sigmoid(z + mid).mean() > AUTOML_POSITIVE
+                  else (mid, hi))
+    z += 0.5 * (lo + hi)
+    y = rng.random(n) < _sigmoid(z)
+    cols["income"] = np.where(y, ">50K", "<=50K")
+    return cols, z
+
+
+def _indexed(model, t):
+    """The holdout's label as the composite's class index (float)."""
+    lab = model._label_model.transform(t)
+    return np.asarray(lab["__label_idx"], np.float64)
+
+
+def _holdout_stats(model, hold):
+    """ComputeModelStatistics of a fitted TrainClassifier on the holdout,
+    and the holdout logloss."""
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.train import ComputeModelStatistics
+    scored = model.transform(hold)
+    label = _indexed(model, hold)
+    probs = np.asarray(scored["probabilities"], np.float64)
+    stats = ComputeModelStatistics(
+        label_col="label", evaluation_metric="classification"
+    ).transform(Table({"label": label, "probabilities": probs,
+                       "prediction": scored["prediction"]}))
+    p = np.clip(probs[np.arange(len(label)), label.astype(np.int64)],
+                1e-15, 1.0)
+    return dict(logloss=float(-np.log(p).mean()),
+                **{k: float(np.asarray(stats[k])[0])
+                   for k in ("AUC", "accuracy", "precision", "recall")})
+
+
+def _automl_train(dev, train, hold, z_hold, out):
+    """(a) TrainClassifier with the default LogisticRegression and with
+    GBDTClassifier on the 800,000 training rows; ComputeModelStatistics
+    on the 200,000 holdout rows; the LR fit held to the port's CPU fit on
+    AUTOML_CPU_ROWS rows; the GBDT fit's `hist_tiled` launches, and its
+    twin with the plain histograms at the same shapes, whose holdout
+    logloss and AUC agree within _METRIC_TOL."""
+    import torch
+    from mmlspark_tpu_torch.featurize import Featurize
+    from mmlspark_tpu_torch.models.gbdt import GBDTClassifier
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+    from mmlspark_tpu_torch.train import TrainClassifier
+    from mmlspark_tpu_torch.train.metrics import auc
+    out["bayes_auc"] = float(auc((np.asarray(hold["income"]) == ">50K")
+                                 .astype(np.float64), z_hold))
+    t0 = time.perf_counter()
+    feat = Featurize(dense_output=True, label_col="income").fit(train)
+    width = feat.transform(train)["features"].shape[1]
+    out["featurize_s"] = time.perf_counter() - t0
+    if width != AUTOML_FEATURES:
+        raise AssertionError(f"[automl] Featurize made {width} columns, "
+                             f"not {AUTOML_FEATURES}")
+    models = {}
+    for tag, inner in (("lr", None),
+                       ("gbdt", GBDTClassifier(device=dev, **AUTOML_GBDT))):
+        est = TrainClassifier(label_col="income", model=inner, device=dev)
+        hc.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = est.fit(train)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = dict(hc.launches)
+        peak = torch.cuda.max_memory_allocated()
+        res = dict(fit_s=fit_s, rows_per_s=len(train) / fit_s, peak=peak,
+                   launches=launches, **_holdout_stats(model, hold))
+        out[tag] = res
+        models[tag] = model
+        log(f"[automl] (a) TrainClassifier {tag}: fit {fit_s:.3f} s "
+            f"({res['rows_per_s']:.4g} rows/s, featurize alone "
+            f"{out['featurize_s']:.3f} s), peak {peak / 2**20:.1f} MiB, "
+            f"holdout AUC {res['AUC']:.6f} (the generating logit's "
+            f"{out['bayes_auc']:.6f}), logloss {res['logloss']:.6f}, "
+            f"accuracy {res['accuracy']:.6f}; launches {launches}")
+        if not res["AUC"] >= AUTOML_AUC_FLOOR[tag]:
+            raise AssertionError(f"[automl] {tag}: holdout AUC "
+                                 f"{res['AUC']} under "
+                                 f"{AUTOML_AUC_FLOOR[tag]}")
+    if out["gbdt"]["launches"].get("hist_tiled", 0) < 1:
+        raise AssertionError("[automl] the GBDT fit launched no hist_tiled")
+    if any(out["lr"]["launches"].values()):
+        raise AssertionError(f"[automl] the LR fit launched a kernel: "
+                             f"{out['lr']['launches']}")
+    hc.reset_launches()
+    with plain_histograms():
+        t0 = time.perf_counter()
+        twin = TrainClassifier(
+            label_col="income", device=dev,
+            model=GBDTClassifier(device=dev, **AUTOML_GBDT)).fit(train)
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t0
+    if any(hc.launches.values()):
+        raise AssertionError(f"[automl] the plain-histogram twin launched "
+                             f"{dict(hc.launches)}")
+    plain = _holdout_stats(twin, hold)
+    out["gbdt_plain"] = dict(fit_s=twin_s, **plain)
+    kern = out["gbdt"]
+    log(f"[automl] (a) GBDT plain-histogram twin: fit {twin_s:.3f} s, "
+        f"holdout logloss {plain['logloss']:.6f}, AUC {plain['AUC']:.6f} "
+        f"(kernel fit {kern['logloss']:.6f}, {kern['AUC']:.6f})")
+    if abs(plain["logloss"] - kern["logloss"]) > _METRIC_TOL or \
+            abs(plain["AUC"] - kern["AUC"]) > _METRIC_TOL:
+        raise AssertionError("[automl] the GBDT kernel fit and its "
+                             "plain-histogram twin disagree")
+    cut = train.take(AUTOML_CPU_ROWS)
+    card = TrainClassifier(label_col="income", device=dev).fit(cut)
+    cpu = TrainClassifier(label_col="income", device="cpu").fit(cut)
+    cw, gw = cpu.inner_model._w, card.inner_model._w
+    err = max(float(np.abs(gw - cw).max()),
+              float(np.abs(card.inner_model._b - cpu.inner_model._b).max())
+              ) / float(np.abs(cw).max())
+    out["lr_card_vs_cpu"] = err
+    log(f"[automl] (a) LR card fit against the CPU fit on "
+        f"{AUTOML_CPU_ROWS} rows: {err:.3g} of max |w|")
+    if not err <= _AUTOML_FIT_TOL:
+        raise AssertionError(f"[automl] the card LR fit is {err} of max "
+                             f"|w| from the CPU fit")
+    return models
+
+
+def _linear_fit_profile(dev):
+    """(launches, launches a step, device-busy seconds, wall seconds) of
+    one LogisticRegression fit at (a)'s shape (800,000 x 108, 300 steps):
+    the wall of an unprofiled fit, the launches and the sum of kernel
+    durations from torch.profiler over a second one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.models.linear import LogisticRegression
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((AUTOML_TRAIN, AUTOML_FEATURES), np.float32)
+    y = (rng.random(AUTOML_TRAIN) < 0.24).astype(np.float64)
+    t = Table({"features": x, "label": y})
+    est = LogisticRegression(device=dev)
+    est.fit(t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est.fit(t)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        est.fit(t)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in events) * 1e-6
+    return len(events), len(events) / est.max_iter, busy, wall
+
+
+_LINEAR_PROFILE_PROC = """
+import json, sys
+import torch
+sys.path.insert(0, {here!r})
+import chip_smoke
+n, per_step, busy, wall = chip_smoke._linear_fit_profile(
+    torch.device("cuda"))
+print(json.dumps({{"n": n, "per_step": per_step, "busy_s": busy,
+                  "wall_s": wall}}))
+"""
+
+
+def _automl_fit_profile(out):
+    """`_linear_fit_profile` in a process of its own (a profiler session
+    after others in one process records a fraction of the device
+    events; see `_fresh_sgd_batch_launches`)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _LINEAR_PROFILE_PROC.format(here=HERE)],
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"[automl] the LR fit profile failed: "
+                             f"{proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    if not got["n"]:
+        raise AssertionError("[automl] torch.profiler recorded no device "
+                             "event of an LR fit")
+    got["busy_share"] = got["busy_s"] / got["wall_s"]
+    out["lr_profile"] = got
+    log(f"[automl] (a) one LR fit (800,000 x 108, 300 steps): {got['n']} "
+        f"launches ({got['per_step']:.1f} a step), the card busy "
+        f"{got['busy_s']:.4f} s of {got['wall_s']:.4f} s (share "
+        f"{got['busy_share']:.3f})")
+
+
+def _automl_tune(dev, models, train, hold, out):
+    """(b) TuneHyperparameters over LogisticRegression and GBDTClassifier
+    on AUTOML_TUNE_ROWS featurized rows (4 random draws each, 3 folds:
+    24 fits), then FindBestModel on the featurized holdout over the tuned
+    best and (a)'s two inner models; the same tuning with 2 draws each on
+    the first AUTOML_PAR_ROWS of those rows at parallelism 1 and 4, equal
+    scores."""
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.automl import (DiscreteHyperParam,
+                                           FindBestModel, RangeHyperParam,
+                                           TuneHyperparameters)
+    from mmlspark_tpu_torch.models.gbdt import GBDTClassifier
+    from mmlspark_tpu_torch.models.linear import LogisticRegression
+    lr = models["lr"]
+
+    def featurized(t):
+        f = lr._featurizer.transform(t)
+        return Table({"__train_features": f["__train_features"],
+                      "label": _indexed(lr, t)})
+    ft = featurized(train.take(AUTOML_TUNE_ROWS))
+    fh = featurized(hold)
+    space = {"learning_rate": RangeHyperParam(0.02, 0.3, log=True),
+             "reg_param": DiscreteHyperParam([0.0, 1e-4, 1e-3]),
+             "num_leaves": DiscreteHyperParam([15, 31])}
+    common = dict(features_col="__train_features", device=dev)
+    runs = {}
+    for name, rows, par, draws in (("tune", AUTOML_TUNE_ROWS, 1, AUTOML_TUNE),
+                                   (1, AUTOML_PAR_ROWS, 1, AUTOML_PAR_TUNE),
+                                   (4, AUTOML_PAR_ROWS, 4, AUTOML_PAR_TUNE)):
+        tuner = TuneHyperparameters(
+            models=[LogisticRegression(**common),
+                    GBDTClassifier(**common, **AUTOML_TUNE_GBDT)],
+            hyperparam_space=space, parallelism=par, **draws)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tuned = tuner.fit(ft.take(rows))
+        torch.cuda.synchronize()
+        runs[name] = dict(s=time.perf_counter() - t0, model=tuned,
+                          scores=[s for _, s in tuned._all_scores])
+        log(f"[automl] (b) TuneHyperparameters on {rows} rows, parallelism "
+            f"{par}: {runs[name]['s']:.3f} s for "
+            f"{len(tuned._all_scores) * draws['number_of_folds']} "
+            f"fits and the refit; best {type(tuned.best_model).__name__} "
+            f"{tuned._best_params}, CV AUC {tuned.best_metric:.6f}")
+    one, four = runs[1]["scores"], runs[4]["scores"]
+    n_lr = AUTOML_PAR_TUNE["number_of_iterations"]
+    diff_lr = max(abs(a - b) for a, b in zip(one[:n_lr], four[:n_lr]))
+    diff_gbdt = max(abs(a - b) for a, b in zip(one[n_lr:], four[n_lr:]))
+    if diff_lr != 0.0:
+        raise AssertionError(f"[automl] LR CV scores moved with "
+                             f"parallelism by {diff_lr}")
+    # GBDT's default histograms add with atomics (ROADMAP Queue 3 (d)):
+    # equal up to the order of f32 sums
+    if not diff_gbdt <= 1e-4:
+        raise AssertionError(f"[automl] GBDT CV scores moved with "
+                             f"parallelism by {diff_gbdt}")
+    cands = [runs["tune"]["model"].best_model, lr.inner_model,
+             models["gbdt"].inner_model]
+    best = FindBestModel(models=cands).fit(fh)
+    out["tune"] = dict(s=runs["tune"]["s"], s_par1=runs[1]["s"],
+                       s_par4=runs[4]["s"], scores=runs["tune"]["scores"],
+                       diff_gbdt=diff_gbdt,
+                       best=type(runs["tune"]["model"].best_model).__name__,
+                       find_best=[float(s) for s in best._scores],
+                       find_best_i=cands.index(best.best_model))
+    log(f"[automl] (b) CV scores equal across parallelism (LR exactly, "
+        f"GBDT within {diff_gbdt:.3g}); FindBestModel holdout AUC "
+        f"{', '.join(f'{s:.6f}' for s in best._scores)} -> candidate "
+        f"{out['tune']['find_best_i']}")
+
+
+def _text_rows(n, seed=23):
+    """n seeded documents of AUTOML_TEXT['tokens'] tokens drawn Zipf from
+    a vocabulary of AUTOML_TEXT['vocab'], and a label from a logistic
+    function of the tokens' hidden weights."""
+    rng = np.random.default_rng(seed)
+    k, vocab = AUTOML_TEXT["tokens"], AUTOML_TEXT["vocab"]
+    ranks = _zipf_ranks(rng, n * k, vocab).reshape(n, k)
+    words = np.array([f"tok{i}" for i in range(vocab)], dtype=object)
+    docs = np.array([" ".join(words[r]) for r in ranks], dtype=object)
+    weight = rng.normal(0.0, 1.0, vocab)
+    z = weight[ranks].sum(1) / np.sqrt(k)
+    y = (rng.random(n) < _sigmoid(z - np.median(z))).astype(np.float64)
+    return docs, y
+
+
+def _automl_text(dev, out):
+    """(c) TextFeaturizer at 2^18 slots on AUTOML_TEXT['docs'] documents,
+    then LogisticRegression on the sparse pairs: two card fits bit for
+    bit, the card held to the CPU fit on AUTOML_TEXT['cpu_docs']
+    documents."""
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.featurize import TextFeaturizer
+    from mmlspark_tpu_torch.models.linear import LogisticRegression
+    docs, y = _text_rows(AUTOML_TEXT["docs"])
+    t0 = time.perf_counter()
+    tf = TextFeaturizer(input_col="text", output_col="features",
+                        num_features=1 << AUTOML_TEXT["bits"],
+                        device=dev).fit(Table({"text": docs}))
+    feats = tf.transform(Table({"text": docs, "label": y}))
+    feat_s = time.perf_counter() - t0
+    if feats.column_meta("features_idx").get("logical_width") != \
+            1 << AUTOML_TEXT["bits"]:
+        raise AssertionError("[automl] the text pairs lost logical_width")
+    fits = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = LogisticRegression(device=dev).fit(feats)
+        torch.cuda.synchronize()
+        fits.append((m, time.perf_counter() - t0,
+                     torch.cuda.max_memory_allocated()))
+    (a, fit_s, peak), (b, _, _) = fits
+    if a._w.tobytes() != b._w.tobytes() or a._b.tobytes() != b._b.tobytes():
+        raise AssertionError("[automl] two sparse card fits differ")
+    cut = feats.take(AUTOML_TEXT["cpu_docs"])
+    card = LogisticRegression(device=dev).fit(cut)
+    cpu = LogisticRegression(device="cpu").fit(cut)
+    err = max(float(np.abs(card._w - cpu._w).max()),
+              float(np.abs(card._b - cpu._b).max())) / float(
+                  np.abs(cpu._w).max())
+    pairs = int(np.count_nonzero(feats["features_val"]))
+    out["text"] = dict(featurize_s=feat_s, fit_s=fit_s,
+                       docs_per_s=len(docs) / fit_s, peak=peak,
+                       pairs=pairs, width=feats["features_idx"].shape[1],
+                       card_vs_cpu=err)
+    log(f"[automl] (c) TextFeaturizer {feat_s:.3f} s for {len(docs)} "
+        f"documents ({pairs} pairs, width "
+        f"{feats['features_idx'].shape[1]}); sparse LR fit {fit_s:.3f} s "
+        f"({out['text']['docs_per_s']:.4g} docs/s), peak "
+        f"{peak / 2**20:.1f} MiB, two fits bit-identical, card against "
+        f"CPU on {AUTOML_TEXT['cpu_docs']} documents {err:.3g} of max |w|")
+    if not err <= _AUTOML_TEXT_TOL:
+        raise AssertionError(f"[automl] the sparse card fit is {err} of "
+                             f"max |w| from the CPU fit")
+
+
+def _automl_lime(dev, models, hold, out):
+    """(d) TabularLIME on (a)'s LR model: AUTOML_LIME['rows'] holdout rows
+    x AUTOML_LIME['samples'] perturbations x 108 features at lambda 0 and
+    AUTOML_LIME['lam'], each held to the CPU path (inner model and lasso
+    on the CPU); and the logit of the same weights (a linear model)
+    explained at lambda 0 recovers them."""
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.lime import TabularLIME
+    from mmlspark_tpu_torch.models.linear import LinearRegressionModel
+    lr = models["lr"]
+    inner = lr.inner_model
+    x = np.asarray(lr._featurizer.transform(
+        hold.take(4096))["__train_features"], np.float64)
+    rows = Table({"__train_features": x[:AUTOML_LIME["rows"]]})
+    fit_t = Table({"__train_features": x})
+    logit = LinearRegressionModel(features_col="__train_features",
+                                  device=dev)
+    logit._set_state({"w": inner._w[:, 0], "b": inner._b[0]})
+    res = {}
+    for lam in (0.0, AUTOML_LIME["lam"]):
+        kw = dict(input_col="__train_features",
+                  prediction_col="probabilities", regularization=lam,
+                  n_samples=AUTOML_LIME["samples"], seed=11)
+        card_m = TabularLIME(model=inner, device=dev, **kw).fit(fit_t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = np.asarray(list(card_m.transform(rows)["output"]))
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        want = np.asarray(list(TabularLIME(model=inner.copy({"device": "cpu"}),
+                                           device="cpu",
+                                           **kw).fit(fit_t)
+                               .transform(rows)["output"]))
+        err = float(np.abs(got - want).max()
+                    / np.linalg.norm(want, axis=1).max())
+        res[lam] = dict(s=s, rows_per_s=AUTOML_LIME["rows"] / s,
+                        card_vs_cpu=err)
+        log(f"[automl] (d) TabularLIME lambda {lam}: {s:.3f} s "
+            f"({res[lam]['rows_per_s']:.4g} rows/s, "
+            f"{AUTOML_LIME['rows']} x {AUTOML_LIME['samples']} x "
+            f"{x.shape[1]}), card against CPU {err:.3g} of the largest "
+            f"row norm")
+        if not err <= _AUTOML_LASSO_TOL:
+            raise AssertionError(f"[automl] TabularLIME lambda {lam}: the "
+                                 f"card is {err} from the CPU path")
+    kw = dict(input_col="__train_features", prediction_col="prediction",
+              n_samples=AUTOML_LIME["samples"], seed=12)
+    coefs = np.asarray(list(TabularLIME(model=logit, device=dev, **kw)
+                            .fit(fit_t).transform(rows)["output"]))
+    moving = x.std(axis=0) > 0
+    w = inner._w[:, 0]
+    rec = float(np.abs(coefs[:, moving] - w[moving]).max()
+                / np.abs(w).max())
+    res["recover"] = rec
+    out["lime"] = res
+    log(f"[automl] (d) the logit's explanation recovers its weights "
+        f"within {rec:.3g} of max |w| ({int(moving.sum())} columns that "
+        f"vary)")
+    if not rec <= _AUTOML_RECOVER_TOL:
+        raise AssertionError(f"[automl] the linear explanation is {rec} of "
+                             f"max |w| from the model's weights")
+
+
+class _Recording:
+    """A transformer wrapper that keeps the scores it returned."""
+
+    def __init__(self, inner, col):
+        self.inner, self.col, self.scores = inner, col, []
+
+    def transform(self, t):
+        out = self.inner.transform(t)
+        self.scores.append(np.asarray(out[self.col]))
+        return out
+
+
+def _automl_image(dev, out):
+    """(e) ImageLIME on AUTOML_IMAGE['images'] images of 224 x 224 with
+    AUTOML_IMAGE['samples'] masks each, the inner model the port's
+    ResNet-18 ImageFeaturizer (random weights from seed 0), explaining
+    the last feature; each image's coefficients held to the CPU lasso on
+    the same masks and scores."""
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.lime import ImageLIME, batched_lasso
+    from mmlspark_tpu_torch.models.dnn import ImageFeaturizer
+    imgs, _ = _colour_images(AUTOML_IMAGE["images"], AUTOML_IMAGE["size"],
+                             seed=24)
+    fz = _Recording(ImageFeaturizer(model_name="resnet18", device=dev),
+                    "features")
+    lime = ImageLIME(input_col="image", prediction_col="features",
+                     model=fz, n_samples=AUTOML_IMAGE["samples"], seed=13,
+                     device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = lime.transform(Table({"image": imgs}))
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    rng = np.random.default_rng(13)
+    errs = []
+    for i in range(len(imgs)):
+        k = int(got["superpixels"][i].max()) + 1
+        states = rng.random((AUTOML_IMAGE["samples"], k)) < \
+            lime.sampling_fraction
+        pred = fz.scores[i][..., -1].astype(np.float64)
+        want = batched_lasso(states[None].astype(np.float64), pred[None],
+                             lime.regularization, device="cpu")[0]
+        coef = np.asarray(got["output"][i])
+        if coef.shape != (k,) or not np.isfinite(coef).all():
+            raise AssertionError(f"[automl] ImageLIME image {i}: "
+                                 f"coefficients {coef.shape}, finite "
+                                 f"{np.isfinite(coef).all()}")
+        errs.append(float(np.abs(coef - want).max()
+                          / max(np.linalg.norm(want), 1e-30)))
+    n_img = AUTOML_IMAGE["images"] * AUTOML_IMAGE["samples"]
+    out["image"] = dict(s=s, images_per_s=n_img / s,
+                        peak=torch.cuda.max_memory_allocated(),
+                        card_vs_cpu=max(errs))
+    log(f"[automl] (e) ImageLIME {s:.3f} s for {AUTOML_IMAGE['images']} "
+        f"images x {AUTOML_IMAGE['samples']} masks ({n_img / s:.4g} masked "
+        f"images/s), peak {out['image']['peak'] / 2**20:.1f} MiB, the card "
+        f"lasso against the CPU's {max(errs):.3g} of the norm")
+    if not max(errs) <= _AUTOML_LASSO_TOL:
+        raise AssertionError(f"[automl] ImageLIME: the card lasso is "
+                             f"{max(errs)} from the CPU's")
+
+
+def automl_phase(dev, profile: bool = False):
+    """[automl]: the AutoML and explanation path on the card (no kernel
+    of its own but the GBDT learner's `hist_tiled`: the linear fits, the
+    lasso and `to_dense` are torch ops; the flash kernels must stand
+    still). With `profile`, also one LR fit's launches and the card's
+    busy share, in a process of its own."""
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    t_phase = time.perf_counter()
+    flash_before = dict(fa.launches)
+    cols, z = _adult_rows()
+    train = Table({k: v[:AUTOML_TRAIN] for k, v in cols.items()})
+    hold = Table({k: v[AUTOML_TRAIN:] for k, v in cols.items()})
+    out = {"parts_s": {"data": time.perf_counter() - t_phase}}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        got = fn(*args)
+        torch.cuda.empty_cache()
+        out["parts_s"][name] = time.perf_counter() - t0
+        return got
+    models = part("(a)", _automl_train, dev, train, hold, z[AUTOML_TRAIN:],
+                  out)
+    if profile:
+        part("(a) profile", _automl_fit_profile, out)
+    part("(b)", _automl_tune, dev, models, train, hold, out)
+    part("(c)", _automl_text, dev, out)
+    part("(d)", _automl_lime, dev, models, hold, out)
+    part("(e)", _automl_image, dev, out)
+    if dict(fa.launches) != flash_before:
+        raise AssertionError(f"[automl] a flash kernel launched: "
+                             f"{flash_before} -> {dict(fa.launches)}")
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[automl] the phase {out['s']:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["parts_s"].items()))
+    return out
+
+
+def only_phase(name, dev, phase, t_start, profile=False) -> int:
     """`--only NAME`: one phase after card and build (with the headline
     data where it needs them), for runs that iterate on that phase; the
     full run stays the proof run."""
@@ -7773,9 +8418,12 @@ def only_phase(name, dev, phase, t_start) -> int:
              "stats kernel": stats_kernel_phase,
              "stats backward": stats_bwd_kernel_phase,
              "ranker": ranker_phase, "stream train": stream_train_phase,
+             "pipe training": lambda d: pipe_train_phase(
+                 d, lm_train_phase(d, False)),
              "multiprocess_lm": multiprocess_lm_phase, "dnn": dnn_phase,
              "serving": serving_phase, "fleet": fleet_phase,
-             "online": online_phase}
+             "online": online_phase,
+             "automl": lambda d: automl_phase(d, profile)}
     if name in needs_data:
         data = phase("headline data", headline_data, dev)
         phase(name, needs_data[name], dev, data)
@@ -7821,7 +8469,7 @@ def main(argv) -> int:
     profile = "--profile" in argv
     if "--only" in argv:
         return only_phase(argv[argv.index("--only") + 1], dev, phase,
-                          t_start)
+                          t_start, profile)
     kres = phase("kernel", kernel_phase, dev)
     parent = argv[argv.index("--versus") + 1] if "--versus" in argv else None
     pres = phase("planes kernel", planes_kernel_phase, dev, parent)
@@ -7861,6 +8509,8 @@ def main(argv) -> int:
     fleet = phase("fleet", fleet_phase, dev)
     torch.cuda.empty_cache()
     online = phase("online", online_phase, dev)
+    torch.cuda.empty_cache()
+    automl = phase("automl", automl_phase, dev, profile)
     if "--versus" in argv:
         phase("versus", versus_phase, parent)
 
@@ -7903,7 +8553,9 @@ def main(argv) -> int:
                  "multiprocess fit (per rank, 2 ranks on one card)": mp[
                      "launches"]["hist_tiled"],
                  "serving model fit (20k x 16, 20 iterations)": serve[
-                     "fit"]["launches"].get("hist_tiled", 0)},
+                     "fit"]["launches"].get("hist_tiled", 0),
+                 "TrainClassifier GBDT fit (800k x 108, 100 iterations)":
+                     automl["gbdt"]["launches"]["hist_tiled"]},
              passed=True,
              **{k: hist8[k] for k in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by",
@@ -8206,6 +8858,18 @@ def main(argv) -> int:
         f"against {online['table']['req_per_s']:.1f} table; "
         f"{max(online['updates_per_s']):.4g} online examples/s; adapted in "
         f"{online['adapt']['s']:.3f} s; the phase {online['s']:.1f} s")
+    tune = automl["tune"]
+    log(f"[automl] TrainClassifier LR fit {automl['lr']['fit_s']:.3f} s "
+        f"(AUC {automl['lr']['AUC']:.6f}), GBDT {automl['gbdt']['fit_s']:.3f} "
+        f"s (AUC {automl['gbdt']['AUC']:.6f}, "
+        f"{automl['gbdt']['launches']['hist_tiled']} hist_tiled; its "
+        f"plain-histogram twin {automl['gbdt_plain']['AUC']:.6f}); tuning "
+        f"{tune['s']:.3f} s on {AUTOML_TUNE_ROWS} rows; on "
+        f"{AUTOML_PAR_ROWS} rows {tune['s_par1']:.3f} s at parallelism 1, "
+        f"{tune['s_par4']:.3f} s at 4; sparse LR {automl['text']['fit_s']:.3f} s; TabularLIME "
+        f"{automl['lime'][0.0]['s']:.3f} / "
+        f"{automl['lime'][AUTOML_LIME['lam']]['s']:.3f} s; ImageLIME "
+        f"{automl['image']['s']:.3f} s; the phase {automl['s']:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; phases "
         + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     print(json.dumps({"kernels": kernels}))

@@ -34,7 +34,11 @@ neither `jax` nor anything of `mmlspark_tpu`. Ported so far:
 - Vowpal Wabbit (`models.vw`) and continuous learning on the serving
   stream (`online`), with the control plane that closes its loop
   (`control`: rollout, admission, routing, scaling; `telemetry.slo`,
-  `telemetry.watch`).
+  `telemetry.watch`);
+- AutoML and explanation: the linear learners (`models.linear`), the
+  featurizers (`featurize`), `train` (TrainClassifier, TrainRegressor,
+  model statistics), `automl` (TuneHyperparameters, FindBestModel) and
+  LIME (`lime`, with its batched lasso on the card).
 
 Entry points run on the card unless the caller passes `device="cpu"`; with
 no card they raise (see `device.resolve_device`).

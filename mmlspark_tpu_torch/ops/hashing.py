@@ -2,12 +2,16 @@
 
 A copy of `murmur3_32` and `hash_token` from `mmlspark_tpu/ops/hashing.py`
 (pure Python over bytes, host side: tokens are hashed before they reach
-the card). The batch `hash_strings` and its native kernel wait for the
-featurizers (ROADMAP Queue 1 item 21).
+the card), and the batch `hash_strings` of the featurizers. The
+reference sends batches of 1,024 strings or more to its native C++
+murmur when that library is built; the port hashes every batch through
+the memoized Python path, whose values are the same bits.
 """
 from __future__ import annotations
 
 import functools
+
+import numpy as np
 
 
 def _rotl32(x, r):
@@ -51,3 +55,10 @@ def murmur3_32(data: bytes, seed: int = 0) -> int:
 @functools.lru_cache(maxsize=1_000_000)
 def hash_token(token: str, seed: int = 0) -> int:
     return murmur3_32(token.encode("utf-8"), seed)
+
+
+def hash_strings(values, seed: int = 0, num_bits: int = 18) -> np.ndarray:
+    """Vectorized hash of a string column into [0, 2^num_bits), int64."""
+    mask = (1 << num_bits) - 1
+    return np.fromiter((hash_token(str(v), seed) & mask for v in values),
+                       dtype=np.int64, count=len(values))

@@ -71,6 +71,13 @@ def test_import_loads_no_jax():
             "import mmlspark_tpu_torch.control\n"
             "import mmlspark_tpu_torch.telemetry.slo\n"
             "import mmlspark_tpu_torch.telemetry.watch\n"
+            "import mmlspark_tpu_torch.ops.levels\n"
+            "import mmlspark_tpu_torch.ops.sparse\n"
+            "import mmlspark_tpu_torch.models.linear\n"
+            "import mmlspark_tpu_torch.featurize\n"
+            "import mmlspark_tpu_torch.train\n"
+            "import mmlspark_tpu_torch.automl\n"
+            "import mmlspark_tpu_torch.lime\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'mmlspark_tpu.')) "
             "or m == 'mmlspark_tpu')\n"
@@ -170,6 +177,23 @@ def test_sources_import_no_jax_or_reference():
     ("control", ["Action", "BurnAwareAdmission", "FleetScaler",
                  "Observation", "RolloutConfig", "RolloutDriver",
                  "RolloutStateMachine", "WeightedRouter"]),
+    ("models.linear", ["LogisticRegression", "LogisticRegressionModel",
+                       "LinearRegression", "LinearRegressionModel"]),
+    ("featurize", ["ValueIndexer", "ValueIndexerModel", "IndexToValue",
+                   "CleanMissingData", "CleanMissingDataModel", "Featurize",
+                   "FeaturizeModel", "CountSelector", "CountSelectorModel",
+                   "DataConversion", "TextFeaturizer",
+                   "TextFeaturizerModel"]),
+    ("train", ["ComputeModelStatistics", "ComputePerInstanceStatistics",
+               "ClassificationEvaluator", "RegressionEvaluator",
+               "TrainClassifier", "TrainedClassifierModel", "TrainRegressor",
+               "TrainedRegressorModel", "metrics"]),
+    ("automl", ["DiscreteHyperParam", "RangeHyperParam", "GridSpace",
+                "RandomSpace", "HyperparamBuilder", "TuneHyperparameters",
+                "TuneHyperparametersModel", "FindBestModel", "BestModel"]),
+    ("lime", ["ImageLIME", "TabularLIME", "TabularLIMEModel", "TextLIME",
+              "SuperpixelTransformer", "batched_lasso", "mask_image",
+              "slic_superpixels"]),
 ])
 def test_reference_exports_are_the_port_s(module, names):
     """ROADMAP Queue 3 (v): the names the reference's packages export
@@ -222,6 +246,19 @@ def test_reference_exports_are_the_port_s(module, names):
                        "regression_metrics", "auc", "pr_auc",
                        "ndcg_at_k"]),
     ("utils.stats", ["merge_moments"]),
+    ("ops.sparse", ["DENSE_AUTO_LIMIT", "to_dense", "rows_to_pair"]),
+    ("ops.levels", ["lookup_levels"]),
+    ("ops.hashing", ["murmur3_32", "hash_token", "hash_strings"]),
+    ("featurize.featurize", ["DEFAULT_NUM_FEATURES",
+                             "DEFAULT_NUM_FEATURES_TREES"]),
+    ("featurize.text", ["_tokenize", "_ngrams", "_TokenHashCache"]),
+    ("train.compute_model_statistics", ["ComputeModelStatistics",
+                                        "ClassificationEvaluator"]),
+    ("train.train_classifier", ["TrainClassifier", "TrainRegressor"]),
+    ("automl.tune_hyperparameters", ["TuneHyperparameters",
+                                     "TuneHyperparametersModel"]),
+    ("lime.lasso", ["batched_lasso", "_solve_batch"]),
+    ("lime.superpixel", ["slic_superpixels", "mask_image"]),
     ("utils.tracing", ["trace", "annotate", "wall_clock"]),
     ("telemetry.spans", ["Tracer", "get_tracer", "configure", "TRACE_HEADER",
                          "head_sampled", "parse_trace_header", "wall_now",
