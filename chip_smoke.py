@@ -390,6 +390,24 @@ Phases (any failure exits non-zero before the last line is printed):
      `ImageLIME` on 2 images of 224 x 224, 900 masks each, through the
      port's ResNet-18 `ImageFeaturizer` (random weights from seed 0): the
      card lasso against the CPU's on the same masks and scores.
+  25. telemetry (slice 23; no kernel of its own, run right after the
+     main path: the process's first profiler captures): (a) CUPTI started
+     by a warm-up capture (its seconds printed), then one headline
+     iteration fit on a thread of its own inside a `ProfileSession`
+     capture: a device table parsed, `hist_tile_kernel` in `gbdt.hist`
+     equal to the wrapper's count, `gbdt.hist`, `gbdt.split` and
+     `gbdt.route` each with device time and together within the
+     device-busy time, their roofline rows (analytic bytes, the chip
+     table's peaks); an annotated tree under
+     `torch.cuda.set_sync_debug_mode("error")`. (b) One bf16 flagship LM
+     step through `TrainingSupervisor.run` captured: 12 of each flash
+     kernel in `train.step`, its device time against the step's wall.
+     (c) A two-partition ResNet-18 `DNNModel` (GBDT serves on its host
+     plan and launches nothing) under load: `GET /debug/profile?ms=200`
+     200 with `serving.plan.run` device time, then 429; the [serving]
+     GBDT model: `GET /debug/bundle` 200 then 429, an injected SLO burn
+     dumping one bundle and none while it stays burning, the bundle's
+     files the reference's, a scrape with the device memory gauges.
 The headline fit (4) is timed 3 times (min and median), and every
 phase's seconds are printed.
 The kernel phase (3) also holds the flash backward kernels, dq and dk/dv,
@@ -1183,7 +1201,9 @@ def main_path_phase(dev, data, profile: bool):
         f"{deep_launches} (levels 0-10, the last split over node tiles)")
 
     if profile:
-        from torch.profiler import ProfilerActivity, profile as tprof
+        from torch.profiler import ProfilerActivity
+        from mmlspark_tpu_torch.telemetry.profiler import (
+            exclusive_profiler as tprof)
         one = dataclasses.replace(params, num_iterations=1)
         with tprof(activities=[ProfilerActivity.CPU,
                                ProfilerActivity.CUDA]) as prof:
@@ -1840,7 +1860,9 @@ def _profile_categorical(x, y, params, staged, dev):
 
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprof
+    from torch.profiler import ProfilerActivity
+    from mmlspark_tpu_torch.telemetry.profiler import (
+        exclusive_profiler as tprof)
     from mmlspark_tpu_torch.models.gbdt import fit_booster
     one = dataclasses.replace(params, num_iterations=1)
     with _cat_ranges(), tprof(activities=[ProfilerActivity.CPU,
@@ -2290,7 +2312,9 @@ def encoder_phase(dev, profile: bool):
         raise AssertionError("transform embeddings are wrong")
 
     if profile:
-        from torch.profiler import ProfilerActivity, profile as tprof
+        from torch.profiler import ProfilerActivity
+        from mmlspark_tpu_torch.telemetry.profiler import (
+            exclusive_profiler as tprof)
         enc.set(attention="flash", attention_dtype=None)
         with tprof(activities=[ProfilerActivity.CPU,
                                ProfilerActivity.CUDA]) as prof:
@@ -2949,7 +2973,9 @@ def _flagship_steps(dev, compute_dtype, profile: bool):
                              f"finite and falling")
 
     if profile:
-        from torch.profiler import ProfilerActivity, profile as tprof
+        from torch.profiler import ProfilerActivity
+        from mmlspark_tpu_torch.telemetry.profiler import (
+            exclusive_profiler as tprof)
         with tprof(activities=[ProfilerActivity.CPU,
                                ProfilerActivity.CUDA]) as prof:
             trainer.step(toks)
@@ -3103,7 +3129,9 @@ def ring_train_phase(dev, cp1_first_loss: float, profile: bool):
         raise AssertionError(f"losses {loss1}, {loss_last}: not finite and "
                              f"falling")
     if profile:
-        from torch.profiler import ProfilerActivity, profile as tprof
+        from torch.profiler import ProfilerActivity
+        from mmlspark_tpu_torch.telemetry.profiler import (
+            exclusive_profiler as tprof)
         with tprof(activities=[ProfilerActivity.CPU,
                                ProfilerActivity.CUDA]) as prof:
             trainer.step(toks)
@@ -3958,7 +3986,9 @@ def _introspect_one(tag, booster, base, x, dev, tmp):
     # the same call under torch.profiler: its kernels' time against the
     # unprofiled wall says how much of it the card is busy
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprof
+    from torch.profiler import ProfilerActivity
+    from mmlspark_tpu_torch.telemetry.profiler import (
+        exclusive_profiler as tprof)
     with tprof(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
         shap_contributions_device(xs, *args, split_is_cat=ic, cat_words=cw,
@@ -4449,7 +4479,9 @@ def _staging_busy_s(fn):
     torch.profiler (the busy share against an unprofiled wall)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprof
+    from torch.profiler import ProfilerActivity
+    from mmlspark_tpu_torch.telemetry.profiler import (
+        exclusive_profiler as tprof)
     with tprof(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
         fn()
@@ -5850,7 +5882,9 @@ def _profile_featurizer(fz, imgs, dtype):
     device time of their own."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprof
+    from torch.profiler import ProfilerActivity
+    from mmlspark_tpu_torch.telemetry.profiler import (
+        exclusive_profiler as tprof)
     from mmlspark_tpu_torch import Table
     t = Table({"image": imgs})
     with tprof(activities=[ProfilerActivity.CPU,
@@ -7280,8 +7314,10 @@ def _sgd_batch_launches(dev):
     import collections
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     from mmlspark_tpu_torch.models.vw import learner
+    from mmlspark_tpu_torch.telemetry.profiler import (
+        exclusive_profiler as profile)
     idx, val, y, _ = _criteo_rows(ONLINE_BATCH, 25)
     p = learner.VWParams(num_bits=ONLINE_BITS, loss_function="logistic")
     state = learner._init_state(p, None, None, dev)
@@ -8037,9 +8073,11 @@ def _linear_fit_profile(dev):
     the wall of an unprofiled fit, the launches and the sum of kernel
     durations from torch.profiler over a second one."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     from mmlspark_tpu_torch import Table
     from mmlspark_tpu_torch.models.linear import LogisticRegression
+    from mmlspark_tpu_torch.telemetry.profiler import (
+        exclusive_profiler as profile)
     rng = np.random.default_rng(5)
     x = rng.standard_normal((AUTOML_TRAIN, AUTOML_FEATURES), np.float32)
     y = (rng.random(AUTOML_TRAIN) < 0.24).astype(np.float64)
@@ -8402,6 +8440,409 @@ def automl_phase(dev, profile: bool = False):
     return out
 
 
+# ------------------------------------------------------------- [telemetry]
+TELE_PROFILE_MS = 200          # the /debug/profile window under load
+TELE_LOAD = (4, 40)            # clients x requests a client, per server
+TELE_LM_KERNELS = {"flash_fwd": "flash_fwd_", "flash_bwd_dq": "flash_bwd_dq",
+                   "flash_bwd_dkv": "flash_bwd_dkv"}
+# the flight bundle's files, in the manifest's order (the reference's
+# telemetry/perf.py:724-764)
+TELE_BUNDLE_FILES = ("spans.jsonl", "pending.jsonl", "metrics.json",
+                     "metrics_window.json", "slo.json", "compiles.json",
+                     "memory.json", "goodput.json", "roofline.json",
+                     "quality.json", "versions.json", "manifest.json")
+# self times are rounded to 1e-3 us per op row: the most the three
+# regions' rounded sum may exceed the device-busy union by
+_TELE_ROUND_US = 5e-4
+
+
+def _region_kernels(ops, token, region=None):
+    """Occurrences of the device ops whose name holds `token` (in
+    `region`, or in any region when None)."""
+    return sum(r["occurrences"] for r in ops if token in r["op"]
+               and (region is None or r["region"] == region))
+
+
+def _iteration_bytes(n, f, b, depth):
+    """Analytic bytes one headline iteration moves, per region: the
+    histogram kernel's (`_bound`'s count: node ids, bins/grad/hess of the
+    active rows, the three outputs; after depth 0 the left children
+    only), the split search's (the three (m, F, B) f32 histograms read
+    twice: cumsum and gain), the routing's (node ids read and written,
+    one bin byte and the active flag a row)."""
+    hist = split = 0.0
+    for d in range(depth):
+        m_built = 1 if d == 0 else 2 ** (d - 1)
+        active = n if d == 0 else n // 2
+        hist += 4 * n + active * (f + 8) + 3 * m_built * f * b * 4
+        split += 2 * 3 * (2 ** d) * f * b * 4
+    return {"gbdt.hist": hist, "gbdt.split": split,
+            "gbdt.route": float(depth * n * (4 + 4 + 1 + 1))}
+
+
+def _telemetry_gbdt(dev, data, tmp, out):
+    """(a) one headline boosting iteration on a thread the profiler does
+    not follow (as a triggered `capture` sees a fit): gbdt.hist's
+    hist_tile_kernel count against the wrapper's, the three regions
+    within the device-busy time, the roofline rows; then an annotated
+    tree grown under torch.cuda.set_sync_debug_mode("error")."""
+    import dataclasses
+    import threading
+
+    import torch
+    from mmlspark_tpu_torch.models.gbdt import fit_booster
+    from mmlspark_tpu_torch.models.gbdt import trainer as gtrainer
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+    from mmlspark_tpu_torch.telemetry import profiler
+    x, y, staged = data["x"], data["y"], data["staged"]
+    session = profiler.ProfileSession(
+        profile_dir=os.path.join(tmp, "gbdt"), min_interval_s=0.0)
+    # the first capture of the process starts CUPTI: paid here, outside
+    # the measured one
+    t0 = time.perf_counter()
+    with session.session(reason="warm-up") as info:
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+    out["cupti_start_s"] = time.perf_counter() - t0
+    params = dataclasses.replace(_headline_params(), num_iterations=1)
+    fit_booster(x, y, params, prebinned=staged, device=dev)
+    torch.cuda.synchronize()
+    box = {}
+
+    def fit():
+        try:
+            t1 = time.perf_counter()
+            fit_booster(x, y, params, prebinned=staged, device=dev)
+            torch.cuda.synchronize()
+            box["wall"] = time.perf_counter() - t1
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            box["err"] = e
+
+    profiler.get_roofline().clear()
+    hc.reset_launches()
+    t0 = time.perf_counter()
+    with session.session(reason="headline-iteration") as info:
+        th = threading.Thread(target=fit, name="telemetry-fit")
+        th.start()
+        th.join()
+    capture_s = time.perf_counter() - t0
+    if "err" in box:
+        raise box["err"]
+    launches = {k: v for k, v in hc.launches.items() if v}
+    ops, dev_sum, regions = info["ops"], info["device"], info["regions"]
+    if not dev_sum.get("device_events"):
+        raise AssertionError(f"[telemetry] (a) the capture of a fit that "
+                             f"launched {launches} parsed no device "
+                             f"events: {dev_sum}")
+    in_hist = _region_kernels(ops, "hist_tile_kernel", "gbdt.hist")
+    anywhere = _region_kernels(ops, "hist_tile_kernel")
+    if launches != {"hist_tiled": DEPTH} or in_hist != DEPTH \
+            or anywhere != DEPTH:
+        raise AssertionError(f"[telemetry] (a) hist_tile_kernel in "
+                             f"gbdt.hist {in_hist} (anywhere {anywhere}), "
+                             f"the wrapper counted {launches}; expected "
+                             f"{DEPTH}")
+    names = ("gbdt.hist", "gbdt.split", "gbdt.route")
+    us = {r: regions.get(r, {}).get("self_time_us", 0.0) for r in names}
+    if min(us.values()) <= 0.0:
+        raise AssertionError(f"[telemetry] (a) a region has no device "
+                             f"time: {regions}")
+    total = sum(r["self_time_us"] for r in ops)
+    busy = dev_sum["busy_us"]
+    if sum(us.values()) > busy + _TELE_ROUND_US * len(ops):
+        raise AssertionError(f"[telemetry] (a) the regions' {us} sum past "
+                             f"the device-busy {busy} us")
+    # roofline: each region's analytic bytes over the iteration against
+    # its device time, at the chip table's peaks (the ledger's cost is a
+    # device op's share: the region's bytes over its op count)
+    n, f = staged[1].shape
+    cost = _iteration_bytes(n, f, MAX_BIN + 1, DEPTH)
+    ledger = profiler.get_roofline()
+    for region in names:
+        ledger.set_cost(region, bytes_accessed=cost[region]
+                        / regions[region]["occurrences"])
+    rows = ledger.rows()
+    peaks = profiler.resolve_peaks()
+    for region in names:
+        row = rows.get(region, {})
+        if row.get("source") != "device" or "hbm_util" not in row:
+            raise AssertionError(f"[telemetry] (a) roofline row {region}: "
+                                 f"{row}")
+    if not str(peaks["source"]).startswith("chip-table:"):
+        raise AssertionError(f"[telemetry] (a) peaks {peaks}")
+    other = total - sum(us.values())
+    out["gbdt"] = dict(us=us, busy_us=busy, total_us=total,
+                       other_share=other / total, launches=launches,
+                       in_hist=in_hist, device=dev_sum, wall_s=box["wall"],
+                       capture_s=capture_s,
+                       roofline={r: rows[r] for r in names})
+    log(f"[telemetry] (a) CUPTI start {out['cupti_start_s']:.2f} s (a "
+        f"warm-up capture); one headline iteration on a thread of its "
+        f"own, {box['wall'] * 1e3:.1f} ms wall, captured in "
+        f"{capture_s:.2f} s: {dev_sum['device_events']} device events, "
+        f"{total / 1e3:.3f} ms of device time, busy {busy / 1e3:.3f} ms; "
+        + ", ".join(f"{r} {us[r] / 1e3:.3f} ms ({100 * us[r] / total:.1f}"
+                    f"%, {rows[r]['occurrences']} kernels, "
+                    f"{rows[r]['achieved_hbm_bytes_per_s'] / 1e9:.1f} GB/s"
+                    f" = {100 * rows[r]['hbm_util']:.2f}% of "
+                    f"{peaks['hbm_bytes_per_s'] / 1e12:.2f} TB/s)"
+                    for r in names)
+        + f"; in no region {other / 1e3:.3f} ms ({100 * other / total:.1f}"
+        f"%); hist_tile_kernel in gbdt.hist {in_hist} = the wrapper's "
+        f"{launches['hist_tiled']}; attributed by launch "
+        f"{dev_sum['by_launch']}, by waiting thread "
+        f"{dev_sum['by_waiting_thread']}, by device range "
+        f"{dev_sum['by_device_range']} ({peaks['source']})")
+    # an annotated tree under sync-debug "error": the regions add no
+    # host synchronisation
+    _, d_bins, d_y = staged
+    grad = torch.sigmoid(torch.zeros_like(d_y)) - d_y
+    hess = torch.full_like(d_y, 0.25)
+    fmask = torch.ones(f, dtype=torch.bool, device=dev)
+    cfg = gtrainer.TreeConfig(n_features=f, max_depth=DEPTH, num_leaves=31,
+                              n_bins=MAX_BIN + 1)
+    gtrainer.train_one_tree(d_bins, grad, hess, fmask, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gtrainer.train_one_tree(d_bins, grad, hess, fmask, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("[telemetry] (a) an annotated tree (train_one_tree, headline "
+        "shape) under torch.cuda.set_sync_debug_mode('error'): no host "
+        "synchronisation")
+
+
+def _telemetry_lm(dev, tmp, out):
+    """(b) one bf16 flagship LM step through `TrainingSupervisor.run`,
+    captured: its train.step region holds the step's flash launches."""
+    import torch
+    from mmlspark_tpu_torch.models.dnn import PipelinedLMTrainer
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    from mmlspark_tpu_torch.reliability import TrainingSupervisor
+    from mmlspark_tpu_torch.telemetry import profiler
+    trainer = PipelinedLMTrainer(
+        n_microbatches=1, attention="flash", optimizer="adam", seed=0,
+        compute_dtype="bfloat16", remat="save_attn", device=dev, **LM)
+    toks = np.random.default_rng(0).integers(
+        0, LM["vocab_size"], size=(1, LM_SEQ)).astype(np.int32)
+    trainer.step(toks)
+    torch.cuda.synchronize()
+    sup = TrainingSupervisor(os.path.join(tmp, "lm_ckpt"), lambda: {},
+                             lambda payload: None, checkpoint_every=0,
+                             handle_signals=False)
+    session = profiler.ProfileSession(
+        profile_dir=os.path.join(tmp, "lm"), min_interval_s=0.0)
+    fa.reset_launches()
+    with session.session(reason="lm-step") as info:
+        t0 = time.perf_counter()
+        losses = sup.run(lambda step: trainer.step(toks), 1, resume=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    sup.close()
+    launches = {k: v for k, v in fa.launches.items() if v}
+    ops, dev_sum = info["ops"], info["device"]
+    if not dev_sum.get("device_events"):
+        raise AssertionError(f"[telemetry] (b) the step's capture parsed "
+                             f"no device events: {dev_sum}")
+    in_step = {k: _region_kernels(ops, tok, "train.step")
+               for k, tok in TELE_LM_KERNELS.items()}
+    want = {k: LM["n_layers"] for k in TELE_LM_KERNELS}
+    if in_step != want or launches != want:
+        raise AssertionError(f"[telemetry] (b) flash kernels in "
+                             f"train.step {in_step}, launched {launches}; "
+                             f"expected {want}")
+    step_us = info["regions"].get("train.step", {}).get("self_time_us", 0)
+    total = sum(r["self_time_us"] for r in ops)
+    if not (np.isfinite(losses).all() and step_us > 0):
+        raise AssertionError(f"[telemetry] (b) loss {losses}, train.step "
+                             f"{step_us} us")
+    out["lm"] = dict(step_us=step_us, total_us=total, wall_s=wall,
+                     in_step=in_step, device=dev_sum)
+    log(f"[telemetry] (b) one bf16 flagship LM step through "
+        f"TrainingSupervisor.run: train.step {step_us / 1e3:.2f} ms of "
+        f"device time ({100 * step_us / total:.1f}% of the capture's "
+        f"{total / 1e3:.2f} ms) in a {wall * 1e3:.1f} ms wall; flash in "
+        f"train.step {in_step}; attributed by launch "
+        f"{dev_sum['by_launch']}, by waiting thread "
+        f"{dev_sum['by_waiting_thread']}")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def _tele_get(address, path):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(address + path, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _telemetry_serving(dev, tmp, out):
+    """(c) `/debug/profile` under load on a served card model (the
+    [serving] phase's ResNet-18 DNNModel: GBDT serves from its host plan
+    and launches nothing), then the [serving] GBDT model: `/debug/bundle`
+    200 then 429, an injected SLO burn dumping exactly one bundle (none
+    while it stays burning), the bundle's files, a scrape's device
+    memory gauges."""
+    import threading
+
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.io import serve_pipeline
+    from mmlspark_tpu_torch.io.plan import compile_serving_transform
+    from mmlspark_tpu_torch.io.serving import ServingQuery, ServingServer
+    from mmlspark_tpu_torch.models.dnn import model as dnn_model
+    from mmlspark_tpu_torch.models.dnn import resnet as rn
+    from mmlspark_tpu_torch.models.gbdt.estimators import GBDTClassifier
+    from mmlspark_tpu_torch.telemetry import names as tnames
+    from mmlspark_tpu_torch.telemetry import perf, profiler, slo
+    session = profiler.configure_profile_session(
+        profile_dir=os.path.join(tmp, "serving"), min_interval_s=60.0)
+    recorder = perf.configure_flight_recorder(
+        bundle_dir=os.path.join(tmp, "bundles"), min_interval_s=60.0)
+    cfg = SERVE_DNN
+    net = rn.resnet18(num_classes=cfg["classes"])
+    state = rn.resnet_params_from_numpy(rn.init_resnet(net, seed=1), dev)
+    m = dnn_model.DNNModel(apply_fn=net, params=state,
+                           batch_size=cfg["batch"])
+    img = np.random.default_rng(6).random(
+        (3, cfg["size"], cfg["size"])).astype(np.float32)
+    body = json.dumps({"features": img.tolist()})
+    server = ServingServer(num_partitions=2, transport="threading").start()
+    q = ServingQuery(server, compile_serving_transform(
+        m, ["features"], output_col="scores"), mode="continuous",
+        max_batch=cfg["batch"]).start()
+    load = {}
+    try:
+        _serve_statuses_ok(_serve_post_all(server.address,
+                                           [body.encode()] * 4), "warm")
+        th = threading.Thread(target=lambda: load.setdefault(
+            "res", _serve_load(server, body, *TELE_LOAD)), daemon=True)
+        th.start()
+        time.sleep(0.5)
+        status, prof = _tele_get(server.address,
+                                 f"/debug/profile?ms={TELE_PROFILE_MS}")
+        again, _ = _tele_get(server.address, "/debug/profile?ms=5")
+        th.join(timeout=300)
+    finally:
+        q.stop()
+        server.stop()
+    if "res" not in load:
+        raise AssertionError("[telemetry] (c) the load did not finish")
+    plan_run = (prof.get("regions") or {}).get("serving.plan.run", {})
+    if status != 200 or again != 429 or not prof["device"].get(
+            "device_events") or plan_run.get("self_time_us", 0) <= 0:
+        raise AssertionError(f"[telemetry] (c) /debug/profile {status} "
+                             f"then {again}; serving.plan.run {plan_run}, "
+                             f"device {prof.get('device')}")
+    out["profile"] = dict(plan_run=plan_run, device=prof["device"],
+                          req_per_s=load["res"].req_per_sec)
+    log(f"[telemetry] (c) ResNet-18 DNNModel on 2 partitions under "
+        f"{TELE_LOAD[0]} x {TELE_LOAD[1]} requests "
+        f"({load['res'].req_per_sec:.1f} req/s): GET /debug/profile?ms="
+        f"{TELE_PROFILE_MS} 200, serving.plan.run "
+        f"{plan_run['self_time_us'] / 1e3:.3f} ms of device time in "
+        f"{plan_run['occurrences']} device ops of "
+        f"{prof['device']['device_events']} (by launch "
+        f"{prof['device']['by_launch']}, by waiting thread "
+        f"{prof['device']['by_waiting_thread']}); a second call 429")
+
+    # the [serving] GBDT model: the flight recorder over HTTP
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(SERVE_ROWS, SERVE_FEAT)).astype(np.float32)
+    y = (x[:, 0] + x[:, 1] > 0).astype(np.float32)
+    model = GBDTClassifier(num_iterations=20, max_depth=5).fit(
+        Table({"features": x, "label": y}))
+    body = json.dumps({"features": [0.1] * SERVE_FEAT})
+    server, q = serve_pipeline(model, ["features"], mode="continuous")
+    bundles = os.path.join(tmp, "bundles")
+    try:
+        _serve_load(server, body, *TELE_LOAD)
+        first, manifest = _tele_get(server.address, "/debug/bundle")
+        second, _ = _tele_get(server.address, "/debug/bundle")
+        # an injected burn: an objective no served request can meet
+        recorder.configure(min_interval_s=0.0)
+        engine = slo.SLOEngine(objectives=[slo.Objective(
+            name="telemetry.burn", kind=slo.LATENCY,
+            metric=tnames.SERVING_REQUEST_E2E, threshold_ms=1e-3,
+            quantile=50.0, window_s=60.0)])
+        before = len(os.listdir(bundles))
+        v1 = engine.verdict()
+        after_burn = len(os.listdir(bundles))
+        v2 = engine.verdict()
+        after_stay = len(os.listdir(bundles))
+        status, state = _tele_get(server.address, "/metrics.json")
+    finally:
+        q.stop()
+        server.stop()
+        recorder.configure(bundle_dir="", min_interval_s=60.0)
+        session.configure(profile_dir="")
+    if (first, second) != (200, 429):
+        raise AssertionError(f"[telemetry] (c) /debug/bundle {first} then "
+                             f"{second}")
+    if not (v1["burning"] and v2["burning"]) or \
+            (after_burn - before, after_stay - after_burn) != (1, 0):
+        raise AssertionError(f"[telemetry] (c) burn dumped "
+                             f"{after_burn - before}, staying burning "
+                             f"{after_stay - after_burn}")
+    got = sorted(os.listdir(manifest["path"]))
+    if tuple(manifest["files"]) != TELE_BUNDLE_FILES or \
+            got != sorted(TELE_BUNDLE_FILES):
+        raise AssertionError(f"[telemetry] (c) bundle files {got}, "
+                             f"manifest {manifest['files']}")
+    gauges = state["gauges"]
+    mem = perf.sample_resource_stats()
+    if status != 200 or not mem["devices"] or not gauges.get(
+            tnames.DEVICE_MEM_BYTES_IN_USE) or not gauges.get(
+            tnames.device_mem_in_use(torch.cuda.current_device())):
+        raise AssertionError(f"[telemetry] (c) scrape {status} without the "
+                             f"device memory gauges: {sorted(gauges)}")
+    out["bundle"] = dict(files=got, gauges={
+        k: v for k, v in gauges.items() if k.startswith(("device", "host"))})
+    log(f"[telemetry] (c) GBDT served: GET /debug/bundle 200 then 429; an "
+        f"injected SLO burn dumped {after_burn - before} bundle, staying "
+        f"burning {after_stay - after_burn}; the bundle's "
+        f"{len(got)} files the reference's; /metrics.json "
+        f"{tnames.DEVICE_MEM_BYTES_IN_USE} "
+        f"{gauges[tnames.DEVICE_MEM_BYTES_IN_USE] / 2**20:.1f} MiB, "
+        f"{tnames.DEVICE_MEM_PEAK_BYTES} "
+        f"{gauges[tnames.DEVICE_MEM_PEAK_BYTES] / 2**20:.1f} MiB, "
+        f"{tnames.HOST_RSS_BYTES} {gauges[tnames.HOST_RSS_BYTES] / 2**20:.1f}"
+        f" MiB")
+
+
+def telemetry_phase(dev, data):
+    """[telemetry]: the device telemetry on the card (no kernel of its
+    own; the regions must add no launch): (a) a headline iteration's
+    kernel time by region, (b) an LM step's train.step, (c) the debug
+    endpoints and the flight recorder of a served model."""
+    import tempfile
+
+    import torch
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+    t_phase = time.perf_counter()
+    out = {"parts_s": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_telemetry_") as tmp:
+        for name, fn, args in (("(a)", _telemetry_gbdt, (dev, data)),
+                               ("(b)", _telemetry_lm, (dev,)),
+                               ("(c)", _telemetry_serving, (dev,))):
+            t0 = time.perf_counter()
+            fn(*args, tmp, out)
+            torch.cuda.empty_cache()
+            out["parts_s"][name] = time.perf_counter() - t0
+    hc.reset_launches()
+    fa.reset_launches()
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[telemetry] the phase {out['s']:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["parts_s"].items()))
+    return out
+
+
 def only_phase(name, dev, phase, t_start, profile=False) -> int:
     """`--only NAME`: one phase after card and build (with the headline
     data where it needs them), for runs that iterate on that phase; the
@@ -8411,7 +8852,8 @@ def only_phase(name, dev, phase, t_start, profile=False) -> int:
                   "planes path": planes_path_phase,
                   "boosting modes": modes_phase,
                   "data_parallel": data_parallel_phase,
-                  "multiprocess": multiprocess_phase}
+                  "multiprocess": multiprocess_phase,
+                  "telemetry": telemetry_phase}
     alone = {"kernel": kernel_phase, "planes kernel": planes_kernel_phase,
              "flash kernel": flash_kernel_phase,
              "flash backward kernel": flash_bwd_kernel_phase,
@@ -8481,6 +8923,9 @@ def main(argv) -> int:
         phase("sweep", sweep_phase, dev)
     data = phase("headline data", headline_data, dev)
     paths = phase("main", main_path_phase, dev, data, profile)
+    # the first profiler captures of the process: before any phase's own
+    # torch.profiler tables
+    tele = phase("telemetry", telemetry_phase, dev, data)
     planes = phase("planes path", planes_path_phase, dev, data)
     modes = phase("boosting modes", modes_phase, dev, data)
     cat = phase("categorical", categorical_phase, dev, data,
@@ -8870,6 +9315,14 @@ def main(argv) -> int:
         f"{automl['lime'][0.0]['s']:.3f} / "
         f"{automl['lime'][AUTOML_LIME['lam']]['s']:.3f} s; ImageLIME "
         f"{automl['image']['s']:.3f} s; the phase {automl['s']:.1f} s")
+    tg = tele["gbdt"]
+    log(f"[telemetry] headline iteration by region: " + ", ".join(
+        f"{r} {v / 1e3:.3f} ms" for r, v in tg["us"].items())
+        + f", none {100 * tg['other_share']:.1f}% of "
+        f"{tg['total_us'] / 1e3:.3f} ms; LM step train.step "
+        f"{tele['lm']['step_us'] / 1e3:.2f} ms of device time in "
+        f"{tele['lm']['wall_s'] * 1e3:.1f} ms; CUPTI start "
+        f"{tele['cupti_start_s']:.2f} s; the phase {tele['s']:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; phases "
         + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     print(json.dumps({"kernels": kernels}))

@@ -7,20 +7,36 @@ Port of `mmlspark_tpu/core/pipeline.py`:
 - every stage saves and loads through `core/serialize.py`: its class by
   qualified name, its explicitly set params and its `_get_state()`.
 
-The reference also logs a usage event per fit and transform through its
-telemetry; the port leaves that out until telemetry is ported (ROADMAP
-Queue 1 item 23).
+Every public fit and transform logs a JSON usage event `{uid,
+className, method, ts}` on the `mmlspark_tpu_torch.usage` logger, as the
+reference does on its own (after MMLSpark's logging/BasicLogging.scala).
 """
 from __future__ import annotations
 
+import json
+import logging
 from typing import List, Optional, Sequence
 
+from ..telemetry.spans import wall_now
 from .params import Param, Params
 from .table import Table
+
+_logger = logging.getLogger("mmlspark_tpu_torch.usage")
 
 # class name -> class, for generic load(); filled by
 # PipelineStage.__init_subclass__
 STAGE_REGISTRY: dict = {}
+
+
+def _log_event(stage, method: str) -> None:
+    # one usage event per public call: {uid, className, method}, stamped
+    # with the monotonic-derived wall time (never out of order across an
+    # NTP step)
+    if _logger.isEnabledFor(logging.INFO):
+        _logger.info(json.dumps({
+            "uid": getattr(stage, "uid", None),
+            "className": type(stage).__name__,
+            "method": method, "ts": wall_now()}))
 
 
 class PipelineStage(Params):
@@ -64,6 +80,7 @@ class PipelineStage(Params):
 
 class Transformer(PipelineStage):
     def transform(self, table: Table) -> Table:
+        _log_event(self, "transform")
         return self._transform(table)
 
     def _transform(self, table: Table) -> Table:
@@ -79,6 +96,7 @@ class Model(Transformer):
 
 class Estimator(PipelineStage):
     def fit(self, table: Table, **fit_params) -> Model:
+        _log_event(self, "fit")
         if fit_params:
             return self.copy(fit_params)._fit(table)
         return self._fit(table)

@@ -18,8 +18,8 @@ The multi-process supervisor drives it
 `remove_hosts` (through `ElasticPlan.shrink`). Each process stages its
 own `pending` chunks (`data.ChunkStager(only=...)`) into the shared
 spill cache. A move is journaled as a `train.chunk.reassign` event to the
-`tracer` (`.event(name, **attrs)`) and `ledger` (`.append_event`) given;
-the port's tracer is ROADMAP Queue 1 item 23.
+`tracer` given (`.event(name, **attrs)`), else the process tracer, and
+to the run `ledger` (`.append_event`) where one is given.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Sequence
 
 from ..reliability import names as tnames
 from ..reliability.faults import FaultInjector, InjectedFault
+from ..telemetry.spans import get_tracer
 
 _REASSIGN_SITE = "data.planner.reassign"
 
@@ -101,12 +102,12 @@ class ChunkPlanner:
                 self._owner[idx] = to
                 moved[idx] = (frm, to)
                 per_host.setdefault(frm, []).append(idx)
+        tracer = self._tracer if self._tracer is not None else get_tracer()
         for frm, idxs in sorted(per_host.items()):
             to_hosts = sorted({moved[i][1] for i in idxs})
-            if self._tracer is not None:
-                self._tracer.event(tnames.TRAIN_CHUNK_REASSIGN_EVENT,
-                                   from_host=frm, to_hosts=to_hosts,
-                                   chunks=len(idxs))
+            tracer.event(tnames.TRAIN_CHUNK_REASSIGN_EVENT,
+                         from_host=frm, to_hosts=to_hosts,
+                         chunks=len(idxs))
             if self._ledger is not None:
                 try:
                     self._ledger.append_event(

@@ -22,7 +22,9 @@ copy has not landed, and the pinned buffer is held until its event has
 completed, so no copy reads host memory that was already given back. Any
 other `put` is called as it is on the feeder thread.
 
-Instrumented through `reliability.metrics`:
+One `data.prefetch` span covers a prefetcher's lifetime (not each item):
+it finishes with the items and stalls totals, so a trace shows whether
+the overlap hid the producer. Instrumented through `reliability.metrics`:
   data.prefetch.put          — feeder time spent in `put` (wall clock)
   data.prefetch.items        — batches fed
   data.prefetch.stalls       — consumer arrived at an EMPTY queue (the
@@ -44,6 +46,7 @@ import torch
 from ..device import resolve_device
 from ..reliability import names as tnames
 from ..reliability.metrics import reliability_metrics
+from ..telemetry.spans import get_tracer
 from ..utils import tracing
 
 _DONE = object()
@@ -108,6 +111,7 @@ class DevicePrefetcher:
         self._started = False
         self._consumed = 0
         self._stalls = 0
+        self._span = None   # lifecycle span: started with the feeder
         # handed-out copies whose pinned source may still be read
         self._pinned: collections.deque = collections.deque()
 
@@ -151,6 +155,8 @@ class DevicePrefetcher:
     def __iter__(self) -> Iterator:
         if not self._started:
             self._started = True
+            self._span = get_tracer().start_span(
+                tnames.DATA_PREFETCH_SPAN, attrs={"depth": self._q.maxsize})
             self._thread.start()
         return self
 
@@ -166,9 +172,11 @@ class DevicePrefetcher:
         if item is _DONE:
             self._thread.join(timeout=5)
             self._release(wait=True)
+            self._finish_span()
             raise StopIteration
         if isinstance(item, Exception):
             self._stop.set()
+            self._finish_span(error=type(item).__name__)
             raise item
         if was_empty:
             if t_wait is not None:
@@ -179,6 +187,12 @@ class DevicePrefetcher:
         if isinstance(item, _InFlight):
             return self._land(item)
         return item
+
+    def _finish_span(self, **attrs) -> None:
+        if self._span is not None:
+            self._span.finish(items=self._consumed, stalls=self._stalls,
+                              **attrs)
+            self._span = None
 
     def _land(self, item: _InFlight):
         """Order the consumer's stream after the item's copy, tie the
@@ -210,6 +224,7 @@ class DevicePrefetcher:
         if self._started:
             self._thread.join(timeout=5)
         self._release(wait=True)
+        self._finish_span(closed=True)
 
     def __enter__(self) -> "DevicePrefetcher":
         return self

@@ -220,6 +220,7 @@ class _ThreadingServer(ThreadingHTTPServer):
 
 
 _REASONS = {200: "OK", 400: "Bad Request", 413: "Payload Too Large",
+            429: "Too Many Requests", 500: "Internal Server Error",
             501: "Not Implemented", 502: "Bad Gateway",
             503: "Service Unavailable", 504: "Gateway Timeout"}
 
@@ -764,9 +765,11 @@ class ServingServer:
 
     def _metrics_response(self, path: str) -> tuple:
         """(status, payload, content_type) for the exposition GETs —
-        /metrics, /metrics.json[?window=N], /slo — over the process-wide
-        MetricsRegistry / SLO engine (telemetry.exposition; mounted on
-        both transports). `path` keeps its query string."""
+        /metrics, /metrics.json[?window=N], /slo, /quality, /versions,
+        /debug/bundle, /debug/profile?ms=N — over the process-wide
+        registry, SLO engine, flight recorder and profile session
+        (telemetry.exposition; mounted on both transports). `path` keeps
+        its query string."""
         from ..telemetry.exposition import metrics_http_response
         return metrics_http_response(path)
 

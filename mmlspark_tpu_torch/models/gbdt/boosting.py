@@ -576,18 +576,20 @@ def fit_booster(x: np.ndarray, y: np.ndarray, params: BoostParams,
                 d_bins = place(parallel_apply_bins(mapper, x, ingest))
         else:
             d_bins = binning.apply_bins_device(mapper, x, device=dev)
-    # the level-invariant histogram plan, once per fit, where the
-    # reference builds it (it also sets a plan-bytes gauge there; gauges
-    # are telemetry, ROADMAP Queue 1 item 23)
     # each position's rows on its device: views of d_bins on one card
     rows = row_sharding(mesh)
     bin_shards = rows.put(d_bins)
+    # the level-invariant histogram plan, once per fit, where the
+    # reference builds it, with the gauge of its resident bytes
     lo_planes, plane_lo = None, 0
     if os.environ.get("MMLSPARK_TPU_HIST") == "planes":
         plane_lo = histogram.plan_lo_bins(p.max_bin + 1)
         if plane_lo:
             lo_planes = [histogram.build_hist_plan(b, p.max_bin + 1)
                          for b in bin_shards]
+            reliability_metrics.set_gauge(
+                tnames.GBDT_HIST_PLAN_BYTES,
+                float(sum(t.numel() * t.element_size() for t in lo_planes)))
 
     def put(a):
         return torch.as_tensor(np.asarray(a, np.float32)).to(dev)

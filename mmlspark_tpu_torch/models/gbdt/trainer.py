@@ -54,6 +54,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ...ops.histogram import node_feature_histograms
+from ...utils.tracing import annotate
 
 
 class TreeConfig(NamedTuple):
@@ -449,7 +450,8 @@ def train_one_tree_sharded(bins, grad, hess, feature_mask: torch.Tensor,
         active = [(nl >= 0) & (nl < m) for nl in node_local]
 
         if depth == 0 or voting:
-            local = _hists(node_local, active, m)
+            with annotate("gbdt.hist"):
+                local = _hists(node_local, active, m)
             if voting:
                 parent_g, parent_h, parent_c = _sum_positions(
                     [torch.stack([h[i][:, 0].sum(-1) for i in range(3)])
@@ -477,11 +479,12 @@ def train_one_tree_sharded(bins, grad, hess, feature_mask: torch.Tensor,
         else:
             left_active = [a & (nl % 2 == 0)
                            for a, nl in zip(active, node_local)]
-            lg, lh, lc = _summed(_hists([nl // 2 for nl in node_local],
-                                        left_active, m // 2))
-            hg = _interleave(lg, prev_hists[0] - lg)
-            hh = _interleave(lh, prev_hists[1] - lh)
-            hc = _interleave(lc, prev_hists[2] - lc)
+            with annotate("gbdt.hist"):
+                lg, lh, lc = _summed(_hists([nl // 2 for nl in node_local],
+                                            left_active, m // 2))
+                hg = _interleave(lg, prev_hists[0] - lg)
+                hh = _interleave(lh, prev_hists[1] - lh)
+                hc = _interleave(lc, prev_hists[2] - lc)
             # children of non-split nodes inherit garbage hists — mask them
             child_valid = torch.repeat_interleave(prev_apply, 2)
             parent_g = hg[:, 0].sum(-1)
@@ -490,8 +493,9 @@ def train_one_tree_sharded(bins, grad, hess, feature_mask: torch.Tensor,
         level_fmask = (torch.ones_like(feature_mask) if voting
                        else feature_mask)
 
-        gain, feat, thr, is_cat, words = _best_splits_for_level(
-            hg, hh, hc, level_fmask, cfg, parent_g, parent_h, parent_c)
+        with annotate("gbdt.split"):
+            gain, feat, thr, is_cat, words = _best_splits_for_level(
+                hg, hh, hc, level_fmask, cfg, parent_g, parent_h, parent_c)
         gain = torch.where(child_valid, gain, torch.full_like(gain, -torch.inf))
         prev_hists = (hg, hh, hc)
 
@@ -520,19 +524,21 @@ def train_one_tree_sharded(bins, grad, hess, feature_mask: torch.Tensor,
         # every position advances its rows whose node split: one per-row
         # gather of the node's (feature, threshold, applied) and of the
         # row's bin in that feature
-        for p in range(n_pos):
-            d = devs[p]
-            feat_p, thr_p, apply_p = feat.to(d), thr.to(d), apply.to(d)
-            nl = node_local[p].clamp(0, m - 1)
-            row_feat = feat_p.to(torch.int64)[nl]
-            row_bin = bins[p].gather(1, row_feat[:, None])[:, 0].to(i32)
-            go_left = row_bin <= thr_p[nl]
-            if w16:
-                go_left = _cat_go_left(go_left, row_bin, nl, is_cat.to(d),
-                                       words.to(d))
-            nr = node_of_row[p]
-            child = torch.where(go_left, 2 * nr + 1, 2 * nr + 2)
-            node_of_row[p] = torch.where(active[p] & apply_p[nl], child, nr)
+        with annotate("gbdt.route"):
+            for p in range(n_pos):
+                d = devs[p]
+                feat_p, thr_p, apply_p = feat.to(d), thr.to(d), apply.to(d)
+                nl = node_local[p].clamp(0, m - 1)
+                row_feat = feat_p.to(torch.int64)[nl]
+                row_bin = bins[p].gather(1, row_feat[:, None])[:, 0].to(i32)
+                go_left = row_bin <= thr_p[nl]
+                if w16:
+                    go_left = _cat_go_left(go_left, row_bin, nl,
+                                           is_cat.to(d), words.to(d))
+                nr = node_of_row[p]
+                child = torch.where(go_left, 2 * nr + 1, 2 * nr + 2)
+                node_of_row[p] = torch.where(active[p] & apply_p[nl], child,
+                                             nr)
 
     # leaf values from resting nodes (shrinkage applied here, like LightGBM)
     if fixed_order:

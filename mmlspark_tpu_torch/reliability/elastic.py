@@ -27,10 +27,11 @@ A slow host loses its chunks (`telemetry.goodput.StragglerDetector` ->
    the committed manifest.
 
 Each verdict, plan and resume is an event (`train.host.dead`,
-`elastic.plan`, `elastic.resume`) handed to a `tracer` (`.event(name,
-**attrs)`) and appended to a run `ledger` (`.append_event(name,
-**attrs)`) where the caller gives one; the port's tracer and run ledger
-are ROADMAP Queue 1 item 23. `faults=None` injects nothing.
+`elastic.plan`, `elastic.resume`) handed to the `tracer` given
+(`.event(name, **attrs)`), else the process tracer, and appended to a
+run `ledger` (`.append_event(name, **attrs)`, e.g.
+`telemetry.lineage.RunLedger`) where the caller gives one.
+`faults=None` injects nothing.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ import os
 import time
 from typing import Optional, Sequence
 
+from ..telemetry.spans import get_tracer
 from ..utils.checkpoint import CheckpointManager, _fsync_path
 from . import names as tnames
 from .faults import FaultInjector, InjectedFault
@@ -49,10 +51,9 @@ logger = logging.getLogger(__name__)
 
 
 def _journal(tracer, ledger, event: str, **attrs) -> None:
-    """Hand an event to the tracer and the run ledger that were given
-    (a failing journal never affects control)."""
-    if tracer is not None:
-        tracer.event(event, **attrs)
+    """Hand an event to the tracer given (else the process tracer) and to
+    the run ledger given (a failing journal never affects control)."""
+    (tracer if tracer is not None else get_tracer()).event(event, **attrs)
     if ledger is not None:
         try:
             ledger.append_event(event, **attrs)

@@ -3,8 +3,8 @@
 A copy of `RetryPolicy` and what it needs (`Deadline`, `RetryBudget`,
 `Attempt`) from the reference's `reliability/policy.py:40-242`, which
 imports no JAX. `TrainingSupervisor` bounds its in-run step restarts with
-it. The reference's `CircuitBreaker` belongs to the serving glue (ROADMAP
-Queue 1 item 23).
+it. The reference's `CircuitBreaker` belongs to the HTTP client glue
+(ROADMAP Queue 1 item 27).
 
 - `RetryPolicy.attempts()` is the loop: yields `Attempt`s, sleeps jittered
   exponential backoff between them, stops on attempt count, overall

@@ -27,7 +27,14 @@ whose pending chunks the `chunk_planner` (`data.ChunkPlanner`) drains,
 and `host_leases` (`reliability.elastic.HostLeases`) declares silent
 hosts dead, which the `elastic` plan (`ElasticPlan.shrink`) acts on (or,
 without one, the planner's `remove_hosts`). None of these may kill the
-training loop. The spans and trace annotations are telemetry (item 23).
+training loop.
+
+Telemetry as the reference's: a `train.step` span per step attempt
+(covering its fault site), a `checkpoint.write` span per write attempt,
+`train.resume` / `train.restart` / `train.preempted` events, and the
+`train.step` region (`utils.tracing.annotate`) around each step function
+call, on the thread that runs it: captured profiles attribute the step's
+kernels to it and the roofline ledger gets a `train.step` row.
 """
 from __future__ import annotations
 
@@ -41,6 +48,8 @@ from typing import TYPE_CHECKING, Callable, Optional, Sequence
 
 import numpy as np
 
+from ..telemetry.spans import get_tracer
+from ..utils.tracing import annotate
 from . import names as tnames
 from .faults import FaultInjector, InjectedFault
 from .metrics import reliability_metrics
@@ -181,11 +190,20 @@ class AsyncCheckpointWriter:
     def _write(self, step: int, payload: dict, prune_newer: bool,
                absorb: bool) -> None:
         t0 = time.perf_counter()
+        # lifecycle span (sync finals and async writer-thread writes
+        # alike): every write attempt with its outcome
+        span = get_tracer().start_span(
+            tnames.CHECKPOINT_WRITE_SPAN,
+            attrs={"step": step, "sync": not absorb})
         try:
             if self.faults is not None:
                 self.faults.perturb("train.ckpt.write")
             self.manager.save(step, payload, prune_newer=prune_newer)
+            if span is not None:
+                span.finish(ok=True)
         except Exception as e:  # noqa: BLE001 - async writes must not kill training
+            if span is not None:
+                span.finish(ok=False, error=type(e).__name__)
             self.metrics.inc(tnames.CHECKPOINT_WRITE_ERRORS)
             logger.warning("checkpoint write for step %d failed (%s: %s)",
                            step, type(e).__name__, e)
@@ -305,6 +323,7 @@ class TrainingSupervisor:
         self.resumed_step = step
         self.metrics.inc(tnames.TRAIN_RESUMES)
         self.metrics.set_gauge(tnames.TRAIN_RESUME_STEP, step)
+        get_tracer().event(tnames.TRAIN_RESUME_EVENT, step=step)
         logger.info("resumed training from checkpoint step %d", step)
         return step
 
@@ -334,9 +353,13 @@ class TrainingSupervisor:
                 if self._preempt is not None:
                     self._preempted(step, results, exit_on_preempt)
                 try:
-                    # the clock wraps the fault site too: a failed
-                    # attempt's wall books as lost
-                    with self.clock.step(step):
+                    # the step span covers the fault site too, so an
+                    # injected failure records error=<type> on ITS step;
+                    # the clock wraps both: a failed attempt's wall books
+                    # as lost
+                    with self.clock.step(step), \
+                            get_tracer().span(tnames.TRAIN_STEP_SPAN,
+                                              step=step):
                         if self.faults is not None:
                             t_fault = time.perf_counter()
                             fault = self.faults.perturb(f"train.step{step}")
@@ -380,12 +403,14 @@ class TrainingSupervisor:
 
     def _call_step(self, step_fn, step: int):
         if self.step_timeout is None:
-            return step_fn(step)
+            with annotate("train.step"):
+                return step_fn(step)
         box: dict = {}
 
         def target():
             try:
-                box["out"] = step_fn(step)
+                with annotate("train.step"):
+                    box["out"] = step_fn(step)
             except BaseException as e:  # noqa: BLE001 - re-raised below
                 box["err"] = e
 
@@ -419,6 +444,8 @@ class TrainingSupervisor:
         # everything since that snapshot re-executes: its wall is lost
         self.clock.rewound()
         self.metrics.inc(tnames.TRAIN_STEP_RESTARTS)
+        get_tracer().event(tnames.TRAIN_RESTART_EVENT, step=last_step,
+                           error=type(err).__name__)
         logger.warning("training step failed (%s: %s); restarting from "
                        "snapshot step %d", type(err).__name__, err, last_step)
         self.restore_fn({k: v for k, v in payload.items()
@@ -538,6 +565,8 @@ class TrainingSupervisor:
         self.clock.publish()
         if preempted:
             self.metrics.inc(tnames.TRAIN_PREEMPTED)
+            get_tracer().event(tnames.TRAIN_PREEMPTED_EVENT, step=step,
+                               signum=self._preempt)
             self._beat(step)
         else:
             self._beat(None)   # clean finish: the next start is fresh

@@ -1,18 +1,19 @@
 """Telemetry of the port: request spans (`spans`), windowed metric views
 (`window`), Prometheus/JSON exposition and the fleet scrape
-(`exposition`), the plan-build log (`perf`), model versions, canary
+(`exposition`), the plan-build log, first-call analysis, resource gauges
+and flight recorder (`perf`), device-profile captures with per-region
+kernel time and the roofline ledger (`profiler`), model versions, canary
 comparisons and the fleet's rollout skew (`lineage`), the model quality
-tap (`quality`: the fit-time profile and its serving half),
-the SLO engine (`slo`: objectives, burn-rate verdicts and their fleet
-merge), the live regression watcher (`watch`), and the training side's
-goodput clock and straggler detector (`goodput`).
+tap (`quality`: the fit-time profile and its serving half), the SLO
+engine (`slo`: objectives, burn-rate verdicts and their fleet merge), the
+live regression watcher (`watch`), and the training side's goodput clock
+and straggler detector (`goodput`).
 
 Ports of the reference's `telemetry/` modules, which import no JAX. The
 reference's poller and trainer scrape surface (`poller.py`,
-`ExpositionServer`, `expose_trainer`) are ROADMAP Queue 1 item 27; its
-profile sessions, flight recorder and XLA analysis (`profiler.py`, the
-rest of `perf.py`) item 23. Those names raise NotImplementedError naming
-their item.
+`ExpositionServer`, `expose_trainer`, which also serves the process
+index of a multi-process trainer) are ROADMAP Queue 1 item 27: those
+names raise NotImplementedError naming their item.
 """
 from .goodput import PHASES, StepClock, StragglerDetector, peak_flops_from_env
 from .spans import (CAPACITY_ENV, REQUEST_ID_HEADER, SAMPLE_ENV, Span,
@@ -44,6 +45,18 @@ _LAZY_NAMES = {
     "record_label": "quality",
     "CompileLog": "perf", "record_plan_compile": "perf",
     "get_compile_log": "perf", "compile_stats": "perf",
+    "FlightRecorder": "perf", "AotCache": "perf",
+    "collective_traffic": "perf", "compile_with_analysis": "perf",
+    "executable_analysis": "perf", "hbm_utilization": "perf",
+    "sample_resource_gauges": "perf", "sample_resource_stats": "perf",
+    "get_flight_recorder": "perf", "configure_flight_recorder": "perf",
+    "trigger_bundle": "perf",
+    "ProfileSession": "profiler", "RooflineLedger": "profiler",
+    "get_profile_session": "profiler",
+    "configure_profile_session": "profiler",
+    "capture_profile": "profiler", "parse_trace": "profiler",
+    "get_roofline": "profiler", "resolve_peaks": "profiler",
+    "flops_from_compile_log": "goodput",
     "Objective": "slo", "SLOEngine": "slo", "default_objectives": "slo",
     "merge_verdicts": "slo", "trainer_objectives": "slo",
     "quality_objectives": "slo", "canary_objectives": "slo",
@@ -54,19 +67,8 @@ _LAZY_NAMES = {
 }
 
 # the reference's names not ported yet -> their ROADMAP Queue 1 item
-_NOT_PORTED = {
-    **{n: "27" for n in (
-        "TelemetryPoller", "ExpositionServer", "expose_trainer")},
-    **{n: "23" for n in (
-        "FlightRecorder", "AotCache", "collective_traffic",
-        "compile_with_analysis", "executable_analysis", "hbm_utilization",
-        "sample_resource_gauges", "sample_resource_stats",
-        "get_flight_recorder", "configure_flight_recorder",
-        "trigger_bundle", "ProfileSession", "RooflineLedger",
-        "get_profile_session", "configure_profile_session",
-        "capture_profile", "parse_trace", "get_roofline", "resolve_peaks",
-        "flops_from_compile_log")},
-}
+_NOT_PORTED = {n: "27" for n in (
+    "TelemetryPoller", "ExpositionServer", "expose_trainer")}
 
 
 def __getattr__(name):

@@ -11,9 +11,14 @@ Port of the serving half of the reference's `telemetry/exposition.py`
   same text in either package.
 - `metrics_http_response(path)` — the handler body of `ServingServer`'s
   exposition GETs (`/metrics`, `/metrics.json[?window=N]`, `/slo`,
-  `/quality`, `/versions`). `/debug/bundle` and `/debug/profile` need
-  the flight recorder and the profile session (ROADMAP Queue 1 item 23):
-  they answer 501 with a JSON error naming the item.
+  `/quality`, `/versions`, `/debug/bundle`, `/debug/profile?ms=N`).
+  `/debug/bundle` dumps a flight-recorder bundle (`telemetry.perf`):
+  503 when no bundle dir is configured, 429 when the rate limit
+  suppressed it, 500 when the write failed, else 200 with the manifest.
+  `/debug/profile` captures a device profile for N ms
+  (`telemetry.profiler`): 400 for a malformed ms, then 503, 429, 500 and
+  200 as the bundle does. Every metrics scrape samples the resource
+  gauges (device and host memory) first.
 - `merge_states` / `state_snapshot` — the exact cross-process merge:
   counters and timings sum, histogram buckets sum elementwise and
   percentiles are recomputed from the merged buckets, never averaged.
@@ -37,10 +42,6 @@ from typing import NamedTuple, Optional
 
 from ..reliability.metrics import (Histogram, histogram_bounds_ms,
                                    reliability_metrics)
-
-# the exposition paths this port does not answer yet: path -> (item, what)
-_NOT_PORTED = {"/debug/bundle": ("23", "the flight recorder"),
-               "/debug/profile": ("23", "the profile session")}
 
 _LEFT_OUT = {"ExpositionServer": "27", "expose_trainer": "27"}
 
@@ -215,20 +216,14 @@ def _parse_window(path: str):
 def metrics_http_response(path: str, registry=None) -> tuple:
     """(status, payload_bytes, content_type) for the exposition GETs —
     `/metrics`, `/metrics.json[?window=N]`, `/slo`, `/quality`,
-    `/versions` — the handler body `ServingServer` mounts on both
-    transports. `/debug/bundle` and `/debug/profile` answer 501 with a
-    JSON error naming the ROADMAP item that ports them."""
+    `/versions`, `/debug/bundle`, `/debug/profile?ms=N` — the handler
+    body `ServingServer` mounts on both transports."""
     reg = registry if registry is not None else reliability_metrics
     try:
         base, window_s = _parse_window(path)
     except ValueError as e:
         return 400, json.dumps({"error": str(e)}).encode(), \
             "application/json"
-    if base in _NOT_PORTED:
-        item, what = _NOT_PORTED[base]
-        return 501, json.dumps(
-            {"error": f"{base} needs {what}, not ported yet (ROADMAP "
-                      f"Queue 1 item {item})"}).encode(), "application/json"
     if base in ("/slo", "/metrics", "/metrics.json"):
         # model-quality gauges refresh right before any read that could
         # consume them: the drift gauges a /slo quality objective reads
@@ -259,6 +254,19 @@ def metrics_http_response(path: str, registry=None) -> tuple:
         from .slo import get_engine
         return 200, json.dumps(get_engine().verdict()).encode(), \
             "application/json"
+    if base == "/debug/bundle":
+        return _bundle_response()
+    if base == "/debug/profile":
+        return _profile_response(path)
+    # every metrics scrape carries a FRESH memory sample: the card's
+    # allocator and free bytes and the host RSS land in gauges right
+    # before export (guarded: a broken backend loses gauges, never the
+    # scrape)
+    try:
+        from .perf import sample_resource_gauges
+        sample_resource_gauges(reg)
+    except Exception:  # noqa: BLE001
+        pass
     if base == "/metrics.json":
         return 200, \
             json.dumps(reg.export_state(window_s=window_s)).encode(), \
@@ -275,6 +283,76 @@ def metrics_http_response(path: str, registry=None) -> tuple:
         return 200, (text + "# EOF\n").encode(), OPENMETRICS_CONTENT_TYPE
     return 200, render_prometheus(reg, windows=windows).encode(), \
         PROM_CONTENT_TYPE
+
+
+def _bundle_response() -> tuple:
+    """GET /debug/bundle: dump a flight-recorder bundle on demand. 503
+    when no bundle dir is configured, 429 when the rate limit suppressed
+    the dump (a scrape loop must not turn the debug endpoint into a disk
+    filler), 500 when the write failed, else the bundle manifest."""
+    from .perf import get_flight_recorder
+    rec = get_flight_recorder()
+    if not rec.enabled:
+        return 503, json.dumps(
+            {"error": "flight recorder disabled — set "
+                      "MMLSPARK_TPU_BUNDLE_DIR or "
+                      "telemetry.perf.configure_flight_recorder("
+                      "bundle_dir=...)"}).encode(), "application/json"
+    try:
+        manifest = rec.dump("on-demand")
+    except Exception as e:  # noqa: BLE001 - a 500 beats a dropped scrape
+        return 500, json.dumps(
+            {"error": f"bundle write failed: {e}"}).encode(), \
+            "application/json"
+    if manifest is None:
+        return 429, json.dumps(
+            {"error": "bundle suppressed by rate limit",
+             "min_interval_s": rec.min_interval_s}).encode(), \
+            "application/json"
+    return 200, json.dumps(manifest).encode(), "application/json"
+
+
+def _profile_response(path: str) -> tuple:
+    """GET /debug/profile?ms=N: capture a device profile for N ms and
+    answer the parsed manifest (per-op table + region rollup). Same
+    contract as /debug/bundle: 503 when no profile dir is configured,
+    429 when the rate limit (or another capture running) suppressed it,
+    500 (with the slot rolled back and the partial dir removed) on a
+    failed capture; a malformed ms answers 400. The capture blocks the
+    handler for N ms: ms is clamped to the session's max_ms, and the rate
+    limit keeps a scrape loop from turning the endpoint into a profiler
+    DoS."""
+    from .profiler import get_profile_session
+    query = path.partition("?")[2]
+    values = urllib.parse.parse_qs(query).get("ms")
+    ms = None
+    if values:
+        try:
+            ms = float(values[-1])
+        except ValueError:
+            ms = float("nan")
+        if not (ms > 0.0):   # NaN fails too -> 400, like ?window=
+            return 400, json.dumps(
+                {"error": f"ms must be > 0, got {values[-1]!r}"}).encode(), \
+                "application/json"
+    session = get_profile_session()
+    if not session.enabled:
+        return 503, json.dumps(
+            {"error": "profiling disabled — set MMLSPARK_TPU_PROFILE_DIR "
+                      "or telemetry.profiler.configure_profile_session("
+                      "profile_dir=...)"}).encode(), "application/json"
+    try:
+        manifest = session.capture(ms=ms, reason="on-demand")
+    except Exception as e:  # noqa: BLE001 - a 500 beats a dropped scrape
+        return 500, json.dumps(
+            {"error": f"profile capture failed: {e}"}).encode(), \
+            "application/json"
+    if manifest is None:
+        return 429, json.dumps(
+            {"error": "profile suppressed by rate limit",
+             "min_interval_s": session.min_interval_s}).encode(), \
+            "application/json"
+    return 200, json.dumps(manifest).encode(), "application/json"
 
 
 # ---------------------------------------------------------------- merging

@@ -26,8 +26,15 @@ their windowed step p50s through the `parallel.cluster.Heartbeat` files
 (`beat(epoch, stats=clock.beat_stats())`); each reads every peer's file
 on its own beat, takes the fleet median, and flags processes whose p50
 exceeds `threshold` x the median, with the `train.stragglers` gauge and
-a `train.straggler` event on the flag transition (given a `tracer`; the
-tracer is ROADMAP Queue 1 item 23).
+a `train.straggler` event on the flag transition (to the given `tracer`,
+else the process tracer). A process newly flagged itself captures one
+device profile (`profile_on_flag`, `telemetry.profiler`; rate-limited by
+the session's own slot, a no-op until a profile dir is configured).
+
+A clock installs itself as the process default (`install_clock`):
+`default_snapshot()` is what a flight bundle's goodput.json holds.
+`flops_from_compile_log` reads a step's flops from the newest compile
+record that reported them (`telemetry.perf`'s first-call analysis).
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from typing import Callable, Optional
 
 from ..reliability import names as tnames
 from ..reliability.metrics import reliability_metrics
+from .spans import get_tracer
 
 PHASES = ("data_wait", "host", "device", "checkpoint", "lost")
 
@@ -47,6 +55,22 @@ PHASES = ("data_wait", "host", "device", "checkpoint", "lost")
 # 989 for the H100's dense bf16 tensor cores). Unset -> MFU degrades to
 # absent, never a guessed denominator.
 PEAK_TFLOPS_ENV = "MMLSPARK_TPU_PEAK_TFLOPS"
+
+
+def flops_from_compile_log(fingerprint_prefix: str, log=None
+                           ) -> Optional[float]:
+    """Per-step flops from the newest compile record whose fingerprint
+    starts with `fingerprint_prefix` and carries a `flops` analysis; None
+    when no matching record reported flops (MFU is then absent)."""
+    from .perf import get_compile_log
+    records = (log if log is not None else get_compile_log()).records()
+    for rec in reversed(records):
+        if not str(rec.get("fingerprint", "")).startswith(fingerprint_prefix):
+            continue
+        flops = (rec.get("analysis") or {}).get("flops")
+        if isinstance(flops, (int, float)) and flops > 0:
+            return float(flops)
+    return None
 
 
 def peak_flops_from_env() -> Optional[float]:
@@ -77,7 +101,7 @@ class StepClock:
 
     def __init__(self, registry=None, flops_per_step: Optional[float] = None,
                  peak_flops: Optional[float] = None,
-                 recent_steps: int = 64):
+                 recent_steps: int = 64, install: bool = True):
         self._metrics = registry if registry is not None \
             else reliability_metrics
         self.flops_per_step = flops_per_step
@@ -94,6 +118,8 @@ class StepClock:
         self._in_step = False
         self._step_notes: dict = {}
         self._recent: deque = deque(maxlen=max(int(recent_steps), 4))
+        if install:
+            install_clock(self)
 
     # -- collaborator notes ---------------------------------------------------
     def note(self, phase: str, seconds: float) -> None:
@@ -311,9 +337,9 @@ class StragglerDetector:
         self._metrics = registry if registry is not None \
             else reliability_metrics
         self._tracer = tracer
-        # the reference captures a device profile when THIS process is
-        # newly flagged; profiles are ROADMAP Queue 1 item 23, so the
-        # flag is kept and nothing is captured
+        # THIS process newly flagged -> one triggered device-profile
+        # capture of the very steps that straggle (rate-limited by the
+        # session's own slot; absorbed)
         self.profile_on_flag = bool(profile_on_flag)
         self._flagged: set = set()
 
@@ -345,14 +371,55 @@ class StragglerDetector:
             for pid, p50 in p50s
             if median > 0.0 and p50 > self.threshold * median]
         now_flagged = {s["process_id"] for s in stragglers}
-        if self._tracer is not None:
-            for s in stragglers:
-                if s["process_id"] not in self._flagged:
-                    self._tracer.event(
-                        tnames.TRAIN_STRAGGLER_EVENT, host=s["process_id"],
-                        step_p50_ms=round(s["step_p50_ms"], 3),
-                        fleet_p50_ms=round(s["fleet_p50_ms"], 3),
-                        threshold=self.threshold)
+        tracer = self._tracer if self._tracer is not None else get_tracer()
+        for s in stragglers:
+            if s["process_id"] not in self._flagged:
+                tracer.event(tnames.TRAIN_STRAGGLER_EVENT,
+                             host=s["process_id"],
+                             step_p50_ms=round(s["step_p50_ms"], 3),
+                             fleet_p50_ms=round(s["fleet_p50_ms"], 3),
+                             threshold=self.threshold)
+        own = getattr(self.heartbeat, "process_id", None)
+        capture_self = (self.profile_on_flag and own is not None
+                        and own in now_flagged and own not in self._flagged)
         self._flagged = now_flagged
         self._metrics.set_gauge(tnames.TRAIN_STRAGGLERS, len(now_flagged))
+        if capture_self:
+            # after the train.straggler event: the capture's
+            # telemetry.profile event follows it in the span log
+            try:
+                from .profiler import get_profile_session
+                get_profile_session().capture(reason="straggler")
+            except Exception:  # noqa: BLE001 - detection must not raise
+                pass
         return stragglers
+
+
+# The process-default clock: what the flight recorder's goodput.json reads
+# when nobody handed it a clock. Last installed wins.
+_default_clock: Optional[StepClock] = None
+_default_lock = threading.Lock()
+
+
+def install_clock(clock: StepClock) -> StepClock:
+    global _default_clock
+    with _default_lock:
+        _default_clock = clock
+    return clock
+
+
+def get_clock() -> Optional[StepClock]:
+    with _default_lock:
+        return _default_clock
+
+
+def default_snapshot() -> dict:
+    """The installed clock's snapshot, or {}: safe from any context (the
+    flight recorder calls this mid-dump)."""
+    clock = get_clock()
+    if clock is None:
+        return {}
+    try:
+        return clock.snapshot()
+    except Exception:  # noqa: BLE001 - a bundle without goodput beats none
+        return {}

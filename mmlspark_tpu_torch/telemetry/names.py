@@ -9,7 +9,8 @@ partition workers, the plan cache, hot-swap, the service registry), the
 fleet workloads (isolation forest, SAR), its compile log, the
 model-quality tap, the version registry's canary gauges, the online
 learning loop, the control plane (rollout, admission, routing, scaling),
-the telemetry watcher and the tracer's spans and events. `reliability/names.py` re-exports this module, so the
+the telemetry watcher, the flight recorder, the profile session and its
+roofline gauges, the resource gauges and the tracer's spans and events. `reliability/names.py` re-exports this module, so the
 names its callers import there are these.
 
 Dotted `subsystem.signal[.detail]`, lowercase; a patterned name carries a
@@ -33,6 +34,8 @@ SERVING_MODEL_SWAPS = "serving.model.swaps"
 SERVING_MODEL_SWAP_ERRORS = "serving.model.swap_errors"
 PLAN_COMPILES = "plan.compiles"
 PLAN_RECOMPILES = "plan.recompiles"
+PLAN_COLLECTIVE_OPS = "plan.collective_ops"
+PLAN_COLLECTIVE_BYTES = "plan.collective_bytes"
 QUALITY_LABELS_JOINED = "quality.labels.joined"
 QUALITY_LABELS_LATE = "quality.labels.late"
 QUALITY_LABELS_DUP = "quality.labels.dup"
@@ -100,6 +103,16 @@ CONTROL_SCALER_SPAWNS = "control.scaler.spawns"
 CONTROL_SCALER_DRAINS = "control.scaler.drains"
 TELEMETRY_WATCH_TRIPS = "telemetry.watch.trips"
 
+# the flight recorder and the profile session
+TELEMETRY_BUNDLE_DUMPS = "telemetry.bundle.dumps"
+TELEMETRY_BUNDLE_SUPPRESSED = "telemetry.bundle.suppressed"
+TELEMETRY_PROFILE_CAPTURES = "telemetry.profile.captures"
+TELEMETRY_PROFILE_SUPPRESSED = "telemetry.profile.suppressed"
+TELEMETRY_PROFILE_STAMP_ERRORS = "telemetry.profile.stamp_errors"
+# the port's own: captures refused because another torch.profiler of the
+# process was running (one profiler at a time)
+TELEMETRY_PROFILE_BUSY = "telemetry.profile.busy"
+
 # -------------------------------------------------------------------- gauges
 SERVING_QUEUE_DEPTH = "serving.queue_depth"
 SERVING_BATCH_OCCUPANCY = "serving.batch.occupancy"
@@ -129,6 +142,14 @@ WORKLOADS_SAR_CATALOG_ITEMS = "workloads.sar.catalog.items"
 ONLINE_BUFFER_PAIRS = "online.buffer.pairs"
 CONTROL_ROLLOUT_FRACTION = "control.rollout.fraction"
 TELEMETRY_WATCH_TRIPPED = "telemetry.watch.tripped"
+# resident level-invariant one-hot plane bytes built for the current fit
+# (MMLSPARK_TPU_HIST=planes)
+GBDT_HIST_PLAN_BYTES = "gbdt.hist.plan.bytes"
+# bytes in use summed over local devices (absent where the allocator has
+# no device), their peak, and the host process's resident set size
+DEVICE_MEM_BYTES_IN_USE = "device.mem.bytes_in_use"
+DEVICE_MEM_PEAK_BYTES = "device.mem.peak_bytes"
+HOST_RSS_BYTES = "host.rss_bytes"
 
 # ------------------------------------------------------------ histograms (ms)
 SERVING_REQUEST_QUEUE = "serving.request.queue"
@@ -157,6 +178,9 @@ SERVING_PARTITION_TRANSFORM_SPAN = "serving.partition.transform"
 SERVING_PLAN_RUN_SPAN = "serving.plan.run"
 PLAN_COMPILE_SPAN = "plan.compile"
 DEVICE_PROFILE_SPAN = "device.profile"
+TRAIN_STEP_SPAN = "train.step"
+CHECKPOINT_WRITE_SPAN = "checkpoint.write"
+DATA_PREFETCH_SPAN = "data.prefetch"
 
 # -------------------------------------------------------------------- events
 FAULT_INJECTED_EVENT = "fault.injected"
@@ -167,6 +191,11 @@ TRAIN_HOST_DEAD_EVENT = "train.host.dead"
 ELASTIC_PLAN_EVENT = "elastic.plan"
 ELASTIC_RESUME_EVENT = "elastic.resume"
 TELEMETRY_WATCH_TRIP_EVENT = "telemetry.watch.trip"
+TELEMETRY_BUNDLE_EVENT = "telemetry.bundle"
+TELEMETRY_PROFILE_EVENT = "telemetry.profile"
+TRAIN_RESUME_EVENT = "train.resume"
+TRAIN_RESTART_EVENT = "train.restart"
+TRAIN_PREEMPTED_EVENT = "train.preempted"
 CONTROL_ROLLOUT_DEPLOY_EVENT = "control.rollout.deploy"
 CONTROL_ROLLOUT_STEP_EVENT = "control.rollout.step"
 CONTROL_ROLLOUT_BURN_EVENT = "control.rollout.burn"
@@ -194,6 +223,26 @@ def data_pool_maps(mode: str) -> str:
 def data_pool_map_timing(mode: str) -> str:
     """data.pool.map[{mode}] — per-backend map wall-clock label."""
     return f"data.pool.map[{mode}]"
+
+
+def device_mem_in_use(ordinal: int) -> str:
+    """device{ordinal}.mem.bytes_in_use — per-device in-use gauge."""
+    return f"device{ordinal}.mem.bytes_in_use"
+
+
+def device_mem_peak(ordinal: int) -> str:
+    """device{ordinal}.mem.peak_bytes — per-device peak gauge."""
+    return f"device{ordinal}.mem.peak_bytes"
+
+
+def op_hbm_util(region: str) -> str:
+    """op.{region}.hbm_util — per-region roofline HBM utilization."""
+    return f"op.{region}.hbm_util"
+
+
+def op_flops_util(region: str) -> str:
+    """op.{region}.flops_util — per-region roofline FLOPs utilization."""
+    return f"op.{region}.flops_util"
 
 
 def quality_drift(col: str) -> str:

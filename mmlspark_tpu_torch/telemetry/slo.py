@@ -2,10 +2,10 @@
 verdicts.
 
 Port of the reference's `telemetry/slo.py` (host Python; the same
-objectives over the same windowed registry give the same verdicts). The
-reference notifies its flight recorder on every verdict; the flight
-recorder is ROADMAP Queue 1 item 23, so this engine notifies nothing and
-`verdict()` takes no `notify` switch until that item brings it back.
+objectives over the same windowed registry give the same verdicts).
+Every verdict notifies the process flight recorder (`telemetry.perf`),
+so an ok -> burning transition dumps one debug bundle; `verdict(
+notify=False)` is for readers that must not re-trigger it.
 
 An SLO turns a latency histogram into a yes/no question a control plane
 can act on: "p99 of `serving.request.e2e` under 250 ms over the last
@@ -214,11 +214,16 @@ class SLOEngine:
         return {"window_s": window_s, "errors": err_n,
                 "total": total.window.total(window_s)}
 
-    def verdict(self) -> dict:
+    def verdict(self, notify: bool = True) -> dict:
         """The per-worker SLO verdict: every objective with per-window
         counts (mergeable), rates, burn rates, and the ok/burning flags.
         `ok` is the short window within budget; `burning` is EVERY
-        window over budget (sustained burn)."""
+        window over budget (sustained burn).
+
+        Every evaluation notifies the flight recorder so an ok->burning
+        TRANSITION dumps a debug bundle at the moment of distress;
+        `notify=False` is for readers that must not re-trigger it (the
+        recorder itself, capturing the verdict for its bundle)."""
         out = []
         for obj in self.objectives:
             windows = []
@@ -238,9 +243,15 @@ class SLOEngine:
                   "ok": all(o["ok"] for o in out),
                   "burning": any(o["burning"] for o in out),
                   "workers": 1}
-        # the reference notifies its flight recorder here (an ok ->
-        # burning transition dumps a debug bundle); the flight recorder is
-        # ROADMAP Queue 1 item 23
+        if notify:
+            # lazy and guarded: the verdict must render even if the
+            # recorder (or its disk) is broken, and a disabled recorder
+            # costs one attribute read
+            try:
+                from .perf import get_flight_recorder
+                get_flight_recorder().on_verdict(result)
+            except Exception:  # noqa: BLE001
+                pass
         return result
 
 

@@ -14,11 +14,11 @@ Port of the reference's `telemetry/watch.py` (host Python):
   series, so tests drive it deterministically without threads or
   sleeps). A rule's False->True transition emits a `telemetry.watch.trip`
   event and counts `telemetry.watch.trips`; the `telemetry.watch.tripped`
-  gauge holds the number of currently-tripped rules. The reference also
-  notifies its flight recorder on each trip and recovery; the flight
-  recorder is ROADMAP Queue 1 item 23, so the port notifies only a
-  `recorder` its caller passes in. The reference's `TelemetryPoller` is
-  item 27: pass a poller-like object with `series(key)`, or `series=`.
+  gauge holds the number of currently-tripped rules. Each trip and
+  recovery also notifies a flight recorder: the `recorder` its caller
+  passes in, else the process one (`telemetry.perf`), with a latch of
+  its own per rule. The reference's `TelemetryPoller` is item 27: pass a
+  poller-like object with `series(key)`, or `series=`.
 - Optional background cadence: `start(interval_s)` runs `check()` on a
   daemon thread (Event.wait is the sleep AND the stop signal); `stop()`
   joins it.
@@ -138,10 +138,15 @@ class TelemetryWatcher:
             self._metrics.set_gauge(tnames.TELEMETRY_WATCH_TRIPPED,
                                     now_tripped)
         # the recorder is a non-SLO flight source: each rule gets its own
-        # latch (source="watch:<key>"), trips arm it, recoveries re-arm.
-        # The reference falls back to its process flight recorder, which
-        # is ROADMAP Queue 1 item 23: only an injected recorder hears here
+        # latch (source="watch:<key>"), trips arm it, recoveries re-arm —
+        # a live regression leaves a bundle, not just an event line
         recorder = self._recorder
+        if recorder is None:
+            try:
+                from .perf import get_flight_recorder
+                recorder = get_flight_recorder()
+            except Exception:  # noqa: BLE001
+                recorder = None
         if recorder is not None:
             for breach in trips:
                 try:

@@ -4,35 +4,30 @@ Port of the reference's `utils/tracing.py` on `torch.profiler`:
 
 - `trace(log_dir)` captures a profile of the enclosed block (host ranges,
   and the card's kernels when a card is visible) and writes it under
-  `log_dir` as a Chrome/Perfetto trace (`*.pt.trace.json`, through
-  `torch.profiler.tensorboard_trace_handler`), inside a `device.profile`
-  span;
-- `annotate(name)` marks a named region (`torch.profiler.record_function`:
-  a range on a captured profile's timeline) and activates it for
-  plan-build records (`telemetry.perf`), as the reference's region does;
+  `log_dir` as a Chrome/Perfetto trace (`*.pt.trace.json`). It rests on
+  `telemetry.profiler.ProfileSession.session(force=True)`: the one
+  capture path of the triggered captures, with the same
+  `device.profile` span, `trace_context.json` stamp and per-op parse
+  feeding the roofline ledger. `create_perfetto_link=True` then serves
+  the trace on a localhost port and logs the `ui.perfetto.dev` link that
+  opens it (`telemetry.profiler.serve_perfetto_link`).
+- `annotate(name)` marks a named region: a `torch.profiler.record_function`
+  range on a captured profile's timeline, the region plan-build records
+  made inside are tagged with (`telemetry.profiler.current_region`), a
+  host-wall note into the roofline ledger on exit, and, while a capture
+  runs, the region's host interval for the parse. It adds no host
+  synchronisation.
 - `wall_clock(label, sink=, tracer=)` times a block on the host into a
   `(label, seconds)` sink, a telemetry span, or the console. The data
   plane times its staging and binning passes with it into
   `reliability.metrics.reliability_metrics.observe`.
-
-The reference's triggered profile sessions and their roofline ledger
-(`telemetry/profiler.py`) are ROADMAP Queue 1 item 23.
 """
 from __future__ import annotations
 
 import contextlib
-import contextvars
-import os
 import time
-from typing import Optional
 
-_region: contextvars.ContextVar = contextvars.ContextVar(
-    "mmlspark_tpu_torch_region", default=None)
-
-
-def current_region() -> Optional[str]:
-    """The innermost `annotate` region active on this thread, or None."""
-    return _region.get()
+from ..telemetry.profiler import current_region  # noqa: F401 (re-export)
 
 
 @contextlib.contextmanager
@@ -41,39 +36,36 @@ def trace(log_dir: str, create_perfetto_link: bool = False):
 
         with tracing.trace("/tmp/trace"):
             model.fit(table)
-    """
-    if create_perfetto_link:
-        raise NotImplementedError(
-            "utils.tracing.trace(create_perfetto_link=True), the "
-            "reference's Perfetto link, is not ported yet (ROADMAP Queue 1 "
-            "item 23)")
-    import torch
-    from torch.profiler import (ProfilerActivity, profile,
-                                tensorboard_trace_handler)
 
-    from ..telemetry import names as tnames
-    from ..telemetry.spans import get_tracer
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with get_tracer().span(tnames.DEVICE_PROFILE_SPAN, log_dir=log_dir):
-        with profile(activities=activities,
-                     on_trace_ready=tensorboard_trace_handler(log_dir)):
-            yield log_dir
+    Never rate-limited (force=True), and the caller owns `log_dir` (no
+    retention pruning). With `create_perfetto_link=True` the block's exit
+    waits until the trace has been fetched through the logged
+    `ui.perfetto.dev` link, or `telemetry.profiler.PERFETTO_TIMEOUT_S`
+    (120 s) has passed. Raises `telemetry.profiler.ProfilerBusy` while
+    another profiler of the process runs."""
+    from ..telemetry.profiler import get_profile_session
+    with get_profile_session().session(
+            reason="trace", log_dir=log_dir, force=True,
+            create_perfetto_link=create_perfetto_link):
+        yield log_dir
 
 
 @contextlib.contextmanager
 def annotate(name: str):
-    """Named region: a `torch.profiler.record_function` range, and the
-    region a plan build recorded inside it is tagged with."""
+    """Named region (module docstring): a `record_function` range, the
+    active region of build records, a host-wall note into the roofline
+    ledger, and the region's interval for a running capture."""
     import torch
-    token = _region.set(name)
+
+    from ..telemetry import profiler as _prof
+    t0 = time.perf_counter()
+    n0 = time.time_ns()
     try:
-        with torch.profiler.record_function(name):
+        with _prof.region(name), torch.profiler.record_function(name):
             yield
     finally:
-        _region.reset(token)
+        _prof.note_interval(name, n0, time.time_ns())
+        _prof.note_region(name, time.perf_counter() - t0)
 
 
 @contextlib.contextmanager

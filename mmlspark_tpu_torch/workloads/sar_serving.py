@@ -16,8 +16,10 @@ Port of the reference's `workloads/sar_serving.py`:
   user row (`ops.topk.top_k`: the lower item id first among ties). The
   partials accumulate in float64 and the sum is rounded once, so every
   mesh gives the same answer. The plan's product function is cached per
-  the reference's key (mesh, padded catalog, k); the reference's
-  `AotCache` behind it is ROADMAP Queue 1 item 23. `_serving_kernel`
+  the reference's key (mesh, padded catalog, k) as a `telemetry.perf.
+  AotCache`, as the reference's is: the first call per input signature
+  (a batch bucket) is timed and recorded into the compile log with its
+  analysis (`workloads.sar.recommend#<key>`). `_serving_kernel`
   marks itself `row_ids`, so `io/plan.py` buckets scalar user ids and
   answers `recommend?user=...` with `plan.recompiles` at 0.
 
@@ -29,6 +31,7 @@ item 24 and raises NotImplementedError.
 from __future__ import annotations
 
 import functools
+import hashlib
 
 import numpy as np
 import torch
@@ -41,6 +44,7 @@ from ..parallel import DATA_AXIS, data_mesh
 from ..recommendation.sar import SAR, SARModel, _fit_events, _scores64
 from ..reliability.metrics import reliability_metrics
 from ..telemetry import names as tnames
+from ..telemetry.perf import AotCache
 from .base import attach_workload_observability
 
 # ratings below this are masked slots (padded catalog columns or
@@ -62,14 +66,18 @@ def _mesh_tag(mesh) -> tuple:
             tuple(str(d) for d in mesh.devices.reshape(-1)))
 
 
+def _stable_tag(*parts) -> str:
+    return hashlib.sha1(repr(parts).encode()).hexdigest()[:10]
+
+
 @functools.lru_cache(maxsize=64)
 def _recommend_fn(mesh_tag: tuple, n_items_pad: int, k: int):
     """(A rows, S slices, penalty) -> (top-k items, top-k ratings) for a
-    mesh of `mesh_tag`'s devices: position p contracts item columns
-    [p * I/P, (p + 1) * I/P) of the affinity rows against its S rows on
-    its device, the partials are summed in position order on the first
-    position's device, rounded once to float32, and the penalty is
-    added before the top-k."""
+    mesh of `mesh_tag`'s devices, behind an `AotCache`: position p
+    contracts item columns [p * I/P, (p + 1) * I/P) of the affinity rows
+    against its S rows on its device, the partials are summed in position
+    order on the first position's device, rounded once to float32, and
+    the penalty is added before the top-k."""
     devices = [torch.device(d) for d in mesh_tag[1]]
     width = n_items_pad // len(devices)
 
@@ -82,7 +90,9 @@ def _recommend_fn(mesh_tag: tuple, n_items_pad: int, k: int):
         vals, idx = top_k(total.to(torch.float32) + pen, k)
         return idx, vals
 
-    return fn
+    return AotCache(fn, label="workloads.sar.recommend",
+                    fingerprint="workloads.sar.recommend#"
+                                f"{_stable_tag(mesh_tag, n_items_pad, k)}")
 
 
 class SARServing(SAR):

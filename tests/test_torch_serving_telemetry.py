@@ -19,9 +19,10 @@ tests they mirror (`tests/test_deployment_observability.py`): the
 two-digest version identity, the run ledger, a hot-swap under load that
 drops no request with every reply stamped `X-Model-Version`, a failed
 swap rolling back, and the exposition GETs: `/metrics`,
-`/metrics.json?window=`, `/quality` and `/versions` answer, `/slo`,
-`/debug/bundle` and `/debug/profile` answer 501 naming their ROADMAP
-items. No rate or latency floor is asserted.
+`/metrics.json?window=` (with the resource gauges sampled), `/quality`,
+`/versions` and `/slo` answer, and `/debug/bundle` and `/debug/profile`
+answer the reference's codes: 503 while disabled, then 200 and 429 under
+the rate limit. No rate or latency floor is asserted.
 """
 import copy
 import glob
@@ -132,7 +133,7 @@ def _get(url, timeout=10):
 # ------------------------------------------------------------------ names
 def test_names_are_the_reference_s():
     port_own = {"CLUSTER_EXCHANGES", "CLUSTER_EXCHANGE_BYTES",
-                "CLUSTER_EXCHANGE"}
+                "CLUSTER_EXCHANGE", "TELEMETRY_PROFILE_BUSY"}
     consts = {k: v for k, v in vars(names).items()
               if k.isupper() and isinstance(v, str)}
     assert len(consts) > 60
@@ -194,11 +195,13 @@ def test_exports_and_merges_equal_reference():
         w = ref_expo.metrics_http_response(path, registry=want)
         assert (g[0], g[2]) == (w[0], w[2]), path
         gj, wj = json.loads(g[1]), json.loads(w[1])
-        if "gauges" in wj:
-            # the reference samples host and device memory gauges on a
-            # scrape (telemetry/perf.py, ROADMAP Queue 1 item 23 here)
-            wj["gauges"] = {k: v for k, v in wj["gauges"].items()
-                            if not k.startswith(("host.", "device"))}
+        for j in (gj, wj):
+            # both sample the process's host and device memory gauges on a
+            # scrape (telemetry/perf.py): a process's own values, left out
+            # of the comparison
+            if "gauges" in j:
+                j["gauges"] = {k: v for k, v in j["gauges"].items()
+                               if not k.startswith(("host.", "device"))}
         assert gj == wj, path
 
 
@@ -539,7 +542,7 @@ def test_x_model_version_header_on_both_transports(running, transport):
 
 # ---------------------------------------------------- exposition over HTTP
 @pytest.mark.parametrize("transport", TRANSPORTS)
-def test_exposition_paths_answer(running, transport):
+def test_exposition_paths_answer(running, transport, tmp_path):
     model, x, _ = _fit(seed=0)
     transform = plan.compile_serving_transform(model, ["features"])
     server = serving.ServingServer(num_partitions=1,
@@ -556,6 +559,7 @@ def test_exposition_paths_answer(running, transport):
     state = json.loads(body)
     assert status == 200 and state["window_s"] == 30.0
     assert state["counters"]["serving.request.total"] == 5
+    assert state["gauges"][names.HOST_RSS_BYTES] > 0
     status, _, body = _get(server.address + "/quality")
     assert status == 200 and json.loads(body)["active"] is True
     status, _, body = _get(server.address + "/versions")
@@ -565,12 +569,33 @@ def test_exposition_paths_answer(running, transport):
     assert status == 400
     status, headers, body = _get(server.address + "/slo")
     assert status == 200 and "objectives" in json.loads(body)
-    for path, item in (("/debug/bundle", "item 23"),
-                       ("/debug/profile?ms=5", "item 23")):
+    from mmlspark_tpu_torch.telemetry import profiler
+    recorder = perf.get_flight_recorder()
+    session = profiler.get_profile_session()
+    assert not recorder.enabled and not session.enabled
+    for path, env in (("/debug/bundle", perf.BUNDLE_DIR_ENV),
+                      ("/debug/profile?ms=5", profiler.PROFILE_DIR_ENV)):
         status, headers, body = _get(server.address + path)
-        assert status == 501, path
+        assert status == 503, path
         assert headers["Content-Type"] == "application/json"
-        assert item in json.loads(body)["error"], (path, body)
+        assert env in json.loads(body)["error"], (path, body)
+    status, _, body = _get(server.address + "/debug/profile?ms=-1")
+    assert status == 400
+    recorder.configure(bundle_dir=str(tmp_path / "bundles"))
+    session.configure(profile_dir=str(tmp_path / "profiles"))
+    recorder._last_dump = session._last = None   # free rate-limit slots
+    try:
+        for path in ("/debug/bundle", "/debug/profile?ms=5"):
+            status, _, body = _get(server.address + path)
+            assert status == 200, (path, body)
+            assert json.loads(body)["path"].startswith(str(tmp_path))
+            status, _, body = _get(server.address + path)
+            assert status == 429, (path, body)
+            assert json.loads(body)["min_interval_s"] == 60.0
+    finally:
+        recorder.configure(bundle_dir="")
+        session.configure(profile_dir="")
+        recorder._last_dump = session._last = None
     # exposition is never counted as traffic
     assert reliability_metrics.get(names.SERVING_REQUEST_TOTAL) == 5
     req = urllib.request.Request(server.address + "/metrics.json",
@@ -581,14 +606,12 @@ def test_exposition_paths_answer(running, transport):
 
 def test_left_out_telemetry_names_their_item():
     import mmlspark_tpu_torch.telemetry as tel
-    for name, item in (("TelemetryPoller", "item 27"), ("FlightRecorder",
-                                                       "item 23"),
+    for name, item in (("TelemetryPoller", "item 27"),
                        ("ExpositionServer", "item 27")):
-        with pytest.raises(NotImplementedError, match=item.replace(
-                "(", r"\(").replace(")", r"\)")):
+        with pytest.raises(NotImplementedError, match=item):
             getattr(tel, name)
-    with pytest.raises(NotImplementedError, match="item 23"):
-        perf.AotCache   # noqa: B018
+    assert tel.FlightRecorder is perf.FlightRecorder
+    assert tel.AotCache is perf.AotCache
     with pytest.raises(NotImplementedError, match="item 24"):
         plan.serving_plan_contract   # noqa: B018
     assert tel.render_prometheus is exposition.render_prometheus
@@ -678,9 +701,15 @@ def test_trace_writes_a_profile(tmp_path):
     with open(files[0]) as f:
         assert "matmul-region" in f.read()
     assert spans.get_tracer().finished(names.DEVICE_PROFILE_SPAN)
-    with pytest.raises(NotImplementedError, match="item 23"):
+    # the Perfetto link: served on localhost until fetched or timed out
+    from mmlspark_tpu_torch.telemetry import profiler
+    saved = profiler.PERFETTO_TIMEOUT_S
+    profiler.PERFETTO_TIMEOUT_S = 0.2
+    try:
         with tracing.trace(out, create_perfetto_link=True):
             pass
+    finally:
+        profiler.PERFETTO_TIMEOUT_S = saved
 
 
 def test_wall_clock_routes_to_sink_tracer_or_print(capsys):
