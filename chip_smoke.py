@@ -170,8 +170,8 @@ Phases (any failure exits non-zero before the last line is printed):
      checkpointed `GBDTClassifier` fits, a 6 -> 10 resume, and a
      subprocess SIGTERMed after its second checkpoint and resumed in a
      fresh process (the three routes' processes at once), margins,
-     split_feature, threshold and leaf_value all equal bit for bit. The flagship-width bf16 LM at 4 of
-     its 12 layers (cut to pay for [fleet]): two steps,
+     split_feature, threshold and leaf_value all equal bit for bit. The flagship-width bf16 LM at 2 of
+     its 12 layers (cut to pay for [fleet] and [cyber]): two steps,
      `save_checkpoint`, a trainer of another seed restores: parameters
      equal, the next loss within rtol 1e-6; save and restore seconds and
      bytes. Checkpoints go to a temporary directory, deleted after.
@@ -257,9 +257,11 @@ Phases (any failure exits non-zero before the last line is printed):
      mesh of the same shape (`devices=[dev] * n`), then in the ranks: (a)
      `PipelinedLMTrainer` bf16, Adam, flash, remat="save_attn" on
      (data, pipe, model, seq) = (1, 2, 2, 1), two (1, 16384) sequences in
-     two microbatches, 3 steps, the pipe axis across the ranks; (b)
+     two microbatches, 2 steps (3 before [cyber]), the pipe axis across
+     the ranks; (b)
      `ShardedLMTrainer` f32 dense on (2, 2), [stream train]'s seeded
-     (4, 2048) batches, 3 steps, the data axis across the ranks; (c)
+     (4, 2048) batches, 2 steps (3 before [cyber]), the data axis
+     across the ranks; (c)
      `PipelinedLMTrainer` bf16 flash on (1, 1, 1, 2), one (1, 16384)
      sequence, 2 steps, the ring's seq axis across the ranks; (d) as (c)
      on (1, 1, 2, 1), the model axis across the ranks (Megatron's f and
@@ -329,7 +331,8 @@ Phases (any failure exits non-zero before the last line is printed):
      queries, k = 10, 16 labels) with cuBLAS's TF32 flag ON outside the
      port's scope: 512 queries within rtol 1e-5 of the CPU path, indices
      equal up to ties; (d) `start_distributed_serving` on two gloo ranks
-     of the card serving the SAR model's id-keyed plan: 2,000 requests
+     of the card serving the SAR model's id-keyed plan: 500 requests
+     (2,000 before [cyber])
      from a `RegistryClient` (every reply 200 and equal to the card's
      plan, both ranks serving), a worker death on rank 1 healed by replay,
      `scrape_cluster(versions=True)`'s merged count equal to the
@@ -377,8 +380,10 @@ Phases (any failure exits non-zero before the last line is printed):
      process of its own. (b)
      `TuneHyperparameters` over both learners on 200,000 rows (4 random
      draws each, 3 folds), `FindBestModel` on the holdout; the same
-     tuning with 2 draws each on 50,000 of those rows at parallelism 1
-     and 4: times, LR scores equal, GBDT's within 1e-4. (c)
+     tuning with 2 draws each and 2 folds on 50,000 of those rows at
+     parallelism 1 and 4, the GBDT fits in fixed order: times, LR scores
+     equal,
+     GBDT's within `_AUTOML_PAR_GBDT_TOL`. (c)
      `TextFeaturizer` at 2^18 slots on 100,000 seeded documents of 40
      Zipf tokens (vocabulary 50,000), `LogisticRegression` on the sparse
      pairs twice (bit for bit), held to the CPU fit on 10,000 documents
@@ -408,6 +413,25 @@ Phases (any failure exits non-zero before the last line is printed):
      GBDT model: `GET /debug/bundle` 200 then 429, an injected SLO burn
      dumping one bundle and none while it stays burning, the bundle's
      files the reference's, a scrape with the device memory gauges.
+  26. cyber (slice 24; no kernel of its own: torch products and
+     batched solves, gathers): one tenant shaped like LANL's users x
+     computers (12,425 x 17,684, 50 groups with Zipf popularity, 20
+     servers everyone reaches) and a small second tenant, at
+     AccessAnomaly's defaults. (a) The IdIndexer -> AccessAnomaly
+     pipeline fit twice, bit-identical (host aggregation, the dense
+     ratings and weights on the card, 25 ALS rounds of batched ridge
+     solves), the ALS's busy share in a `ProfileSession`, peak memory,
+     scoring rows/s of 100,000 unseen intra-group and 100,000
+     cross-group pairs and their AUC over `CYBER_AUC_FLOOR`, unseen ids
+     scoring 0, the card against the CPU fit on 2,000 x 1,500 within
+     `_CYBER_FACTOR_RTOL` / `_CYBER_SCORE_RTOL`. (b) 200,000 access-log
+     lines written in pieces to 4 CSV files with a torn last line,
+     scored through `FileStreamSource(mode="csv")` / `FileStreamQuery`
+     into a sink that fails once: the epoch replays, every row scored
+     once, equal to the bulk transform bit for bit. (c) The pipeline
+     behind `serve_pipeline`, 1,000 rows through `SimpleHTTPTransformer`
+     at concurrency 4, answers equal to the bulk transform; the scores
+     through `powerbi.write` to a local endpoint, every row once.
 The headline fit (4) is timed 3 times (min and median), and every
 phase's seconds are printed.
 The kernel phase (3) also holds the flash backward kernels, dq and dk/dv,
@@ -3792,10 +3816,10 @@ def _checkpointed_fit_cost(dev, data, tmp, default_times):
                 launches=launches, logloss=(ll, ref_ll), auc=(auc, ref_auc))
 
 
-# the LM [resume] saves and restores: the flagship's width at a third of
-# its depth (4 of 12 layers; a 1.2 GB checkpoint, not 2.4), cut to pay
-# for [fleet] inside the run's time limit
-RESUME_LM = dict(LM, n_layers=4)
+# the LM [resume] saves and restores: the flagship's width at a sixth of
+# its depth (2 of 12 layers), cut to 4 to pay for [fleet], then to 2 for
+# [cyber], inside the run's time limit
+RESUME_LM = dict(LM, n_layers=2)
 
 
 def _lm_resume(dev, tmp):
@@ -5360,16 +5384,16 @@ def multiprocess_phase(dev, data):
 # seq axis across the ranks; (d) the model axis across the ranks, where
 # no master has a replica on another rank (`replicas` False)
 # the pipelined configurations' LM: the flagship's width at a third of
-# its depth (4 of 12 layers), as RESUME_LM and STREAM_LM, cut to keep the
-# run inside its time limit with [online]. (b) keeps the 12 layers: its
-# check that the loss falls from the first stream batch to the last holds
-# at that depth (4 layers: 10.58, 8.69, 11.69)
+# its depth (4 of 12 layers), cut to keep the run inside its time limit
+# with [online]. (b) keeps the 12 layers: its check that the loss falls
+# from the first stream batch to the last held there over 3 steps (4
+# layers: 10.58, 8.69, 11.69). (a) and (b) run 2 steps since [cyber]
 MPLM_LM = dict(LM, n_layers=4)
 MPLM = {
-    "a": dict(kind="pipelined", mesh=(1, 2, 2, 1), steps=3,
+    "a": dict(kind="pipelined", mesh=(1, 2, 2, 1), steps=2,
               batch=(PIPE_BATCH, LM_SEQ), microbatches=PIPE_MICROBATCHES,
               lm=MPLM_LM),
-    "b": dict(kind="sharded", mesh=SHARDED_MESH, steps=3,
+    "b": dict(kind="sharded", mesh=SHARDED_MESH, steps=2,
               batch=STREAM_SHAPE, lm=LM),
     "c": dict(kind="pipelined", mesh=(1, 1, 1, 2), steps=2,
               batch=(1, LM_SEQ), microbatches=1, lm=MPLM_LM),
@@ -6616,8 +6640,9 @@ FLEET_KNN = dict(index=100_000, dim=128, queries=8192, k=10, labels=16)
 FLEET_KNN_CHECK = 512         # queries held against the port's CPU path
 _FLEET_TIE_RTOL = 1e-5        # two scores this close are a tie
 _FLEET_DIST_RTOL = 1e-5
-# (d) two gloo ranks on the card behind the registry
-FLEET_REQUESTS = 2000
+# (d) two gloo ranks on the card behind the registry; 500 requests, cut
+# from 2,000 to pay for [cyber] (every check holds on the shorter run)
+FLEET_REQUESTS = 500
 FLEET_AFTER_DRAIN = 50
 _FLEET_PROC = """
 import json, os, signal, sys, time
@@ -7897,11 +7922,14 @@ _AUTOML_TEXT_TOL = 1e-4
 AUTOML_TUNE_ROWS = 200_000
 AUTOML_TUNE = dict(number_of_iterations=4, number_of_folds=3, seed=3)
 # the parallelism 1 against 4 comparison: the same tuning with 2 draws of
-# each learner on 50,000 of its rows, cut to pay for its two runs (only
-# their scores are compared; 4 threads cost about as much on 50,000 rows
-# as on 200,000)
+# each learner and 2 folds on 50,000 of its rows, cut to pay for its two
+# runs (only their scores are compared; 4 threads cost about as much on
+# 50,000 rows as on 200,000), the folds from 3 for [cyber]
 AUTOML_PAR_ROWS = 50_000
-AUTOML_PAR_TUNE = dict(AUTOML_TUNE, number_of_iterations=2)
+AUTOML_PAR_TUNE = dict(AUTOML_TUNE, number_of_iterations=2,
+                       number_of_folds=2)
+# their GBDT CV scores at parallelism 1 against 4, fits in fixed order
+_AUTOML_PAR_GBDT_TOL = 1e-4
 AUTOML_TUNE_GBDT = dict(num_iterations=20)
 AUTOML_TEXT = dict(docs=100_000, tokens=40, vocab=50_000, bits=18,
                    cpu_docs=10_000)
@@ -8133,13 +8161,37 @@ def _automl_fit_profile(out):
         f"{got['busy_share']:.3f})")
 
 
+@contextlib.contextmanager
+def _fixed_order_gbdt(on: bool = True):
+    """Within the block, the GBDT estimators' fits grow their trees in
+    fixed order: `fit_booster` with a checkpoint callback that keeps
+    nothing, the route a checkpointed fit takes
+    (models/gbdt/boosting.py's `fixed_order`), whose histograms and leaf
+    sums add in one order on the card. Two fits of one candidate are then
+    equal bit for bit whichever thread runs them."""
+    import functools
+
+    from mmlspark_tpu_torch.models.gbdt import estimators as gest
+    real = gest.fit_booster
+
+    def keep_nothing(it, booster, base, final=False):
+        return None
+    if on:
+        gest.fit_booster = functools.partial(real,
+                                             checkpoint_fn=keep_nothing)
+    try:
+        yield
+    finally:
+        gest.fit_booster = real
+
+
 def _automl_tune(dev, models, train, hold, out):
     """(b) TuneHyperparameters over LogisticRegression and GBDTClassifier
     on AUTOML_TUNE_ROWS featurized rows (4 random draws each, 3 folds:
     24 fits), then FindBestModel on the featurized holdout over the tuned
     best and (a)'s two inner models; the same tuning with 2 draws each on
-    the first AUTOML_PAR_ROWS of those rows at parallelism 1 and 4, equal
-    scores."""
+    the first AUTOML_PAR_ROWS of those rows at parallelism 1 and 4, its
+    GBDT fits in fixed order (`_fixed_order_gbdt`), equal scores."""
     import torch
     from mmlspark_tpu_torch import Table
     from mmlspark_tpu_torch.automl import (DiscreteHyperParam,
@@ -8169,7 +8221,8 @@ def _automl_tune(dev, models, train, hold, out):
             hyperparam_space=space, parallelism=par, **draws)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tuned = tuner.fit(ft.take(rows))
+        with _fixed_order_gbdt(name != "tune"):
+            tuned = tuner.fit(ft.take(rows))
         torch.cuda.synchronize()
         runs[name] = dict(s=time.perf_counter() - t0, model=tuned,
                           scores=[s for _, s in tuned._all_scores])
@@ -8185,9 +8238,10 @@ def _automl_tune(dev, models, train, hold, out):
     if diff_lr != 0.0:
         raise AssertionError(f"[automl] LR CV scores moved with "
                              f"parallelism by {diff_lr}")
-    # GBDT's default histograms add with atomics (ROADMAP Queue 3 (d)):
-    # equal up to the order of f32 sums
-    if not diff_gbdt <= 1e-4:
+    # the GBDT candidates grew their trees in fixed order, so a fit is the
+    # same whichever thread runs it (the default histograms' atomics
+    # moved these scores by up to 2.2e-4: ROADMAP Queue 3 (aj))
+    if not diff_gbdt <= _AUTOML_PAR_GBDT_TOL:
         raise AssertionError(f"[automl] GBDT CV scores moved with "
                              f"parallelism by {diff_gbdt}")
     cands = [runs["tune"]["model"].best_model, lr.inner_model,
@@ -8200,7 +8254,8 @@ def _automl_tune(dev, models, train, hold, out):
                        find_best=[float(s) for s in best._scores],
                        find_best_i=cands.index(best.best_model))
     log(f"[automl] (b) CV scores equal across parallelism (LR exactly, "
-        f"GBDT within {diff_gbdt:.3g}); FindBestModel holdout AUC "
+        f"GBDT in fixed order within {diff_gbdt:.3g}); FindBestModel "
+        f"holdout AUC "
         f"{', '.join(f'{s:.6f}' for s in best._scores)} -> candidate "
         f"{out['tune']['find_best_i']}")
 
@@ -8437,6 +8492,497 @@ def automl_phase(dev, profile: bool = False):
     out["s"] = time.perf_counter() - t_phase
     log(f"[automl] the phase {out['s']:.1f} s: " + ", ".join(
         f"{k} {v:.1f}" for k, v in out["parts_s"].items()))
+    return out
+
+
+# ---------------------------------------------------------------- [cyber]
+# one tenant shaped like the users x computers of LANL's "Comprehensive,
+# Multi-Source Cyber-Security Events" authentication data (Kent 2015:
+# 12,425 users, 17,684 computers), seeded synthetic: users in `groups`
+# groups, each reaching its own group's computers with Zipf popularity,
+# and every user reaching the `shared` servers (DataFactory's "ffa" join
+# at scale); a second, small tenant for the per-tenant loop
+CYBER = dict(users=12_425, computers=17_684, groups=50, shared=20,
+             own_draws=24, zipf=1.1, event_p=0.3, seed=24)
+CYBER_SMALL = dict(users=600, computers=400, groups=8, shared=4,
+                   own_draws=12, zipf=1.1, event_p=0.3, seed=25)
+# AccessAnomaly's reference defaults
+CYBER_FIT = dict(rank=10, max_iter=25, reg_param=1.0, low_value=5.0,
+                 high_value=10.0, complementset_factor=2, neg_score=1.0)
+CYBER_PROBE = 100_000        # unseen intra-group pairs, and cross-group
+# the card fit against the port's CPU fit on a reduced tenant, of the
+# largest |factor| and |score| (the CPU parity file measured the port
+# against the reference up to 1.9e-5 of max |factor|: the same f32 sums
+# in another order)
+CYBER_CPU = dict(CYBER, users=2_000, computers=1_500, groups=10, seed=26)
+_CYBER_FACTOR_RTOL = 1e-4
+_CYBER_SCORE_RTOL = 1e-4
+# the AUC of cross-group over unseen intra-group pairs, set before the
+# first card run from a CPU rehearsal at a quarter of the shape
+CYBER_AUC_FLOOR = 0.9
+CYBER_STREAM = dict(rows=200_000, files=4, chunk=65_536)
+CYBER_HTTP = dict(rows=1_000, concurrency=4)
+CYBER_PBI_BATCH = 1_000
+
+
+def _cyber_log(cfg, tenant):
+    """(columns tenant/user/res, one row an event, shuffled; user group,
+    computer group (-1 shared), the sorted unique pair keys u * C + c)."""
+    rng = np.random.default_rng(cfg["seed"])
+    n_u, n_c, g, n_s = (cfg["users"], cfg["computers"], cfg["groups"],
+                        cfg["shared"])
+    own = n_c - n_s                   # computer c < own is in group c % g
+    user_group = rng.integers(0, g, n_u)
+    comp_group = np.concatenate([np.arange(own) % g, np.full(n_s, -1)])
+    draws = rng.poisson(cfg["own_draws"], n_u) + 1
+    users = np.repeat(np.arange(n_u), draws)
+    ranks = _cyber_zipf_ranks(rng, len(users), own // g, cfg["zipf"])
+    comps = user_group[users] + g * ranks
+    users = np.concatenate([users, np.repeat(np.arange(n_u), n_s)])
+    comps = np.concatenate([comps, np.tile(np.arange(own, n_c), n_u)])
+    keys = np.unique(users.astype(np.int64) * n_c + comps)
+    counts = rng.geometric(cfg["event_p"], len(keys))
+    ev = np.repeat(keys, counts)[rng.permutation(int(counts.sum()))]
+    cols = {"tenant": np.full(len(ev), tenant, np.int64),
+            "user": ev // n_c, "res": ev % n_c}
+    return dict(cols=cols, user_group=user_group, comp_group=comp_group,
+                keys=keys, n_c=n_c)
+
+
+def _cyber_zipf_ranks(rng, n, m, s):
+    """n ranks in [0, m) with P(r) proportional to 1 / (r + 1)^s."""
+    cdf = np.cumsum(1.0 / np.arange(1, m + 1) ** s)
+    return np.searchsorted(cdf / cdf[-1], rng.random(n), side="right")
+
+
+def _cyber_probes(cfg, log, n, seed):
+    """n unseen intra-group pairs (a computer of the user's group by the
+    training popularity, never observed for that user) and n cross-group
+    pairs (a computer of another group): (users, computers) each."""
+    rng = np.random.default_rng(seed)
+    g, n_c = cfg["groups"], cfg["computers"]
+    own = n_c - cfg["shared"]
+    out = []
+    for cross in (False, True):
+        u = rng.integers(0, cfg["users"], 3 * n)
+        grp = log["user_group"][u]
+        if cross:
+            grp = (grp + rng.integers(1, g, 3 * n)) % g
+        c = grp + g * _cyber_zipf_ranks(rng, 3 * n, own // g, cfg["zipf"])
+        key = u.astype(np.int64) * n_c + c
+        fresh = ~np.isin(key, log["keys"])
+        out.append((u[fresh][:n], c[fresh][:n]))
+        if fresh.sum() < n:
+            raise AssertionError(f"[cyber] only {fresh.sum()} fresh probe "
+                                 f"pairs")
+    return out
+
+
+def _cyber_auc(neg, pos):
+    """AUC of pos over neg scores (ties count half)."""
+    from mmlspark_tpu_torch.train.metrics import auc
+    y = np.concatenate([np.zeros(len(neg)), np.ones(len(pos))])
+    return float(auc(y, np.concatenate([neg, pos])))
+
+
+def _cyber_table(tenant, users, res, **extra):
+    from mmlspark_tpu_torch import Table
+    return Table({"tenant": np.full(len(users), tenant, np.int64),
+                  "user": np.asarray(users, np.int64),
+                  "res": np.asarray(res, np.int64), **extra})
+
+
+def _cyber_pipeline(dev):
+    from mmlspark_tpu_torch.core import Pipeline
+    from mmlspark_tpu_torch.cyber import AccessAnomaly, IdIndexer
+    return Pipeline(stages=[
+        IdIndexer(input_col="user", output_col="user_ix"),
+        IdIndexer(input_col="res", output_col="res_ix"),
+        AccessAnomaly(user_col="user_ix", res_col="res_ix", device=dev,
+                      **CYBER_FIT)])
+
+
+def _cyber_same_fit(a, b):
+    """Two AccessAnomalyModels equal bit for bit: levels, factors and
+    statistics of every tenant."""
+    import torch
+    if sorted(a._models) != sorted(b._models):
+        return False
+    for k, (ul, uv, rl, rv, mean, std) in a._models.items():
+        ul2, uv2, rl2, rv2, mean2, std2 = b._models[k]
+        if not (np.array_equal(ul, ul2) and np.array_equal(rl, rl2)
+                and torch.equal(uv, uv2) and torch.equal(rv, rv2)
+                and mean == mean2 and std == std2):
+            return False
+    return True
+
+
+def _cyber_fit_and_score(dev, out):
+    """(a) the pipeline (two IdIndexers, AccessAnomaly) fit on the card
+    twice, bit-identical; the ALS under a ProfileSession; scoring of the
+    probes and their AUC; the card against the CPU on CYBER_CPU."""
+    import tempfile
+
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.cyber import AccessAnomaly
+    from mmlspark_tpu_torch.cyber import access_anomaly as aa
+    from mmlspark_tpu_torch.telemetry import profiler
+    t0 = time.perf_counter()
+    big, small = _cyber_log(CYBER, 0), _cyber_log(CYBER_SMALL, 1)
+    cols = {k: np.concatenate([big["cols"][k], small["cols"][k]])
+            for k in big["cols"]}
+    train = Table(cols)
+    out["data_s"] = time.perf_counter() - t0
+    n_pairs = len(big["keys"])
+    per_user = n_pairs / CYBER["users"]
+    log(f"[cyber] (a) LANL-shaped tenant: {CYBER['users']} users x "
+        f"{CYBER['computers']} computers in {CYBER['groups']} groups + "
+        f"{CYBER['shared']} shared servers, {n_pairs} observed pairs "
+        f"({per_user:.1f} distinct computers a user), "
+        f"{len(big['cols']['user'])} events; tenant 1 "
+        f"{CYBER_SMALL['users']} x {CYBER_SMALL['computers']}, "
+        f"{len(small['cols']['user'])} events; generated in "
+        f"{out['data_s']:.2f} s")
+    fits = []
+    for i in range(2):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model = _cyber_pipeline(dev).fit(train)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t1
+        aam = model.stages[-1]
+        fits.append(dict(model=model, fit_s=fit_s, split=dict(
+            aam.fit_seconds), peak=torch.cuda.max_memory_allocated() - base))
+        log(f"[cyber] (a) fit {i + 1}: {fit_s:.3f} s (AccessAnomaly: host "
+            f"aggregation {aam.fit_seconds['aggregate']:.3f} s, matrices "
+            f"on the card {aam.fit_seconds['matrices']:.3f} s, ALS "
+            f"{aam.fit_seconds['als']:.3f} s, statistics "
+            f"{aam.fit_seconds['stats']:.3f} s), peak "
+            f"{fits[-1]['peak'] / 2**30:.3f} GiB over the resident")
+    if not _cyber_same_fit(fits[0]["model"].stages[-1],
+                           fits[1]["model"].stages[-1]):
+        raise AssertionError("[cyber] (a) two card fits differ")
+    model = fits[0]["model"]
+    del fits[1]["model"]
+    torch.cuda.empty_cache()
+    out.update(fit_s=[f["fit_s"] for f in fits],
+               split=[f["split"] for f in fits],
+               peak=max(f["peak"] for f in fits))
+
+    # the ALS alone under a ProfileSession: the card's busy share
+    u_l, u_ix = np.unique(big["cols"]["user"], return_inverse=True)
+    r_l, r_ix = np.unique(big["cols"]["res"], return_inverse=True)
+    keys, sums = aa.pair_sums(u_ix, r_ix, np.ones(len(u_ix)), len(r_l))
+    ratings, weights = aa.tenant_matrices(
+        keys, sums, len(u_l), len(r_l), CYBER_FIT["low_value"],
+        CYBER_FIT["high_value"], CYBER_FIT["neg_score"],
+        CYBER_FIT["complementset_factor"], dev)
+    u0, v0 = aa.initial_factors(len(u_l), len(r_l), CYBER_FIT["rank"], 0)
+    u0, v0 = torch.as_tensor(u0, device=dev), torch.as_tensor(v0, device=dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cyber_prof_")
+    try:
+        session = profiler.ProfileSession(profile_dir=tmp,
+                                          min_interval_s=0.0)
+        with session.session(reason="warm-up"):
+            torch.ones(1, device=dev).add_(1)
+            torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with session.session(reason="cyber-als") as info:
+            aa.als(ratings, weights, u0, v0, CYBER_FIT["max_iter"],
+                   CYBER_FIT["reg_param"])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del ratings, weights
+    torch.cuda.empty_cache()
+    dev_sum = info.get("device") or {}
+    if not dev_sum.get("device_events"):
+        raise AssertionError(f"[cyber] (a) the ALS capture parsed no device "
+                             f"events: {dev_sum}")
+    busy = dev_sum["busy_us"] * 1e-6
+    top = [(r["op"], r["self_time_us"]) for r in info["ops"][:4]]
+    out["als_profile"] = dict(busy_s=busy, wall_s=wall, share=busy / wall,
+                              events=dev_sum["device_events"], top=top)
+    log(f"[cyber] (a) ALS under a ProfileSession: the card busy "
+        f"{busy:.4f} s of {wall:.4f} s (share {busy / wall:.3f}), "
+        f"{dev_sum['device_events']} device events; top "
+        + ", ".join(f"{op[:48]} {us / 1e3:.2f} ms" for op, us in top))
+
+    # scoring: unseen intra-group against cross-group pairs
+    (iu, ic), (cu, cc) = _cyber_probes(CYBER, big, CYBER_PROBE, 27)
+    scores = {}
+    t1 = time.perf_counter()
+    for name, (u, c) in (("intra", (iu, ic)), ("cross", (cu, cc))):
+        scores[name] = model.transform(_cyber_table(0, u, c))[
+            "anomaly_score"]
+    score_s = time.perf_counter() - t1
+    auc_v = _cyber_auc(scores["intra"], scores["cross"])
+    out.update(score_rows_per_s=2 * CYBER_PROBE / score_s, auc=auc_v,
+               intra_mean=float(scores["intra"].mean()),
+               cross_mean=float(scores["cross"].mean()))
+    log(f"[cyber] (a) scored {CYBER_PROBE} unseen intra-group and "
+        f"{CYBER_PROBE} cross-group pairs in {score_s:.3f} s "
+        f"({out['score_rows_per_s']:.4g} rows/s): mean score "
+        f"{out['intra_mean']:.4f} / {out['cross_mean']:.4f}, AUC "
+        f"{auc_v:.6f} (floor {CYBER_AUC_FLOOR})")
+    if not auc_v > CYBER_AUC_FLOOR:
+        raise AssertionError(f"[cyber] (a) AUC {auc_v} under its floor "
+                             f"{CYBER_AUC_FLOOR}")
+    unseen = model.transform(_cyber_table(
+        0, [CYBER["users"] + 5, 3], [7, CYBER["computers"] + 9]))
+    if not (unseen["anomaly_score"] == 0.0).all():
+        raise AssertionError(f"[cyber] (a) unseen ids scored "
+                             f"{unseen['anomaly_score']}")
+
+    # the card against the port's CPU fit on a reduced tenant
+    red = _cyber_log(CYBER_CPU, 0)
+    t_red = Table(red["cols"])
+    fitted = {}
+    for where in (dev, "cpu"):
+        fitted[str(where)] = AccessAnomaly(device=where,
+                                           **CYBER_FIT).fit(t_red)
+    card, cpu = fitted[str(dev)], fitted["cpu"]
+    _, uv, _, rv, _, _ = card._models["0"]
+    _, cuv, _, crv, _, _ = cpu._models["0"]
+    f_err = max(_rel(uv.cpu().numpy(), cuv.numpy()),
+                _rel(rv.cpu().numpy(), crv.numpy()))
+    (pu, pc), (qu, qc) = _cyber_probes(CYBER_CPU, red, 2_000, 28)
+    probe = _cyber_table(0, np.concatenate([pu, qu]),
+                         np.concatenate([pc, qc]))
+    s_err = _rel(card.transform(probe)["anomaly_score"],
+                 cpu.transform(probe)["anomaly_score"])
+    out.update(cpu_factor_err=f_err, cpu_score_err=s_err)
+    log(f"[cyber] (a) card against the CPU fit on {CYBER_CPU['users']} x "
+        f"{CYBER_CPU['computers']}: factors {f_err:.3g} of max |factor| "
+        f"(limit {_CYBER_FACTOR_RTOL}), scores {s_err:.3g} of max |score| "
+        f"(limit {_CYBER_SCORE_RTOL})")
+    if not (f_err <= _CYBER_FACTOR_RTOL and s_err <= _CYBER_SCORE_RTOL):
+        raise AssertionError("[cyber] (a) the card fit left the CPU's")
+    return model, big
+
+
+def _cyber_stream(dev, model, big, out):
+    """(b) a writer thread appends access-log lines to CYBER_STREAM
+    ['files'] CSV files in pieces that cut lines (and leaves a torn last
+    line); a FileStreamSource(mode="csv") / FileStreamQuery scores them
+    with the fitted pipeline into a sink that fails once. The failed
+    epoch replays; every row is scored exactly once, and the scores equal
+    one bulk transform of the same rows."""
+    import tempfile
+    import threading
+
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.io import FileStreamQuery, FileStreamSource
+    n = CYBER_STREAM["rows"]
+    rng = np.random.default_rng(29)
+    pick = rng.integers(0, len(big["cols"]["user"]), n // 2)
+    (iu, ic), (cu, cc) = _cyber_probes(CYBER, big, n // 4, 30)
+    users = np.concatenate([big["cols"]["user"][pick], iu, cu])
+    comps = np.concatenate([big["cols"]["res"][pick], ic, cc])
+    users, comps = users[:n], comps[:n]
+    want = model.transform(_cyber_table(0, users, comps))["anomaly_score"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cyber_stream_")
+    header = "seq,tenant,user,res\n"
+    paths = [os.path.join(tmp, f"auth-{i}.csv")
+             for i in range(CYBER_STREAM["files"])]
+    for p in paths:
+        with open(p, "w") as f:
+            f.write(header)
+    got, failed, lock = [], [0], threading.Lock()
+
+    def score(t):
+        rows = Table({"tenant": np.asarray(t["tenant"], np.int64),
+                      "user": np.asarray(t["user"], np.int64),
+                      "res": np.asarray(t["res"], np.int64)})
+        s = model.transform(rows)["anomaly_score"]
+        return Table({"seq": np.asarray(t["seq"], np.int64),
+                      "anomaly_score": s})
+
+    def sink(t):
+        with lock:
+            if not failed[0]:
+                failed[0] = len(t)
+                raise RuntimeError("sink down once")
+            got.append((t["seq"], t["anomaly_score"]))
+
+    def writer():
+        per = -(-n // len(paths))
+        for i, p in enumerate(paths):
+            lo, hi = i * per, min(n, (i + 1) * per)
+            text = "".join(f"{j},0,{users[j]},{comps[j]}\n"
+                           for j in range(lo, hi)).encode()
+            with open(p, "ab") as f:
+                for a in range(0, len(text), CYBER_STREAM["chunk"]):
+                    f.write(text[a:a + CYBER_STREAM["chunk"]])
+                    f.flush()
+        with open(paths[0], "ab") as f:
+            f.write(f"{n},0,1,".encode())     # a torn last line
+    src = FileStreamSource(os.path.join(tmp, "*.csv"), mode="csv")
+    query = FileStreamQuery(src, score, sink, poll_interval=0.01)
+    t0 = time.perf_counter()
+    query.start()
+    th = threading.Thread(target=writer, name="cyber-writer")
+    th.start()
+    try:
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            with lock:
+                done = sum(len(s) for s, _ in got)
+            if done >= n:
+                break
+            time.sleep(0.005)
+        stream_s = time.perf_counter() - t0
+        th.join(timeout=60)
+        time.sleep(0.1)     # polls that would pick up a torn line
+    finally:
+        query.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    seq = np.concatenate([s for s, _ in got])
+    sc = np.concatenate([v for _, v in got])
+    order = np.argsort(seq, kind="stable")
+    if not np.array_equal(seq[order], np.arange(n)):
+        raise AssertionError(f"[cyber] (b) rows not scored exactly once: "
+                             f"{len(seq)} scores for {n} rows, "
+                             f"{len(np.unique(seq))} distinct")
+    if not np.array_equal(sc[order].view(np.uint64), want.view(np.uint64)):
+        raise AssertionError("[cyber] (b) streamed scores differ from the "
+                             "bulk transform")
+    if query._recoveries < 1 or not failed[0]:
+        raise AssertionError("[cyber] (b) the sink's failure never "
+                             "replayed")
+    out["stream"] = dict(rows=n, s=stream_s, rows_per_s=n / stream_s,
+                         batches=len(got), replayed_rows=failed[0],
+                         recoveries=query._recoveries)
+    log(f"[cyber] (b) streamed {n} rows through {len(paths)} tailed CSV "
+        f"files in {stream_s:.3f} s ({n / stream_s:.4g} rows/s, "
+        f"{len(got)} epochs); the sink failed once on {failed[0]} rows, "
+        f"which replayed; every row scored once, equal to the bulk "
+        f"transform bit for bit; the torn last line held back")
+
+
+def _cyber_http(dev, model, big, out):
+    """(c) the pipeline served by `serve_pipeline`; rows scored through
+    SimpleHTTPTransformer (JSONInputParser -> HTTPTransformer ->
+    JSONOutputParser) at concurrency CYBER_HTTP['concurrency'], the
+    answers equal to the bulk transform; the scores written with
+    `powerbi.write` in batches to a local endpoint, every row once."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.io import (JSONInputParser, JSONOutputParser,
+                                       SimpleHTTPTransformer, powerbi,
+                                       serve_pipeline)
+    n = CYBER_HTTP["rows"]
+    (iu, ic), (cu, cc) = _cyber_probes(CYBER, big, n // 2, 31)
+    users, comps = np.concatenate([iu, cu]), np.concatenate([ic, cc])
+    want = model.transform(_cyber_table(0, users, comps))["anomaly_score"]
+    rows = np.empty(n, dtype=object)
+    for i in range(n):
+        rows[i] = {"tenant": 0, "user": int(users[i]), "res": int(comps[i])}
+    server, query = serve_pipeline(model, ["tenant", "user", "res"],
+                                   output_col="anomaly_score")
+    try:
+        url = server.address + "/"
+        client = SimpleHTTPTransformer(
+            input_col="row", output_col="reply", url=url,
+            concurrency=CYBER_HTTP["concurrency"], timeout=60.0,
+            input_parser=JSONInputParser(url=url),
+            output_parser=JSONOutputParser())
+        client.transform(Table({"row": rows[:8]}))       # warm the plans
+        t0 = time.perf_counter()
+        replies = client.transform(Table({"row": rows}))["reply"]
+        http_s = time.perf_counter() - t0
+    finally:
+        query.stop()
+        server.stop()
+    bad = [i for i, r in enumerate(replies)
+           if r is None or r.get("anomaly_score") != want[i]]
+    if bad:
+        raise AssertionError(f"[cyber] (c) {len(bad)} served answers differ "
+                             f"from the bulk transform, e.g. row {bad[0]}: "
+                             f"{replies[bad[0]]} against {want[bad[0]]}")
+
+    seen, lock = [], threading.Lock()
+
+    class _PowerBI(BaseHTTPRequestHandler):
+        def do_POST(self):  # noqa: N802 (stdlib naming)
+            body = self.rfile.read(int(self.headers["Content-Length"]))
+            with lock:
+                seen.extend(r["seq"] for r in json.loads(body))
+            self.send_response(200)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+        def log_message(self, *a):
+            pass
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), _PowerBI)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        t0 = time.perf_counter()
+        sent = powerbi.write(
+            Table({"seq": np.arange(n), "anomaly_score": want}),
+            f"http://127.0.0.1:{httpd.server_address[1]}/",
+            batch_size=CYBER_PBI_BATCH, concurrency=4, timeout=60.0)
+        pbi_s = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=10)
+    if sorted(seen) != list(range(n)) or sent != -(-n // CYBER_PBI_BATCH):
+        raise AssertionError(f"[cyber] (c) Power BI received {len(seen)} "
+                             f"rows ({len(set(seen))} distinct) of {n} in "
+                             f"{sent} batches")
+    out["http"] = dict(rows=n, s=http_s, req_per_s=n / http_s,
+                       powerbi_s=pbi_s, powerbi_batches=sent)
+    log(f"[cyber] (c) {n} rows served at concurrency "
+        f"{CYBER_HTTP['concurrency']} in {http_s:.3f} s "
+        f"({n / http_s:.1f} req/s), every answer equal to the bulk "
+        f"transform; powerbi.write {sent} batches of {CYBER_PBI_BATCH} in "
+        f"{pbi_s:.3f} s, every row once")
+
+
+def cyber_phase(dev):
+    """[cyber]: CyberML and io/ on the card: (a) the AccessAnomaly
+    pipeline fit at the LANL shape (host aggregation, dense matrices on
+    the card, ALS as batched ridge solves), two fits bit-identical, the
+    ALS's busy share, scoring rows/s and the AUC of cross-group over
+    unseen intra-group pairs, the card against the CPU on a reduced
+    tenant; (b) the CSV file stream scored into a sink that fails once;
+    (c) HTTP out and back and the Power BI writer. No port kernel is on
+    this path: the histogram and flash counts must stand still."""
+    import torch
+    from mmlspark_tpu_torch.ops import flash_attention as fa
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+    t_phase = time.perf_counter()
+    before = {**hc.launches, **fa.launches}
+    out = {"parts_s": {}}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        got = fn(*args)
+        out["parts_s"][name] = time.perf_counter() - t0
+        return got
+    model, big = part("(a)", _cyber_fit_and_score, dev, out)
+    part("(b)", _cyber_stream, dev, model, big, out)
+    part("(c)", _cyber_http, dev, model, big, out)
+    del model
+    torch.cuda.empty_cache()
+    after = {**hc.launches, **fa.launches}
+    if after != before:
+        raise AssertionError(f"[cyber] a port kernel launched: {before} -> "
+                             f"{after}")
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[cyber] kernel launches unchanged across the phase; the phase "
+        f"{out['s']:.1f} s: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in out["parts_s"].items()))
     return out
 
 
@@ -8865,7 +9411,8 @@ def only_phase(name, dev, phase, t_start, profile=False) -> int:
              "multiprocess_lm": multiprocess_lm_phase, "dnn": dnn_phase,
              "serving": serving_phase, "fleet": fleet_phase,
              "online": online_phase,
-             "automl": lambda d: automl_phase(d, profile)}
+             "automl": lambda d: automl_phase(d, profile),
+             "cyber": cyber_phase}
     if name in needs_data:
         data = phase("headline data", headline_data, dev)
         phase(name, needs_data[name], dev, data)
@@ -8956,6 +9503,8 @@ def main(argv) -> int:
     online = phase("online", online_phase, dev)
     torch.cuda.empty_cache()
     automl = phase("automl", automl_phase, dev, profile)
+    torch.cuda.empty_cache()
+    cyber = phase("cyber", cyber_phase, dev)
     if "--versus" in argv:
         phase("versus", versus_phase, parent)
 
@@ -9315,6 +9864,15 @@ def main(argv) -> int:
         f"{automl['lime'][0.0]['s']:.3f} / "
         f"{automl['lime'][AUTOML_LIME['lam']]['s']:.3f} s; ImageLIME "
         f"{automl['image']['s']:.3f} s; the phase {automl['s']:.1f} s")
+    log(f"[cyber] AccessAnomaly pipeline fit "
+        f"{', '.join(f'{v:.3f}' for v in cyber['fit_s'])} s (ALS "
+        f"{cyber['split'][-1]['als']:.3f} s, the card busy "
+        f"{cyber['als_profile']['share']:.3f} of it), peak "
+        f"{cyber['peak'] / 2**30:.2f} GiB, two fits bit-identical; scoring "
+        f"{cyber['score_rows_per_s']:.4g} rows/s, AUC {cyber['auc']:.6f}; "
+        f"stream {cyber['stream']['rows_per_s']:.4g} rows/s; HTTP "
+        f"{cyber['http']['req_per_s']:.1f} req/s; the phase "
+        f"{cyber['s']:.1f} s")
     tg = tele["gbdt"]
     log(f"[telemetry] headline iteration by region: " + ", ".join(
         f"{r} {v / 1e3:.3f} ms" for r, v in tg["us"].items())

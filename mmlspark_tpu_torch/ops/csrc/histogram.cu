@@ -79,7 +79,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <set>
 #include <type_traits>
+#include <utility>
 
 #include "mma_sync.cuh"
 
@@ -745,6 +748,33 @@ hist_planes_kernel(const PlanesArgs a) {
   }
 }
 
+// Lets `fn` take any dynamic shared memory the current device allows a
+// block beside the kernel's static shared memory, once per (device,
+// kernel). The attribute is one value per kernel for the whole process:
+// set to each launch's own size, it raced between host threads launching
+// one kernel at different sizes (a launch above the size another thread
+// had just set failed with cudaErrorInvalidValue), so it is set to the
+// same limit for every caller.
+static cudaError_t allow_dynamic_smem(const void* fn) {
+  static std::mutex mu;
+  static std::set<std::pair<int, const void*>> done;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  if (done.count({dev, fn})) return cudaSuccess;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           optin - (int)attr.sharedSizeBytes);
+  if (e == cudaSuccess) done.insert({dev, fn});
+  return e;
+}
+
 // hist_tile_kernel<cnt, fixed> as a function pointer
 static const void* tile_fn(bool cnt, bool fixed) {
   if (fixed)
@@ -773,9 +803,7 @@ static int tile_launch(const void* bins, const void* node, const void* grad,
   const size_t smem = tile_smem(mt, ft, B, copies, threads, kFixed);
   const int n_ftiles = (F + ft - 1) / ft;
   const dim3 grid(((m + mt - 1) / mt) * n_ftiles, row_blocks);
-  cudaError_t e = cudaFuncSetAttribute(
-      tile_fn(cnt != nullptr, kFixed),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = allow_dynamic_smem(tile_fn(cnt != nullptr, kFixed));
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t st = (cudaStream_t)stream;
   if (cnt)
@@ -843,8 +871,7 @@ int hist_tile_fixed_launch(const void* bins, const void* node,
 int hist_tile_occupancy(int cnt, int fixed, int threads, int smem,
                         int* blocks_per_sm) {
   const void* fn = tile_fn(cnt != 0, fixed != 0);
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = allow_dynamic_smem(fn);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, fn, threads, smem);
@@ -892,8 +919,7 @@ static int planes_launch(PlanesArgs a, int LO, int ht, int row_blocks,
   if (a.n_hi > 8 * ht) return (int)cudaErrorInvalidValue;
   int smem;
   planes_geometry(a.F, LO, a.fg, &a.bins_stage, &a.stage_bytes, &smem);
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = allow_dynamic_smem(fn);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((a.F + a.fg - 1) / a.fg, row_blocks);
   const cudaStream_t st = (cudaStream_t)stream;
@@ -956,8 +982,7 @@ int hist_planes_occupancy(int ht, int F, int LO, int fg, int* smem,
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   int bins_stage, stage_bytes;
   planes_geometry(F, LO, fg, &bins_stage, &stage_bytes, smem);
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  cudaError_t e = allow_dynamic_smem(fn);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, fn, kPlanesThreads, *smem);

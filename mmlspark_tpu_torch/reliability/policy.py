@@ -1,16 +1,20 @@
-"""Retry with jittered backoff, an overall deadline and a shared budget.
+"""Retry with jittered backoff, an overall deadline and a shared budget;
+the circuit breaker.
 
-A copy of `RetryPolicy` and what it needs (`Deadline`, `RetryBudget`,
-`Attempt`) from the reference's `reliability/policy.py:40-242`, which
-imports no JAX. `TrainingSupervisor` bounds its in-run step restarts with
-it. The reference's `CircuitBreaker` belongs to the HTTP client glue
-(ROADMAP Queue 1 item 27).
+A copy of the reference's `reliability/policy.py`, which imports no JAX:
+`RetryPolicy` and what it needs (`Deadline`, `RetryBudget`, `Attempt`),
+and `CircuitBreaker` with `CircuitOpenError`. `TrainingSupervisor`
+bounds its in-run step restarts with the policy, and `io/http.py`'s
+advanced handler retries with it.
 
 - `RetryPolicy.attempts()` is the loop: yields `Attempt`s, sleeps jittered
   exponential backoff between them, stops on attempt count, overall
   `deadline`, or an exhausted shared `RetryBudget`.
 - `Deadline` propagates one time budget through nested timeouts
   (`deadline.clamp(per_attempt_timeout)`).
+- `CircuitBreaker` is the closed/open/half-open failure-rate breaker that
+  stops hammering a dead dependency (trips recorded in
+  `reliability.metrics`).
 
 Everything takes an injectable `sleep`/`clock` so tests run in
 microseconds, and an injectable `rng` so jittered schedules are
@@ -224,3 +228,108 @@ class RetryPolicy:
             return out
         assert last is not None
         raise last
+
+
+class CircuitOpenError(RuntimeError):
+    """Raised by CircuitBreaker.call when the circuit is open."""
+
+
+class CircuitBreaker:
+    """Closed/open/half-open breaker over a sliding outcome window.
+
+    Trips OPEN when the last `window` outcomes hold at least
+    `failure_threshold` failures AND the failure fraction reaches
+    `failure_rate`. After `reset_timeout` seconds one half-open probe is
+    allowed: success closes the circuit, failure re-opens it. Trips are
+    counted in `reliability.metrics` under `<name>.trips`."""
+
+    CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
+
+    def __init__(self, failure_threshold: int = 5, failure_rate: float = 0.5,
+                 window: int = 20, reset_timeout: float = 30.0,
+                 clock: Callable[[], float] = time.monotonic,
+                 metrics=None, name: str = "breaker"):
+        self.failure_threshold = failure_threshold
+        self.failure_rate = failure_rate
+        self.window = window
+        self.reset_timeout = reset_timeout
+        self.name = name
+        self._clock = clock
+        self._metrics = metrics if metrics is not None else reliability_metrics
+        self._lock = threading.Lock()
+        self._outcomes: list = []   # rolling 0/1 failure flags, len<=window
+        self._state = self.CLOSED
+        self._opened_at = 0.0
+        self._probing = False
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            return self._state_locked()
+
+    def _state_locked(self) -> str:
+        if (self._state == self.OPEN
+                and self._clock() - self._opened_at >= self.reset_timeout):
+            self._state = self.HALF_OPEN
+            self._probing = False
+        return self._state
+
+    def allow(self) -> bool:
+        """May a call proceed right now? Half-open admits ONE probe."""
+        with self._lock:
+            state = self._state_locked()
+            if state == self.CLOSED:
+                return True
+            if state == self.HALF_OPEN and not self._probing:
+                self._probing = True
+                return True
+            return False
+
+    def record_success(self) -> None:
+        with self._lock:
+            if self._state_locked() == self.HALF_OPEN:
+                self._state = self.CLOSED
+                self._outcomes.clear()
+                self._probing = False
+                return
+            self._push(0)
+
+    def record_failure(self) -> None:
+        with self._lock:
+            state = self._state_locked()
+            if state == self.HALF_OPEN:
+                self._trip()
+                return
+            if state == self.OPEN:
+                return
+            self._push(1)
+            fails = sum(self._outcomes)
+            if (fails >= self.failure_threshold
+                    and fails / len(self._outcomes) >= self.failure_rate):
+                self._trip()
+
+    def _push(self, outcome: int) -> None:
+        self._outcomes.append(outcome)
+        if len(self._outcomes) > self.window:
+            del self._outcomes[0]
+
+    def _trip(self) -> None:
+        self._state = self.OPEN
+        self._opened_at = self._clock()
+        self._probing = False
+        self._outcomes.clear()
+        self._metrics.inc(tnames.breaker_trips(self.name))
+
+    def call(self, fn: Callable[[], T]) -> T:
+        """Gate fn() through the breaker: CircuitOpenError without calling
+        when open; outcomes recorded otherwise."""
+        if not self.allow():
+            raise CircuitOpenError(
+                f"circuit {self.name!r} is {self.state}")
+        try:
+            out = fn()
+        except Exception:
+            self.record_failure()
+            raise
+        self.record_success()
+        return out

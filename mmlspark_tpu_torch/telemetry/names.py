@@ -10,7 +10,8 @@ fleet workloads (isolation forest, SAR), its compile log, the
 model-quality tap, the version registry's canary gauges, the online
 learning loop, the control plane (rollout, admission, routing, scaling),
 the telemetry watcher, the flight recorder, the profile session and its
-roofline gauges, the resource gauges and the tracer's spans and events. `reliability/names.py` re-exports this module, so the
+roofline gauges, the resource gauges, the HTTP client's retries, the circuit
+breakers' trips and the tracer's spans and events. `reliability/names.py` re-exports this module, so the
 names its callers import there are these.
 
 Dotted `subsystem.signal[.detail]`, lowercase; a patterned name carries a
@@ -59,6 +60,8 @@ TRAIN_STEP_RETRIES = "train.step_retries"
 TRAIN_PREEMPTED = "train.preempted"
 TRAIN_PREEMPT_SIGNALS = "train.preempt_signals"
 RETRY_RETRIES = "retry.retries"
+# the HTTP client transformers' advanced handler (io/http.py)
+HTTP_RETRIES = "http.retries"
 
 # the cluster: rendezvous, heartbeats, fences, the data axis' exchange
 CLUSTER_REJOINS = "cluster.rejoins"
@@ -253,6 +256,11 @@ def quality_drift(col: str) -> str:
 def quality_eval(metric: str) -> str:
     """quality.eval.{metric} — streaming-evaluation metric gauge."""
     return f"quality.eval.{metric}"
+
+
+def breaker_trips(breaker: str) -> str:
+    """{breaker}.trips — per-breaker trip counter."""
+    return f"{breaker}.trips"
 
 
 def control_router_weight(target: str) -> str:

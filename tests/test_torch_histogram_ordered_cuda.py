@@ -70,6 +70,50 @@ def test_tiled_fixed_repeats_and_matches_plain(cuda_device, m, b, f,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("fixed", [True, False])
+def test_tiled_launches_from_threads_at_different_sizes(cuda_device, fixed):
+    """Threads launching the tiled kernel at different shared-memory sizes
+    at once (TuneHyperparameters' folds at parallelism 4: levels of 1 to
+    16 nodes) each get their serial result. The kernel's dynamic
+    shared-memory limit was set to each launch's own size, a process-wide
+    value another thread could lower between its set and its launch
+    (cudaErrorInvalidValue)."""
+    import threading
+
+    from mmlspark_tpu_torch.ops import histogram_cuda as hc
+    fn = hc.hist_tiled_fixed if fixed else hc.hist_tiled
+    cases = [(m, 64, 108) for m in (1, 2, 4, 8, 16)]
+    data = [[torch.as_tensor(a).to(cuda_device)
+             for a in _data(50_000, f, m, b, seed=m)] for m, b, f in cases]
+    want = [fn(*t[:5], m, b) for t, (m, b, f) in zip(data, cases)]
+    torch.cuda.synchronize()
+    errors, got = [], {}
+
+    def work(i):
+        try:
+            t, (m, b, _) = data[i % len(cases)], cases[i % len(cases)]
+            for _ in range(20):
+                out = fn(*t[:5], m, b)
+            torch.cuda.synchronize()
+            got[i] = out
+        except Exception as e:  # noqa: BLE001 - asserted below
+            errors.append(e)
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(10)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    for i, out in got.items():
+        ref = want[i % len(cases)]
+        if fixed:
+            assert all(torch.equal(x, y) for x, y in zip(out, ref))
+        else:
+            _close(out, ref)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("with_count_w", [True, False])
 @pytest.mark.parametrize("m,b", [(1, 64), (2, 64), (4, 64), (4, 256)])
 def test_planes_fixed_repeats_and_matches_plain(cuda_device, m, b,
