@@ -252,7 +252,8 @@ Phases (any failure exits non-zero before the last line is printed):
      memory. A second pair: rank 1 SIGKILLed mid-fit, rank 0's
      `HostLeases` must declare it dead within the lease budget.
   19. multiprocess lm (slice 17): the flagship LM (the pipelined
-     configurations at 4 of its 12 layers) over 2 gloo ranks on the card,
+     configurations at 2 of its 12 layers, 4 before [images]) over 2 gloo
+     ranks on the card,
      each configuration of `MPLM` first in this process on a
      mesh of the same shape (`devices=[dev] * n`), then in the ranks: (a)
      `PipelinedLMTrainer` bf16, Adam, flash, remat="save_attn" on
@@ -378,7 +379,8 @@ Phases (any failure exits non-zero before the last line is printed):
      AUC within `_METRIC_TOL` of the kernel fit's; with --profile, one LR
      fit's launches and the card's busy share from torch.profiler in a
      process of its own. (b)
-     `TuneHyperparameters` over both learners on 200,000 rows (4 random
+     `TuneHyperparameters` over both learners on 100,000 rows (200,000
+     before [images]; 4 random
      draws each, 3 folds), `FindBestModel` on the holdout; the same
      tuning with 2 draws each and 2 folds on 50,000 of those rows at
      parallelism 1 and 4, the GBDT fits in fixed order: times, LR scores
@@ -432,6 +434,21 @@ Phases (any failure exits non-zero before the last line is printed):
      behind `serve_pipeline`, 1,000 rows through `SimpleHTTPTransformer`
      at concurrency 4, answers equal to the bulk transform; the scores
      through `powerbi.write` to a local endpoint, every row once.
+  27. images (slice 25; kernels D1-D4, `ops/csrc/image_decode.cu` and
+     `resample.cu`, none of them in place of a TPU kernel: the reference
+     decodes with PIL on the host): (a) every fixture of
+     tests/data/images through `read_image_dir` and `read_images(size=
+     (224, 224))` on the card, equal to PIL's SHA-256 digests
+     (expected.json); D1-D4 against their plain versions (`torch.equal`)
+     on the six 500 x 375 photos, timed beside the plain versions, the
+     byte bound and, for D4, one `F.interpolate(bicubic, antialias)`;
+     (b) a folder of 64 copies of the photos through `read_images(size=
+     (224, 224))` into the ResNet-50 bf16 `ImageFeaturizer`, the counts
+     set to 0 just before (exactly 1 D1, 1 D2, 1 D3 and 2 D4 launches),
+     images/s from files to features, each image's digest, then the
+     same run in a `ProfileSession` capture split into
+     `image.decode.host`, `image.decode.card` and the featurizer; (c)
+     `read_image_dir` on the folder.
 The headline fit (4) is timed 3 times (min and median), and every
 phase's seconds are printed.
 The kernel phase (3) also holds the flash backward kernels, dq and dk/dv,
@@ -3199,7 +3216,8 @@ def ring_train_phase(dev, cp1_first_loss: float, profile: bool):
 # (data, pipe, model, seq) = (1, 4, 2, 1), 4 heads and d_ff 2048 a model
 # position; two 16,384-token sequences a step in two microbatches. Its
 # depth is cut to 4 of 12 layers (one a stage; PIPE_LM), as RESUME_LM and
-# MPLM_LM, to keep the script inside its time limit; every check is kept
+# MPLM_LM are cut, to keep the script inside its time limit; every check
+# is kept
 PIPE_MESH = (1, 4, 2, 1)
 PIPE_LM = dict(LM, n_layers=4)
 # the reference's 4D composition for the S=2048 update checks: a ring over
@@ -5383,12 +5401,13 @@ def multiprocess_phase(dev, data):
 # positions a rank; (b) the data axis across the ranks; (c) the ring's
 # seq axis across the ranks; (d) the model axis across the ranks, where
 # no master has a replica on another rank (`replicas` False)
-# the pipelined configurations' LM: the flagship's width at a third of
-# its depth (4 of 12 layers), cut to keep the run inside its time limit
-# with [online]. (b) keeps the 12 layers: its check that the loss falls
-# from the first stream batch to the last held there over 3 steps (4
-# layers: 10.58, 8.69, 11.69). (a) and (b) run 2 steps since [cyber]
-MPLM_LM = dict(LM, n_layers=4)
+# the pipelined configurations' LM: the flagship's width at a sixth of
+# its depth (2 of 12 layers; 4 before [images]), cut to keep the run
+# inside its time limit. (b) keeps the 12 layers: its check that the
+# loss falls from the first stream batch to the last held there over 3
+# steps (4 layers: 10.58, 8.69, 11.69). (a) and (b) run 2 steps since
+# [cyber]
+MPLM_LM = dict(LM, n_layers=2)
 MPLM = {
     "a": dict(kind="pipelined", mesh=(1, 2, 2, 1), steps=2,
               batch=(PIPE_BATCH, LM_SEQ), microbatches=PIPE_MICROBATCHES,
@@ -7919,7 +7938,7 @@ _AUTOML_FIT_TOL = 1e-5          # card LR against the CPU fit, of max |w|
 # float64 fits part by 7.5e-4, tests/test_torch_linear.py::
 # test_adam_sign_steps_amplify_rounding)
 _AUTOML_TEXT_TOL = 1e-4
-AUTOML_TUNE_ROWS = 200_000
+AUTOML_TUNE_ROWS = 100_000       # 200,000 before [images]
 AUTOML_TUNE = dict(number_of_iterations=4, number_of_folds=3, seed=3)
 # the parallelism 1 against 4 comparison: the same tuning with 2 draws of
 # each learner and 2 folds on 50,000 of its rows, cut to pay for its two
@@ -9389,6 +9408,287 @@ def telemetry_phase(dev, data):
     return out
 
 
+IMAGES_DIR = os.path.join(HERE, "tests", "data", "images")
+IMAGES_SIZE = (224, 224)
+IMAGES_FOLDER = 64             # files in (b)'s folder, copies of the photos
+IMAGES_REPLACES = ("none: the reference decodes with PIL on the host "
+                   "(mmlspark_tpu/io/sources.py:64-88 read_images, "
+                   "mmlspark_tpu/image/ops.py:30-52 read_image_dir)")
+
+
+def _sha256(a) -> str:
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _images_expected():
+    with open(os.path.join(IMAGES_DIR, "expected.json")) as f:
+        return json.load(f)
+
+
+def _images_fixtures(dev, expected, out):
+    """(a) every committed fixture decoded on the card against PIL's
+    digests, at its own size and through read_images(size=(224, 224))."""
+    import glob
+    from mmlspark_tpu_torch.image.ops import read_image_dir
+    from mmlspark_tpu_torch.io.sources import read_images
+    files = expected["files"]
+    t = read_image_dir(IMAGES_DIR, device=dev)
+    names = [os.path.basename(p) for p in t["path"]]
+    if names != sorted(files):
+        raise AssertionError(f"[images] read_image_dir kept {len(names)} "
+                             f"files, the fixtures are {len(files)}")
+    bad = [n for n, im in zip(names, t["image"])
+           if list(im.shape) != files[n]["shape"]
+           or _sha256(im) != files[n]["rgb_sha256"]]
+    r = read_images(os.path.join(IMAGES_DIR, "*.[jp][pn]g"),
+                    size=tuple(expected["resize"]), device=dev)
+    bad += [f"{os.path.basename(p)} (resized)" for p, im in
+            zip(r["path"], r["image"]) if _sha256(im) != files[
+                os.path.basename(p)]["resized_sha256"]]
+    if bad or len(glob.glob(os.path.join(IMAGES_DIR, "*.[jp][pn]g"))) != len(
+            files):
+        raise AssertionError(f"[images] fixtures off PIL's digests: {bad}")
+    out["fixtures"] = len(files)
+    log(f"[images] (a) {len(files)} fixtures (PNG of every colour type and "
+        f"depth, Adam7, JPEG 4:4:4/4:2:2/4:2:0/grey, restarts) decoded on "
+        f"the card equal PIL's digests, at their size and resized to "
+        f"{IMAGES_SIZE}")
+
+
+def _kernel_row(name, src, fn, plain, args, n_bytes, library=None):
+    """A kernel against its plain version on the same CUDA tensors: equal
+    bit for bit, times (the plain version's from its one call), and the
+    byte bound."""
+    import torch
+    got = fn(*args)
+    t0, t1 = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    t0.record()
+    want = plain(*args)
+    t1.record()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+        raise AssertionError(f"[images] {name} differs from its plain "
+                             f"version: {int((diff > 0).sum())} bytes, max "
+                             f"{int(diff.max())}")
+    return dict(name=name, route="cuda", source=src,
+                replaces=IMAGES_REPLACES, max_abs_err=0.0,
+                ms=timed(lambda: fn(*args)),
+                plain_ms=t0.elapsed_time(t1),
+                bound_ms=n_bytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
+                library_ms=library() if library else None,
+                bytes=int(n_bytes)), got
+
+
+def _images_kernels(dev, out):
+    """(a) D1-D4 against their plain versions at the photos' size (the 4
+    JPEGs and 2 PNGs of 500 x 375), timed; D4 on all six to 224 x 224,
+    beside one F.interpolate(bicubic, antialias) of the same six images
+    in float32 as the yardstick of time."""
+    import glob
+    import torch
+    import torch.nn.functional as F
+    from mmlspark_tpu_torch.image import decode, jpeg, png, resample
+    from mmlspark_tpu_torch.ops import image_decode as kern
+    src = "mmlspark_tpu_torch/ops/csrc/image_decode.cu"
+    parsed = [decode.parse_file(p) for p in sorted(glob.glob(
+        os.path.join(IMAGES_DIR, "photo_*")))]
+    jp = [p for p in parsed if isinstance(p, jpeg.JpegImage)]
+    pn = [p for p in parsed if isinstance(p, png.PngImage)]
+    rows = {}
+    a = decode.jpeg_inputs(jp, dev)
+    args = (a["coefs"], a["quant"], a["block_plane"], a["planes"],
+            a["plane_bytes"])
+    rows["jpeg_idct_islow"], planes = _kernel_row(
+        "jpeg_idct_islow", src, kern.jpeg_idct, kern._idct_plain, args,
+        sum(t.numel() * t.element_size() for t in args[:4])
+        + a["plane_bytes"])
+    args = (planes, a["color"], a["rgb_bytes"])
+    rows["jpeg_upsample_ycc_rgb"], _ = _kernel_row(
+        "jpeg_upsample_ycc_rgb", src, kern.jpeg_color, kern._color_plain,
+        args, a["plane_bytes"] + a["color"].numel() * 8 + a["rgb_bytes"])
+    b = decode.png_inputs(pn, dev)
+    args = (b["data"], b["passes"], b["raw_bytes"])
+    rows["png_unfilter"], _ = _kernel_row(
+        "png_unfilter", src, kern.png_unfilter, kern._unfilter_plain, args,
+        b["data"].numel() + b["passes"].numel() * 8 + b["raw_bytes"])
+    images = decode._jpegs(jp, dev) + decode._pngs(pn, dev)
+    plans = [resample.plan(*im.shape[:2], *IMAGES_SIZE) for im in images]
+    passes = {}
+    for axis in ("h", "v"):
+        r = decode.resample_inputs(images, plans, axis, dev)
+        args = (r["images"], r["info"], r["bounds"], r["coefs"],
+                r["vertical"], r["total"])
+        passes[axis], flat = _kernel_row(
+            "resample_bicubic_u8", "mmlspark_tpu_torch/ops/csrc/resample.cu",
+            kern.resample, kern._resample_plain, args,
+            r["images"].numel() + r["info"].numel() * 8
+            + 4 * (r["bounds"].numel() + r["coefs"].numel()) + r["total"])
+        images = [flat[o:o + h * w * 3].view(h, w, 3) for o, h, w in r["outs"]]
+    x = torch.stack([im for im in decode._jpegs(jp, dev)
+                     + decode._pngs(pn, dev)]).permute(0, 3, 1, 2).float()
+    library = timed(lambda: F.interpolate(x, size=IMAGES_SIZE, mode="bicubic",
+                                          antialias=True, align_corners=False))
+    d4 = dict(passes["h"], ms=passes["h"]["ms"] + passes["v"]["ms"],
+              plain_ms=passes["h"]["plain_ms"] + passes["v"]["plain_ms"],
+              bound_ms=(x.numel() + len(images) * IMAGES_SIZE[0]
+                        * IMAGES_SIZE[1] * 3) / PEAK_BYTES_PER_S * 1e3,
+              library_ms=library,
+              library="one F.interpolate(mode='bicubic', antialias=True) of "
+                      "the same six images in float32 (N, 3, 375, 500)",
+              per_pass={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                               "bytes")}
+                        for k, v in passes.items()})
+    rows["resample_bicubic_u8"] = d4
+    out["kernels"] = rows
+    shape = dict(jpegs=len(jp), blocks=int(a["coefs"].shape[0]),
+                 pngs=len(pn), png_passes=int(b["passes"].shape[0]),
+                 images=len(images), size=list(IMAGES_SIZE))
+    out["kernel_shape"] = shape
+    log(f"[images] (a) D1-D4 equal their plain versions bit for bit on the "
+        f"500x375 photos ({shape}); " + "; ".join(
+            f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.3f}, bound "
+            f"{v['bound_ms']:.4f}"
+            + (f", F.interpolate {v['library_ms']:.4f}" if v["library_ms"]
+               else "") + ")" for k, v in rows.items()))
+
+
+def _region_walls(info) -> dict:
+    """Host seconds of each profile region a capture noted
+    (regions.json's intervals, summed per region)."""
+    with open(os.path.join(info["path"], "regions.json")) as f:
+        intervals = json.load(f)["intervals"]
+    walls = {}
+    for *_, t0, t1, name in intervals:
+        walls[name] = walls.get(name, 0.0) + (t1 - t0) * 1e-9
+    return walls
+
+
+def _images_path(dev, tmp, expected, out):
+    """(b) files -> features: a folder of IMAGES_FOLDER copies of the
+    photos through read_images(size=(224, 224)) into the ResNet-50 bf16
+    ImageFeaturizer, counted and timed, then the same run inside a
+    ProfileSession capture split by region; (c) read_image_dir on it."""
+    import glob
+    import tempfile
+    import torch
+    from mmlspark_tpu_torch import Table
+    from mmlspark_tpu_torch.image.ops import read_image_dir
+    from mmlspark_tpu_torch.io.sources import read_images
+    from mmlspark_tpu_torch.models.dnn import ImageFeaturizer
+    from mmlspark_tpu_torch.models.dnn import resnet as rn
+    from mmlspark_tpu_torch.ops import image_decode as kern
+    from mmlspark_tpu_torch.telemetry import profiler
+    photos = sorted(glob.glob(os.path.join(IMAGES_DIR, "photo_*")))
+    folder = os.path.join(tmp, "photos")
+    os.makedirs(folder)
+    for i in range(IMAGES_FOLDER):
+        shutil.copy(photos[i % len(photos)], os.path.join(
+            folder, f"{i:03d}_{os.path.basename(photos[i % len(photos)])}"))
+    pattern = os.path.join(folder, "*")
+    fz = ImageFeaturizer(model_name="resnet50", dtype="bfloat16",
+                         variables=rn.init_resnet(rn.resnet50(), seed=0),
+                         image_height=IMAGES_SIZE[0],
+                         image_width=IMAGES_SIZE[1], batch_size=DNN_BATCH)
+
+    def files_to_features():
+        t0 = time.perf_counter()
+        table = read_images(pattern, size=IMAGES_SIZE, device=dev)
+        t1 = time.perf_counter()
+        feats = fz.transform(table)["features"]
+        torch.cuda.synchronize()
+        return table, feats, t1 - t0, time.perf_counter() - t1
+    # warm-up: cuDNN's plans for the featurizer's batches
+    fz.transform(Table({"image": np.zeros((IMAGES_FOLDER,) + IMAGES_SIZE
+                                          + (3,), np.float32)}))
+    kern.reset_launches()
+    table, feats, decode_s, feat_s = files_to_features()
+    launches = dict(kern.launches)
+    want = {"jpeg_idct_islow": 1, "jpeg_upsample_ycc_rgb": 1,
+            "png_unfilter": 1, "resample_bicubic_u8": 2}
+    if launches != want:
+        raise AssertionError(f"[images] (b) launches {launches}, want {want}")
+    if feats.shape != (IMAGES_FOLDER, 2048) or not np.isfinite(feats).all():
+        raise AssertionError(f"[images] (b) features {feats.shape}, finite "
+                             f"{np.isfinite(feats).all()}")
+    bad = [p for p, im in zip(table["path"], table["image"])
+           if _sha256(im) != expected["files"][os.path.basename(p)[4:]][
+               "resized_sha256"]]
+    if bad or table["image"].dtype != np.float32:
+        raise AssertionError(f"[images] (b) decoded images off PIL's: {bad}")
+    wall = decode_s + feat_s
+    prof_dir = tempfile.mkdtemp(prefix="chip_smoke_images_prof_", dir=tmp)
+    session = profiler.ProfileSession(profile_dir=prof_dir,
+                                      min_interval_s=0.0)
+    with session.session(reason="warm-up"):
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with session.session(reason="files-to-features") as info:
+        files_to_features()
+    prof_wall = time.perf_counter() - t0
+    dev_sum = info.get("device") or {}
+    if not dev_sum.get("device_events"):
+        raise AssertionError(f"[images] (b) the capture parsed no device "
+                             f"events: {dev_sum}")
+    walls = _region_walls(info)
+    regions = {k: v["self_time_us"] * 1e-3 for k, v in info["regions"].items()}
+    host = walls.get("image.decode.host", 0.0)
+    card = walls.get("image.decode.card", 0.0)
+    out["path"] = dict(
+        files=IMAGES_FOLDER, images_per_s=IMAGES_FOLDER / wall, wall_s=wall,
+        decode_s=decode_s, featurize_s=feat_s, launches=launches,
+        profiled=dict(wall_s=prof_wall, host_region_s=host,
+                      card_region_s=card,
+                      featurizer_s=prof_wall - host - card,
+                      device_ms_by_region=regions,
+                      busy_ms=dev_sum.get("busy_us", 0.0) * 1e-3))
+    log(f"[images] (b) {IMAGES_FOLDER} files (500x375: 4 JPEGs and 2 PNGs, "
+        f"cycled) -> read_images(size={IMAGES_SIZE}) -> ResNet-50 bf16 "
+        f"ImageFeaturizer: {IMAGES_FOLDER / wall:.2f} images/s ({wall:.3f} "
+        f"s: decode {decode_s:.3f} s, featurize {feat_s:.3f} s), launches "
+        f"{launches}; under a ProfileSession ({prof_wall:.3f} s): "
+        f"image.decode.host {host:.3f} s, image.decode.card {card:.3f} s of "
+        f"host time, the rest (featurizer) {prof_wall - host - card:.3f} s; "
+        f"device ms by region " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(regions.items()))
+        + f"; busy {dev_sum.get('busy_us', 0.0) * 1e-3:.3f} ms")
+    kern.reset_launches()
+    t0 = time.perf_counter()
+    t = read_image_dir(folder, device=dev)
+    dir_s = time.perf_counter() - t0
+    if t["image"].shape != (IMAGES_FOLDER, 375, 500, 3) or any(
+            _sha256(im) != expected["files"][os.path.basename(p)[4:]][
+                "rgb_sha256"] for p, im in zip(t["path"], t["image"])):
+        raise AssertionError(f"[images] (c) read_image_dir gave "
+                             f"{t['image'].shape} or pixels off PIL's")
+    out["read_image_dir"] = dict(s=dir_s, images_per_s=IMAGES_FOLDER / dir_s,
+                                 launches=dict(kern.launches))
+    log(f"[images] (c) read_image_dir on the folder: {dir_s:.3f} s "
+        f"({IMAGES_FOLDER / dir_s:.2f} images/s), uint8 "
+        f"{t['image'].shape}, launches {dict(kern.launches)}")
+
+
+def images_phase(dev):
+    """[images]: the image decoders on the card (slice 25)."""
+    import tempfile
+    import torch
+    t_phase = time.perf_counter()
+    expected = _images_expected()
+    out = {}
+    _images_fixtures(dev, expected, out)
+    _images_kernels(dev, out)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        _images_path(dev, tmp, expected, out)
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[images] the phase {out['s']:.1f} s")
+    return out
+
+
 def only_phase(name, dev, phase, t_start, profile=False) -> int:
     """`--only NAME`: one phase after card and build (with the headline
     data where it needs them), for runs that iterate on that phase; the
@@ -9412,7 +9712,7 @@ def only_phase(name, dev, phase, t_start, profile=False) -> int:
              "serving": serving_phase, "fleet": fleet_phase,
              "online": online_phase,
              "automl": lambda d: automl_phase(d, profile),
-             "cyber": cyber_phase}
+             "cyber": cyber_phase, "images": images_phase}
     if name in needs_data:
         data = phase("headline data", headline_data, dev)
         phase(name, needs_data[name], dev, data)
@@ -9505,6 +9805,8 @@ def main(argv) -> int:
     automl = phase("automl", automl_phase, dev, profile)
     torch.cuda.empty_cache()
     cyber = phase("cyber", cyber_phase, dev)
+    torch.cuda.empty_cache()
+    images = phase("images", images_phase, dev)
     if "--versus" in argv:
         phase("versus", versus_phase, parent)
 
@@ -9737,6 +10039,16 @@ def main(argv) -> int:
                 "plain_ms", "library_ms", f"{key}_bound_ms",
                 f"{key}_bound_by", f"{key}_split3_bound_ms", "max_abs_err",
                 "limit_used")} for r in sbres]))
+    for kname, row in images["kernels"].items():
+        kernels.append(dict(
+            row, launches=images["path"]["launches"][kname],
+            path=f"read_images(size={IMAGES_SIZE}) of {IMAGES_FOLDER} "
+                 f"500x375 files into the ResNet-50 bf16 ImageFeaturizer",
+            launches_per_path={
+                "files -> features": images["path"]["launches"][kname],
+                "read_image_dir": images["read_image_dir"]["launches"][
+                    kname]},
+            passed=True, shape=images["kernel_shape"]))
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the main "
@@ -9873,6 +10185,13 @@ def main(argv) -> int:
         f"stream {cyber['stream']['rows_per_s']:.4g} rows/s; HTTP "
         f"{cyber['http']['req_per_s']:.1f} req/s; the phase "
         f"{cyber['s']:.1f} s")
+    ip = images["path"]
+    log(f"[images] files -> features {ip['images_per_s']:.2f} images/s "
+        f"(decode {ip['decode_s']:.3f} s, featurize {ip['featurize_s']:.3f} "
+        f"s for {ip['files']} files); read_image_dir "
+        f"{images['read_image_dir']['images_per_s']:.2f} images/s; "
+        f"{images['fixtures']} fixtures equal PIL's; the phase "
+        f"{images['s']:.1f} s")
     tg = tele["gbdt"]
     log(f"[telemetry] headline iteration by region: " + ", ".join(
         f"{r} {v / 1e3:.3f} ms" for r, v in tg["us"].items())

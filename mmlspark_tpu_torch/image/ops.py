@@ -19,8 +19,11 @@ Port of `mmlspark_tpu/image/ops.py`:
   half-pixel centres, edges clamped), blur and gaussian (borders
   BORDER_REFLECT_101) compute in float32 and round, and may differ from
   cv2's fixed-point results by one level.
-- `read_image_dir` decodes with PIL, which the chip machine lacks; it
-  raises until ROADMAP Queue 1 item 21 brings a decoder.
+- `read_image_dir` decodes without PIL, which the chip machine lacks:
+  PNG and Huffman-coded sequential JPEG (`image/decode.py`), to PIL's
+  pixels bit for bit. A file that is not an image is skipped, as the
+  reference skips what PIL cannot open; a format PIL decodes and the port
+  does not yet raises `NotImplementedError` naming it.
 
 Stages take a numpy column (stacked (N, H, W[, C]) or an object column of
 images) or a tensor column, and return numpy columns, as the reference
@@ -29,6 +32,7 @@ does.
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -38,10 +42,22 @@ from ..core import HasInputCol, HasOutputCol, Param, Table, Transformer
 from ..device import resolve_device
 
 
-def read_image_dir(path: str, pattern: str = "", decode=True) -> Table:
-    raise NotImplementedError(
-        "read_image_dir decodes with PIL, which the port does not depend "
-        "on; decoding images is ROADMAP Queue 1 item 21")
+def read_image_dir(path: str, pattern: str = "", decode=True,
+                   device=None) -> Table:
+    """Directory of images -> Table(path, image) with uint8 (N, H, W, 3)
+    images when shapes agree, else an object column (reference:
+    spark.read.image). The names are `os.listdir`'s, sorted, kept when
+    they hold `pattern`; the directory is not recursed into. The files
+    decode on `device` (None: the card); non-images are skipped like
+    dropInvalid."""
+    from .decode import decode_files, image_column
+    dev = resolve_device(device)
+    names = [n for n in sorted(os.listdir(path))
+             if not pattern or pattern in n]
+    paths, imgs = decode_files([os.path.join(path, n) for n in names], dev,
+                               skip_invalid=True)
+    arr = image_column(imgs, all(i.shape == imgs[0].shape for i in imgs))
+    return Table({"path": np.asarray(paths, dtype=object), "image": arr})
 
 
 def _to_batch(col):

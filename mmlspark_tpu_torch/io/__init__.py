@@ -8,9 +8,9 @@ Ports of the reference's `io/serving.py` (`ServingServer`,
 (`run_load`), `io/registry.py` (the service registry and distributed
 serving), `io/http.py` (the client transformers and parsers),
 `io/streaming.py` (the epoch-replayed file streams), `io/sources.py`
-(`read_csv`, `read_binary_files`), `io/powerbi.py` and `io/shared.py`.
-Only `sources.read_images`, which decodes images, raises
-NotImplementedError (ROADMAP Queue 1 item 21).
+(`read_csv`, `read_binary_files`, `read_images`, which decodes PNG and
+sequential JPEG on the card through `image/decode.py`), `io/powerbi.py`
+and `io/shared.py`.
 """
 from .http import (HTTPTransformer, SimpleHTTPTransformer, JSONInputParser,
                    JSONOutputParser, StringOutputParser, CustomInputParser,

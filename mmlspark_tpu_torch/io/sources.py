@@ -14,9 +14,12 @@ not wholly a number (a date's "2024-01-01" parses its prefix 2024, and
 makes its column text). Text columns are re-read with numpy's
 `genfromtxt`, as the reference re-reads them.
 
-`read_images` decodes images, which is ROADMAP Queue 1 item 21: it
-raises NotImplementedError naming the item, as `image/ops.py`'s
-`read_image_dir` does.
+`read_images` decodes PNG and Huffman-coded sequential JPEG without PIL
+(`image/decode.py`), to PIL's pixels bit for bit, and with `size`
+resizes as PIL's `resize` does (BICUBIC, antialiased). It catches
+nothing: a file that is not an image raises an `OSError`, as PIL's
+`UnidentifiedImageError` is one, and a format PIL decodes and the port
+does not yet raises `NotImplementedError` naming it.
 """
 from __future__ import annotations
 
@@ -179,10 +182,20 @@ def read_binary_files(pattern: str, npartitions: int = 1) -> Table:
                  npartitions)
 
 
-def read_images(pattern: str, size: tuple = None,
-                npartitions: int = 1) -> Table:
-    """Glob image files into (path, image) — the reference's
-    ImageFileFormat. Decoding images is not ported yet."""
-    raise NotImplementedError(
-        "io.sources.read_images decodes images, which the port does not "
-        "do yet (ROADMAP Queue 1 item 21)")
+def read_images(pattern: str, size: tuple = None, npartitions: int = 1,
+                device=None) -> Table:
+    """Glob image files into (path, image) with images decoded to
+    (H, W, C) float32 arrays — the reference's ImageFileFormat
+    (io/image/ImageFileFormat.scala). `size=(H, W)` resizes on load, making
+    the image column a single stackable (N, H, W, C) array; without it the
+    column is per-row object arrays. The files decode on `device` (None:
+    the card)."""
+    from ..device import resolve_device
+    from ..image.decode import decode_files, image_column
+
+    paths = sorted(_glob.glob(pattern, recursive=True))
+    _, imgs = decode_files(paths, resolve_device(device), size=size)
+    image_col = image_column([im.astype(np.float32) for im in imgs],
+                             size is not None)
+    return Table({"path": np.asarray(paths, dtype=object),
+                  "image": image_col}, npartitions)

@@ -185,6 +185,13 @@ TRAIN_STEP_SPAN = "train.step"
 CHECKPOINT_WRITE_SPAN = "checkpoint.write"
 DATA_PREFETCH_SPAN = "data.prefetch"
 
+# the port's own profile-session regions (`telemetry/profiler.py`
+# `PORT_REGIONS`): an image decode's host half (file reads, the PNG chunk
+# walk and inflate, JPEG's Huffman decoding) and its card half (the four
+# decoder kernels, the PNG expansion and the copy back)
+IMAGE_DECODE_HOST = "image.decode.host"
+IMAGE_DECODE_CARD = "image.decode.card"
+
 # -------------------------------------------------------------------- events
 FAULT_INJECTED_EVENT = "fault.injected"
 SERVING_MODEL_SWAP_EVENT = "serving.model.swap"

@@ -31,7 +31,8 @@ variables, counters and contracts):
   event's region is found by the CORRELATION ID of the call that launched
   it: CUPTI records every launch (`cudaLaunchKernel`, `cuLaunchKernel`,
   a copy) on the thread that made it, with a correlation id its kernel
-  carries, so the region is the innermost registered region (`REGIONS`)
+  carries, so the region is the innermost registered region (`REGIONS`,
+  and the port's own `PORT_REGIONS`)
   open on that thread at the launch: a `record_function` range of the
   capture, or, for threads the profiler does not follow (`record_function`
   is thread-local: serving's partition workers, a fit running beside a
@@ -93,6 +94,9 @@ PEAK_HBM_ENV = "MMLSPARK_TPU_PEAK_HBM_GBPS"
 # to, and the keys of the roofline ledger / the op.<region>.* gauges.
 REGIONS = ("gbdt.hist", "gbdt.split", "gbdt.route",
            "serving.plan.run", "train.step")
+# regions the port adds to the reference's: the image decoders' host and
+# card halves
+PORT_REGIONS = (tnames.IMAGE_DECODE_HOST, tnames.IMAGE_DECODE_CARD)
 
 # per-card peaks (dense bf16 TFLOP/s, HBM GB/s) keyed on a substring of
 # `torch.cuda.get_device_name`: the fallback when no env override is set.
@@ -238,7 +242,7 @@ def _trace_file(log_dir: str) -> Optional[str]:
 
 def _region_of(name: str) -> Optional[str]:
     """The first registered region token in a range's name, or None."""
-    for region in REGIONS:
+    for region in REGIONS + PORT_REGIONS:
         if region in name:
             return region
     return None

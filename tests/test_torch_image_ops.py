@@ -212,5 +212,7 @@ def test_image_transformer_ragged_column_and_errors():
         port_ops.ImageTransformer(device="cpu").threshold(
             0, 255, 8).transform(port_core.Table(
                 {"image": _images((1, 4, 4, 3))}))
-    with pytest.raises(NotImplementedError, match="item 21"):
-        port_ops.read_image_dir("/nonexistent")
+    with pytest.raises(FileNotFoundError):
+        ref_ops.read_image_dir("/nonexistent")
+    with pytest.raises(FileNotFoundError):
+        port_ops.read_image_dir("/nonexistent", device="cpu")

@@ -1,6 +1,7 @@
 """The port stands alone: importing `mmlspark_tpu_torch` loads neither jax
-nor any module of the JAX package, and no source file of the port (or
-chip_smoke.py) imports them."""
+nor any module of the JAX package, nor PIL or cv2 (the card's machine has
+neither), and no source file of the port (or chip_smoke.py) imports
+them."""
 import ast
 import os
 import subprocess
@@ -85,9 +86,15 @@ def test_import_loads_no_jax():
             "import mmlspark_tpu_torch.io.streaming\n"
             "import mmlspark_tpu_torch.io.powerbi\n"
             "import mmlspark_tpu_torch.io.shared\n"
+            "import mmlspark_tpu_torch.image.decode\n"
+            "import mmlspark_tpu_torch.image.formats\n"
+            "import mmlspark_tpu_torch.image.jpeg\n"
+            "import mmlspark_tpu_torch.image.png\n"
+            "import mmlspark_tpu_torch.image.resample\n"
+            "import mmlspark_tpu_torch.ops.image_decode\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'jaxlib', 'mmlspark_tpu.')) "
-            "or m == 'mmlspark_tpu')\n"
+            "m.startswith(('jax.', 'jaxlib', 'mmlspark_tpu.', 'PIL.', "
+            "'cv2.')) or m in ('mmlspark_tpu', 'PIL', 'cv2'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO,
@@ -114,7 +121,8 @@ def test_sources_import_no_jax_or_reference():
     for path in sorted(files):
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "mmlspark_tpu"), \
+            assert top not in ("jax", "jaxlib", "mmlspark_tpu", "PIL",
+                               "cv2"), \
                 f"{os.path.relpath(path, _REPO)} imports {mod}"
 
 
@@ -364,14 +372,18 @@ def test_left_out_names_raise_naming_their_item(module, name, item):
 
 
 @pytest.mark.parametrize("module, name, item", [
-    ("io.sources", "read_images", "21"),
-    ("image.ops", "read_image_dir", "21")])
-def test_left_out_io_modules_raise_naming_their_item(module, name, item):
-    """io/ is ported but for decoding images: those readers raise naming
-    their item when called."""
+    ("io.sources", "read_images", "29"),
+    ("image.ops", "read_image_dir", "29")])
+def test_left_out_io_modules_raise_naming_their_item(module, name, item,
+                                                     tmp_path):
+    """io/ decodes PNG and sequential JPEG; a format PIL decodes and the
+    port does not yet (here a GIF) raises naming it and its item when
+    read."""
     import importlib
     fn = getattr(importlib.import_module("mmlspark_tpu_torch." + module),
                  name)
+    (tmp_path / "a.gif").write_bytes(b"GIF89a" + bytes(26))
+    arg = str(tmp_path / "*.gif") if name == "read_images" else str(tmp_path)
     with pytest.raises(NotImplementedError) as err:
-        fn("*.png")
-    assert f"item {item}" in str(err.value)
+        fn(arg, device="cpu")
+    assert f"item {item}" in str(err.value) and "GIF" in str(err.value)

@@ -7,7 +7,9 @@ Both packages in one process, on the same files:
   `inf`/`nan`/hex fields, blank fields and decimals that lie just off,
   or exactly on, half way between two float32s (where a float64 parse
   cast to float32 rounds twice: the file holds hundreds of such fields);
-- `read_binary_files` equal; `read_images` raises naming item 21;
+- `read_binary_files` equal; `read_images` of files that are no images
+  raises an OSError in both (tests/test_torch_image_decode.py holds it
+  on images);
 - `FileStreamSource` in binary and csv mode, step for step: the same
   (epoch, table) at every poll, commits that alone move positions,
   replay of the pending epoch, a torn last line held back, a drifted
@@ -163,8 +165,12 @@ def test_read_binary_files_equal_and_images_raise(tmp_path):
     assert len(b) == 5 and b.npartitions == 2
     assert list(a["path"]) == list(b["path"])
     assert list(a["bytes"]) == list(b["bytes"])
-    with pytest.raises(NotImplementedError, match="item 21"):
-        sources.read_images(pattern)
+    # none of the files is an image: PIL's UnidentifiedImageError in the
+    # reference, the port's own, both OSErrors
+    with pytest.raises(OSError):
+        ref_sources.read_images(pattern)
+    with pytest.raises(OSError, match="cannot identify image file"):
+        sources.read_images(pattern, device="cpu")
 
 
 # ------------------------------------------------------------------ streams

@@ -133,7 +133,8 @@ def _get(url, timeout=10):
 # ------------------------------------------------------------------ names
 def test_names_are_the_reference_s():
     port_own = {"CLUSTER_EXCHANGES", "CLUSTER_EXCHANGE_BYTES",
-                "CLUSTER_EXCHANGE", "TELEMETRY_PROFILE_BUSY"}
+                "CLUSTER_EXCHANGE", "TELEMETRY_PROFILE_BUSY",
+                "IMAGE_DECODE_HOST", "IMAGE_DECODE_CARD"}
     consts = {k: v for k, v in vars(names).items()
               if k.isupper() and isinstance(v, str)}
     assert len(consts) > 60
